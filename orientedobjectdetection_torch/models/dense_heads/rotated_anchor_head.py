@@ -1,0 +1,149 @@
+"""Rotated RetinaNet head and its batched decode (counterpart of
+``orientedobjectdetection_tpu/models/dense_heads/rotated_anchor_head.py``:
+``RotatedRetinaHead.__call__`` and ``AnchorHeadLogic.get_bboxes``).
+
+The towers run NCHW. At the decode boundary the maps are permuted to the
+JAX package's channels-last order, channel ``a * C + c`` at each location,
+so anchors ``(h*w, A)`` and logits line up as they do there.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ...ops.nms import multiclass_nms_rotated, topk_candidates
+from ...utils.registry import BBOX_CODERS, HEADS, PRIOR_GENERATORS
+from ..blocks import ConvModule
+
+
+@HEADS.register_module()
+class RotatedRetinaHead(nn.Module):
+    """RetinaNet head: ``stacked_convs`` 3x3 convs per tower, then A*C
+    class logits (``retina_cls``) and A*5 box deltas (``retina_reg``).
+
+    Training-only keys of the reference configs (losses, assigner options)
+    are accepted and unused until the training slice."""
+
+    def __init__(self, num_classes: int = 15, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 anchor_generator: Optional[dict] = None,
+                 bbox_coder: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None,
+                 assign_by_circumhbbox: Optional[str] = None,
+                 reg_decoded_bbox: bool = False,
+                 train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None,
+                 norm_cfg: Optional[dict] = None,
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.test_cfg = test_cfg or {}
+        self.prior_generator = PRIOR_GENERATORS.build(dict(anchor_generator))
+        self.coder = BBOX_CODERS.build(dict(bbox_coder))
+        self.num_anchors = self.prior_generator.num_base_anchors[0]
+        self.cls_convs = nn.ModuleList(
+            ConvModule(in_channels if i == 0 else feat_channels,
+                       feat_channels, 3, padding=1, relu=True)
+            for i in range(stacked_convs))
+        self.reg_convs = nn.ModuleList(
+            ConvModule(in_channels if i == 0 else feat_channels,
+                       feat_channels, 3, padding=1, relu=True)
+            for i in range(stacked_convs))
+        self.retina_cls = nn.Conv2d(feat_channels,
+                                    self.num_anchors * num_classes, 3,
+                                    padding=1)
+        self.retina_reg = nn.Conv2d(feat_channels, self.num_anchors * 5, 3,
+                                    padding=1)
+        self._anchor_cache: Dict[tuple, Sequence[torch.Tensor]] = {}
+
+    @property
+    def cls_out_channels(self) -> int:
+        return self.num_classes      # sigmoid classifier
+
+    @torch.no_grad()
+    def init_cls_prior(self):
+        """Focal-loss prior bias on ``retina_cls``: every score starts near
+        0.01."""
+        self.retina_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
+
+    def forward(self, feats):
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            c = x
+            for conv in self.cls_convs:
+                c = conv(c)
+            r = x
+            for conv in self.reg_convs:
+                r = conv(r)
+            cls_scores.append(self.retina_cls(c))
+            bbox_preds.append(self.retina_reg(r))
+        return tuple(cls_scores), tuple(bbox_preds)
+
+    def anchors(self, featmap_sizes, device) -> Sequence[torch.Tensor]:
+        key = (tuple(tuple(s) for s in featmap_sizes), str(device))
+        if key not in self._anchor_cache:
+            self._anchor_cache[key] = self.prior_generator.grid_priors(
+                featmap_sizes, device=device)
+        return self._anchor_cache[key]
+
+    def candidates(self, outputs, img_shape=None, cfg=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per level, the top ``nms_pre`` anchors by max class logit,
+        decoded (reference ``rotated_anchor_head.py:514-690``).
+
+        Args:
+            outputs: (cls_scores, bbox_preds), per-level NCHW maps.
+        Returns:
+            boxes (B, K, 5) float32 and sigmoid scores (B, K, C), K summed
+            over levels.
+        """
+        cfg = cfg if cfg is not None else self.test_cfg
+        nms_pre = int(cfg.get('nms_pre', 1000))
+        cls_scores, bbox_preds = outputs[0], outputs[1]
+        featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
+        level_anchors = self.anchors(featmap_sizes, cls_scores[0].device)
+        c_n, e_n = self.cls_out_channels, self.coder.encode_size
+        cand_boxes, cand_scores = [], []
+        for scores, deltas, anchors in zip(cls_scores, bbox_preds,
+                                           level_anchors):
+            b = scores.shape[0]
+            # NCHW -> (B, h*w*A, C): channel a*C + c at each location
+            logits = scores.permute(0, 2, 3, 1).reshape(b, -1, c_n)
+            deltas = deltas.permute(0, 2, 3, 1).reshape(b, -1, e_n)
+            n = logits.shape[1]
+            k = min(nms_pre, n) if nms_pre > 0 else n
+            # top-k on raw logits: sigmoid is monotonic
+            best = logits.amax(-1).float()
+            _, idx = topk_candidates(best, k)                  # (B, k)
+            sel_logits = logits.gather(
+                1, idx[..., None].expand(-1, -1, c_n)).float()
+            sel_deltas = deltas.gather(
+                1, idx[..., None].expand(-1, -1, e_n)).float()
+            sel_anchors = anchors[idx]                         # (B, k, 5)
+            cand_scores.append(torch.sigmoid(sel_logits))
+            cand_boxes.append(self.coder.decode(sel_anchors, sel_deltas,
+                                                max_shape=img_shape))
+        return torch.cat(cand_boxes, 1), torch.cat(cand_scores, 1)
+
+    def get_bboxes(self, outputs, img_shape=None, cfg=None,
+                   plain_pair_mask: bool = False):
+        """Batched decode + multiclass rotated NMS. Returns
+        (dets (B, max_per_img, 6), labels (B, max_per_img), valid)."""
+        cfg = cfg if cfg is not None else self.test_cfg
+        boxes, scores = self.candidates(outputs, img_shape, cfg)
+        # background column for the multiclass NMS contract
+        scores = torch.cat([scores, scores.new_zeros(scores.shape[:2] + (1,))],
+                           -1)
+        nms_cfg = cfg.get('nms', {'iou_thr': 0.1})
+        return multiclass_nms_rotated(
+            boxes, scores,
+            score_thr=float(cfg.get('score_thr', 0.05)),
+            iou_thr=float(nms_cfg.get('iou_thr', 0.1)),
+            max_per_img=int(cfg.get('max_per_img', 2000)),
+            max_candidates=int(cfg.get('max_candidates', 2000)),
+            plain_pair_mask=plain_pair_mask)
