@@ -1,4 +1,6 @@
-from .anchors import RotatedAnchorGenerator
+from .anchors import RotatedAnchorGenerator, anchor_inside_flags
+from .assigners import AssignResult, MaxIoUAssigner
 from .coders import DeltaXYWHAOBBoxCoder
 
-__all__ = ['RotatedAnchorGenerator', 'DeltaXYWHAOBBoxCoder']
+__all__ = ['RotatedAnchorGenerator', 'anchor_inside_flags', 'AssignResult',
+           'MaxIoUAssigner', 'DeltaXYWHAOBBoxCoder']

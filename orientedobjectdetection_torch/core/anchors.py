@@ -95,3 +95,17 @@ class RotatedAnchorGenerator:
             multi_level.append(
                 torch.stack([cx, cy, ww, hh, torch.zeros_like(cx)], -1))
         return multi_level
+
+
+def anchor_inside_flags(anchors: torch.Tensor, valid_flags: torch.Tensor,
+                        img_shape, allowed_border: float = 0) -> torch.Tensor:
+    """Rotated-anchor border filter (reference ``core/anchor/utils.py``):
+    a centre-inside test when ``allowed_border >= 0``, else every valid
+    anchor passes."""
+    if allowed_border < 0:
+        return valid_flags
+    h, w = img_shape[0], img_shape[1]
+    cx, cy = anchors[:, 0], anchors[:, 1]
+    inside = (cx >= -allowed_border) & (cy >= -allowed_border) & \
+        (cx < w + allowed_border) & (cy < h + allowed_border)
+    return valid_flags & inside

@@ -10,8 +10,9 @@
 // in ONE launch for the whole batch: grid (N/64, N/64, B), one block per
 // (image, 64x64 tile).
 //
-// Per-pair arithmetic is the plain version's, orientedobjectdetection_torch/
-// ops/iou.py (itself the JAX package's ops/iou.py:_intersect_area_rel):
+// Per-pair arithmetic (rotated_iou.cuh, shared with box_iou_rotated.cu) is
+// the plain version's, orientedobjectdetection_torch/ops/iou.py (itself the
+// JAX package's ops/iou.py:_intersect_area_rel):
 // corners relative to each box center, a per-pair midpoint frame, the second
 // operand shrunk by 1e-6, a Liang-Barsky clip of each of the 8 edges against
 // the other box's 4 half-planes summed by Green's theorem, and an exact IEEE
@@ -42,65 +43,18 @@
 
 #include <cuda_runtime.h>
 
+#include "rotated_iou.cuh"
+
 namespace {
+
+using rotated_iou::intersection_area;
+using rotated_iou::kShrink;
+using rotated_iou::rel_corners;
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kRowGroups = kThreads / kTile;      // 4
 constexpr int kRowsPerThread = kTile / kRowGroups;  // 16
-
-// Counter-clockwise corners of a box centred on the origin, in the order of
-// ops/boxes.py:obb2poly (TL, TR, BR, BL in the box frame).
-__device__ __forceinline__ void rel_corners(float w, float h, float a,
-                                            float* cx, float* cy) {
-  float s, c;
-  sincosf(a, &s, &c);
-  const float wx = w / 2.0f * c, wy = w / 2.0f * s;
-  const float hx = -h / 2.0f * s, hy = h / 2.0f * c;
-  cx[0] = -wx - hx; cy[0] = -wy - hy;
-  cx[1] = wx - hx;  cy[1] = wy - hy;
-  cx[2] = wx + hx;  cy[2] = wy + hy;
-  cx[3] = -wx + hx; cy[3] = -wy + hy;
-}
-
-// Sum of cross(p(t0), p(t1)) over the parts of A's 4 edges inside B.
-__device__ __forceinline__ float edge_contributions(const float* ax,
-                                                    const float* ay,
-                                                    const float* bx,
-                                                    const float* by) {
-  float ebx[4], eby[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    ebx[k] = bx[(k + 1) & 3] - bx[k];
-    eby[k] = by[(k + 1) & 3] - by[k];
-  }
-  float total = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float px = ax[i], py = ay[i];
-    const float dx = ax[(i + 1) & 3] - px, dy = ay[(i + 1) & 3] - py;
-    float lo = -1e9f, hi = 1e9f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      // inside B's half-plane k: cross(eb_k, p - vb_k) >= 0
-      const float num = ebx[k] * (py - by[k]) - eby[k] * (px - bx[k]);
-      const float den = ebx[k] * dy - eby[k] * dx;
-      const float t = -num / (fabsf(den) > 1e-12f ? den : 1e-12f);
-      float lower = den > 1e-12f ? t : -1e9f;
-      const float upper = den < -1e-12f ? t : 1e9f;
-      if (fabsf(den) <= 1e-12f && num < 0.0f) lower = 1e9f;
-      lo = fmaxf(lo, lower);
-      hi = fminf(hi, upper);
-    }
-    const float t0 = fmaxf(lo, 0.0f), t1 = fminf(hi, 1.0f);
-    if (t1 > t0) {
-      const float x0 = px + t0 * dx, y0 = py + t0 * dy;
-      const float x1 = px + t1 * dx, y1 = py + t1 * dy;
-      total += x0 * y1 - y0 * x1;
-    }
-  }
-  return total;
-}
 
 struct TileBoxes {
   float cx[4][kTile];  // corners relative to the box centre
@@ -177,9 +131,8 @@ pair_mask_kernel(const float* __restrict__ boxes,
     rows.area[tid] = bx[2] * bx[3];
   } else if (tid >= kTile && tid < 2 * kTile && c0 + tx < n) {
     const float* bx = boxes + static_cast<size_t>(c0 + tx) * 5;
-    const float shrink = 1.0f - 1e-6f;
     float ccx[4], ccy[4];
-    rel_corners(bx[2] * shrink, bx[3] * shrink, bx[4], ccx, ccy);
+    rel_corners(bx[2] * kShrink, bx[3] * kShrink, bx[4], ccx, ccy);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       cols.cx[k][tx] = ccx[k];
@@ -208,22 +161,17 @@ pair_mask_kernel(const float* __restrict__ boxes,
     if (i >= n) break;
     uint8_t m = 0;
     if (j > i && s_cls_row[ti] == q_cls) {
-      // pair-midpoint frame
-      const float ux = 0.5f * (rows.x[ti] - qx);
-      const float uy = 0.5f * (rows.y[ti] - qy);
-      float p1x[4], p1y[4], p2x[4], p2y[4];
+      float rcx[4], rcy[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        p1x[k] = rows.cx[k][ti] + ux;
-        p1y[k] = rows.cy[k][ti] + uy;
-        p2x[k] = qcx[k] - ux;
-        p2y[k] = qcy[k] - uy;
+        rcx[k] = rows.cx[k][ti];
+        rcy[k] = rows.cy[k][ti];
       }
-      const float area2 = edge_contributions(p1x, p1y, p2x, p2y) +
-                          edge_contributions(p2x, p2y, p1x, p1y);
       const float p_area = rows.area[ti];
       const float inter =
-          fminf(fmaxf(0.5f * area2, 0.0f), fminf(p_area, q_area));
+          fminf(intersection_area(rcx, rcy, rows.x[ti], rows.y[ti], qcx, qcy,
+                                  qx, qy),
+                fminf(p_area, q_area));
       const float iou = inter / fmaxf(p_area + q_area - inter, 1e-6f);
       m = iou > thr ? 1 : 0;
     }

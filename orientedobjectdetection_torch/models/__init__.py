@@ -1,8 +1,10 @@
-from .. import core  # noqa: F401  (registers anchor generators and coders)
-from ..utils.registry import BACKBONES, DETECTORS, HEADS, MODELS, NECKS
+from .. import core  # noqa: F401  (registers anchors, coders and assigners)
+from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
+                              NECKS)
 from .backbones import ResNet
 from .dense_heads import RotatedRetinaHead
 from .detectors import RotatedRetinaNet, RotatedSingleStageDetector
+from .losses import FocalLoss, L1Loss, SmoothL1Loss
 from .necks import FPN
 
 
@@ -20,6 +22,7 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
 
 __all__ = [
     'ResNet', 'FPN', 'RotatedRetinaHead', 'RotatedRetinaNet',
-    'RotatedSingleStageDetector', 'build_detector', 'MODELS', 'BACKBONES',
-    'NECKS', 'HEADS', 'DETECTORS',
+    'RotatedSingleStageDetector', 'FocalLoss', 'L1Loss', 'SmoothL1Loss',
+    'build_detector', 'MODELS', 'BACKBONES', 'NECKS', 'HEADS', 'DETECTORS',
+    'LOSSES',
 ]

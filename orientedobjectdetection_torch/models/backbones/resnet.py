@@ -22,14 +22,16 @@ from ...utils.registry import BACKBONES
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics: a per-channel affine computed in
     float32 and applied in the input's dtype (the reference's
-    ``norm_eval=True`` BN). ``num_batches_tracked`` in a checkpoint is
-    accepted and ignored."""
+    ``norm_eval=True`` BN). The statistics are buffers and never change;
+    ``weight`` and ``bias`` are parameters and train outside the frozen
+    stages, as the JAX package's ``scale`` / ``bias`` do.
+    ``num_batches_tracked`` in a checkpoint is accepted and ignored."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer('weight', torch.ones(num_features))
-        self.register_buffer('bias', torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
@@ -107,11 +109,14 @@ ARCH_SETTINGS = {
 
 @BACKBONES.register_module()
 class ResNet(nn.Module):
-    """mmdet-config-compatible ResNet (inference: frozen BN everywhere).
+    """mmdet-config-compatible ResNet with frozen BN statistics
+    (``norm_eval=True``, the setting of every ResNet detection config).
 
-    Accepts the reference configs' keys; ``frozen_stages``, ``norm_cfg``,
-    ``norm_eval``, ``style`` and ``init_cfg`` only matter for training or
-    checkpoint loading and are ignored here. Input NCHW; returns the
+    ``frozen_stages`` is kept for the optimizer
+    (``parallel/train_state.py:frozen_mask`` freezes the stem and that many
+    stages); ``norm_eval=False`` (live BN) is not ported and raises.
+    ``norm_cfg``, ``style``, ``zero_init_residual`` and ``init_cfg`` are
+    accepted for the reference configs and unused. Input NCHW; returns the
     ``out_indices`` stage outputs, NCHW."""
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
@@ -123,7 +128,11 @@ class ResNet(nn.Module):
                  zero_init_residual: bool = False,
                  init_cfg: Optional[dict] = None, in_channels: int = 3):
         super().__init__()
+        if not norm_eval:
+            raise NotImplementedError('norm_eval=False (live BatchNorm) is '
+                                      'not ported')
         block, stage_blocks = ARCH_SETTINGS[depth]
+        self.frozen_stages = frozen_stages
         self.out_indices = tuple(out_indices)
         self.num_stages = num_stages
         self.conv1 = _conv(in_channels, 64, 7, 2, 3)

@@ -1,10 +1,16 @@
-"""Rotated RetinaNet head and its batched decode (counterpart of
+"""Rotated RetinaNet head: towers, batched targets and loss, batched decode
+(counterpart of
 ``orientedobjectdetection_tpu/models/dense_heads/rotated_anchor_head.py``:
-``RotatedRetinaHead.__call__`` and ``AnchorHeadLogic.get_bboxes``).
+``RotatedRetinaHead`` and ``AnchorHeadLogic``).
 
-The towers run NCHW. At the decode boundary the maps are permuted to the
-JAX package's channels-last order, channel ``a * C + c`` at each location,
-so anchors ``(h*w, A)`` and logits line up as they do there.
+The towers run NCHW. At the loss and decode boundaries the maps are
+permuted to the JAX package's channels-last order, channel ``a * C + c`` at
+each location, so anchors ``(h*w, A)``, logits and deltas line up as they
+do there.
+
+Targets are computed for the whole batch at once on padded gt sets, under
+``torch.no_grad()``, with masks in place of index sets: the loss has no
+data-dependent shape and never waits for the host.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ import torch
 from torch import nn
 
 from ...ops.nms import multiclass_nms_rotated, topk_candidates
-from ...utils.registry import BBOX_CODERS, HEADS, PRIOR_GENERATORS
+from ...utils.registry import (BBOX_ASSIGNERS, BBOX_CODERS, HEADS, LOSSES,
+                               PRIOR_GENERATORS)
 from ..blocks import ConvModule
 
 
@@ -25,8 +32,11 @@ class RotatedRetinaHead(nn.Module):
     """RetinaNet head: ``stacked_convs`` 3x3 convs per tower, then A*C
     class logits (``retina_cls``) and A*5 box deltas (``retina_reg``).
 
-    Training-only keys of the reference configs (losses, assigner options)
-    are accepted and unused until the training slice."""
+    ``loss_cls`` / ``loss_bbox`` and ``train_cfg['assigner']`` are built
+    once, here; a head built without them serves but cannot compute a loss.
+    ``assign_by_circumhbbox`` (an angle-version string) switches the
+    assigner to the gts' circumscribed horizontal boxes, as the reference
+    head option does (``rotated_anchor_head.py:231-239``)."""
 
     def __init__(self, num_classes: int = 15, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 4,
@@ -42,7 +52,18 @@ class RotatedRetinaHead(nn.Module):
                  init_cfg: Optional[dict] = None):
         super().__init__()
         self.num_classes = num_classes
+        self.train_cfg = train_cfg
         self.test_cfg = test_cfg or {}
+        self.reg_decoded_bbox = reg_decoded_bbox
+        self.assign_by_circumhbbox = assign_by_circumhbbox
+        self.cls_loss = LOSSES.build(dict(loss_cls)) if loss_cls else None
+        self.bbox_loss = LOSSES.build(dict(loss_bbox)) if loss_bbox else None
+        self.assigner = None
+        if train_cfg and train_cfg.get('assigner'):
+            assigner = dict(train_cfg['assigner'])
+            if assign_by_circumhbbox is not None:
+                assigner['assign_by_circumhbbox'] = assign_by_circumhbbox
+            self.assigner = BBOX_ASSIGNERS.build(assigner)
         self.prior_generator = PRIOR_GENERATORS.build(dict(anchor_generator))
         self.coder = BBOX_CODERS.build(dict(bbox_coder))
         self.num_anchors = self.prior_generator.num_base_anchors[0]
@@ -91,6 +112,101 @@ class RotatedRetinaHead(nn.Module):
                 featmap_sizes, device=device)
         return self._anchor_cache[key]
 
+    def flat_anchors(self, featmap_sizes, device) -> torch.Tensor:
+        """(N, 5) anchors concatenated over levels, the same for every
+        image."""
+        key = (tuple(tuple(s) for s in featmap_sizes), str(device), 'flat')
+        if key not in self._anchor_cache:
+            self._anchor_cache[key] = torch.cat(
+                list(self.anchors(featmap_sizes, device)), 0)
+        return self._anchor_cache[key]
+
+    # ---- targets and loss (batched) -------------------------------------
+    @torch.no_grad()
+    def _targets(self, anchors, gt_bboxes, gt_labels, gt_mask,
+                 gt_ignore=None, gt_ignore_mask=None):
+        """anchors (N, 5) and padded gt (B, G, 5) / (B, G) / (B, G) ->
+        per-anchor labels (B, N), label weights, box targets (B, N, E), box
+        weights and the positive mask. ``gt_ignore`` / ``gt_ignore_mask``
+        (padded ignore regions) reach the assigner when its
+        ``ignore_iof_thr`` is set."""
+        if gt_ignore is not None and self.assigner.ignore_iof_thr > 0:
+            assign = self.assigner(anchors, gt_bboxes, gt_labels, gt_mask,
+                                   gt_bboxes_ignore=gt_ignore,
+                                   gt_ignore_mask=gt_ignore_mask)
+        else:
+            assign = self.assigner(anchors, gt_bboxes, gt_labels, gt_mask)
+        pos = assign.assigned_gt_inds >= 0
+        neg = assign.assigned_gt_inds == -1
+        safe_idx = assign.assigned_gt_inds.clamp(min=0)
+        matched_gt = gt_bboxes.gather(
+            1, safe_idx[..., None].expand(-1, -1, gt_bboxes.shape[-1]))
+        bbox_targets = self.coder.encode(anchors[None], matched_gt)
+        bbox_targets = torch.where(pos[..., None], bbox_targets,
+                                   bbox_targets.new_zeros(()))
+        bbox_weights = pos.float()
+        # positive -> gt label; everything else is background, num_classes
+        labels = torch.where(pos, assign.labels, self.num_classes)
+        label_weights = (pos | neg).float()
+        return labels, label_weights, bbox_targets, bbox_weights, pos
+
+    def _flatten_preds(self, cls_scores, bbox_preds):
+        """Per-level NCHW maps -> float32 (B, N, C) and (B, N, E), in the
+        anchors' order: location-major, channel ``a * C + c``."""
+        b = cls_scores[0].shape[0]
+        cls_flat = torch.cat([
+            s.permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
+            for s in cls_scores], 1)
+        box_flat = torch.cat([
+            p.permute(0, 2, 3, 1).reshape(b, -1, self.coder.encode_size)
+            for p in bbox_preds], 1)
+        return cls_flat.float(), box_flat.float()
+
+    def loss(self, outputs, gt_bboxes, gt_labels, gt_mask,
+             gt_ignore=None, gt_ignore_mask=None):
+        """Batched loss.
+
+        Args:
+            outputs: (cls_scores, bbox_preds), per-level NCHW maps.
+            gt_bboxes (B, G, 5); gt_labels (B, G); gt_mask (B, G) bool.
+            gt_ignore (B, K, 5) / gt_ignore_mask (B, K): optional padded
+                ignore regions.
+        Returns dict(loss_cls=..., loss_bbox=...) of float32 scalars.
+        """
+        if self.assigner is None or self.cls_loss is None or \
+                self.bbox_loss is None:
+            raise RuntimeError('the head was built without loss_cls, '
+                               'loss_bbox or train_cfg.assigner')
+        cls_scores, bbox_preds = outputs
+        featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
+        anchors = self.flat_anchors(featmap_sizes, cls_scores[0].device)
+        labels, label_weights, bbox_targets, bbox_weights, pos = \
+            self._targets(anchors, gt_bboxes.float(), gt_labels, gt_mask,
+                          gt_ignore, gt_ignore_mask)
+        cls_flat, box_flat = self._flatten_preds(cls_scores, bbox_preds)
+        # batch-wide positive count, at least 1 (reference
+        # rotated_anchor_head.py:455-459)
+        num_pos = pos.sum().float().clamp(min=1.0)
+        loss_cls = self.cls_loss(cls_flat, labels, weight=label_weights,
+                                 avg_factor=num_pos)
+        loss_bbox = self._reg_loss(anchors, box_flat, bbox_targets,
+                                   bbox_weights, num_pos)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+
+    def _reg_loss(self, anchors, box_flat, bbox_targets, bbox_weights,
+                  num_pos):
+        """Regression loss with mmdet's ``reg_decoded_bbox`` option: when
+        set, predictions and targets are decoded first and the loss
+        compares boxes instead of deltas."""
+        if self.reg_decoded_bbox:
+            decoded = self.coder.decode(anchors[None], box_flat)
+            target_boxes = self.coder.decode(anchors[None], bbox_targets)
+            return self.bbox_loss(decoded, target_boxes, weight=bbox_weights,
+                                  avg_factor=num_pos)
+        return self.bbox_loss(box_flat, bbox_targets, weight=bbox_weights,
+                              avg_factor=num_pos)
+
+    # ---- inference --------------------------------------------------------
     def candidates(self, outputs, img_shape=None, cfg=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per level, the top ``nms_pre`` anchors by max class logit,

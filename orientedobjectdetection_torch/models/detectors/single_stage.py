@@ -1,6 +1,19 @@
 """Single-stage rotated detector (counterpart of
 ``orientedobjectdetection_tpu/models/detectors/single_stage.py``):
-backbone -> neck -> head, then the head's batched decode and NMS."""
+backbone -> neck -> head, then the head's batched loss, or its batched
+decode and NMS.
+
+The training batch is padded, with its masks carried explicitly:
+
+    batch = {
+        'images':    (B, H, W, 3),
+        'gt_bboxes': (B, G, 5) float,
+        'gt_labels': (B, G)    int,
+        'gt_mask':   (B, G)    bool,
+        # optional ignore regions, routed to the assigner:
+        'gt_ignore': (B, K, 5), 'gt_ignore_mask': (B, K),
+    }
+"""
 
 from __future__ import annotations
 
@@ -55,6 +68,16 @@ class RotatedSingleStageDetector(nn.Module):
         if self.neck is not None:
             x = self.neck(x)
         return self.bbox_head(x)
+
+    def loss_from_outputs(self, outputs, batch):
+        """The head's losses for ``forward``'s outputs on a padded batch."""
+        ignore = {}
+        if 'gt_ignore' in batch:
+            ignore = dict(gt_ignore=batch['gt_ignore'],
+                          gt_ignore_mask=batch['gt_ignore_mask'])
+        return self.bbox_head.loss(outputs, batch['gt_bboxes'],
+                                   batch['gt_labels'], batch['gt_mask'],
+                                   **ignore)
 
     def bboxes_from_outputs(self, outputs, img_shape=None, cfg=None,
                             plain_pair_mask: bool = False):

@@ -1,5 +1,5 @@
 """Rotated-box geometry: the part of the angle-convention system the
-inference path needs (counterpart of
+inference and training paths need (counterpart of
 ``orientedobjectdetection_tpu/ops/boxes.py``).
 
 Box layout everywhere: ``(..., 5) = (cx, cy, w, h, theta)``, theta in
@@ -45,3 +45,27 @@ def obb2poly(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
                         x + wx - hx, y + wy - hy,
                         x + wx + hx, y + wy + hy,
                         x - wx + hx, y - wy + hy], -1)
+
+
+def obb2hbb(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
+    """(..., 5) obbs -> (..., 5) circumscribed horizontal boxes in obb form
+    (reference ``transforms.py:502-576``): ``oc`` swaps w/h and sets
+    theta = pi/2; le90 / le135 keep the long edge as w with theta in
+    {0, -pi/2} / {0, pi/2}."""
+    x, y, w, h, a = obbs.unbind(-1)
+    if version == 'oc':
+        cosa, sina = torch.cos(a), torch.sin(a)
+        hw = cosa * w + sina * h
+        hh = sina * w + cosa * h
+        return torch.stack([x, y, hh, hw, torch.full_like(a, PI / 2)], -1)
+    if version not in ('le90', 'le135'):
+        raise NotImplementedError(version)
+    cosa, sina = torch.cos(a).abs(), torch.sin(a).abs()
+    ew = cosa * w + sina * h
+    eh = sina * w + cosa * h
+    long_first = ew >= eh
+    short_angle = -PI / 2 if version == 'le90' else PI / 2
+    a_out = torch.where(long_first, torch.zeros_like(a),
+                        torch.full_like(a, short_angle))
+    return torch.stack([x, y, torch.where(long_first, ew, eh),
+                        torch.where(long_first, eh, ew), a_out], -1)

@@ -8,8 +8,9 @@ area is ``1/2 * sum cross(start, end)`` over those segments, whatever their
 order. Each of the 8 edges is clipped against the other box's 4 half-planes
 in closed form (Liang-Barsky): fixed shapes, no sort, differentiable.
 
-This is also the plain version of the NMS pair-mask kernel
-(:mod:`.iou_kernels`), which evaluates the same per-pair arithmetic.
+This is also the plain version of the CUDA kernels (:mod:`.iou_kernels`:
+the NMS pair mask and the assignment IoU matrix), which evaluate the same
+per-pair arithmetic.
 """
 
 from __future__ import annotations
@@ -114,3 +115,42 @@ def box_iou_rotated(boxes1: torch.Tensor, boxes2: torch.Tensor,
     inter = torch.minimum(inter, torch.minimum(area1, area2))
     denom = area1 + area2 - inter if mode == 'iou' else area1.expand_as(inter)
     return inter / torch.clamp(denom, min=eps)
+
+
+def _clamp_wh(boxes: torch.Tensor) -> torch.Tensor:
+    return torch.cat([boxes[..., :2], boxes[..., 2:4].clamp(min=1e-3),
+                      boxes[..., 4:5]], -1)
+
+
+def rbbox_overlaps(bboxes1: torch.Tensor, bboxes2: torch.Tensor,
+                   mode: str = 'iou', is_aligned: bool = False,
+                   plain: bool = False) -> torch.Tensor:
+    """IoU calculator (reference
+    ``core/bbox/iou_calculators/rotate_iou2d_calculator.py:8-89``): takes
+    (..., 5) or (..., 6) boxes (a score column is dropped), clamps w/h to
+    >= 1e-3, and gives zeros for an empty set.
+
+    An unaligned matrix that needs no gradient, the label assigner's case,
+    goes through :func:`.iou_kernels.box_iou_rotated_matrix`: the CUDA
+    kernel for CUDA tensors of any size, its plain version for CPU tensors
+    (``plain=True`` asks for the plain version on the card too: a reference
+    run). Aligned pairs and inputs that require a gradient take the
+    differentiable :func:`box_iou_rotated`, plain tensor code on any device."""
+    if bboxes1.shape[-1] == 6:
+        bboxes1 = bboxes1[..., :5]
+    if bboxes2.shape[-1] == 6:
+        bboxes2 = bboxes2[..., :5]
+    if bboxes1.shape[-2] == 0 or bboxes2.shape[-2] == 0:
+        if is_aligned:
+            return bboxes1.new_zeros(bboxes1.shape[:-1])
+        return bboxes1.new_zeros(bboxes1.shape[:-1] + (bboxes2.shape[-2],))
+    clamped1, clamped2 = _clamp_wh(bboxes1), _clamp_wh(bboxes2)
+    needs_grad = torch.is_grad_enabled() and (clamped1.requires_grad or
+                                              clamped2.requires_grad)
+    if is_aligned or needs_grad or max(clamped1.dim(), clamped2.dim()) > 3:
+        return box_iou_rotated(clamped1, clamped2, mode=mode,
+                               aligned=is_aligned)
+    from .iou_kernels import (box_iou_rotated_matrix,
+                              box_iou_rotated_matrix_plain)
+    fn = box_iou_rotated_matrix_plain if plain else box_iou_rotated_matrix
+    return fn(clamped1.float(), clamped2.float(), mode)

@@ -2,8 +2,8 @@
 interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` is compiled by one ``nvcc`` for ``sm_90a`` into
-``_build/<name>-<hash of the source>.so`` inside the package (listed in
-``.gitignore``). All sources that are not built yet are compiled by
+``_build/<name>-<hash of the source, the shared headers and the flags>.so``
+inside the package (listed in ``.gitignore``). All sources that are not built yet are compiled by
 ``nvcc`` processes started together, so a cold start costs the slowest
 compile, not the sum. A library whose file already exists is loaded as is.
 """
@@ -51,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.read_bytes())
     digest.update(' '.join(NVCC_FLAGS).encode())
     return BUILD_DIR / f'{name}-{digest.hexdigest()[:16]}.so'
 

@@ -1,4 +1,7 @@
-"""Carry the JAX package's flax variables into the port's ``state_dict``.
+"""Carry the JAX package's flax variables into the port's ``state_dict``
+(:func:`from_jax_variables`) and the port's tensors back into the flax
+layout (:func:`to_jax_layout`), so gradients and updated parameters of the
+two packages can be compared name by name.
 
 Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a Rotated
 RetinaNet built by ``orientedobjectdetection_tpu`` (ResNet + FPN +
@@ -99,4 +102,60 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
     for path, v in _walk(variables.get('batch_stats', {}).get('backbone',
                                                               {})):
         out[_backbone_name(path)] = _tensor(path, v)
+    return out
+
+
+_BN_FIELDS_BACK = {v: k for k, v in _BN_FIELDS.items()}
+_RETINA_OUT_BACK = {v: k for k, v in _RETINA_OUT.items()}
+
+
+def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
+    """Port name -> (collection, module path..., leaf) in the flax tree."""
+    top, *mods, field = name.split('.')
+    if field == 'weight':
+        leaf = 'kernel' if ndim == 4 else 'scale'
+    else:
+        leaf = _BN_FIELDS_BACK[field]
+    collection = 'batch_stats' if leaf in ('mean', 'var') else 'params'
+    if top == 'backbone':
+        if re.fullmatch(r'layer\d+', mods[0]):
+            sub = mods[2:]
+            if sub[0] == 'downsample':
+                sub = [{'0': 'downsample_conv', '1': 'downsample_bn'}[sub[1]]]
+            mods = [f'{mods[0]}_{mods[1]}', *sub]
+    elif top == 'neck':
+        kind, idx = mods[0], int(mods[1])        # <kind>.<idx>.conv
+        if kind == 'lateral_convs':
+            mods = [f'lateral_{idx}']
+        elif idx < n_lateral:
+            mods = [f'fpn_{idx}']
+        else:
+            mods = [f'extra_{idx - n_lateral}']
+    elif top == 'bbox_head':
+        if mods[0] in _RETINA_OUT_BACK:
+            mods = [_RETINA_OUT_BACK[mods[0]]]
+        else:                                    # cls_convs.<i>.conv
+            mods = [f'{mods[0][:3]}_conv_{mods[1]}']
+    else:
+        raise ValueError(f'unhandled parameter name {name!r}')
+    return (collection, top, *mods, leaf)
+
+
+def to_jax_layout(state_dict) -> Dict[str, dict]:
+    """The reverse of :func:`from_jax_variables`: a port ``state_dict`` (or
+    any ``{port name: tensor}``, such as gradients by parameter name) -> a
+    nested ``{'params': ..., 'batch_stats': ...}`` dict of numpy arrays with
+    the flax names and layouts (convolution kernels OIHW -> HWIO)."""
+    n_lateral = len({k.split('.')[2] for k in state_dict
+                     if k.startswith('neck.lateral_convs.')})
+    out: Dict[str, dict] = {}
+    for name, v in state_dict.items():
+        v = torch.as_tensor(v).detach().cpu().numpy()
+        if v.ndim == 4:                  # OIHW -> HWIO
+            v = np.transpose(v, (2, 3, 1, 0))
+        node = out
+        *path, leaf = _jax_path(name, v.ndim, n_lateral)
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(v)
     return out

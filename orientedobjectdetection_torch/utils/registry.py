@@ -88,7 +88,10 @@ NECKS = Registry('necks', parent=MODELS)
 HEADS = Registry('heads', parent=MODELS)
 DETECTORS = Registry('detectors', parent=MODELS)
 
+LOSSES = Registry('losses', parent=MODELS)
+
 BBOX_CODERS = Registry('bbox_coders')
+BBOX_ASSIGNERS = Registry('bbox_assigners')
 PRIOR_GENERATORS = Registry('prior_generators')
 
 

@@ -11,13 +11,17 @@ import pytest
 import torch
 
 from orientedobjectdetection_torch.apis import DetectorBundle, init_detector
+from orientedobjectdetection_torch.core import MaxIoUAssigner
+from orientedobjectdetection_torch.ops.iou import rbbox_overlaps
 from orientedobjectdetection_torch.ops.iou_kernels import (
-    nms_pair_mask, nms_pair_mask_plain, pair_iou)
+    box_iou_rotated_matrix, box_iou_rotated_matrix_plain, nms_pair_mask,
+    nms_pair_mask_plain, pair_iou)
 from orientedobjectdetection_torch.utils import Config
 
 pytestmark = pytest.mark.gpu
 
 BAND = 2e-3
+IOU_ATOL = 2e-5      # sincosf and FMA contraction against torch.sin / cos
 
 
 @pytest.fixture
@@ -103,3 +107,93 @@ def test_small_slice_kernel_equals_plain(cuda):
     assert valid.sum() > 20
     assert torch.equal(valid, p_valid) and torch.equal(labels, p_labels)
     assert (dets - p_dets).abs().max() <= 1e-3
+
+
+def random_boxes(shape, seed, extent=400.0):
+    rng = np.random.default_rng(seed)
+    boxes = np.stack([rng.uniform(0, extent, shape),
+                      rng.uniform(0, extent, shape),
+                      rng.uniform(2, 80, shape), rng.uniform(2, 80, shape),
+                      rng.uniform(-np.pi, np.pi, shape)], -1)
+    return torch.from_numpy(boxes.astype(np.float32))
+
+
+@pytest.mark.parametrize('shape1,shape2', [
+    ((1,), (1,)), ((7,), (1000,)), ((1000,), (7,)), ((3, 33), (777,)),
+    ((777,), (3, 33)), ((2, 65), (2, 300)), ((300,), (300,))])
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_iou_matrix_kernel_matches_plain(cuda, shape1, shape2, mode):
+    """Either set may be the longer one (the kernel then writes the
+    transposed buffer) and either may be batched."""
+    b1 = random_boxes(shape1, 1).to(cuda)
+    b2 = random_boxes(shape2, 2).to(cuda)
+    b2[..., 0, :] = b1.reshape(-1, 5)[0]            # an identical pair
+    b1[..., -1, 2:4] = 0.0                          # a zero-size box
+    before = box_iou_rotated_matrix.launches
+    got = box_iou_rotated_matrix(b1, b2, mode)
+    torch.cuda.synchronize()
+    assert box_iou_rotated_matrix.launches == before + 1
+    ref = box_iou_rotated_matrix_plain(b1, b2, mode)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= IOU_ATOL
+    assert (got[..., -1, :] == 0).all()             # zero box: exact 0
+
+
+def test_iou_matrix_wrapper_contract(cuda):
+    b = random_boxes((16,), 3)
+    with pytest.raises(ValueError):
+        box_iou_rotated_matrix(b.to(cuda), b)       # mixed devices
+    with pytest.raises(ValueError):
+        box_iou_rotated_matrix(b.to(cuda)[:, :4], b.to(cuda))
+    before = box_iou_rotated_matrix.launches
+    empty = box_iou_rotated_matrix(b.to(cuda)[:0].contiguous(), b.to(cuda))
+    assert empty.shape == (0, 16)
+    assert box_iou_rotated_matrix.launches == before   # nothing to launch
+    # rbbox_overlaps always takes the kernel on the card, whatever the size
+    rbbox_overlaps(b.to(cuda)[:2], b.to(cuda)[:3])
+    assert box_iou_rotated_matrix.launches == before + 1
+    # ... except for inputs that need a gradient
+    rbbox_overlaps(b.to(cuda).requires_grad_(), b.to(cuda)).sum().backward()
+    assert box_iou_rotated_matrix.launches == before + 1
+
+
+def test_max_ties_go_to_the_lowest_index_on_the_card(cuda):
+    x = torch.zeros((2, 5, 1000), device=cuda)
+    x[:, 2:4] = 0.7
+    assert (x.max(dim=1).indices == 2).all()
+    assert (x.max(dim=2).indices == 0).all()
+
+
+def test_assigner_kernel_equals_plain(cuda):
+    """One batched assignment on grid anchors: the kernel's matrix and the
+    plain one give the same assignment away from the thresholds."""
+    from orientedobjectdetection_torch.core import RotatedAnchorGenerator
+    gen = RotatedAnchorGenerator(octave_base_scale=4, scales_per_octave=3,
+                                 ratios=[1.0, 0.5, 2.0],
+                                 strides=[8, 16, 32, 64, 128])
+    anchors = torch.cat(gen.grid_priors(
+        [(-(-256 // s), -(-256 // s)) for s in (8, 16, 32, 64, 128)],
+        device=cuda), 0)
+    rng = np.random.default_rng(4)
+    gts = torch.zeros((3, 8, 5), device=cuda)
+    pick = torch.from_numpy(rng.choice(len(anchors), 3 * 5)).to(cuda)
+    gts[:, :5] = anchors[pick].reshape(3, 5, 5)
+    gts[:, :5, :2] += 2.5
+    gts[:, :5, 4] = 0.2
+    labels = torch.from_numpy(rng.integers(0, 4, (3, 8))).to(cuda)
+    mask = (torch.arange(8, device=cuda) < 5)[None].repeat(3, 1)
+    cfg = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0,
+               match_low_quality=False)
+    before = box_iou_rotated_matrix.launches
+    got = MaxIoUAssigner(**cfg)(anchors, gts, labels, mask)
+    assert box_iou_rotated_matrix.launches == before + 1
+    ref = MaxIoUAssigner(plain_iou=True, **cfg)(anchors, gts, labels, mask)
+    assert box_iou_rotated_matrix.launches == before + 1
+    band = ((ref.max_overlaps - 0.4).abs() < 1e-5) | \
+        ((ref.max_overlaps - 0.5).abs() < 1e-5)
+    assert torch.equal(got.assigned_gt_inds[~band],
+                       ref.assigned_gt_inds[~band])
+    assert torch.equal(got.labels[~band], ref.labels[~band])
+    assert (got.assigned_gt_inds >= 0).any()
+    assert (got.max_overlaps - ref.max_overlaps).abs().max() <= IOU_ATOL

@@ -23,8 +23,9 @@ def imported_modules(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in SOURCES}
-    assert {'chip_smoke.py', 'nms.py', 'iou_kernels.py',
-            'inference.py'} <= names
+    assert {'chip_smoke.py', 'nms.py', 'iou_kernels.py', 'inference.py',
+            'assigners.py', 'common.py', 'train_state.py', 'checkpoint.py',
+            'jax_weights.py'} <= names
 
 
 @pytest.mark.parametrize('path', SOURCES,
