@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
-Drives the port's two main paths, serving and training, on Rotated
-RetinaNet R50-FPN le90 at full width
+Drives the port's main paths at full width with seeded random weights:
+serving and training of Rotated RetinaNet R50-FPN le90
 (configs/rotated_retinanet/rotated_retinanet_obb_r50_fpn_1x_dota_le90.py)
-with seeded random weights, through ``init_detector`` / ``DetectorBundle``
-and ``create_train_state`` / ``make_train_step``, and holds every CUDA
-kernel of those paths against its plain PyTorch version:
+and serving of Oriented R-CNN R50-FPN le90
+(configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py), through
+``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
+``make_train_step``, and holds every CUDA kernel of those paths against its
+plain PyTorch version:
 
 1. device    require a CUDA device; print its name and power limit
 2. build     compile the kernels from csrc/ with nvcc, all at once (ptxas
@@ -25,9 +27,21 @@ kernel of those paths against its plain PyTorch version:
 8. training  bfloat16 autocast, batch 8 of 1024^2 uint8 images, the
              config's optimizer: 3 warm + 10 timed steps, imgs/s, peak
              memory, launches per step, a falling loss, one profiled step
+9. kernel    roi_align_rotated vs its plain version at the Oriented R-CNN
+             shape (B=8, 2000 RoIs, C=256, levels 256/128/64/32; float32 and
+             bfloat16; all four levels, elongated, giant, over-the-edge and
+             zero-size RoIs; both ``clockwise`` values; a small odd shape);
+             time both
+10. oriented float32, 2 images of 1024^2 through Oriented R-CNN: detections
+    slice    with the kernels equal those with the plain RoIAlign and with
+             the plain pair mask
+11. oriented bfloat16, batch 8 of 1024^2 uint8 images: throughput, the split
+    serving  network+RPN / proposals / RoIAlign+head / decode+NMS, peak
+             memory, launches per request, profiled requests split by the
+             detector's ``two_stage.*`` ranges
 
 Every phase raises on failure. The launch counts are set to 0 just before
-each main path (5, 8) and read just after. The last two lines of standard
+each main path (5, 8, 11) and read just after. The last two lines of standard
 output are one JSON object with the kernels' numbers and one with the
 device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
@@ -47,6 +61,9 @@ import torch
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'configs',
                       'rotated_retinanet',
                       'rotated_retinanet_obb_r50_fpn_1x_dota_le90.py')
+ORCNN_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'configs', 'oriented_rcnn',
+                            'oriented_rcnn_r50_fpn_1x_dota_le90.py')
 IOU_THR = 0.1            # the config's test_cfg.nms.iou_thr
 BAND = 2e-3              # mask may differ only this close to the threshold
 DETS_ATOL = 1e-3
@@ -62,6 +79,22 @@ IOU_ATOL = 2e-5
 LOSS_RTOL = 1e-4         # train step, kernel vs plain matrix
 ASSIGN_THRS = (0.4, 0.5)  # the config's neg_iou_thr and pos_iou_thr
 ASSIGN_BAND = 1e-5       # assignments may differ this close to a threshold
+# RoIAlign, kernel vs plain, per element:
+# |kernel - plain| <= ROI_RTOL x max |feature| (+ ROI_BF16_STEP x |plain| in
+# bfloat16). Bilinear interpolation with masked corners is continuous in the
+# sample coordinates, and sincosf and FMA contraction move a sample by ~1e-4
+# cells at most, so the float32 sums agree to about 1e-4 of the feature
+# range. In bfloat16 both round their float32 sum once, so where the two sums
+# straddle a rounding boundary the outputs differ by one more step of that
+# element, at most 2^-7 of its own magnitude.
+ROI_RTOL = 2e-4
+ROI_BF16_STEP = 2 ** -7
+ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+# Oriented R-CNN, RoIAlign kernel vs plain: pooled features that differ by
+# ~1e-4 of their range move the head's logits by a few 1e-5 (2.4e-5 seen on
+# an H100, logits up to 5) and a class score by less than SCORE_BAND
+HEAD_ATOL = 1e-3
+SCORE_BAND = 1e-4
 KERNELS = {
     'nms_pair_mask': dict(
         route='cuda', source='orientedobjectdetection_torch/csrc/'
@@ -71,6 +104,10 @@ KERNELS = {
         route='cuda', source='orientedobjectdetection_torch/csrc/'
         'box_iou_rotated.cu',
         replaces='orientedobjectdetection_tpu/ops/iou_pallas.py:347'),
+    'roi_align_rotated': dict(
+        route='cuda', source='orientedobjectdetection_torch/csrc/'
+        'roi_align_rotated.cu',
+        replaces='orientedobjectdetection_tpu/ops/roi_align_pallas.py:226'),
 }
 
 
@@ -87,8 +124,11 @@ def kernel_wrappers() -> dict:
     """Kernel name -> the wrapper that counts its launches."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
         box_iou_rotated_matrix, nms_pair_mask)
+    from orientedobjectdetection_torch.ops.roi_align_kernels import (
+        roi_align_rotated_pyramid)
     return {'nms_pair_mask': nms_pair_mask,
-            'box_iou_rotated': box_iou_rotated_matrix}
+            'box_iou_rotated': box_iou_rotated_matrix,
+            'roi_align_rotated': roi_align_rotated_pyramid}
 
 
 def reset_launches():
@@ -318,6 +358,28 @@ def phase_slice(device, bsz=2, size=1024, max_candidates=2000) -> None:
         f'image {nms_inputs_per_image(bundle, bundle.forward(images))}')
 
 
+def timed_requests(bundle, images, warm, timed, device) -> tuple:
+    """``warm + timed`` requests through ``bundle.forward`` and
+    ``bundle.decode``, each synchronized, with the launch counts set to 0
+    before and read after. Returns (seconds in forward and in decode over
+    the timed requests, the last outputs and detections, the counts)."""
+    if torch.device(device).type == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    fwd = dec = 0.0
+    for i in range(warm + timed):
+        t0 = time.perf_counter()
+        outputs = bundle.forward(images)
+        sync(device)
+        t1 = time.perf_counter()
+        results = bundle.decode(outputs)
+        sync(device)
+        if i >= warm:
+            fwd += t1 - t0
+            dec += time.perf_counter() - t1
+    return fwd, dec, outputs, results, read_launches()
+
+
 def phase_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
                   dtype=torch.bfloat16, max_candidates=2000) -> dict:
     """Requests of ``bsz`` raw images through the bundle; returns the
@@ -326,35 +388,21 @@ def phase_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     images = raw_images(bsz, size, 20)
     if torch.device(device).type == 'cuda':
         images = images.pin_memory()
-        torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    fwd, dec = [], []
-    for i in range(warm + timed):
-        t0 = time.perf_counter()
-        outputs = bundle.forward(images)
-        sync(device)
-        t1 = time.perf_counter()
-        dets, labels, valid = bundle.decode(outputs)
-        sync(device)
-        t2 = time.perf_counter()
-        if i >= warm:
-            fwd.append(t1 - t0)
-            dec.append(t2 - t1)
-    counts = read_launches()
+    fwd, dec, outputs, (dets, labels, valid), counts = timed_requests(
+        bundle, images, warm, timed, device)
     launches = counts['nms_pair_mask']
     expected = warm + timed if torch.device(device).type == 'cuda' else 0
     if launches != expected:
         raise AssertionError(f'nms_pair_mask launched {launches} times for '
                              f'{warm + timed} requests (expected {expected})')
     check_dets(dets, labels, valid, bsz, bundle.num_classes)
-    total = sum(fwd) + sum(dec)
     mem = (torch.cuda.max_memory_allocated() / 2**30
            if torch.device(device).type == 'cuda' else float('nan'))
     log(f'[serving] {card} | {str(dtype).split(".")[-1]} B={bsz} {size}^2, '
         f'{timed} timed requests after {warm} warm: '
-        f'{bsz * timed / total:.2f} imgs/s; per request forward '
-        f'{1e3 * sum(fwd) / timed:.2f} ms, decode+NMS '
-        f'{1e3 * sum(dec) / timed:.2f} ms; peak memory {mem:.2f} GiB; '
+        f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+        f'{1e3 * fwd / timed:.2f} ms, decode+NMS '
+        f'{1e3 * dec / timed:.2f} ms; peak memory {mem:.2f} GiB; '
         f'nms_pair_mask launches {launches} for {warm + timed} requests')
     log(f'[serving] NMS candidates per image '
         f'{nms_inputs_per_image(bundle, outputs)}; valid dets per image '
@@ -379,9 +427,11 @@ def profile_request(bundle, images, device):
 def profile_run(fn, device, label, prefix, top=12) -> dict:
     """``fn()`` once under torch.profiler: device busy share of its wall
     time, the device time of the kernels launched inside each
-    ``record_function`` range named ``prefix*`` (on the calling thread), and
-    the kernels that take the most device time. Returns device microseconds
-    by kernel name, by range, and in total."""
+    ``record_function`` range named ``prefix*`` (on the calling thread),
+    each range's extent on the device's timeline where the profiler records
+    it (first to last kernel, the port's own kernels included), and the
+    kernels that take the most device time. Returns device microseconds by
+    kernel name, by range, and in total."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == 'cuda':
@@ -407,12 +457,19 @@ def profile_run(fn, device, label, prefix, top=12) -> dict:
     log(f'[profile] {label} {wall_us / 1e3:.2f} ms wall (profiler on), '
         f'device busy {busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}'
         f'%), {sum(e.count for e in kernels)} kernel launches')
+    extent = {e.key: e.device_time_total for e in averages
+              if e.key.startswith(prefix) and e.device_type == cuda}
     for e in averages:
         if e.key.startswith(prefix) and e.device_type != cuda:
             result['spans'][e.key] = e.device_time_total
-            log(f'[profile]   {e.key}: host {e.cpu_time_total / 1e3:.2f} ms,'
-                f' device {e.device_time_total / 1e3:.2f} ms in its '
-                f'kernels')
+            # a range whose kernels another thread launches (autograd's
+            # backward) has no extent of its own
+            on_device = f'{extent[e.key] / 1e3:.2f} ms' \
+                if extent.get(e.key) else 'not measured'
+            log(f'[profile]   {e.key} x{e.count}: host '
+                f'{e.cpu_time_total / 1e3:.2f} ms, device '
+                f'{e.device_time_total / 1e3:.2f} ms in its PyTorch kernels, '
+                f'{on_device} from its first kernel to its last')
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'[profile]   {e.self_device_time_total / 1e3:8.3f} ms '
             f'{e.count:5d}x  {e.key[:90]}')
@@ -742,6 +799,385 @@ def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
     return counts
 
 
+# ---- 9. RoIAlign kernel vs plain --------------------------------------------
+def seeded_rois(bsz, r, size, seed) -> np.ndarray:
+    """(B, R, 5) float32 RoIs for a ``size`` x ``size`` image: centres
+    anywhere in it, sqrt(w * h) log-uniform from 20 px up (levels 0 to 2 or
+    3 of the router), aspect up to e, angles in [-pi/2, pi/2). Then, an
+    eighth of R each: elongated RoIs (aspect 6.5 to 10, long side 0.15 to
+    0.3 of the image: more level-0 cells than the TPU kernel's window held);
+    one giant RoI clamped to the top level; RoIs centred outside the image;
+    and, last, zero-size padding."""
+    rng = np.random.default_rng(seed)
+    side = np.exp(rng.uniform(np.log(20.0), np.log(min(1.2 * size, 700.0)),
+                              (bsz, r)))
+    aspect = np.exp(rng.uniform(-1.0, 1.0, (bsz, r)))
+    rois = np.stack([rng.uniform(0, size, (bsz, r)),
+                     rng.uniform(0, size, (bsz, r)),
+                     side * np.sqrt(aspect), side / np.sqrt(aspect),
+                     rng.uniform(-np.pi / 2, np.pi / 2, (bsz, r))], -1)
+    n = max(r // 8, 1)
+    long_side = rng.uniform(0.15, 0.3, (bsz, n)) * size
+    rois[:, :n, 2] = long_side
+    rois[:, :n, 3] = long_side / rng.uniform(6.5, 10.0, (bsz, n))
+    rois[:, n] = [size / 2, size / 2, max(1.4 * size, 520.0),
+                  max(1.3 * size, 480.0), 0.7]
+    rois[:, n + 1:2 * n + 1, 0] = rng.choice([-0.03, 1.03], (bsz, n)) * size
+    rois[:, -n:] = 0.0
+    return rois.astype(np.float32)
+
+
+def seeded_pyramid(bsz, size, channels, dtype, device, seed) -> list:
+    """Channels-last normal features for strides 4, 8, 16, 32 of a ``size``
+    x ``size`` image, from a seeded generator on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((bsz, -(-size // s), -(-size // s), channels),
+                        generator=gen, device=device).to(dtype)
+            for s in (4, 8, 16, 32)]
+
+
+def check_roi_align(feats, rois, clockwise) -> float:
+    """Kernel (wrapper) vs plain version on the same device tensors, held
+    per element to ``ROI_RTOL`` and ``ROI_BF16_STEP``. Returns
+    max |kernel - plain|; padding RoIs must give exact zeros."""
+    from orientedobjectdetection_torch.ops.roi_align_kernels import (
+        roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
+    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0, clockwise)
+    got = roi_align_rotated_pyramid(*args)
+    ref = roi_align_rotated_pyramid_plain(*args)
+    if got.shape != ref.shape or got.dtype != feats[0].dtype or \
+            got.shape != rois.shape[:2] + (7, 7, feats[0].shape[-1]):
+        raise AssertionError(f'pooled {tuple(got.shape)} {got.dtype} vs '
+                             f'plain {tuple(ref.shape)} {ref.dtype}')
+    if not torch.isfinite(got).all():
+        raise AssertionError('non-finite pooled feature')
+    pad = (rois[..., 2] <= 1e-3) | (rois[..., 3] <= 1e-3)
+    if not pad.any() or int(torch.count_nonzero(got[pad])):
+        raise AssertionError('padding RoIs are missing or not exactly 0')
+    scale = max(float(f.abs().max()) for f in feats)
+    step = ROI_BF16_STEP if got.dtype == torch.bfloat16 else 0.0
+    diff = (got.float() - ref.float()).abs()
+    over = diff - (ROI_RTOL * scale + step * ref.float().abs())
+    if float(over.max()) > 0:
+        raise AssertionError(
+            f'pooled features differ from the plain version by '
+            f'{float(over.max())} more than {ROI_RTOL} x {scale} + {step} x '
+            f'|plain| allows')
+    return float(diff.max())
+
+
+def roi_align_work(feats, rois, clockwise=False) -> tuple:
+    """What these inputs need: (feature cells some sample's bilinear corner
+    reads, counted once each; RoIs that are not padding; RoIs per level)."""
+    from orientedobjectdetection_torch.ops.roi_align_rotated import (
+        level_of_rois)
+    dev = rois.device
+    lvl = level_of_rois(rois, len(feats), 56.0)
+    live = (rois[..., 2] > 1e-3) & (rois[..., 3] > 1e-3)
+    g = (torch.arange(14, dtype=torch.float32, device=dev) + 0.5) / 14 - 0.5
+    gyy, gxx = (t.reshape(-1) for t in torch.meshgrid(g, g, indexing='ij'))
+    cx, cy, w, h, a = (rois[..., i, None] for i in range(5))
+    a = -a if clockwise else a
+    px = cx + gxx * w * torch.cos(a) - gyy * h * torch.sin(a)
+    py = cy + gxx * w * torch.sin(a) + gyy * h * torch.cos(a)
+    scale = torch.tensor(ROI_SCALES, device=dev)[lvl][..., None]
+    x0 = torch.floor(px * scale - 0.5).long()
+    y0 = torch.floor(py * scale - 0.5).long()
+    image = torch.arange(rois.shape[0], device=dev)[:, None, None]
+    cells = 0
+    for level, f in enumerate(feats):
+        fh, fw = f.shape[1:3]
+        hit = torch.zeros((rois.shape[0], fh * fw), dtype=torch.bool,
+                          device=dev)
+        here = ((lvl == level) & live)[..., None]
+        for dx in (0, 1):
+            for dy in (0, 1):
+                x, y = x0 + dx, y0 + dy
+                ok = here & (x >= 0) & (x < fw) & (y >= 0) & (y < fh)
+                hit[image.expand_as(ok)[ok], (y * fw + x)[ok]] = True
+        cells += int(hit.sum())
+    per_level = torch.bincount(lvl[live], minlength=len(feats)).tolist()
+    return cells, int(live.sum()), per_level
+
+
+def roi_align_bound_ms(feats, rois, cells, live) -> tuple:
+    """Least time for these inputs: the RoIs and every feature cell that is
+    touched read once, the output written once, and 196 samples x 4 corner
+    FMAs per channel of every RoI that is not padding, at the published
+    peaks."""
+    c = feats[0].shape[-1]
+    elt = feats[0].element_size()
+    out_elems = rois.shape[0] * rois.shape[1] * 49 * c
+    nbytes = rois.numel() * 4 + (cells * c + out_elems) * elt
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = live * 196 * 4 * 2 * c / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                 else 'operations')
+
+
+def phase_roi_kernel(device, card='', bsz=8, r=2000, size=1024, channels=256,
+                     odd=(3, 37, 200, 64), reps=20, plain_reps=2) -> dict:
+    """``odd``: (B, R, image size, C) of the small odd-shaped case."""
+    from orientedobjectdetection_torch.ops.roi_align_kernels import (
+        roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
+    rois = torch.from_numpy(seeded_rois(bsz, r, size, 70)).to(device)
+    feats32 = seeded_pyramid(bsz, size, channels, torch.float32, device, 71)
+    feats16 = [f.to(torch.bfloat16) for f in feats32]
+    odd_rois = torch.from_numpy(seeded_rois(odd[0], odd[1], odd[2],
+                                            72)).to(device)
+    odd_feats = seeded_pyramid(odd[0], odd[2], odd[3], torch.float32, device,
+                               73)
+    cases = {'float32': (feats32, rois),
+             'bfloat16': (feats16, rois),
+             'odd-float32': (odd_feats, odd_rois),
+             'odd-bfloat16': ([f.to(torch.bfloat16) for f in odd_feats],
+                              odd_rois)}
+    max_err = 0.0
+    for name, (feats, boxes) in cases.items():
+        bound = f'{ROI_RTOL:.3g} x max |feature|' + (
+            f' + {ROI_BF16_STEP:.3g} x |plain|' if 'bfloat16' in name else '')
+        for clockwise in (False, True):
+            err = check_roi_align(feats, boxes, clockwise)
+            max_err = max(max_err, err)
+            log(f'[kernel] roi_align_rotated {name} B={boxes.shape[0]} '
+                f'R={boxes.shape[1]} C={feats[0].shape[-1]} levels '
+                f'{[f.shape[1] for f in feats]} clockwise={clockwise}: max '
+                f'|kernel - plain| {err:.3g}, each element <= {bound}; '
+                f'padding RoIs exactly 0')
+    cells, live, per_level = roi_align_work(feats32, rois)
+    if min(per_level) < 1:
+        raise AssertionError(f'a pyramid level got no RoI: {per_level}')
+    aspect = rois[..., 2] / rois[..., 3].clamp(min=1e-3)
+    log(f'[kernel] roi_align_rotated inputs: {live} of {rois.shape[0] * r} '
+        f'RoIs live, per level {per_level}, {int((aspect > 6).sum())} with '
+        f'aspect > 6, {cells} feature cells touched')
+    timed = {}
+    for name, feats in (('float32', feats32), ('bfloat16', feats16)):
+        args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0)
+        ms = time_ms(lambda: roi_align_rotated_pyramid(*args), reps, device)
+        plain_ms = time_ms(lambda: roi_align_rotated_pyramid_plain(*args),
+                           plain_reps, device, warmup=1)
+        bound_ms, bound_by = roi_align_bound_ms(feats, rois, cells, live)
+        timed[name] = (ms, plain_ms, bound_ms, bound_by)
+        log(f'[kernel] {card} | roi_align_rotated {name} B={bsz} R={r} '
+            f'C={channels}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, '
+            f'bound {bound_ms:.4f} ms ({bound_by}), library none')
+    # serving runs bfloat16: those are the record's numbers
+    ms, plain_ms, bound_ms, bound_by = timed['bfloat16']
+    return dict(name='roi_align_rotated', **KERNELS['roi_align_rotated'],
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms_float32=timed['float32'][0],
+                plain_ms_float32=timed['float32'][1],
+                bound_ms_float32=timed['float32'][2])
+
+
+# ---- 10./11. Oriented R-CNN -------------------------------------------------
+def build_orcnn_bundle(device, dtype, max_num=2000, max_candidates=2000,
+                       seed=0):
+    """The Oriented R-CNN config's detector with seeded weights,
+    normalizing raw uint8 BGR images on the device.
+
+    The regression outputs of both stages are scaled down so proposals stay
+    near their anchors and detections near their proposals, where they
+    overlap as a trained detector's do; biases are zero, so objectness sits
+    near 0.5 and the softmax spreads over the classes. ``max_num`` is the
+    config's number of proposals per image (2000) and ``max_candidates`` its
+    NMS size (2000); the CPU rehearsal makes them small."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(ORCNN_CONFIG)
+    bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
+                           device_norm=cfg.img_norm_cfg)
+    det = bundle.detector
+    det.test_cfg['rpn']['max_per_img'] = max_num
+    det.test_cfg['rcnn']['max_candidates'] = max_candidates
+    with torch.no_grad():
+        det.rpn_head.rpn_reg.weight.mul_(0.05)
+        det.roi_head.bbox_head.fc_reg.weight.mul_(0.05)
+    return bundle
+
+
+def check_orcnn_outputs(bundle, outputs, max_num, max_candidates) -> tuple:
+    """Every image has ``max_num`` valid proposals on at least three pyramid
+    levels and at least ``max_candidates`` (RoI, class) scores past
+    score_thr. Returns (RoIs per level, candidates per image)."""
+    from orientedobjectdetection_torch.ops.roi_align_rotated import (
+        level_of_rois)
+    valid = outputs['prop_valid']
+    if not bool((valid.sum(1) == max_num).all()):
+        raise AssertionError(f'valid proposals per image '
+                             f'{valid.sum(1).tolist()}, expected {max_num}')
+    lvl = level_of_rois(outputs['proposals'], 4, 56.0)
+    per_level = [torch.bincount(img_lvl[img_valid], minlength=4).tolist()
+                 for img_lvl, img_valid in zip(lvl, valid)]
+    if any(sum(n > 0 for n in counts) < 3 for counts in per_level):
+        raise AssertionError(f'proposals on fewer than three levels: '
+                             f'{per_level}')
+    thr = float(bundle.detector.test_cfg['rcnn'].get('score_thr', 0.05))
+    scores = torch.softmax(outputs['cls_score'], -1)[..., :-1]
+    over = (scores > thr).flatten(1).sum(1).tolist()
+    if min(over) < max_candidates:
+        raise AssertionError(f'(RoI, class) scores past score_thr per image '
+                             f'{over}, expected >= {max_candidates}')
+    return per_level, over
+
+
+def same_detections(got, ref, cut_scores) -> tuple:
+    """Two (dets, labels, valid) results hold the same detections, up to
+    what a score moved by less than SCORE_BAND can do: rows that close in
+    score may come out in another order, and a candidate that close to the
+    lowest score entering NMS (``cut_scores``, per image) may be another
+    one. That candidate is the last of its class in NMS and suppresses
+    nothing, so only rows within the band of the cut are set aside. Returns
+    (max |diff| of matched rows, rows in another place, rows set aside)."""
+    max_err, moved, aside = 0.0, 0, 0
+    for image, cut in enumerate(cut_scores):
+        rows = []
+        for dets, labels, valid in (got, ref):
+            d, lab = dets[image][valid[image]], labels[image][valid[image]]
+            clear = d[:, 5] >= float(cut) + SCORE_BAND
+            aside += int((~clear).sum())
+            rows.append((d[clear], lab[clear]))
+        (d1, l1), (d2, l2) = rows
+        if len(d1) != len(d2):
+            raise AssertionError(f'image {image}: {len(d1)} vs {len(d2)} '
+                                 f'detections clear of the cut')
+        if not len(d1):
+            continue
+        cost = (d1[:, None, :] - d2[None, :, :]).abs().amax(-1)
+        cost = cost.masked_fill(l1[:, None] != l2[None, :], float('inf'))
+        err, match = cost.min(1)
+        place = torch.arange(len(d1), device=match.device)
+        if float(err.max()) > DETS_ATOL or \
+                not torch.equal(match.sort()[0], place):
+            raise AssertionError(f'image {image}: detections differ (max '
+                                 f'|diff| of the nearest rows '
+                                 f'{float(err.max())})')
+        gap = (d1[:, 5] - d1[match, 5]).abs()
+        if float(gap.max()) >= SCORE_BAND:
+            raise AssertionError(f'image {image}: rows {float(gap.max())} '
+                                 f'apart in score changed places')
+        max_err = max(max_err, float(err.max()))
+        moved += int((match != place).sum())
+    return max_err, moved, aside
+
+
+def phase_orcnn_slice(device, bsz=2, size=1024, max_num=2000,
+                      max_candidates=2000) -> None:
+    """float32: the Oriented R-CNN slice with the RoIAlign kernel and with
+    its plain version gives the same head outputs within HEAD_ATOL and the
+    same detections up to near-ties in score; the same head outputs decoded
+    with the pair-mask kernel and with its plain version give equal
+    detections."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    bundle = build_orcnn_bundle(device, torch.float32, max_num,
+                                max_candidates)
+    plain_roi, plain_mask = (
+        DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                       device_norm=bundle.device_norm, **{switch: True})
+        for switch in ('plain_roi_align', 'plain_pair_mask'))
+    images = raw_images(bsz, size, 60)
+    outputs = bundle.forward(images)
+    per_level, over = check_orcnn_outputs(bundle, outputs, max_num,
+                                          max_candidates)
+    dets, labels, valid = bundle.decode(outputs)
+    sync(device)
+    check_dets(dets, labels, valid, bsz, bundle.num_classes)
+
+    m_dets, m_labels, m_valid = plain_mask.decode(outputs)
+    if not (torch.equal(valid, m_valid) and torch.equal(labels, m_labels)):
+        raise AssertionError('kernel and plain pair mask give different '
+                             'labels or valid flags')
+    mask_err = float((dets - m_dets).abs().max())
+    if mask_err > DETS_ATOL:
+        raise AssertionError(f'dets differ by {mask_err} > {DETS_ATOL}')
+
+    p_outputs = plain_roi.forward(images)
+    if not torch.equal(outputs['proposals'], p_outputs['proposals']):
+        raise AssertionError('the proposals changed with plain_roi_align')
+    head_err = max(float((outputs[k] - p_outputs[k]).abs().max())
+                   for k in ('cls_score', 'bbox_pred'))
+    if head_err > HEAD_ATOL:
+        raise AssertionError(f'head outputs with the kernel and the plain '
+                             f'RoIAlign differ by {head_err} > {HEAD_ATOL}')
+    scores = torch.softmax(outputs['cls_score'], -1)[..., :-1].flatten(1)
+    cut = scores.topk(min(max_candidates, scores.shape[1]))[0][:, -1]
+    roi_err, moved, aside = same_detections(
+        (dets, labels, valid), plain_roi.decode(p_outputs), cut)
+    sync(device)
+    log(f'[orcnn-slice] float32 B={bsz} {size}^2: pair-mask kernel and plain '
+        f'mask on the same head outputs agree (labels/valid exact, dets max '
+        f'|diff| {mask_err:.3g}); RoIAlign kernel and plain version: head '
+        f'outputs max |diff| {head_err:.3g} <= {HEAD_ATOL}, the same '
+        f'detections (max |diff| {roi_err:.3g}; {moved} rows within '
+        f'{SCORE_BAND} in score in another place, {aside} within that of the '
+        f'NMS cut set aside)')
+    log(f'[orcnn-slice] RoIs per level {per_level}; (RoI, class) scores past '
+        f'score_thr {over}; valid dets per image {valid.sum(1).tolist()}')
+
+
+def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
+                        split=3, dtype=torch.bfloat16, max_num=2000,
+                        max_candidates=2000) -> dict:
+    """Requests of ``bsz`` raw images through the Oriented R-CNN bundle;
+    returns the kernels' launch counts of the ``warm + timed`` requests.
+    After the counts are read, ``split`` more requests run under the
+    profiler, which splits them by the detector's ``two_stage.*`` ranges."""
+    on_card = torch.device(device).type == 'cuda'
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates)
+    images = raw_images(bsz, size, 80)
+    if on_card:
+        images = images.pin_memory()
+    fwd, dec, outputs, (dets, labels, valid), counts = timed_requests(
+        bundle, images, warm, timed, device)
+    expected = warm + timed if on_card else 0
+    for name in ('roi_align_rotated', 'nms_pair_mask'):
+        if counts[name] != expected:
+            raise AssertionError(
+                f'{name} launched {counts[name]} times for {warm + timed} '
+                f'requests (expected {expected})')
+    check_dets(dets, labels, valid, bsz, bundle.num_classes)
+    per_level, over = check_orcnn_outputs(bundle, outputs, max_num,
+                                          max_candidates)
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    log(f'[orcnn-serving] {card} | {str(dtype).split(".")[-1]} B={bsz} '
+        f'{size}^2, {timed} timed requests after {warm} warm: '
+        f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+        f'{1e3 * fwd / timed:.2f} ms, decode+NMS '
+        f'{1e3 * dec / timed:.2f} ms; peak memory {mem:.2f} GiB; '
+        f'launches in {warm + timed} requests: roi_align_rotated '
+        f'{counts["roi_align_rotated"]}, nms_pair_mask '
+        f'{counts["nms_pair_mask"]}')
+    log(f'[orcnn-serving] RoIs per level {per_level}; (RoI, class) scores '
+        f'past score_thr {over}; valid dets per image '
+        f'{valid.sum(1).tolist()}')
+    def requests():
+        for _ in range(split):
+            bundle(images)
+
+    prof = profile_run(requests, device, f'{split} oriented requests',
+                       'two_stage.')
+    if prof['busy_us']:
+        b3_us = sum(us for name, us in prof['kernels'].items()
+                    if 'roi_align_rotated_kernel' in name)
+        b1_us = sum(us for name, us in prof['kernels'].items()
+                    if 'pair_mask' in name)
+        # the profiler credits a range with the kernels of the PyTorch
+        # operators called inside it; what no range was credited with is
+        # printed beside the port's own kernels, which PyTorch does not
+        # launch
+        spans = sum(prof['spans'].values())
+        log(f'[profile] per request: roi_align_rotated '
+            f'{b3_us / split / 1e3:.3f} ms (launched in '
+            f'two_stage.roialign_head), nms_pair_mask '
+            f'{b1_us / split / 1e3:.3f} ms (in two_stage.decode_nms); device '
+            f'time outside the ranges\' sums '
+            f'{(prof["busy_us"] - spans) / split / 1e3:.3f} ms')
+    return counts
+
+
 def main() -> int:
     info = phase_device()
     # float32 comparisons run in full float32 (no TF32 in cuDNN or cuBLAS)
@@ -755,9 +1191,14 @@ def main() -> int:
     records.append(phase_iou_kernel('cuda', card=info['card']))
     phase_train_slice('cuda')
     training = phase_training('cuda', card=info['card'])
+    records.append(phase_roi_kernel('cuda', card=info['card']))
+    phase_orcnn_slice('cuda')
+    orcnn = phase_orcnn_serving('cuda', card=info['card'])
     for rec in records:
-        # launches on the main paths: serving's requests + training's steps
-        rec['launches'] = serving[rec['name']] + training[rec['name']]
+        # launches on the main paths: RetinaNet serving's requests,
+        # training's steps and Oriented R-CNN serving's requests
+        rec['launches'] = sum(run[rec['name']]
+                              for run in (serving, training, orcnn))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

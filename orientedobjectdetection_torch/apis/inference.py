@@ -33,34 +33,55 @@ class DetectorBundle:
     ``device_norm``: optional ``img_norm_cfg`` dict. When set, the bundle
     normalizes on the device (:func:`normalize_images`) and callers feed RAW
     uint8 BGR images. ``plain_pair_mask`` makes the NMS build its pair mask
-    with the plain PyTorch version instead of the CUDA kernel (a reference
-    run on the card)."""
+    with the plain PyTorch version instead of the CUDA kernel, and
+    ``plain_roi_align`` does the same for a two-stage detector's RoIAlign
+    (reference runs on the card)."""
 
     def __init__(self, cfg, detector: nn.Module, dtype=torch.float32,
                  device_norm: Optional[dict] = None,
-                 plain_pair_mask: bool = False):
+                 plain_pair_mask: bool = False,
+                 plain_roi_align: bool = False):
         self.cfg = cfg
         self.detector = detector
         self.dtype = dtype
         self.device_norm = dict(device_norm) if device_norm else None
         self.plain_pair_mask = plain_pair_mask
-        self.num_classes = int(cfg.model['bbox_head']['num_classes'])
+        self.plain_roi_align = plain_roi_align
+        head = cfg.model.get('bbox_head')
+        if head is None and cfg.model.get('roi_head'):       # two-stage
+            head = cfg.model['roi_head']['bbox_head']
+        if head is None:
+            raise ValueError('the model config has neither bbox_head nor '
+                             'roi_head.bbox_head')
+        self.num_classes = int(head['num_classes'])
+        self.two_stage = cfg.model.get('bbox_head') is None
         self.device = next(detector.parameters()).device
 
-    @torch.inference_mode()
-    def forward(self, images: torch.Tensor):
-        """(B, H, W, 3) images -> the head's per-level float32 maps."""
+    def prepare(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images -> the network's NCHW input on the device, in
+        the serving dtype, normalized there when ``device_norm`` is set."""
         images = images.to(self.device)
         if self.device_norm is not None:
             from ..parallel.train_state import normalize_images
             images = normalize_images(images, self.device_norm)
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        return images.permute(0, 3, 1, 2).to(self.dtype)
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor):
+        """(B, H, W, 3) images -> the detector's outputs in float32: the
+        head's per-level maps, or a two-stage detector's dict of proposals
+        and RoI-head outputs."""
+        x = self.prepare(images)
+        if self.two_stage:
+            outputs = self.detector(x, plain_roi_align=self.plain_roi_align)
+            return {k: v.float() if v.is_floating_point() else v
+                    for k, v in outputs.items()}
         outputs = self.detector(x)
         return tuple(tuple(o.float() for o in level) for level in outputs)
 
     @torch.inference_mode()
     def decode(self, outputs):
-        """Head maps -> (dets (B, max_per_img, 6), labels, valid)."""
+        """Detector outputs -> (dets (B, max_per_img, 6), labels, valid)."""
         return self.detector.bboxes_from_outputs(
             outputs, plain_pair_mask=self.plain_pair_mask)
 
@@ -75,7 +96,8 @@ def init_detector(config: Union[str, Config], checkpoint=None,
     """Build the configured detector with seeded weights, load
     ``checkpoint`` (a state dict with mmrotate names, or the path of a
     ``.pth`` holding one) over them, and move it
-    to ``device`` in ``dtype`` (convolutions; frozen BN stays float32).
+    to ``device`` in ``dtype`` (convolutions and linear layers; frozen BN
+    stays float32).
 
     Raises RuntimeError when ``device`` is a CUDA device and none is
     present: it never falls back to the CPU."""
@@ -96,7 +118,7 @@ def init_detector(config: Union[str, Config], checkpoint=None,
             {k: torch.as_tensor(v) for k, v in state.items()})
     detector.eval().to(device)
     for m in detector.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
     return DetectorBundle(config, detector, dtype, device_norm=device_norm)
 

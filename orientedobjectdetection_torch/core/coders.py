@@ -1,7 +1,9 @@
-"""Rotated box coder (counterpart of
-``orientedobjectdetection_tpu/core/coders.py:DeltaXYWHAOBBoxCoder``,
-reference ``core/bbox/coder/delta_xywha_rbbox_coder.py:111-283``).
-Element-wise over leading dims."""
+"""Rotated box coders (counterparts of
+``orientedobjectdetection_tpu/core/coders.py``): ``DeltaXYWHAOBBoxCoder``
+(reference ``core/bbox/coder/delta_xywha_rbbox_coder.py:111-283``) and
+Oriented R-CNN's ``MidpointOffsetCoder`` (reference
+``delta_midpointoffset_rbbox_coder.py:13-232``). Element-wise over leading
+dims."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..ops.boxes import PI, norm_angle
+from ..ops.boxes import PI, norm_angle, obb2poly
 from ..utils.registry import BBOX_CODERS
 
 
@@ -116,3 +118,113 @@ class DeltaXYWHAOBBoxCoder:
                              self.angle_range)
             return torch.stack([gx, gy, w_r, h_r, a_r], -1)
         return torch.stack([gx, gy, gw, gh, ga], -1)
+
+
+@BBOX_CODERS.register_module()
+class MidpointOffsetCoder:
+    """Oriented R-CNN's 6-parameter midpoint-offset encoding against
+    horizontal (xyxy) proposals: the gt's circumscribed HBB as
+    (dx, dy, dw, dh), plus the normalized offsets (da, db) of the polygon's
+    top-most and right-most vertices along the HBB's top and right edges."""
+
+    encode_size = 6
+
+    def __init__(self,
+                 target_means: Sequence[float] = (0., 0., 0., 0., 0., 0.),
+                 target_stds: Sequence[float] = (1., 1., 1., 1., 1., 1.),
+                 angle_range: str = 'le90'):
+        self.means = tuple(float(m) for m in target_means)
+        self.stds = tuple(float(s) for s in target_stds)
+        self.version = angle_range
+
+    def _stats(self, like: torch.Tensor):
+        return (like.new_tensor(self.means), like.new_tensor(self.stds))
+
+    def encode(self, hbb_proposals: torch.Tensor,
+               gt_obbs: torch.Tensor) -> torch.Tensor:
+        """hbb_proposals (..., 4) xyxy; gt_obbs (..., 5) -> (..., 6)."""
+        px = (hbb_proposals[..., 0] + hbb_proposals[..., 2]) * 0.5
+        py = (hbb_proposals[..., 1] + hbb_proposals[..., 3]) * 0.5
+        pw = hbb_proposals[..., 2] - hbb_proposals[..., 0]
+        ph = hbb_proposals[..., 3] - hbb_proposals[..., 1]
+
+        polys = obb2poly(gt_obbs, self.version)
+        pts = polys.reshape(polys.shape[:-1] + (4, 2))
+        xs, ys = pts[..., 0], pts[..., 1]
+        gx_min, gx_max = xs.amin(-1), xs.amax(-1)
+        gy_min, gy_max = ys.amin(-1), ys.amax(-1)
+        gx = (gx_min + gx_max) * 0.5
+        gy = (gy_min + gy_max) * 0.5
+        gw = gx_max - gx_min
+        gh = gy_max - gy_min
+
+        # x of the top-most vertex (min y), y of the right-most (max x);
+        # the first of equal vertices, as jnp.argmin / argmax
+        x_top = xs.gather(-1, ys.argmin(-1, keepdim=True))[..., 0]
+        y_right = ys.gather(-1, xs.argmax(-1, keepdim=True))[..., 0]
+        da = (x_top - gx) / gw.clamp(min=1e-6)
+        db = (y_right - gy) / gh.clamp(min=1e-6)
+
+        deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                              torch.log(gw / pw), torch.log(gh / ph),
+                              da, db], -1)
+        means, stds = self._stats(deltas)
+        return (deltas - means) / stds
+
+    def decode(self, hbb_proposals: torch.Tensor, pred_deltas: torch.Tensor,
+               max_shape=None, wh_ratio_clip: float = 16 / 1000
+               ) -> torch.Tensor:
+        """hbb_proposals (..., 4) xyxy; pred_deltas (..., 6) -> (..., 5)."""
+        means, stds = self._stats(pred_deltas)
+        dx, dy, dw, dh, da, db = (pred_deltas * stds + means).unbind(-1)
+        px = (hbb_proposals[..., 0] + hbb_proposals[..., 2]) * 0.5
+        py = (hbb_proposals[..., 1] + hbb_proposals[..., 3]) * 0.5
+        pw = hbb_proposals[..., 2] - hbb_proposals[..., 0]
+        ph = hbb_proposals[..., 3] - hbb_proposals[..., 1]
+        max_ratio = abs(math.log(wh_ratio_clip))
+        dw = dw.clamp(-max_ratio, max_ratio)
+        dh = dh.clamp(-max_ratio, max_ratio)
+        gx = px + pw * dx
+        gy = py + ph * dy
+        gw = pw * torch.exp(dw)
+        gh = ph * torch.exp(dh)
+        da = da.clamp(-0.5, 0.5)
+        db = db.clamp(-0.5, 0.5)
+        if max_shape is not None:
+            gx = gx.clamp(0, max_shape[1] - 1)
+            gy = gy.clamp(0, max_shape[0] - 1)
+        # the midpoint-offset parallelogram: top (gx + da*gw, gy - gh/2),
+        # right (gx + gw/2, gy + db*gh) and their reflections, then the
+        # closest rectangle
+        polys = torch.stack([gx + da * gw, gy - gh * 0.5,
+                             gx + gw * 0.5, gy + db * gh,
+                             gx - da * gw, gy + gh * 0.5,
+                             gx - gw * 0.5, gy - db * gh], -1)
+        obbs = poly2obb_from_parallelogram(polys)
+        return torch.cat([obbs[..., :4],
+                          norm_angle(obbs[..., 4:5], self.version)], -1)
+
+
+def poly2obb_from_parallelogram(polys: torch.Tensor) -> torch.Tensor:
+    """(..., 8) parallelogram (midpoint-offset vertices) -> (..., 5)
+    rectangle, the Oriented R-CNN way: the shorter diagonal is extended to
+    the longer one's length; the four half-diagonal end points (equal
+    diagonals that bisect each other) form the rectangle, read out edge-wise
+    with the long edge as w."""
+    pts = polys.reshape(polys.shape[:-1] + (4, 2))
+    ctr = pts.mean(-2)
+    u = (pts[..., 0, :] - pts[..., 2, :]) * 0.5   # half-diagonal top->bottom
+    v = (pts[..., 1, :] - pts[..., 3, :]) * 0.5   # half-diagonal right->left
+    lu = torch.linalg.vector_norm(u, dim=-1, keepdim=True)
+    lv = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    longest = torch.maximum(lu, lv)
+    u2 = u * (longest / lu.clamp(min=1e-6))
+    v2 = v * (longest / lv.clamp(min=1e-6))
+    e1 = (ctr + v2) - (ctr + u2)
+    e2 = (ctr - u2) - (ctr + v2)
+    l1 = torch.linalg.vector_norm(e1, dim=-1)
+    l2 = torch.linalg.vector_norm(e2, dim=-1)
+    long_edge = torch.where((l1 >= l2)[..., None], e1, e2)
+    ang = torch.atan2(long_edge[..., 1], long_edge[..., 0])
+    return torch.stack([ctr[..., 0], ctr[..., 1], torch.maximum(l1, l2),
+                        torch.minimum(l1, l2), ang], -1)

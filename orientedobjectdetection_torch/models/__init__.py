@@ -2,10 +2,12 @@ from .. import core  # noqa: F401  (registers anchors, coders and assigners)
 from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
                               NECKS)
 from .backbones import ResNet
-from .dense_heads import RotatedRetinaHead
-from .detectors import RotatedRetinaNet, RotatedSingleStageDetector
+from .dense_heads import OrientedRPNHead, RotatedRetinaHead
+from .detectors import (OrientedRCNN, RotatedRetinaNet,
+                        RotatedSingleStageDetector, RotatedTwoStageDetector)
 from .losses import FocalLoss, L1Loss, SmoothL1Loss
 from .necks import FPN
+from .roi_heads import OrientedStandardRoIHead, RotatedShared2FCBBoxHead
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None):
@@ -22,7 +24,9 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
 
 __all__ = [
     'ResNet', 'FPN', 'RotatedRetinaHead', 'RotatedRetinaNet',
-    'RotatedSingleStageDetector', 'FocalLoss', 'L1Loss', 'SmoothL1Loss',
+    'RotatedSingleStageDetector', 'OrientedRPNHead',
+    'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead', 'OrientedRCNN',
+    'RotatedTwoStageDetector', 'FocalLoss', 'L1Loss', 'SmoothL1Loss',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS', 'HEADS', 'DETECTORS',
     'LOSSES',
 ]

@@ -1,0 +1,140 @@
+"""Oriented RPN head (counterpart of
+``orientedobjectdetection_tpu/models/dense_heads/oriented_rpn_head.py``;
+reference ``dense_heads/oriented_rpn_head.py:15-``, ``rotated_rpn_head.py``).
+
+Horizontal anchors regress 6-parameter midpoint offsets; proposals are the
+decoded rotated boxes, filtered by an axis-aligned NMS over their
+circumscribed boxes. Batched with a leading dimension and static shapes:
+proposals come out as a fixed ``(B, max_num, 5)`` zero-padded tensor with
+scores and a validity mask.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.boxes import obb2xyxy
+from ...ops.nms import NEG_INF, nms_hbb, topk_candidates
+from ...utils.registry import BBOX_CODERS, HEADS, PRIOR_GENERATORS
+
+
+@HEADS.register_module()
+class OrientedRPNHead(nn.Module):
+    """``rpn_conv`` (3x3 + ReLU), then ``rpn_cls`` (A objectness logits) and
+    ``rpn_reg`` (A*6 midpoint-offset deltas) per location, shared by the
+    levels. ``loss_cls``, ``loss_bbox`` and ``train_cfg`` are accepted for
+    the reference configs and unused until the loss is ported."""
+
+    def __init__(self, in_channels: int = 256, feat_channels: int = 256,
+                 num_classes: int = 1,
+                 anchor_generator: Optional[dict] = None,
+                 bbox_coder: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None,
+                 train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None,
+                 version: str = 'le90',
+                 init_cfg: Optional[dict] = None):
+        super().__init__()
+        self.version = version
+        self.test_cfg = test_cfg or {}
+        anchors = dict(anchor_generator or dict(
+            scales=[8], ratios=[0.5, 1.0, 2.0], strides=[4, 8, 16, 32, 64]))
+        anchors['type'] = 'RotatedAnchorGenerator'
+        self.prior_generator = PRIOR_GENERATORS.build(anchors)
+        self.coder = BBOX_CODERS.build(dict(
+            bbox_coder or dict(type='MidpointOffsetCoder',
+                               angle_range=version)))
+        self.num_anchors = self.prior_generator.num_base_anchors[0]
+        self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
+        self.rpn_cls = nn.Conv2d(feat_channels, self.num_anchors, 1)
+        self.rpn_reg = nn.Conv2d(feat_channels, self.num_anchors * 6, 1)
+        self._anchor_cache: Dict[tuple, Sequence[torch.Tensor]] = {}
+
+    def forward(self, feats):
+        """NCHW levels -> per-level (cls_scores (B, A, H, W),
+        bbox_preds (B, A*6, H, W))."""
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            t = F.relu(self.rpn_conv(x))
+            cls_scores.append(self.rpn_cls(t))
+            bbox_preds.append(self.rpn_reg(t))
+        return tuple(cls_scores), tuple(bbox_preds)
+
+    def anchors(self, featmap_sizes, device) -> Sequence[torch.Tensor]:
+        key = (tuple(tuple(s) for s in featmap_sizes), str(device))
+        if key not in self._anchor_cache:
+            self._anchor_cache[key] = self.prior_generator.grid_priors(
+                featmap_sizes, device=device)
+        return self._anchor_cache[key]
+
+    def loss(self, outputs, gt_bboxes, gt_labels, gt_mask):
+        raise NotImplementedError(
+            'OrientedRPNHead.loss is not ported yet (ROADMAP A.1, two-stage '
+            'training)')
+
+    def get_proposals(self, outputs, cfg=None, max_candidates: int = 4096):
+        """Decode + HBB NMS: per level the top ``nms_pre`` anchors by
+        objectness, decoded; a size filter; the top ``max_candidates`` of
+        all levels through :func:`nms_hbb` on their circumscribed boxes;
+        the top ``max_num`` survivors.
+
+        Args:
+            outputs: (cls_scores, bbox_preds), per-level NCHW maps.
+        Returns:
+            proposals (B, max_num, 5) float32, zero-padded; scores
+            (B, max_num); valid (B, max_num) bool.
+        """
+        cls_scores, bbox_preds = outputs
+        cfg = cfg if cfg is not None else self.test_cfg
+        nms_pre = int(cfg.get('nms_pre', 2000))
+        max_num = int(cfg.get('max_per_img', cfg.get('max_num', 2000)))
+        nms_cfg = cfg.get('nms', {})
+        iou_thr = float(nms_cfg.get('iou_thr',
+                                    nms_cfg.get('iou_threshold', 0.8)))
+        min_bbox_size = float(cfg.get('min_bbox_size', 0))
+
+        featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
+        level_anchors = self.anchors(featmap_sizes, cls_scores[0].device)
+        cand_boxes, cand_scores = [], []
+        for logits, deltas, anchors in zip(cls_scores, bbox_preds,
+                                           level_anchors):
+            b = logits.shape[0]
+            # NCHW -> (B, h*w*A): anchor a of a location at index loc*A + a
+            scores = torch.sigmoid(
+                logits.permute(0, 2, 3, 1).reshape(b, -1).float())
+            deltas = deltas.permute(0, 2, 3, 1).reshape(b, -1, 6).float()
+            k = min(nms_pre, scores.shape[1])
+            top_s, top_i = topk_candidates(scores, k)          # (B, k)
+            anchors_xyxy = obb2xyxy(anchors[top_i], self.version)
+            sel = deltas.gather(1, top_i[..., None].expand(-1, -1, 6))
+            cand_boxes.append(self.coder.decode(anchors_xyxy, sel))
+            cand_scores.append(top_s)
+        boxes = torch.cat(cand_boxes, 1)
+        scores = torch.cat(cand_scores, 1)
+        ok = (boxes[..., 2] >= min_bbox_size) & \
+            (boxes[..., 3] >= min_bbox_size)
+        scores = torch.where(ok, scores, scores.new_tensor(NEG_INF))
+        # cap the NMS problem size
+        k = min(max_candidates, scores.shape[1])
+        top_s, top_i = topk_candidates(scores, k)
+        top_b = boxes.gather(1, top_i[..., None].expand(-1, -1, 5))
+        valid = top_s > NEG_INF / 2
+        hbbs = obb2xyxy(top_b, self.version)
+        hbbs = torch.where(valid[..., None], hbbs, torch.zeros_like(hbbs))
+        keep, _ = nms_hbb(hbbs, top_s, iou_thr, valid_mask=valid)
+        kept_scores = torch.where(keep, top_s, top_s.new_tensor(NEG_INF))
+        if k < max_num:                      # keep the padded output shape
+            kept_scores = F.pad(kept_scores, (0, max_num - k), value=NEG_INF)
+            top_b = F.pad(top_b, (0, 0, 0, max_num - k))
+        out_s, out_i = topk_candidates(kept_scores, max_num)
+        out_valid = out_s > NEG_INF / 2
+        out_b = top_b.gather(1, out_i[..., None].expand(-1, -1, 5))
+        out_b = torch.where(out_valid[..., None], out_b,
+                            torch.zeros_like(out_b))
+        out_s = torch.where(out_valid, out_s, torch.zeros_like(out_s))
+        return out_b, out_s, out_valid

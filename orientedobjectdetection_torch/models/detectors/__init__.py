@@ -1,3 +1,5 @@
 from .single_stage import RotatedRetinaNet, RotatedSingleStageDetector
+from .two_stage import OrientedRCNN, RotatedTwoStageDetector
 
-__all__ = ['RotatedRetinaNet', 'RotatedSingleStageDetector']
+__all__ = ['RotatedRetinaNet', 'RotatedSingleStageDetector', 'OrientedRCNN',
+           'RotatedTwoStageDetector']

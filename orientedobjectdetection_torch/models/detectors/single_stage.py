@@ -26,6 +26,22 @@ from torch import nn
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 
 
+@torch.no_grad()
+def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
+    """Seeded random weights from a CPU ``torch.Generator``: LeCun-normal
+    convolution and linear weights, zero biases; frozen BN keeps its
+    identity statistics. The same seed gives the same weights on any device
+    as long as the module is still on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                           / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+
+
 @DETECTORS.register_module()
 class RotatedSingleStageDetector(nn.Module):
     """Input NCHW images; ``forward`` returns the head's per-level
@@ -47,20 +63,10 @@ class RotatedSingleStageDetector(nn.Module):
             head['test_cfg'] = test_cfg
         self.bbox_head = HEADS.build(head)
 
-    @torch.no_grad()
     def init_weights(self, seed: int = 0):
-        """Seeded random weights from a CPU ``torch.Generator``: LeCun-normal
-        convolution weights, zero biases, identity frozen BN, and the head's
-        focal prior bias. The same seed gives the same weights on any
-        device as long as the module is still on the CPU."""
-        gen = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                               / math.sqrt(fan_in))
-                if m.bias is not None:
-                    m.bias.zero_()
+        """Seeded random weights (:func:`init_seeded_weights`) and the
+        head's focal prior bias."""
+        init_seeded_weights(self, seed)
         self.bbox_head.init_cls_prior()
 
     def forward(self, images):

@@ -1,7 +1,9 @@
 """Feature Pyramid Network (counterpart of
 ``orientedobjectdetection_tpu/models/necks/fpn.py``), mmdet names:
 ``lateral_convs.i.conv``, ``fpn_convs.i.conv``, and the extra levels in
-``fpn_convs`` after the laterals."""
+``fpn_convs`` after the laterals. With ``add_extra_convs=False`` the extra
+levels have no parameters: each is a 1x1 max pool with stride 2 of the
+level before it, which is that level's every second row and column."""
 
 from __future__ import annotations
 
@@ -38,9 +40,10 @@ class FPN(nn.Module):
                  act_cfg: Optional[dict] = None,
                  init_cfg: Optional[dict] = None):
         super().__init__()
-        if add_extra_convs not in (True, 'on_input'):
+        if add_extra_convs not in (False, True, 'on_input'):
             raise NotImplementedError(
                 f'add_extra_convs={add_extra_convs!r} is not ported yet')
+        self.add_extra_convs = bool(add_extra_convs)
         self.in_channels = list(in_channels)
         self.num_outs = num_outs
         self.start_level = start_level
@@ -52,9 +55,10 @@ class FPN(nn.Module):
             ConvModule(c, out_channels, 1) for c in used)
         convs = [ConvModule(out_channels, out_channels, 3, padding=1)
                  for _ in used]
-        for k in range(num_outs - len(used)):
-            cin = used[-1] if k == 0 else out_channels
-            convs.append(ConvModule(cin, out_channels, 3, 2, 1))
+        if self.add_extra_convs:
+            for k in range(num_outs - len(used)):
+                cin = used[-1] if k == 0 else out_channels
+                convs.append(ConvModule(cin, out_channels, 3, 2, 1))
         self.fpn_convs = nn.ModuleList(convs)
 
     def forward(self, inputs):
@@ -68,6 +72,10 @@ class FPN(nn.Module):
             laterals[i - 1] = laterals[i - 1] + upsample_nearest(
                 laterals[i], laterals[i - 1].shape[-2:])
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_lat)]
+        if not self.add_extra_convs:
+            for _ in range(self.num_outs - n_lat):
+                outs.append(outs[-1][:, :, ::2, ::2])
+            return tuple(outs)
         src = used[-1]                     # extra levels 'on_input'
         for k in range(self.num_outs - n_lat):
             if k > 0 and self.relu_before_extra_convs:

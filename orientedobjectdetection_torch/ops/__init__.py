@@ -1,13 +1,20 @@
-from .boxes import norm_angle, obb2hbb, obb2poly
+from .boxes import hbb2obb, norm_angle, obb2hbb, obb2poly, obb2xyxy
 from .iou import box_iou_rotated, rbbox_overlaps
 from .iou_kernels import (box_iou_rotated_matrix,
                           box_iou_rotated_matrix_plain, nms_pair_mask,
                           nms_pair_mask_plain)
-from .nms import multiclass_nms_rotated, nms_rotated, topk_candidates
+from .nms import (hbb_overlaps, multiclass_nms_rotated, nms_hbb, nms_rotated,
+                  topk_candidates)
+from .roi_align_kernels import (roi_align_rotated_pyramid,
+                                roi_align_rotated_pyramid_plain)
+from .roi_align_rotated import roi_align_rotated
 
 __all__ = [
-    'norm_angle', 'obb2hbb', 'obb2poly', 'box_iou_rotated', 'rbbox_overlaps',
+    'norm_angle', 'obb2hbb', 'obb2poly', 'obb2xyxy', 'hbb2obb',
+    'box_iou_rotated', 'rbbox_overlaps',
     'box_iou_rotated_matrix', 'box_iou_rotated_matrix_plain',
     'nms_pair_mask', 'nms_pair_mask_plain', 'nms_rotated',
-    'multiclass_nms_rotated', 'topk_candidates',
+    'multiclass_nms_rotated', 'topk_candidates', 'hbb_overlaps', 'nms_hbb',
+    'roi_align_rotated', 'roi_align_rotated_pyramid',
+    'roi_align_rotated_pyramid_plain',
 ]

@@ -69,3 +69,35 @@ def obb2hbb(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
                         torch.full_like(a, short_angle))
     return torch.stack([x, y, torch.where(long_first, ew, eh),
                         torch.where(long_first, eh, ew), a_out], -1)
+
+
+def obb2xyxy(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
+    """(..., 5) obbs -> (..., 4) circumscribed axis-aligned (x1, y1, x2, y2)
+    (reference ``transforms.py:637-702``; the general |cos|, |sin| formula
+    for every convention, as the JAX package)."""
+    if version not in _VALID_VERSIONS:
+        raise NotImplementedError(version)
+    x, y, w, h, a = obbs.unbind(-1)
+    cosa, sina = torch.cos(a).abs(), torch.sin(a).abs()
+    dw = cosa * w + sina * h
+    dh = sina * w + cosa * h
+    return torch.stack([x - dw / 2, y - dh / 2, x + dw / 2, y + dh / 2], -1)
+
+
+def hbb2obb(hbbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
+    """(..., 4) xyxy -> (..., 5) obbs per convention (reference
+    ``transforms.py:579-634``)."""
+    x = (hbbs[..., 0] + hbbs[..., 2]) * 0.5
+    y = (hbbs[..., 1] + hbbs[..., 3]) * 0.5
+    w = hbbs[..., 2] - hbbs[..., 0]
+    h = hbbs[..., 3] - hbbs[..., 1]
+    if version == 'oc':
+        return torch.stack([x, y, h, w, torch.full_like(x, PI / 2)], -1)
+    if version not in ('le90', 'le135'):
+        raise NotImplementedError(version)
+    long_first = w >= h
+    short_angle = -PI / 2 if version == 'le90' else PI / 2
+    a_out = torch.where(long_first, torch.zeros_like(x),
+                        torch.full_like(x, short_angle))
+    return torch.stack([x, y, torch.where(long_first, w, h),
+                        torch.where(long_first, h, w), a_out], -1)

@@ -102,6 +102,52 @@ def nms_rotated(boxes: torch.Tensor, scores: torch.Tensor,
     return keep_sorted.gather(1, rank), order
 
 
+def hbb_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned IoU matrix of ``(..., N, 4)`` x ``(..., M, 4)`` xyxy
+    boxes -> ``(..., N, M)``."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:4], boxes2[..., None, :, 2:4])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    a1 = (boxes1[..., 2] - boxes1[..., 0]).clamp(min=0) * \
+        (boxes1[..., 3] - boxes1[..., 1]).clamp(min=0)
+    a2 = (boxes2[..., 2] - boxes2[..., 0]).clamp(min=0) * \
+        (boxes2[..., 3] - boxes2[..., 1]).clamp(min=0)
+    union = a1[..., :, None] + a2[..., None, :] - inter
+    return inter / union.clamp(min=1e-6)
+
+
+def hbb_pair_mask(boxes: torch.Tensor, iou_thr: float,
+                  block: int = 512) -> torch.Tensor:
+    """(B, N, 4) score-sorted xyxy boxes -> (B, N, N) bool strict-upper mask
+    ``IoU(i, j) > thr`` for ``i < j``. Built in row blocks against the
+    columns from the block's first row on, so the ``(B, block, N, 2)``
+    temporaries stay bounded and the lower triangle is never evaluated."""
+    bsz, n = boxes.shape[:2]
+    mask = torch.zeros((bsz, n, n), dtype=torch.bool, device=boxes.device)
+    idx = torch.arange(n, device=boxes.device)
+    for r in range(0, n, block):
+        over = hbb_overlaps(boxes[:, r:r + block], boxes[:, r:]) > iou_thr
+        over &= idx[r:r + block, None] < idx[None, r:]
+        mask[:, r:r + block, r:] = over
+    return mask
+
+
+def nms_hbb(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+            valid_mask: Optional[torch.Tensor] = None):
+    """Axis-aligned NMS with :func:`nms_rotated`'s contract, for the RPN:
+    boxes (B, N, 4) xyxy, scores (B, N) -> keep (B, N) bool in the original
+    index order, and the score order (B, N)."""
+    if valid_mask is not None:
+        scores = torch.where(valid_mask, scores, scores.new_tensor(NEG_INF))
+    order, rank = argsort_desc(scores)
+    sorted_boxes = boxes.gather(1, order[..., None].expand(-1, -1, 4))
+    keep_sorted = greedy_suppress(hbb_pair_mask(sorted_boxes, iou_threshold))
+    if valid_mask is not None:
+        keep_sorted &= scores.gather(1, order) > NEG_INF / 2
+    return keep_sorted.gather(1, rank), order
+
+
 def multiclass_nms_rotated(multi_bboxes: torch.Tensor,
                            multi_scores: torch.Tensor,
                            score_thr: float, iou_thr: float,

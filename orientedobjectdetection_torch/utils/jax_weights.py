@@ -4,9 +4,10 @@ layout (:func:`to_jax_layout`), so gradients and updated parameters of the
 two packages can be compared name by name.
 
 Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a Rotated
-RetinaNet built by ``orientedobjectdetection_tpu`` (ResNet + FPN +
-RotatedRetinaHead), as nested dicts of numpy arrays. Output: a state dict
-with mmrotate names, the same mapping as
+RetinaNet (ResNet + FPN + RotatedRetinaHead) or an Oriented R-CNN (ResNet +
+FPN + OrientedRPNHead + OrientedStandardRoIHead) built by
+``orientedobjectdetection_tpu``, as nested dicts of numpy arrays. Output: a
+state dict with mmrotate names, the same mapping as
 ``tools/model_converters/convert_torch_weights.py:synthesize_reference_state``:
 
 - convolution kernels HWIO -> OIHW;
@@ -17,7 +18,12 @@ with mmrotate names, the same mapping as
 - FPN ``lateral_i/fpn_i`` -> ``lateral_convs.i.conv/fpn_convs.i.conv`` and
   ``extra_k`` -> ``fpn_convs.{n_lateral + k}.conv``;
 - head ``cls_conv_i/reg_conv_i`` -> ``cls_convs.i.conv/reg_convs.i.conv``,
-  ``cls_out/reg_out`` -> ``retina_cls/retina_reg``.
+  ``cls_out/reg_out`` -> ``retina_cls/retina_reg``;
+- ``rpn_head.{rpn_conv,rpn_cls,rpn_reg}`` keep their names;
+- ``roi_head.bbox_head.shared_fc_i`` -> ``shared_fcs.i``, ``fc_cls`` and
+  ``fc_reg`` keep theirs; a dense kernel ``(in, out)`` becomes a linear
+  weight ``(out, in)`` by a transpose alone (the pooled features are
+  flattened ``(7, 7, C)`` in both packages).
 """
 
 from __future__ import annotations
@@ -42,8 +48,9 @@ def _walk(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
 
 
 def _tensor(path, v) -> torch.Tensor:
-    if path[-1] == 'kernel':        # HWIO -> OIHW
-        v = np.transpose(v, (3, 2, 0, 1))
+    # convolution HWIO -> OIHW, dense (in, out) -> (out, in)
+    if path[-1] == 'kernel':
+        v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
     return torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
 
 
@@ -82,8 +89,18 @@ def _head_name(path) -> str:
     return f'bbox_head.{base}.{_field(leaf)}'
 
 
+def _roi_head_name(path) -> str:
+    sub, mod, leaf = path
+    if sub != 'bbox_head':
+        raise ValueError(f'unhandled flax path roi_head/{"/".join(path)}')
+    m = re.fullmatch(r'shared_fc_(\d+)', mod)
+    base = f'shared_fcs.{m.group(1)}' if m else mod
+    return f'roi_head.bbox_head.{base}.{_field(leaf)}'
+
+
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
-    """flax variables of a Rotated RetinaNet -> the port's state dict."""
+    """flax variables of a Rotated RetinaNet or an Oriented R-CNN -> the
+    port's state dict."""
     params = variables['params']
     n_lateral = sum(1 for k in params.get('neck', {})
                     if k.startswith('lateral_'))
@@ -96,6 +113,10 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
             name = _neck_name(rest, n_lateral)
         elif top == 'bbox_head':
             name = _head_name(rest)
+        elif top == 'rpn_head':
+            name = f'rpn_head.{rest[0]}.{_field(rest[1])}'
+        elif top == 'roi_head':
+            name = _roi_head_name(rest)
         else:
             raise ValueError(f'unhandled flax path {path}')
         out[name] = _tensor(path, v)
@@ -113,7 +134,7 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
     """Port name -> (collection, module path..., leaf) in the flax tree."""
     top, *mods, field = name.split('.')
     if field == 'weight':
-        leaf = 'kernel' if ndim == 4 else 'scale'
+        leaf = 'kernel' if ndim == 4 or top == 'roi_head' else 'scale'
     else:
         leaf = _BN_FIELDS_BACK[field]
     collection = 'batch_stats' if leaf in ('mean', 'var') else 'params'
@@ -136,6 +157,11 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
             mods = [_RETINA_OUT_BACK[mods[0]]]
         else:                                    # cls_convs.<i>.conv
             mods = [f'{mods[0][:3]}_conv_{mods[1]}']
+    elif top == 'rpn_head':
+        pass                                     # rpn_conv / rpn_cls / rpn_reg
+    elif top == 'roi_head':
+        if mods[1] == 'shared_fcs':              # bbox_head.shared_fcs.<i>
+            mods = [mods[0], f'shared_fc_{mods[2]}']
     else:
         raise ValueError(f'unhandled parameter name {name!r}')
     return (collection, top, *mods, leaf)
@@ -145,7 +171,8 @@ def to_jax_layout(state_dict) -> Dict[str, dict]:
     """The reverse of :func:`from_jax_variables`: a port ``state_dict`` (or
     any ``{port name: tensor}``, such as gradients by parameter name) -> a
     nested ``{'params': ..., 'batch_stats': ...}`` dict of numpy arrays with
-    the flax names and layouts (convolution kernels OIHW -> HWIO)."""
+    the flax names and layouts (convolution kernels OIHW -> HWIO, linear
+    weights ``(out, in)`` -> ``(in, out)``)."""
     n_lateral = len({k.split('.')[2] for k in state_dict
                      if k.startswith('neck.lateral_convs.')})
     out: Dict[str, dict] = {}
@@ -153,8 +180,10 @@ def to_jax_layout(state_dict) -> Dict[str, dict]:
         v = torch.as_tensor(v).detach().cpu().numpy()
         if v.ndim == 4:                  # OIHW -> HWIO
             v = np.transpose(v, (2, 3, 1, 0))
-        node = out
         *path, leaf = _jax_path(name, v.ndim, n_lateral)
+        if v.ndim == 2 and leaf == 'kernel':
+            v = v.T
+        node = out
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = np.ascontiguousarray(v)

@@ -16,12 +16,21 @@ from orientedobjectdetection_torch.ops.iou import rbbox_overlaps
 from orientedobjectdetection_torch.ops.iou_kernels import (
     box_iou_rotated_matrix, box_iou_rotated_matrix_plain, nms_pair_mask,
     nms_pair_mask_plain, pair_iou)
+from orientedobjectdetection_torch.ops.roi_align_kernels import (
+    roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
 from orientedobjectdetection_torch.utils import Config
 
 pytestmark = pytest.mark.gpu
 
 BAND = 2e-3
 IOU_ATOL = 2e-5      # sincosf and FMA contraction against torch.sin / cos
+# RoIAlign against its plain version, per element: ROI_RTOL x max |feature|,
+# since bilinear interpolation is continuous in the sample coordinates, which
+# sincosf and FMA contraction move by ~1e-4 cells; bfloat16 adds one rounding
+# step of that element, at most 2^-7 of its own magnitude
+ROI_RTOL = 2e-4
+ROI_BF16_STEP = {torch.float32: 0.0, torch.bfloat16: 2 ** -7}
+ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 
 
 @pytest.fixture
@@ -197,3 +206,120 @@ def test_assigner_kernel_equals_plain(cuda):
     assert torch.equal(got.labels[~band], ref.labels[~band])
     assert (got.assigned_gt_inds >= 0).any()
     assert (got.max_overlaps - ref.max_overlaps).abs().max() <= IOU_ATOL
+
+
+def roi_case(bsz, r, size, channels, dtype, seed, device):
+    """RoIs on all four levels, elongated, giant, over the edge and
+    zero-size (the last eighth), with normal features."""
+    rng = np.random.default_rng(seed)
+    side = np.exp(rng.uniform(np.log(16.0), np.log(1.2 * size), (bsz, r)))
+    aspect = np.exp(rng.uniform(-2.2, 2.2, (bsz, r)))
+    rois = np.stack([rng.uniform(-0.05 * size, 1.05 * size, (bsz, r)),
+                     rng.uniform(-0.05 * size, 1.05 * size, (bsz, r)),
+                     side * np.sqrt(aspect), side / np.sqrt(aspect),
+                     rng.uniform(-np.pi / 2, np.pi / 2, (bsz, r))], -1)
+    rois[:, 0] = [size / 2, size / 2, 600.0, 500.0, 0.7]
+    rois[:, -max(r // 8, 1):] = 0.0
+    feats = [torch.from_numpy(rng.normal(
+        size=(bsz, -(-size // s), -(-size // s), channels)
+    ).astype(np.float32)).to(device=device, dtype=dtype)
+        for s in (4, 8, 16, 32)]
+    return feats, torch.from_numpy(rois.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize('bsz,r,size,channels', [
+    (1, 1, 64, 1), (2, 37, 200, 64), (3, 100, 256, 48), (2, 64, 512, 256),
+    (1, 16, 128, 300)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('clockwise', [False, True])
+def test_roi_align_kernel_matches_plain(cuda, bsz, r, size, channels, dtype,
+                                        clockwise):
+    """Channel counts below, at and above the block's 256 threads, and not
+    a multiple of 32."""
+    feats, rois = roi_case(bsz, r, size, channels, dtype, r, cuda)
+    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0, clockwise)
+    before = roi_align_rotated_pyramid.launches
+    got = roi_align_rotated_pyramid(*args)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid.launches == before + 1
+    ref = roi_align_rotated_pyramid_plain(*args)
+    assert roi_align_rotated_pyramid.launches == before + 1
+    assert got.shape == (bsz, r, 7, 7, channels) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    scale = max(float(f.abs().max()) for f in feats)
+    allowed = ROI_RTOL * scale + ROI_BF16_STEP[dtype] * ref.float().abs()
+    assert ((got.float() - ref.float()).abs() <= allowed).all()
+    assert not got[:, -max(r // 8, 1):].any()       # padding: exact zeros
+    if r > 1:
+        assert got[:, 0].abs().max() > 0            # the giant RoI pooled
+
+
+def test_roi_align_fewer_levels_and_wrapper_contract(cuda):
+    feats, rois = roi_case(2, 20, 256, 32, torch.float32, 5, cuda)
+    two = roi_align_rotated_pyramid(feats[:2], rois, (7, 7), ROI_SCALES[:2])
+    ref = roi_align_rotated_pyramid_plain(feats[:2], rois, (7, 7),
+                                          ROI_SCALES[:2])
+    assert (two - ref).abs().max() <= 2e-4 * float(feats[0].abs().max())
+    with pytest.raises(ValueError):
+        roi_align_rotated_pyramid(feats, rois.cpu(), (7, 7), ROI_SCALES)
+    with pytest.raises(ValueError):
+        roi_align_rotated_pyramid(feats, rois, (5, 5), ROI_SCALES)
+    with pytest.raises(ValueError):
+        roi_align_rotated_pyramid(feats, rois, (7, 7), ROI_SCALES, 4)
+    with pytest.raises(ValueError):
+        roi_align_rotated_pyramid([f.half() for f in feats], rois, (7, 7),
+                                  ROI_SCALES)
+    before = roi_align_rotated_pyramid.launches
+    # no gradient, and none dropped quietly: nothing launches, no gather
+    wants_grad = [feats[0].clone().requires_grad_()] + feats[1:]
+    for fn in (roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain):
+        with pytest.raises(ValueError, match='gradient'):
+            fn(wants_grad, rois, (7, 7), ROI_SCALES)
+    assert roi_align_rotated_pyramid.launches == before
+    empty = roi_align_rotated_pyramid(feats, rois[:, :0].contiguous(),
+                                      (7, 7), ROI_SCALES)
+    assert empty.shape == (2, 0, 7, 7, 32)
+    assert roi_align_rotated_pyramid.launches == before   # nothing to launch
+
+
+def test_small_two_stage_slice_kernels_equal_plain(cuda):
+    """A small Oriented R-CNN on the card: the RoIAlign kernel and its
+    plain version give the same head outputs to 1e-3 and the same
+    detections up to near-ties in score; the pair-mask kernel and its plain
+    version give equal detections from the same head outputs."""
+    import os.path as osp
+
+    from chip_smoke import same_detections
+    cfg = Config.fromfile(osp.join(
+        osp.dirname(__file__), '..', 'configs', 'oriented_rcnn',
+        'oriented_rcnn_tiny_synth.py'))
+    bundle = init_detector(cfg, device=cuda, seed=1)
+    det = bundle.detector
+    with torch.no_grad():
+        det.rpn_head.rpn_reg.weight.mul_(0.05)
+        det.roi_head.bbox_head.fc_reg.weight.mul_(0.05)
+    images = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    roi_before = roi_align_rotated_pyramid.launches
+    mask_before = nms_pair_mask.launches
+    outputs = bundle.forward(images)
+    dets, labels, valid = bundle.decode(outputs)
+    assert roi_align_rotated_pyramid.launches == roi_before + 1
+    assert nms_pair_mask.launches == mask_before + 1
+    assert valid.sum() > 20
+
+    plain_mask = DetectorBundle(bundle.cfg, det, plain_pair_mask=True)
+    m_dets, m_labels, m_valid = plain_mask.decode(outputs)
+    assert nms_pair_mask.launches == mask_before + 1
+    assert torch.equal(valid, m_valid) and torch.equal(labels, m_labels)
+    assert (dets - m_dets).abs().max() <= 1e-3
+
+    plain_roi = DetectorBundle(bundle.cfg, det, plain_roi_align=True)
+    p_outputs = plain_roi.forward(images)
+    assert roi_align_rotated_pyramid.launches == roi_before + 1
+    assert torch.equal(outputs['proposals'], p_outputs['proposals'])
+    for k in ('cls_score', 'bbox_pred'):
+        assert (outputs[k] - p_outputs[k]).abs().max() <= 1e-3
+    scores = torch.softmax(outputs['cls_score'], -1)[..., :-1].flatten(1)
+    cut = scores.topk(min(2000, scores.shape[1]))[0][:, -1]
+    same_detections((dets, labels, valid), plain_roi.decode(p_outputs), cut)

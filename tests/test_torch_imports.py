@@ -25,7 +25,9 @@ def test_scan_covers_the_package():
     names = {p.name for p in SOURCES}
     assert {'chip_smoke.py', 'nms.py', 'iou_kernels.py', 'inference.py',
             'assigners.py', 'common.py', 'train_state.py', 'checkpoint.py',
-            'jax_weights.py'} <= names
+            'jax_weights.py', 'roi_align_rotated.py', 'roi_align_kernels.py',
+            'oriented_rpn_head.py', 'bbox_heads.py', 'oriented_roi_head.py',
+            'two_stage.py'} <= names
 
 
 @pytest.mark.parametrize('path', SOURCES,
