@@ -39,9 +39,17 @@ plain PyTorch version:
     serving  network+RPN / proposals / RoIAlign+head / decode+NMS, peak
              memory, launches per request, profiled requests split by the
              detector's ``two_stage.*`` ranges
+12. kernels  phases 3 and 9 again on the inputs the main paths gave the
+    on the   kernels: nms_pair_mask on the candidates of one RetinaNet
+    main     request (phase 5) and of one Oriented R-CNN request (phase 11),
+    path     roi_align_rotated on that Oriented R-CNN request's levels and
+             proposals, each recorded by a wrapper put in place of the
+             kernel's name for that one request; each held against its
+             plain version and timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
-each main path (5, 8, 11) and read just after. The last two lines of standard
+each main path (5, 8, 11) and read just after; the recorded requests run
+after that. The last two lines of standard
 output are one JSON object with the kernels' numbers and one with the
 device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
@@ -49,6 +57,7 @@ device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -138,6 +147,25 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Put a wrapper in place of ``module.name`` that keeps the positional
+    arguments of every call and calls through; restore the name after.
+    Yields the list of argument tuples."""
+    original = getattr(module, name)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return original(*args)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, original)
 
 
 # ---- 1. device -----------------------------------------------------------
@@ -234,22 +262,24 @@ def time_ms(fn, reps, device, warmup=3) -> float:
 
 def pair_mask_bound_ms(boxes, cls) -> tuple:
     """Least time for these inputs: each input byte read and each output
-    byte written once, and FLOP_PER_PAIR for every pair the data needs
-    (same class, i < j), at the published peaks."""
+    byte written once, and FLOP_PER_PAIR for every pair whose answer needs
+    the clip math (same class, i < j, and kept by the exact reject
+    ``pairs_in_reach``), at the published peaks. Returns (bound ms, what
+    bounds it, same-class pairs, those of them in reach)."""
+    from orientedobjectdetection_torch.ops.iou_kernels import pairs_in_reach
     n = boxes.shape[1]
-    same = cls[:, :, None] == cls[:, None, :]
-    live = int(torch.triu(same, diagonal=1).sum())
+    same = torch.triu(cls[:, :, None] == cls[:, None, :], diagonal=1)
+    in_reach = int((same & pairs_in_reach(boxes, boxes)).sum())
     nbytes = (boxes.numel() * 4 + cls.numel() * 4 + boxes.shape[0] * n * n)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = live * FLOP_PER_PAIR / PEAK_FP32 * 1e3
+    t_ops = in_reach * FLOP_PER_PAIR / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                 else 'operations'), live
+                                 else 'operations'), int(same.sum()), \
+        in_reach
 
 
 def phase_kernel(device, card='', bsz=8, n=2000, small_n=300, reps=50,
                  plain_reps=3) -> dict:
-    from orientedobjectdetection_torch.ops.iou_kernels import (
-        nms_pair_mask, nms_pair_mask_plain)
     cases = {'main': dota_candidates(bsz, n, 0),
              'small': dota_candidates(bsz, small_n, 1),
              'duplicates': dota_candidates(2, small_n, 2, duplicates=True)}
@@ -265,17 +295,28 @@ def phase_kernel(device, card='', bsz=8, n=2000, small_n=300, reps=50,
             f'({in_band} in-band differences)')
         if name == 'main':
             main = (boxes, cls)
-    boxes, cls = main
+    timing = time_pair_mask(*main, device, card, f'B={bsz} N={n}', reps,
+                            plain_reps)
+    return dict(name='nms_pair_mask', **KERNELS['nms_pair_mask'],
+                max_abs_err=max_err, library_ms=None, **timing)
+
+
+def time_pair_mask(boxes, cls, device, card, label, reps, plain_reps) -> dict:
+    """Kernel (``reps`` launches) and plain version on one input, beside
+    the bound and the pair counts it rests on."""
+    from orientedobjectdetection_torch.ops.iou_kernels import (
+        nms_pair_mask, nms_pair_mask_plain)
     ms = time_ms(lambda: nms_pair_mask(boxes, IOU_THR, cls), reps, device)
     plain_ms = time_ms(lambda: nms_pair_mask_plain(boxes, IOU_THR, cls),
                        plain_reps, device, warmup=1)
-    bound_ms, bound_by, live = pair_mask_bound_ms(boxes, cls)
-    log(f'[kernel] {card} | nms_pair_mask B={bsz} N={n}: kernel {ms:.4f} '
-        f'ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; '
-        f'{live} same-class pairs), library none')
-    return dict(name='nms_pair_mask', **KERNELS['nms_pair_mask'],
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    bound_ms, bound_by, same, in_reach = pair_mask_bound_ms(boxes, cls)
+    log(f'[kernel] {card} | nms_pair_mask {label}: kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; '
+        f'{same} same-class pairs, {in_reach} of them in reach), library '
+        f'none')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, same_class_pairs=same,
+                pairs_in_reach=in_reach)
 
 
 # ---- 4./5. the detector ----------------------------------------------------
@@ -381,9 +422,11 @@ def timed_requests(bundle, images, warm, timed, device) -> tuple:
 
 
 def phase_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
-                  dtype=torch.bfloat16, max_candidates=2000) -> dict:
-    """Requests of ``bsz`` raw images through the bundle; returns the
-    kernels' launch counts of this run."""
+                  dtype=torch.bfloat16, max_candidates=2000) -> tuple:
+    """Requests of ``bsz`` raw images through the bundle. Returns the
+    kernels' launch counts of this run, and the pair-mask kernel's inputs
+    (boxes, class ids), recorded in one more request after the counts are
+    read, under ``'retinanet'``."""
     bundle = build_bundle(device, dtype, max_candidates)
     images = raw_images(bsz, size, 20)
     if torch.device(device).type == 'cuda':
@@ -407,8 +450,12 @@ def phase_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     log(f'[serving] NMS candidates per image '
         f'{nms_inputs_per_image(bundle, outputs)}; valid dets per image '
         f'{valid.sum(1).tolist()}')
+    from orientedobjectdetection_torch.ops import nms
+    with recording(nms, 'nms_pair_mask') as calls:
+        bundle(images)
+    boxes, _, cls = calls[0]
     profile_request(bundle, images, device)
-    return counts
+    return counts, {'retinanet': (boxes, cls)}
 
 
 def profile_request(bundle, images, device):
@@ -421,7 +468,11 @@ def profile_request(bundle, images, device):
         with record_function('request.decode_nms'):
             bundle.decode(outputs)
 
-    profile_run(request, device, 'request', 'request.')
+    prof = profile_run(request, device, 'request', 'request.')
+    if prof['busy_us']:
+        b1_us = sum(us for name, us in prof['kernels'].items()
+                    if 'pair_mask' in name)
+        log(f'[profile] per request: nms_pair_mask {b1_us / 1e3:.3f} ms')
 
 
 def profile_run(fn, device, label, prefix, top=12) -> dict:
@@ -515,22 +566,12 @@ def seeded_gts(anchors, bsz, g, valid, seed, duplicates=False):
             torch.from_numpy(mask))
 
 
-def reachable(boxes1, boxes2) -> torch.Tensor:
-    """(..., N, M) bool: the pairs whose bounding rects, inflated to
-    r = (w + h) / 2, meet. Every other pair has IoU exactly 0 and the
-    kernel skips its clip math."""
-    r1 = 0.5 * (boxes1[..., 2] + boxes1[..., 3])[..., :, None]
-    r2 = 0.5 * (boxes2[..., 2] + boxes2[..., 3])[..., None, :]
-    dx = (boxes1[..., 0][..., :, None] - boxes2[..., 0][..., None, :]).abs()
-    dy = (boxes1[..., 1][..., :, None] - boxes2[..., 1][..., None, :]).abs()
-    return (dx <= r1 + r2) & (dy <= r1 + r2)
-
-
 def check_iou_matrix(boxes1, boxes2, mode) -> tuple:
     """Kernel (wrapper) vs plain version on the same device tensors.
-    Returns (max |kernel - plain|, live pairs)."""
+    Returns (max |kernel - plain|, pairs in reach): every pair that
+    ``pairs_in_reach`` rejects must be exactly 0."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
-        box_iou_rotated_matrix, box_iou_rotated_matrix_plain)
+        box_iou_rotated_matrix, box_iou_rotated_matrix_plain, pairs_in_reach)
     got = box_iou_rotated_matrix(boxes1, boxes2, mode)
     ref = box_iou_rotated_matrix_plain(boxes1, boxes2, mode)
     if got.shape != ref.shape:
@@ -542,7 +583,7 @@ def check_iou_matrix(boxes1, boxes2, mode) -> tuple:
     if err > IOU_ATOL:
         raise AssertionError(f'IoU matrix differs from the plain version by '
                              f'{err} > {IOU_ATOL}')
-    live = reachable(boxes1, boxes2)
+    live = pairs_in_reach(boxes1, boxes2)
     if live.dim() < got.dim():
         live = live.expand_as(got)
     if (got[~live] != 0).any() or (ref[~live] != 0).any():
@@ -836,10 +877,11 @@ def seeded_pyramid(bsz, size, channels, dtype, device, seed) -> list:
             for s in (4, 8, 16, 32)]
 
 
-def check_roi_align(feats, rois, clockwise) -> float:
+def check_roi_align(feats, rois, clockwise, padding=True) -> float:
     """Kernel (wrapper) vs plain version on the same device tensors, held
     per element to ``ROI_RTOL`` and ``ROI_BF16_STEP``. Returns
-    max |kernel - plain|; padding RoIs must give exact zeros."""
+    max |kernel - plain|; padding RoIs must give exact zeros, and with
+    ``padding`` the input must have some."""
     from orientedobjectdetection_torch.ops.roi_align_kernels import (
         roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
     args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0, clockwise)
@@ -852,7 +894,7 @@ def check_roi_align(feats, rois, clockwise) -> float:
     if not torch.isfinite(got).all():
         raise AssertionError('non-finite pooled feature')
     pad = (rois[..., 2] <= 1e-3) | (rois[..., 3] <= 1e-3)
-    if not pad.any() or int(torch.count_nonzero(got[pad])):
+    if (padding and not pad.any()) or int(torch.count_nonzero(got[pad])):
         raise AssertionError('padding RoIs are missing or not exactly 0')
     scale = max(float(f.abs().max()) for f in feats)
     step = ROI_BF16_STEP if got.dtype == torch.bfloat16 else 0.0
@@ -918,8 +960,6 @@ def roi_align_bound_ms(feats, rois, cells, live) -> tuple:
 def phase_roi_kernel(device, card='', bsz=8, r=2000, size=1024, channels=256,
                      odd=(3, 37, 200, 64), reps=20, plain_reps=2) -> dict:
     """``odd``: (B, R, image size, C) of the small odd-shaped case."""
-    from orientedobjectdetection_torch.ops.roi_align_kernels import (
-        roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
     rois = torch.from_numpy(seeded_rois(bsz, r, size, 70)).to(device)
     feats32 = seeded_pyramid(bsz, size, channels, torch.float32, device, 71)
     feats16 = [f.to(torch.bfloat16) for f in feats32]
@@ -951,25 +991,36 @@ def phase_roi_kernel(device, card='', bsz=8, r=2000, size=1024, channels=256,
     log(f'[kernel] roi_align_rotated inputs: {live} of {rois.shape[0] * r} '
         f'RoIs live, per level {per_level}, {int((aspect > 6).sum())} with '
         f'aspect > 6, {cells} feature cells touched')
-    timed = {}
-    for name, feats in (('float32', feats32), ('bfloat16', feats16)):
-        args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0)
-        ms = time_ms(lambda: roi_align_rotated_pyramid(*args), reps, device)
-        plain_ms = time_ms(lambda: roi_align_rotated_pyramid_plain(*args),
-                           plain_reps, device, warmup=1)
-        bound_ms, bound_by = roi_align_bound_ms(feats, rois, cells, live)
-        timed[name] = (ms, plain_ms, bound_ms, bound_by)
-        log(f'[kernel] {card} | roi_align_rotated {name} B={bsz} R={r} '
-            f'C={channels}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, '
-            f'bound {bound_ms:.4f} ms ({bound_by}), library none')
+    timed = {name: time_roi_align(
+        feats, rois, (cells, live), device, card,
+        f'{name} B={bsz} R={r} C={channels}', reps, plain_reps)
+        for name, feats in (('float32', feats32), ('bfloat16', feats16))}
     # serving runs bfloat16: those are the record's numbers
-    ms, plain_ms, bound_ms, bound_by = timed['bfloat16']
     return dict(name='roi_align_rotated', **KERNELS['roi_align_rotated'],
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                ms_float32=timed['float32'][0],
-                plain_ms_float32=timed['float32'][1],
-                bound_ms_float32=timed['float32'][2])
+                max_abs_err=max_err, library_ms=None, **timed['bfloat16'],
+                ms_float32=timed['float32']['ms'],
+                plain_ms_float32=timed['float32']['plain_ms'],
+                bound_ms_float32=timed['float32']['bound_ms'])
+
+
+def time_roi_align(feats, rois, work, device, card, label, reps,
+                   plain_reps) -> dict:
+    """Kernel (``reps`` launches) and plain version on one input, beside
+    the bound for ``work`` = (cells touched, live RoIs)."""
+    from orientedobjectdetection_torch.ops.roi_align_kernels import (
+        roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain,
+        vector_path)
+    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0)
+    ms = time_ms(lambda: roi_align_rotated_pyramid(*args), reps, device)
+    plain_ms = time_ms(lambda: roi_align_rotated_pyramid_plain(*args),
+                       plain_reps, device, warmup=1)
+    bound_ms, bound_by = roi_align_bound_ms(feats, rois, *work)
+    path = 'vector' if vector_path(feats) else 'scalar'
+    log(f'[kernel] {card} | roi_align_rotated {label} ({path} path): kernel '
+        f'{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms '
+        f'({bound_by}), library none')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # ---- 10./11. Oriented R-CNN -------------------------------------------------
@@ -1119,11 +1170,14 @@ def phase_orcnn_slice(device, bsz=2, size=1024, max_num=2000,
 
 def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
                         split=3, dtype=torch.bfloat16, max_num=2000,
-                        max_candidates=2000) -> dict:
-    """Requests of ``bsz`` raw images through the Oriented R-CNN bundle;
-    returns the kernels' launch counts of the ``warm + timed`` requests.
-    After the counts are read, ``split`` more requests run under the
-    profiler, which splits them by the detector's ``two_stage.*`` ranges."""
+                        max_candidates=2000) -> tuple:
+    """Requests of ``bsz`` raw images through the Oriented R-CNN bundle.
+    Returns the kernels' launch counts of the ``warm + timed`` requests,
+    and the inputs of the pair-mask kernel (boxes, class ids) under
+    ``'orcnn'`` and of the RoIAlign kernel (levels, RoIs) under
+    ``'orcnn_roi'``, recorded in one more request after the counts are
+    read. Then ``split`` more requests run under the profiler, which splits
+    them by the detector's ``two_stage.*`` ranges."""
     on_card = torch.device(device).type == 'cuda'
     bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates)
     images = raw_images(bsz, size, 80)
@@ -1153,6 +1207,15 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     log(f'[orcnn-serving] RoIs per level {per_level}; (RoI, class) scores '
         f'past score_thr {over}; valid dets per image '
         f'{valid.sum(1).tolist()}')
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import nms
+    with recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
+        bundle(images)
+    inputs = {'orcnn': (masks[0][0], masks[0][2]),
+              'orcnn_roi': tuple(pools[0][:2])}
+
     def requests():
         for _ in range(split):
             bundle(images)
@@ -1175,7 +1238,44 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
             f'{b1_us / split / 1e3:.3f} ms (in two_stage.decode_nms); device '
             f'time outside the ranges\' sums '
             f'{(prof["busy_us"] - spans) / split / 1e3:.3f} ms')
-    return counts
+    return counts, inputs
+
+
+# ---- 12. kernels on the main paths' inputs ---------------------------------
+def phase_main_path_kernels(device, captured, records, card='', reps=50,
+                            roi_reps=20, plain_reps=1) -> None:
+    """Phases 3 and 9 on the inputs recorded in phases 5 and 11: each kernel
+    against its plain version with the same tolerances, then timed beside
+    its bound. Adds ``main_path_inputs`` to the kernels' records."""
+    by_name = {rec['name']: rec for rec in records}
+    pair = by_name['nms_pair_mask']
+    pair['main_path_inputs'] = {}
+    for key, label in (('retinanet', 'RetinaNet request'),
+                       ('orcnn', 'Oriented R-CNN request')):
+        boxes, cls = captured[key]
+        err, in_band = check_pair_mask(boxes, cls)
+        pair['max_abs_err'] = max(pair['max_abs_err'], err)
+        log(f'[main-path] nms_pair_mask on the candidates of one {label} '
+            f'B={boxes.shape[0]} N={boxes.shape[1]}: equal to plain outside '
+            f'+-{BAND} of thr={IOU_THR} ({in_band} in-band differences)')
+        pair['main_path_inputs'][key] = time_pair_mask(
+            boxes, cls, device, card, f'{label} candidates', reps,
+            plain_reps)
+    levels, rois = captured['orcnn_roi']
+    roi = by_name['roi_align_rotated']
+    err = check_roi_align(levels, rois, False, padding=False)
+    roi['max_abs_err'] = max(roi['max_abs_err'], err)
+    cells, live, per_level = roi_align_work(levels, rois)
+    log(f'[main-path] roi_align_rotated on the levels and proposals of one '
+        f'Oriented R-CNN request B={rois.shape[0]} R={rois.shape[1]} '
+        f'C={levels[0].shape[-1]} {str(levels[0].dtype).split(".")[-1]}: max '
+        f'|kernel - plain| {err:.3g}; {live} live RoIs, per level '
+        f'{per_level}, {cells} feature cells touched')
+    timing = time_roi_align(levels, rois, (cells, live), device, card,
+                            'Oriented R-CNN request proposals', roi_reps,
+                            plain_reps)
+    roi['main_path_inputs'] = {'orcnn': dict(
+        timing, live_rois=live, rois_per_level=per_level, cells=cells)}
 
 
 def main() -> int:
@@ -1187,13 +1287,15 @@ def main() -> int:
     phase_build()
     records = [phase_kernel('cuda', card=info['card'])]
     phase_slice('cuda')
-    serving = phase_serving('cuda', card=info['card'])
+    serving, captured = phase_serving('cuda', card=info['card'])
     records.append(phase_iou_kernel('cuda', card=info['card']))
     phase_train_slice('cuda')
     training = phase_training('cuda', card=info['card'])
     records.append(phase_roi_kernel('cuda', card=info['card']))
     phase_orcnn_slice('cuda')
-    orcnn = phase_orcnn_serving('cuda', card=info['card'])
+    orcnn, orcnn_inputs = phase_orcnn_serving('cuda', card=info['card'])
+    captured.update(orcnn_inputs)
+    phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests,
         # training's steps and Oriented R-CNN serving's requests

@@ -53,6 +53,30 @@ def pair_iou(boxes: torch.Tensor, block: int = 128) -> torch.Tensor:
                       for r in range(0, boxes.shape[1], block)], 1)
 
 
+def pairs_in_reach(boxes1: torch.Tensor, boxes2: torch.Tensor
+                   ) -> torch.Tensor:
+    """Plain twin of the exact reject in the pair-mask kernel
+    (``csrc/nms_pair_mask.cu``), the definition its tests hold it to:
+    ``(..., N, M)`` bool, False for a pair whose IoU cannot exceed 0.
+
+    A pair is out of reach when its centres lie farther apart on either
+    axis than the sum of the boxes' ``(w + h) / 2`` (each at least the
+    box's circumradius, so the boxes cannot meet; the IoU-matrix kernel's
+    test), or when either box has an area ``w * h`` that is not positive
+    (the physical bound ``min(inter, min(area1, area2))`` then caps the
+    intersection at 0 or below). The same float32 operations as the
+    kernel, so the two agree bit for bit."""
+    w1, h1 = boxes1[..., 2], boxes1[..., 3]
+    w2, h2 = boxes2[..., 2], boxes2[..., 3]
+    r1 = (0.5 * (w1 + h1))[..., :, None]
+    r2 = (0.5 * (w2 + h2))[..., None, :]
+    dx = (boxes1[..., 0][..., :, None] - boxes2[..., 0][..., None, :]).abs()
+    dy = (boxes1[..., 1][..., :, None] - boxes2[..., 1][..., None, :]).abs()
+    reach = r1 + r2
+    return (dx <= reach) & (dy <= reach) & \
+        ((w1 * h1) > 0)[..., :, None] & ((w2 * h2) > 0)[..., None, :]
+
+
 def nms_pair_mask_plain(boxes: torch.Tensor, iou_thr: float,
                         class_ids: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -75,7 +99,8 @@ def nms_pair_mask(boxes: torch.Tensor, iou_thr: float,
 
     ``class_ids`` ((B, N) int32, optional) makes suppression intra-class;
     with class-major order the kernel also skips cross-class tiles. Without
-    it every pair counts as the same class."""
+    it every pair counts as the same class. The kernel runs the clip math
+    only on same-class pairs that :func:`pairs_in_reach` keeps."""
     _check(boxes, class_ids)
     if boxes.device.type == 'cpu':
         return nms_pair_mask_plain(boxes, iou_thr, class_ids)

@@ -9,6 +9,11 @@ its plain PyTorch version (counterpart of
 The kernel reads the cells it needs directly, so every RoI geometry takes
 the same path: there is no window and no fallback for large RoIs.
 
+The kernel has two paths with the same arithmetic (:func:`vector_path`
+says which a call takes): lanes that own 16 bytes of channels when ``C`` is
+a multiple of 8 (bfloat16) or 4 (float32) and every level is 16-byte
+aligned, one channel per lane otherwise.
+
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel,
 one launch for the whole batch, or raises. Neither has a gradient: both
 raise for features that require one while autograd is recording, and the
@@ -67,6 +72,16 @@ def _check(feats, rois, out_size, spatial_scales, sampling_ratio):
             'ops.roi_align_rotated.roi_align_rotated to differentiate')
 
 
+def vector_path(feats: Sequence[torch.Tensor]) -> bool:
+    """Whether the kernel takes its 16-byte path for these levels: the
+    channels fill whole 16-byte vectors and every level starts on a 16-byte
+    boundary (the output, from ``torch.empty``, always does). Otherwise it
+    takes the scalar path, one channel per lane."""
+    elt = feats[0].element_size()
+    return (feats[0].shape[-1] * elt) % 16 == 0 and \
+        all(f.data_ptr() % 16 == 0 for f in feats)
+
+
 def roi_align_rotated_pyramid_plain(
         feats: Sequence[torch.Tensor], rois: torch.Tensor,
         out_size: Tuple[int, int] = (7, 7),
@@ -111,13 +126,18 @@ def roi_align_rotated_pyramid(
     from ..utils.cuda_build import build
     fn = build([KERNEL])[KERNEL].lib.roi_align_rotated
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     n = len(feats)
     if b > 65535:
         raise ValueError(f'batch {b} exceeds the grid limit 65535')
+    for f in feats:
+        # the kernel's corner offsets within one image's level are 32-bit
+        if (f.shape[1] + 2) * (f.shape[2] + 2) * c >= 2 ** 31 - 1:
+            raise ValueError(f'level {tuple(f.shape)} is too large for the '
+                             f'kernel\'s 32-bit offsets')
     # the level comes from the function the plain version uses, so the card's
     # log2 cannot route a RoI differently
     levels = level_of_rois(rois, n, finest_scale).to(torch.int32).contiguous()
@@ -132,8 +152,8 @@ def roi_align_rotated_pyramid(
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(ptrs, hs, ws, scales, n, rois.data_ptr(),
                      levels.data_ptr(), out.data_ptr(), b, r, c,
-                     int(feats[0].dtype == torch.bfloat16), int(clockwise),
-                     stream)
+                     int(feats[0].dtype == torch.bfloat16),
+                     int(vector_path(feats)), int(clockwise), stream)
         if err != 0:
             raise RuntimeError(
                 f'roi_align_rotated launch failed: CUDA error {err}')

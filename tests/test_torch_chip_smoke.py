@@ -31,10 +31,18 @@ def test_phase_slice_rehearsal():
 
 
 def test_phase_serving_rehearsal():
-    launches = chip_smoke.phase_serving('cpu', bsz=2, size=128, warm=1,
-                                        timed=1, dtype=torch.float32,
-                                        max_candidates=300)
+    launches, captured = chip_smoke.phase_serving(
+        'cpu', bsz=2, size=128, warm=1, timed=1, dtype=torch.float32,
+        max_candidates=300)
     assert launches == NO_LAUNCHES
+    # the recorded request's NMS inputs, as ops/nms.py passes them
+    boxes, cls = captured['retinanet']
+    assert boxes.shape == (2, 300, 5) and boxes.dtype == torch.float32
+    assert cls.shape == (2, 300) and cls.dtype == torch.int32
+    assert boxes.is_contiguous() and cls.is_contiguous()
+    # the recording wrapper is gone again
+    from orientedobjectdetection_torch.ops import iou_kernels, nms
+    assert nms.nms_pair_mask is iou_kernels.nms_pair_mask
 
 
 def test_phase_iou_kernel_rehearsal():
@@ -92,10 +100,59 @@ def test_phase_orcnn_slice_rehearsal():
 
 
 def test_phase_orcnn_serving_rehearsal():
-    launches = chip_smoke.phase_orcnn_serving(
+    launches, captured = chip_smoke.phase_orcnn_serving(
         'cpu', bsz=1, size=128, warm=1, timed=1, split=1,
         dtype=torch.float32, max_num=200, max_candidates=300)
     assert launches == NO_LAUNCHES
+    boxes, cls = captured['orcnn']
+    assert boxes.shape == (1, 300, 5) and cls.shape == (1, 300)
+    levels, rois = captured['orcnn_roi']
+    assert rois.shape == (1, 200, 5) and len(levels) == 4
+    assert [f.shape[1] for f in levels] == [32, 16, 8, 4]
+    assert all(f.shape[-1] == 256 for f in levels)
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import roi_align_kernels
+    assert oriented_roi_head.roi_align_rotated_pyramid is \
+        roi_align_kernels.roi_align_rotated_pyramid
+
+
+def test_phase_main_path_kernels_rehearsal():
+    """Phase 12 on small recorded-like inputs: the records gain the
+    main-path numbers, and the error stays 0 (plain against plain)."""
+    boxes, cls = chip_smoke.dota_candidates(2, 90, 5, num_classes=3)
+    feats = chip_smoke.seeded_pyramid(1, 128, 8, torch.float32, 'cpu', 6)
+    rois = torch.from_numpy(chip_smoke.seeded_rois(1, 24, 128, 7))
+    live = rois[..., 2] > 1e-3
+    captured = {'retinanet': (torch.from_numpy(boxes), torch.from_numpy(cls)),
+                'orcnn': (torch.from_numpy(boxes[:1]).contiguous(),
+                          torch.from_numpy(cls[:1]).contiguous()),
+                'orcnn_roi': (feats, rois[:, :int(live.sum())].contiguous())}
+    records = [dict(name='nms_pair_mask', max_abs_err=0),
+               dict(name='roi_align_rotated', max_abs_err=0.0)]
+    chip_smoke.phase_main_path_kernels('cpu', captured, records, reps=1,
+                                       roi_reps=1)
+    pair, roi = records
+    assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
+    for key in ('retinanet', 'orcnn'):
+        got = pair['main_path_inputs'][key]
+        assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
+        assert 0 <= got['pairs_in_reach'] <= got['same_class_pairs']
+    got = roi['main_path_inputs']['orcnn']
+    assert got['bound_by'] in ('bytes', 'operations') and got['cells'] > 0
+    assert got['live_rois'] == sum(got['rois_per_level'])
+
+
+def test_pair_mask_bound_counts_pairs_in_reach():
+    """Three boxes of one class: (0, 1) overlap, 2 is far away; a box of
+    another class on top of 0 is not a same-class pair."""
+    boxes = torch.tensor([[[10., 10., 8., 8., 0.], [12., 10., 8., 8., 0.],
+                           [500., 10., 8., 8., 0.], [10., 10., 8., 8., 0.]]])
+    cls = torch.tensor([[0, 0, 0, 1]], dtype=torch.int32)
+    bound, by, same, in_reach = chip_smoke.pair_mask_bound_ms(boxes, cls)
+    assert (same, in_reach, by) == (3, 1, 'bytes')
+    nbytes = 20 * 4 + 4 * 4 + 16
+    assert bound == nbytes / chip_smoke.PEAK_BYTES * 1e3
 
 
 def dets_of(rows):
@@ -149,3 +206,16 @@ def test_main_refuses_without_card():
     assert proc.returncode != 0
     assert proc.stdout == ''
     assert 'no CUDA device' in proc.stderr
+
+
+@pytest.mark.parametrize('kernel', ['nms_pair_mask', 'roi_align_rotated'])
+def test_kernel_variants_still_edit_the_sources(kernel):
+    """Every edit of ``utils/kernel_variants.py`` matches its kernel's
+    source once, and every variant but ``shipped`` changes it."""
+    from orientedobjectdetection_torch.utils import kernel_variants as kv
+    table = {'nms_pair_mask': kv.PAIR_MASK,
+             'roi_align_rotated': kv.ROI_ALIGN}[kernel]
+    sources = kv.edited_sources(kernel, table)
+    shipped = sources.pop('shipped')
+    assert shipped == (kv.cuda_build.CSRC / f'{kernel}.cu').read_text()
+    assert sources and all(src != shipped for src in sources.values())

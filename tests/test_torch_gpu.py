@@ -15,9 +15,9 @@ from orientedobjectdetection_torch.core import MaxIoUAssigner
 from orientedobjectdetection_torch.ops.iou import rbbox_overlaps
 from orientedobjectdetection_torch.ops.iou_kernels import (
     box_iou_rotated_matrix, box_iou_rotated_matrix_plain, nms_pair_mask,
-    nms_pair_mask_plain, pair_iou)
+    nms_pair_mask_plain, pair_iou, pairs_in_reach)
 from orientedobjectdetection_torch.ops.roi_align_kernels import (
-    roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
+    roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain, vector_path)
 from orientedobjectdetection_torch.utils import Config
 
 pytestmark = pytest.mark.gpu
@@ -69,6 +69,107 @@ def test_pair_mask_kernel_matches_plain(cuda, bsz, n, with_cls):
     band = (pair_iou(boxes) - 0.1).abs() < BAND
     assert torch.equal(got[~band], ref[~band])
     assert not got.tril().any()
+
+
+def check_pair_mask(boxes, cls, thr=0.1):
+    """One launch; equal to the plain version outside the band; nothing on
+    or below the diagonal; nothing where the reject applies."""
+    before = nms_pair_mask.launches
+    got = nms_pair_mask(boxes, thr, cls)
+    torch.cuda.synchronize()
+    assert nms_pair_mask.launches == before + 1
+    n = boxes.shape[1]
+    assert got.dtype == torch.uint8 and got.shape == (boxes.shape[0], n, n)
+    ref = nms_pair_mask_plain(boxes, thr, cls)
+    band = (pair_iou(boxes) - thr).abs() < BAND
+    assert torch.equal(got[~band], ref[~band])
+    assert not got.tril().any()
+    assert not got[~pairs_in_reach(boxes, boxes)].any()
+    return got
+
+
+def dense_inputs(bsz, n, seed, classes):
+    """Boxes crowded enough to overlap at any N, with class ids: 'none'
+    (``class_ids=None``), 'one', 'fifteen' (sorted, class-major) or
+    'unsorted' (15 classes in random order: the tile skip may only
+    prune)."""
+    rng = np.random.default_rng(seed)
+    extent = 40.0 * np.sqrt(n) + 50.0
+    boxes = np.stack([rng.uniform(0, extent, (bsz, n)),
+                      rng.uniform(0, extent, (bsz, n)),
+                      rng.uniform(4, 60, (bsz, n)),
+                      rng.uniform(4, 60, (bsz, n)),
+                      rng.uniform(-np.pi / 2, np.pi / 2, (bsz, n))],
+                     -1).astype(np.float32)
+    cls = {'none': None, 'one': np.zeros((bsz, n)),
+           'fifteen': np.sort(rng.integers(0, 15, (bsz, n)), -1),
+           'unsorted': rng.integers(0, 15, (bsz, n))}[classes]
+    return (torch.from_numpy(boxes),
+            None if cls is None else torch.from_numpy(cls.astype(np.int32)))
+
+
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 300, 2000])
+@pytest.mark.parametrize('classes', ['none', 'one', 'fifteen', 'unsorted'])
+def test_pair_mask_sizes_and_class_orders(cuda, n, classes):
+    """N below, at and above one 64-row band, N % 16 == 0 (16-byte stores),
+    N % 4 == 0 (4-byte stores) and odd N (byte stores)."""
+    boxes, cls = dense_inputs(2, n, n + len(classes), classes)
+    got = check_pair_mask(boxes.to(cuda), None if cls is None
+                          else cls.to(cuda))
+    if n >= 64:
+        assert got.any()                    # the case suppresses something
+
+
+def special_boxes(case):
+    """(1, N, 5) boxes and (1, N) sorted class ids of one kind."""
+    rng = np.random.default_rng(len(case))
+    if case == 'coincident':           # every box twice, and one 5 times
+        one = rng.uniform(0, 200, (60, 5)).astype(np.float32)
+        one[:, 2:4] = rng.uniform(4, 40, (60, 2))
+        boxes = np.concatenate([one, one, np.repeat(one[:1], 5, 0)])
+    elif case == 'touching':           # a grid of squares sharing edges
+        xs, ys = np.meshgrid(np.arange(12) * 10.0, np.arange(10) * 10.0)
+        boxes = np.stack([xs.ravel(), ys.ravel(), np.full(120, 10.0),
+                          np.full(120, 10.0), np.zeros(120)], -1)
+        boxes[::7, 4] = np.pi / 2      # the same square, turned
+    elif case == 'reach_edge':         # pairs 0.01 inside / outside reach
+        rows = []
+        for k in range(80):
+            w, h = rng.uniform(4, 60, 2)
+            step = w + h + (0.01 if k % 2 else -0.01)
+            axis = np.array([step, 0.0] if k % 4 < 2 else [0.0, step])
+            base = np.array([300.0 * (k % 10), 300.0 * (k // 10)])
+            rows.append([*base, w, h, rng.uniform(-np.pi, np.pi)])
+            rows.append([*(base + axis), w, h, rng.uniform(-np.pi, np.pi)])
+        boxes = np.asarray(rows)
+    else:                              # 'zero_padding'
+        real = rng.uniform(0, 150, (100, 5))
+        real[:, 2:4] = rng.uniform(4, 40, (100, 2))
+        boxes = np.concatenate([real, np.zeros((100, 5))])
+        boxes[100:110, 2] = 5.0        # zero area, one side not zero
+    n = len(boxes)
+    cls = np.zeros(n, np.int32)
+    if case == 'zero_padding':
+        cls[100:] = 15                 # padding sorts behind every class
+    return (torch.from_numpy(boxes.astype(np.float32))[None],
+            torch.from_numpy(cls)[None])
+
+
+@pytest.mark.parametrize('case', ['coincident', 'touching', 'reach_edge',
+                                  'zero_padding'])
+def test_pair_mask_special_boxes(cuda, case):
+    boxes, cls = special_boxes(case)
+    boxes, cls = boxes.to(cuda), cls.to(cuda)
+    got = check_pair_mask(boxes, cls)
+    keep = pairs_in_reach(boxes, boxes)
+    if case == 'coincident':
+        assert got[0, :60, 60:120].diagonal().all()   # each with its twin
+    if case == 'reach_edge':
+        inside = keep[0, 0::2, 1::2].diagonal()
+        assert inside.tolist() == [k % 2 == 0 for k in range(80)]
+    if case == 'zero_padding':
+        assert not got[0, 100:].any() and not got[0, :, 100:].any()
+        assert got[0, :100, :100].any()
 
 
 def test_pair_mask_rejects_mixed_devices(cuda):
@@ -252,6 +353,53 @@ def test_roi_align_kernel_matches_plain(cuda, bsz, r, size, channels, dtype,
     assert not got[:, -max(r // 8, 1):].any()       # padding: exact zeros
     if r > 1:
         assert got[:, 0].abs().max() > 0            # the giant RoI pooled
+
+
+@pytest.mark.parametrize('dtype,channels,vector', [
+    (torch.bfloat16, 8, True), (torch.bfloat16, 256, True),
+    (torch.bfloat16, 300, False), (torch.float32, 4, True),
+    (torch.float32, 300, True), (torch.float32, 6, False)])
+@pytest.mark.parametrize('bsz,r', [(1, 13), (3, 29)])
+def test_roi_align_vector_and_scalar_paths(cuda, dtype, channels, vector,
+                                           bsz, r):
+    """Both paths in both types; RoI counts that are not a multiple of the
+    RoIs per block (8 for bfloat16 and 4 for float32 at C = 256)."""
+    feats, rois = roi_case(bsz, r, 256, channels, dtype, r + channels, cuda)
+    assert vector_path(feats) is vector
+    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0, False)
+    before = roi_align_rotated_pyramid.launches
+    got = roi_align_rotated_pyramid(*args)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid.launches == before + 1
+    ref = roi_align_rotated_pyramid_plain(*args)
+    assert got.shape == (bsz, r, 7, 7, channels) and got.dtype == dtype
+    scale = max(float(f.abs().max()) for f in feats)
+    allowed = ROI_RTOL * scale + ROI_BF16_STEP[dtype] * ref.float().abs()
+    assert ((got.float() - ref.float()).abs() <= allowed).all()
+    assert not got[:, -max(r // 8, 1):].any()       # padding: exact zeros
+    assert got[:, :-max(r // 8, 1)].abs().max() > 0
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_roi_align_misaligned_level_takes_the_scalar_path(cuda, dtype):
+    """A level that is a view one element into its storage is not 16-byte
+    aligned: the wrapper takes the scalar path (it does not raise), which
+    gives the vector path's values."""
+    feats, rois = roi_case(2, 21, 256, 64, dtype, 9, cuda)
+    storage = torch.empty(feats[1].numel() + 1, dtype=dtype, device=cuda)
+    shifted = storage[1:].view(feats[1].shape)
+    shifted.copy_(feats[1])
+    moved = [feats[0], shifted] + feats[2:]
+    assert vector_path(feats) and not vector_path(moved)
+    args = ((7, 7), ROI_SCALES, 2, 56.0)
+    vec = roi_align_rotated_pyramid(feats, rois, *args)
+    scalar = roi_align_rotated_pyramid(moved, rois, *args)
+    ref = roi_align_rotated_pyramid_plain(feats, rois, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(scalar, vec)
+    scale = max(float(f.abs().max()) for f in feats)
+    allowed = ROI_RTOL * scale + ROI_BF16_STEP[dtype] * ref.float().abs()
+    assert ((scalar.float() - ref.float()).abs() <= allowed).all()
 
 
 def test_roi_align_fewer_levels_and_wrapper_contract(cuda):

@@ -159,6 +159,61 @@ def test_pair_mask_wrapper_on_cpu_takes_plain():
         atol=0)
 
 
+def reach_cases():
+    """Box sets for the pair-mask kernel's exact reject, each against
+    itself."""
+    rng = np.random.default_rng(70)
+    rotated = dota_boxes(120, 71, hi=250.0, smin=2.0, smax=90.0)
+    rotated[:40, 3] = rotated[:40, 2] / 12.0         # thin, any angle
+    # pairs on either side of the reach, along x and y: centres
+    # r1 + r2 -+ 0.01 apart, at every angle
+    w = rng.uniform(4, 60, (60, 2)).astype(np.float32)
+    reach = 0.5 * (w[:, 0] + w[:, 1])
+    edge = []
+    for k in range(30):
+        step = np.float32(2 * reach[k] + (0.01 if k % 2 else -0.01))
+        a, b = rng.uniform(-np.pi, np.pi, 2)
+        axis = np.array([step, 0.0] if k % 4 < 2 else [0.0, step], np.float32)
+        base = np.float32([400.0 * k, 300.0])
+        edge.append([*base, w[k, 0], w[k, 1], a])
+        edge.append([*(base + axis), w[k, 0], w[k, 1], b])
+    offset = dota_boxes(90, 72, hi=120.0)
+    labels = rng.integers(0, 4, 90)
+    extent = (offset[:, :2].max(-1) + offset[:, 2:4].max(-1)).max()
+    offset[:, :2] += (labels * (extent + 1.0))[:, None]
+    zero = np.concatenate([np.zeros((8, 5), np.float32),
+                           np.asarray([[5., 5., 0., 7., 0.3],
+                                       [5., 5., 6., 0., 0.]], np.float32),
+                           clustered_boxes(10, 73)])
+    same = clustered_boxes(30, 74)
+    return {'random': dota_boxes(200, 75, hi=300.0), 'rotated': rotated,
+            'edge_of_reach': np.asarray(edge, np.float32),
+            'touching': iou_cases()['touching'][0],
+            'coincident': np.concatenate([same, same]),
+            'class_offset': offset, 'zero_size': zero}
+
+
+@pytest.mark.parametrize('case', sorted(reach_cases()))
+def test_pairs_in_reach_reject_is_exact(case):
+    """The kernel's reject, by its plain twin: no pair it rejects has a
+    plain IoU above 0, so skipping their clip math cannot change the
+    mask."""
+    boxes = torch.from_numpy(reach_cases()[case])
+    iou = tiou.box_iou_rotated(boxes, boxes)
+    keep = iou_kernels.pairs_in_reach(boxes, boxes)
+    assert keep.shape == iou.shape and keep.dtype == torch.bool
+    assert (iou[~keep] <= 0).all()
+    assert (~keep).any()                    # the case rejects something
+    if case in ('random', 'coincident', 'touching', 'edge_of_reach'):
+        assert (iou[keep] > 0).any()        # ... and keeps overlaps
+    if case == 'edge_of_reach':
+        # pairs 0.01 inside the reach are kept, those 0.01 outside are not
+        pair = keep[0::2, 1::2].diagonal()
+        assert pair.tolist() == [k % 2 == 0 for k in range(30)]
+    if case == 'zero_size':
+        assert not keep[:10].any() and not keep[:, :10].any()
+
+
 @pytest.mark.parametrize('bad', ['float64', 'shape', 'cls_dtype',
                                  'cls_shape', 'noncontiguous'])
 def test_pair_mask_wrapper_rejects(bad):

@@ -22,7 +22,7 @@ import chip_smoke
 from orientedobjectdetection_tpu.ops.roi_align_rotated import (
     _level_of_rois as j_level_of_rois, roi_align_rotated as j_roi_align)
 from orientedobjectdetection_torch.ops.roi_align_kernels import (
-    roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
+    roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain, vector_path)
 from orientedobjectdetection_torch.ops.roi_align_rotated import (
     level_of_rois, roi_align_rotated)
 
@@ -224,3 +224,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kwargs.update(bad)
     with pytest.raises(ValueError):
         roi_align_rotated_pyramid(feats, rois, **kwargs)
+
+
+@pytest.mark.parametrize('dtype,channels,vector', [
+    (torch.bfloat16, 8, True), (torch.bfloat16, 256, True),
+    (torch.bfloat16, 300, False), (torch.bfloat16, 12, False),
+    (torch.float32, 4, True), (torch.float32, 300, True),
+    (torch.float32, 6, False), (torch.float32, 1, False)])
+def test_vector_path_needs_whole_16_byte_vectors(dtype, channels, vector):
+    """The kernel's 16-byte path takes channels that fill whole vectors
+    (8 bfloat16 or 4 float32) on 16-byte aligned levels; a level that is a
+    view starting one element into its storage takes the scalar path."""
+    feats = [torch.zeros((1, s, s, channels), dtype=dtype) for s in (8, 4)]
+    assert all(f.data_ptr() % 16 == 0 for f in feats)
+    assert vector_path(feats) is vector
+    flat = torch.zeros(1 + 4 * 4 * channels, dtype=dtype)
+    shifted = flat[1:].view(1, 4, 4, channels)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    assert vector_path([feats[0], shifted]) is False
