@@ -21,12 +21,15 @@ plain PyTorch version:
              split between forward and decode+NMS, peak memory, launches
 6. kernel    box_iou_rotated vs its plain version at the assignment shape
              (B=8, G=32 gts x the 196,416 anchors of a 1024^2 image; IoF;
-             G=128 dense gts; duplicates and zero padding); time both
+             G=128 dense gts; duplicates and zero padding; the loader's
+             padding, G=512 with 64 valid); time both at G=32, the kernel
+             alone at G=512
 7. train     float32, 2 images: one train step with the kernel and one
    slice     from the same state with the plain IoU matrix agree
 8. training  bfloat16 autocast, batch 8 of 1024^2 uint8 images, the
              config's optimizer: 3 warm + 10 timed steps, imgs/s, peak
-             memory, launches per step, a falling loss, one profiled step
+             memory, launches per step, a falling loss, one more step
+             recording the assigner's IoU-matrix inputs, one profiled step
 9. kernel    roi_align_rotated vs its plain version at the Oriented R-CNN
              shape (B=8, 2000 RoIs, C=256, levels 256/128/64/32; float32 and
              bfloat16; all four levels, elongated, giant, over-the-edge and
@@ -39,17 +42,18 @@ plain PyTorch version:
     serving  network+RPN / proposals / RoIAlign+head / decode+NMS, peak
              memory, launches per request, profiled requests split by the
              detector's ``two_stage.*`` ranges
-12. kernels  phases 3 and 9 again on the inputs the main paths gave the
+12. kernels  phases 3, 6 and 9 again on the inputs the main paths gave the
     on the   kernels: nms_pair_mask on the candidates of one RetinaNet
     main     request (phase 5) and of one Oriented R-CNN request (phase 11),
-    path     roi_align_rotated on that Oriented R-CNN request's levels and
-             proposals, each recorded by a wrapper put in place of the
-             kernel's name for that one request; each held against its
-             plain version and timed beside its bound
+    path     box_iou_rotated on the assigner's gts and anchors of one train
+             step (phase 8), roi_align_rotated on that Oriented R-CNN
+             request's levels and proposals, each recorded by a wrapper put
+             in place of the kernel's name for that one request or step;
+             each held against its plain version and timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
-each main path (5, 8, 11) and read just after; the recorded requests run
-after that. The last two lines of standard
+each main path (5, 8, 11) and read just after; the recorded requests and
+step run after that. The last two lines of standard
 output are one JSON object with the kernels' numbers and one with the
 device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
@@ -161,6 +165,9 @@ def recording(module, name):
         calls.append(args)
         return original(*args)
 
+    # a wrapper put in place of its own module's name (iou_kernels.
+    # box_iou_rotated_matrix) counts its launches here meanwhile
+    record.launches = 0
     setattr(module, name, record)
     try:
         yield calls
@@ -604,46 +611,82 @@ def iou_matrix_bound_ms(boxes1, boxes2, live) -> tuple:
                                  else 'operations')
 
 
-def phase_iou_kernel(device, card='', bsz=8, g=32, valid=8, size=1024,
-                     dense_g=128, reps=50, plain_reps=3) -> dict:
-    from orientedobjectdetection_torch.ops.iou_kernels import (
-        box_iou_rotated_matrix, box_iou_rotated_matrix_plain)
-    anchors = config_anchors(size, device)
-    n = anchors.shape[0]
+def iou_matrix_cases(anchors, device, bsz=8, g=32, valid=8, dense_g=128,
+                     big_g=512, big_valid=64) -> dict:
+    """Phase 6's inputs, label -> (boxes1, boxes2, mode): ``bsz`` padded gt
+    sets of ``g`` rows with ``valid`` boxes each against the anchors, both
+    ways round (IoU, and the IoF of the anchors over ignore regions); dense
+    and duplicated gts; one unbatched set; and the loader's padding,
+    ``big_g`` rows with ``big_valid`` boxes (the JAX loader's ``max_gt``
+    is 512)."""
     gts = seeded_gts(anchors, bsz, g, valid, 30)[0].to(device)
     dense = seeded_gts(anchors, 2, dense_g, dense_g, 31)[0].to(device)
     dup = seeded_gts(anchors, 2, g, valid, 32, duplicates=True)[0].to(device)
-    cases = {
+    big = seeded_gts(anchors, bsz, big_g, big_valid, 33)[0].to(device)
+    return {
         'assignment': (gts, anchors, 'iou'),            # (B, G, N)
         'ignore-iof': (anchors, gts, 'iof'),            # (B, N, K)
         'dense': (dense, anchors, 'iou'),
         'duplicates': (dup, anchors, 'iou'),
         'one-image': (dup[0].contiguous(), anchors, 'iof'),
+        f'padded-{big_g}': (big, anchors, 'iou'),
     }
+
+
+def phase_iou_kernel(device, card='', bsz=8, g=32, valid=8, size=1024,
+                     dense_g=128, big_g=512, big_valid=64, reps=50,
+                     big_reps=10, plain_reps=3) -> dict:
+    """The kernel against its plain version on every case of
+    :func:`iou_matrix_cases`, then timed beside its bound at the assignment
+    shape (with the plain version) and at the loader's padding (without:
+    one plain call there takes seconds)."""
+    anchors = config_anchors(size, device)
+    n = anchors.shape[0]
+    cases = iou_matrix_cases(anchors, device, bsz, g, valid, dense_g, big_g,
+                             big_valid)
     max_err = 0.0
-    main_live = 0
+    live = {}
     for name, (b1, b2, mode) in cases.items():
-        err, live = check_iou_matrix(b1, b2, mode)
+        err, live[name] = check_iou_matrix(b1, b2, mode)
         max_err = max(max_err, err)
         total = max(b.shape[0] if b.dim() == 3 else 1 for b in (b1, b2)) * \
             b1.shape[-2] * b2.shape[-2]
         log(f'[kernel] box_iou_rotated {name} {tuple(b1.shape)} x '
             f'{tuple(b2.shape)} {mode}: max |kernel - plain| {err:.3g} <= '
-            f'{IOU_ATOL}; {live} of {total} pairs within reach, the rest '
-            f'exactly 0')
-        if name == 'assignment':
-            main_live = live
-    ms = time_ms(lambda: box_iou_rotated_matrix(gts, anchors), reps, device)
-    plain_ms = time_ms(lambda: box_iou_rotated_matrix_plain(gts, anchors),
-                       plain_reps, device, warmup=1)
-    bound_ms, bound_by = iou_matrix_bound_ms(gts, anchors, main_live)
-    log(f'[kernel] {card} | box_iou_rotated B={bsz} G={g} ({valid} valid) '
-        f'N={n}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{bound_ms:.4f} ms ({bound_by}; {main_live} pairs within reach), '
-        f'library none')
+            f'{IOU_ATOL}; {live[name]} of {total} pairs within reach, the '
+            f'rest exactly 0')
+    gts = cases['assignment'][0]
+    timing = time_iou_matrix(gts, anchors, live['assignment'], device, card,
+                             f'B={bsz} G={g} ({valid} valid) N={n}', reps,
+                             plain_reps)
+    big = cases[f'padded-{big_g}'][0]
+    big_timing = time_iou_matrix(big, anchors, live[f'padded-{big_g}'],
+                                 device, card, f'B={bsz} G={big_g} '
+                                 f'({big_valid} valid) N={n}', big_reps, 0)
     return dict(name='box_iou_rotated', **KERNELS['box_iou_rotated'],
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                max_abs_err=max_err, library_ms=None, **timing,
+                padded_gts={k: big_timing[k] for k in
+                            ('ms', 'bound_ms', 'bound_by', 'pairs_in_reach')})
+
+
+def time_iou_matrix(boxes1, boxes2, live, device, card, label, reps,
+                    plain_reps, mode='iou') -> dict:
+    """Kernel (``reps`` launches) and, unless ``plain_reps`` is 0, plain
+    version on one input, beside the bound for ``live`` pairs in reach."""
+    from orientedobjectdetection_torch.ops.iou_kernels import (
+        box_iou_rotated_matrix, box_iou_rotated_matrix_plain)
+    ms = time_ms(lambda: box_iou_rotated_matrix(boxes1, boxes2, mode), reps,
+                 device)
+    plain_ms = time_ms(
+        lambda: box_iou_rotated_matrix_plain(boxes1, boxes2, mode),
+        plain_reps, device, warmup=1) if plain_reps else None
+    bound_ms, bound_by = iou_matrix_bound_ms(boxes1, boxes2, live)
+    plain = f'{plain_ms:.3f} ms' if plain_reps else 'not timed'
+    log(f'[kernel] {card} | box_iou_rotated {label}: kernel {ms:.4f} ms, '
+        f'plain {plain}, bound {bound_ms:.4f} ms ({bound_by}; {live} pairs '
+        f'within reach), library none')
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, pairs_in_reach=live)
 
 
 # ---- 7./8. the trainer ------------------------------------------------------
@@ -772,9 +815,11 @@ def phase_train_slice(device, bsz=2, size=1024, g=32, valid=8) -> None:
 
 
 def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
-                   timed=10, dtype=torch.bfloat16) -> dict:
-    """``warm + timed`` train steps on one fixed batch; returns the
-    kernels' launch counts of this run."""
+                   timed=10, dtype=torch.bfloat16) -> tuple:
+    """``warm + timed`` train steps on one fixed batch. Returns the
+    kernels' launch counts of this run, and the IoU-matrix kernel's inputs
+    (boxes1, boxes2, mode), recorded in one more step after the counts are
+    read, under ``'train_step'``."""
     on_card = torch.device(device).type == 'cuda'
     detector, state, step = build_trainer(device, dtype)
     batch = train_batch(bsz, size, g, valid, 50, device)
@@ -821,6 +866,9 @@ def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
         f'{float(history[-1]["loss_bbox"]):.4f}); grad_norm '
         f'{float(history[0]["grad_norm"]):.3f} -> '
         f'{float(history[-1]["grad_norm"]):.3f}')
+    from orientedobjectdetection_torch.ops import iou_kernels
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+        state, _ = step(state, batch)
     prof = profile_run(lambda: step(state, batch), device, 'train step',
                        'train.')
     if prof['busy_us']:
@@ -837,7 +885,7 @@ def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
             f'{b2_us / 1e3:.3f} ms of it), optimizer '
             f'{spans.get("train.update", 0) / 1e3:.2f} ms, backward (the '
             f'rest) {(prof["busy_us"] - named) / 1e3:.2f} ms')
-    return counts
+    return counts, {'train_step': calls[0]}
 
 
 # ---- 9. RoIAlign kernel vs plain --------------------------------------------
@@ -1244,9 +1292,10 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
-    """Phases 3 and 9 on the inputs recorded in phases 5 and 11: each kernel
-    against its plain version with the same tolerances, then timed beside
-    its bound. Adds ``main_path_inputs`` to the kernels' records."""
+    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8 and 11:
+    each kernel against its plain version with the same tolerances, then
+    timed beside its bound. Adds ``main_path_inputs`` to the kernels'
+    records."""
     by_name = {rec['name']: rec for rec in records}
     pair = by_name['nms_pair_mask']
     pair['main_path_inputs'] = {}
@@ -1276,6 +1325,17 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             plain_reps)
     roi['main_path_inputs'] = {'orcnn': dict(
         timing, live_rois=live, rois_per_level=per_level, cells=cells)}
+    boxes1, boxes2, mode = captured['train_step']
+    iou = by_name['box_iou_rotated']
+    err, live = check_iou_matrix(boxes1, boxes2, mode)
+    iou['max_abs_err'] = max(iou['max_abs_err'], err)
+    log(f'[main-path] box_iou_rotated on the assigner\'s inputs in one train '
+        f'step {tuple(boxes1.shape)} x {tuple(boxes2.shape)} {mode}: max '
+        f'|kernel - plain| {err:.3g} <= {IOU_ATOL}; {live} pairs within '
+        f'reach, the rest exactly 0')
+    iou['main_path_inputs'] = {'train_step': time_iou_matrix(
+        boxes1, boxes2, live, device, card, 'train step\'s assigner inputs',
+        reps, plain_reps, mode)}
 
 
 def main() -> int:
@@ -1290,7 +1350,8 @@ def main() -> int:
     serving, captured = phase_serving('cuda', card=info['card'])
     records.append(phase_iou_kernel('cuda', card=info['card']))
     phase_train_slice('cuda')
-    training = phase_training('cuda', card=info['card'])
+    training, train_inputs = phase_training('cuda', card=info['card'])
+    captured.update(train_inputs)
     records.append(phase_roi_kernel('cuda', card=info['card']))
     phase_orcnn_slice('cuda')
     orcnn, orcnn_inputs = phase_orcnn_serving('cuda', card=info['card'])

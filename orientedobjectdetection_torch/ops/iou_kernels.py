@@ -29,6 +29,25 @@ KERNEL = 'nms_pair_mask'
 MATRIX_KERNEL = 'box_iou_rotated'
 # the plain matrix evaluates at most this many pairs at once
 PLAIN_PAIRS = 1 << 20
+# the C entry points' argument types: three pointers, ints and a float,
+# then the stream
+PAIR_MASK_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_void_p]
+MATRIX_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_FUNCTIONS = {}
+
+
+def kernel_function(name: str, argtypes: list):
+    """The C entry point ``name`` of ``csrc/<name>.cu``: built, loaded and
+    given its argument types at the first call, then kept."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        from ..utils.cuda_build import build
+        fn = getattr(build([name])[name].lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[name] = fn
+    return fn
 
 
 def _check(boxes: torch.Tensor, class_ids: Optional[torch.Tensor]):
@@ -106,11 +125,7 @@ def nms_pair_mask(boxes: torch.Tensor, iou_thr: float,
         return nms_pair_mask_plain(boxes, iou_thr, class_ids)
     if boxes.device.type != 'cuda':
         raise ValueError(f'no kernel for device {boxes.device}')
-    from ..utils.cuda_build import build
-    fn = build([KERNEL])[KERNEL].lib.nms_pair_mask
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_function(KERNEL, PAIR_MASK_ARGS)
     b, n = boxes.shape[:2]
     if b > 65535:
         raise ValueError(f'batch {b} exceeds the grid limit 65535')
@@ -173,6 +188,22 @@ def box_iou_rotated_matrix_plain(boxes1: torch.Tensor, boxes2: torch.Tensor,
     return torch.cat(parts, -2)
 
 
+def matrix_layout(boxes1: torch.Tensor, boxes2: torch.Tensor, mode: str
+                  ) -> tuple:
+    """How the kernel takes one call: the shorter set are its rows (kept
+    in shared memory), the longer its columns (along which it stores).
+    Returns (rows, cols, flags), flags being the C entry point's ints
+    ``(batch, g, n, rows_batched, cols_batched, iof, rows_first)``; the
+    kernel writes a ``(batch, g, n)`` buffer."""
+    batch = max(b.shape[0] if b.dim() == 3 else 1 for b in (boxes1, boxes2))
+    rows_first = boxes1.shape[-2] <= boxes2.shape[-2]
+    rows, cols = (boxes1, boxes2) if rows_first else (boxes2, boxes1)
+    g, n = rows.shape[-2], cols.shape[-2]
+    return rows, cols, (batch, g, n, int(rows.dim() == 3),
+                        int(cols.dim() == 3), int(mode == 'iof'),
+                        int(rows_first))
+
+
 def box_iou_rotated_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor,
                            mode: str = 'iou') -> torch.Tensor:
     """Rotated IoU (or IoF, over the FIRST set's area) of every pair, no
@@ -188,33 +219,22 @@ def box_iou_rotated_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor,
         return box_iou_rotated_matrix_plain(boxes1, boxes2, mode)
     if boxes1.device.type != 'cuda':
         raise ValueError(f'no kernel for device {boxes1.device}')
-    from ..utils.cuda_build import build
-    fn = build([MATRIX_KERNEL])[MATRIX_KERNEL].lib.box_iou_rotated
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    batched = boxes1.dim() == 3 or boxes2.dim() == 3
-    batch = max(b.shape[0] if b.dim() == 3 else 1 for b in (boxes1, boxes2))
-    rows_first = boxes1.shape[-2] <= boxes2.shape[-2]
-    rows, cols = (boxes1, boxes2) if rows_first else (boxes2, boxes1)
-    g, n = rows.shape[-2], cols.shape[-2]
-    if batch > 65535 or -(-g // 32) > 65535:
-        raise ValueError(f'batch {batch} or {g} rows exceed the grid limit')
-    out = torch.empty((batch, g, n), dtype=torch.float32,
-                      device=boxes1.device)
+    fn = kernel_function(MATRIX_KERNEL, MATRIX_ARGS)
+    rows, cols, flags = matrix_layout(boxes1, boxes2, mode)
+    rows_first = flags[-1]
+    out = torch.empty(flags[:3], dtype=torch.float32, device=boxes1.device)
     if out.numel():
         with torch.cuda.device(boxes1.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(rows.data_ptr(), cols.data_ptr(), out.data_ptr(), batch,
-                     g, n, int(rows.dim() == 3), int(cols.dim() == 3),
-                     int(mode == 'iof'), int(rows_first), stream)
+            err = fn(rows.data_ptr(), cols.data_ptr(), out.data_ptr(), *flags,
+                     stream)
         if err != 0:
             raise RuntimeError(
                 f'box_iou_rotated launch failed: CUDA error {err}')
         box_iou_rotated_matrix.launches += 1
     if not rows_first:
         out = out.transpose(1, 2)
-    return out if batched else out[0]
+    return out if boxes1.dim() == 3 or boxes2.dim() == 3 else out[0]
 
 
 box_iou_rotated_matrix.launches = 0

@@ -47,13 +47,46 @@ def test_phase_serving_rehearsal():
 
 def test_phase_iou_kernel_rehearsal():
     rec = chip_smoke.phase_iou_kernel('cpu', bsz=2, g=8, valid=3, size=128,
-                                      dense_g=16, reps=1, plain_reps=1)
+                                      dense_g=16, big_g=40, big_valid=6,
+                                      reps=1, big_reps=1, plain_reps=1)
     assert rec['name'] == 'box_iou_rotated' and rec['route'] == 'cuda'
     assert rec['max_abs_err'] == 0          # the wrapper took the plain one
     assert rec['bound_by'] in ('bytes', 'operations')
     assert rec['bound_ms'] > 0 and rec['ms'] > 0 and rec['plain_ms'] > 0
     assert rec['library_ms'] is None
     assert rec['replaces'].endswith('iou_pallas.py:347')
+    big = rec['padded_gts']                 # timed without the plain one
+    assert big['ms'] > 0 and big['bound_ms'] > rec['bound_ms']
+    assert big['pairs_in_reach'] > rec['pairs_in_reach'] > 0
+
+
+def test_iou_matrix_cases_loader_padding():
+    """Phase 6's G = 512 case: 64 valid gts per image, then 448 zero rows
+    that reach nothing."""
+    from orientedobjectdetection_torch.ops.iou_kernels import pairs_in_reach
+    anchors = chip_smoke.config_anchors(128, 'cpu')
+    cases = chip_smoke.iou_matrix_cases(anchors, 'cpu', bsz=2)
+    big, cols, mode = cases['padded-512']
+    assert big.shape == (2, 512, 5) and cols is anchors and mode == 'iou'
+    assert (big[:, 64:] == 0).all()
+    assert (big[:, :64, 2:4] > 0).all()
+    live = pairs_in_reach(big, anchors)
+    assert not live[:, 64:].any() and live[:, :64].any(-1).all()
+    assert sorted(cases) == sorted(['assignment', 'ignore-iof', 'dense',
+                                    'duplicates', 'one-image', 'padded-512'])
+
+
+def test_iou_matrix_bound_at_the_loader_padding():
+    """B=8, G=512, N=196,416 in float32: 3.22 GB, 0.962 ms at 3.35 TB/s
+    (bytes bound it below 107 M pairs in reach)."""
+    gts, anchors = torch.zeros((8, 512, 5)), torch.zeros((196416, 5))
+    bound, by = chip_smoke.iou_matrix_bound_ms(gts, anchors, 10 ** 7)
+    nbytes = 8 * 512 * 5 * 4 + 196416 * 5 * 4 + 8 * 512 * 196416 * 4
+    assert nbytes == 3222089984 and by == 'bytes'
+    assert bound == nbytes / chip_smoke.PEAK_BYTES * 1e3
+    assert round(bound, 3) == 0.962
+    assert chip_smoke.iou_matrix_bound_ms(gts, anchors, 2 * 10 ** 8)[1] == \
+        'operations'
 
 
 def test_phase_train_slice_rehearsal():
@@ -61,10 +94,18 @@ def test_phase_train_slice_rehearsal():
 
 
 def test_phase_training_rehearsal():
-    launches = chip_smoke.phase_training('cpu', bsz=1, size=128, g=8,
-                                         valid=3, warm=1, timed=2,
-                                         dtype=torch.float32)
+    launches, captured = chip_smoke.phase_training(
+        'cpu', bsz=1, size=128, g=8, valid=3, warm=1, timed=2,
+        dtype=torch.float32)
     assert launches == NO_LAUNCHES
+    # the recorded step's assigner inputs: gts clamped by rbbox_overlaps
+    boxes1, boxes2, mode = captured['train_step']
+    assert boxes1.shape == (1, 8, 5) and mode == 'iou'
+    assert boxes2.shape == chip_smoke.config_anchors(128, 'cpu').shape
+    assert (boxes1[0, 3:, 2:4] == 1e-3).all()
+    from orientedobjectdetection_torch.ops import iou_kernels
+    assert iou_kernels.box_iou_rotated_matrix.__name__ == \
+        'box_iou_rotated_matrix'
 
 
 def test_phase_roi_kernel_rehearsal():
@@ -128,12 +169,20 @@ def test_phase_main_path_kernels_rehearsal():
                 'orcnn': (torch.from_numpy(boxes[:1]).contiguous(),
                           torch.from_numpy(cls[:1]).contiguous()),
                 'orcnn_roi': (feats, rois[:, :int(live.sum())].contiguous())}
+    anchors = chip_smoke.config_anchors(128, 'cpu')
+    gts = chip_smoke.seeded_gts(anchors, 2, 8, 3, 8)[0]
+    captured['train_step'] = (gts.clamp(min=1e-3), anchors, 'iou')
     records = [dict(name='nms_pair_mask', max_abs_err=0),
-               dict(name='roi_align_rotated', max_abs_err=0.0)]
+               dict(name='roi_align_rotated', max_abs_err=0.0),
+               dict(name='box_iou_rotated', max_abs_err=0.0)]
     chip_smoke.phase_main_path_kernels('cpu', captured, records, reps=1,
                                        roi_reps=1)
-    pair, roi = records
+    pair, roi, iou = records
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
+    assert iou['max_abs_err'] == 0.0
+    got = iou['main_path_inputs']['train_step']
+    assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
+    assert got['pairs_in_reach'] > 0
     for key in ('retinanet', 'orcnn'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
@@ -208,13 +257,15 @@ def test_main_refuses_without_card():
     assert 'no CUDA device' in proc.stderr
 
 
-@pytest.mark.parametrize('kernel', ['nms_pair_mask', 'roi_align_rotated'])
+@pytest.mark.parametrize('kernel', ['nms_pair_mask', 'roi_align_rotated',
+                                    'box_iou_rotated'])
 def test_kernel_variants_still_edit_the_sources(kernel):
     """Every edit of ``utils/kernel_variants.py`` matches its kernel's
     source once, and every variant but ``shipped`` changes it."""
     from orientedobjectdetection_torch.utils import kernel_variants as kv
     table = {'nms_pair_mask': kv.PAIR_MASK,
-             'roi_align_rotated': kv.ROI_ALIGN}[kernel]
+             'roi_align_rotated': kv.ROI_ALIGN,
+             'box_iou_rotated': kv.IOU_MATRIX}[kernel]
     sources = kv.edited_sources(kernel, table)
     shipped = sources.pop('shipped')
     assert shipped == (kv.cuda_build.CSRC / f'{kernel}.cu').read_text()

@@ -268,6 +268,19 @@ def test_iou_matrix_wrapper_contract(cuda):
     assert box_iou_rotated_matrix.launches == before + 1
 
 
+def test_kernel_functions_are_resolved_once(cuda):
+    """Both wrappers take their C entry point, with its argument types,
+    from one cache: built and typed at the first call only."""
+    from orientedobjectdetection_torch.ops import iou_kernels as ik
+    box_iou_rotated_matrix(random_boxes((4,), 1).to(cuda),
+                           random_boxes((9,), 2).to(cuda))
+    nms_pair_mask(sorted_inputs(1, 8, 0)[0].to(cuda), 0.1)
+    for name, args in ((ik.MATRIX_KERNEL, ik.MATRIX_ARGS),
+                       (ik.KERNEL, ik.PAIR_MASK_ARGS)):
+        fn = ik.kernel_function(name, args)
+        assert fn is ik._FUNCTIONS[name] and fn.argtypes == args
+
+
 def test_max_ties_go_to_the_lowest_index_on_the_card(cuda):
     x = torch.zeros((2, 5, 1000), device=cuda)
     x[:, 2:4] = 0.7
@@ -307,6 +320,106 @@ def test_assigner_kernel_equals_plain(cuda):
     assert torch.equal(got.labels[~band], ref.labels[~band])
     assert (got.assigned_gt_inds >= 0).any()
     assert (got.max_overlaps - ref.max_overlaps).abs().max() <= IOU_ATOL
+
+
+def check_iou_matrix(boxes1, boxes2, mode):
+    """One launch; within IOU_ATOL of the plain version; exactly 0 where
+    ``pairs_in_reach`` rejects the pair. Returns the pairs in reach."""
+    before = box_iou_rotated_matrix.launches
+    got = box_iou_rotated_matrix(boxes1, boxes2, mode)
+    torch.cuda.synchronize()
+    assert box_iou_rotated_matrix.launches == before + 1
+    ref = box_iou_rotated_matrix_plain(boxes1, boxes2, mode)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= IOU_ATOL
+    live = pairs_in_reach(boxes1, boxes2).expand_as(got)
+    assert (got[~live] == 0).all() and (ref[~live] == 0).all()
+    return live
+
+
+def grid_anchors(size, device):
+    from orientedobjectdetection_torch.core import RotatedAnchorGenerator
+    gen = RotatedAnchorGenerator(octave_base_scale=4, scales_per_octave=3,
+                                 ratios=[1.0, 0.5, 2.0],
+                                 strides=[8, 16, 32, 64, 128])
+    return torch.cat(gen.grid_priors(
+        [(-(-size // s), -(-size // s)) for s in (8, 16, 32, 64, 128)],
+        device=device), 0)
+
+
+@pytest.mark.parametrize('n', [1, 3, 5, 255, 4099, 4100, 4111])
+@pytest.mark.parametrize('g', [1, 33])
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_iou_matrix_column_counts(cuda, n, g, mode):
+    """N below one chunk of 16 columns, not a multiple of 4 (the scalar
+    store path) and a multiple of 4 (16-byte stores); G of one row and of
+    two row tiles. Where G > N the gts are the columns."""
+    boxes = random_boxes((n,), n, extent=150.0).to(cuda)
+    gts = random_boxes((2, g), g + 7, extent=150.0).to(cuda)
+    gts[:, 0] = boxes[0]                            # an identical pair
+    live = check_iou_matrix(gts, boxes, mode)
+    assert live.any()
+
+
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_iou_matrix_loader_padding(cuda, mode):
+    """G = 512 as the loader pads it: 20 gts per image near anchors, 492
+    zero rows at the origin, which reach nothing."""
+    anchors = grid_anchors(256, cuda)
+    rng = np.random.default_rng(5)
+    gts = torch.zeros((3, 512, 5), device=cuda)
+    pick = torch.from_numpy(rng.choice(len(anchors), 60)).to(cuda)
+    gts[:, :20] = anchors[pick].reshape(3, 20, 5)
+    gts[:, :20, :2] += 1.5
+    gts[:, :20, 4] = 0.3
+    b1, b2 = (gts, anchors) if mode == 'iou' else (anchors, gts)
+    live = check_iou_matrix(b1, b2, mode)
+    padded = live[:, 20:] if mode == 'iou' else live[:, :, 20:]
+    assert not padded.any() and live.any()
+
+
+def test_iou_matrix_every_pair_in_reach(cuda):
+    """32 large gts over a 256 px image: every pair of every block is in
+    reach, so each block clips all 32 x 256 of its pairs."""
+    anchors = grid_anchors(256, cuda)
+    rng = np.random.default_rng(6)
+    gts = torch.from_numpy(np.stack([
+        rng.uniform(100, 156, 32), rng.uniform(100, 156, 32),
+        rng.uniform(300, 600, 32), rng.uniform(300, 600, 32),
+        rng.uniform(-np.pi, np.pi, 32)], -1).astype(np.float32))
+    live = check_iou_matrix(gts.to(cuda)[None].repeat(2, 1, 1), anchors,
+                            'iou')
+    assert live.all()
+
+
+@pytest.mark.parametrize('gts_first', [True, False])
+def test_iou_matrix_zero_boxes_at_the_origin(cuda, gts_first):
+    """Zero boxes at the origin among 512-px anchors around it: in reach by
+    their centres, rejected by their area, so exactly 0."""
+    xs, ys = np.meshgrid(np.arange(-256.0, 257.0, 32.0),
+                         np.arange(-256.0, 257.0, 32.0))
+    anchors = torch.from_numpy(np.stack(
+        [xs.ravel(), ys.ravel(), np.full(xs.size, 512.0),
+         np.full(xs.size, 362.0), np.full(xs.size, 0.5)],
+        -1).astype(np.float32)).to(cuda)
+    gts = torch.zeros((2, 40, 5), device=cuda)
+    gts[:, 0] = torch.tensor([5.0, -7.0, 40.0, 20.0, 0.2], device=cuda)
+    b1, b2 = (gts, anchors) if gts_first else (anchors, gts)
+    live = check_iou_matrix(b1, b2, 'iou' if gts_first else 'iof')
+    assert live.sum() == 2 * len(anchors)           # the one real box
+
+
+def test_iou_matrix_misaligned_columns(cuda):
+    """A column set that starts 20 bytes into its storage takes the scalar
+    loads and gives the same matrix as an aligned copy of it."""
+    base = grid_anchors(256, cuda)
+    view = base[1:]                                 # contiguous, misaligned
+    assert view.data_ptr() % 16 != 0
+    gts = random_boxes((2, 9), 8, extent=256.0).to(cuda)
+    check_iou_matrix(gts, view, 'iou')
+    assert torch.equal(box_iou_rotated_matrix(gts, view),
+                       box_iou_rotated_matrix(gts, view.clone()))
 
 
 def roi_case(bsz, r, size, channels, dtype, seed, device):

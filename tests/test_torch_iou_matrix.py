@@ -24,6 +24,8 @@ from orientedobjectdetection_torch.ops import (box_iou_rotated,
                                                box_iou_rotated_matrix,
                                                box_iou_rotated_matrix_plain,
                                                obb2hbb, rbbox_overlaps)
+from orientedobjectdetection_torch.ops.iou_kernels import (matrix_layout,
+                                                           pairs_in_reach)
 
 torch.set_num_threads(1)
 
@@ -38,12 +40,16 @@ def random_boxes(n, seed, extent=100.0):
                      rng.uniform(-np.pi, np.pi, n)], -1).astype(np.float32)
 
 
+def grid_anchors(size):
+    sizes = [(-(-size // s), -(-size // s)) for s in ANCHOR_CFG['strides']]
+    return torch.cat(
+        RotatedAnchorGenerator(**ANCHOR_CFG).grid_priors(sizes), 0).numpy()
+
+
 def dota_like(size=128, g=8, valid=3, seed=0):
     """The anchors of a ``size`` px image and a padded gt set: ``valid``
     boxes near anchors, one exact copy of an anchor, zero boxes after."""
-    sizes = [(-(-size // s), -(-size // s)) for s in ANCHOR_CFG['strides']]
-    anchors = torch.cat(
-        RotatedAnchorGenerator(**ANCHOR_CFG).grid_priors(sizes), 0).numpy()
+    anchors = grid_anchors(size)
     rng = np.random.default_rng(seed)
     gts = np.zeros((g, 5), np.float32)
     pick = rng.choice(len(anchors), valid, replace=False)
@@ -175,6 +181,76 @@ def test_matrix_rejects_bad_inputs():
     with pytest.raises(ValueError):
         box_iou_rotated_matrix(b[None].repeat(2, 1, 1),
                                b[None].repeat(3, 1, 1))
+
+
+def zero_boxes_at_origin():
+    """Four zero boxes at the origin and two real boxes, against 512-px
+    anchors (square and 1:2, turned) whose centres lie within 256 px of
+    the origin: every zero box is in reach of them by its centre, and only
+    its area takes it out of reach."""
+    rng = np.random.default_rng(40)
+    xs, ys = np.meshgrid(np.arange(-256.0, 257.0, 64.0),
+                         np.arange(-256.0, 257.0, 64.0))
+    k = xs.size
+    anchors = np.stack([xs.ravel(), ys.ravel(),
+                        np.where(np.arange(k) % 2, 362.0, 512.0),
+                        np.where(np.arange(k) % 2, 724.0, 512.0),
+                        rng.uniform(-np.pi / 2, np.pi / 2, k)], -1)
+    gts = np.zeros((6, 5))
+    gts[4] = [10.0, -20.0, 60.0, 30.0, 0.4]
+    gts[5] = [200.0, 180.0, 40.0, 90.0, -1.1]
+    return (torch.from_numpy(gts.astype(np.float32)),
+            torch.from_numpy(anchors.astype(np.float32)))
+
+
+@pytest.mark.parametrize('gts_first', [True, False])
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_plain_matrix_is_zero_out_of_reach_zero_boxes(gts_first, mode):
+    """The kernel rejects every pair that ``pairs_in_reach`` rejects and
+    writes 0 there: the plain matrix must be exactly 0 at those pairs, here
+    zero boxes at the origin that the reach test alone would keep."""
+    gts, anchors = zero_boxes_at_origin()
+    b1, b2 = (gts, anchors) if gts_first else (anchors, gts)
+    live = pairs_in_reach(b1, b2)
+    got = box_iou_rotated_matrix_plain(b1, b2, mode)
+    assert gts[:4].abs().max() == 0
+    reach = 0.5 * (anchors[:, 2] + anchors[:, 3])
+    assert (anchors[:, :2].abs().amax(1) <= reach).all()   # centres reach
+    gt_rows = live[:4] if gts_first else live[:, :4].T
+    assert not gt_rows.any()
+    assert live.any()                             # the real boxes reach
+    assert (got[~live] == 0).all()
+    assert (got[live] > 0).any()
+
+
+def test_plain_matrix_is_zero_out_of_reach_loader_padding():
+    """A G = 512 gt set as the JAX loader pads it (``max_gt`` 512), 20 valid
+    boxes and 492 zero rows, on a small anchor grid: exactly 0 wherever
+    ``pairs_in_reach`` is False, in both orientations."""
+    anchors, gts = dota_like(size=64, g=512, valid=20, seed=41)
+    anchors, gts = torch.from_numpy(anchors), torch.from_numpy(gts)
+    got = box_iou_rotated_matrix_plain(gts, anchors)
+    live = pairs_in_reach(gts, anchors)
+    assert got.shape == live.shape == (512, anchors.shape[0])
+    assert not live[20:].any() and live[:20].any()
+    assert (got[~live] == 0).all()
+    iof = box_iou_rotated_matrix_plain(anchors, gts, 'iof')
+    assert (iof[~pairs_in_reach(anchors, gts)] == 0).all()
+
+
+@pytest.mark.parametrize('shape1,shape2,mode,flags', [
+    ((8, 32, 5), (1000, 5), 'iou', (8, 32, 1000, 1, 0, 0, 1)),
+    ((1000, 5), (8, 32, 5), 'iof', (8, 32, 1000, 1, 0, 1, 0)),
+    ((7, 5), (3, 7, 5), 'iou', (3, 7, 7, 0, 1, 0, 1)),
+    ((2, 9, 5), (2, 4, 5), 'iof', (2, 4, 9, 1, 1, 1, 0)),
+])
+def test_matrix_layout(shape1, shape2, mode, flags):
+    """The shorter set are the kernel's rows: the C entry point's ints, and
+    which tensor is which."""
+    b1, b2 = torch.zeros(shape1), torch.zeros(shape2)
+    rows, cols, got = matrix_layout(b1, b2, mode)
+    assert got == flags
+    assert (rows, cols) == ((b1, b2) if flags[-1] else (b2, b1))
 
 
 @pytest.mark.parametrize('version', ['oc', 'le90', 'le135'])
