@@ -4,7 +4,7 @@
 Drives the port's main paths at full width with seeded random weights:
 serving and training of Rotated RetinaNet R50-FPN le90
 (configs/rotated_retinanet/rotated_retinanet_obb_r50_fpn_1x_dota_le90.py)
-and serving of Oriented R-CNN R50-FPN le90
+and of Oriented R-CNN R50-FPN le90
 (configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
@@ -42,25 +42,46 @@ plain PyTorch version:
     serving  network+RPN / proposals / RoIAlign+head / decode+NMS, peak
              memory, launches per request, profiled requests split by the
              detector's ``two_stage.*`` ranges
-12. kernels  phases 3, 6 and 9 again on the inputs the main paths gave the
-    on the   kernels: nms_pair_mask on the candidates of one RetinaNet
-    main     request (phase 5) and of one Oriented R-CNN request (phase 11),
-    path     box_iou_rotated on the assigner's gts and anchors of one train
-             step (phase 8), roi_align_rotated on that Oriented R-CNN
+13. oriented float32, 2 images of 1024^2, G=32 with 8 valid: two-stage
+    train    train steps from one seeded state and rng with the IoU-matrix
+    slice    kernel in both assigners, in neither and in the RoI head's
+             only; each assigner assigns as with the plain matrix outside
+             ASSIGN_BAND, and where they agree the steps give the same
+             sampled anchors and RoIs, labels and losses, and parameters
+             within PARAM_RTOL of each tensor's change
+14. oriented bfloat16 autocast, 1024^2 uint8 images, the config's optimizer,
+    training G=32 with 8 valid: batch 8 and batch 4, 3 warm + 10 timed steps
+             each, imgs/s, peak memory, two box_iou_rotated launches per
+             step (the RPN's and the RoI head's assigners), a falling loss;
+             at batch 8 one more step recording both assigners' IoU-matrix
+             inputs and the RoI pooling's inputs, the gather pooling's
+             forward and backward timed alone, and one profiled step split
+             by the ``train.*`` and ``two_stage.*`` ranges, with no host
+             synchronisation inside ``two_stage.rpn_targets`` or
+             ``two_stage.sample_rois``
+12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
+    on the   paths gave the kernels: nms_pair_mask on the candidates of one
+    main     RetinaNet request (phase 5) and of one Oriented R-CNN request
+    path     (phase 11), box_iou_rotated on the assigner's gts and anchors
+             of one RetinaNet train step (phase 8) and on both assigners'
+             inputs of one Oriented R-CNN train step (phase 14: the RPN's
+             gts against the shared anchors, the RoI head's against each
+             image's proposals), roi_align_rotated on that Oriented R-CNN
              request's levels and proposals, each recorded by a wrapper put
              in place of the kernel's name for that one request or step;
              each held against its plain version and timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
-each main path (5, 8, 11) and read just after; the recorded requests and
-step run after that. The last two lines of standard
-output are one JSON object with the kernels' numbers and one with the
-device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+each main path (5, 8, 11, 14 at batch 8, 14 at batch 4) and read just
+after; the recorded requests and steps run after that. The last two lines
+of standard output are one JSON object with the kernels' numbers and one
+with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -90,7 +111,21 @@ FLOP_PER_IOU_PAIR = 600  # the same for the IoU matrix (iou_pallas.py:386)
 # to ~1e-5 (largest seen on an H100: 8.1e-6, an IoF close to 1)
 IOU_ATOL = 2e-5
 LOSS_RTOL = 1e-4         # train step, kernel vs plain matrix
-ASSIGN_THRS = (0.4, 0.5)  # the config's neg_iou_thr and pos_iou_thr
+# two-stage train step, kernel vs plain matrix: parameters after the step
+# agree per tensor within PARAM_RTOL x the largest change of that tensor.
+# The gather RoIAlign's backward and cuDNN's weight gradients accumulate
+# with atomics in an order that changes from run to run, which moves a
+# tensor whose gradient is small against its weight decay by more (5.2e-4
+# seen on an H100 between two steps with equal sampled sets); the sampled
+# sets and the losses themselves are held equal.
+PARAM_RTOL = 1e-2
+# events that make the host wait for the device (a read of a device value,
+# or an explicit synchronisation): none may run inside the sampler's ranges.
+# cudaMemcpyAsync alone is not one (PyTorch follows a copy to the host with
+# cudaStreamSynchronize).
+SYNC_EVENTS = ('aten::item', 'aten::_local_scalar_dense', 'aten::nonzero',
+               'cudaStreamSynchronize', 'cudaDeviceSynchronize',
+               'cudaEventSynchronize', 'cudaMemcpy')
 ASSIGN_BAND = 1e-5       # assignments may differ this close to a threshold
 # RoIAlign, kernel vs plain, per element:
 # |kernel - plain| <= ROI_RTOL x max |feature| (+ ROI_BF16_STEP x |plain| in
@@ -154,25 +189,29 @@ def read_launches() -> dict:
 
 
 @contextlib.contextmanager
-def recording(module, name):
-    """Put a wrapper in place of ``module.name`` that keeps the positional
-    arguments of every call and calls through; restore the name after.
-    Yields the list of argument tuples."""
-    original = getattr(module, name)
+def recording(obj, name):
+    """Put a wrapper in place of ``obj.name`` (a module's function or an
+    object's method) that keeps the positional arguments and the result of
+    every call; restore the name after. Yields the list of (args, result)."""
+    own = name in vars(obj)
+    original = getattr(obj, name)
     calls = []
 
     def record(*args):
-        calls.append(args)
-        return original(*args)
+        calls.append((args, original(*args)))
+        return calls[-1][1]
 
     # a wrapper put in place of its own module's name (iou_kernels.
     # box_iou_rotated_matrix) counts its launches here meanwhile
     record.launches = 0
-    setattr(module, name, record)
+    setattr(obj, name, record)
     try:
         yield calls
     finally:
-        setattr(module, name, original)
+        if own:
+            setattr(obj, name, original)
+        else:
+            delattr(obj, name)
 
 
 # ---- 1. device -----------------------------------------------------------
@@ -460,7 +499,7 @@ def phase_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     from orientedobjectdetection_torch.ops import nms
     with recording(nms, 'nms_pair_mask') as calls:
         bundle(images)
-    boxes, _, cls = calls[0]
+    boxes, _, cls = calls[0][0]
     profile_request(bundle, images, device)
     return counts, {'retinanet': (boxes, cls)}
 
@@ -485,11 +524,14 @@ def profile_request(bundle, images, device):
 def profile_run(fn, device, label, prefix, top=12) -> dict:
     """``fn()`` once under torch.profiler: device busy share of its wall
     time, the device time of the kernels launched inside each
-    ``record_function`` range named ``prefix*`` (on the calling thread),
-    each range's extent on the device's timeline where the profiler records
-    it (first to last kernel, the port's own kernels included), and the
-    kernels that take the most device time. Returns device microseconds by
-    kernel name, by range, and in total."""
+    ``record_function`` range named ``prefix*`` (a string or a tuple of
+    them; on the calling thread), each range's extent on the device's
+    timeline where the profiler records it (first to last kernel, the
+    port's own kernels included), and the kernels that take the most device
+    time. Returns device microseconds by kernel name, by range, by host
+    operator (``ops``: what the kernels launched inside it took, autograd's
+    backward nodes included) and in total, and the profile itself
+    (``prof``)."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.device(device).type == 'cuda':
@@ -507,7 +549,9 @@ def profile_run(fn, device, label, prefix, top=12) -> dict:
                and not e.key.startswith(prefix)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     result = dict(busy_us=busy_us, wall_us=wall_us, spans={},
-                  kernels={e.key: e.self_device_time_total for e in kernels})
+                  kernels={e.key: e.self_device_time_total for e in kernels},
+                  ops={e.key: e.device_time_total for e in averages
+                       if e.device_type != cuda}, prof=prof)
     if busy_us == 0:
         log(f'[profile] {label} {wall_us / 1e3:.2f} ms; device time not '
             f'measured by the profiler')
@@ -727,33 +771,34 @@ def train_batch(bsz, size, g, valid, seed, device) -> dict:
     return batch
 
 
-def check_assignments(detector, batch, size, device) -> tuple:
-    """The assigner on the batch's gts with the kernel and with the plain
+def check_assigner(assigner, priors, gts, labels, mask) -> tuple:
+    """The assigner on these inputs with the kernel and with the plain
     matrix: equal except where a prior's max IoU lies within ASSIGN_BAND of
-    a threshold or its IoU with some gt within ASSIGN_BAND of that gt's best
-    (a low-quality match that rounding can move). Returns (positives,
-    differing priors, all of them inside the band)."""
+    one of the assigner's thresholds or, with low-quality matches, its IoU
+    with some gt within ASSIGN_BAND of that gt's best (rounding can move
+    either). Returns (positives, differing priors, all of them inside the
+    band)."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
         box_iou_rotated_matrix_plain)
-    assigner = detector.bbox_head.assigner
-    anchors = config_anchors(size, device)
-    gts, labels, mask = (batch[k].to(device) for k in
-                         ('gt_bboxes', 'gt_labels', 'gt_mask'))
     was = assigner.plain_iou
     try:
         assigner.plain_iou = False
-        got = assigner(anchors, gts, labels, mask)
+        got = assigner(priors, gts, labels, mask)
         assigner.plain_iou = True
-        ref = assigner(anchors, gts, labels, mask)
+        ref = assigner(priors, gts, labels, mask)
     finally:
         assigner.plain_iou = was
     differ = got.assigned_gt_inds != ref.assigned_gt_inds
-    overlaps = box_iou_rotated_matrix_plain(gts, anchors)
-    overlaps = overlaps * mask[:, :, None]
-    near_best = ((overlaps - overlaps.amax(2, keepdim=True)).abs()
+    band = torch.zeros_like(differ)
+    if assigner.match_low_quality:
+        overlaps = box_iou_rotated_matrix_plain(gts, priors)
+        overlaps = overlaps * mask[:, :, None]
+        band |= ((overlaps - overlaps.amax(2, keepdim=True)).abs()
                  < ASSIGN_BAND).any(1)
-    band = near_best.clone()
-    for thr in ASSIGN_THRS:
+    thresholds = [assigner.neg_iou_thr, assigner.pos_iou_thr]
+    if assigner.match_low_quality and assigner.min_pos_iou > 0:
+        thresholds.append(assigner.min_pos_iou)
+    for thr in thresholds:
         band |= (ref.max_overlaps - thr).abs() < ASSIGN_BAND
     outside = int((differ & ~band).sum())
     if outside:
@@ -764,10 +809,20 @@ def check_assignments(detector, batch, size, device) -> tuple:
     return int((got.assigned_gt_inds >= 0).sum()), int(differ.sum())
 
 
+def check_assignments(detector, batch, size, device) -> tuple:
+    """:func:`check_assigner` for the RetinaNet head's assigner on the
+    batch's gts and the config's anchors."""
+    gts, labels, mask = (batch[k].to(device) for k in
+                         ('gt_bboxes', 'gt_labels', 'gt_mask'))
+    return check_assigner(detector.bbox_head.assigner,
+                          config_anchors(size, device), gts, labels, mask)
+
+
 def check_metrics(metrics):
-    for k in ('loss_cls', 'loss_bbox', 'loss', 'grad_norm'):
-        if not torch.isfinite(metrics[k]):
-            raise AssertionError(f'{k} is not finite: {metrics[k]}')
+    """Every loss, the total and the gradient norm are finite."""
+    for k, v in metrics.items():
+        if not torch.isfinite(v):
+            raise AssertionError(f'{k} is not finite: {v}')
 
 
 def one_train_step(device, batch, plain_iou) -> tuple:
@@ -885,7 +940,7 @@ def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
             f'{b2_us / 1e3:.3f} ms of it), optimizer '
             f'{spans.get("train.update", 0) / 1e3:.2f} ms, backward (the '
             f'rest) {(prof["busy_us"] - named) / 1e3:.2f} ms')
-    return counts, {'train_step': calls[0]}
+    return counts, {'train_step': calls[0][0]}
 
 
 # ---- 9. RoIAlign kernel vs plain --------------------------------------------
@@ -1261,8 +1316,8 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     with recording(nms, 'nms_pair_mask') as masks, \
             recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
         bundle(images)
-    inputs = {'orcnn': (masks[0][0], masks[0][2]),
-              'orcnn_roi': tuple(pools[0][:2])}
+    inputs = {'orcnn': (masks[0][0][0], masks[0][0][2]),
+              'orcnn_roi': tuple(pools[0][0][:2])}
 
     def requests():
         for _ in range(split):
@@ -1289,10 +1344,326 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     return counts, inputs
 
 
+# ---- 13./14. Oriented R-CNN training ---------------------------------------
+def build_orcnn_trainer(device, dtype, seed=0, plain_rpn=False,
+                        plain_roi=False):
+    """The Oriented R-CNN config's detector with seeded weights and the
+    config's optimizer (SGD, momentum, weight decay, clip, linear warmup,
+    frozen stem and stage 1), normalizing raw uint8 BGR images on the
+    device. The regression outputs of both stages are scaled down, as in
+    :func:`build_orcnn_bundle`, so proposals stay near their anchors.
+    ``plain_rpn`` / ``plain_roi``: the RPN's or the RoI head's assigner
+    computes its IoU matrix with the plain version (a reference run).
+    Returns (detector, state, train_step)."""
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.parallel import (
+        build_lr_schedule, build_optimizer, create_train_state,
+        make_train_step)
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(ORCNN_CONFIG)
+    detector = build_detector(dict(cfg.model))
+    detector.rpn_head.assigner.plain_iou = plain_rpn
+    detector.roi_head.assigner.plain_iou = plain_roi
+    schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
+                                 steps_per_epoch=1000)
+    tx = build_optimizer(dict(cfg.optimizer), schedule,
+                         grad_clip=cfg.optimizer_config['grad_clip'],
+                         frozen_stages=detector.backbone.frozen_stages)
+    state = create_train_state(detector, tx, device=device, seed=seed)
+    with torch.no_grad():
+        detector.rpn_head.rpn_reg.weight.mul_(0.05)
+        detector.roi_head.bbox_head.fc_reg.weight.mul_(0.05)
+    step = make_train_step(detector, tx, device_norm=cfg.img_norm_cfg,
+                           dtype=dtype)
+    return detector, state, step
+
+
+def orcnn_train_step(device, batch, plain_rpn, plain_roi) -> dict:
+    """A fresh seeded float32 trainer takes one step (the default rng of
+    step 0) on ``batch``, keeping the RPN's targets and the RoI head's
+    sampling (their inputs and results). Returns the metrics as floats,
+    those, each parameter before and after, and the detector."""
+    detector, state, step = build_orcnn_trainer(
+        device, torch.float32, plain_rpn=plain_rpn, plain_roi=plain_roi)
+    before = {n: p.detach().clone() for n, p in detector.named_parameters()}
+    with recording(detector.rpn_head, 'targets') as rpn, \
+            recording(detector.roi_head, 'sample_rois') as rois:
+        state, metrics = step(state, batch)
+    sync(device)
+    check_metrics(metrics)
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                rpn=rpn[0], rois=rois[0], before=before,
+                after={n: p.detach().clone()
+                       for n, p in detector.named_parameters()},
+                detector=detector)
+
+
+def same_outputs(kernel, plain, names, label) -> None:
+    """Equal tensors, the ``targets`` (float arithmetic on equal inputs)
+    within 1e-5."""
+    for name, got, ref in zip(names, kernel, plain):
+        if name == 'targets' and float((got - ref).abs().max()) <= 1e-5:
+            continue
+        if not torch.equal(got, ref):
+            raise AssertionError(f'{label} {name} differ between the kernel '
+                                 f'and the plain matrix')
+
+
+def same_steps(got, ref, label) -> float:
+    """Two steps whose assigners agreed: the same sampled anchors and RoIs,
+    labels, targets and losses, and parameters within PARAM_RTOL of each
+    tensor's change; frozen tensors unchanged. Returns the largest
+    difference relative to its tensor's change."""
+    same_outputs(got['rpn'][1], ref['rpn'][1],
+                 ('foreground', 'label weights', 'targets', 'box weights'),
+                 f'{label}: RPN')
+    same_outputs(got['rois'][1], ref['rois'][1],
+                 ('RoIs', 'labels', 'label weights', 'targets',
+                  'box weights', 'positives'), f'{label}: sampled')
+    for k, v in ref['metrics'].items():
+        if k != 'grad_norm' and abs(got['metrics'][k] - v) > \
+                LOSS_RTOL * abs(v):
+            raise AssertionError(f'{label}: {k} {got["metrics"][k]} vs {v}')
+    worst = 0.0
+    for n, before in ref['before'].items():
+        moved = ref['after'][n] - before
+        err = float((got['after'][n] - ref['after'][n]).abs().max())
+        if not ref['detector'].get_parameter(n).requires_grad:
+            if moved.any() or err:
+                raise AssertionError(f'{n}: frozen tensor changed')
+            continue
+        scale = float(moved.abs().max())
+        worst = max(worst, err / scale) if scale else worst
+        if err > PARAM_RTOL * scale:
+            raise AssertionError(f'{label}: {n} after the step differs by '
+                                 f'{err} > {PARAM_RTOL} x {scale}')
+    return worst
+
+
+def phase_orcnn_train_slice(device, bsz=2, size=1024, g=32, valid=8) -> None:
+    """float32: two-stage train steps from one seeded state and rng with the
+    IoU-matrix kernel in both assigners, in neither (the plain matrix), and
+    in the RoI head's only. The forward is the same in all three, so the
+    proposals are equal. Each assigner gives the same assignment with the
+    kernel as with the plain matrix, on the step's own inputs, except
+    within ASSIGN_BAND of a threshold or of a gt's best IoU
+    (:func:`check_assigner`): the RPN's axis-aligned gts and anchors make
+    ties at a gt's best IoU common, and rounding breaks them either way.
+    Where the assignments agree, the steps must agree (:func:`same_steps`):
+    the kernel in the RoI head against the plain run always, and the kernel
+    in both when the RPN's assignments agree as well."""
+    from orientedobjectdetection_torch.ops.boxes import obb2hbb
+    batch = train_batch(bsz, size, g, valid, 90, device)
+    kernel = orcnn_train_step(device, batch, False, False)
+    plain = orcnn_train_step(device, batch, True, True)
+    roi_only = orcnn_train_step(device, batch, True, False)
+    det = kernel['detector']
+    (proposals, prop_valid, gts, labels, mask, _), rois = kernel['rois']
+    for run in (plain, roi_only):
+        if not (torch.equal(proposals, run['rois'][0][0]) and
+                torch.equal(prop_valid, run['rois'][0][1])):
+            raise AssertionError('the proposals differ between the steps')
+    rpn_pos, rpn_differ = check_assigner(
+        det.rpn_head.assigner, kernel['rpn'][0][1],
+        obb2hbb(gts.float(), det.rpn_head.version),
+        torch.zeros_like(labels), mask)
+    roi_pos, roi_differ = check_assigner(
+        det.roi_head.assigner, torch.cat([gts.float(), proposals], 1),
+        gts.float(), labels, mask)
+    if roi_differ:
+        raise AssertionError(f'{roi_differ} RoIs assigned differently (in '
+                             f'the band), so the steps cannot be held equal')
+    worst = {'RoI head kernel vs plain': same_steps(roi_only, plain,
+                                                    'RoI head kernel')}
+    if rpn_differ == 0:
+        worst['both kernels vs plain'] = same_steps(kernel, plain,
+                                                    'both kernels')
+    fg, lw = kernel['rpn'][1][0], kernel['rpn'][1][1]
+    if rois[4].sum() < 1 or fg.sum() < 1:
+        raise AssertionError('the batch has no positive anchor or RoI')
+    log(f'[orcnn-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): assignments with the kernel and the plain matrix differ at '
+        f'{rpn_differ} anchors ({rpn_pos} positive) and {roi_differ} RoIs '
+        f'({roi_pos} positive), all within {ASSIGN_BAND} of a threshold or '
+        f'of a gt\'s best IoU; {int(fg.sum())} positive anchors sampled of '
+        f'{int(lw.sum())}, {int(rois[4].sum())} positive RoIs of '
+        f'{int(rois[2].sum())}; equal sampled sets, labels, targets and '
+        f'losses (rtol {LOSS_RTOL}) and parameters within '
+        + ', '.join(f'{v:.3g} ({k})' for k, v in worst.items()) +
+        f' of each tensor\'s change (limit {PARAM_RTOL}); losses with both '
+        f'kernels {kernel["metrics"]}, plain {plain["metrics"]}')
+
+
+def syncs_inside(prof, ranges, watch=SYNC_EVENTS) -> dict:
+    """Events named in ``watch`` that ran inside a ``record_function``
+    range named in ``ranges``, on its thread, each with the host operators
+    around it, outermost first. Returns range name -> ['event in op > op',
+    ...]."""
+    events = list(prof.events())
+    spans = [e for e in events if e.name in ranges]
+    found = {name: [] for name in ranges}
+
+    def inside(e, outer):
+        return e.thread == outer.thread and \
+            outer.time_range.start <= e.time_range.start and \
+            e.time_range.end <= outer.time_range.end
+
+    for e in events:
+        if e.name not in watch:
+            continue
+        for span in spans:
+            if inside(e, span):
+                around = sorted((o for o in events if o is not e and
+                                 o.name.startswith('aten::') and
+                                 inside(e, o)),
+                                key=lambda o: o.time_range.start)
+                chain = ' > '.join(o.name for o in around) or span.name
+                found[span.name].append(f'{e.name} in {chain}')
+    return found
+
+
+def phase_orcnn_training(device, card='', bsz=8, size=1024, g=32, valid=8,
+                         warm=3, timed=10, dtype=torch.bfloat16,
+                         record=True, reps=20) -> tuple:
+    """``warm + timed`` two-stage train steps on one fixed batch. Returns
+    the kernels' launch counts of this run and, with ``record``, the inputs
+    of both IoU-matrix launches (boxes1, boxes2, mode) of one more step,
+    under ``'orcnn_train_rpn'`` and ``'orcnn_train_roi'``. With ``record``
+    that step also keeps the RoI pooling's inputs, on which the gather
+    pooling's forward and backward are timed alone (``reps`` runs each),
+    and one more step runs under the profiler."""
+    on_card = torch.device(device).type == 'cuda'
+    detector, state, step = build_orcnn_trainer(device, dtype)
+    batch = train_batch(bsz, size, g, valid, 100, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    for _ in range(warm):
+        state, metrics = step(state, batch)
+        history.append(metrics)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, metrics = step(state, batch)
+        history.append(metrics)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    steps = warm + timed
+    expected = {'box_iou_rotated': 2 * steps if on_card else 0,
+                'roi_align_rotated': 0, 'nms_pair_mask': 0}
+    if counts != expected:
+        raise AssertionError(f'launches in {steps} two-stage steps: {counts}'
+                             f', expected {expected} (two assigners a step; '
+                             f'training pools outside the RoIAlign kernel)')
+    for metrics in history:
+        check_metrics(metrics)
+    losses = [float(m['loss']) for m in history]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'the loss did not fall on the fixed batch: '
+                             f'{losses}')
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    log(f'[orcnn-training] {card} | {str(dtype).split(".")[-1]} B={bsz} '
+        f'{size}^2, G={g} ({valid} valid), {timed} timed steps after {warm} '
+        f'warm: {bsz * timed / seconds:.2f} imgs/s, '
+        f'{1e3 * seconds / timed:.2f} ms per step; peak memory {mem:.2f} GiB; '
+        f'box_iou_rotated launches {counts["box_iou_rotated"]} in {steps} '
+        f'steps ({counts["box_iou_rotated"] / steps:g} per step)')
+    first, last = history[0], history[-1]
+    log(f'[orcnn-training] loss {losses[0]:.4f} -> {losses[-1]:.4f} ' +
+        ', '.join(f'{k} {float(first[k]):.4f} -> {float(last[k]):.4f}'
+                  for k in ('loss_rpn_cls', 'loss_rpn_bbox', 'loss_cls',
+                            'loss_bbox')) +
+        f'; grad_norm {float(first["grad_norm"]):.3f} -> '
+        f'{float(last["grad_norm"]):.3f}')
+    if not record:
+        return counts, {}
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import iou_kernels
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as calls, \
+            recording(oriented_roi_head, 'roi_align_rotated') as pools:
+        state, _ = step(state, batch)
+    # the RoI head samples in the forward, the RPN assigns in the loss:
+    # the RPN's columns are the anchors, shared by the batch
+    rpn = [args for args, _ in calls if args[1].dim() == 2]
+    roi = [args for args, _ in calls if args[1].dim() == 3]
+    if len(rpn) != 1 or len(roi) != 1:
+        raise AssertionError(f'{len(calls)} IoU matrices in one step')
+    time_gather_pooling(pools[0][0], device, card, reps)
+    profile_orcnn_step(lambda: step(state, batch), device)
+    return counts, {'orcnn_train_rpn': rpn[0], 'orcnn_train_roi': roi[0]}
+
+
+def time_gather_pooling(args, device, card, reps) -> None:
+    """The training path's RoI pooling (the gather formulation) alone on
+    one step's levels and sampled RoIs: its forward, and its backward into
+    the levels, each over ``reps`` runs."""
+    from orientedobjectdetection_torch.ops.roi_align_rotated import (
+        roi_align_rotated)
+    levels = [f.detach().requires_grad_() for f in args[0]]
+    rest = (args[1].detach(),) + tuple(args[2:])
+    fwd = time_ms(lambda: roi_align_rotated(levels, *rest), reps, device,
+                  warmup=1)
+    pooled = roi_align_rotated(levels, *rest)
+    grad = torch.ones_like(pooled)
+    bwd = time_ms(lambda: torch.autograd.grad(pooled, levels, grad,
+                                              retain_graph=True),
+                  reps, device, warmup=1)
+    rois = rest[0]
+    log(f'[orcnn-training] {card} | gather RoI pooling alone, B='
+        f'{rois.shape[0]} R={rois.shape[1]} C={levels[0].shape[-1]} '
+        f'{str(levels[0].dtype).split(".")[-1]}: forward {fwd:.3f} ms, '
+        f'backward {bwd:.3f} ms')
+
+
+def profile_orcnn_step(step, device) -> None:
+    """One two-stage step under the profiler, split by the ``train.*`` and
+    ``two_stage.*`` ranges; the two IoU-matrix launches and the gather
+    pooling's backward (autograd's GatherBackward0 nodes) are read from it.
+    Fails if a host read of a device value ran inside
+    ``two_stage.rpn_targets`` or ``two_stage.sample_rois``."""
+    prof = profile_run(step, device, 'two-stage train step',
+                       ('train.', 'two_stage.'))
+    sampler = ('two_stage.rpn_targets', 'two_stage.sample_rois')
+    found = syncs_inside(prof['prof'], sampler)
+    if any(found.values()):
+        raise AssertionError(f'host synchronisation inside the sampler: '
+                             f'{found}')
+    copies = {k: dict(collections.Counter(v)) for k, v in syncs_inside(
+        prof['prof'], sampler, ('cudaMemcpyAsync',)).items()}
+    log(f'[profile] no host synchronisation inside two_stage.rpn_targets or '
+        f'two_stage.sample_rois; asynchronous copies there: {copies}')
+    if not prof['busy_us']:
+        return
+    spans = prof['spans']
+    named = sum(spans.get(k, 0) for k in
+                ('train.forward', 'train.loss', 'train.update'))
+    b2_us = sum(us for name, us in prof['kernels'].items()
+                if 'iou_matrix_kernel' in name)
+    gather_us = sum(us for name, us in prof['ops'].items()
+                    if 'GatherBackward' in name)
+    log(f'[profile] device time: forward '
+        f'{spans.get("train.forward", 0) / 1e3:.2f} ms (network + RPN '
+        f'{spans.get("two_stage.network_rpn", 0) / 1e3:.2f}, proposals '
+        f'{spans.get("two_stage.proposals", 0) / 1e3:.2f}, sample_rois '
+        f'{spans.get("two_stage.sample_rois", 0) / 1e3:.2f}, roi_pool '
+        f'{spans.get("two_stage.roi_pool", 0) / 1e3:.2f}), targets + loss '
+        f'{spans.get("train.loss", 0) / 1e3:.2f} ms (rpn_targets '
+        f'{spans.get("two_stage.rpn_targets", 0) / 1e3:.2f}, roi_loss '
+        f'{spans.get("two_stage.roi_loss", 0) / 1e3:.2f}), optimizer '
+        f'{spans.get("train.update", 0) / 1e3:.2f} ms, backward (the rest) '
+        f'{(prof["busy_us"] - named) / 1e3:.2f} ms; box_iou_rotated '
+        f'{b2_us / 1e3:.3f} ms (two launches); the gather pooling\'s '
+        f'GatherBackward0 nodes {gather_us / 1e3:.2f} ms')
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
-    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8 and 11:
+    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11 and 14:
     each kernel against its plain version with the same tolerances, then
     timed beside its bound. Adds ``main_path_inputs`` to the kernels'
     records."""
@@ -1336,6 +1707,18 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     iou['main_path_inputs'] = {'train_step': time_iou_matrix(
         boxes1, boxes2, live, device, card, 'train step\'s assigner inputs',
         reps, plain_reps, mode)}
+    for key, label in (('orcnn_train_rpn', 'Oriented R-CNN RPN assigner'),
+                       ('orcnn_train_roi', 'Oriented R-CNN RoI assigner')):
+        boxes1, boxes2, mode = captured[key]
+        err, live = check_iou_matrix(boxes1, boxes2, mode)
+        iou['max_abs_err'] = max(iou['max_abs_err'], err)
+        log(f'[main-path] box_iou_rotated on the {label}\'s inputs in one '
+            f'two-stage train step {tuple(boxes1.shape)} x '
+            f'{tuple(boxes2.shape)} {mode}: max |kernel - plain| {err:.3g} '
+            f'<= {IOU_ATOL}; {live} pairs within reach, the rest exactly 0')
+        iou['main_path_inputs'][key] = time_iou_matrix(
+            boxes1, boxes2, live, device, card, f'{label} inputs', reps,
+            plain_reps, mode)
 
 
 def main() -> int:
@@ -1356,12 +1739,19 @@ def main() -> int:
     phase_orcnn_slice('cuda')
     orcnn, orcnn_inputs = phase_orcnn_serving('cuda', card=info['card'])
     captured.update(orcnn_inputs)
+    phase_orcnn_train_slice('cuda')
+    orcnn_train8, orcnn_train_inputs = phase_orcnn_training(
+        'cuda', card=info['card'], bsz=8)
+    captured.update(orcnn_train_inputs)
+    orcnn_train4 = phase_orcnn_training('cuda', card=info['card'], bsz=4,
+                                        record=False)[0]
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
-        # launches on the main paths: RetinaNet serving's requests,
-        # training's steps and Oriented R-CNN serving's requests
-        rec['launches'] = sum(run[rec['name']]
-                              for run in (serving, training, orcnn))
+        # launches on the main paths: RetinaNet serving's requests and
+        # training's steps, Oriented R-CNN serving's requests and training's
+        # steps at batch 8 and 4
+        rec['launches'] = sum(run[rec['name']] for run in (
+            serving, training, orcnn, orcnn_train8, orcnn_train4))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -16,6 +16,16 @@ from ..ops.boxes import PI, norm_angle, obb2poly
 from ..utils.registry import BBOX_CODERS
 
 
+def _stats_on(cache: dict, means, stds, like: torch.Tensor):
+    """(means, stds) as tensors on ``like``'s device and dtype, kept in
+    ``cache``: made once per device and dtype, because a copy from the host
+    waits for the device, and the train step's targets should not."""
+    key = (like.device, like.dtype)
+    if key not in cache:
+        cache[key] = (like.new_tensor(means), like.new_tensor(stds))
+    return cache[key]
+
+
 @BBOX_CODERS.register_module()
 class DeltaXYWHAOBBoxCoder:
     """(cx,cy,w,h,a) <-> (dx,dy,dw,dh,da).
@@ -40,6 +50,7 @@ class DeltaXYWHAOBBoxCoder:
             raise ValueError(f'unknown angle_range {angle_range!r}')
         self.means = tuple(float(m) for m in target_means)
         self.stds = tuple(float(s) for s in target_stds)
+        self._stats_cache = {}
         self.angle_range = angle_range
         self.norm_factor = norm_factor
         self.edge_swap = edge_swap
@@ -48,7 +59,7 @@ class DeltaXYWHAOBBoxCoder:
         self.ctr_clamp = ctr_clamp
 
     def _stats(self, like: torch.Tensor):
-        return (like.new_tensor(self.means), like.new_tensor(self.stds))
+        return _stats_on(self._stats_cache, self.means, self.stds, like)
 
     def encode(self, bboxes: torch.Tensor,
                gt_bboxes: torch.Tensor) -> torch.Tensor:
@@ -135,10 +146,11 @@ class MidpointOffsetCoder:
                  angle_range: str = 'le90'):
         self.means = tuple(float(m) for m in target_means)
         self.stds = tuple(float(s) for s in target_stds)
+        self._stats_cache = {}
         self.version = angle_range
 
     def _stats(self, like: torch.Tensor):
-        return (like.new_tensor(self.means), like.new_tensor(self.stds))
+        return _stats_on(self._stats_cache, self.means, self.stds, like)
 
     def encode(self, hbb_proposals: torch.Tensor,
                gt_obbs: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,7 @@ from .backbones import ResNet
 from .dense_heads import OrientedRPNHead, RotatedRetinaHead
 from .detectors import (OrientedRCNN, RotatedRetinaNet,
                         RotatedSingleStageDetector, RotatedTwoStageDetector)
-from .losses import FocalLoss, L1Loss, SmoothL1Loss
+from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .necks import FPN
 from .roi_heads import OrientedStandardRoIHead, RotatedShared2FCBBoxHead
 
@@ -26,7 +26,7 @@ __all__ = [
     'ResNet', 'FPN', 'RotatedRetinaHead', 'RotatedRetinaNet',
     'RotatedSingleStageDetector', 'OrientedRPNHead',
     'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead', 'OrientedRCNN',
-    'RotatedTwoStageDetector', 'FocalLoss', 'L1Loss', 'SmoothL1Loss',
-    'build_detector', 'MODELS', 'BACKBONES', 'NECKS', 'HEADS', 'DETECTORS',
-    'LOSSES',
+    'RotatedTwoStageDetector', 'CrossEntropyLoss', 'FocalLoss', 'L1Loss',
+    'SmoothL1Loss', 'build_detector', 'MODELS', 'BACKBONES', 'NECKS',
+    'HEADS', 'DETECTORS', 'LOSSES',
 ]

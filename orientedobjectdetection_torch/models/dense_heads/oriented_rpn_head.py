@@ -7,6 +7,12 @@ decoded rotated boxes, filtered by an axis-aligned NMS over their
 circumscribed boxes. Batched with a leading dimension and static shapes:
 proposals come out as a fixed ``(B, max_num, 5)`` zero-padded tensor with
 scores and a validity mask.
+
+Training targets come for the whole batch at once, under ``no_grad``: one
+assignment of the padded gts' circumscribed boxes against the anchors (one
+IoU matrix, one kernel launch on the card), sampling keyed by the gts
+(``rng_from_gt``), and masks in place of index sets, so the loss waits for
+no host round trip.
 """
 
 from __future__ import annotations
@@ -16,18 +22,23 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
-from ...ops.boxes import obb2xyxy
+from ...core.assigners import (MaxIoUAssigner, random_sample_masks,
+                               rng_from_gt)
+from ...ops.boxes import hbb2obb, obb2hbb, obb2xyxy
 from ...ops.nms import NEG_INF, nms_hbb, topk_candidates
-from ...utils.registry import BBOX_CODERS, HEADS, PRIOR_GENERATORS
+from ...utils.registry import BBOX_CODERS, HEADS, LOSSES, PRIOR_GENERATORS
 
 
 @HEADS.register_module()
 class OrientedRPNHead(nn.Module):
     """``rpn_conv`` (3x3 + ReLU), then ``rpn_cls`` (A objectness logits) and
     ``rpn_reg`` (A*6 midpoint-offset deltas) per location, shared by the
-    levels. ``loss_cls``, ``loss_bbox`` and ``train_cfg`` are accepted for
-    the reference configs and unused until the loss is ported."""
+    levels. ``train_cfg`` holds the ``assigner`` and ``sampler`` settings
+    (defaults: IoU 0.7 / 0.3 / 0.3, 256 anchors at 0.5); the losses default
+    to sigmoid cross entropy and smooth L1 with beta 1/9, as the JAX
+    package's do."""
 
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
                  num_classes: int = 1,
@@ -41,7 +52,17 @@ class OrientedRPNHead(nn.Module):
                  init_cfg: Optional[dict] = None):
         super().__init__()
         self.version = version
+        self.train_cfg = train_cfg or {}
         self.test_cfg = test_cfg or {}
+        assigner = dict(self.train_cfg.get('assigner') or dict(
+            pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3))
+        assigner.pop('type', None)
+        assigner.pop('iou_calculator', None)
+        self.assigner = MaxIoUAssigner(**assigner)
+        self.cls_loss = LOSSES.build(dict(loss_cls or dict(
+            type='CrossEntropyLoss', use_sigmoid=True, loss_weight=1.0)))
+        self.bbox_loss = LOSSES.build(dict(loss_bbox or dict(
+            type='SmoothL1Loss', beta=1.0 / 9.0, loss_weight=1.0)))
         anchors = dict(anchor_generator or dict(
             scales=[8], ratios=[0.5, 1.0, 2.0], strides=[4, 8, 16, 32, 64]))
         anchors['type'] = 'RotatedAnchorGenerator'
@@ -72,10 +93,64 @@ class OrientedRPNHead(nn.Module):
                 featmap_sizes, device=device)
         return self._anchor_cache[key]
 
+    def train_anchors(self, featmap_sizes, device):
+        """The anchors of all levels as xyxy boxes (N, 4) and as the
+        rotated boxes the assigner compares, ``hbb2obb`` of those (N, 5)."""
+        key = (tuple(tuple(s) for s in featmap_sizes), str(device), 'train')
+        if key not in self._anchor_cache:
+            xyxy = obb2xyxy(torch.cat(list(self.anchors(featmap_sizes,
+                                                        device)), 0),
+                            self.version)
+            self._anchor_cache[key] = (xyxy, hbb2obb(xyxy, self.version))
+        return self._anchor_cache[key]
+
+    @torch.no_grad()
+    def targets(self, anchors_xyxy, anchors_rot, gt_bboxes, gt_mask):
+        """Padded gts (B, G, 5) / (B, G) -> per-anchor foreground (B, N),
+        label weights (the sampled anchors), midpoint-offset targets
+        (B, N, 6) and box weights (the sampled positives)."""
+        gt_hbb = obb2hbb(gt_bboxes, self.version)
+        assign = self.assigner(anchors_rot, gt_hbb,
+                               torch.zeros_like(gt_mask, dtype=torch.long),
+                               gt_mask)
+        samp = self.train_cfg.get('sampler') or {}
+        pos, neg = random_sample_masks(
+            assign.assigned_gt_inds >= 0, assign.assigned_gt_inds == -1,
+            int(samp.get('num', 256)), float(samp.get('pos_fraction', 0.5)),
+            rng_from_gt(gt_bboxes),
+            neg_pos_ub=int(samp.get('neg_pos_ub', -1)))
+        safe = assign.assigned_gt_inds.clamp(min=0)
+        matched = gt_bboxes.gather(1, safe[..., None].expand(-1, -1, 5))
+        deltas = self.coder.encode(anchors_xyxy[None], matched)
+        deltas = torch.where(pos[..., None], deltas, 0.0)
+        return pos.float(), (pos | neg).float(), deltas, pos.float()
+
     def loss(self, outputs, gt_bboxes, gt_labels, gt_mask):
-        raise NotImplementedError(
-            'OrientedRPNHead.loss is not ported yet (ROADMAP A.1, two-stage '
-            'training)')
+        """Batched loss: sigmoid objectness and midpoint-offset regression,
+        both averaged over the sampled anchors of the batch (mmdet's RPN
+        normalization). ``gt_labels`` is not read: objectness is
+        class-agnostic. Returns ``dict(loss_rpn_cls, loss_rpn_bbox)``."""
+        cls_scores, bbox_preds = outputs
+        featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
+        anchors_xyxy, anchors_rot = self.train_anchors(
+            featmap_sizes, cls_scores[0].device)
+        with record_function('two_stage.rpn_targets'):
+            fg, label_weights, bbox_targets, bbox_weights = self.targets(
+                anchors_xyxy, anchors_rot, gt_bboxes.float(), gt_mask)
+        b = cls_scores[0].shape[0]
+        # NCHW -> location-major, anchor a of a location at loc * A + a
+        cls_flat = torch.cat([s.permute(0, 2, 3, 1).reshape(b, -1)
+                              for s in cls_scores], 1).float()
+        box_flat = torch.cat([p.permute(0, 2, 3, 1).reshape(b, -1, 6)
+                              for p in bbox_preds], 1).float()
+        num_samples = label_weights.sum().clamp(min=1.0)
+        loss_cls = self.cls_loss(cls_flat[..., None], fg[..., None],
+                                 weight=label_weights,
+                                 avg_factor=num_samples)
+        loss_bbox = self.bbox_loss(box_flat, bbox_targets,
+                                   weight=bbox_weights,
+                                   avg_factor=num_samples)
+        return dict(loss_rpn_cls=loss_cls, loss_rpn_bbox=loss_bbox)
 
     def get_proposals(self, outputs, cfg=None, max_candidates: int = 4096):
         """Decode + HBB NMS: per level the top ``nms_pre`` anchors by

@@ -217,8 +217,16 @@ class RotatedRetinaHead(nn.Module):
         Returns:
             boxes (B, K, 5) float32 and sigmoid scores (B, K, C), K summed
             over levels.
+
+        ``cfg['approx_topk']``: the JAX package's switch to an approximate
+        top-k (``approx_max_k``), which the port does not have; true raises
+        ValueError, false or absent runs the exact top-k.
         """
         cfg = cfg if cfg is not None else self.test_cfg
+        if cfg.get('approx_topk', False):
+            raise ValueError('test_cfg.approx_topk=True asks for an '
+                             'approximate top-k, which the port does not '
+                             'have; set it False for the exact top-k')
         nms_pre = int(cfg.get('nms_pre', 1000))
         cls_scores, bbox_preds = outputs[0], outputs[1]
         featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
@@ -246,12 +254,21 @@ class RotatedRetinaHead(nn.Module):
                                                 max_shape=img_shape))
         return torch.cat(cand_boxes, 1), torch.cat(cand_scores, 1)
 
-    def get_bboxes(self, outputs, img_shape=None, cfg=None,
+    def get_bboxes(self, outputs, img_shape=None, scale_factor=None,
+                   rescale: bool = False, cfg=None,
                    plain_pair_mask: bool = False):
         """Batched decode + multiclass rotated NMS. Returns
-        (dets (B, max_per_img, 6), labels (B, max_per_img), valid)."""
+        (dets (B, max_per_img, 6), labels (B, max_per_img), valid).
+
+        ``rescale`` with a ``scale_factor`` (w, h, ...) divides the decoded
+        centres and sizes by (w, h, w, h) before NMS, one factor for the
+        batch, as the JAX head does. ``plain_pair_mask`` runs NMS with the
+        pair-mask kernel's plain version."""
         cfg = cfg if cfg is not None else self.test_cfg
         boxes, scores = self.candidates(outputs, img_shape, cfg)
+        if rescale and scale_factor is not None:
+            sf = boxes.new_tensor(scale_factor)[:2].repeat(2)
+            boxes = torch.cat([boxes[..., :4] / sf, boxes[..., 4:]], -1)
         # background column for the multiclass NMS contract
         scores = torch.cat([scores, scores.new_zeros(scores.shape[:2] + (1,))],
                            -1)

@@ -69,7 +69,10 @@ class RotatedSingleStageDetector(nn.Module):
         init_seeded_weights(self, seed)
         self.bbox_head.init_cls_prior()
 
-    def forward(self, images):
+    def forward(self, images, batch=None, train: bool = False, rng=None):
+        """``batch``, ``train`` and ``rng`` are accepted for the two-stage
+        detectors' interface and not read: a single-stage head assigns its
+        targets in the loss."""
         x = self.backbone(images)
         if self.neck is not None:
             x = self.neck(x)
@@ -85,11 +88,12 @@ class RotatedSingleStageDetector(nn.Module):
                                    batch['gt_labels'], batch['gt_mask'],
                                    **ignore)
 
-    def bboxes_from_outputs(self, outputs, img_shape=None, cfg=None,
+    def bboxes_from_outputs(self, outputs, img_shape=None, scale_factor=None,
+                            rescale: bool = False, cfg=None,
                             plain_pair_mask: bool = False):
-        return self.bbox_head.get_bboxes(outputs, img_shape=img_shape,
-                                         cfg=cfg,
-                                         plain_pair_mask=plain_pair_mask)
+        return self.bbox_head.get_bboxes(
+            outputs, img_shape=img_shape, scale_factor=scale_factor,
+            rescale=rescale, cfg=cfg, plain_pair_mask=plain_pair_mask)
 
 
 @DETECTORS.register_module()

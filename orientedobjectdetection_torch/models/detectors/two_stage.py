@@ -1,17 +1,25 @@
-"""Two-stage rotated detector, test mode (counterpart of
+"""Two-stage rotated detector (counterpart of
 ``orientedobjectdetection_tpu/models/detectors/two_stage.py``; reference
-``detectors/two_stage.py:11-195``): backbone -> neck -> RPN head ->
-proposals -> RoI head, then the RoI head's decode and NMS.
+``detectors/two_stage.py:11-195``).
 
-The stages of a request run inside ``torch.profiler.record_function`` ranges
-named ``two_stage.*`` (``network_rpn``, ``proposals``, ``roialign_head``,
-``decode_nms``), so a profile of a request splits by stage.
+Test: backbone -> neck -> RPN head -> proposals -> RoI head, then the RoI
+head's decode and NMS. Train: backbone -> neck -> RPN head; proposals from
+the detached RPN outputs with ``train_cfg.rpn_proposal``; the RoI head
+samples a fixed RoI set per image, pools it under autograd and classifies
+it; ``loss_from_outputs`` adds the RPN losses and the RoI head's.
+
+The stages run inside ``torch.profiler.record_function`` ranges named
+``two_stage.*``, so a profile splits by stage: ``network_rpn`` and
+``proposals`` in both modes; ``roialign_head`` and ``decode_nms`` when
+serving; ``sample_rois``, ``roi_pool``, ``rpn_targets`` (inside the RPN
+head's loss) and ``roi_loss`` when training.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 from torch import nn
 from torch.profiler import record_function
 
@@ -21,8 +29,10 @@ from .single_stage import init_seeded_weights
 
 @DETECTORS.register_module()
 class RotatedTwoStageDetector(nn.Module):
-    """Input NCHW images; ``forward`` returns ``dict(proposals (B, R, 5),
-    prop_valid (B, R), cls_score (B, R, C+1), bbox_pred (B, R, 5))``."""
+    """Input NCHW images. ``forward`` returns, when serving,
+    ``dict(proposals (B, R, 5), prop_valid (B, R), cls_score (B, R, C+1),
+    bbox_pred (B, R, 5))``; in training what the losses need (see
+    :meth:`forward`)."""
 
     def __init__(self, backbone: dict, neck: Optional[dict] = None,
                  rpn_head: Optional[dict] = None,
@@ -54,14 +64,20 @@ class RotatedTwoStageDetector(nn.Module):
         x = self.backbone(images)
         return self.neck(x) if self.neck is not None else x
 
-    def forward(self, images, batch=None, train: bool = False,
+    def forward(self, images, batch=None, train: bool = False, rng=None,
                 plain_roi_align: bool = False):
-        if train:
-            raise NotImplementedError(
-                'two-stage training is not ported yet (ROADMAP A.1)')
+        """``train=True`` takes the padded ``batch`` (its ``gt_bboxes``,
+        ``gt_labels`` and ``gt_mask``) and ``rng``, a
+        :class:`~orientedobjectdetection_torch.core.SampleKey` for the RoI
+        sampling, and returns ``dict(rpn_outputs, rois, labels,
+        label_weights, bbox_targets, bbox_weights, num_pos, cls_score,
+        bbox_pred)``. ``plain_roi_align`` serves with the RoIAlign kernel's
+        plain version."""
         with record_function('two_stage.network_rpn'):
             feats = self.extract_feat(images)
             rpn_outputs = self.rpn_head(feats)
+        if train:
+            return self._forward_train(feats, rpn_outputs, batch, rng)
         with record_function('two_stage.proposals'):
             proposals, _, prop_valid = self.rpn_head.get_proposals(
                 rpn_outputs, cfg=self.test_cfg.get('rpn'))
@@ -71,12 +87,47 @@ class RotatedTwoStageDetector(nn.Module):
         return dict(proposals=proposals, prop_valid=prop_valid,
                     cls_score=cls_score, bbox_pred=bbox_pred)
 
-    def loss_from_outputs(self, outputs, batch):
-        raise NotImplementedError(
-            'two-stage training is not ported yet (ROADMAP A.1)')
+    def _forward_train(self, feats, rpn_outputs, batch, rng):
+        if batch is None or rng is None:
+            raise ValueError('two-stage training needs the batch and an rng')
+        with record_function('two_stage.proposals'), torch.no_grad():
+            cfg = self.train_cfg.get('rpn_proposal',
+                                     self.test_cfg.get('rpn'))
+            proposals, _, prop_valid = self.rpn_head.get_proposals(
+                rpn_outputs, cfg=cfg)
+        with record_function('two_stage.sample_rois'):
+            rois, labels, label_weights, bbox_targets, bbox_weights, \
+                num_pos = self.roi_head.sample_rois(
+                    proposals, prop_valid, batch['gt_bboxes'],
+                    batch['gt_labels'], batch['gt_mask'], rng)
+        with record_function('two_stage.roi_pool'):
+            pooled = self.roi_head.pool(feats, rois, train=True)
+        cls_score, bbox_pred = self.roi_head.bbox_head(pooled)
+        return dict(rpn_outputs=rpn_outputs, rois=rois, labels=labels,
+                    label_weights=label_weights, bbox_targets=bbox_targets,
+                    bbox_weights=bbox_weights, num_pos=num_pos,
+                    cls_score=cls_score, bbox_pred=bbox_pred)
 
-    def bboxes_from_outputs(self, outputs, img_shape=None, cfg=None,
+    def loss_from_outputs(self, outputs, batch):
+        """The RPN's losses (``loss_rpn_cls``, ``loss_rpn_bbox``) and the RoI
+        head's (``loss_cls``, ``loss_bbox``) for ``forward(train=True)``'s
+        outputs on a padded batch."""
+        losses = self.rpn_head.loss(outputs['rpn_outputs'],
+                                    batch['gt_bboxes'], batch['gt_labels'],
+                                    batch['gt_mask'])
+        with record_function('two_stage.roi_loss'):
+            losses.update(self.roi_head.bbox_head.loss(
+                outputs['cls_score'], outputs['bbox_pred'], outputs['rois'],
+                outputs['labels'], outputs['label_weights'],
+                outputs['bbox_targets'], outputs['bbox_weights'],
+                outputs['num_pos']))
+        return losses
+
+    def bboxes_from_outputs(self, outputs, img_shape=None, scale_factor=None,
+                            rescale: bool = False, cfg=None,
                             plain_pair_mask: bool = False):
+        """Decode + NMS of the serving outputs. ``scale_factor`` and
+        ``rescale`` are accepted and not read, as in the JAX package."""
         cfg = cfg if cfg is not None else self.test_cfg.get('rcnn')
         with record_function('two_stage.decode_nms'):
             return self.roi_head.get_bboxes(

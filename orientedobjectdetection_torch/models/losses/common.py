@@ -65,6 +65,13 @@ def smooth_l1_loss(pred, target, beta: float = 1.0):
                        adiff - 0.5 * beta)
 
 
+def _one_hot(target, classes: int, dtype):
+    """``jax.nn.one_hot``: a label outside [0, classes) is an all-zero row
+    (background for the sigmoid form)."""
+    return (target[..., None] == torch.arange(
+        classes, device=target.device)).to(dtype)
+
+
 def _per_box_weight(weight, loss):
     if weight is not None and weight.dim() < loss.dim():
         weight = weight[..., None]
@@ -88,8 +95,7 @@ class FocalLoss:
         self.loss_weight = loss_weight
 
     def __call__(self, pred, target, weight=None, avg_factor=None):
-        classes = torch.arange(pred.shape[-1], device=pred.device)
-        onehot = (target[..., None] == classes).to(pred.dtype)
+        onehot = _one_hot(target, pred.shape[-1], pred.dtype)
         loss = sigmoid_focal_loss(pred, onehot, self.gamma,
                                   self.alpha).sum(-1)
         return self.loss_weight * reduce_loss(loss, weight, self.reduction,
@@ -120,3 +126,31 @@ class SmoothL1Loss:
         loss = smooth_l1_loss(pred, target, self.beta)
         return self.loss_weight * reduce_loss(
             loss, _per_box_weight(weight, loss), self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class CrossEntropyLoss:
+    """Softmax or sigmoid cross entropy over integer labels
+    (mmdet-compatible). Softmax: ``pred (..., C)`` logits and ``target
+    (...)`` labels in [0, C). Sigmoid: ``target`` is either labels, one-hot
+    encoded over C (C itself is background), or already (..., C) like
+    ``pred``; the loss sums over C. ``use_mask`` is accepted and unused, as
+    in the JAX package."""
+
+    def __init__(self, use_sigmoid: bool = False, use_mask: bool = False,
+                 reduction: str = 'mean', loss_weight: float = 1.0):
+        self.use_sigmoid = use_sigmoid
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        if self.use_sigmoid:
+            if target.dim() == pred.dim() - 1:
+                target = _one_hot(target, pred.shape[-1], pred.dtype)
+            loss = sigmoid_ce(pred, target).sum(-1)
+        else:
+            logp = torch.log_softmax(pred, -1)
+            loss = -(_one_hot(target, pred.shape[-1], pred.dtype)
+                     * logp).sum(-1)
+        return self.loss_weight * reduce_loss(loss, weight, self.reduction,
+                                              avg_factor)

@@ -17,14 +17,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...utils.registry import BBOX_CODERS, HEADS
+from ...utils.registry import BBOX_CODERS, HEADS, LOSSES
 
 
 @HEADS.register_module()
 class RotatedShared2FCBBoxHead(nn.Module):
-    """mmrotate names: ``shared_fcs.{i}``, ``fc_cls``, ``fc_reg``.
-    ``loss_cls``, ``loss_bbox`` and ``train_cfg`` are accepted for the
-    reference configs and unused until the loss is ported."""
+    """mmrotate names: ``shared_fcs.{i}``, ``fc_cls``, ``fc_reg``. The
+    losses default to softmax cross entropy and smooth L1 with beta 1, as
+    the JAX package's do; ``train_cfg`` is accepted for the reference
+    configs and not read."""
 
     def __init__(self, num_classes: int = 15, in_channels: int = 256,
                  fc_out_channels: int = 1024, roi_feat_size: int = 7,
@@ -38,6 +39,10 @@ class RotatedShared2FCBBoxHead(nn.Module):
         super().__init__()
         self.num_classes = num_classes
         self.reg_class_agnostic = reg_class_agnostic
+        self.cls_loss = LOSSES.build(dict(loss_cls or dict(
+            type='CrossEntropyLoss', loss_weight=1.0)))
+        self.bbox_loss = LOSSES.build(dict(loss_bbox or dict(
+            type='SmoothL1Loss', beta=1.0, loss_weight=1.0)))
         self.coder = BBOX_CODERS.build(dict(bbox_coder or dict(
             type='DeltaXYWHAOBBoxCoder', angle_range='le90',
             norm_factor=None, edge_swap=True, proj_xy=True,
@@ -62,9 +67,23 @@ class RotatedShared2FCBBoxHead(nn.Module):
 
     def loss(self, cls_score, bbox_pred, rois, labels, label_weights,
              bbox_targets, bbox_weights, num_pos):
-        raise NotImplementedError(
-            'RotatedShared2FCBBoxHead.loss is not ported yet (ROADMAP A.1, '
-            'two-stage training)')
+        """All (B, R, ...) from the RoI head's ``sample_rois``; labels equal
+        to ``num_classes`` are background. The class loss averages over the
+        sampled RoIs, the box loss over ``num_pos``; a per-class regression
+        is read at each RoI's label. Returns ``dict(loss_cls, loss_bbox)``."""
+        loss_cls = self.cls_loss(
+            cls_score.float(), labels, weight=label_weights,
+            avg_factor=label_weights.sum().clamp(min=1.0))
+        bbox_pred = bbox_pred.float()
+        if not self.reg_class_agnostic:
+            b, r = bbox_pred.shape[:2]
+            per_class = bbox_pred.reshape(b, r, self.num_classes, 5)
+            safe = labels.clamp(0, self.num_classes - 1)
+            bbox_pred = per_class.gather(
+                2, safe[..., None, None].expand(-1, -1, 1, 5))[..., 0, :]
+        loss_bbox = self.bbox_loss(bbox_pred, bbox_targets,
+                                   weight=bbox_weights, avg_factor=num_pos)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
     def decode_bboxes(self, rois, bbox_pred, img_shape=None):
         """rois (B, R, 5); bbox_pred (B, R, 5 or C*5) -> decoded

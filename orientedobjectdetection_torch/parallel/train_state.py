@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..core.assigners import SampleKey
+
 
 @dataclass
 class TrainState:
@@ -197,7 +199,7 @@ def make_train_step(detector: nn.Module, tx: Transform,
                     norm_eval: bool = True,
                     device_norm: Optional[dict] = None,
                     dtype: torch.dtype = torch.float32):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
+    """Returns ``train_step(state, batch, rng=None) -> (state, metrics)``.
 
     ``batch`` is the padded batch of ``models/detectors/single_stage.py``;
     its tensors may lie on the host (pinned memory makes the copies
@@ -208,8 +210,17 @@ def make_train_step(detector: nn.Module, tx: Transform,
     ``loss_weights`` is accepted and unused, as in the JAX package.
     ``norm_eval=False`` (live BatchNorm) is not ported.
 
-    ``metrics``: ``loss_cls``, ``loss_bbox``, ``loss`` and ``grad_norm`` as
-    0-d tensors on the device; nothing in the step waits for them.
+    ``rng``: the :class:`SampleKey` of the step's random sampling (a
+    two-stage detector's RoI sampler; a single-stage detector takes none);
+    by default ``SampleKey(step=state.step)``, the counterpart of the JAX
+    package's ``fold_in(PRNGKey(0), step)``, hashed on the device. The
+    detector is called as ``detector(images, batch=batch, train=True,
+    rng=rng)``.
+
+    ``metrics``: the detector's losses (``loss_cls`` and ``loss_bbox``; a
+    two-stage detector adds ``loss_rpn_cls`` and ``loss_rpn_bbox``),
+    ``loss`` and ``grad_norm``, as 0-d tensors on the device; nothing in
+    the step waits for them.
     ``grad_norm`` is the global norm of the trainable parameters' gradients
     before the clip. The step's four parts carry ``torch.profiler`` ranges
     (``train.forward``, ``train.loss``, ``train.backward``,
@@ -220,9 +231,12 @@ def make_train_step(detector: nn.Module, tx: Transform,
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
 
-    def train_step(state: TrainState, batch: dict):
+    def train_step(state: TrainState, batch: dict,
+                   rng: Optional[SampleKey] = None):
         if state.model is not detector:
             raise ValueError('the state was created for another detector')
+        if rng is None:
+            rng = SampleKey(step=state.step)
         device = next(detector.parameters()).device
         batch = {k: v.to(device, non_blocking=True)
                  for k, v in batch.items()}
@@ -233,7 +247,8 @@ def make_train_step(detector: nn.Module, tx: Transform,
             images = images.float().permute(0, 3, 1, 2)
             with torch.autocast(device.type, dtype=torch.bfloat16,
                                 enabled=dtype == torch.bfloat16):
-                outputs = detector(images)
+                outputs = detector(images, batch=batch, train=True,
+                                   rng=rng)
         with record_function('train.loss'):
             losses = detector.loss_from_outputs(outputs, batch)
             total = sum(losses.values())

@@ -158,6 +158,55 @@ def test_phase_orcnn_serving_rehearsal():
         roi_align_kernels.roi_align_rotated_pyramid
 
 
+def test_phase_orcnn_train_slice_rehearsal():
+    chip_smoke.phase_orcnn_train_slice('cpu', bsz=1, size=128, g=8, valid=3)
+
+
+def test_phase_orcnn_training_rehearsal():
+    """Phase 14 at a tiny size: no kernel launches on the CPU, the two
+    assigners' recorded inputs (the RPN's gts against the shared anchors,
+    the RoI head's against each image's gts and proposals), the gather
+    pooling timed alone and the profiled step's sync check."""
+    launches, captured = chip_smoke.phase_orcnn_training(
+        'cpu', bsz=1, size=128, g=8, valid=3, warm=1, timed=1,
+        dtype=torch.float32, reps=1)
+    assert launches == NO_LAUNCHES
+    rpn_gts, anchors, mode = captured['orcnn_train_rpn']
+    assert rpn_gts.shape == (1, 8, 5) and mode == 'iou'
+    assert anchors.shape == ((32 * 32 + 16 * 16 + 8 * 8 + 4 * 4 + 2 * 2) * 3,
+                             5)
+    assert (rpn_gts[0, 3:, 2:4] == 1e-3).all()     # clamped padding
+    gts, props, mode = captured['orcnn_train_roi']
+    assert gts.shape == (1, 8, 5) and props.shape[0] == 1
+    assert props.shape[1] == 8 + 2000 and mode == 'iou'
+    assert torch.equal(props[:, :8], gts)           # gts added first
+
+
+def test_syncs_inside_finds_host_reads_in_a_range():
+    from torch.profiler import ProfilerActivity, profile, record_function
+    x = torch.arange(10.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('two_stage.sample_rois'):
+            x.sum().item()
+        with record_function('two_stage.rpn_targets'):
+            x.sum()
+        x.max().item()
+    found = chip_smoke.syncs_inside(prof, ('two_stage.sample_rois',
+                                           'two_stage.rpn_targets'))
+    assert found['two_stage.rpn_targets'] == []
+    assert found['two_stage.sample_rois'] == [
+        'aten::item in two_stage.sample_rois',
+        'aten::_local_scalar_dense in aten::item']
+    x = torch.arange(6.0).reshape(2, 3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function('two_stage.rpn_targets'):
+            x.sum(1).max().item()
+    found = chip_smoke.syncs_inside(prof, ('two_stage.rpn_targets',),
+                                    ('aten::_local_scalar_dense',))
+    assert found == {'two_stage.rpn_targets': [
+        'aten::_local_scalar_dense in aten::item']}
+
+
 def test_phase_main_path_kernels_rehearsal():
     """Phase 12 on small recorded-like inputs: the records gain the
     main-path numbers, and the error stays 0 (plain against plain)."""
@@ -172,6 +221,11 @@ def test_phase_main_path_kernels_rehearsal():
     anchors = chip_smoke.config_anchors(128, 'cpu')
     gts = chip_smoke.seeded_gts(anchors, 2, 8, 3, 8)[0]
     captured['train_step'] = (gts.clamp(min=1e-3), anchors, 'iou')
+    props = torch.cat([gts, chip_smoke.seeded_gts(anchors, 2, 40, 40, 9)[0]],
+                      1)
+    captured['orcnn_train_rpn'] = (gts.clamp(min=1e-3), anchors, 'iou')
+    captured['orcnn_train_roi'] = (gts.clamp(min=1e-3),
+                                   props.clamp(min=1e-3), 'iou')
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -180,9 +234,11 @@ def test_phase_main_path_kernels_rehearsal():
     pair, roi, iou = records
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
     assert iou['max_abs_err'] == 0.0
-    got = iou['main_path_inputs']['train_step']
-    assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
-    assert got['pairs_in_reach'] > 0
+    assert sorted(iou['main_path_inputs']) == [
+        'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
+    for got in iou['main_path_inputs'].values():
+        assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
+        assert got['pairs_in_reach'] > 0
     for key in ('retinanet', 'orcnn'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0

@@ -410,6 +410,106 @@ def test_iou_matrix_zero_boxes_at_the_origin(cuda, gts_first):
     assert live.sum() == 2 * len(anchors)           # the one real box
 
 
+@pytest.mark.parametrize('n', [1, 33, 264, 2032, 4099])
+@pytest.mark.parametrize('mode', ['iou', 'iof'])
+def test_iou_matrix_per_image_columns(cuda, n, mode):
+    """Each image's own column set (``cols_batched``), the RoI assigner's
+    layout: each image's padded gts (8 valid of 32) against its proposals,
+    which start with its gts (N = 2032: 2000 proposals and 32 gts), w and h
+    clamped to 1e-3 as ``rbbox_overlaps`` does. IoU is the assigner's mode.
+    IoF, over the first set's area, takes the proposals first (the ignore
+    regions' form): over a padded 1e-3 x 1e-3 box it is ill-conditioned in
+    both versions, the pair frame's coordinates being 1e4 times its sides.
+    Each image's slice equals that image's own unbatched matrix."""
+    from orientedobjectdetection_torch.ops.iou import _clamp_wh
+    rng = np.random.default_rng(n)
+    gts = random_boxes((3, 32), n + 1, extent=300.0)
+    gts[:, 8:] = 0.0                                # padding
+    props = random_boxes((3, n), n + 2, extent=300.0)
+    near = gts[:, rng.integers(0, 8, n)].clone()
+    near[..., :2] += torch.from_numpy(rng.normal(0, 3, (3, n, 2)).astype(
+        np.float32))
+    props = torch.where(torch.from_numpy(rng.uniform(size=(3, n, 1)) < 0.5),
+                        near, props)
+    first = min(n, 32 if mode == 'iou' else 8)      # the gts come first
+    props[:, :first] = gts[:, :first]
+    gts, props = _clamp_wh(gts).to(cuda), _clamp_wh(props).to(cuda)
+    pair = (gts, props) if mode == 'iou' else (props, gts)
+    live = check_iou_matrix(*pair, mode)
+    assert live.any()
+    got = box_iou_rotated_matrix(*pair, mode)
+    for b in range(3):
+        one = box_iou_rotated_matrix(pair[0][b].contiguous(),
+                                     pair[1][b].contiguous(), mode)
+        assert torch.equal(one, got[b])
+
+
+def test_small_two_stage_train_step_kernel_equals_plain(cuda):
+    """A small Oriented R-CNN train step on the card, from one seeded state
+    and rng: with the kernel in both assigners (two launches), in neither,
+    and in the RoI head's only. The RoI head's kernel gives the plain run's
+    sampled RoIs, labels, targets and all four losses; the RPN's assigns
+    as the plain matrix does except within 1e-5 of a threshold or of a
+    gt's best IoU, where rounding breaks ties either way
+    (``chip_smoke.check_assigner``)."""
+    import os.path as osp
+
+    from chip_smoke import check_assigner
+    from orientedobjectdetection_torch.core import SampleKey
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.ops.boxes import obb2hbb
+    cfg = Config.fromfile(osp.join(
+        osp.dirname(__file__), '..', 'configs', 'oriented_rcnn',
+        'oriented_rcnn_tiny_synth.py'))
+    rng = np.random.default_rng(3)
+    gts = np.zeros((2, 16, 5), np.float32)
+    gts[:, :5] = np.stack([rng.uniform(40, 216, (2, 5)),
+                           rng.uniform(40, 216, (2, 5)),
+                           rng.uniform(16, 80, (2, 5)),
+                           rng.uniform(16, 80, (2, 5)),
+                           rng.uniform(-1.5, 1.5, (2, 5))], -1)
+    batch = dict(gt_bboxes=torch.from_numpy(gts).to(cuda),
+                 gt_labels=torch.from_numpy(rng.integers(0, 2, (2, 16))).to(
+                     cuda),
+                 gt_mask=(torch.arange(16) < 5).repeat(2, 1).to(cuda))
+    images = torch.from_numpy(rng.normal(0, 1, (2, 3, 256, 256)).astype(
+        np.float32)).to(cuda)
+    runs = {}
+    for name, plain_rpn, plain_roi in (('kernels', False, False),
+                                       ('plain', True, True),
+                                       ('roi kernel', True, False)):
+        det = build_detector(dict(cfg.model))
+        det.init_weights(4)
+        det.to(cuda)
+        det.rpn_head.assigner.plain_iou = plain_rpn
+        det.roi_head.assigner.plain_iou = plain_roi
+        before = box_iou_rotated_matrix.launches
+        outputs = det(images, batch=batch, train=True, rng=SampleKey(step=2))
+        losses = det.loss_from_outputs(outputs, batch)
+        torch.cuda.synchronize()
+        assert box_iou_rotated_matrix.launches == \
+            before + (not plain_rpn) + (not plain_roi)
+        runs[name] = (outputs, {k: float(v.detach())
+                                for k, v in losses.items()})
+    ref, ref_losses = runs['plain']
+    for name in ('kernels', 'roi kernel'):
+        got = runs[name][0]
+        for k in ('rois', 'labels', 'label_weights', 'bbox_weights'):
+            assert torch.equal(got[k], ref[k]), (name, k)
+        assert (got['bbox_targets'] - ref['bbox_targets']).abs().max() \
+            <= 1e-5
+    assert ref['bbox_weights'].sum() > 0
+    for k, v in ref_losses.items():
+        assert abs(runs['roi kernel'][1][k] - v) <= 1e-4 * abs(v), k
+    sizes = [(256 // s, 256 // s) for s in (4, 8, 16, 32, 64)]
+    anchors = det.rpn_head.train_anchors(sizes, cuda)[1]
+    positives = check_assigner(
+        det.rpn_head.assigner, anchors,
+        obb2hbb(batch['gt_bboxes'], det.rpn_head.version),
+        torch.zeros_like(batch['gt_labels']), batch['gt_mask'])[0]
+    assert positives > 0
+
+
 def test_iou_matrix_misaligned_columns(cuda):
     """A column set that starts 20 bytes into its storage takes the scalar
     loads and gives the same matrix as an aligned copy of it."""

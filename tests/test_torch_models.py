@@ -154,3 +154,81 @@ def test_config_fromfile_matches_jax():
     assert dict(got.items()) == dict(ref.items())
     assert got.model.bbox_head.num_classes == 15
     assert got.img_norm_cfg['to_rgb'] is True      # from the _base_ file
+
+
+def decode_inputs(seed, num_classes=4, size=64):
+    """Random NHWC head outputs of a RetinaNet head on a ``size`` px image:
+    logits that put many scores past score_thr, small deltas."""
+    rng = np.random.default_rng(seed)
+    sizes = [-(-size // s) for s in ANCHOR_CFG['strides']]
+    cls = [rng.normal(-1, 2, (2, s, s, 9 * num_classes)).astype(np.float32)
+           for s in sizes]
+    reg = [rng.normal(0, 0.2, (2, s, s, 45)).astype(np.float32)
+           for s in sizes]
+    return cls, reg
+
+
+def nchw_outputs(cls, reg):
+    return (tuple(torch.from_numpy(x).permute(0, 3, 1, 2) for x in cls),
+            tuple(torch.from_numpy(x).permute(0, 3, 1, 2) for x in reg))
+
+
+@pytest.mark.parametrize('rescale', [True, False])
+def test_get_bboxes_rescale_matches_jax(rescale):
+    """The JAX argument order (outputs, img_shape, scale_factor, rescale,
+    cfg), positionally: ``rescale`` with a ``scale_factor`` divides the
+    decoded centres and sizes by (w, h, w, h) before NMS; without
+    ``rescale`` the factor is not read."""
+    scale_factor = (2.0, 0.5, 2.0, 0.5)
+    from orientedobjectdetection_tpu.utils.registry import HEADS as JHEADS
+    from orientedobjectdetection_torch.utils.registry import HEADS
+    cfg = dict(_retina_cfg(num_classes=4, depth=18, channels=32,
+                           stacked=1)['bbox_head'])
+    cfg['test_cfg'] = dict(nms_pre=200, score_thr=0.05, max_per_img=100,
+                           max_candidates=300, nms=dict(iou_thr=0.1))
+    cls, reg = decode_inputs(9)
+    img_shape = (64, 64)
+    ref = jax.jit(lambda c, r: JHEADS.build(dict(cfg)).get_bboxes(
+        (c, r), img_shape, scale_factor, rescale))(
+        tuple(map(jnp.asarray, cls)), tuple(map(jnp.asarray, reg)))
+    head = HEADS.build(dict(cfg))
+    got = head.get_bboxes(nchw_outputs(cls, reg), img_shape, scale_factor,
+                          rescale)
+    r_dets, r_labels, r_valid = (np.asarray(x) for x in ref)
+    assert r_valid.sum() > 20
+    np.testing.assert_array_equal(got[2].numpy(), r_valid)
+    np.testing.assert_array_equal(got[1].numpy(), r_labels)
+    np.testing.assert_allclose(got[0].numpy(), r_dets, atol=1e-4)
+    plain = head.get_bboxes(nchw_outputs(cls, reg), img_shape)
+    assert torch.equal(plain[0], got[0]) != rescale
+    # the detector passes the same arguments through, in the same order
+    model = build_detector(_retina_cfg(num_classes=4, depth=18, channels=32,
+                                       stacked=1))
+    model.bbox_head.test_cfg.update(cfg['test_cfg'])
+    via = model.bboxes_from_outputs(nchw_outputs(cls, reg), img_shape,
+                                    scale_factor, rescale)
+    for v, g in zip(via, got):
+        assert torch.equal(v, g)
+
+
+@pytest.mark.parametrize('approx', [True, False, None])
+def test_approx_topk_raises_only_when_true(approx):
+    """The port has no approximate top-k: ``approx_topk=True`` raises and
+    names the key; false or absent runs the exact top-k."""
+    from orientedobjectdetection_torch.utils.registry import HEADS
+    cfg = dict(_retina_cfg(num_classes=4, depth=18, channels=32,
+                           stacked=1)['bbox_head'])
+    cfg['test_cfg'] = dict(nms_pre=200, score_thr=0.05, max_per_img=100,
+                           max_candidates=300, nms=dict(iou_thr=0.1))
+    if approx is not None:
+        cfg['test_cfg']['approx_topk'] = approx
+    head = HEADS.build(cfg)
+    outputs = nchw_outputs(*decode_inputs(10))
+    if approx:
+        with pytest.raises(ValueError, match='approx_topk'):
+            head.get_bboxes(outputs)
+        return
+    dets, labels, valid = head.get_bboxes(outputs)
+    exact = dict(cfg['test_cfg'], approx_topk=False)
+    ref = head.get_bboxes(outputs, cfg=exact)
+    assert valid.sum() > 20 and torch.equal(dets, ref[0])
