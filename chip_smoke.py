@@ -59,6 +59,28 @@ plain PyTorch version:
              by the ``train.*`` and ``two_stage.*`` ranges, with no host
              synchronisation inside ``two_stage.rpn_targets`` or
              ``two_stage.sample_rois``
+15. data     the port's generator writes a synth-hard set (16 train + 8
+             val images of 1024^2, 100-600 instances each); the synth1024
+             config's datasets on it; its DataLoader timed alone (uint8,
+             batch 8, max_gt 512), batch shapes, every annotation kept or
+             in gt_ignore, polygons that round-trip through poly2obb_np /
+             obb2poly_np
+16. trainer  ``train_detector`` on that config at published widths (R50-FPN,
+             15 classes, 1024^2, batch 8) in bfloat16 for 20 steps with the
+             evaluation and a checkpoint at the end; one box_iou_rotated
+             launch a step; a resume from the checkpoint gives back the
+             step and every tensor exactly, and goes on for 2 more steps;
+             the loop's imgs/s against the same step alone on one loader
+             batch and against phase 8; peak memory
+17. eval     ``eval_from_state`` on the 8 val images (float32, the trained
+             weights with the class bias zeroed); the same images with the
+             kernels and with their plain versions (B1 in the NMS, B2 in
+             ``eval_rbbox_map``): the same detections up to near-ties, the
+             same per-class AP within AP_ATOL
+18. oriented ``oriented_rcnn_tiny_synth.py`` through ``train_detector`` on a
+    loop     40-image tiny-synth set of 256^2: 20 bfloat16 steps with two
+             box_iou_rotated launches each, then the evaluation, where
+             roi_align_rotated runs
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -72,8 +94,10 @@ plain PyTorch version:
              each held against its plain version and timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
-each main path (5, 8, 11, 14 at batch 8, 14 at batch 4) and read just
-after; the recorded requests and steps run after that. The last two lines
+each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
+``train_detector`` run, 17's ``eval_from_state``, 18) and read just after;
+the recorded requests and steps run after that. Phases 15-18 write their
+data and work directories under ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
@@ -143,6 +167,18 @@ ROI_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 # an H100, logits up to 5) and a class score by less than SCORE_BAND
 HEAD_ATOL = 1e-3
 SCORE_BAND = 1e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SYNTH1024_CONFIG = os.path.join(ROOT, 'configs', 'rotated_retinanet',
+                                'rotated_retinanet_synth1024.py')
+ORCNN_TINY_CONFIG = os.path.join(ROOT, 'configs', 'oriented_rcnn',
+                                 'oriented_rcnn_tiny_synth.py')
+# generated data and work directories of phases 15-18 (gitignored)
+DATA_DIR = os.path.join(ROOT, '_data', 'chip_smoke')
+# annotation files round polygons to 0.1 px; the rectangle through them
+# gives the corners back within that and the float32 arithmetic
+ROUND_TRIP_ATOL = 0.15
+# per-class AP, kernels vs plain versions in the evaluation
+AP_ATOL = 1e-4
 KERNELS = {
     'nms_pair_mask': dict(
         route='cuda', source='orientedobjectdetection_torch/csrc/'
@@ -940,7 +976,8 @@ def phase_training(device, card='', bsz=8, size=1024, g=32, valid=8, warm=3,
             f'{b2_us / 1e3:.3f} ms of it), optimizer '
             f'{spans.get("train.update", 0) / 1e3:.2f} ms, backward (the '
             f'rest) {(prof["busy_us"] - named) / 1e3:.2f} ms')
-    return counts, {'train_step': calls[0][0]}
+    return counts, {'train_step': calls[0][0],
+                    'training_imgs_per_s': bsz * timed / seconds}
 
 
 # ---- 9. RoIAlign kernel vs plain --------------------------------------------
@@ -1660,6 +1697,376 @@ def profile_orcnn_step(step, device) -> None:
         f'GatherBackward0 nodes {gather_us / 1e3:.2f} ms')
 
 
+# ---- 15.-18. data, the trainer and the evaluator ---------------------------
+def synth_config(path, root):
+    """A synthetic-data config with its ``data_root`` moved to ``root``."""
+    from orientedobjectdetection_torch.tools.train import load_config
+    return load_config(path, [f'data_root={root}/'])
+
+
+def annotation_polys(ann_dir) -> dict:
+    """Image stem -> its annotation polygons (n, 8), as the files hold
+    them."""
+    polys = {}
+    for name in sorted(os.listdir(ann_dir)):
+        with open(os.path.join(ann_dir, name)) as f:
+            rows = [line.split()[:8] for line in f if line.strip()]
+        polys[name[:-4]] = np.asarray(rows, np.float32).reshape(-1, 8)
+    return polys
+
+
+def check_round_trip(polys, version) -> float:
+    """Each polygon -> ``poly2obb_np`` -> ``obb2poly_np`` gives back its
+    corners within ROUND_TRIP_ATOL (the files round them to 0.1 px), in any
+    cyclic order. Returns the largest corner distance."""
+    from orientedobjectdetection_torch.ops.boxes import (obb2poly_np,
+                                                         poly2obb_np)
+    worst = 0.0
+    for poly in polys:
+        obb = poly2obb_np(poly, version)
+        if obb is None:
+            raise AssertionError(f'poly2obb_np rejected {poly.tolist()}')
+        back = obb2poly_np(np.asarray([list(obb) + [0.0]]), version)[0, :8]
+        pts, got = poly.reshape(4, 2), back.reshape(4, 2)
+        err = min(float(np.abs(np.roll(got, s, 0) - pts).max())
+                  for s in range(4))
+        worst = max(worst, err)
+    if worst > ROUND_TRIP_ATOL:
+        raise AssertionError(f'polygons round-trip to within {worst} px')
+    return worst
+
+
+def phase_data(root, card='', config=SYNTH1024_CONFIG, size=1024,
+               n_train=16, n_val=8, n_range=(100, 600), epochs=2) -> float:
+    """Generate a synth-hard set with the port's generator, build the
+    synth1024 config's datasets on it, time its DataLoader alone (uint8,
+    the config's batch and ``max_gt``) and check the batches: shapes, no
+    annotation lost (kept or in the ignore slots), polygons that
+    round-trip. Returns the loader's imgs/s."""
+    import shutil
+    from orientedobjectdetection_torch.datasets import (
+        DataLoader, build_dataset, strip_host_normalize)
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth_hard
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_synth_hard(root, n_train, size, seed=0, split='trainval',
+                        n_range=n_range)
+    generate_synth_hard(root, n_val, size, seed=1, split='val',
+                        n_range=n_range)
+    gen_s = time.perf_counter() - t0
+    cfg = synth_config(config, root)
+    train_cfg, norm = strip_host_normalize(cfg.data['train'])
+    if norm is None:
+        raise AssertionError('the config has no Normalize to move')
+    dataset = build_dataset(train_cfg, seed=0)
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    if (len(dataset), len(val)) != (n_train, n_val):
+        raise AssertionError(f'{len(dataset)} train, {len(val)} val images')
+    bsz, max_gt = int(cfg.data['samples_per_gpu']), int(cfg.data['max_gt'])
+    pad_h, pad_w = cfg.data['pad_size']
+    loader = DataLoader(dataset, bsz, max_gt=max_gt,
+                        pad_size=cfg.data['pad_size'],
+                        num_workers=int(cfg.data['workers_per_gpu']) * 4,
+                        seed=0)
+    polys = annotation_polys(os.path.join(root, 'trainval', 'annfiles'))
+    seen, overflow = 0, 0
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for batch in loader:
+            shapes = {k: tuple(v.shape) for k, v in batch.items()
+                      if k != 'img_metas'}
+            want = {'images': (bsz, pad_h, pad_w, 3),
+                    'gt_bboxes': (bsz, max_gt, 5), 'gt_labels': (bsz, max_gt),
+                    'gt_mask': (bsz, max_gt), 'gt_ignore': (bsz, max_gt, 5),
+                    'gt_ignore_mask': (bsz, max_gt)}
+            if shapes != want or batch['images'].dtype != torch.uint8:
+                raise AssertionError(f'batch {shapes} '
+                                     f'{batch["images"].dtype}')
+            kept = batch['gt_mask'].sum(1) + batch['gt_ignore_mask'].sum(1)
+            for meta, n in zip(batch['img_metas'], kept.tolist()):
+                # the loader keeps max_gt and masks up to max_gt more
+                stem = os.path.basename(meta['filename'])[:-4]
+                if n != min(len(polys[stem]), 2 * max_gt):
+                    raise AssertionError(f'{stem}: {n} of '
+                                         f'{len(polys[stem])} annotations')
+            overflow += int(batch['gt_ignore_mask'].any(1).sum())
+            seen += bsz
+    seconds = time.perf_counter() - t0
+    worst = check_round_trip(np.concatenate(list(polys.values())),
+                             train_cfg['version'])
+    log(f'[data] {n_train} + {n_val} synth-hard images of {size}^2 '
+        f'({sum(map(len, polys.values()))} train instances, '
+        f'{n_range[0]}-{n_range[1]} an image) generated in {gen_s:.1f} s; '
+        f'DataLoader alone, uint8 B={bsz} max_gt={max_gt}, '
+        f'{loader.num_workers} threads, {epochs} epochs: {seen / seconds:.2f} '
+        f'imgs/s on the host of {card}; every annotation kept or in '
+        f'gt_ignore, up to 2 x max_gt ({overflow} images over max_gt); '
+        f'polygons round-trip '
+        f'within {worst:.3f} px')
+    return seen / seconds
+
+
+@contextlib.contextmanager
+def launches_before_eval():
+    """Record the launch counts at each call of the trainer's
+    ``eval_from_state`` (what training alone launched)."""
+    from orientedobjectdetection_torch.apis import train as train_api
+    original, seen = train_api.eval_from_state, []
+
+    def counted(*args, **kwargs):
+        seen.append(read_launches())
+        return original(*args, **kwargs)
+
+    train_api.eval_from_state = counted
+    try:
+        yield seen
+    finally:
+        train_api.eval_from_state = original
+
+
+def read_train_log(work_dir) -> list:
+    with open(os.path.join(work_dir, 'train_log.jsonl')) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_trainer(cfg, work_dir, steps, device, dtype, per_step,
+                log_interval) -> tuple:
+    """``train_detector`` for ``steps`` steps from scratch, its evaluation
+    and checkpoint forced to the last epoch. Checks its launches of the
+    IoU-matrix kernel (``per_step`` a step before the evaluation), finite
+    losses, the val line and the checkpoints. Returns (state, launch counts
+    of the run, seconds, the log)."""
+    import shutil
+    from orientedobjectdetection_torch.apis.train import train_detector
+    from orientedobjectdetection_torch.datasets import build_dataset
+    on_card = torch.device(device).type == 'cuda'
+    shutil.rmtree(work_dir, ignore_errors=True)
+    per_epoch = len(build_dataset(cfg.data['train'])) // \
+        int(cfg.data['samples_per_gpu'])
+    epochs = steps // per_epoch
+    if epochs < 1 or steps % per_epoch:
+        raise ValueError(f'{steps} steps are not whole epochs of '
+                         f'{per_epoch}')
+    cfg = cfg.copy()
+    cfg.merge_from_dict({'evaluation.interval': epochs,
+                         'checkpoint_config.interval': epochs})
+    reset_launches()
+    t0 = time.perf_counter()
+    with launches_before_eval() as at_eval:
+        state = train_detector(cfg, work_dir, max_steps=steps,
+                               log_interval=log_interval, dtype=dtype,
+                               device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    if state.step != steps or len(at_eval) != 1:
+        raise AssertionError(f'{state.step} steps, {len(at_eval)} evals')
+    trained = at_eval[0]['box_iou_rotated']
+    if trained != (per_step * steps if on_card else 0):
+        raise AssertionError(f'box_iou_rotated launched {trained} times in '
+                             f'{steps} steps')
+    log_lines = read_train_log(work_dir)
+    losses = [r['loss'] for r in log_lines if 'loss' in r]
+    if len(losses) != steps // log_interval or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'logged losses {losses}')
+    val = [r for r in log_lines if r.get('mode') == 'val']
+    if len(val) != 1 or not 0 <= val[0]['mAP'] <= 1:
+        raise AssertionError(f'val lines {val}')
+    files = sorted(os.listdir(work_dir))
+    if f'ckpt_{steps:08d}.pth' not in files or \
+            f'best_{steps:08d}.pth' not in files:
+        raise AssertionError(f'work dir holds {files}')
+    return state, counts, seconds, log_lines
+
+
+def phase_trainer(root, work_dir, card='', config=SYNTH1024_CONFIG,
+                  steps=20, extra=2, dtype=torch.bfloat16, device='cuda',
+                  log_interval=5, bare_steps=10,
+                  synthetic_rate=None) -> tuple:
+    """``train_detector`` on the synth1024 config (R50-FPN RetinaNet, 15
+    classes, 1024^2, batch 8, max_gt 512) for ``steps`` steps with the
+    evaluation at the end; then a resume from its checkpoint with no step
+    (the parameters and the step carry over exactly) and one for ``extra``
+    steps more. Compares the loop's imgs/s with the same step on one of
+    the loader's batches alone and with phase 8's synthetic batch. Returns
+    the launch counts of the first run and its final state dict."""
+    from orientedobjectdetection_torch.apis.train import train_detector
+    from orientedobjectdetection_torch.datasets import (
+        DataLoader, build_dataset, strip_host_normalize)
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.parallel import (
+        build_lr_schedule, build_optimizer, create_train_state,
+        make_train_step)
+    on_card = torch.device(device).type == 'cuda'
+    cfg = synth_config(config, root)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, counts, seconds, log_lines = run_trainer(
+        cfg, work_dir, steps, device, dtype, 1, log_interval)
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    rates = [r['imgs_per_sec'] for r in log_lines if 'imgs_per_sec' in r]
+    loop_rate = float(np.mean(rates[1:] or rates))
+    trained = {k: v.detach().clone() for k, v in
+               state.model.state_dict().items()}
+    ckpt = os.path.join(work_dir, f'ckpt_{steps:08d}.pth')
+    again = train_detector(cfg, work_dir, resume_from=ckpt, max_steps=steps,
+                           dtype=dtype, device=device)
+    if again.step != steps:
+        raise AssertionError(f'resumed at step {again.step}')
+    for k, v in again.model.state_dict().items():
+        if not torch.equal(v, trained[k]):
+            raise AssertionError(f'{k} changed on resume')
+    further = train_detector(cfg, work_dir, resume_from=ckpt,
+                             max_steps=steps + extra, log_interval=1,
+                             dtype=dtype, device=device)
+    tail = [r['step'] for r in read_train_log(work_dir)[-extra:]]
+    if further.step != steps + extra or \
+            tail != list(range(steps + 1, steps + extra + 1)):
+        raise AssertionError(f'resume went on to step {further.step}, '
+                             f'logged {tail}')
+    # the same step alone on one of the loader's batches
+    train_cfg, norm = strip_host_normalize(cfg.data['train'])
+    loader = DataLoader(build_dataset(train_cfg), int(cfg.data[
+        'samples_per_gpu']), max_gt=int(cfg.data['max_gt']),
+        pad_size=cfg.data['pad_size'], seed=0)
+    batch = next(iter(loader))
+    batch.pop('img_metas')
+    detector = build_detector(dict(cfg.model))
+    tx = build_optimizer(dict(cfg.optimizer), build_lr_schedule(
+        dict(cfg.lr_config), cfg.optimizer['lr'], steps_per_epoch=2),
+        grad_clip=cfg.optimizer_config['grad_clip'],
+        frozen_stages=detector.backbone.frozen_stages)
+    bare = create_train_state(detector, tx, device=device)
+    step = make_train_step(detector, tx, device_norm=norm, dtype=dtype)
+    for _ in range(3):
+        bare, _ = step(bare, batch)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(bare_steps):
+        bare, metrics = step(bare, batch)
+    sync(device)
+    check_metrics(metrics)
+    bsz = batch['images'].shape[0]
+    bare_rate = bsz * bare_steps / (time.perf_counter() - t0)
+    val = [r for r in log_lines if r.get('mode') == 'val'][0]
+    synthetic = f'{synthetic_rate:.2f}' if synthetic_rate else 'not run'
+    log(f'[trainer] {card} | train_detector, {os.path.basename(config)} '
+        f'({bsz} x {cfg.data["pad_size"]}, max_gt {cfg.data["max_gt"]}), '
+        f'{str(dtype).split(".")[-1]}, {steps} steps + eval: {seconds:.1f} s'
+        f'; loop {loop_rate:.2f} imgs/s (log intervals {rates}) against '
+        f'{bare_rate:.2f} for the same step alone on one loader batch and '
+        f'{synthetic} for phase 8\'s synthetic batch (G=32); peak memory '
+        f'{mem:.2f} GiB; launches {counts}; loss {log_lines[0]["loss"]:.4f} '
+        f'-> {[r for r in log_lines if "loss" in r][-1]["loss"]:.4f}; val '
+        f'mAP {val["mAP"]:.4f}; resume from {os.path.basename(ckpt)}: step '
+        f'and {len(trained)} tensors equal, then steps {tail}')
+    return counts, trained
+
+
+def stack_results(results, num_classes):
+    """Per-image, per-class (n, 6) arrays -> padded (dets, labels, valid)
+    tensors, the bundle's form."""
+    rows = [np.concatenate([r[c] for c in range(num_classes)])
+            for r in results]
+    labels = [np.concatenate([np.full(len(r[c]), c) for c in
+                              range(num_classes)]) for r in results]
+    n = max(max(len(r) for r in rows), 1)
+    dets = torch.zeros(len(rows), n, 6)
+    lab = torch.full((len(rows), n), -1, dtype=torch.long)
+    for i, (d, lb) in enumerate(zip(rows, labels)):
+        dets[i, :len(d)] = torch.from_numpy(d)
+        lab[i, :len(d)] = torch.from_numpy(lb)
+    return dets, lab, lab >= 0
+
+
+def phase_evaluator(root, state_dict, card='', config=SYNTH1024_CONFIG,
+                    device='cuda') -> dict:
+    """``eval_from_state`` on the synth1024 val images (float32, the
+    trained weights with the class bias zeroed so that scores pass
+    score_thr, as phase 5 does), then the same images with the kernels and
+    with their plain versions (B1 in the NMS, B2 in ``eval_rbbox_map``):
+    the same detections up to near-ties, per-class AP within AP_ATOL.
+    Returns the launch counts of the ``eval_from_state`` run."""
+    from orientedobjectdetection_torch.apis.eval import (
+        _default_norm, batched_eval, eval_from_state)
+    from orientedobjectdetection_torch.apis.inference import init_detector
+    from orientedobjectdetection_torch.core.eval_map import eval_rbbox_map
+    from orientedobjectdetection_torch.datasets import build_dataset
+    on_card = torch.device(device).type == 'cuda'
+    cfg = synth_config(config, root)
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    weights = dict(state_dict)
+    weights['bbox_head.retina_cls.bias'] = torch.zeros_like(
+        weights['bbox_head.retina_cls.bias'])
+    bundle = init_detector(cfg, weights, device=device,
+                           device_norm=_default_norm(cfg))
+    reset_launches()
+    ev = eval_from_state(bundle, weights, val, batch_size=8)
+    sync(device)
+    counts = read_launches()
+    if on_card and min(counts['nms_pair_mask'],
+                       counts['box_iou_rotated']) < 1:
+        raise AssertionError(f'eval launches {counts}')
+    anns = [val.get_ann_info(i) for i in range(len(val))]
+    runs = {}
+    for plain in (False, True):
+        bundle.plain_pair_mask = plain
+        results = batched_eval(bundle, val, batch_size=8, progress=False)
+        runs[plain] = (results, *eval_rbbox_map(
+            results, anns, device=device, plain_iou=plain, logger='silent'))
+    (got, got_map, got_aps), (ref, ref_map, ref_aps) = runs[False], \
+        runs[True]
+    err, moved, aside = same_detections(
+        stack_results(got, bundle.num_classes),
+        stack_results(ref, bundle.num_classes), [-1.0] * len(got))
+    gaps = [abs(g['ap'] - r['ap']) for g, r in zip(got_aps, ref_aps)]
+    if max(gaps) > AP_ATOL or abs(got_map - ev['mAP']) > AP_ATOL:
+        raise AssertionError(f'per-class AP kernel vs plain differ by '
+                             f'{max(gaps)}; mAP {got_map} vs '
+                             f'eval_from_state {ev["mAP"]}')
+    n_dets = sum(len(c) for r in got for c in r)
+    log(f'[evaluator] {card} | eval_from_state on {len(val)} val images: '
+        f'mAP {ev["mAP"]:.4f}, launches {counts}; kernels vs plain (B1 in '
+        f'NMS, B2 in eval_rbbox_map): {n_dets} detections the same (max '
+        f'|diff| {err:.3g}, {moved} rows moved), per-class AP within '
+        f'{max(gaps):.3g} (mAP {got_map:.6f} vs {ref_map:.6f})')
+    return counts
+
+
+def phase_orcnn_loop(root, work_dir, card='', config=ORCNN_TINY_CONFIG,
+                     n_images=40, size=256, steps=20, dtype=torch.bfloat16,
+                     device='cuda', log_interval=5) -> dict:
+    """``oriented_rcnn_tiny_synth.py`` through ``train_detector`` on a
+    tiny-synth set from the port's generator: ``steps`` steps, two
+    IoU-matrix launches a step, then the evaluation, where the RoIAlign
+    kernel runs. Returns the run's launch counts."""
+    import shutil
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    on_card = torch.device(device).type == 'cuda'
+    shutil.rmtree(root, ignore_errors=True)
+    generate_synth(root, n_images, size, seed=0)
+    cfg = synth_config(config, root)
+    state, counts, seconds, log_lines = run_trainer(
+        cfg, work_dir, steps, device, dtype, 2, log_interval)
+    if on_card and min(counts['roi_align_rotated'],
+                       counts['nms_pair_mask']) < 1:
+        raise AssertionError(f'launches {counts}')
+    val = [r for r in log_lines if r.get('mode') == 'val'][0]
+    losses = [r['loss'] for r in log_lines if 'loss' in r]
+    log(f'[orcnn-loop] {card} | train_detector, {os.path.basename(config)} '
+        f'({n_images} images of {size}^2), '
+        f'{str(dtype).split(".")[-1]}, {steps} steps + eval: {seconds:.1f} '
+        f's; loss {losses[0]:.4f} -> {losses[-1]:.4f}; val mAP '
+        f'{val["mAP"]:.4f}; launches {counts}')
+    return counts
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
@@ -1745,13 +2152,26 @@ def main() -> int:
     captured.update(orcnn_train_inputs)
     orcnn_train4 = phase_orcnn_training('cuda', card=info['card'], bsz=4,
                                         record=False)[0]
+    hard = os.path.join(DATA_DIR, 'synth_hard1024')
+    t15 = time.perf_counter()
+    phase_data(hard, card=info['card'])
+    trainer, trained = phase_trainer(
+        hard, os.path.join(DATA_DIR, 'work_synth1024'), card=info['card'],
+        synthetic_rate=captured['training_imgs_per_s'])
+    evaluator = phase_evaluator(hard, trained, card=info['card'])
+    orcnn_loop = phase_orcnn_loop(os.path.join(DATA_DIR, 'synth_tiny'),
+                                  os.path.join(DATA_DIR, 'work_orcnn_tiny'),
+                                  card=info['card'])
+    log(f'[phases 15-18] {time.perf_counter() - t15:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
         # training's steps, Oriented R-CNN serving's requests and training's
-        # steps at batch 8 and 4
+        # steps at batch 8 and 4, the trainer's run with its evaluation,
+        # the evaluator's run, and the two-stage trainer's run
         rec['launches'] = sum(run[rec['name']] for run in (
-            serving, training, orcnn, orcnn_train8, orcnn_train4))
+            serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
+            evaluator, orcnn_loop))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..models import build_detector
 from ..utils.config import Config
+from ..utils.image_io import imread
 
 _DEFAULT_NORM = dict(mean=[123.675, 116.28, 103.53],
                      std=[58.395, 57.12, 57.375], to_rgb=True)
@@ -95,7 +96,8 @@ def init_detector(config: Union[str, Config], checkpoint=None,
                   device_norm: Optional[dict] = None) -> DetectorBundle:
     """Build the configured detector with seeded weights, load
     ``checkpoint`` (a state dict with mmrotate names, or the path of a
-    ``.pth`` holding one) over them, and move it
+    ``.pth`` holding one, such as a training checkpoint) over them, and
+    move it
     to ``device`` in ``dtype`` (convolutions and linear layers; frozen BN
     stays float32).
 
@@ -113,7 +115,10 @@ def init_detector(config: Union[str, Config], checkpoint=None,
         checkpoint = torch.load(checkpoint, map_location='cpu',
                                 weights_only=True)
     if checkpoint is not None:
-        state = checkpoint.get('state_dict', checkpoint)
+        # a state dict, mmcv's {'state_dict': ...} or the trainer's
+        # {'model': ..., 'optimizer': ..., 'step': ...}
+        state = checkpoint.get('state_dict', checkpoint.get('model',
+                                                            checkpoint))
         detector.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state.items()})
     detector.eval().to(device)
@@ -134,11 +139,11 @@ def results_to_per_class(dets, labels, valid, num_classes: int
 
 
 def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
-    """Load + host-normalize. ``img_norm_cfg=None`` returns the RAW uint8
-    BGR image (for device-normalizing bundles)."""
+    """Load (a PNG path, :func:`..utils.image_io.imread`) + host-normalize.
+    ``img_norm_cfg=None`` returns the RAW uint8 BGR image (for
+    device-normalizing bundles)."""
     if isinstance(img, str):
-        import cv2
-        img = cv2.imread(img, cv2.IMREAD_COLOR)
+        img = imread(img)
     if img_norm_cfg is None:
         return img
     img = img.astype(np.float32)
@@ -151,7 +156,7 @@ def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
 
 def inference_detector(bundle: DetectorBundle, img,
                        img_norm_cfg=None) -> List[np.ndarray]:
-    """Single-image inference (path or HWC BGR ndarray); pads to the
+    """Single-image inference (PNG path or HWC BGR ndarray); pads to the
     config's ``pad_size`` (default 1024 x 1024)."""
     if bundle.device_norm is not None:
         img_norm_cfg = None                # the bundle normalizes on device

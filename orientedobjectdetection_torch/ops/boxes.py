@@ -8,12 +8,17 @@ radians. Conventions (reference ``mmrotate/core/bbox/transforms.py:850-867``):
 - ``oc``:    theta in (0, pi/2]; passed through unchanged.
 - ``le90``:  theta in [-pi/2, pi/2).
 - ``le135``: theta in [-pi/4, 3*pi/4).
+
+The ``*_np`` functions and :func:`min_area_rect` are the numpy twins the
+host data path uses (DOTA polygons to training targets, detections to
+submission polygons); they need no OpenCV.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 PI = math.pi
@@ -101,3 +106,169 @@ def hbb2obb(hbbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
                         torch.full_like(x, short_angle))
     return torch.stack([x, y, torch.where(long_first, w, h),
                         torch.where(long_first, h, w), a_out], -1)
+
+
+# ---- numpy twins (the host data path) --------------------------------------
+def min_area_rect(points) -> tuple:
+    """The rotated rectangle of least area around ``(n, 2)`` points, in
+    ``cv2.minAreaRect``'s form ``((cx, cy), (w, h), angle)``: the angle in
+    degrees in [-90, 0), ``w`` the side along that direction. Each edge of
+    the convex hull is tried as a side; the first of least area wins."""
+    pts = np.asarray(points, np.float64).reshape(-1, 2)
+    hull = _convex_hull(pts)
+    if len(hull) < 3:
+        d = hull[-1] - hull[0]
+        centre = (hull[0] + hull[-1]) / 2
+        rect = (centre, float(np.hypot(*d)), 0.0,
+                math.degrees(math.atan2(d[1], d[0])))
+    else:
+        rect, best = None, math.inf
+        for i in range(len(hull)):
+            d = hull[(i + 1) % len(hull)] - hull[i]
+            u = d / np.hypot(*d)
+            along, across = hull @ u, hull @ np.array([-u[1], u[0]])
+            w = along.max() - along.min()
+            h = across.max() - across.min()
+            if w * h < best:
+                best = w * h
+                centre = (u * (along.max() + along.min()) / 2 +
+                          np.array([-u[1], u[0]]) *
+                          (across.max() + across.min()) / 2)
+                rect = (centre, w, h,
+                        math.degrees(math.atan2(u[1], u[0])))
+    centre, w, h, angle = rect
+    while angle >= 0:
+        angle -= 90
+        w, h = h, w
+    while angle < -90:
+        angle += 90
+        w, h = h, w
+    f32 = np.float32                      # OpenCV's RotatedRect is float32
+    return ((float(f32(centre[0])), float(f32(centre[1]))),
+            (float(f32(w)), float(f32(h))), float(f32(angle)))
+
+
+def _convex_hull(pts: np.ndarray) -> np.ndarray:
+    """Andrew's monotone chain; collinear and repeated points dropped."""
+    order = np.lexsort((pts[:, 1], pts[:, 0]))
+    pts = pts[order]
+
+    def turn(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    def half(seq):
+        out = []
+        for p in seq:
+            while len(out) >= 2 and turn(out[-2], out[-1], p) <= 0:
+                out.pop()
+            out.append(p)
+        return out
+
+    lower, upper = half(pts), half(pts[::-1])
+    hull = np.array(lower[:-1] + upper[:-1])
+    return hull if len(hull) else pts[:1]
+
+
+def poly2obb_np(poly, version: str = 'oc'):
+    """One polygon ``(8,)`` -> ``(cx, cy, w, h, a)``, or None when an edge
+    of its rectangle is under 2 px (JAX ``ops/boxes.py:poly2obb_np``; the
+    reference's host loaders). ``oc`` and ``le90`` go through
+    :func:`min_area_rect` and its angle convention; ``le135`` takes the
+    polygon's own first corners."""
+    if version in ('oc', 'le90'):
+        (x, y), (w, h), a = min_area_rect(
+            np.asarray(poly, np.float32).reshape(4, 2))
+        if w < 2 or h < 2:
+            return None
+        if version == 'oc':
+            while not 0 < a <= 90:
+                if a == -90:
+                    a += 180
+                else:
+                    a += 90
+                    w, h = h, w
+            return x, y, w, h, a / 180 * PI
+        a = a / 180 * PI
+        if w < h:
+            w, h = h, w
+            a += PI / 2
+        while not PI / 2 > a >= -PI / 2:
+            a += -PI if a >= PI / 2 else PI
+        return x, y, w, h, a
+    if version == 'le135':
+        p = np.asarray(poly[:8], np.float32)
+        pt1, pt2, pt3, pt4 = p[0:2], p[2:4], p[4:6], p[6:8]
+        edge1 = float(np.linalg.norm(pt1 - pt2))
+        edge2 = float(np.linalg.norm(pt2 - pt3))
+        if edge1 < 2 or edge2 < 2:
+            return None
+        if edge1 > edge2:
+            angle = float(np.arctan2(pt2[1] - pt1[1], pt2[0] - pt1[0]))
+        else:
+            angle = float(np.arctan2(pt4[1] - pt1[1], pt4[0] - pt1[0]))
+        angle = float(norm_angle(np.asarray(angle), 'le135'))
+        return (float(pt1[0] + pt3[0]) / 2, float(pt1[1] + pt3[1]) / 2,
+                max(edge1, edge2), min(edge1, edge2), angle)
+    raise NotImplementedError(version)
+
+
+def obb2poly_np(obbs, version: str = 'oc') -> np.ndarray:
+    """``(n, 6)`` ``[cx, cy, w, h, a, score]`` (or ``(n, 5)``) -> ``(n, 9)``
+    polygons and score, corners in the DOTA submission order
+    (:func:`get_best_begin_point`), float32 as the JAX twin computes them."""
+    obbs = np.asarray(obbs, np.float32)
+    if obbs.size == 0:
+        return np.zeros((0, 9), np.float32)
+    x, y, w, h, a = (obbs[:, i] for i in range(5))
+    score = obbs[:, 5] if obbs.shape[1] > 5 else np.zeros_like(x)
+    cosa, sina = np.cos(a), np.sin(a)
+    wx, wy = w / 2 * cosa, w / 2 * sina
+    hx, hy = -h / 2 * sina, h / 2 * cosa
+    polys = np.stack([x - wx - hx, y - wy - hy, x + wx - hx, y + wy - hy,
+                      x + wx + hx, y + wy + hy, x - wx + hx, y - wy + hy,
+                      score], axis=-1)
+    return get_best_begin_point(polys)
+
+
+def get_best_begin_point(polys) -> np.ndarray:
+    """Rotate each polygon's corner order so that the first corner is the
+    one nearest the top-left corner of its circumscribed box (the cyclic
+    shift of least summed distance to that box's corners)."""
+    polys = np.asarray(polys, np.float64)
+    pts = polys[:, :8].reshape(-1, 4, 2)
+    lo, hi = pts.min(axis=1), pts.max(axis=1)
+    dst = np.stack([lo, np.stack([hi[:, 0], lo[:, 1]], -1), hi,
+                    np.stack([lo[:, 0], hi[:, 1]], -1)], axis=1)
+    costs = np.stack([np.linalg.norm(np.roll(pts, -s, axis=1) - dst,
+                                     axis=-1).sum(axis=1)
+                      for s in range(4)], axis=1)
+    best = costs.argmin(axis=1)
+    out = polys.copy()
+    for s in range(4):
+        m = best == s
+        out[m, :8] = np.roll(pts[m], -s, axis=1).reshape(-1, 8)
+    return out.astype(np.float32)
+
+
+def rbbox_flip(bboxes, img_shape, direction: str = 'horizontal',
+               version: str = 'oc') -> np.ndarray:
+    """Flip ``(..., 5)`` rotated boxes in an image of ``img_shape``
+    (``(h, w, ...)``), as the test-time flips do (JAX
+    ``ops/boxes.py:rbbox_flip``)."""
+    bboxes = np.asarray(bboxes)
+    x, y, w, h, a = (bboxes[..., i] for i in range(5))
+    if direction == 'horizontal':
+        x = img_shape[1] - x - 1
+    elif direction == 'vertical':
+        y = img_shape[0] - y - 1
+    elif direction == 'diagonal':
+        return np.stack([img_shape[1] - x - 1, img_shape[0] - y - 1, w, h,
+                         a], -1)
+    else:
+        raise ValueError(direction)
+    if version == 'oc':
+        turned = a != PI / 2
+        return np.stack([x, y, np.where(turned, h, w),
+                         np.where(turned, w, h),
+                         np.where(turned, PI / 2 - a, a)], -1)
+    return np.stack([x, y, w, h, norm_angle(-a, version)], -1)

@@ -1,0 +1,375 @@
+"""Image reading, writing, resizing and drawing in numpy and the standard
+library (a port-only module: the JAX package's data path uses OpenCV, and
+the port depends on neither OpenCV nor PIL).
+
+- :func:`imread` / :func:`imwrite`: 8-bit PNG, ``(H, W, 3)`` uint8 BGR as
+  ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it. The reader takes grey,
+  grey + alpha, RGB and RGBA images with any of the five row filters (alpha
+  is dropped, grey is repeated). It raises ``ValueError`` for interlaced,
+  16-bit, low-bit and palette images, and for anything that is not a PNG.
+  OpenCV writes every row with the Sub filter, and so does :func:`imwrite`:
+  rows of None, Sub and Up decode as whole-row numpy operations; a file
+  with any Average or Paeth row decodes along the image's anti-diagonals,
+  each pixel after its left, upper and upper-left neighbours, an order of
+  magnitude slower.
+- :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
+  interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
+  arithmetic (11-bit weights, a horizontal pass into integers, a vertical
+  pass rounded as its vector code rounds). It agrees with OpenCV within 1,
+  in under 1% of the elements (``tests/test_torch_image_io.py``); the size
+  the synthetic and DOTA configs resize to is the images' own, which is an
+  exact copy.
+- :func:`fill_poly`, :func:`line`, :func:`circle`,
+  :func:`gaussian_blur_3x3` and :func:`hsv2bgr`: what the synthetic-data
+  generator draws with (``tools/generate_synth.py``), after OpenCV's
+  ``fillPoly``, ``line``, ``circle``, ``GaussianBlur(img, (3, 3), 0)`` and
+  ``cvtColor(..., COLOR_HSV2BGR)`` on uint8 images.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+from typing import Tuple
+
+import numpy as np
+
+_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+# PNG colour type -> channels (grey, RGB, grey + alpha, RGBA); 3 is palette
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _chunks(data: bytes):
+    pos = len(_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack('>I4s', data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) != length or len(crc) != 4:
+            raise ValueError('truncated PNG chunk')
+        if zlib.crc32(kind + body) != struct.unpack('>I', crc)[0]:
+            raise ValueError(f'bad CRC in PNG chunk {kind!r}')
+        yield kind, body
+        pos += 12 + length
+
+
+def _paeth(a, b, c):
+    """The Paeth predictor on int16 arrays."""
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
+    """(H, W * bpp) filtered bytes and each row's filter type -> the image
+    bytes (PNG specification, section 9)."""
+    h, stride = raw.shape
+    if filters.max(initial=0) > 4:
+        raise ValueError(f'unknown PNG row filter {int(filters.max())}')
+    out = raw.copy()
+    if not (filters >= 3).any():
+        # None, Sub and Up only: each row is a whole-row operation
+        for y in range(h):
+            f = filters[y]
+            if f == 1:
+                row = out[y].reshape(-1, bpp)
+                np.cumsum(row, axis=0, dtype=np.uint8, out=row)
+            elif f == 2 and y > 0:
+                out[y] += out[y - 1]
+        return out
+    # Average or Paeth rows: pixel (y, x) needs (y, x - 1), (y - 1, x) and
+    # (y - 1, x - 1) first, so go along the anti-diagonals y + x = t
+    w = stride // bpp
+    pix = np.zeros((h + 1, w + 1, bpp), np.int16)      # a zero row and column
+    filt = raw.reshape(h, w, bpp).astype(np.int16)
+    for t in range(h + w - 1):
+        y = np.arange(max(0, t - w + 1), min(h, t + 1))
+        x = t - y
+        a = pix[y + 1, x]
+        b = pix[y, x + 1]
+        c = pix[y, x]
+        f = filters[y][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4],
+                         [a, b, (a + b) >> 1, _paeth(a, b, c)], 0)
+        pix[y + 1, x + 1] = (filt[y, x] + pred) & 0xFF
+    return pix[1:, 1:].astype(np.uint8).reshape(h, stride)
+
+
+def imread(path: str) -> np.ndarray:
+    """Read an 8-bit PNG as ``(H, W, 3)`` uint8 BGR."""
+    with open(path, 'rb') as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
+        raise ValueError(f'{path}: not a PNG file (other formats are '
+                         'ROADMAP A.4b)')
+    header, idat = None, []
+    for kind, body in _chunks(data):
+        if kind == b'IHDR':
+            header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'IDAT':
+            idat.append(body)
+        elif kind == b'IEND':
+            break
+    if header is None or not idat:
+        raise ValueError(f'{path}: PNG without IHDR or IDAT')
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8:
+        raise ValueError(f'{path}: {depth}-bit PNG (only 8-bit is read)')
+    if colour not in _CHANNELS:
+        raise ValueError(f'{path}: palette PNG (colour type {colour}) is '
+                         'not read')
+    if interlace:
+        raise ValueError(f'{path}: interlaced PNG is not read')
+    bpp = _CHANNELS[colour]
+    stride = width * bpp
+    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f'{path}: image data of {raw.size} bytes, '
+                         f'expected {height * (stride + 1)}')
+    raw = raw.reshape(height, stride + 1)
+    img = _unfilter(raw[:, 1:], raw[:, 0], bpp).reshape(height, width, bpp)
+    if bpp <= 2:                                          # grey (+ alpha)
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(img[..., 2::-1])           # RGB(A) -> BGR
+
+
+def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
+    """Write ``(H, W, 3)`` uint8 BGR as an 8-bit RGB PNG, every row with
+    the Sub filter (as OpenCV writes them), compressed at zlib ``level``."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'imwrite takes (H, W, 3) uint8, got {img.dtype} '
+                         f'{img.shape}')
+    h, w = img.shape[:2]
+    rgb = img[..., ::-1].astype(np.uint8)
+    sub = rgb.copy()
+    sub[:, 1:] -= rgb[:, :-1]                              # wraps mod 256
+    rows = np.concatenate([np.ones((h, 1), np.uint8), sub.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body)))
+
+    data = (_SIGNATURE +
+            chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)) +
+            chunk(b'IDAT', zlib.compress(rows.tobytes(), level)) +
+            chunk(b'IEND', b''))
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+# ---- resize --------------------------------------------------------------
+_COEF_BITS = 11
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _linear_taps(dst: int, src: int):
+    """OpenCV's source index and 11-bit weights of each output position
+    (``resize.cpp``, INTER_LINEAR): the centre-aligned coordinate, clamped
+    to the first and last source pixel there."""
+    scale = src / dst
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s
+    low = s < 0
+    f[low], s[low] = 0, 0
+    high = s >= src - 1
+    f[high], s[high] = 0, src - 1
+    w1 = np.round(f * _COEF_SCALE).astype(np.int64)
+    w0 = np.round((1 - f) * _COEF_SCALE).astype(np.int64)
+    return s, np.minimum(s + 1, src - 1), w0, w1
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of a uint8 ``(H, W[, C])`` image to
+    ``size = (new_w, new_h)`` (OpenCV's argument order), within 1 of
+    ``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)``."""
+    new_w, new_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (new_w, new_h) == (w, h):
+        return img.copy()
+    x0, x1, a0, a1 = _linear_taps(new_w, w)
+    y0, y1, b0, b1 = _linear_taps(new_h, h)
+    src = img.astype(np.int64)
+    shape = (1, -1) + (1,) * (img.ndim - 2)
+    rows = (src[:, x0] * a0.reshape(shape) +
+            src[:, x1] * a1.reshape(shape))               # 11 fractional bits
+    shape = (-1,) + (1,) * (img.ndim - 1)
+    # OpenCV's vector rounding: ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1
+    # >> 16), then + 2 >> 2
+    top = ((rows[y0] >> 4) * b0.reshape(shape)) >> 16
+    bottom = ((rows[y1] >> 4) * b1.reshape(shape)) >> 16
+    return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+# ---- drawing (the synthetic-data generator) --------------------------------
+_XY_SHIFT = 16
+
+
+def _hline(img, y, x1, x2, color):
+    h, w = img.shape[:2]
+    if 0 <= y < h and x1 < w and x2 >= 0:
+        img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+
+
+def _line_points(p0, p1):
+    """The pixels OpenCV's 8-connected line iterator visits from ``p0`` to
+    ``p1``, left to right (``LineIterator``)."""
+    (x0, y0), (x1, y1) = p0, p1
+    if x1 < x0:
+        (x0, y0), (x1, y1) = (x1, y1), (x0, y0)
+    dx, dy = x1 - x0, y1 - y0
+    sy = 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = x0, y0
+    pts = []
+    for _ in range(dx + 1):
+        pts.append((x, y))
+        minor = err < 0
+        err += -2 * dy + (2 * dx if minor else 0)
+        if vert:
+            y += sy
+            x += 1 if minor else 0
+        else:
+            x += 1
+            y += sy if minor else 0
+    return pts
+
+
+def _fill_convex(img, pts, color) -> None:
+    """OpenCV's ``FillConvexPoly`` of vertices in 16-bit fixed point: each
+    scan line from its rounded left crossing to its rounded right one."""
+    ys = [int((p[1] + (1 << (_XY_SHIFT - 1))) >> _XY_SHIFT) for p in pts]
+    half = 1 << (_XY_SHIFT - 1)
+    for y in range(max(min(ys), 0), min(max(ys), img.shape[0] - 1) + 1):
+        yc = (y << _XY_SHIFT)
+        xs = []
+        for (xa, ya), (xb, yb) in zip(pts, pts[1:] + pts[:1]):
+            if ya == yb or not min(ya, yb) <= yc <= max(ya, yb):
+                continue
+            xs.append(xa + (xb - xa) * (yc - ya) // (yb - ya))
+        if xs:
+            _hline(img, y, (min(xs) + half) >> _XY_SHIFT,
+                   (max(xs) + half) >> _XY_SHIFT, color)
+
+
+def line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> None:
+    """``cv2.line`` with the default 8-connected type: thickness 1 is
+    OpenCV's line iterator; a thicker line is OpenCV's ``ThickLine``, a
+    convex quad offset by half the thickness across the segment, with
+    filled round caps."""
+    h, w = img.shape[:2]
+    p0 = (int(p0[0]), int(p0[1]))
+    p1 = (int(p1[0]), int(p1[1]))
+    if thickness <= 1:
+        for x, y in _line_points(p0, p1):
+            if 0 <= x < w and 0 <= y < h:
+                img[y, x] = color
+        return
+    one = 1 << _XY_SHIFT
+    dx, dy = (p1[0] - p0[0]) * one, (p1[1] - p0[1]) * one
+    length = float(np.hypot(dx, dy))
+    half = (thickness << (_XY_SHIFT - 1)) + (thickness & 1) * one * 0.5
+    ox = int(np.rint(dy * half / length)) if length else 0
+    oy = int(np.rint(dx * half / length)) if length else 0
+    radius = ((thickness << (_XY_SHIFT - 1)) + (one >> 1)) >> _XY_SHIFT
+    for c in (p0, p1):
+        circle(img, c, radius, color)
+    a = (p0[0] * one, p0[1] * one)
+    b = (p1[0] * one, p1[1] * one)
+    _fill_convex(img, [(a[0] + ox, a[1] - oy), (b[0] + ox, b[1] - oy),
+                       (b[0] - ox, b[1] + oy), (a[0] - ox, a[1] + oy)],
+                 color)
+
+
+def circle(img: np.ndarray, center, radius: int, color) -> None:
+    """Filled ``cv2.circle(img, center, radius, color, -1)``: OpenCV's
+    midpoint circle with its spans filled (``Circle`` in ``drawing.cpp``)."""
+    cx, cy = int(center[0]), int(center[1])
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        _hline(img, cy - dy, cx - dx, cx + dx, color)
+        _hline(img, cy + dy, cx - dx, cx + dx, color)
+        _hline(img, cy - dx, cx - dy, cx + dy, color)
+        _hline(img, cy + dx, cx - dy, cx + dy, color)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def fill_poly(img: np.ndarray, pts: np.ndarray, color) -> None:
+    """``cv2.fillPoly(img, [pts], color)`` for one polygon of integer
+    vertices: the outline drawn with :func:`line`, and each scan line filled
+    between its edges' crossings in OpenCV's 16-bit fixed point
+    (``CollectPolyEdges`` / ``FillEdgeCollection``)."""
+    pts = np.asarray(pts, np.int64).reshape(-1, 2)
+    n = len(pts)
+    edges = []
+    for i in range(n):
+        p0, p1 = pts[i - 1], pts[i]
+        line(img, p0, p1, color)
+        if p0[1] == p1[1]:
+            continue
+        if p0[1] > p1[1]:
+            p0, p1 = p1, p0
+        x0, x1 = int(p0[0]) << _XY_SHIFT, int(p1[0]) << _XY_SHIFT
+        dy = int(p1[1] - p0[1])
+        step = abs(x1 - x0) // dy * (1 if x1 >= x0 else -1)  # C division
+        edges.append((int(p0[1]), int(p1[1]), x0, step))
+    if len(edges) < 2:
+        return
+    h = img.shape[0]
+    y_min = max(min(e[0] for e in edges), 0)
+    y_max = min(max(e[1] for e in edges), h)
+    for y in range(y_min, y_max):
+        xs = sorted(x0 + (y - y0) * step for y0, y1, x0, step in edges
+                    if y0 <= y < y1)
+        for left, right in zip(xs[::2], xs[1::2]):
+            _hline(img, y, (left + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT,
+                   right >> _XY_SHIFT, color)
+
+
+def gaussian_blur_3x3(img: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (3, 3), 0)`` on uint8: the [1, 2, 1] / 4
+    kernel both ways, reflect-101 borders, one rounding at the end (OpenCV's
+    bit-exact 8-bit path)."""
+    src = img.astype(np.int32)
+    pad = np.pad(src, ((1, 1), (1, 1)) + ((0, 0),) * (img.ndim - 2),
+                 mode='reflect')
+    rows = pad[:, :-2] + 2 * pad[:, 1:-1] + pad[:, 2:]
+    total = rows[:-2] + 2 * rows[1:-1] + rows[2:]
+    return ((total + 8) >> 4).astype(np.uint8)
+
+
+def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)`` on uint8 (H in [0, 180)),
+    in OpenCV's float32 arithmetic."""
+    hsv = np.asarray(hsv, np.uint8)
+    one = np.float32(1)
+    h = hsv[..., 0].astype(np.float32) * np.float32(6 / 180)
+    s = hsv[..., 1].astype(np.float32) * np.float32(1 / 255)
+    v = hsv[..., 2].astype(np.float32) * np.float32(1 / 255)
+    h = np.where(h >= 6, h - 6, h)
+    sector = np.floor(h).astype(np.int64)
+    frac = h - sector
+    tab = np.stack([v, v * (one - s), v * (one - s * frac),
+                    v * (one - s * (one - frac))], -1)
+    order = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1],
+                      [0, 2, 1], [0, 1, 3], [2, 1, 0]])[sector % 6]
+    bgr = np.take_along_axis(tab, order, -1)
+    bgr = np.where((s == 0)[..., None], v[..., None], bgr)
+    return np.clip(np.rint(bgr * np.float32(255)), 0, 255).astype(np.uint8)
+

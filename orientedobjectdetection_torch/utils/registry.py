@@ -91,6 +91,8 @@ DETECTORS = Registry('detectors', parent=MODELS)
 LOSSES = Registry('losses', parent=MODELS)
 
 BBOX_CODERS = Registry('bbox_coders')
+DATASETS = Registry('datasets')
+PIPELINES = Registry('pipelines')
 BBOX_ASSIGNERS = Registry('bbox_assigners')
 PRIOR_GENERATORS = Registry('prior_generators')
 

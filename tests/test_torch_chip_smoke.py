@@ -2,10 +2,12 @@
 where every wrapper takes its plain version (so the launch count must stay
 0). ``main()`` is not called: it requires a CUDA device."""
 
+import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -326,3 +328,131 @@ def test_kernel_variants_still_edit_the_sources(kernel):
     shipped = sources.pop('shipped')
     assert shipped == (kv.cuda_build.CSRC / f'{kernel}.cu').read_text()
     assert sources and all(src != shipped for src in sources.values())
+
+
+# ---- phases 15-18 at a tiny size: configs derived from the ones the chip
+# run uses, cut to 128 px, narrow heads, batches of 2
+TINY_PIPELINES = '''
+img_norm_cfg = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12,
+                    57.375], to_rgb=True)
+train_pipeline = [
+    dict(type='LoadImageFromFile'),
+    dict(type='LoadAnnotations', with_bbox=True),
+    dict(type='RResize', img_scale=(128, 128)),
+    dict(type='RRandomFlip', flip_ratio=0.5, version='le90'),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size_divisor=32),
+    dict(type='Collect', keys=['img', 'gt_bboxes', 'gt_labels'])]
+test_pipeline = [
+    dict(type='LoadImageFromFile'),
+    dict(type='RResize', img_scale=(128, 128)),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size_divisor=32),
+    dict(type='Collect', keys=['img'])]
+data = dict(samples_per_gpu=2, workers_per_gpu=1, max_gt=8,
+            pad_size=(128, 128), train=dict(pipeline=train_pipeline),
+            val=dict(pipeline=test_pipeline),
+            test=dict(pipeline=test_pipeline))
+pad_size = (128, 128)
+'''
+TINY_RETINANET = '''
+model = dict(
+    backbone=dict(depth=18, frozen_stages=-1),
+    neck=dict(in_channels=[64, 128, 256, 512], out_channels=32),
+    bbox_head=dict(in_channels=32, feat_channels=32, stacked_convs=1),
+    test_cfg=dict(nms_pre=64, max_candidates=64, max_per_img=50))
+''' + TINY_PIPELINES
+TINY_ORCNN = '''
+model = dict(
+    train_cfg=dict(rpn_proposal=dict(nms_pre=128, max_per_img=64),
+                   rcnn=dict(sampler=dict(num=32))),
+    test_cfg=dict(rpn=dict(nms_pre=128, max_per_img=64),
+                  rcnn=dict(nms_pre=64, max_candidates=64, max_per_img=50)))
+''' + TINY_PIPELINES
+
+
+def derived_config(tmp_path, base, body):
+    path = tmp_path / f'tiny_{pathlib.Path(base).name}'
+    path.write_text(f'_base_ = [{base!r}]\n' + body)
+    return str(path)
+
+
+@pytest.fixture(scope='module')
+def tiny_loop(tmp_path_factory):
+    """Phases 15 and 16 once at a tiny size; phase 17 reads their result."""
+    tmp = tmp_path_factory.mktemp('loop')
+    config = derived_config(tmp, chip_smoke.SYNTH1024_CONFIG, TINY_RETINANET)
+    root = str(tmp / 'hard')
+    rate = chip_smoke.phase_data(root, config=config, size=128, n_train=4,
+                                 n_val=2, n_range=(10, 30), epochs=1)
+    counts, trained = chip_smoke.phase_trainer(
+        root, str(tmp / 'work'), config=config, steps=2, extra=1,
+        dtype=torch.float32, device='cpu', log_interval=1, bare_steps=1,
+        synthetic_rate=12.5)
+    return dict(config=config, root=root, rate=rate, counts=counts,
+                trained=trained, work=str(tmp / 'work'))
+
+
+def test_phase_data_rehearsal(tiny_loop):
+    assert tiny_loop['rate'] > 0
+    # the generated set, the round trip of its polygons
+    polys = chip_smoke.annotation_polys(tiny_loop['root'] +
+                                        '/val/annfiles')
+    assert len(polys) == 2 and all(10 <= len(p) <= 30
+                                   for p in polys.values())
+    assert chip_smoke.check_round_trip(np.concatenate(list(polys.values())),
+                                       'le90') <= chip_smoke.ROUND_TRIP_ATOL
+
+
+def test_check_round_trip_refuses_a_moved_corner():
+    poly = np.array([[10, 10, 40, 10, 40, 20, 10, 20]], np.float32)
+    assert chip_smoke.check_round_trip(poly, 'le90') < 1e-4
+    poly[0, 0] += 1.0
+    with pytest.raises(AssertionError, match='round-trip'):
+        chip_smoke.check_round_trip(poly, 'le90')
+
+
+def test_phase_trainer_rehearsal(tiny_loop):
+    assert tiny_loop['counts'] == NO_LAUNCHES
+    files = sorted(os.listdir(tiny_loop['work']))
+    # the first run's checkpoint and best; the resumed run's end
+    assert files == ['best_00000002.pth', 'ckpt_00000002.pth',
+                     'ckpt_00000003.pth', 'train_log.jsonl']
+    log = chip_smoke.read_train_log(tiny_loop['work'])
+    assert [r['step'] for r in log if 'loss' in r] == [1, 2, 3]
+    assert 'bbox_head.retina_cls.bias' in tiny_loop['trained']
+
+
+def test_phase_evaluator_rehearsal(tiny_loop):
+    counts = chip_smoke.phase_evaluator(tiny_loop['root'],
+                                        tiny_loop['trained'],
+                                        config=tiny_loop['config'],
+                                        device='cpu')
+    assert counts == NO_LAUNCHES
+
+
+def test_phase_orcnn_loop_rehearsal(tmp_path):
+    config = derived_config(tmp_path, chip_smoke.ORCNN_TINY_CONFIG,
+                            TINY_ORCNN)
+    counts = chip_smoke.phase_orcnn_loop(
+        str(tmp_path / 'tiny'), str(tmp_path / 'work'), config=config,
+        n_images=4, size=128, steps=2, dtype=torch.float32, device='cpu',
+        log_interval=1)
+    assert counts == NO_LAUNCHES
+
+
+def test_run_trainer_wants_whole_epochs(tiny_loop):
+    cfg = chip_smoke.synth_config(tiny_loop['config'], tiny_loop['root'])
+    with pytest.raises(ValueError, match='whole epochs'):
+        chip_smoke.run_trainer(cfg, tiny_loop['work'] + '_x', 3, 'cpu',
+                               torch.float32, 1, 1)
+
+
+def test_stack_results_pads_per_image():
+    results = [[np.ones((2, 6), np.float32), np.zeros((0, 6), np.float32)],
+               [np.zeros((0, 6), np.float32), np.full((1, 6), 2.0,
+                                                      np.float32)]]
+    dets, labels, valid = chip_smoke.stack_results(results, 2)
+    assert dets.shape == (2, 2, 6)
+    assert labels.tolist() == [[0, 0], [1, -1]]
+    assert valid.tolist() == [[True, True], [True, False]]

@@ -684,3 +684,107 @@ def test_small_two_stage_slice_kernels_equal_plain(cuda):
     scores = torch.softmax(outputs['cls_score'], -1)[..., :-1].flatten(1)
     cut = scores.topk(min(2000, scores.shape[1]))[0][:, -1]
     same_detections((dets, labels, valid), plain_roi.decode(p_outputs), cut)
+
+
+# ---- the trainer and the evaluator (configs/rotated_retinanet/
+# rotated_retinanet_tiny_synth.py cut to 128 px, 4 synthetic images)
+TINY_SYNTH = '''
+model = dict(test_cfg=dict(nms_pre=500, max_candidates=512, max_per_img=50))
+img_norm_cfg = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12,
+                    57.375], to_rgb=True)
+train_pipeline = [
+    dict(type='LoadImageFromFile'),
+    dict(type='LoadAnnotations', with_bbox=True),
+    dict(type='RResize', img_scale=(128, 128)),
+    dict(type='RRandomFlip', flip_ratio=0.5, version='le90'),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size_divisor=32),
+    dict(type='Collect', keys=['img', 'gt_bboxes', 'gt_labels'])]
+test_pipeline = [
+    dict(type='LoadImageFromFile'),
+    dict(type='RResize', img_scale=(128, 128)),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size_divisor=32),
+    dict(type='Collect', keys=['img'])]
+data = dict(samples_per_gpu=2, pad_size=(128, 128),
+            train=dict(pipeline=train_pipeline),
+            val=dict(pipeline=test_pipeline),
+            test=dict(pipeline=test_pipeline))
+pad_size = (128, 128)
+checkpoint_config = dict(interval=1)
+evaluation = dict(interval=1, samples_per_gpu=2)
+'''
+
+
+def test_loader_train_step_eval_round_trip(cuda, tmp_path):
+    """``train_detector`` on the card: the loader's pinned batches through
+    ``train_step`` (one IoU-matrix launch a step), the evaluation at the
+    epoch's end (the pair mask and the IoU matrix of ``eval_rbbox_map`` on
+    the card), a checkpoint that ``init_detector`` serves from."""
+    import os
+    from orientedobjectdetection_torch.apis.eval import (_default_norm,
+                                                         eval_from_state)
+    from orientedobjectdetection_torch.apis.train import train_detector
+    from orientedobjectdetection_torch.datasets import build_dataset
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    from orientedobjectdetection_torch.tools.train import load_config
+    root = str(tmp_path / 'synth')
+    generate_synth(root, num_images=4, size=128, seed=0)
+    config = tmp_path / 'tiny.py'
+    base = os.path.join(os.path.dirname(__file__), '..', 'configs',
+                        'rotated_retinanet', 'rotated_retinanet_tiny_synth.py')
+    config.write_text(f'_base_ = [{os.path.abspath(base)!r}]\n' + TINY_SYNTH)
+    cfg = load_config(str(config), [f'data_root={root}/'])
+    before = box_iou_rotated_matrix.launches
+    pairs = nms_pair_mask.launches
+    state = train_detector(cfg, str(tmp_path / 'work'), max_steps=2,
+                           log_interval=1, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert state.step == 2
+    assert next(state.model.parameters()).is_cuda
+    # 2 steps, then the evaluation's IoUs (one launch a class with both)
+    assert box_iou_rotated_matrix.launches - before >= 2
+    assert nms_pair_mask.launches > pairs           # 512 candidates
+    ckpt = str(tmp_path / 'work' / 'ckpt_00000002.pth')
+    bundle = init_detector(cfg, ckpt, device_norm=_default_norm(cfg))
+    assert bundle.device.type == 'cuda'
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    ev = eval_from_state(bundle, state.model.state_dict(), val,
+                         batch_size=2)
+    assert 0 <= ev['mAP'] <= 1
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_eval_iou_matrices_kernel_equals_plain(cuda, seed):
+    """``eval_rbbox_map``'s batched IoUs (each image's dets against its gts,
+    zero-padded) with the kernel and with the plain version; the same AP
+    from both."""
+    from orientedobjectdetection_torch.core.eval_map import (batched_ious,
+                                                             eval_rbbox_map)
+    rng = np.random.default_rng(seed)
+
+    def boxes(n):
+        return np.stack([rng.uniform(0, 256, n), rng.uniform(0, 256, n),
+                         rng.uniform(4, 60, n), rng.uniform(4, 60, n),
+                         rng.uniform(-np.pi / 2, np.pi / 2, n)],
+                        -1).astype(np.float32)
+
+    gts = [boxes(int(rng.integers(0, 9))) for _ in range(7)]
+    dets = [np.concatenate([np.concatenate(
+        [g + rng.normal(0, 2, g.shape).astype(np.float32), boxes(30)]),
+        rng.random((len(g) + 30, 1)).astype(np.float32)], 1) for g in gts]
+    before = box_iou_rotated_matrix.launches
+    got = batched_ious(dets, gts, device=cuda)
+    assert box_iou_rotated_matrix.launches == before + 1
+    ref = batched_ious(dets, gts, device=cuda, plain_iou=True)
+    for g, r, d, t in zip(got, ref, dets, gts):
+        assert g.shape == r.shape == (len(d), len(t))
+        np.testing.assert_allclose(g, r, rtol=0, atol=IOU_ATOL)
+    anns = [dict(bboxes=g, labels=np.zeros(len(g), np.int64)) for g in gts]
+    results = [[d] for d in dets]
+    got_map = eval_rbbox_map(results, anns, device=cuda, logger='silent')[0]
+    ref_map = eval_rbbox_map(results, anns, device=cuda, plain_iou=True,
+                             logger='silent')[0]
+    assert abs(got_map - ref_map) <= 1e-4

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py stand alone: no module imports JAX, flax or
-the JAX package (an AST scan, so lazy imports inside functions count)."""
+the JAX package, nor OpenCV or PIL, which the port does not depend on (an
+AST scan, so lazy imports inside functions count)."""
 
 import ast
 import pathlib
@@ -7,7 +8,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orientedobjectdetection_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orientedobjectdetection_tpu',
+             'cv2', 'PIL')
 SOURCES = sorted((ROOT / 'orientedobjectdetection_torch').rglob('*.py')) + \
     [ROOT / 'chip_smoke.py']
 
@@ -27,7 +29,11 @@ def test_scan_covers_the_package():
             'assigners.py', 'common.py', 'train_state.py', 'checkpoint.py',
             'jax_weights.py', 'roi_align_rotated.py', 'roi_align_kernels.py',
             'oriented_rpn_head.py', 'bbox_heads.py', 'oriented_roi_head.py',
-            'two_stage.py'} <= names
+            'two_stage.py', 'image_io.py', 'eval_map.py', 'pipelines.py',
+            'dota.py', 'loader.py', 'eval.py', 'train.py', 'test.py',
+            'generate_synth.py'} <= names
+    tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
+    assert {'train.py', 'test.py', 'generate_synth.py'} <= tools
 
 
 @pytest.mark.parametrize('path', SOURCES,
