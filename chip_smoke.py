@@ -76,11 +76,13 @@ plain PyTorch version:
              weights with the class bias zeroed); the same images with the
              kernels and with their plain versions (B1 in the NMS, B2 in
              ``eval_rbbox_map``): the same detections up to near-ties, the
-             same per-class AP within AP_ATOL
+             same per-class AP within AP_ATOL; the kernel run's IoU-matrix
+             inputs recorded for phase 12
 18. oriented ``oriented_rcnn_tiny_synth.py`` through ``train_detector`` on a
     loop     40-image tiny-synth set of 256^2: 20 bfloat16 steps with two
              box_iou_rotated launches each, then the evaluation, where
-             roi_align_rotated runs
+             roi_align_rotated runs; every input the run gave a kernel
+             recorded for phase 12
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -91,12 +93,18 @@ plain PyTorch version:
              image's proposals), roi_align_rotated on that Oriented R-CNN
              request's levels and proposals, each recorded by a wrapper put
              in place of the kernel's name for that one request or step;
-             each held against its plain version and timed beside its bound
+             and every input phases 17 and 18 gave a kernel: the IoU
+             matrices of ``eval_rbbox_map`` in both, phase 18's RPN and RoI
+             assigners' matrices of each step, and its evaluation's NMS
+             candidates and RoIAlign levels (C=64) and RoIs; each held
+             against its plain version, the largest of each kind timed
+             beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 ``train_detector`` run, 17's ``eval_from_state``, 18) and read just after;
-the recorded requests and steps run after that. Phases 15-18 write their
+the recorded requests and steps run after that, apart from phase 18's run,
+which is recorded as it is counted. Phases 15-18 write their
 data and work directories under ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -238,8 +246,11 @@ def recording(obj, name):
         return calls[-1][1]
 
     # a wrapper put in place of its own module's name (iou_kernels.
-    # box_iou_rotated_matrix) counts its launches here meanwhile
-    record.launches = 0
+    # box_iou_rotated_matrix) counts its launches here meanwhile: the count
+    # goes on from the wrapper's and is handed back after
+    counts_here = own and hasattr(original, 'launches') and \
+        original.__module__ == getattr(obj, '__name__', None)
+    record.launches = getattr(original, 'launches', 0)
     setattr(obj, name, record)
     try:
         yield calls
@@ -248,6 +259,8 @@ def recording(obj, name):
             setattr(obj, name, original)
         else:
             delattr(obj, name)
+        if counts_here:
+            original.launches = record.launches
 
 
 # ---- 1. device -----------------------------------------------------------
@@ -1893,13 +1906,8 @@ def phase_trainer(root, work_dir, card='', config=SYNTH1024_CONFIG,
     steps more. Compares the loop's imgs/s with the same step on one of
     the loader's batches alone and with phase 8's synthetic batch. Returns
     the launch counts of the first run and its final state dict."""
-    from orientedobjectdetection_torch.apis.train import train_detector
-    from orientedobjectdetection_torch.datasets import (
-        DataLoader, build_dataset, strip_host_normalize)
-    from orientedobjectdetection_torch.models import build_detector
-    from orientedobjectdetection_torch.parallel import (
-        build_lr_schedule, build_optimizer, create_train_state,
-        make_train_step)
+    from orientedobjectdetection_torch.apis.train import (setup_training,
+                                                          train_detector)
     on_card = torch.device(device).type == 'cuda'
     cfg = synth_config(config, root)
     if on_card:
@@ -1928,20 +1936,11 @@ def phase_trainer(root, work_dir, card='', config=SYNTH1024_CONFIG,
             tail != list(range(steps + 1, steps + extra + 1)):
         raise AssertionError(f'resume went on to step {further.step}, '
                              f'logged {tail}')
-    # the same step alone on one of the loader's batches
-    train_cfg, norm = strip_host_normalize(cfg.data['train'])
-    loader = DataLoader(build_dataset(train_cfg), int(cfg.data[
-        'samples_per_gpu']), max_gt=int(cfg.data['max_gt']),
-        pad_size=cfg.data['pad_size'], seed=0)
-    batch = next(iter(loader))
+    # the trainer's own step alone on one of its loader's batches
+    setup = setup_training(cfg, dtype=dtype, device=device)
+    batch = next(iter(setup.loader))
     batch.pop('img_metas')
-    detector = build_detector(dict(cfg.model))
-    tx = build_optimizer(dict(cfg.optimizer), build_lr_schedule(
-        dict(cfg.lr_config), cfg.optimizer['lr'], steps_per_epoch=2),
-        grad_clip=cfg.optimizer_config['grad_clip'],
-        frozen_stages=detector.backbone.frozen_stages)
-    bare = create_train_state(detector, tx, device=device)
-    step = make_train_step(detector, tx, device_norm=norm, dtype=dtype)
+    bare, step = setup.state, setup.step_fn
     for _ in range(3):
         bare, _ = step(bare, batch)
     sync(device)
@@ -1990,7 +1989,9 @@ def phase_evaluator(root, state_dict, card='', config=SYNTH1024_CONFIG,
     score_thr, as phase 5 does), then the same images with the kernels and
     with their plain versions (B1 in the NMS, B2 in ``eval_rbbox_map``):
     the same detections up to near-ties, per-class AP within AP_ATOL.
-    Returns the launch counts of the ``eval_from_state`` run."""
+    Returns the launch counts of the ``eval_from_state`` run and the
+    kernel run's inputs of the IoU matrix, one a class, which phase 12
+    holds against the plain matrix."""
     from orientedobjectdetection_torch.apis.eval import (
         _default_norm, batched_eval, eval_from_state)
     from orientedobjectdetection_torch.apis.inference import init_detector
@@ -2013,12 +2014,20 @@ def phase_evaluator(root, state_dict, card='', config=SYNTH1024_CONFIG,
                        counts['box_iou_rotated']) < 1:
         raise AssertionError(f'eval launches {counts}')
     anns = [val.get_ann_info(i) for i in range(len(val))]
+    from orientedobjectdetection_torch.ops import iou_kernels
     runs = {}
     for plain in (False, True):
         bundle.plain_pair_mask = plain
         results = batched_eval(bundle, val, batch_size=8, progress=False)
-        runs[plain] = (results, *eval_rbbox_map(
-            results, anns, device=device, plain_iou=plain, logger='silent'))
+        with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+            runs[plain] = (results, *eval_rbbox_map(
+                results, anns, device=device, plain_iou=plain,
+                logger='silent'))
+        if not plain:
+            matrices = [args for args, _ in calls]
+    if not matrices or len(calls):
+        raise AssertionError(f'{len(matrices)} IoU matrices with the '
+                             f'kernel, {len(calls)} with the plain version')
     (got, got_map, got_aps), (ref, ref_map, ref_aps) = runs[False], \
         runs[True]
     err, moved, aside = same_detections(
@@ -2034,8 +2043,9 @@ def phase_evaluator(root, state_dict, card='', config=SYNTH1024_CONFIG,
         f'mAP {ev["mAP"]:.4f}, launches {counts}; kernels vs plain (B1 in '
         f'NMS, B2 in eval_rbbox_map): {n_dets} detections the same (max '
         f'|diff| {err:.3g}, {moved} rows moved), per-class AP within '
-        f'{max(gaps):.3g} (mAP {got_map:.6f} vs {ref_map:.6f})')
-    return counts
+        f'{max(gaps):.3g} (mAP {got_map:.6f} vs {ref_map:.6f}); '
+        f'{len(matrices)} IoU matrices recorded for phase 12')
+    return counts, {'eval_iou': matrices}
 
 
 def phase_orcnn_loop(root, work_dir, card='', config=ORCNN_TINY_CONFIG,
@@ -2044,19 +2054,45 @@ def phase_orcnn_loop(root, work_dir, card='', config=ORCNN_TINY_CONFIG,
     """``oriented_rcnn_tiny_synth.py`` through ``train_detector`` on a
     tiny-synth set from the port's generator: ``steps`` steps, two
     IoU-matrix launches a step, then the evaluation, where the RoIAlign
-    kernel runs. Returns the run's launch counts."""
+    kernel runs. Returns the run's launch counts and every input it gave
+    the kernels (the RPN and RoI assigners' matrices, and in the
+    evaluation the NMS candidates, the RoIAlign levels and RoIs and the
+    IoU matrices of ``eval_rbbox_map``), which phase 12 holds against
+    their plain versions."""
     import shutil
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import iou_kernels, nms
     from orientedobjectdetection_torch.tools.generate_synth import \
         generate_synth
     on_card = torch.device(device).type == 'cuda'
     shutil.rmtree(root, ignore_errors=True)
     generate_synth(root, n_images, size, seed=0)
     cfg = synth_config(config, root)
-    state, counts, seconds, log_lines = run_trainer(
-        cfg, work_dir, steps, device, dtype, 2, log_interval)
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices, \
+            recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as \
+            pools:
+        state, counts, seconds, log_lines = run_trainer(
+            cfg, work_dir, steps, device, dtype, 2, log_interval)
     if on_card and min(counts['roi_align_rotated'],
                        counts['nms_pair_mask']) < 1:
         raise AssertionError(f'launches {counts}')
+    # a step assigns the RoI head's proposals (B, R, 5) and the RPN's
+    # anchors (shared by the batch: 2-D); the evaluation's matrices follow
+    train, evals = matrices[:2 * steps], matrices[2 * steps:]
+    rpn = [args for args, _ in train if args[1].dim() == 2]
+    roi = [args for args, _ in train if args[1].dim() == 3]
+    if (len(rpn), len(roi)) != (steps, steps) or not evals or not masks \
+            or not pools:
+        raise AssertionError(
+            f'recorded {len(matrices)} IoU matrices, {len(masks)} pair '
+            f'masks and {len(pools)} poolings in {steps} steps + eval')
+    inputs = {'orcnn_loop_rpn': rpn, 'orcnn_loop_roi': roi,
+              'orcnn_loop_eval_iou': [args for args, _ in evals],
+              'orcnn_loop_nms': [(args[0], args[2]) for args, _ in masks],
+              'orcnn_loop_roi_align': [tuple(args[:2]) for args, _ in
+                                       pools]}
     val = [r for r in log_lines if r.get('mode') == 'val'][0]
     losses = [r['loss'] for r in log_lines if 'loss' in r]
     log(f'[orcnn-loop] {card} | train_detector, {os.path.basename(config)} '
@@ -2064,16 +2100,16 @@ def phase_orcnn_loop(root, work_dir, card='', config=ORCNN_TINY_CONFIG,
         f'{str(dtype).split(".")[-1]}, {steps} steps + eval: {seconds:.1f} '
         f's; loss {losses[0]:.4f} -> {losses[-1]:.4f}; val mAP '
         f'{val["mAP"]:.4f}; launches {counts}')
-    return counts
+    return counts, inputs
 
 
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
-    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11 and 14:
-    each kernel against its plain version with the same tolerances, then
-    timed beside its bound. Adds ``main_path_inputs`` to the kernels'
-    records."""
+    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14, 17
+    and 18: each kernel against its plain version with the same
+    tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
+    the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
     pair = by_name['nms_pair_mask']
     pair['main_path_inputs'] = {}
@@ -2126,6 +2162,71 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
         iou['main_path_inputs'][key] = time_iou_matrix(
             boxes1, boxes2, live, device, card, f'{label} inputs', reps,
             plain_reps, mode)
+    held_loops(device, captured, by_name, card, reps, roi_reps, plain_reps)
+
+
+def matrix_pairs(boxes1, boxes2) -> int:
+    batch = max(b.shape[0] if b.dim() == 3 else 1 for b in (boxes1, boxes2))
+    return batch * boxes1.shape[-2] * boxes2.shape[-2]
+
+
+def held_loops(device, captured, by_name, card, reps, roi_reps,
+               plain_reps) -> None:
+    """Phases 17 and 18's recorded inputs: every one held against its plain
+    version; the largest of each kind timed into ``main_path_inputs``."""
+    iou, pair = by_name['box_iou_rotated'], by_name['nms_pair_mask']
+    roi = by_name['roi_align_rotated']
+    for key, label in (
+            ('eval_iou', 'eval_rbbox_map on the synth1024 val set'),
+            ('orcnn_loop_rpn', 'tiny Oriented R-CNN loop\'s RPN assigner'),
+            ('orcnn_loop_roi', 'tiny Oriented R-CNN loop\'s RoI assigner'),
+            ('orcnn_loop_eval_iou', 'eval_rbbox_map in the tiny Oriented '
+             'R-CNN loop')):
+        calls = captured[key]
+        held = [check_iou_matrix(*args) for args in calls]
+        iou['max_abs_err'] = max([iou['max_abs_err']] +
+                                 [err for err, _ in held])
+        big = max(range(len(calls)), key=lambda i: matrix_pairs(
+            *calls[i][:2]))
+        boxes1, boxes2, mode = calls[big]
+        log(f'[main-path] box_iou_rotated on the {len(calls)} inputs of the '
+            f'{label}, largest {tuple(boxes1.shape)} x '
+            f'{tuple(boxes2.shape)} {mode}: max |kernel - plain| '
+            f'{max(err for err, _ in held):.3g} <= {IOU_ATOL}; out-of-reach '
+            f'pairs exactly 0')
+        iou['main_path_inputs'][key] = dict(time_iou_matrix(
+            boxes1, boxes2, held[big][1], device, card, f'{label}\'s largest '
+            f'input', reps, plain_reps, mode), inputs_held=len(calls))
+    calls = captured['orcnn_loop_nms']
+    held = [check_pair_mask(boxes, cls) for boxes, cls in calls]
+    pair['max_abs_err'] = max([pair['max_abs_err']] +
+                              [err for err, _ in held])
+    boxes, cls = max(calls, key=lambda c: c[0].shape[0] * c[0].shape[1])
+    log(f'[main-path] nms_pair_mask on the {len(calls)} candidate sets of '
+        f'the tiny Oriented R-CNN loop\'s evaluation, largest B='
+        f'{boxes.shape[0]} N={boxes.shape[1]}: equal to plain outside '
+        f'+-{BAND} of thr={IOU_THR} ({sum(n for _, n in held)} in-band '
+        f'differences)')
+    pair['main_path_inputs']['orcnn_loop_eval'] = dict(time_pair_mask(
+        boxes, cls, device, card, 'tiny Oriented R-CNN eval candidates',
+        reps, plain_reps), inputs_held=len(calls))
+    calls = captured['orcnn_loop_roi_align']
+    errs = [check_roi_align(levels, rois, False, padding=False)
+            for levels, rois in calls]
+    roi['max_abs_err'] = max([roi['max_abs_err']] + errs)
+    levels, rois = max(calls, key=lambda c: c[1].shape[0] * c[1].shape[1])
+    cells, live, per_level = roi_align_work(levels, rois)
+    log(f'[main-path] roi_align_rotated on the {len(calls)} inputs of the '
+        f'tiny Oriented R-CNN loop\'s evaluation, largest B={rois.shape[0]} '
+        f'R={rois.shape[1]} C={levels[0].shape[-1]} '
+        f'{str(levels[0].dtype).split(".")[-1]}: max |kernel - plain| '
+        f'{max(errs):.3g}; {live} live RoIs, per level {per_level}')
+    timing = time_roi_align(levels, rois, (cells, live), device, card,
+                            'tiny Oriented R-CNN eval proposals', roi_reps,
+                            plain_reps)
+    roi['main_path_inputs']['orcnn_loop_eval'] = dict(
+        timing, live_rois=live, rois_per_level=per_level, cells=cells,
+        inputs_held=len(calls))
 
 
 def main() -> int:
@@ -2158,10 +2259,13 @@ def main() -> int:
     trainer, trained = phase_trainer(
         hard, os.path.join(DATA_DIR, 'work_synth1024'), card=info['card'],
         synthetic_rate=captured['training_imgs_per_s'])
-    evaluator = phase_evaluator(hard, trained, card=info['card'])
-    orcnn_loop = phase_orcnn_loop(os.path.join(DATA_DIR, 'synth_tiny'),
-                                  os.path.join(DATA_DIR, 'work_orcnn_tiny'),
-                                  card=info['card'])
+    evaluator, eval_inputs = phase_evaluator(hard, trained,
+                                             card=info['card'])
+    captured.update(eval_inputs)
+    orcnn_loop, loop_inputs = phase_orcnn_loop(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_orcnn_tiny'), card=info['card'])
+    captured.update(loop_inputs)
     log(f'[phases 15-18] {time.perf_counter() - t15:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:

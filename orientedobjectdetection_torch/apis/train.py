@@ -18,44 +18,43 @@ import json
 import os
 import os.path as osp
 import time
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
 from ..datasets import build_dataset
 from ..datasets.loader import DataLoader, strip_host_normalize
 from ..models import build_detector
-from ..parallel.train_state import (build_lr_schedule, build_optimizer,
-                                    create_train_state, make_train_step)
+from ..parallel.train_state import (TrainState, build_lr_schedule,
+                                    build_optimizer, create_train_state,
+                                    make_train_step)
 from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                 save_checkpoint)
 from .eval import _default_norm, eval_from_state
 from .inference import init_detector
 
 
-def train_detector(cfg, work_dir: str, resume: bool = False,
-                   resume_from: Optional[str] = None,
-                   max_steps: Optional[int] = None, log_interval: int = 50,
-                   dtype=torch.float32, seed: int = 0, device='cuda'):
-    """Train ``cfg``'s detector on ``cfg.data.train`` into ``work_dir`` and
-    return the :class:`TrainState`.
+@dataclass
+class TrainingSetup:
+    """What :func:`train_detector` runs: the prefetching loader over the
+    train split, the LR schedule, the train state and the step."""
+    loader: DataLoader
+    batch_size: int
+    steps_per_epoch: int
+    total_steps: int
+    sched: Callable
+    state: TrainState
+    step_fn: Callable
 
-    ``max_steps`` caps the run (default: ``runner.max_epochs`` epochs);
-    ``resume`` continues from the newest ``ckpt_*.pth`` of ``work_dir``,
-    ``resume_from`` from that file; ``dtype=torch.bfloat16`` trains under
-    autocast on float32 master weights and evaluates in bf16. ``device``
-    defaults to the card and raises without one, unless ``'cpu'`` is asked
-    for."""
-    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
-        raise NotImplementedError('training over several processes '
-                                  '(WORLD_SIZE > 1) is ROADMAP A.13')
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('train_detector: no CUDA device is available; '
-                           'pass device="cpu" to run on the CPU')
-    os.makedirs(work_dir, exist_ok=True)
-    log_path = osp.join(work_dir, 'train_log.jsonl')
 
+def setup_training(cfg, max_steps: Optional[int] = None,
+                   dtype=torch.float32, seed: int = 0,
+                   device='cuda') -> TrainingSetup:
+    """Build ``cfg``'s training: the device-normalization strip, the
+    dataset and loader, the detector, the LR schedule from
+    ``steps_per_epoch``, the optimizer with grad clip and frozen stages, a
+    fresh train state on ``device`` and the train step."""
     # the pipeline's Normalize moves into the step: uint8 host batches
     train_cfg = dict(cfg.data['train'])
     device_norm = None
@@ -86,6 +85,39 @@ def train_detector(cfg, work_dir: str, resume: bool = False,
                          dict(grad_clip) if grad_clip else None,
                          frozen_stages=frozen)
     state = create_train_state(detector, tx, device=device, seed=seed)
+    norm_eval = bool(cfg.model.get('backbone', {}).get('norm_eval', True))
+    step_fn = make_train_step(detector, tx, norm_eval=norm_eval,
+                              device_norm=device_norm, dtype=dtype)
+    return TrainingSetup(loader, batch_size, steps_per_epoch, total_steps,
+                         sched, state, step_fn)
+
+
+def train_detector(cfg, work_dir: str, resume: bool = False,
+                   resume_from: Optional[str] = None,
+                   max_steps: Optional[int] = None, log_interval: int = 50,
+                   dtype=torch.float32, seed: int = 0, device='cuda'):
+    """Train ``cfg``'s detector on ``cfg.data.train`` into ``work_dir`` and
+    return the :class:`TrainState`.
+
+    ``max_steps`` caps the run (default: ``runner.max_epochs`` epochs);
+    ``resume`` continues from the newest ``ckpt_*.pth`` of ``work_dir``,
+    ``resume_from`` from that file; ``dtype=torch.bfloat16`` trains under
+    autocast on float32 master weights and evaluates in bf16. ``device``
+    defaults to the card and raises without one, unless ``'cpu'`` is asked
+    for."""
+    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
+        raise NotImplementedError('training over several processes '
+                                  '(WORLD_SIZE > 1) is ROADMAP A.13')
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('train_detector: no CUDA device is available; '
+                           'pass device="cpu" to run on the CPU')
+    os.makedirs(work_dir, exist_ok=True)
+    log_path = osp.join(work_dir, 'train_log.jsonl')
+    setup = setup_training(cfg, max_steps, dtype, seed, device)
+    loader, batch_size, sched = setup.loader, setup.batch_size, setup.sched
+    steps_per_epoch, total_steps = setup.steps_per_epoch, setup.total_steps
+    state, step_fn = setup.state, setup.step_fn
     if resume_from:
         state = load_checkpoint(resume_from, state)
         print(f'resumed from {resume_from} (step {state.step})')
@@ -94,9 +126,6 @@ def train_detector(cfg, work_dir: str, resume: bool = False,
         if latest:
             state = load_checkpoint(latest, state)
             print(f'resumed from {latest} (step {state.step})')
-    norm_eval = bool(cfg.model.get('backbone', {}).get('norm_eval', True))
-    step_fn = make_train_step(detector, tx, norm_eval=norm_eval,
-                              device_norm=device_norm, dtype=dtype)
 
     # in-training evaluation (the reference's EvalHook)
     eval_cfg = dict(cfg.get('evaluation') or {})

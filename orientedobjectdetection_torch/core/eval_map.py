@@ -112,7 +112,7 @@ def eval_rbbox_map(det_results: List[List[np.ndarray]],
                    dataset: Optional[Sequence[str]] = None,
                    logger=None,
                    nproc: int = 4,
-                   device='cpu',
+                   device='cuda',
                    plain_iou: bool = False) -> Tuple[float, List[Dict]]:
     """DOTA VOC-style rotated mAP (reference ``eval_map.py:126-246``).
 
@@ -120,8 +120,12 @@ def eval_rbbox_map(det_results: List[List[np.ndarray]],
     ``[cx, cy, w, h, a, score]``; ``annotations``: per image ``bboxes``
     ``(n, 5)`` and ``labels``, optionally ``bboxes_ignore`` and
     ``labels_ignore``. ``device`` and ``plain_iou`` say where the IoUs are
-    computed (:func:`batched_ious`); ``nproc`` is accepted and unused.
-    Returns ``(mean_ap, per-class dicts)``."""
+    computed (:func:`batched_ious`): the card by default, which raises
+    without one unless ``'cpu'`` is asked for; ``nproc`` is accepted and
+    unused. Returns ``(mean_ap, per-class dicts)``."""
+    if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('eval_rbbox_map: no CUDA device is available; '
+                           'pass device="cpu" to compute the IoUs on the CPU')
     num_classes = len(det_results[0])
     mode = '11points' if use_07_metric else 'area'
     eval_results = []

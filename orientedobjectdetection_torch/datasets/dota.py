@@ -136,10 +136,11 @@ class DOTADataset:
 
     def evaluate(self, results, metric: str = 'mAP', iou_thr: float = 0.5,
                  logger=None, use_07_metric: bool = True, nproc: int = 4,
-                 device='cpu', plain_iou: bool = False):
+                 device='cuda', plain_iou: bool = False):
         """Rotated VOC mAP of ``results`` (per image, per class ``(n, 6)``
         arrays) against this dataset's annotations; the IoUs on
-        ``device`` (:func:`..core.eval_map.eval_rbbox_map`)."""
+        ``device``, the card unless ``'cpu'`` is asked for
+        (:func:`..core.eval_map.eval_rbbox_map`)."""
         if metric != 'mAP':
             raise ValueError(f'metric must be mAP, got {metric!r}')
         annotations = [self.get_ann_info(i) for i in range(len(self))]

@@ -122,17 +122,15 @@ class RResize:
 @PIPELINES.register_module()
 class RRandomFlip:
     """Random flip with the convention's angle remap (reference
-    ``transforms.py:51-98``). It draws from ``results['rng']``, or from
-    ``rng`` for results without one (the JAX package draws from numpy's
+    ``transforms.py:51-98``). It draws from ``results['rng']``, the
+    dataset's generator of this fetch (the JAX package draws from numpy's
     global generator); a ``flip`` already in the results is kept."""
 
     def __init__(self, flip_ratio=None, direction='horizontal',
-                 version: str = 'oc',
-                 rng: Optional[np.random.Generator] = None):
+                 version: str = 'oc'):
         self.flip_ratio = flip_ratio
         self.direction = direction
         self.version = version
-        self.rng = rng if rng is not None else np.random.default_rng()
 
     def bbox_flip(self, bboxes, img_shape, direction):
         flipped = bboxes.copy()
@@ -157,8 +155,8 @@ class RRandomFlip:
 
     def __call__(self, results):
         if 'flip' not in results:
-            rng = results.get('rng', self.rng)
-            results['flip'] = bool(rng.random() < (self.flip_ratio or 0))
+            results['flip'] = bool(
+                results['rng'].random() < (self.flip_ratio or 0))
             results['flip_direction'] = self.direction
         if results['flip']:
             axis = 0 if results['flip_direction'] == 'vertical' else 1

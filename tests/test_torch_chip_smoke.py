@@ -228,6 +228,15 @@ def test_phase_main_path_kernels_rehearsal():
     captured['orcnn_train_rpn'] = (gts.clamp(min=1e-3), anchors, 'iou')
     captured['orcnn_train_roi'] = (gts.clamp(min=1e-3),
                                    props.clamp(min=1e-3), 'iou')
+    # phases 17 and 18: lists of every input a run gave the kernel
+    captured['eval_iou'] = [captured['orcnn_train_roi'],
+                            (gts[:1].clamp(min=1e-3),
+                             props[:1].clamp(min=1e-3), 'iou')]
+    captured['orcnn_loop_rpn'] = [captured['orcnn_train_rpn']] * 2
+    captured['orcnn_loop_roi'] = [captured['orcnn_train_roi']]
+    captured['orcnn_loop_eval_iou'] = captured['eval_iou'][1:]
+    captured['orcnn_loop_nms'] = [captured['orcnn'], captured['retinanet']]
+    captured['orcnn_loop_roi_align'] = [captured['orcnn_roi']]
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -237,17 +246,41 @@ def test_phase_main_path_kernels_rehearsal():
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
     assert iou['max_abs_err'] == 0.0
     assert sorted(iou['main_path_inputs']) == [
-        'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
+        'eval_iou', 'orcnn_loop_eval_iou', 'orcnn_loop_roi',
+        'orcnn_loop_rpn', 'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
     for got in iou['main_path_inputs'].values():
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert got['pairs_in_reach'] > 0
-    for key in ('retinanet', 'orcnn'):
+    # the largest of a list is timed; every one is held
+    assert iou['main_path_inputs']['eval_iou']['pairs_in_reach'] == \
+        iou['main_path_inputs']['orcnn_train_roi']['pairs_in_reach']
+    assert iou['main_path_inputs']['orcnn_loop_rpn']['inputs_held'] == 2
+    for key in ('retinanet', 'orcnn', 'orcnn_loop_eval'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert 0 <= got['pairs_in_reach'] <= got['same_class_pairs']
-    got = roi['main_path_inputs']['orcnn']
-    assert got['bound_by'] in ('bytes', 'operations') and got['cells'] > 0
-    assert got['live_rois'] == sum(got['rois_per_level'])
+    loop = pair['main_path_inputs']['orcnn_loop_eval']
+    assert loop['inputs_held'] == 2 and loop['same_class_pairs'] == \
+        pair['main_path_inputs']['retinanet']['same_class_pairs']
+    for key in ('orcnn', 'orcnn_loop_eval'):
+        got = roi['main_path_inputs'][key]
+        assert got['bound_by'] in ('bytes', 'operations') and got['cells'] > 0
+        assert got['live_rois'] == sum(got['rois_per_level'])
+
+
+def test_recording_carries_the_launch_count():
+    """A wrapper recorded in its own module counts on the recorder: the
+    count goes on from the wrapper's and comes back to it after."""
+    from orientedobjectdetection_torch.ops import iou_kernels
+    wrapper = iou_kernels.box_iou_rotated_matrix
+    chip_smoke.reset_launches()
+    wrapper.launches = 3
+    with chip_smoke.recording(iou_kernels, 'box_iou_rotated_matrix'):
+        assert chip_smoke.read_launches()['box_iou_rotated'] == 3
+        iou_kernels.box_iou_rotated_matrix.launches += 2    # two launches
+    assert iou_kernels.box_iou_rotated_matrix is wrapper
+    assert wrapper.launches == 5
+    chip_smoke.reset_launches()
 
 
 def test_pair_mask_bound_counts_pairs_in_reach():
@@ -424,21 +457,31 @@ def test_phase_trainer_rehearsal(tiny_loop):
 
 
 def test_phase_evaluator_rehearsal(tiny_loop):
-    counts = chip_smoke.phase_evaluator(tiny_loop['root'],
-                                        tiny_loop['trained'],
-                                        config=tiny_loop['config'],
-                                        device='cpu')
+    counts, inputs = chip_smoke.phase_evaluator(tiny_loop['root'],
+                                                tiny_loop['trained'],
+                                                config=tiny_loop['config'],
+                                                device='cpu')
     assert counts == NO_LAUNCHES
+    # eval_rbbox_map's padded dets x gts of each class with both
+    assert inputs['eval_iou']
+    for boxes1, boxes2, mode in inputs['eval_iou']:
+        assert mode == 'iou' and boxes1.dim() == boxes2.dim() == 3
+        assert boxes1.shape[0] == boxes2.shape[0] == 2
 
 
 def test_phase_orcnn_loop_rehearsal(tmp_path):
     config = derived_config(tmp_path, chip_smoke.ORCNN_TINY_CONFIG,
                             TINY_ORCNN)
-    counts = chip_smoke.phase_orcnn_loop(
+    counts, inputs = chip_smoke.phase_orcnn_loop(
         str(tmp_path / 'tiny'), str(tmp_path / 'work'), config=config,
         n_images=4, size=128, steps=2, dtype=torch.float32, device='cpu',
         log_interval=1)
     assert counts == NO_LAUNCHES
+    assert [len(inputs[k]) for k in ('orcnn_loop_rpn', 'orcnn_loop_roi')] \
+        == [2, 2]
+    assert inputs['orcnn_loop_eval_iou'] and inputs['orcnn_loop_nms']
+    levels, rois = inputs['orcnn_loop_roi_align'][0]
+    assert levels[0].shape[-1] == 64 and rois.shape[-1] == 5
 
 
 def test_run_trainer_wants_whole_epochs(tiny_loop):

@@ -170,3 +170,17 @@ def test_random_flips_follow_the_seed_not_the_threads(root):
     assert runs[0] == runs[1] == runs[2]
     flips = sum(runs[0], [])
     assert any(flips) and not all(flips)
+
+
+def test_random_flip_draws_only_from_the_fetch_generator():
+    """``RRandomFlip`` has no generator of its own: results without the
+    dataset's ``rng`` are refused, and two equal generators flip alike."""
+    from orientedobjectdetection_torch.datasets.pipelines import RRandomFlip
+    flip = RRandomFlip(flip_ratio=0.5, version='le90')
+    img = np.zeros((4, 4, 3), np.uint8)
+    with pytest.raises(KeyError, match='rng'):
+        flip(dict(img=img, img_shape=img.shape))
+    drawn = [[flip(dict(img=img, img_shape=img.shape,
+                        rng=np.random.default_rng([5, k])))['flip']
+              for k in range(16)] for _ in range(2)]
+    assert drawn[0] == drawn[1] and any(drawn[0]) and not all(drawn[0])

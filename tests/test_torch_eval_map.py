@@ -73,7 +73,7 @@ def test_eval_rbbox_map_matches_jax(seed, iou_thr, use_07_metric):
                                            logger='silent')
     got_map, got = eval_map.eval_rbbox_map(dets, anns, iou_thr=iou_thr,
                                            use_07_metric=use_07_metric,
-                                           logger='silent')
+                                           logger='silent', device='cpu')
     assert sum(r['num_gts'] for r in ref) > 0
     assert 0 < ref_map < 1                     # hits, misses and false dets
     assert abs(got_map - ref_map) <= 1e-6
@@ -81,6 +81,13 @@ def test_eval_rbbox_map_matches_jax(seed, iou_thr, use_07_metric):
         assert (g['num_gts'], g['num_dets']) == (r['num_gts'], r['num_dets'])
         assert abs(g['ap'] - r['ap']) <= 1e-6
         assert abs(g['recall'] - r['recall']) <= 1e-6
+
+
+def test_eval_rbbox_map_defaults_to_the_card(monkeypatch):
+    dets, anns = seeded_set(0)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        eval_map.eval_rbbox_map(dets, anns, logger='silent')
 
 
 def test_tpfp_default_ignore_and_duplicates_match_jax():

@@ -183,7 +183,7 @@ def test_eval_from_state_matches_jax(data_root, capsys):
     assert abs(got_map['mAP'] - jdata.evaluate(ref)['mAP']) <= 1e-6
     # random weights match little at IoU 0.5: hold the two at 0.1 too
     loose = [jdata.evaluate(ref, iou_thr=0.1)['mAP'],
-             data.evaluate(got, iou_thr=0.1)['mAP']]
+             data.evaluate(got, iou_thr=0.1, device='cpu')['mAP']]
     assert loose[0] > 0.01 and abs(loose[0] - loose[1]) <= 1e-6
 
 
