@@ -83,6 +83,27 @@ plain PyTorch version:
              box_iou_rotated launches each, then the evaluation, where
              roi_align_rotated runs; every input the run gave a kernel
              recorded for phase 12
+19. patches  ``inference_detector_by_patches`` on one 4000^2 uint8 image
+             (bf16, phase 5's weights): 25 windows of 1024 at step 824 in
+             batches of 8, the per-class merge NMS; the wall time split into
+             tile forward, tile decode + NMS and merge, the merge's N per
+             class and greedy rounds, peak memory; the plain pair mask gives
+             the same merged detections; the merge's inputs recorded
+20. tta      ``inference_detector_tta`` on batch-1 1024^2 images: ms an
+             image; the same detections with the plain pair mask
+21. submis-  the tiled_eval_demo flow with the port's tools: six 1024^2
+    sion     scenes, ``tools.img_split`` at 256 px with a 64 px gap,
+             single-scale and with rates 0.5 / 1.0 / 2.0, ``batched_eval``
+             of phase 16's weights (class bias zeroed), ``format_results``
+             (15 Task1 files in a zip); ``merge_det`` with the kernels and
+             with the plain pair mask the same; the original-frame mAP; the
+             merge's inputs recorded
+22. augment  HRSC rr (R50-FPN, ``PolyRandomRotate``) on 40 + 8 BMP scenes
+             of 1024^2 (a 512^2 canvas): the loader with and without the
+             rotation, a ``MultiImageMixDataset`` with ``RMosaic``,
+             ``train_detector`` for 20 bf16 steps against the step alone,
+             ``evaluate`` (AP50, AP75); the assigner's and the evaluations'
+             IoU-matrix inputs recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -96,16 +117,22 @@ plain PyTorch version:
              and every input phases 17 and 18 gave a kernel: the IoU
              matrices of ``eval_rbbox_map`` in both, phase 18's RPN and RoI
              assigners' matrices of each step, and its evaluation's NMS
-             candidates and RoIAlign levels (C=64) and RoIs; each held
+             candidates and RoIAlign levels (C=64) and RoIs; and those of
+             phases 19-22: the merges' pair masks (from N = 8192 on in
+             blocks of 128 rows against the plain IoU of those rows), the
+             HRSC assigner's and evaluations' IoU matrices; each held
              against its plain version, the largest of each kind timed
              beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
-``train_detector`` run, 17's ``eval_from_state``, 18) and read just after;
+``train_detector`` run, 17's ``eval_from_state``, 18, 19's timed image,
+20's timed images, 21's evaluations and ``format_results``, 22's
+``train_detector`` run and its ``evaluate``) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
-which is recorded as it is counted. Phases 15-18 write their
-data and work directories under ``_data/chip_smoke/`` (gitignored). The last two lines
+which is recorded as it is counted, as are 21's merges and 22's steps.
+Phases 15-22 write their data and work directories under
+``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": 1}}``. Run from the repository root: ``python3 chip_smoke.py``.
@@ -233,17 +260,20 @@ def read_launches() -> dict:
 
 
 @contextlib.contextmanager
-def recording(obj, name):
+def recording(obj, name, keep_results=True):
     """Put a wrapper in place of ``obj.name`` (a module's function or an
     object's method) that keeps the positional arguments and the result of
-    every call; restore the name after. Yields the list of (args, result)."""
+    every call (the result None unless ``keep_results``: a merge's pair
+    masks reach gigabytes); restore the name after. Yields the list of
+    (args, result)."""
     own = name in vars(obj)
     original = getattr(obj, name)
     calls = []
 
     def record(*args):
-        calls.append((args, original(*args)))
-        return calls[-1][1]
+        result = original(*args)
+        calls.append((args, result if keep_results else None))
+        return result
 
     # a wrapper put in place of its own module's name (iou_kernels.
     # box_iou_rotated_matrix) counts its launches here meanwhile: the count
@@ -2103,6 +2133,483 @@ def phase_orcnn_loop(root, work_dir, card='', config=ORCNN_TINY_CONFIG,
     return counts, inputs
 
 
+# ---- 19.-22. huge images, flips, the submission, augmenting training -------
+HRSC_CONFIG = os.path.join(ROOT, 'configs', 'hrsc',
+                           'rotated_retinanet_obb_r50_fpn_6x_hrsc_rr_le90.py')
+# from this N on, phase 12 holds a pair mask in blocks of MERGE_ROWS rows
+# (a merge's (1, N, N) mask, and an (N, N) float IoU, reach gigabytes)
+BIG_N = 8192
+MERGE_ROWS = 128
+
+
+def pair_mask_inputs(calls) -> list:
+    """Recorded pair-mask calls -> (boxes, class ids), zeros for a call
+    without class ids (what the wrapper itself puts there)."""
+    out = []
+    for args, _ in calls:
+        boxes, _, cls = args
+        if cls is None:
+            cls = torch.zeros(boxes.shape[:2], dtype=torch.int32,
+                              device=boxes.device)
+        out.append((boxes, cls))
+    return out
+
+
+def greedy_rounds(boxes, cls) -> int:
+    """Rounds ``ops/nms.py:greedy_suppress`` takes to its fixpoint on the
+    kernel's mask of these inputs (its loop, counted)."""
+    from orientedobjectdetection_torch.ops.iou_kernels import nms_pair_mask
+    over = nms_pair_mask(boxes, IOU_THR, cls).bool()
+    keep = torch.ones(over.shape[:2], dtype=torch.bool, device=over.device)
+    for rounds in range(1, over.shape[1] + 1):
+        new = ~(over & keep[:, :, None]).any(1)
+        if torch.equal(new, keep):
+            return rounds
+        keep = new
+    return over.shape[1]
+
+
+@contextlib.contextmanager
+def timed_calls(obj, name, spans, key, device):
+    """Put a wrapper in place of ``obj.name`` that adds the synchronized
+    seconds of each call to ``spans[key]``; restore the name after."""
+    own = name in vars(obj)
+    original = getattr(obj, name)
+
+    def run(*args, **kwargs):
+        sync(device)
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        sync(device)
+        spans[key] += time.perf_counter() - t0
+        return out
+
+    setattr(obj, name, run)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, original)
+        else:
+            delattr(obj, name)
+
+
+def per_class_dets(results, num_classes, size) -> int:
+    """Per-class ``(n, 6)`` results are finite, their centres within
+    ``size`` of a ``size``^2 image, one array a class. Returns the number
+    of detections."""
+    if len(results) != num_classes:
+        raise AssertionError(f'{len(results)} classes')
+    total = 0
+    for dets in results:
+        if dets.ndim != 2 or dets.shape[1] != 6 or \
+                not np.isfinite(dets).all():
+            raise AssertionError(f'detections {dets.shape}')
+        if len(dets) and (dets[:, :2].min() < -size or
+                          dets[:, :2].max() > 2 * size):
+            raise AssertionError('a detection far outside the image')
+        total += len(dets)
+    return total
+
+
+def phase_patches(device, card='', size=4000, window=1024, step=824, bsz=8,
+                  dtype=torch.bfloat16, max_candidates=2000,
+                  seed=30) -> tuple:
+    """``inference_detector_by_patches`` on one ``size``^2 uint8 image
+    (DOTA's upper size) with phase 5's bundle, windows of ``window`` at
+    ``step`` (25 at the defaults), ``bsz`` windows a batch: once to warm,
+    once counted and timed (tile forward, tile decode + NMS, the merge),
+    once with the plain pair mask, which gives the same merged detections.
+    Returns the counted run's launches and the merge's pair-mask inputs,
+    which phase 12 holds."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    from orientedobjectdetection_torch.apis import inference as api
+    from orientedobjectdetection_torch.core.patch import slide_window
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    bundle = build_bundle(device, dtype, max_candidates)
+    plain = DetectorBundle(bundle.cfg, bundle.detector, dtype,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    img = np.random.default_rng(seed).integers(0, 256, (size, size, 3),
+                                               np.uint8)
+    n_windows = len(slide_window(size, size, [window], [step]))
+    n_batches = -(-n_windows // bsz)
+    kwargs = dict(sizes=(window,), steps=(step,), bs=bsz)
+    api.inference_detector_by_patches(bundle, img, **kwargs)        # warm
+    spans = collections.defaultdict(float)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with timed_calls(bundle, 'forward', spans, 'forward', device), \
+            timed_calls(bundle, 'decode', spans, 'decode', device), \
+            timed_calls(api, 'translate_and_merge', spans, 'merge', device), \
+            recording(nms, 'nms_pair_mask', keep_results=False) as calls:
+        reset_launches()
+        t0 = time.perf_counter()
+        got = api.inference_detector_by_patches(bundle, img, **kwargs)
+        sync(device)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    n_dets = per_class_dets(got, bundle.num_classes, size)
+    merge_calls = pair_mask_inputs(calls[n_batches:])   # after the tiles'
+    # one launch a tile batch, then one a class in the merge
+    expected = n_batches + len(merge_calls) if on_card else 0
+    if counts['nms_pair_mask'] != expected or not merge_calls:
+        raise AssertionError(f'launches {counts} for {n_batches} tile '
+                             f'batches and {len(merge_calls)} merge NMS '
+                             f'calls')
+    ref = api.inference_detector_by_patches(plain, img, **kwargs)
+    err, moved, aside = same_detections(
+        stack_results([got], bundle.num_classes),
+        stack_results([ref], bundle.num_classes), [-1.0])
+    sizes = sorted((b.shape[1] for b, _ in merge_calls), reverse=True)
+    largest = max(merge_calls, key=lambda c: c[0].shape[1])
+    rounds = greedy_rounds(*largest)
+    other = wall - spans['forward'] - spans['decode'] - spans['merge']
+    log(f'[patches] {card} | inference_detector_by_patches, '
+        f'{str(dtype).split(".")[-1]}, one {size}^2 image, {n_windows} '
+        f'windows of {window} at step {step} in {n_batches} batches of up '
+        f'to {bsz}: {1e3 * wall:.1f} ms an image = tile forward '
+        f'{1e3 * spans["forward"]:.1f} + tile decode+NMS '
+        f'{1e3 * spans["decode"]:.1f} + merge {1e3 * spans["merge"]:.1f} + '
+        f'tile cuts and copies {1e3 * other:.1f} ms; {n_dets} merged '
+        f'detections; merge NMS per class N {sizes} (largest {sizes[0]}, '
+        f'{rounds} greedy rounds); nms_pair_mask launches {counts} '
+        f'({len(merge_calls)} in the merge); peak memory {mem:.2f} GiB; '
+        f'the plain pair mask gives the same detections (max |diff| '
+        f'{err:.3g}, {moved} rows moved)')
+    return counts, {'patch_merge': merge_calls}
+
+
+def phase_tta(device, card='', n_images=3, size=1024, dtype=torch.bfloat16,
+              max_candidates=2000, seed=31) -> dict:
+    """``inference_detector_tta`` (the image, its horizontal and vertical
+    flips, per-class NMS of the mapped detections) on ``n_images`` batch-1
+    ``size``^2 uint8 images with phase 5's bundle, on a canvas of the
+    images' size: counted and timed, then with the plain pair mask, which
+    gives the same detections. Returns the counted run's launches."""
+    from orientedobjectdetection_torch.apis import (DetectorBundle,
+                                                    inference_detector_tta)
+    on_card = torch.device(device).type == 'cuda'
+    bundle = build_bundle(device, dtype, max_candidates)
+    bundle.cfg.merge_from_dict({'pad_size': (size, size)})   # the canvas
+    plain = DetectorBundle(bundle.cfg, bundle.detector, dtype,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (size, size, 3), np.uint8)
+              for _ in range(n_images)]
+    inference_detector_tta(bundle, images[0])                       # warm
+    reset_launches()
+    t0 = time.perf_counter()
+    got = [inference_detector_tta(bundle, im) for im in images]
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    n_dets = sum(per_class_dets(r, bundle.num_classes, size) for r in got)
+    # three requests an image, then one NMS a class with detections
+    merges = sum(sum(len(d) > 0 for d in r) for r in got)
+    if counts['nms_pair_mask'] != ((3 * n_images + merges) if on_card
+                                   else 0):
+        raise AssertionError(f'launches {counts} for {n_images} images, '
+                             f'{merges} class merges')
+    ref = [inference_detector_tta(plain, im) for im in images]
+    err, moved, aside = same_detections(
+        stack_results(got, bundle.num_classes),
+        stack_results(ref, bundle.num_classes), [-1.0] * n_images)
+    log(f'[tta] {card} | inference_detector_tta, '
+        f'{str(dtype).split(".")[-1]}, {n_images} images of {size}^2 (batch '
+        f'1, 3 passes each): {1e3 * seconds / n_images:.1f} ms an image; '
+        f'{n_dets} detections; launches {counts}; the plain pair mask gives '
+        f'the same detections (max |diff| {err:.3g}, {moved} rows moved)')
+    return counts
+
+
+def zero_class_bias(state_dict) -> dict:
+    """Trained weights with the class bias zeroed, so that scores after a
+    few steps pass score_thr (as phase 17 does)."""
+    weights = dict(state_dict)
+    weights['bbox_head.retina_cls.bias'] = torch.zeros_like(
+        weights['bbox_head.retina_cls.bias'])
+    return weights
+
+
+def phase_submission(root, state_dict, card='', config=SYNTH1024_CONFIG,
+                     n_images=6, size=1024, tile=256, gap=64, device='cuda',
+                     batch_size=8, max_objs=18, max_per_img=100) -> tuple:
+    """The DOTA huge-image flow of ``tools/data/synth/tiled_eval_demo.py``
+    with the port's tools: ``n_images`` ``size``^2 scenes from the port's
+    generator, split by ``tools.img_split`` at ``tile`` px with ``gap``,
+    single-scale and with rates 0.5 / 1.0 / 2.0; ``batched_eval`` of
+    phase 16's trained synth1024 RetinaNet (class bias zeroed, at most
+    ``max_per_img`` detections a tile, the tiny-synth configs' cut: with
+    every score near 0.5 a tile would keep up to 2000 and a multi-scale
+    image's merge would reach 10^5 boxes, far past a trained detector's)
+    on the tiles and ``format_results`` (the zip of 15 Task1 files),
+    counted; then
+    ``merge_det`` with the kernels and with the plain pair mask (the same
+    detections) and the original-frame mAP. Returns the counted runs'
+    launches and every input ``format_results``'s merge gave the pair-mask
+    kernel."""
+    import shutil
+    import zipfile
+    from orientedobjectdetection_torch.apis.eval import (_default_norm,
+                                                         batched_eval)
+    from orientedobjectdetection_torch.apis.inference import init_detector
+    from orientedobjectdetection_torch.core.eval_map import eval_rbbox_map
+    from orientedobjectdetection_torch.datasets import build_dataset
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.tools import img_split
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    shutil.rmtree(root, ignore_errors=True)
+    big = os.path.join(root, 'big', 'test')
+    generate_synth(os.path.join(root, 'big'), n_images, size, seed=7,
+                   split='test', max_objs=max_objs)
+    cfg = synth_config(config, root)
+    weights = zero_class_bias(state_dict)
+
+    def tiles(ann_dir, img_dir):
+        return build_dataset(dict(cfg.data['test'], ann_file=ann_dir + '/',
+                                  img_prefix=img_dir + '/', test_mode=True,
+                                  filter_empty_gt=False))
+
+    orig = tiles(os.path.join(big, 'annfiles'), os.path.join(big, 'images'))
+    by_id = {os.path.splitext(i['filename'])[0]: i['ann']
+             for i in orig.data_infos}
+    counts = collections.Counter()
+    merge_inputs = []
+    for label, rates in (('single-scale', ['1.0']),
+                         ('multi-scale', ['0.5', '1.0', '2.0'])):
+        split = os.path.join(root, f'split_{label}')
+        t0 = time.perf_counter()
+        n_tiles = img_split.main([
+            '--img-dirs', os.path.join(big, 'images'), '--ann-dirs',
+            os.path.join(big, 'annfiles'), '--save-dir', split, '--sizes',
+            str(tile), '--gaps', str(gap), '--rates', *rates])
+        split_s = time.perf_counter() - t0
+        win = int(tile / min(float(r) for r in rates))
+        run_cfg = cfg.copy()
+        run_cfg.merge_from_dict({'pad_size': (win, win),
+                                 'model.test_cfg.max_per_img': max_per_img})
+        bundle = init_detector(run_cfg, weights, device=device,
+                               device_norm=_default_norm(run_cfg))
+        ds = tiles(os.path.join(split, 'annfiles'),
+                   os.path.join(split, 'images'))
+        if len(ds) != n_tiles:
+            raise AssertionError(f'{len(ds)} tiles in the dataset, '
+                                 f'{n_tiles} written')
+        sub = os.path.join(root, f'submission_{label}')
+        reset_launches()
+        t0 = time.perf_counter()
+        results = batched_eval(bundle, ds, batch_size=batch_size,
+                               progress=False)
+        sync(device)
+        eval_s = time.perf_counter() - t0
+        with recording(nms, 'nms_pair_mask', keep_results=False) as calls:
+            t0 = time.perf_counter()
+            zip_path = ds.format_results(results, submission_dir=sub,
+                                         device=device)
+            sync(device)
+            format_s = time.perf_counter() - t0
+        run = read_launches()
+        counts.update(run)
+        merge_inputs.extend(pair_mask_inputs(calls))
+        with zipfile.ZipFile(zip_path) as zf:
+            names = sorted(zf.namelist())
+            lines = sum(len(zf.read(n).decode().splitlines()) for n in names)
+        want = sorted(f'Task1_{c}.txt' for c in ds.CLASSES)
+        if names != want or len(names) != 15:
+            raise AssertionError(f'the zip holds {names}')
+        t0 = time.perf_counter()
+        ids, merged = ds.merge_det(results, device=device)
+        sync(device)
+        merge_s = time.perf_counter() - t0
+        _, merged_plain = ds.merge_det(results, device=device,
+                                       plain_pair_mask=True)
+        if sorted(ids) != sorted(by_id) or lines != sum(
+                len(c) for m in merged for c in m):
+            raise AssertionError(f'merged ids {ids}, {lines} Task1 lines')
+        err, moved, aside = same_detections(
+            stack_results(merged, len(ds.CLASSES)),
+            stack_results(merged_plain, len(ds.CLASSES)), [-1.0] * len(ids))
+        annotations = [dict(by_id[i], bboxes_ignore=np.zeros((0, 5),
+                                                             np.float32),
+                            labels_ignore=np.zeros((0,), np.int64))
+                       for i in ids]
+        mean_ap, _ = eval_rbbox_map(merged, annotations, iou_thr=0.5,
+                                    device=device, logger='silent')
+        sizes = [b.shape[1] for b, _ in pair_mask_inputs(calls)]
+        log(f'[submission] {card} | {label} ({"/".join(rates)}): '
+            f'{n_images} scenes of {size}^2 -> {n_tiles} tiles of up to '
+            f'{win}^2 in {split_s:.1f} s; batched_eval {eval_s:.2f} s; '
+            f'format_results (merge_det + Task1 + zip) {format_s:.2f} s; '
+            f'merge_det alone {merge_s:.2f} s for {len(sizes)} NMS calls, '
+            f'{1e3 * merge_s / max(len(sizes), 1):.2f} ms a call, N '
+            f'{min(sizes, default=0)}-{max(sizes, default=0)}; '
+            f'{lines} Task1 lines in 15 files; launches {run}; merge_det '
+            f'with the plain pair mask the same (max |diff| {err:.3g}, '
+            f'{moved} rows moved); original-frame mAP {mean_ap:.4f} (phase '
+            f'16\'s few training steps with the class bias zeroed: not a '
+            f'quality number)')
+    return dict(counts), {'submission_merge': merge_inputs}
+
+
+def hrsc_sets(root, n_train, n_val, size) -> None:
+    """The port's HRSC layout with ``n_train`` ids in ``trainval.txt`` and
+    the next ``n_val`` in ``test.txt``."""
+    import shutil
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth_hrsc
+    shutil.rmtree(root, ignore_errors=True)
+    generate_synth_hrsc(root, n_train + n_val, size, seed=0)
+    sets = os.path.join(root, 'ImageSets')
+    with open(os.path.join(sets, 'trainval.txt')) as f:
+        ids = f.read().split()
+    for name, part in (('trainval', ids[:n_train]), ('test', ids[n_train:])):
+        with open(os.path.join(sets, f'{name}.txt'), 'w') as f:
+            f.write('\n'.join(part) + '\n')
+
+
+def loader_rate(dataset_cfg, bsz, num_workers, batches, max_gt=512,
+                want=None) -> tuple:
+    """imgs/s of a DataLoader alone over ``batches`` batches; checks the
+    images' (shape, dtype) against ``want``."""
+    from orientedobjectdetection_torch.datasets import (DataLoader,
+                                                        build_dataset)
+    loader = DataLoader(build_dataset(dataset_cfg, seed=0), bsz,
+                        max_gt=max_gt, num_workers=num_workers, seed=0)
+    seen, shapes = 0, set()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(loader):
+        shapes.add((tuple(batch['images'].shape), batch['images'].dtype))
+        seen += bsz
+        if i + 1 == batches:
+            break
+    seconds = time.perf_counter() - t0
+    if want is not None and shapes != {want}:
+        raise AssertionError(f'batches {shapes}, expected {want}')
+    return seen / seconds, shapes
+
+
+def phase_augment(root, work_dir, card='', config=HRSC_CONFIG, n_train=40,
+                  n_val=8, size=1024, steps=20, dtype=torch.bfloat16,
+                  device='cuda', log_interval=5, bare_steps=10,
+                  mosaic_batches=5) -> tuple:
+    """Augmenting training on HRSC: the port's generator writes ``n_train``
+    + ``n_val`` BMP scenes of ``size``^2; the HRSC rr config (R50-FPN at
+    published widths, ``RResize(800, 512)``, flips, ``PolyRandomRotate``)
+    with its ``data_root`` moved there. Its DataLoader alone with and
+    without ``PolyRandomRotate``, and a ``MultiImageMixDataset`` with
+    ``RMosaic`` for ``mosaic_batches`` batches; ``train_detector`` for
+    ``steps`` steps (one IoU-matrix launch a step) with its evaluation, the
+    same step alone on a loader batch, and one ``evaluate`` (AP50, AP75)
+    with the class bias zeroed. Returns the launches of the training run and
+    of that evaluation, and every IoU-matrix input of both."""
+    from orientedobjectdetection_torch.apis.eval import (_default_norm,
+                                                         batched_eval)
+    from orientedobjectdetection_torch.apis.inference import init_detector
+    from orientedobjectdetection_torch.apis.train import setup_training
+    from orientedobjectdetection_torch.datasets import (build_dataset,
+                                                        strip_host_normalize)
+    from orientedobjectdetection_torch.ops import iou_kernels
+    on_card = torch.device(device).type == 'cuda'
+    t0 = time.perf_counter()
+    hrsc_sets(root, n_train, n_val, size)
+    gen_s = time.perf_counter() - t0
+    cfg = synth_config(config, root)
+    bsz = int(cfg.data['samples_per_gpu'])
+    threads = int(cfg.data['workers_per_gpu']) * 4
+    train_cfg, norm = strip_host_normalize(cfg.data['train'])
+    if norm is None or not any(t['type'] == 'PolyRandomRotate'
+                               for t in train_cfg['pipeline']):
+        raise AssertionError('the config has no Normalize or no rotation')
+    no_rotation = dict(train_cfg, pipeline=[
+        t for t in train_cfg['pipeline'] if t['type'] != 'PolyRandomRotate'])
+    from orientedobjectdetection_torch.datasets.pipelines import \
+        rescale_size
+    resize = [t for t in train_cfg['pipeline'] if t['type'] == 'RResize']
+    side = rescale_size((size, size), resize[0]['img_scale'])[0]
+    batches = n_train // bsz
+    rates = {}
+    for label, spec in (('with', train_cfg), ('without', no_rotation)):
+        rates[label] = loader_rate(spec, bsz, threads, batches, want=(
+            (bsz, side, side, 3), torch.uint8))[0]
+    mosaic = dict(type='MultiImageMixDataset', dataset=no_rotation,
+                  pipeline=[dict(type='RMosaic', img_scale=(side, side))])
+    mosaic_rate = loader_rate(mosaic, bsz, threads, mosaic_batches, want=(
+        (bsz, 2 * side, 2 * side, 3), torch.float32))[0]
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices:
+        state, counts, seconds, log_lines = run_trainer(
+            cfg, work_dir, steps, device, dtype, 1, log_interval)
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    assign = [args for args, _ in matrices[:steps]]
+    if len(assign) != steps or any(a[1].dim() != 2 for a in assign):
+        raise AssertionError(f'{len(matrices)} IoU matrices in {steps} '
+                             f'steps + eval')
+    val_line = [r for r in log_lines if r.get('mode') == 'val'][0]
+    loop_rate = float(np.mean([r['imgs_per_sec'] for r in log_lines
+                               if 'imgs_per_sec' in r][1:] or [0.0]))
+    setup = setup_training(cfg, dtype=dtype, device=device)
+    batch = next(iter(setup.loader))
+    batch.pop('img_metas')
+    bare, step = setup.state, setup.step_fn
+    for _ in range(3):
+        bare, _ = step(bare, batch)
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(bare_steps):
+        bare, metrics = step(bare, batch)
+    sync(device)
+    check_metrics(metrics)
+    bare_rate = bsz * bare_steps / (time.perf_counter() - t0)
+
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    weights = zero_class_bias(state.model.state_dict())
+    bundle = init_detector(cfg, weights, device=device,
+                           device_norm=_default_norm(cfg))
+    reset_launches()
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as evals:
+        results = batched_eval(bundle, val, batch_size=8, progress=False)
+        ev = val.evaluate(results, device=device)
+    sync(device)
+    eval_counts = read_launches()
+    if sorted(ev) != ['AP50', 'AP75', 'mAP'] or \
+            not all(0 <= v <= 1 for v in ev.values()):
+        raise AssertionError(f'evaluate gave {ev}')
+    if on_card and eval_counts['box_iou_rotated'] != 2:
+        raise AssertionError(f'evaluate launches {eval_counts}')
+    losses = [r['loss'] for r in log_lines if 'loss' in r]
+    log(f'[augment] {card} | HRSC rr (R{cfg.model["backbone"]["depth"]}-FPN,'
+        f' {os.path.basename(config)}) '
+        f'on {n_train} + {n_val} BMP scenes of {size}^2 generated in '
+        f'{gen_s:.1f} s; DataLoader alone (batch {bsz} of {side}^2 uint8, '
+        f'{threads} threads): {rates["with"]:.2f} imgs/s with '
+        f'PolyRandomRotate, {rates["without"]:.2f} without; '
+        f'MultiImageMixDataset + RMosaic ({2 * side}^2 float32): '
+        f'{mosaic_rate:.2f} imgs/s over {mosaic_batches} batches; '
+        f'train_detector {str(dtype).split(".")[-1]}, {steps} steps + eval: '
+        f'{seconds:.1f} s, loop {loop_rate:.2f} imgs/s against '
+        f'{bare_rate:.2f} for the same step alone on a loader batch; loss '
+        f'{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory {mem:.2f} GiB; '
+        f'launches {counts} (val AP50 {val_line["AP50"]:.4f}); evaluate '
+        f'with the class bias zeroed: AP50 {ev["AP50"]:.4f}, AP75 '
+        f'{ev["AP75"]:.4f}, launches {eval_counts}')
+    merged = collections.Counter(counts)
+    merged.update(eval_counts)
+    return dict(merged), {'hrsc_assign': assign,
+                          'hrsc_train_eval_iou': [a for a, _ in
+                                                  matrices[steps:]],
+                          'hrsc_eval_iou': [a for a, _ in evals]}
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
@@ -2172,7 +2679,7 @@ def matrix_pairs(boxes1, boxes2) -> int:
 
 def held_loops(device, captured, by_name, card, reps, roi_reps,
                plain_reps) -> None:
-    """Phases 17 and 18's recorded inputs: every one held against its plain
+    """Phases 17-22's recorded inputs: every one held against its plain
     version; the largest of each kind timed into ``main_path_inputs``."""
     iou, pair = by_name['box_iou_rotated'], by_name['nms_pair_mask']
     roi = by_name['roi_align_rotated']
@@ -2181,35 +2688,21 @@ def held_loops(device, captured, by_name, card, reps, roi_reps,
             ('orcnn_loop_rpn', 'tiny Oriented R-CNN loop\'s RPN assigner'),
             ('orcnn_loop_roi', 'tiny Oriented R-CNN loop\'s RoI assigner'),
             ('orcnn_loop_eval_iou', 'eval_rbbox_map in the tiny Oriented '
-             'R-CNN loop')):
-        calls = captured[key]
-        held = [check_iou_matrix(*args) for args in calls]
-        iou['max_abs_err'] = max([iou['max_abs_err']] +
-                                 [err for err, _ in held])
-        big = max(range(len(calls)), key=lambda i: matrix_pairs(
-            *calls[i][:2]))
-        boxes1, boxes2, mode = calls[big]
-        log(f'[main-path] box_iou_rotated on the {len(calls)} inputs of the '
-            f'{label}, largest {tuple(boxes1.shape)} x '
-            f'{tuple(boxes2.shape)} {mode}: max |kernel - plain| '
-            f'{max(err for err, _ in held):.3g} <= {IOU_ATOL}; out-of-reach '
-            f'pairs exactly 0')
-        iou['main_path_inputs'][key] = dict(time_iou_matrix(
-            boxes1, boxes2, held[big][1], device, card, f'{label}\'s largest '
-            f'input', reps, plain_reps, mode), inputs_held=len(calls))
-    calls = captured['orcnn_loop_nms']
-    held = [check_pair_mask(boxes, cls) for boxes, cls in calls]
-    pair['max_abs_err'] = max([pair['max_abs_err']] +
-                              [err for err, _ in held])
-    boxes, cls = max(calls, key=lambda c: c[0].shape[0] * c[0].shape[1])
-    log(f'[main-path] nms_pair_mask on the {len(calls)} candidate sets of '
-        f'the tiny Oriented R-CNN loop\'s evaluation, largest B='
-        f'{boxes.shape[0]} N={boxes.shape[1]}: equal to plain outside '
-        f'+-{BAND} of thr={IOU_THR} ({sum(n for _, n in held)} in-band '
-        f'differences)')
-    pair['main_path_inputs']['orcnn_loop_eval'] = dict(time_pair_mask(
-        boxes, cls, device, card, 'tiny Oriented R-CNN eval candidates',
-        reps, plain_reps), inputs_held=len(calls))
+             'R-CNN loop'),
+            ('hrsc_assign', 'HRSC rr training\'s assigner'),
+            ('hrsc_train_eval_iou', 'HRSC rr training\'s evaluation'),
+            ('hrsc_eval_iou', 'HRSC evaluate (AP50, AP75)')):
+        held_iou_matrices(captured[key], label, key, iou, device, card, reps,
+                          plain_reps)
+    for key, out_key, label in (
+            ('orcnn_loop_nms', 'orcnn_loop_eval',
+             'tiny Oriented R-CNN loop\'s evaluation'),
+            ('patch_merge', 'patch_merge', 'huge-image merge (phase 19)'),
+            ('submission_merge', 'submission_merge',
+             'submission merge_det (phase 21)')):
+        held_pair_masks(captured[key], label, out_key, pair, device, card,
+                        reps, plain_reps,
+                        rows_for_largest=key != 'orcnn_loop_nms')
     calls = captured['orcnn_loop_roi_align']
     errs = [check_roi_align(levels, rois, False, padding=False)
             for levels, rois in calls]
@@ -2227,6 +2720,120 @@ def held_loops(device, captured, by_name, card, reps, roi_reps,
     roi['main_path_inputs']['orcnn_loop_eval'] = dict(
         timing, live_rois=live, rois_per_level=per_level, cells=cells,
         inputs_held=len(calls))
+
+
+def held_iou_matrices(calls, label, key, iou, device, card, reps,
+                      plain_reps) -> None:
+    """Every (boxes1, boxes2, mode) of ``calls`` against the plain matrix;
+    the largest timed into ``iou['main_path_inputs'][key]``."""
+    if not calls:
+        log(f'[main-path] box_iou_rotated: the {label} gave no input')
+        return
+    held = [check_iou_matrix(*args) for args in calls]
+    iou['max_abs_err'] = max([iou['max_abs_err']] + [err for err, _ in held])
+    big = max(range(len(calls)), key=lambda i: matrix_pairs(*calls[i][:2]))
+    boxes1, boxes2, mode = calls[big]
+    log(f'[main-path] box_iou_rotated on the {len(calls)} inputs of the '
+        f'{label}, largest {tuple(boxes1.shape)} x {tuple(boxes2.shape)} '
+        f'{mode}: max |kernel - plain| {max(err for err, _ in held):.3g} <= '
+        f'{IOU_ATOL}; out-of-reach pairs exactly 0')
+    iou['main_path_inputs'][key] = dict(time_iou_matrix(
+        boxes1, boxes2, held[big][1], device, card, f'{label}\'s largest '
+        f'input', reps, plain_reps, mode), inputs_held=len(calls))
+
+
+def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS) -> tuple:
+    """:func:`check_pair_mask` for an input too large for ``(B, N, N)``
+    float arrays: the kernel's mask, then ``rows`` rows of it at a time
+    against the plain IoU of those rows and the columns from the first on
+    (the plain version's own blocks), exact outside the band, nothing on or
+    below the diagonal. Returns (in-band differences, same-class pairs,
+    those in reach, the plain blocks' ms)."""
+    from orientedobjectdetection_torch.ops.iou import box_iou_rotated
+    from orientedobjectdetection_torch.ops.iou_kernels import (
+        nms_pair_mask, pairs_in_reach)
+    got = nms_pair_mask(boxes, IOU_THR, cls)
+    n = boxes.shape[1]
+    idx = torch.arange(n, device=boxes.device)
+    in_band = same_pairs = in_reach = 0
+    plain_s = 0.0
+    for r in range(0, n, rows):
+        block, cols = boxes[:, r:r + rows], boxes[:, r:]
+        sync(device)
+        t0 = time.perf_counter()
+        iou = box_iou_rotated(block, cols)
+        same = cls[:, r:r + rows, None] == cls[:, None, r:]
+        upper = idx[r:r + rows, None] < idx[None, r:]
+        ref = (iou > IOU_THR) & same & upper
+        sync(device)
+        plain_s += time.perf_counter() - t0
+        mine = got[:, r:r + rows, r:].bool()
+        differ = mine != ref
+        band = (iou - IOU_THR).abs() < BAND
+        if (differ & ~band).any() or (mine & ~upper).any() or \
+                got[:, r:r + rows, :r].any():
+            raise AssertionError(f'pair mask rows {r}-{r + rows} differ '
+                                 f'from the plain version outside the band')
+        in_band += int((differ & band).sum())
+        same &= upper
+        same_pairs += int(same.sum())
+        in_reach += int((same & pairs_in_reach(block, cols)).sum())
+    return in_band, same_pairs, in_reach, plain_s * 1e3
+
+
+def held_pair_masks(calls, label, key, pair, device, card, reps,
+                    plain_reps, rows_for_largest=False) -> None:
+    """Every (boxes, class ids) of ``calls`` against the plain pair mask,
+    in row blocks from ``BIG_N`` on (and the largest in any case with
+    ``rows_for_largest``: a merge's); the largest timed into
+    ``pair['main_path_inputs'][key]`` (held in row blocks: the kernel over
+    3 launches, the plain version as the sum of its row blocks)."""
+    if not calls:
+        raise AssertionError(f'the {label} gave no pair-mask input')
+    largest = max(range(len(calls)), key=lambda k: calls[k][0].shape[1])
+    by_rows = [k == largest and rows_for_largest or
+               calls[k][0].shape[1] >= BIG_N for k in range(len(calls))]
+    small = [c for c, rows in zip(calls, by_rows) if not rows]
+    big = [c for c, rows in zip(calls, by_rows) if rows]
+    held = [check_pair_mask(boxes, cls) for boxes, cls in small]
+    pair['max_abs_err'] = max([pair['max_abs_err']] +
+                              [err for err, _ in held])
+    rows = [pair_mask_rows(boxes, cls, device) for boxes, cls in big]
+    in_band = sum(n for _, n in held) + sum(r[0] for r in rows)
+    ns = sorted(boxes.shape[1] for boxes, _ in calls)
+    log(f'[main-path] nms_pair_mask on the {len(calls)} inputs of the '
+        f'{label}, N {ns[0]}-{ns[-1]} ({len(big)} of them, the largest '
+        f'{"among them" if by_rows[largest] else "not"}, held in blocks of '
+        f'{MERGE_ROWS} rows): equal to plain outside +-{BAND} of '
+        f'thr={IOU_THR} ({in_band} in-band differences)')
+    if not big:
+        boxes, cls = max(calls, key=lambda c: c[0].shape[0] * c[0].shape[1])
+        timing = time_pair_mask(boxes, cls, device, card,
+                                f'{label}\'s largest input', reps,
+                                plain_reps)
+    else:
+        from orientedobjectdetection_torch.ops.iou_kernels import \
+            nms_pair_mask
+        i = max(range(len(big)), key=lambda k: big[k][0].shape[1])
+        (boxes, cls), (_, same, reach, plain_ms) = big[i], rows[i]
+        n = boxes.shape[1]
+        ms = time_ms(lambda: nms_pair_mask(boxes, IOU_THR, cls), 3, device,
+                     warmup=1)
+        t_bytes = (boxes.numel() * 4 + cls.numel() * 4 +
+                   boxes.shape[0] * n * n) / PEAK_BYTES * 1e3
+        t_ops = reach * FLOP_PER_PAIR / PEAK_FP32 * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = 'bytes' if t_bytes >= t_ops else 'operations'
+        log(f'[kernel] {card} | nms_pair_mask {label}\'s largest input '
+            f'B={boxes.shape[0]} N={n}: kernel {ms:.4f} ms, plain '
+            f'{plain_ms:.3f} ms (its row blocks), bound {bound_ms:.4f} ms '
+            f'({bound_by}; {same} same-class pairs, {reach} of them in '
+            f'reach), library none')
+        timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, same_class_pairs=same,
+                      pairs_in_reach=reach)
+    pair['main_path_inputs'][key] = dict(timing, inputs_held=len(calls),
+                                         largest_n=ns[-1])
 
 
 def main() -> int:
@@ -2267,15 +2874,29 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_orcnn_tiny'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 15-18] {time.perf_counter() - t15:.1f} s')
+    t19 = time.perf_counter()
+    patches, patch_inputs = phase_patches('cuda', card=info['card'])
+    captured.update(patch_inputs)
+    tta = phase_tta('cuda', card=info['card'])
+    submission, submission_inputs = phase_submission(
+        os.path.join(DATA_DIR, 'submission'), trained, card=info['card'])
+    captured.update(submission_inputs)
+    augment, augment_inputs = phase_augment(
+        os.path.join(DATA_DIR, 'synth_hrsc1024'),
+        os.path.join(DATA_DIR, 'work_hrsc_rr'), card=info['card'])
+    captured.update(augment_inputs)
+    log(f'[phases 19-22] {time.perf_counter() - t19:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
         # training's steps, Oriented R-CNN serving's requests and training's
         # steps at batch 8 and 4, the trainer's run with its evaluation,
-        # the evaluator's run, and the two-stage trainer's run
+        # the evaluator's run, the two-stage trainer's run, the huge image,
+        # the flips, the submission's evaluations and merges, and the HRSC
+        # run with its evaluation
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
-            evaluator, orcnn_loop))
+            evaluator, orcnn_loop, patches, tta, submission, augment))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -7,6 +7,10 @@
   :class:`DetectorBundle` on the card (or on ``device="cpu"``).
 - :func:`inference_detector`: one image -> the reference's per-class list
   of ``(n, 6)`` numpy detections.
+- :func:`inference_detector_by_patches`: a huge image in windows, batched
+  through the bundle, merged back by :func:`..core.patch.translate_and_merge`.
+- :func:`inference_detector_tta`: the image and its flips, mapped back and
+  merged by per-class rotated NMS.
 
 Images cross the bundle's boundary as ``(B, H, W, 3)`` channels-last, as in
 the JAX package; the network runs NCHW inside.
@@ -14,13 +18,17 @@ the JAX package; the network runs NCHW inside.
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core.patch import get_multiscale_patch, slide_window, \
+    translate_and_merge
 from ..models import build_detector
+from ..ops.boxes import rbbox_flip
+from ..ops.nms import nms_rotated_np
 from ..utils.config import Config
 from ..utils.image_io import imread
 
@@ -139,7 +147,8 @@ def results_to_per_class(dets, labels, valid, num_classes: int
 
 
 def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
-    """Load (a PNG path, :func:`..utils.image_io.imread`) + host-normalize.
+    """Load (a PNG or BMP path, :func:`..utils.image_io.imread`) +
+    host-normalize.
     ``img_norm_cfg=None`` returns the RAW uint8 BGR image (for
     device-normalizing bundles)."""
     if isinstance(img, str):
@@ -156,8 +165,8 @@ def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
 
 def inference_detector(bundle: DetectorBundle, img,
                        img_norm_cfg=None) -> List[np.ndarray]:
-    """Single-image inference (PNG path or HWC BGR ndarray); pads to the
-    config's ``pad_size`` (default 1024 x 1024)."""
+    """Single-image inference (PNG or BMP path, or HWC BGR ndarray); pads to
+    the config's ``pad_size`` (default 1024 x 1024)."""
     if bundle.device_norm is not None:
         img_norm_cfg = None                # the bundle normalizes on device
     elif img_norm_cfg is None:
@@ -172,3 +181,88 @@ def inference_detector(bundle: DetectorBundle, img,
     dets, labels, valid = bundle(torch.from_numpy(canvas[None]))
     return results_to_per_class(dets[0], labels[0], valid[0],
                                 bundle.num_classes)
+
+
+def inference_detector_by_patches(bundle: DetectorBundle, img,
+                                  sizes: Sequence[int] = (1024,),
+                                  steps: Sequence[int] = (824,),
+                                  ratios: Sequence[float] = (1.0,),
+                                  merge_iou_thr: float = 0.1,
+                                  bs: int = 4,
+                                  img_norm_cfg=None) -> List[np.ndarray]:
+    """Huge-image inference (reference ``apis/inference.py:13-94``): the
+    windows of :func:`slide_window` over the image (sizes and steps
+    expanded by ``ratios``), ``bs`` windows a batch, each window cropped
+    into a zero canvas of the largest window's size; the windows'
+    detections merged in the image frame by per-class rotated NMS at
+    ``merge_iou_thr`` on the bundle's device. The last batch holds only the
+    windows that are left. Returns the per-class list of ``(n, 6)``
+    arrays."""
+    if bundle.device_norm is not None:
+        img_norm_cfg = None                # the bundle normalizes on device
+    elif img_norm_cfg is None:
+        img_norm_cfg = _DEFAULT_NORM
+    norm = _prep_image(img, img_norm_cfg)
+    height, width = norm.shape[:2]
+    sizes_f, steps_f = get_multiscale_patch(sizes, steps, ratios)
+    windows = slide_window(width, height, sizes_f, steps_f)
+    win_size = int(windows[:, 2].max())
+    tile_dtype = norm.dtype if norm.dtype == np.uint8 else np.float32
+    all_dets, all_labels, all_valid = [], [], []
+    for b in range(0, len(windows), bs):
+        batch_wins = windows[b:b + bs]
+        tiles = np.zeros((len(batch_wins), win_size, win_size, 3),
+                         tile_dtype)
+        for i, (x, y, w, h) in enumerate(batch_wins):
+            crop = norm[y:y + h, x:x + w]
+            tiles[i, :crop.shape[0], :crop.shape[1]] = crop
+        dets, labels, valid = bundle(torch.from_numpy(tiles))
+        all_dets.append(dets.cpu().numpy())
+        all_labels.append(labels.cpu().numpy())
+        all_valid.append(valid.cpu().numpy())
+    merged_dets, merged_labels = translate_and_merge(
+        np.concatenate(all_dets), np.concatenate(all_labels),
+        np.concatenate(all_valid), windows, bundle.num_classes,
+        iou_thr=merge_iou_thr, device=bundle.device,
+        plain_pair_mask=bundle.plain_pair_mask)
+    return [merged_dets[merged_labels == c]
+            for c in range(bundle.num_classes)]
+
+
+def inference_detector_tta(bundle: DetectorBundle, img,
+                           directions=('horizontal', 'vertical'),
+                           img_norm_cfg=None,
+                           version: str = 'le90') -> List[np.ndarray]:
+    """Flip test-time augmentation (reference ``rotated_anchor_head.py
+    :692-787`` aug_test and ``bbox_nms_rotated.py:95-144``): the image and
+    each flip through :func:`inference_detector`, the flips' detections
+    mapped back by :func:`..ops.boxes.rbbox_flip` in the frame of the
+    image's own shape (the flip happens before the padding), then one
+    rotated NMS at 0.1 per class on the bundle's device."""
+    if isinstance(img, str):
+        img = imread(img)
+    variants = [(img, None)]
+    for d in directions:
+        flipped = img[:, ::-1] if d == 'horizontal' else img[::-1]
+        variants.append((np.ascontiguousarray(flipped), d))
+
+    all_dets = {c: [] for c in range(bundle.num_classes)}
+    for im, d in variants:
+        for c, dets in enumerate(inference_detector(bundle, im,
+                                                    img_norm_cfg)):
+            dets = np.asarray(dets, np.float32).reshape(-1, 6)
+            if d is not None and len(dets):
+                mapped = rbbox_flip(dets[:, :5], im.shape[:2], d, version)
+                dets = np.concatenate([mapped.astype(np.float32),
+                                       dets[:, 5:6]], -1)
+            all_dets[c].append(dets)
+
+    out = []
+    for c in range(bundle.num_classes):
+        merged = np.concatenate(all_dets[c])
+        if len(merged):
+            merged = merged[nms_rotated_np(
+                merged[:, :5], merged[:, 5], 0.1, device=bundle.device,
+                plain_pair_mask=bundle.plain_pair_mask)]
+        out.append(merged)
+    return out

@@ -1,11 +1,14 @@
-"""DOTA-layout datasets, their pipeline and the batching loader
-(counterpart of ``orientedobjectdetection_tpu/datasets``; HRSC and the
-dataset wrappers are ROADMAP A.4b)."""
+"""Datasets (DOTA layout, HRSC2016), their pipeline, the dataset wrappers
+and the batching loader (counterpart of
+``orientedobjectdetection_tpu/datasets``)."""
 
 from ..utils.registry import DATASETS, PIPELINES
 from . import pipelines  # noqa: F401  (registers the transforms)
 from .dota import DOTADataset, DOTAv2Dataset, DOTAv15Dataset, SARDataset
+from .hrsc import HRSCDataset
 from .loader import DataLoader, pad_collate, strip_host_normalize
+from .wrappers import (ClassBalancedDataset, ConcatDataset,
+                       MultiImageMixDataset)
 
 
 def build_dataset(cfg, **default_args):
@@ -16,6 +19,7 @@ def build_dataset(cfg, **default_args):
 
 __all__ = [
     'DOTADataset', 'DOTAv15Dataset', 'DOTAv2Dataset', 'SARDataset',
-    'DataLoader', 'pad_collate', 'strip_host_normalize', 'build_dataset',
-    'DATASETS', 'PIPELINES',
+    'HRSCDataset', 'ConcatDataset', 'ClassBalancedDataset',
+    'MultiImageMixDataset', 'DataLoader', 'pad_collate',
+    'strip_host_normalize', 'build_dataset', 'DATASETS', 'PIPELINES',
 ]

@@ -4,24 +4,47 @@
 
 ``{split}/annfiles/*.txt`` lines ``x1 y1 ... x4 y4 class difficulty`` ->
 rotated boxes through :func:`poly2obb_np`; ``{split}/images/*.png``;
-``evaluate`` -> rotated VOC mAP. Patch merging and the DOTA submission
-files (``merge_det``, ``format_results``) are ROADMAP A.5.
+``evaluate`` -> rotated VOC mAP; ``merge_det`` puts the detections of
+tiles (``<id>__<size>__<x>___<y>``) back into their image's frame and
+``format_results`` writes the DOTA Task1 submission files and their zip.
 """
 
 from __future__ import annotations
 
 import collections
 import glob
+import os
 import os.path as osp
+import re
+import tempfile
 import threading
+import zipfile
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..core.eval_map import eval_rbbox_map
-from ..ops.boxes import poly2obb_np
+from ..ops.boxes import obb2poly_np, poly2obb_np
+from ..ops.nms import nms_rotated_np
 from ..utils.registry import DATASETS
 from .pipelines import Compose
+
+
+class FetchRng:
+    """A generator for each fetch of a sample: the ``k``-th fetch of index
+    ``idx`` draws from ``default_rng([entropy, idx, k])``, so a loader's
+    threads give the same samples in any order."""
+
+    def __init__(self, seed: Optional[int] = None):
+        self._entropy = np.random.SeedSequence(seed).entropy
+        self._fetches = collections.Counter()
+        self._lock = threading.Lock()
+
+    def __call__(self, idx: int) -> np.random.Generator:
+        with self._lock:
+            k = self._fetches[idx]
+            self._fetches[idx] += 1
+        return np.random.default_rng([self._entropy, idx, k])
 
 
 @DATASETS.register_module()
@@ -56,9 +79,7 @@ class DOTADataset:
         self.cls_map = {c: i for i, c in enumerate(self.CLASSES)}
         self.data_infos = self.load_annotations(ann_file)
         self.pipeline = Compose(pipeline)
-        self._entropy = np.random.SeedSequence(seed).entropy
-        self._fetches = collections.Counter()
-        self._lock = threading.Lock()
+        self._rng = FetchRng(seed)
 
     def __len__(self):
         return len(self.data_infos)
@@ -118,14 +139,16 @@ class DOTADataset:
     def sample_rng(self, idx: int) -> np.random.Generator:
         """The generator of the ``k``-th fetch of sample ``idx``:
         ``default_rng([entropy, idx, k])``."""
-        with self._lock:
-            k = self._fetches[idx]
-            self._fetches[idx] += 1
-        return np.random.default_rng([self._entropy, idx, k])
+        return self._rng(idx)
 
     def __getitem__(self, idx: int):
+        return self.fetch(idx, self.sample_rng(idx))
+
+    def fetch(self, idx: int, rng: np.random.Generator):
+        """Sample ``idx`` through the pipeline, its random transforms
+        drawing from ``rng``; a sample the pipeline drops is replaced by a
+        random other one."""
         info = self.data_infos[idx]
-        rng = self.sample_rng(idx)
         results = dict(img_info=dict(filename=info['filename']),
                        ann_info=info['ann'], img_prefix=self.img_prefix,
                        rng=rng)
@@ -150,13 +173,79 @@ class DOTADataset:
                                     device=device, plain_iou=plain_iou)
         return {'mAP': mean_ap}
 
-    def merge_det(self, results, nproc: int = 4):
-        raise NotImplementedError('merge_det (patch merging) is ROADMAP A.5')
+    def merge_det(self, results, nproc: int = 4, device='cuda',
+                  plain_pair_mask: bool = False):
+        """Tile detections -> original images (reference
+        ``dota.py:216-276``): each tile's ``__<x>___<y>`` offsets are added
+        to its centres, its image id is the name before the first ``__``
+        (tiles are ``<id>__<size>__<x>___<y>``), and each image's
+        detections of a class go through one rotated NMS at 0.1 on
+        ``device`` (the card unless ``'cpu'`` is asked for). ``nproc`` is
+        accepted and unused. Returns (image ids in the order they first
+        appear, per image per class ``(n, 6)`` arrays)."""
+        pattern = re.compile(r'__(\d+)___(\d+)')
+        collector = collections.defaultdict(list)
+        for info, dets_per_cls in zip(self.data_infos, results):
+            fname = osp.splitext(info['filename'])[0]
+            match = pattern.search(fname)
+            if match:
+                x_off, y_off = float(match.group(1)), float(match.group(2))
+                orig = fname.split('__', 1)[0]
+            else:
+                x_off = y_off = 0.0
+                orig = fname
+            for cls, dets in enumerate(dets_per_cls):
+                dets = np.asarray(dets, np.float32).reshape(-1, 6)
+                if len(dets) == 0:
+                    continue
+                d = dets.copy()
+                d[:, 0] += x_off
+                d[:, 1] += y_off
+                lab = np.full((len(d), 1), cls, np.float32)
+                collector[orig].append(np.concatenate([d, lab], -1))
 
-    def format_results(self, results, submission_dir=None, nproc: int = 4,
-                       **kwargs):
-        raise NotImplementedError('format_results (DOTA submission files) '
-                                  'needs merge_det, ROADMAP A.5')
+        merged_ids, merged = [], []
+        for img_id, parts in collector.items():
+            dets = np.concatenate(parts, 0)
+            out_per_cls = []
+            for cls in range(len(self.CLASSES)):
+                cd = dets[dets[:, 6] == cls][:, :6]
+                if len(cd) == 0:
+                    out_per_cls.append(np.zeros((0, 6), np.float32))
+                    continue
+                keep = nms_rotated_np(cd[:, :5], cd[:, 5], 0.1, device,
+                                      plain_pair_mask)
+                out_per_cls.append(cd[keep])
+            merged_ids.append(img_id)
+            merged.append(out_per_cls)
+        return merged_ids, merged
+
+    def format_results(self, results, submission_dir: Optional[str] = None,
+                       nproc: int = 4, device='cuda', **kwargs) -> str:
+        """Write the DOTA Task1 submission (reference ``dota.py:278-355``):
+        :meth:`merge_det`, then one ``Task1_<class>.txt`` a class with a
+        line ``<image id> <score %.4f> <x1 y1 ... x4 y4 %.2f>`` a
+        detection, and ``submission.zip`` holding the files. Returns the
+        zip's path."""
+        submission_dir = submission_dir or tempfile.mkdtemp()
+        os.makedirs(submission_dir, exist_ok=True)
+        ids, merged = self.merge_det(results, nproc, device=device)
+        paths = [osp.join(submission_dir, f'Task1_{name}.txt')
+                 for name in self.CLASSES]
+        for cls_idx, path in enumerate(paths):
+            with open(path, 'w') as f:
+                for img_id, dets_per_cls in zip(ids, merged):
+                    dets = dets_per_cls[cls_idx]
+                    if len(dets) == 0:
+                        continue
+                    for p in obb2poly_np(dets, self.version):
+                        coords = ' '.join(f'{v:.2f}' for v in p[:8])
+                        f.write(f'{img_id} {p[8]:.4f} {coords}\n')
+        zip_path = osp.join(submission_dir, 'submission.zip')
+        with zipfile.ZipFile(zip_path, 'w', zipfile.ZIP_DEFLATED) as zf:
+            for path in paths:
+                zf.write(path, osp.basename(path))
+        return zip_path
 
 
 @DATASETS.register_module()

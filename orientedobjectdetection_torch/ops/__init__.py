@@ -3,8 +3,9 @@ from .iou import box_iou_rotated, rbbox_overlaps
 from .iou_kernels import (box_iou_rotated_matrix,
                           box_iou_rotated_matrix_plain, nms_pair_mask,
                           nms_pair_mask_plain)
-from .nms import (hbb_overlaps, multiclass_nms_rotated, nms_hbb, nms_rotated,
-                  topk_candidates)
+from .nms import (aug_multiclass_nms_rotated, batched_nms_hbb, hbb_overlaps,
+                  multiclass_nms_rotated, nms_hbb, nms_rotated,
+                  nms_rotated_np, topk_candidates)
 from .roi_align_kernels import (roi_align_rotated_pyramid,
                                 roi_align_rotated_pyramid_plain)
 from .roi_align_rotated import roi_align_rotated
@@ -15,6 +16,7 @@ __all__ = [
     'box_iou_rotated_matrix', 'box_iou_rotated_matrix_plain',
     'nms_pair_mask', 'nms_pair_mask_plain', 'nms_rotated',
     'multiclass_nms_rotated', 'topk_candidates', 'hbb_overlaps', 'nms_hbb',
+    'batched_nms_hbb', 'nms_rotated_np', 'aug_multiclass_nms_rotated',
     'roi_align_rotated', 'roi_align_rotated_pyramid',
     'roi_align_rotated_pyramid_plain',
 ]

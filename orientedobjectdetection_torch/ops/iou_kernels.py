@@ -27,8 +27,10 @@ from .iou import box_iou_rotated
 
 KERNEL = 'nms_pair_mask'
 MATRIX_KERNEL = 'box_iou_rotated'
-# the plain matrix evaluates at most this many pairs at once
+# the plain matrix evaluates at most this many pairs at once, the plain
+# pair mask this many rows
 PLAIN_PAIRS = 1 << 20
+PLAIN_ROWS = 128
 # the C entry points' argument types: three pointers, ints and a float,
 # then the stream
 PAIR_MASK_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
@@ -101,15 +103,22 @@ def nms_pair_mask_plain(boxes: torch.Tensor, iou_thr: float,
                         ) -> torch.Tensor:
     """Plain version of the kernel: ``box_iou_rotated > thr``, then the
     same-class and strict-upper-triangle masks (the JAX package's
-    ``ops/nms.py:_upper_pair_mask`` jnp path)."""
+    ``ops/nms.py:_upper_pair_mask`` jnp path). Rows go in blocks of
+    ``PLAIN_ROWS`` against the columns from the block's first row on,
+    written into the output, so no ``(B, N, N)`` float array is made (a
+    merge's N reaches tens of thousands)."""
     _check(boxes, class_ids)
-    n = boxes.shape[1]
-    mask = pair_iou(boxes) > iou_thr
-    if class_ids is not None:
-        mask &= class_ids[:, :, None] == class_ids[:, None, :]
+    b, n = boxes.shape[:2]
+    out = torch.zeros((b, n, n), dtype=torch.uint8, device=boxes.device)
     idx = torch.arange(n, device=boxes.device)
-    mask &= idx[:, None] < idx[None, :]
-    return mask.to(torch.uint8)
+    for r in range(0, n, PLAIN_ROWS):
+        rows = slice(r, r + PLAIN_ROWS)
+        mask = box_iou_rotated(boxes[:, rows], boxes[:, r:]) > iou_thr
+        if class_ids is not None:
+            mask &= class_ids[:, rows, None] == class_ids[:, None, r:]
+        mask &= idx[rows, None] < idx[None, r:]
+        out[:, rows, r:] = mask
+    return out
 
 
 def nms_pair_mask(boxes: torch.Tensor, iou_thr: float,

@@ -11,12 +11,18 @@ Ordering: stable, descending score, class-major when class ids are given,
 lowest index first among ties (``torch.sort(..., stable=True)``).
 Candidate top-k is the first k of that sort, which is ``lax.top_k``'s exact
 set and order.
+
+The host helpers (:func:`nms_rotated_np`, :func:`aug_multiclass_nms_rotated`)
+take numpy arrays of any length and run :func:`nms_rotated` at ``B=1`` on
+``device``: the card unless ``'cpu'`` is asked for. They need no shape
+buckets (the JAX package pads to powers of two to reuse XLA programs).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .iou_kernels import nms_pair_mask, nms_pair_mask_plain
@@ -232,3 +238,80 @@ def multiclass_nms_rotated(multi_bboxes: torch.Tensor,
     out_labels = torch.where(out_valid, top_labels.gather(1, out_idx),
                              torch.full_like(out_idx, -1))
     return dets, out_labels, out_valid
+
+
+def batched_nms_hbb(boxes: torch.Tensor, scores: torch.Tensor,
+                    labels: torch.Tensor, iou_thr: float,
+                    valid_mask: Optional[torch.Tensor] = None):
+    """Class-offset axis-aligned NMS: (B, N, 4) xyxy boxes, each label's
+    boxes shifted by ``label * (max coordinate + 1)`` of its image so that
+    labels cannot suppress each other (JAX ``ops/nms.py:batched_nms_hbb``,
+    per image). Returns :func:`nms_hbb`'s (keep, order)."""
+    if valid_mask is None:
+        valid_mask = torch.ones_like(scores, dtype=torch.bool)
+    safe_boxes = torch.where(valid_mask[..., None], boxes,
+                             torch.zeros_like(boxes))
+    max_coordinate = safe_boxes.amax(dim=(-2, -1), keepdim=True)
+    offsets = labels.to(boxes.dtype)[..., None] * (max_coordinate + 1)
+    return nms_hbb(safe_boxes + offsets, scores, iou_thr,
+                   valid_mask=valid_mask)
+
+
+def host_device(device, caller: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device raises RuntimeError
+    when no card is present (the host helpers never fall back to the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{caller}: no CUDA device is available; pass '
+                           f'device="cpu" to run on the CPU')
+    return device
+
+
+def nms_rotated_np(boxes, scores, iou_thr: float, device='cuda',
+                   plain_pair_mask: bool = False) -> np.ndarray:
+    """Rotated NMS of numpy ``(N, 5)`` boxes and ``(N,)`` scores: one
+    :func:`nms_rotated` at ``B=1`` on ``device`` (on the card, one launch of
+    the pair-mask kernel). Returns the survivors' indices in descending
+    score order, the lowest index first on a tie (JAX
+    ``ops/nms.py:nms_rotated_np``)."""
+    boxes = np.asarray(boxes, np.float32).reshape(-1, 5)
+    scores = np.asarray(scores, np.float32).reshape(-1)
+    if boxes.shape[0] == 0:
+        return np.zeros((0,), np.int64)
+    device = host_device(device, 'nms_rotated_np')
+    keep, order = nms_rotated(torch.from_numpy(boxes).to(device)[None],
+                              torch.from_numpy(scores).to(device)[None],
+                              iou_thr, plain_pair_mask=plain_pair_mask)
+    order = order[0]
+    return order[keep[0][order]].cpu().numpy()
+
+
+def aug_multiclass_nms_rotated(merged_bboxes, merged_labels,
+                               num_classes: int, iou_thr: float = 0.1,
+                               max_per_img: int = 2000, device='cuda',
+                               plain_pair_mask: bool = False):
+    """Per-class rotated NMS of detections already mapped to one frame
+    (test-time augmentation; JAX ``ops/nms.py:aug_multiclass_nms_rotated``,
+    reference ``bbox_nms_rotated.py:95-144``).
+
+    ``merged_bboxes`` ``(N, 6)`` ``[cx, cy, w, h, a, score]``,
+    ``merged_labels`` ``(N,)``. Returns numpy ``(dets (M, 6), labels
+    (M,))``, by descending score, at most ``max_per_img``."""
+    merged_bboxes = np.asarray(merged_bboxes, np.float32).reshape(-1, 6)
+    merged_labels = np.asarray(merged_labels)
+    out_d, out_l = [], []
+    for c in range(num_classes):
+        sel = merged_bboxes[merged_labels == c]
+        if not len(sel):
+            continue
+        kept = nms_rotated_np(sel[:, :5], sel[:, 5], iou_thr, device,
+                              plain_pair_mask)
+        out_d.append(sel[kept])
+        out_l.append(np.full(len(kept), c, np.int64))
+    if not out_d:
+        return np.zeros((0, 6), np.float32), np.zeros((0,), np.int64)
+    dets = np.concatenate(out_d)
+    labels = np.concatenate(out_l)
+    rank = np.argsort(-dets[:, 5])[:max_per_img]
+    return dets[rank], labels[rank]

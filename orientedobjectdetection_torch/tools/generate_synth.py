@@ -1,6 +1,6 @@
-"""Synthetic DOTA-layout datasets without OpenCV (counterpart of
-``tools/data/synth/generate_synth.py``, whose DOTA generators it follows
-draw for draw: the same seed writes the same annotation files).
+"""Synthetic DOTA- and HRSC-layout datasets without OpenCV (counterpart of
+``tools/data/synth/generate_synth.py``, whose generators it follows draw
+for draw: the same seed writes the same annotation files).
 
 ``{root}/{split}/images/*.png`` and ``{root}/{split}/annfiles/*.txt`` with
 ``x1 y1 x2 y2 x3 y3 x4 y4 class difficulty`` lines:
@@ -9,12 +9,15 @@ draw for draw: the same seed writes the same annotation files).
   squarish, a cross strut; "ship": cool, elongated, a bright bow), 1-5
   objects on a cluttered background;
 - :func:`generate_synth_hard`: crowded 15-class scenes (100-600 instances,
-  rows of one class, overlapping twins, 8-32 px objects).
+  rows of one class, overlapping twins, 8-32 px objects);
+- :func:`generate_synth_hrsc` (``--hrsc``): 1-4 ships a scene in the
+  HRSC2016 layout, ``{root}/FullDataSet/AllImages/*.bmp``,
+  ``{root}/FullDataSet/Annotations/*.xml`` and
+  ``{root}/ImageSets/{split}.txt``.
 
 Images are drawn with :mod:`..utils.image_io`, which follows OpenCV's
 rasterisation; they equal the original's except along some drawn edges
-(``tests/test_torch_synth.py`` states how many pixels differ). The HRSC
-layout waits for ``datasets/hrsc.py`` (ROADMAP A.4b).
+(``tests/test_torch_synth.py`` states how many pixels differ).
 
     python -m orientedobjectdetection_torch.tools.generate_synth \\
         --root data/synth_dota --num-images 200 --size 256 --seed 0
@@ -116,6 +119,57 @@ def generate_synth(root, num_images=200, size=256, seed=0, split='trainval',
             lines.append(' '.join(f'{v:.1f}' for v in poly) +
                          f' {CLASSES[cls]} 0')
         _write(img_dir, ann_dir, f'P{i:04d}', img, lines)
+    return root
+
+
+def generate_synth_hrsc(root, num_images=200, size=256, seed=0,
+                        imageset='trainval', max_objs=4):
+    """Write ``num_images`` ship scenes in the HRSC2016 layout (reference
+    ``datasets/hrsc.py:17-100``): VOC-style XML with ``HRSC_Object``
+    ``mbox_cx/cy/w/h/ang``, one ``ship`` class, and the image set's id
+    list."""
+    img_dir = osp.join(root, 'FullDataSet', 'AllImages')
+    ann_dir = osp.join(root, 'FullDataSet', 'Annotations')
+    set_dir = osp.join(root, 'ImageSets')
+    for d in (img_dir, ann_dir, set_dir):
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ids = []
+    for i in range(num_images):
+        img = rng.integers(60, 120, (size, size, 3), np.uint8)
+        _clutter(img, size, rng, 2, 6, 90, 150)
+        objs, placed = [], []
+        for _ in range(int(rng.integers(1, max_objs + 1))):
+            for _attempt in range(20):
+                cx, cy, w, h, a = _sample_box(1, size, rng)   # ship shape
+                r = max(w, h) / 2
+                if all(np.hypot(cx - px, cy - py) > r + pr + 6
+                       for px, py, pr in placed):
+                    break
+            else:
+                continue
+            placed.append((cx, cy, r))
+            _render(img, _rect_poly(cx, cy, w, h, a), 1, rng)
+            objs.append((cx, cy, w, h, a))
+        stem = f'H{i:04d}'
+        ids.append(stem)
+        image_io.imwrite(osp.join(img_dir, stem + '.bmp'),
+                         image_io.gaussian_blur_3x3(img))
+        obj_xml = '\n'.join(
+            '    <HRSC_Object>\n'
+            '      <Class_ID>100000001</Class_ID>\n'
+            f'      <mbox_cx>{cx:.2f}</mbox_cx>\n'
+            f'      <mbox_cy>{cy:.2f}</mbox_cy>\n'
+            f'      <mbox_w>{w:.2f}</mbox_w>\n'
+            f'      <mbox_h>{h:.2f}</mbox_h>\n'
+            f'      <mbox_ang>{a:.5f}</mbox_ang>\n'
+            '    </HRSC_Object>' for cx, cy, w, h, a in objs)
+        with open(osp.join(ann_dir, stem + '.xml'), 'w') as f:
+            f.write('<HRSC_Image>\n  <Img_ID>%s</Img_ID>\n'
+                    '  <HRSC_Objects>\n%s\n  </HRSC_Objects>\n'
+                    '</HRSC_Image>\n' % (stem, obj_xml))
+    with open(osp.join(set_dir, imageset + '.txt'), 'w') as f:
+        f.write('\n'.join(ids) + '\n')
     return root
 
 
@@ -224,16 +278,16 @@ def main(argv=None):
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--split', default='trainval')
     p.add_argument('--hrsc', action='store_true',
-                   help='the HRSC2016 layout (ROADMAP A.4b)')
+                   help='the HRSC2016 layout; --split names its image set')
     p.add_argument('--hard', action='store_true',
                    help='the crowded 15-class synth-hard protocol')
     p.add_argument('--n-min', type=int, default=100)
     p.add_argument('--n-max', type=int, default=600)
     args = p.parse_args(argv)
     if args.hrsc:
-        raise NotImplementedError('the HRSC layout waits for '
-                                  'datasets/hrsc.py (ROADMAP A.4b)')
-    if args.hard:
+        generate_synth_hrsc(args.root, args.num_images, args.size, args.seed,
+                            args.split)
+    elif args.hard:
         generate_synth_hard(args.root, args.num_images, args.size, args.seed,
                             args.split, n_range=(args.n_min, args.n_max))
     else:

@@ -2,15 +2,21 @@
 
     python -m orientedobjectdetection_torch.tools.test <config> <ckpt> \\
         --eval mAP --bf16
+    python -m orientedobjectdetection_torch.tools.test <config> <ckpt> \\
+        --format-only --submission-dir out/
 
-Runs on the card (``--device cpu`` for the CPU). ``--format-only`` (DOTA
-submission files) and ``--tta`` are ROADMAP A.5; ``--data-parallel``,
-``--collect-dir``, ``--show`` and ``--show-dir`` are ROADMAP A.13.
+Runs on the card (``--device cpu`` for the CPU). ``--format-only`` detects
+on the config's test split and writes the DOTA Task1 submission files and
+their zip (``DOTADataset.format_results``); ``--tta`` detects each image
+with its horizontal and vertical flips (``inference_detector_tta``).
+``--data-parallel``, ``--collect-dir``, ``--show`` and ``--show-dir`` are
+ROADMAP A.13.
 """
 
 from __future__ import annotations
 
 import argparse
+import os.path as osp
 import pickle
 
 from .train import load_config
@@ -41,8 +47,6 @@ def parse_args(argv=None):
 
 
 NOT_PORTED = (
-    ('format_only', 'DOTA submission files (--format-only) are ROADMAP A.5'),
-    ('tta', 'test-time augmentation (--tta) is ROADMAP A.5'),
     ('data_parallel', 'data-parallel evaluation is ROADMAP A.13'),
     ('collect_dir', 'gathering results across processes is ROADMAP A.13'),
     ('show', 'drawing detections (--show) is ROADMAP A.13'),
@@ -57,7 +61,7 @@ def main(argv=None):
             raise NotImplementedError(reason)
     import torch
     from ..apis.eval import _default_norm, batched_eval
-    from ..apis.inference import init_detector
+    from ..apis.inference import inference_detector_tta, init_detector
     from ..datasets import build_dataset
 
     cfg = load_config(args.config, args.cfg_options)
@@ -66,15 +70,33 @@ def main(argv=None):
         cfg.data.get('normalize_on_device', True) else None
     bundle = init_detector(cfg, args.checkpoint, device=args.device,
                            dtype=dtype, device_norm=device_norm)
-    dataset = build_dataset(dict(cfg.data['val'], test_mode=True,
+    split = 'test' if args.format_only else 'val'
+    dataset = build_dataset(dict(cfg.data[split], test_mode=True,
                                  filter_empty_gt=False))
     n = len(dataset) if args.max_images is None else \
         min(args.max_images, len(dataset))
-    results = batched_eval(bundle, dataset, batch_size=args.batch_size,
-                           max_images=n)
+    if args.tta:
+        version = cfg.model.get('bbox_head', {}).get(
+            'version', cfg.get('angle_version', 'le90'))
+        results = []
+        for i in range(n):
+            path = osp.join(dataset.img_prefix,
+                            dataset.data_infos[i]['filename'])
+            results.append(inference_detector_tta(bundle, path,
+                                                  version=version))
+            if (i + 1) % 20 == 0:
+                print(f'tta eval {i + 1}/{n}')
+    else:
+        results = batched_eval(bundle, dataset, batch_size=args.batch_size,
+                               max_images=n)
     if args.out:
         with open(args.out, 'wb') as f:
             pickle.dump(results, f)
+    if args.format_only:
+        path = dataset.format_results(results,
+                                      submission_dir=args.submission_dir,
+                                      device=bundle.device)
+        print(f'submission written to {path}')
     metrics = None
     if args.eval:
         dataset.data_infos = dataset.data_infos[:n]

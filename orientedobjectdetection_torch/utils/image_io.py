@@ -2,8 +2,9 @@
 library (a port-only module: the JAX package's data path uses OpenCV, and
 the port depends on neither OpenCV nor PIL).
 
-- :func:`imread` / :func:`imwrite`: 8-bit PNG, ``(H, W, 3)`` uint8 BGR as
-  ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it. The reader takes grey,
+- :func:`imread` / :func:`imwrite`: 8-bit PNG and BMP, ``(H, W, 3)``
+  uint8 BGR as ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it (JPEG is
+  ROADMAP A.4b). The PNG reader takes grey,
   grey + alpha, RGB and RGBA images with any of the five row filters (alpha
   is dropped, grey is repeated). It raises ``ValueError`` for interlaced,
   16-bit, low-bit and palette images, and for anything that is not a PNG.
@@ -11,7 +12,11 @@ the port depends on neither OpenCV nor PIL).
   rows of None, Sub and Up decode as whole-row numpy operations; a file
   with any Average or Paeth row decodes along the image's anti-diagonals,
   each pixel after its left, upper and upper-left neighbours, an order of
-  magnitude slower.
+  magnitude slower. The BMP reader takes 24- and 32-bit uncompressed files
+  (bottom-up or top-down rows, 32-bit with an alpha or unused byte, which is
+  dropped) and refuses palette, RLE and other bit depths by name; the
+  writer writes what ``cv2.imwrite(path.bmp)`` writes: 24-bit ``BI_RGB``,
+  bottom-up rows padded to 4 bytes, the same 54-byte header.
 - :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
   arithmetic (11-bit weights, a horizontal pass into integers, a vertical
@@ -19,6 +24,16 @@ the port depends on neither OpenCV nor PIL).
   in under 1% of the elements (``tests/test_torch_image_io.py``); the size
   the synthetic and DOTA configs resize to is the images' own, which is an
   exact copy.
+- :func:`get_rotation_matrix_2d` and :func:`warp_affine`:
+  ``cv2.getRotationMatrix2D`` and ``cv2.warpAffine(img, m, (w, h))`` with
+  its defaults (``INTER_LINEAR``, ``BORDER_CONSTANT`` 0) on uint8, as
+  OpenCV 5 computes it: the inverted map in float32, each source
+  coordinate one fused multiply-add along the row, the four taps blended
+  in float32 and rounded to nearest (a tap outside the image reads 0).
+  Within 1 of OpenCV 5.0 in about 1e-5 of the elements
+  (``tests/test_torch_augment.py``). OpenCV 4's fixed-point warp (source
+  coordinates rounded to 1/32 of a pixel, 15-bit tap weights) differs from
+  both by up to ~7 near half-pixels.
 - :func:`fill_poly`, :func:`line`, :func:`circle`,
   :func:`gaussian_blur_3x3` and :func:`hsv2bgr`: what the synthetic-data
   generator draws with (``tools/generate_synth.py``), after OpenCV's
@@ -28,6 +43,7 @@ the port depends on neither OpenCV nor PIL).
 
 from __future__ import annotations
 
+import math
 import os
 import struct
 import zlib
@@ -97,12 +113,20 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read an 8-bit PNG as ``(H, W, 3)`` uint8 BGR."""
+    """Read an 8-bit PNG or a 24- or 32-bit BMP as ``(H, W, 3)`` uint8
+    BGR."""
     with open(path, 'rb') as f:
         data = f.read()
+    if data.startswith(_BMP_SIGNATURE):
+        return _read_bmp(path, data)
+    if data.startswith(b'\xff\xd8\xff'):
+        raise ValueError(f'{path}: JPEG is not read yet (ROADMAP A.4b)')
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f'{path}: not a PNG file (other formats are '
-                         'ROADMAP A.4b)')
+        raise ValueError(f'{path}: neither a PNG nor a BMP file')
+    return _read_png(path, data)
+
+
+def _read_png(path: str, data: bytes) -> np.ndarray:
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b'IHDR':
@@ -134,13 +158,75 @@ def imread(path: str) -> np.ndarray:
     return np.ascontiguousarray(img[..., 2::-1])           # RGB(A) -> BGR
 
 
+# BMP: compression types, and the channel masks of a 32-bit BI_BITFIELDS
+# file that is plain BGRX
+_BMP_SIGNATURE = b'BM'
+_BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
+_BGRX_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)
+
+
+def _read_bmp(path: str, data: bytes) -> np.ndarray:
+    if len(data) < 26:
+        raise ValueError(f'{path}: truncated BMP header')
+    offset, header_size = struct.unpack_from('<II', data, 10)
+    if header_size == 12:                              # BITMAPCOREHEADER
+        width, height, _, bits = struct.unpack_from('<HHHH', data, 18)
+        compression = _BI_RGB
+    elif header_size >= 40:
+        width, height, _, bits, compression = struct.unpack_from(
+            '<iiHHI', data, 18)
+    else:
+        raise ValueError(f'{path}: BMP header of {header_size} bytes')
+    if compression in (_BI_RLE8, _BI_RLE4):
+        raise ValueError(f'{path}: RLE-compressed BMP is not read')
+    if bits <= 8:
+        raise ValueError(f'{path}: palette BMP ({bits}-bit) is not read')
+    if bits not in (24, 32):
+        raise ValueError(f'{path}: {bits}-bit BMP is not read')
+    if compression == _BI_BITFIELDS and bits == 32:
+        masks = struct.unpack_from('<III', data, 14 + 40)
+        if masks != _BGRX_MASKS:
+            raise ValueError(f'{path}: BMP channel masks '
+                             f'{[hex(m) for m in masks]} are not read')
+    elif compression != _BI_RGB:
+        raise ValueError(f'{path}: BMP compression {compression} is not '
+                         'read')
+    top_down = height < 0
+    height = abs(height)
+    pixel = bits // 8
+    stride = (width * pixel + 3) & ~3
+    if offset + stride * height > len(data):
+        raise ValueError(f'{path}: BMP pixel data is truncated')
+    rows = np.frombuffer(data, np.uint8, count=stride * height,
+                         offset=offset).reshape(height, stride)
+    img = rows[:, :width * pixel].reshape(height, width, pixel)[..., :3]
+    return np.ascontiguousarray(img if top_down else img[::-1])
+
+
+def _bmp_bytes(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` uint8 BGR -> the bytes ``cv2.imwrite`` gives a
+    ``.bmp``: a 54-byte header, 24-bit bottom-up rows padded to 4 bytes."""
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1].reshape(h, w * 3)
+    return (struct.pack('<2sIHHI', _BMP_SIGNATURE, 54 + stride * h, 0, 0,
+                        54) +
+            struct.pack('<IiiHHIIiiII', 40, w, h, 1, 24, _BI_RGB, 0, 0, 0,
+                        0, 0) + rows.tobytes())
+
+
 def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
-    """Write ``(H, W, 3)`` uint8 BGR as an 8-bit RGB PNG, every row with
-    the Sub filter (as OpenCV writes them), compressed at zlib ``level``."""
+    """Write ``(H, W, 3)`` uint8 BGR: a ``.bmp`` path as OpenCV writes a
+    BMP, any other as an 8-bit RGB PNG, every row with the Sub filter (as
+    OpenCV writes them), compressed at zlib ``level``."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f'imwrite takes (H, W, 3) uint8, got {img.dtype} '
                          f'{img.shape}')
+    if path.lower().endswith('.bmp'):
+        _write_atomic(path, _bmp_bytes(img))
+        return
     h, w = img.shape[:2]
     rgb = img[..., ::-1].astype(np.uint8)
     sub = rgb.copy()
@@ -156,6 +242,10 @@ def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
             chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)) +
             chunk(b'IDAT', zlib.compress(rows.tobytes(), level)) +
             chunk(b'IEND', b''))
+    _write_atomic(path, data)
+
+
+def _write_atomic(path: str, data: bytes) -> None:
     tmp = path + '.tmp'
     with open(tmp, 'wb') as f:
         f.write(data)
@@ -204,6 +294,83 @@ def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     top = ((rows[y0] >> 4) * b0.reshape(shape)) >> 16
     bottom = ((rows[y1] >> 4) * b1.reshape(shape)) >> 16
     return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
+
+
+# ---- rotation ---------------------------------------------------------------
+def get_rotation_matrix_2d(center, angle: float, scale: float = 1.0
+                           ) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the ``(2, 3)``
+    float64 map of a rotation by ``angle`` degrees counter-clockwise (the
+    image's y axis points down) about ``center = (x, y)``, a float32
+    point as OpenCV takes it."""
+    cx, cy = (float(np.float32(v)) for v in center)
+    angle = angle * (math.pi / 180)
+    alpha = math.cos(angle) * scale
+    beta = math.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]],
+                    np.float64)
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """OpenCV's inversion of the forward map (``warpAffine`` without
+    ``WARP_INVERSE_MAP``), operation for operation in float64."""
+    m = [float(v) for v in np.asarray(m, np.float64).reshape(6)]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[4] = a11, a22
+    m[1] *= -d
+    m[3] *= -d
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return np.asarray(m, np.float64)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` rounded once: the float64 product of two
+    float32 values is exact."""
+    return (np.float64(a) * np.asarray(b, np.float64) +
+            np.asarray(c, np.float64)).astype(np.float32)
+
+
+def warp_affine(img: np.ndarray, m: np.ndarray, dsize) -> np.ndarray:
+    """``cv2.warpAffine(img, m, dsize)`` on a uint8 ``(H, W[, C])`` image:
+    bilinear, the border constant 0, ``dsize = (width, height)``.
+
+    Output pixel ``(x, y)`` reads the source at ``sx = fma(x, a0, y * a1 +
+    a2)`` (likewise ``sy``) with ``a`` the inverted map in float32; the taps
+    around ``(sx, sy)`` blend as ``v0 + beta * (v1 - v0)`` of the row blends
+    ``p0 + alpha * (p1 - p0)``, in float32, rounded half to even."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f'warp_affine takes uint8 images, got {img.dtype}')
+    w_dst, h_dst = int(dsize[0]), int(dsize[1])
+    h_src, w_src = img.shape[:2]
+    a = _invert_affine(m).astype(np.float32)
+    xs = np.arange(w_dst, dtype=np.float32)[None, :]
+    ys = np.arange(h_dst, dtype=np.float32)[:, None]
+    sx = _fma32(a[0], xs, ys * a[1] + a[2])
+    sy = _fma32(a[3], xs, ys * a[4] + a[5])
+    ix, iy = np.floor(sx), np.floor(sy)
+    alpha = (sx - ix)[..., None]
+    beta = (sy - iy)[..., None]
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    src = img.reshape(h_src, w_src, -1)
+
+    def tap(dy, dx):
+        ty, tx = iy + dy, ix + dx
+        inside = (tx >= 0) & (tx < w_src) & (ty >= 0) & (ty < h_src)
+        v = src[np.clip(ty, 0, h_src - 1), np.clip(tx, 0, w_src - 1)]
+        return np.where(inside[..., None], v.astype(np.float32),
+                        np.float32(0))
+
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    v0 = p00 + alpha * (p01 - p00)
+    v1 = p10 + alpha * (p11 - p10)
+    out = np.clip(np.rint(v0 + beta * (v1 - v0)), 0, 255).astype(np.uint8)
+    return out.reshape((h_dst, w_dst) + img.shape[2:])
 
 
 # ---- drawing (the synthetic-data generator) --------------------------------

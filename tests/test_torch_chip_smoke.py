@@ -237,6 +237,15 @@ def test_phase_main_path_kernels_rehearsal():
     captured['orcnn_loop_eval_iou'] = captured['eval_iou'][1:]
     captured['orcnn_loop_nms'] = [captured['orcnn'], captured['retinanet']]
     captured['orcnn_loop_roi_align'] = [captured['orcnn_roi']]
+    # phases 19-22: the merges' B=1 inputs, the HRSC run's matrices (its
+    # own evaluation may give none)
+    one = [(b[i:i + 1].contiguous(), c[i:i + 1].contiguous())
+           for b, c in (captured['retinanet'],) for i in range(2)]
+    captured['patch_merge'] = one
+    captured['submission_merge'] = one[:1]
+    captured['hrsc_assign'] = [captured['train_step']] * 3
+    captured['hrsc_train_eval_iou'] = []
+    captured['hrsc_eval_iou'] = captured['eval_iou'][1:]
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -246,8 +255,10 @@ def test_phase_main_path_kernels_rehearsal():
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
     assert iou['max_abs_err'] == 0.0
     assert sorted(iou['main_path_inputs']) == [
-        'eval_iou', 'orcnn_loop_eval_iou', 'orcnn_loop_roi',
-        'orcnn_loop_rpn', 'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
+        'eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'orcnn_loop_eval_iou',
+        'orcnn_loop_roi', 'orcnn_loop_rpn', 'orcnn_train_roi',
+        'orcnn_train_rpn', 'train_step']
+    assert iou['main_path_inputs']['hrsc_assign']['inputs_held'] == 3
     for got in iou['main_path_inputs'].values():
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert got['pairs_in_reach'] > 0
@@ -255,7 +266,10 @@ def test_phase_main_path_kernels_rehearsal():
     assert iou['main_path_inputs']['eval_iou']['pairs_in_reach'] == \
         iou['main_path_inputs']['orcnn_train_roi']['pairs_in_reach']
     assert iou['main_path_inputs']['orcnn_loop_rpn']['inputs_held'] == 2
-    for key in ('retinanet', 'orcnn', 'orcnn_loop_eval'):
+    assert pair['main_path_inputs']['patch_merge']['inputs_held'] == 2
+    assert pair['main_path_inputs']['submission_merge']['largest_n'] == 90
+    for key in ('retinanet', 'orcnn', 'orcnn_loop_eval', 'patch_merge',
+                'submission_merge'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert 0 <= got['pairs_in_reach'] <= got['same_class_pairs']
@@ -266,6 +280,49 @@ def test_phase_main_path_kernels_rehearsal():
         got = roi['main_path_inputs'][key]
         assert got['bound_by'] in ('bytes', 'operations') and got['cells'] > 0
         assert got['live_rois'] == sum(got['rois_per_level'])
+
+
+def test_pair_mask_rows_hold_a_large_input_in_blocks(monkeypatch):
+    """From BIG_N on, phase 12 holds a merge's mask in row blocks: the same
+    in-band count and pair counts as the whole check, and a moved bit out
+    of the band is caught."""
+    boxes, cls = chip_smoke.dota_candidates(1, 300, 3, num_classes=2)
+    boxes, cls = torch.from_numpy(boxes), torch.from_numpy(cls)
+    in_band, same, reach, plain_ms = chip_smoke.pair_mask_rows(
+        boxes, cls, 'cpu', rows=64)
+    assert in_band == chip_smoke.check_pair_mask(boxes, cls)[1]
+    assert (same, reach) == chip_smoke.pair_mask_bound_ms(boxes, cls)[2:]
+    assert plain_ms > 0 and 0 < reach < same
+    pair = dict(name='nms_pair_mask', max_abs_err=0, main_path_inputs={})
+    monkeypatch.setattr(chip_smoke, 'BIG_N', 200)
+    chip_smoke.held_pair_masks([(boxes[:, :100].contiguous(),
+                                 cls[:, :100].contiguous()), (boxes, cls)],
+                               'test', 'merge', pair, 'cpu', '', 1, 1)
+    got = pair['main_path_inputs']['merge']
+    assert got['largest_n'] == 300 and got['pairs_in_reach'] == reach
+    from orientedobjectdetection_torch.ops import iou_kernels
+    wrong = iou_kernels.nms_pair_mask_plain(boxes, 0.1, cls)
+    far = torch.nonzero(torch.triu(
+        ~iou_kernels.pairs_in_reach(boxes, boxes)[0], 1))[0]
+    wrong[0, far[0], far[1]] = 1
+    monkeypatch.setattr(iou_kernels, 'nms_pair_mask',
+                        lambda *args: wrong)
+    with pytest.raises(AssertionError, match='outside the band'):
+        chip_smoke.pair_mask_rows(boxes, cls, 'cpu', rows=64)
+
+
+def test_greedy_rounds_counts_the_fixpoint():
+    """A chain 0 - 1 - 2 - 3 of overlapping neighbours: the fixpoint
+    iteration drops 1, 2 and 3 (round 1), brings back 2 and 3 (round 2),
+    drops 3 again (round 3) and sees no change (round 4); boxes that do not
+    overlap take one round."""
+    boxes = torch.tensor([[[10. + 6 * i, 10., 10., 10., 0.]
+                           for i in range(4)]])
+    cls = torch.zeros((1, 4), dtype=torch.int32)
+    assert chip_smoke.greedy_rounds(boxes, cls) == 4
+    far = boxes.clone()
+    far[0, :, 0] = torch.arange(4) * 100.0
+    assert chip_smoke.greedy_rounds(far, cls) == 1
 
 
 def test_recording_carries_the_launch_count():
@@ -499,3 +556,76 @@ def test_stack_results_pads_per_image():
     assert dets.shape == (2, 2, 6)
     assert labels.tolist() == [[0, 0], [1, -1]]
     assert valid.tolist() == [[True, True], [True, False]]
+
+
+# ---- phases 19-22 at a tiny size
+def test_phase_patches_rehearsal():
+    counts, inputs = chip_smoke.phase_patches(
+        'cpu', size=300, window=128, step=100, bsz=4, dtype=torch.float32,
+        max_candidates=300)
+    assert counts == NO_LAUNCHES
+    merges = inputs['patch_merge']
+    assert merges and all(b.shape[0] == 1 and c.shape == b.shape[:2]
+                          and c.dtype == torch.int32 for b, c in merges)
+    # one merge NMS a class with detections, each over all 9 windows'
+    assert 1 < len(merges) <= 15
+
+
+def test_phase_tta_rehearsal():
+    counts = chip_smoke.phase_tta('cpu', n_images=1, size=128,
+                                  dtype=torch.float32, max_candidates=300)
+    assert counts == NO_LAUNCHES
+
+
+def test_phase_submission_rehearsal(tiny_loop, tmp_path):
+    counts, inputs = chip_smoke.phase_submission(
+        str(tmp_path / 'sub'), tiny_loop['trained'],
+        config=tiny_loop['config'], n_images=2, size=256, tile=128, gap=32,
+        device='cpu', batch_size=4, max_objs=8)
+    assert counts == NO_LAUNCHES
+    assert inputs['submission_merge']
+    names = sorted(os.listdir(tmp_path / 'sub' / 'submission_multi-scale'))
+    assert len(names) == 16 and 'submission.zip' in names
+
+
+TINY_HRSC = '''
+model = dict(
+    backbone=dict(depth=18, frozen_stages=-1),
+    neck=dict(in_channels=[64, 128, 256, 512], out_channels=32),
+    bbox_head=dict(in_channels=32, feat_channels=32, stacked_convs=1),
+    test_cfg=dict(nms_pre=64, max_candidates=64, max_per_img=50))
+img_norm_cfg = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12,
+                    57.375], to_rgb=True)
+train_pipeline = [
+    dict(type='LoadImageFromFile'),
+    dict(type='LoadAnnotations', with_bbox=True),
+    dict(type='RResize', img_scale=(200, 64)),
+    dict(type='RRandomFlip', flip_ratio=0.5, version='le90'),
+    dict(type='PolyRandomRotate', rotate_ratio=0.5, angles_range=180,
+         auto_bound=False, version='le90'),
+    dict(type='Normalize', **img_norm_cfg),
+    dict(type='Pad', size_divisor=32),
+    dict(type='Collect', keys=['img', 'gt_bboxes', 'gt_labels'])]
+test_pipeline = [dict(type='LoadImageFromFile')]
+data = dict(samples_per_gpu=2, workers_per_gpu=1,
+            train=dict(pipeline=train_pipeline),
+            val=dict(pipeline=test_pipeline),
+            test=dict(pipeline=test_pipeline))
+pad_size = (128, 128)
+'''
+
+
+def test_phase_augment_rehearsal(tmp_path):
+    config = derived_config(tmp_path, chip_smoke.HRSC_CONFIG, TINY_HRSC)
+    counts, inputs = chip_smoke.phase_augment(
+        str(tmp_path / 'hrsc'), str(tmp_path / 'work'), config=config,
+        n_train=4, n_val=2, size=128, steps=2, dtype=torch.float32,
+        device='cpu', log_interval=1, bare_steps=1, mosaic_batches=1)
+    assert counts == NO_LAUNCHES
+    assert len(inputs['hrsc_assign']) == 2
+    gts, anchors, mode = inputs['hrsc_assign'][0]
+    assert gts.shape[:2] == (2, 512) and anchors.dim() == 2
+    assert inputs['hrsc_eval_iou']
+    sets = tmp_path / 'hrsc' / 'ImageSets'
+    assert len((sets / 'trainval.txt').read_text().split()) == 4
+    assert (sets / 'test.txt').read_text().split() == ['H0004', 'H0005']

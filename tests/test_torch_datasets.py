@@ -147,15 +147,6 @@ def test_loader_refuses_the_process_pool(root):
                    worker_type='process')
 
 
-@pytest.mark.parametrize('name', ['PolyRandomRotate', 'RRandomCrop',
-                                  'RMosaic', 'LoadPatchFromImage'])
-def test_unported_transforms_name_their_roadmap_item(root, name):
-    cfg = dataset_cfg(root, 'le90', 0.0)
-    cfg['pipeline'] = cfg['pipeline'][:2] + [dict(type=name)]
-    with pytest.raises(NotImplementedError, match='A.4b'):
-        build_dataset(cfg)
-
-
 def test_random_flips_follow_the_seed_not_the_threads(root):
     """Each fetch draws from its own generator (seed, index, fetch count):
     one thread or four, the same flips in every epoch."""

@@ -31,9 +31,11 @@ def test_scan_covers_the_package():
             'oriented_rpn_head.py', 'bbox_heads.py', 'oriented_roi_head.py',
             'two_stage.py', 'image_io.py', 'eval_map.py', 'pipelines.py',
             'dota.py', 'loader.py', 'eval.py', 'train.py', 'test.py',
-            'generate_synth.py'} <= names
+            'generate_synth.py', 'patch.py', 'hrsc.py', 'wrappers.py',
+            'img_split.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
-    assert {'train.py', 'test.py', 'generate_synth.py'} <= tools
+    assert {'train.py', 'test.py', 'generate_synth.py',
+            'img_split.py'} <= tools
 
 
 @pytest.mark.parametrize('path', SOURCES,

@@ -81,5 +81,9 @@ def test_command_line(tmp_path):
                '--hard', '--n-min', '3', '--n-max', '5'])
     assert sorted(os.listdir(tmp_path / 'trainval' / 'images')) == [
         'D0000.png', 'D0001.png']
-    with pytest.raises(NotImplementedError, match='A.4b'):
-        port.main(['--root', str(tmp_path), '--hrsc'])
+    port.main(['--root', str(tmp_path / 'hrsc'), '--num-images', '2',
+               '--size', '96', '--hrsc', '--split', 'val'])
+    assert sorted(os.listdir(tmp_path / 'hrsc' / 'FullDataSet' /
+                             'AllImages')) == ['H0000.bmp', 'H0001.bmp']
+    assert (tmp_path / 'hrsc' / 'ImageSets' / 'val.txt').read_text() == \
+        'H0000\nH0001\n'

@@ -249,8 +249,8 @@ def test_command_lines_train_and_test(data_root, tmp_path):
     # data_root moves the paths the config built from it
     cfg = train_cli.load_config(str(config), [f'data_root={data_root}'])
     assert cfg.data['val']['img_prefix'] == data_root + 'trainval/images/'
-    for flag in (['--tta'], ['--format-only'], ['--data-parallel'],
-                 ['--show'], ['--show-dir', 'x'], ['--collect-dir', 'y']):
+    for flag in (['--data-parallel'], ['--show'], ['--show-dir', 'x'],
+                 ['--collect-dir', 'y']):
         with pytest.raises(NotImplementedError, match='ROADMAP A'):
             test_cli.main([str(config)] + flag)
     # a profiled run leaves a trace
