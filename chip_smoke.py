@@ -3,9 +3,11 @@
 
 Drives the port's main paths at full width with seeded random weights:
 serving and training of Rotated RetinaNet R50-FPN le90
-(configs/rotated_retinanet/rotated_retinanet_obb_r50_fpn_1x_dota_le90.py)
-and of Oriented R-CNN R50-FPN le90
-(configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py), through
+(configs/rotated_retinanet/rotated_retinanet_obb_r50_fpn_1x_dota_le90.py),
+of Oriented R-CNN R50-FPN le90
+(configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py) and of the
+other single-stage recipes (Rotated FCOS, Rotated ATSS, KFIoU, GWD,
+KLD-stable and CSL, each at its published R50-FPN DOTA config), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -104,6 +106,30 @@ plain PyTorch version:
              ``train_detector`` for 20 bf16 steps against the step alone,
              ``evaluate`` (AP50, AP75); the assigner's and the evaluations'
              IoU-matrix inputs recorded
+23. fcos     configs/rotated_fcos/rotated_fcos_r50_fpn_1x_dota_le90.py:
+             float32, 2 images of 1024^2, the same outputs decoded with the
+             pair-mask kernel and with its plain version give the same
+             detections (``same_detections``); then bfloat16 requests of 8
+             images of 1024^2: imgs/s, forward / decode+NMS, peak memory,
+             one pair-mask launch a request
+24. fcos     bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid: 3
+    training warm + 10 timed steps, imgs/s, peak memory, finite loss
+             terms (no assigner: no box_iou_rotated launch), one step at
+             the loader's G=512 for its peak memory, one step profiled by
+             ``train.*`` and the head's ``fcos.targets`` and
+             ``fcos.box_loss`` ranges
+25. anchor   ATSS, KFIoU, GWD, KLD (GDLoss_v1), KLD-stable (GDLoss) and
+    recipes  CSL at their published R50 configs: a float32 step of 2
+             images of 1024^2 with the IoU-matrix kernel and one with the
+             plain matrix (the same assignments up to the band, losses and
+             parameters within LOSS_RTOL and PARAM_RTOL), then 2 warm + 5
+             timed bfloat16 steps at batch 8 (imgs/s, peak memory, one
+             box_iou_rotated launch a step; ATSS also one step at the
+             loader's G=512), then each served as in 23
+26. family   ``rotated_fcos_tiny_synth.py`` and ``csl_tiny_synth.py``
+    loops    through ``train_detector`` on phase 18's tiny-synth set: 20
+             bfloat16 steps and the evaluation (B1 in its NMS, B2 in its
+             IoUs and in CSL's assigner), every input recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -120,7 +146,11 @@ plain PyTorch version:
              candidates and RoIAlign levels (C=64) and RoIs; and those of
              phases 19-22: the merges' pair masks (from N = 8192 on in
              blocks of 128 rows against the plain IoU of those rows), the
-             HRSC assigner's and evaluations' IoU matrices; each held
+             HRSC assigner's and evaluations' IoU matrices; and those of
+             phases 23-26: one FCOS and one CSL request's NMS candidates,
+             one ATSS and one KFIoU train step's assigner inputs (ATSS:
+             21,824 single-anchor priors as rows x the gts), the tiny
+             loops' assigner, evaluation IoU and NMS inputs; each held
              against its plain version, the largest of each kind timed
              beside its bound
 
@@ -128,10 +158,12 @@ Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 ``train_detector`` run, 17's ``eval_from_state``, 18, 19's timed image,
 20's timed images, 21's evaluations and ``format_results``, 22's
-``train_detector`` run and its ``evaluate``) and read just after;
+``train_detector`` run and its ``evaluate``, 23's requests, 24's steps,
+25's bfloat16 steps and requests of each recipe, 26's runs) and read
+just after;
 the recorded requests and steps run after that, apart from phase 18's run,
-which is recorded as it is counted, as are 21's merges and 22's steps.
-Phases 15-22 write their data and work directories under
+which is recorded as it is counted, as are 21's merges, 22's steps and
+26's runs. Phases 15-22 and 26 write their data and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -445,27 +477,39 @@ def time_pair_mask(boxes, cls, device, card, label, reps, plain_reps) -> dict:
 
 
 # ---- 4./5. the detector ----------------------------------------------------
-def build_bundle(device, dtype, max_candidates=2000, seed=0):
-    """The config's detector with seeded weights, normalizing raw uint8 BGR
-    images on the device.
+def build_bundle(device, dtype, max_candidates=2000, seed=0, config=CONFIG):
+    """``config``'s detector (the RetinaNet R50 config by default) with
+    seeded weights, normalizing raw uint8 BGR images on the device.
 
     Random weights leave every score near the focal prior 0.01, below
-    score_thr 0.05, so NMS would see padding only: the class bias is zeroed
-    (scores near 0.5) so the path carries real boxes, and the regression
-    output is scaled down so boxes stay near their anchors, where they
-    overlap as a trained detector's do. ``max_candidates`` is the config's
-    NMS size (2000); the CPU rehearsal makes it small."""
+    score_thr 0.05, so NMS would see padding only: the weights are made to
+    give real boxes (:func:`seed_detections`). ``max_candidates`` is the
+    config's NMS size (2000); the CPU rehearsal makes it small."""
     from orientedobjectdetection_torch.apis import init_detector
     from orientedobjectdetection_torch.utils import Config
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
                            device_norm=cfg.img_norm_cfg)
-    head = bundle.detector.bbox_head
-    head.test_cfg['max_candidates'] = max_candidates
-    with torch.no_grad():
-        head.retina_cls.bias.zero_()
-        head.retina_reg.weight.mul_(0.05)
+    bundle.detector.bbox_head.test_cfg['max_candidates'] = max_candidates
+    seed_detections(bundle.detector.bbox_head)
     return bundle
+
+
+def seed_detections(head) -> None:
+    """Seeded random weights made to give real boxes: the class bias zeroed
+    (scores near 0.5, above score_thr); RetinaNet-family deltas scaled down
+    (boxes near their anchors, where they overlap as a trained detector's
+    do); FCOS sides of about two strides with a small spread, and angles
+    near 0."""
+    with torch.no_grad():
+        if hasattr(head, 'conv_cls'):
+            head.conv_cls.bias.zero_()
+            head.conv_reg.weight.mul_(0.05)
+            head.conv_reg.bias.fill_(2.0)
+            head.conv_angle.weight.mul_(0.05)
+        else:
+            head.retina_cls.bias.zero_()
+            head.retina_reg.weight.mul_(0.05)
 
 
 def raw_images(bsz, size, seed) -> torch.Tensor:
@@ -813,26 +857,35 @@ def time_iou_matrix(boxes1, boxes2, live, device, card, label, reps,
 
 
 # ---- 7./8. the trainer ------------------------------------------------------
-def build_trainer(device, dtype, seed=0, plain_iou=False):
-    """The config's detector with seeded weights and the config's optimizer
-    (SGD, momentum, weight decay, clip, linear warmup, frozen stem and
-    stage 1), normalizing raw uint8 BGR images on the device. Returns
-    (detector, state, train_step). ``plain_iou``: the assigner computes its
-    IoU matrix with the plain version (a reference run)."""
+def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
+    """``config``'s detector (the RetinaNet R50 config by default) with
+    seeded weights (an FCOS head's regression as in
+    :func:`seed_detections`, so its boxes have sides) and the config's
+    optimizer (SGD, momentum, weight decay, clip, linear warmup, frozen stem
+    and stage 1), normalizing raw uint8 BGR images on the device. Returns
+    (detector, state, train_step). ``plain_iou``: the assigner, where the
+    head has one, computes its IoU matrix with the plain version (a
+    reference run)."""
     from orientedobjectdetection_torch.models import build_detector
     from orientedobjectdetection_torch.parallel import (
         build_lr_schedule, build_optimizer, create_train_state,
         make_train_step)
     from orientedobjectdetection_torch.utils import Config
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     detector = build_detector(dict(cfg.model))
-    detector.bbox_head.assigner.plain_iou = plain_iou
+    head = detector.bbox_head
+    if getattr(head, 'assigner', None) is not None:
+        head.assigner.plain_iou = plain_iou
     schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
                                  steps_per_epoch=1000)
     tx = build_optimizer(dict(cfg.optimizer), schedule,
                          grad_clip=cfg.optimizer_config['grad_clip'],
                          frozen_stages=detector.backbone.frozen_stages)
     state = create_train_state(detector, tx, device=device, seed=seed)
+    if hasattr(head, 'conv_reg'):
+        with torch.no_grad():
+            head.conv_reg.weight.mul_(0.05)
+            head.conv_reg.bias.fill_(2.0)
     step = make_train_step(detector, tx, device_norm=cfg.img_norm_cfg,
                            dtype=dtype)
     return detector, state, step
@@ -2610,6 +2663,442 @@ def phase_augment(root, work_dir, card='', config=HRSC_CONFIG, n_train=40,
                           'hrsc_eval_iou': [a for a, _ in evals]}
 
 
+# ---- 23.-26. the other single-stage families -------------------------------
+FCOS_CONFIG = os.path.join(ROOT, 'configs', 'rotated_fcos',
+                           'rotated_fcos_r50_fpn_1x_dota_le90.py')
+# the anchor recipes of phase 25, each at its published R50 config (KLD
+# twice: GDLoss_v1, and the stable GDLoss)
+FAMILY_CONFIGS = {
+    'atss': os.path.join(ROOT, 'configs', 'rotated_atss',
+                         'rotated_atss_obb_r50_fpn_1x_dota_le90.py'),
+    'kfiou': os.path.join(ROOT, 'configs', 'kfiou',
+                          'rotated_retinanet_obb_kfiou_r50_fpn_1x_dota_le90'
+                          '.py'),
+    'gwd': os.path.join(ROOT, 'configs', 'gwd',
+                        'rotated_retinanet_obb_gwd_r50_fpn_1x_dota_le90.py'),
+    'kld': os.path.join(ROOT, 'configs', 'kld',
+                        'rotated_retinanet_obb_kld_r50_fpn_1x_dota_le90.py'),
+    'kld_stable': os.path.join(
+        ROOT, 'configs', 'kld',
+        'rotated_retinanet_obb_kld_stable_r50_fpn_1x_dota_le90.py'),
+    'csl': os.path.join(
+        ROOT, 'configs', 'csl',
+        'rotated_retinanet_obb_csl_gaussian_r50_fpn_fp16_1x_dota_le90.py'),
+}
+FAMILY_TINY_CONFIGS = {
+    'fcos': os.path.join(ROOT, 'configs', 'rotated_fcos',
+                         'rotated_fcos_tiny_synth.py'),
+    'csl': os.path.join(ROOT, 'configs', 'csl', 'csl_tiny_synth.py'),
+}
+# ATSS, kernel vs plain matrix: an assignment may differ where a candidate's
+# IoU lies this close to its gt's threshold (the mean + std of IoUs that
+# differ by up to IOU_ATOL), or two gts claim a prior with IoUs this close
+ATSS_BAND = 1e-4
+# phase 26's evaluation score threshold (the configs': 0.05)
+EVAL_SCORE_THR = 1e-3
+
+
+def nms_cut(bundle, outputs) -> torch.Tensor:
+    """Per image, the lowest score entering NMS: the ``max_candidates``-th
+    of the (candidate, class) scores (times the centerness for FCOS)."""
+    head = bundle.detector.bbox_head
+    with torch.inference_mode():
+        cand = head.candidates(outputs)
+    scores = cand[1] if len(cand) == 2 else cand[1] * cand[2][..., None]
+    scores = scores.flatten(1)
+    k = min(int(head.test_cfg.get('max_candidates', 2000)), scores.shape[1])
+    return scores.topk(k)[0][:, -1]
+
+
+def phase_family_slice(config, label, device, bsz=2, size=1024,
+                       max_candidates=2000) -> None:
+    """float32: the same outputs decoded with the pair-mask kernel and with
+    its plain version give the same detections (:func:`same_detections`)."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    bundle = build_bundle(device, torch.float32, max_candidates,
+                          config=config)
+    plain = DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    outputs = bundle.forward(raw_images(bsz, size, 70))
+    got = bundle.decode(outputs)
+    sync(device)
+    check_dets(*got, bsz, bundle.num_classes)
+    err, moved, aside = same_detections(got, plain.decode(outputs),
+                                        nms_cut(bundle, outputs))
+    log(f'[{label}-slice] float32 B={bsz} {size}^2: kernel and plain pair '
+        f'mask give the same detections (max |diff| {err:.3g}; {moved} rows '
+        f'within {SCORE_BAND} in score in another place, {aside} set aside '
+        f'at the NMS cut); valid dets per image {got[2].sum(1).tolist()}')
+
+
+def phase_family_serving(config, label, device, card='', bsz=8, size=1024,
+                         warm=3, timed=10, dtype=torch.bfloat16,
+                         max_candidates=2000) -> tuple:
+    """Requests of ``bsz`` raw images through the bundle: imgs/s, the split
+    between forward and decode + NMS, peak memory, one pair-mask launch a
+    request. Returns the launch counts and one more request's NMS inputs
+    (boxes, class ids)."""
+    on_card = torch.device(device).type == 'cuda'
+    bundle = build_bundle(device, dtype, max_candidates, config=config)
+    images = raw_images(bsz, size, 80)
+    if on_card:
+        images = images.pin_memory()
+    fwd, dec, outputs, (dets, labels, valid), counts = timed_requests(
+        bundle, images, warm, timed, device)
+    launches = counts['nms_pair_mask']
+    if launches != (warm + timed if on_card else 0):
+        raise AssertionError(f'{label}: nms_pair_mask launched {launches} '
+                             f'times for {warm + timed} requests')
+    check_dets(dets, labels, valid, bsz, bundle.num_classes)
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} B={bsz} '
+        f'{size}^2, {timed} timed requests after {warm} warm: '
+        f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+        f'{1e3 * fwd / timed:.2f} ms, decode+NMS {1e3 * dec / timed:.2f} ms; '
+        f'peak memory {mem:.2f} GiB; nms_pair_mask launches {launches}; '
+        f'valid dets per image {valid.sum(1).tolist()}')
+    from orientedobjectdetection_torch.ops import nms
+    with recording(nms, 'nms_pair_mask') as calls:
+        bundle(images)
+    boxes, _, cls = calls[0][0]
+    return counts, (boxes, cls)
+
+
+def head_anchors(head, size, device) -> tuple:
+    """The head's anchors for a ``size`` x ``size`` image and their count
+    per level."""
+    sizes = [(-(-size // s[1]), -(-size // s[0]))
+             for s in head.prior_generator.strides]
+    levels = head.anchors(sizes, device)
+    return torch.cat(list(levels), 0), [len(lv) for lv in levels]
+
+
+def check_atss_assigner(assigner, priors, num_level, gts, labels,
+                        mask) -> tuple:
+    """ATSS with the kernel and with the plain matrix: equal except where a
+    candidate's IoU lies within ATSS_BAND of its gt's threshold or two
+    claims on a prior are that close. Returns (positives, differing
+    priors)."""
+    was = assigner.plain_iou
+    try:
+        assigner.plain_iou = False
+        got = assigner(priors, num_level, gts, labels, mask)
+        assigner.plain_iou = True
+        ref = assigner(priors, num_level, gts, labels, mask)
+        overlaps, is_cand, thr, inside = assigner.statistics(
+            priors, num_level, gts, mask)
+    finally:
+        assigner.plain_iou = was
+    differ = got.assigned_gt_inds != ref.assigned_gt_inds
+    near = (is_cand & inside & ((overlaps - thr).abs() < ATSS_BAND)).any(2)
+    pos = is_cand & inside & (overlaps >= thr - ATSS_BAND) & \
+        mask[:, None, :]
+    top2 = torch.where(pos, overlaps, -1.0).topk(2, dim=2)[0]
+    tie = (top2[..., 1] > -1) & (top2[..., 0] - top2[..., 1] < ATSS_BAND)
+    outside = int((differ & ~(near | tie)).sum())
+    if outside:
+        raise AssertionError(f'{outside} ATSS assignments differ between '
+                             f'kernel and plain outside the band')
+    if float((got.max_overlaps - ref.max_overlaps).abs().max()) > IOU_ATOL:
+        raise AssertionError('max_overlaps differ between kernel and plain')
+    return int((got.assigned_gt_inds >= 0).sum()), int(differ.sum())
+
+
+def family_step(config, device, batch, plain_iou) -> dict:
+    """A fresh seeded float32 trainer on ``config`` takes one step on
+    ``batch``: its metrics, the parameters before and after."""
+    detector, state, step = build_trainer(device, torch.float32,
+                                          plain_iou=plain_iou, config=config)
+    before = {n: p.detach().clone() for n, p in detector.named_parameters()}
+    state, metrics = step(state, batch)
+    sync(device)
+    check_metrics(metrics)
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                before=before, detector=detector,
+                after={n: p.detach().clone()
+                       for n, p in detector.named_parameters()})
+
+
+def same_params(got, ref, label) -> float:
+    """Two steps from one state: losses within LOSS_RTOL, parameters within
+    PARAM_RTOL of each tensor's change or one float32 step of their value
+    (a tensor whose change is a few of its own steps, as a neck conv's with
+    a tiny gradient is, may round to the next float32 in one update and
+    not in the other), frozen tensors unchanged. Returns the largest
+    difference beyond a float32 step relative to its tensor's change."""
+    for k, v in ref['metrics'].items():
+        if k != 'grad_norm' and abs(got['metrics'][k] - v) > \
+                LOSS_RTOL * abs(v):
+            raise AssertionError(f'{label}: {k} {got["metrics"][k]} vs {v}')
+    worst = 0.0
+    for n, before in ref['before'].items():
+        moved = ref['after'][n] - before
+        err = float((got['after'][n] - ref['after'][n]).abs().max())
+        if not ref['detector'].get_parameter(n).requires_grad:
+            if moved.any() or err:
+                raise AssertionError(f'{label}: {n}: frozen tensor changed')
+            continue
+        scale = float(moved.abs().max())
+        after = ref['after'][n].abs()
+        step = torch.nextafter(after, torch.full_like(after, float('inf'))) \
+            - after
+        diff = (got['after'][n] - ref['after'][n]).abs()
+        beyond = float(torch.where(diff > step, diff, 0.0).max())
+        worst = max(worst, beyond / scale) if scale else worst
+        if beyond > PARAM_RTOL * scale:
+            raise AssertionError(f'{label}: {n} after the step differs by '
+                                 f'{err} > {PARAM_RTOL} x {scale} and more '
+                                 f'than a float32 step of its value')
+    return worst
+
+
+def phase_family_train_slice(config, label, device, bsz=2, size=1024, g=32,
+                             valid=8) -> None:
+    """float32: the head's assigner with the IoU-matrix kernel and with the
+    plain matrix assigns alike (:func:`check_assigner`, or
+    :func:`check_atss_assigner` for ATSS); one step from one seeded state
+    with each gives the same losses and parameters (:func:`same_params`)."""
+    batch = train_batch(bsz, size, g, valid, 90, device)
+    kernel = family_step(config, device, batch, False)
+    head = kernel['detector'].bbox_head
+    priors, num_level = head_anchors(head, size, device)
+    gts, labels, mask = (batch[k].to(device) for k in
+                         ('gt_bboxes', 'gt_labels', 'gt_mask'))
+    if hasattr(head.assigner, 'statistics'):
+        positives, differ = check_atss_assigner(
+            head.assigner, priors, num_level, gts.float(), labels, mask)
+    else:
+        positives, differ = check_assigner(head.assigner, priors,
+                                           gts.float(), labels, mask)
+    if positives < 1:
+        raise AssertionError(f'{label}: the batch has no positive anchor')
+    plain = family_step(config, device, batch, True)
+    worst = same_params(kernel, plain, label)
+    log(f'[{label}-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): {positives} positive anchors, {differ} assignments differ '
+        f'(all in the band); losses {kernel["metrics"]} equal to the plain '
+        f'matrix\'s within {LOSS_RTOL}; parameters within {worst:.3g} of '
+        f'each tensor\'s change (<= {PARAM_RTOL}, or a float32 step of '
+        f'the value)')
+
+
+def phase_family_training(config, label, device, card='', bsz=8, size=1024,
+                          g=32, valid=8, warm=3, timed=10,
+                          dtype=torch.bfloat16, profile=False, padded_g=0,
+                          padded_valid=64) -> tuple:
+    """``warm + timed`` steps on one fixed batch: imgs/s, peak memory, one
+    IoU-matrix launch a step for a head with an assigner (FCOS has none),
+    finite losses. ``profile``: one more step split by the ``train.*`` and
+    the heads' ``fcos.*`` and ``csl.*`` ranges. ``padded_g``: one more
+    step at the loader's padding (``padded_g`` gts, ``padded_valid`` of
+    them valid), for its peak memory. Returns the launch counts, imgs/s
+    and one more step's IoU-matrix inputs (None without an assigner)."""
+    on_card = torch.device(device).type == 'cuda'
+    detector, state, step = build_trainer(device, dtype, config=config)
+    batch = train_batch(bsz, size, g, valid, 100, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    history = []
+    for i in range(warm + timed):
+        if i == warm:
+            sync(device)
+            t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        history.append(metrics)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    per_step = int(getattr(detector.bbox_head, 'assigner', None) is not None)
+    launches = counts['box_iou_rotated']
+    if launches != (per_step * (warm + timed) if on_card else 0):
+        raise AssertionError(f'{label}: box_iou_rotated launched {launches} '
+                             f'times in {warm + timed} steps')
+    for metrics in history:
+        check_metrics(metrics)
+    mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+        else float('nan')
+    terms = {k: f'{float(history[0][k]):.4f} -> {float(history[-1][k]):.4f}'
+             for k in history[0] if k.startswith('loss')}
+    log(f'[{label}-training] {card} | {str(dtype).split(".")[-1]} B={bsz} '
+        f'{size}^2, G={g} ({valid} valid), {timed} timed steps after {warm} '
+        f'warm: {bsz * timed / seconds:.2f} imgs/s, '
+        f'{1e3 * seconds / timed:.2f} ms per step; peak memory {mem:.2f} '
+        f'GiB; box_iou_rotated launches {launches}; {terms}')
+    if padded_g:
+        padded = train_batch(bsz, size, padded_g, padded_valid, 110, device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        state, metrics = step(state, padded)
+        sync(device)
+        check_metrics(metrics)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-training] one step at the loader\'s padding, '
+            f'G={padded_g} ({padded_valid} valid): peak memory {mem:.2f} '
+            f'GiB')
+    inputs = None
+    if per_step:
+        from orientedobjectdetection_torch.ops import iou_kernels
+        with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+            state, _ = step(state, batch)
+        inputs = calls[0][0]
+    if profile:
+        prof = profile_run(lambda: step(state, batch), device,
+                           f'{label} train step', ('train.', 'fcos.', 'csl.'))
+        if prof['busy_us']:
+            spans = prof['spans']
+            named = sum(spans.get(k, 0) for k in
+                        ('train.forward', 'train.loss', 'train.update'))
+            heads = ', '.join(f'{k} {v / 1e3:.2f}' for k, v in spans.items()
+                              if not k.startswith('train.'))
+            log(f'[profile] device time: forward '
+                f'{spans.get("train.forward", 0) / 1e3:.2f} ms, targets + '
+                f'loss {spans.get("train.loss", 0) / 1e3:.2f} ms ({heads}), '
+                f'optimizer {spans.get("train.update", 0) / 1e3:.2f} ms, '
+                f'backward (the rest) '
+                f'{(prof["busy_us"] - named) / 1e3:.2f} ms')
+    return counts, bsz * timed / seconds, inputs
+
+
+def phase_fcos(device, card='', bsz=8, size=1024, slice_bsz=2, warm=3,
+               timed=10, train_warm=3, train_timed=10, g=32, valid=8,
+               max_candidates=2000, dtype=torch.bfloat16, padded_g=512,
+               padded_valid=64) -> tuple:
+    """Phases 23 and 24: Rotated FCOS served (a float32 slice, then
+    ``dtype`` requests) and trained (and one step at the loader's padding
+    for its peak memory: the point targets are (B, N, G)). Returns the
+    runs' launch counts and one request's NMS inputs under ``'fcos'``."""
+    phase_family_slice(FCOS_CONFIG, 'fcos', device, slice_bsz, size,
+                       max_candidates)
+    serving, nms_inputs = phase_family_serving(
+        FCOS_CONFIG, 'fcos', device, card, bsz, size, warm, timed, dtype,
+        max_candidates)
+    training = phase_family_training(
+        FCOS_CONFIG, 'fcos', device, card, bsz, size, g, valid, train_warm,
+        train_timed, dtype, profile=True, padded_g=padded_g,
+        padded_valid=padded_valid)[0]
+    return [serving, training], {'fcos': nms_inputs}
+
+
+def phase_anchor_families(device, card='', bsz=8, size=1024, slice_bsz=2,
+                          warm=2, timed=5, serve_warm=3, serve_timed=10,
+                          g=32, valid=8, max_candidates=2000,
+                          dtype=torch.bfloat16,
+                          families=tuple(FAMILY_CONFIGS), padded_g=512,
+                          padded_valid=64) -> tuple:
+    """Phase 25: each anchor recipe's float32 train slice and ``dtype``
+    training (ATSS also one step at the loader's padding for its peak
+    memory: its tensors are (B, N, G); CSL one profiled step, its angle
+    loss in a range of its own), then its float32 serving slice and
+    ``dtype`` requests. Returns the runs' launch counts, and the ATSS and
+    KFIoU steps' assigner inputs and one CSL request's NMS inputs."""
+    runs, captured = [], {}
+    for label in families:
+        config = FAMILY_CONFIGS[label]
+        phase_family_train_slice(config, label, device, slice_bsz, size, g,
+                                 valid)
+        counts, _, inputs = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, profile=label == 'csl',
+            padded_g=padded_g if label == 'atss' else 0,
+            padded_valid=padded_valid)
+        captured[f'{label}_train'] = inputs
+        phase_family_slice(config, label, device, slice_bsz, size,
+                           max_candidates)
+        serving, captured[label] = phase_family_serving(
+            config, label, device, card, bsz, size, serve_warm, serve_timed,
+            dtype, max_candidates)
+        runs += [counts, serving]
+    return runs, captured
+
+
+def phase_family_loops(root, work_root, card='', configs=None, steps=20,
+                       dtype=torch.bfloat16, device='cuda',
+                       log_interval=5) -> tuple:
+    """Phase 26: the FCOS and CSL tiny-synth configs through
+    ``train_detector`` on phase 18's set, ``steps`` steps and the
+    evaluation (B1 in its NMS, B2 in its IoUs and in CSL's assigner). The
+    evaluation keeps scores from ``EVAL_SCORE_THR`` on: after 20 steps the
+    focal prior still holds most scores under the configs' 0.05, and
+    ``eval_rbbox_map`` computes no IoU without a detection. Returns the
+    runs' launch counts and every input they gave the kernels."""
+    from orientedobjectdetection_torch.ops import iou_kernels, nms
+    configs = configs or FAMILY_TINY_CONFIGS
+    runs, inputs = [], {}
+    for label, config in configs.items():
+        cfg = synth_config(config, root)
+        cfg.merge_from_dict({'model.test_cfg.score_thr': EVAL_SCORE_THR})
+        per_step = int(label != 'fcos')
+        with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices, \
+                recording(nms, 'nms_pair_mask') as masks:
+            _, counts, seconds, log_lines = run_trainer(
+                cfg, os.path.join(work_root, label), steps, device, dtype,
+                per_step, log_interval)
+        train = matrices[:per_step * steps]
+        if not masks or len(matrices) <= len(train) or len(train) != \
+                per_step * steps:
+            raise AssertionError(f'{label}: recorded {len(matrices)} IoU '
+                                 f'matrices and {len(masks)} pair masks')
+        inputs[f'{label}_loop_assign'] = [args for args, _ in train]
+        inputs[f'{label}_loop_eval_iou'] = [
+            args for args, _ in matrices[len(train):]]
+        inputs[f'{label}_loop_nms'] = [(args[0], args[2])
+                                       for args, _ in masks]
+        runs.append(counts)
+        val = [r for r in log_lines if r.get('mode') == 'val'][0]
+        losses = [r['loss'] for r in log_lines if 'loss' in r]
+        log(f'[{label}-loop] {card} | train_detector, '
+            f'{os.path.basename(config)}, {str(dtype).split(".")[-1]}, '
+            f'{steps} steps + eval: {seconds:.1f} s; loss {losses[0]:.4f} '
+            f'-> {losses[-1]:.4f}; val mAP {val["mAP"]:.4f}; launches '
+            f'{counts}')
+    return runs, inputs
+
+
+def held_families(device, captured, by_name, card, reps, plain_reps) -> None:
+    """Phases 23-26's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on one FCOS
+    and one CSL request's candidates and on the tiny loops' evaluations, B2
+    on one ATSS and one KFIoU (MaxIoU) train step's assigner inputs, and on
+    the tiny loops' assigner and evaluation matrices."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    for key, label in (('fcos', 'Rotated FCOS request'),
+                       ('csl', 'CSL RetinaNet request')):
+        boxes, cls = captured[key]
+        err, in_band = check_pair_mask(boxes, cls)
+        pair['max_abs_err'] = max(pair['max_abs_err'], err)
+        log(f'[main-path] nms_pair_mask on the candidates of one {label} '
+            f'B={boxes.shape[0]} N={boxes.shape[1]}: equal to plain outside '
+            f'+-{BAND} of thr={IOU_THR} ({in_band} in-band differences)')
+        pair['main_path_inputs'][key] = time_pair_mask(
+            boxes, cls, device, card, f'{label} candidates', reps,
+            plain_reps)
+    for key, label in (('atss_train', 'ATSS assigner'),
+                       ('kfiou_train', 'KFIoU (MaxIoU) assigner')):
+        boxes1, boxes2, mode = captured[key]
+        err, live = check_iou_matrix(boxes1, boxes2, mode)
+        iou['max_abs_err'] = max(iou['max_abs_err'], err)
+        log(f'[main-path] box_iou_rotated on the {label}\'s inputs in one '
+            f'train step {tuple(boxes1.shape)} x {tuple(boxes2.shape)} '
+            f'{mode}: max |kernel - plain| {err:.3g} <= {IOU_ATOL}; {live} '
+            f'pairs within reach, the rest exactly 0')
+        iou['main_path_inputs'][key] = time_iou_matrix(
+            boxes1, boxes2, live, device, card, f'{label} inputs', reps,
+            plain_reps, mode)
+    for key, label in (('csl_loop_assign', 'tiny CSL loop\'s assigner'),
+                       ('fcos_loop_eval_iou', 'tiny FCOS loop\'s evaluation'),
+                       ('csl_loop_eval_iou', 'tiny CSL loop\'s evaluation')):
+        held_iou_matrices(captured[key], label, key, iou, device, card, reps,
+                          plain_reps)
+    for key, label in (('fcos_loop_nms', 'tiny FCOS loop\'s evaluation'),
+                       ('csl_loop_nms', 'tiny CSL loop\'s evaluation')):
+        held_pair_masks(captured[key], label, key, pair, device, card, reps,
+                        plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
@@ -2670,6 +3159,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
             boxes1, boxes2, live, device, card, f'{label} inputs', reps,
             plain_reps, mode)
     held_loops(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_families(device, captured, by_name, card, reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -2886,17 +3376,30 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_hrsc_rr'), card=info['card'])
     captured.update(augment_inputs)
     log(f'[phases 19-22] {time.perf_counter() - t19:.1f} s')
+    t23 = time.perf_counter()
+    fcos, fcos_inputs = phase_fcos('cuda', card=info['card'])
+    captured.update(fcos_inputs)
+    families, family_inputs = phase_anchor_families('cuda', card=info['card'])
+    captured.update(family_inputs)
+    loops, loop_inputs = phase_family_loops(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_families'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 23-26] {time.perf_counter() - t23:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
         # training's steps, Oriented R-CNN serving's requests and training's
         # steps at batch 8 and 4, the trainer's run with its evaluation,
         # the evaluator's run, the two-stage trainer's run, the huge image,
-        # the flips, the submission's evaluations and merges, and the HRSC
-        # run with its evaluation
+        # the flips, the submission's evaluations and merges, the HRSC run
+        # with its evaluation, FCOS serving and training, the anchor
+        # recipes' training and serving, and the tiny FCOS and CSL runs
+        # with their evaluations
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
-            evaluator, orcnn_loop, patches, tta, submission, augment))
+            evaluator, orcnn_loop, patches, tta, submission, augment,
+            *fcos, *families, *loops))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

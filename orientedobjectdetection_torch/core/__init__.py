@@ -1,12 +1,15 @@
-from .anchors import RotatedAnchorGenerator, anchor_inside_flags
-from .assigners import (AssignResult, MaxIoUAssigner, PseudoSampler,
-                        RRandomSampler, SampleKey, SamplingResult,
-                        random_sample_masks, rng_from_gt)
-from .coders import (DeltaXYWHAOBBoxCoder, MidpointOffsetCoder,
-                     poly2obb_from_parallelogram)
+from .anchors import (MlvlPointGenerator, RotatedAnchorGenerator,
+                      anchor_inside_flags)
+from .assigners import (AssignResult, ATSSObbAssigner, MaxIoUAssigner,
+                        PseudoSampler, RRandomSampler, SampleKey,
+                        SamplingResult, random_sample_masks, rng_from_gt)
+from .coders import (CSLCoder, DeltaXYWHAOBBoxCoder, DistanceAnglePointCoder,
+                     MidpointOffsetCoder, poly2obb_from_parallelogram)
 
-__all__ = ['RotatedAnchorGenerator', 'anchor_inside_flags', 'AssignResult',
-           'MaxIoUAssigner', 'PseudoSampler', 'RRandomSampler', 'SampleKey',
+__all__ = ['RotatedAnchorGenerator', 'MlvlPointGenerator',
+           'anchor_inside_flags', 'AssignResult', 'MaxIoUAssigner',
+           'ATSSObbAssigner', 'PseudoSampler', 'RRandomSampler', 'SampleKey',
            'SamplingResult', 'random_sample_masks', 'rng_from_gt',
            'DeltaXYWHAOBBoxCoder', 'MidpointOffsetCoder',
+           'DistanceAnglePointCoder', 'CSLCoder',
            'poly2obb_from_parallelogram']

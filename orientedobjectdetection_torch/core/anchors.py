@@ -1,9 +1,11 @@
-"""Rotated anchors (counterpart of
-``orientedobjectdetection_tpu/core/anchors.py:RotatedAnchorGenerator``).
+"""Rotated anchors and point priors (counterpart of
+``orientedobjectdetection_tpu/core/anchors.py``: ``RotatedAnchorGenerator``
+and ``MlvlPointGenerator``).
 
 mmdet's horizontal anchor grid with a zero angle appended, per level
 ``(H*W*A, 5)`` in ``(h*w, A)`` order: location-major, then the A base
-anchors ratio-major (ratio outer, scale inner).
+anchors ratio-major (ratio outer, scale inner). The anchor-free heads take
+one point per location in the same row-major order.
 """
 
 from __future__ import annotations
@@ -95,6 +97,40 @@ class RotatedAnchorGenerator:
             multi_level.append(
                 torch.stack([cx, cy, ww, hh, torch.zeros_like(cx)], -1))
         return multi_level
+
+
+@PRIOR_GENERATORS.register_module()
+class MlvlPointGenerator:
+    """Multi-level point priors for anchor-free heads (FCOS): per level
+    ``(H*W, 2)`` float32 points ``(x + offset) * stride``, row-major, with
+    ``(stride_w, stride_h)`` appended when ``with_stride``."""
+
+    def __init__(self, strides: Sequence[int], offset: float = 0.5):
+        self.strides = [(s, s) if isinstance(s, int) else s for s in strides]
+        self.offset = offset
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.strides)
+
+    def grid_priors(self, featmap_sizes: Sequence[Tuple[int, int]], device,
+                    with_stride: bool = False) -> List[torch.Tensor]:
+        out = []
+        for lvl, (h, w) in enumerate(featmap_sizes):
+            stride_w, stride_h = self.strides[lvl]
+            x = (torch.arange(w, dtype=torch.float32, device=device)
+                 + self.offset) * stride_w
+            y = (torch.arange(h, dtype=torch.float32, device=device)
+                 + self.offset) * stride_h
+            yy, xx = torch.meshgrid(y, x, indexing='ij')
+            cols = [xx.reshape(-1), yy.reshape(-1)]
+            if with_stride:
+                cols += [torch.full((h * w,), float(stride_w),
+                                    device=device),
+                         torch.full((h * w,), float(stride_h),
+                                    device=device)]
+            out.append(torch.stack(cols, -1))
+        return out
 
 
 def anchor_inside_flags(anchors: torch.Tensor, valid_flags: torch.Tensor,

@@ -1,12 +1,14 @@
 """Label assignment and sampling, batched over images and padded
 (counterpart of ``orientedobjectdetection_tpu/core/assigners.py``:
-``AssignResult``, ``MaxIoUAssigner``, ``random_sample_masks``,
+``AssignResult``, ``MaxIoUAssigner``, ``ATSSObbAssigner``,
+``random_sample_masks``,
 ``rng_from_gt``, ``SamplingResult``, ``PseudoSampler`` and
 ``RRandomSampler``).
 
 The assigner takes a padded gt set per image (``gt_bboxes (B, G, 5)``,
 ``gt_labels (B, G)``, ``gt_mask (B, G)``) and the priors, anchors shared by
-the batch or proposals of each image, and returns per-prior results of
+the batch or proposals of each image (``ATSSObbAssigner``: anchors shared
+by the batch, with their count per level), and returns per-prior results of
 fixed shape. Everything stays on the inputs' device with no data-dependent
 shape (no ``nonzero``, no boolean indexing), so a train step never waits
 for the host. The whole batch is one call: one IoU matrix ``(B, G, N)``,
@@ -156,6 +158,105 @@ class MaxIoUAssigner:
             assigned >= 0,
             gt_labels.long().gather(1, assigned.clamp(min=0)), -1)
         return AssignResult(assigned, max_overlaps, labels)
+
+
+def _nan_mean_std_unbiased(x: torch.Tensor, dim: int = 0):
+    """Mean and unbiased std over the entries of ``x`` that are not NaN
+    (``torch.std``'s N - 1 denominator, clamped at 1): ``jnp.nanmean``'s
+    sum of the non-NaN entries over their count, so an all-NaN slice gives
+    NaN."""
+    keep = ~torch.isnan(x)
+    cnt = keep.sum(dim).float()
+    zero = x.new_zeros(())
+    mean = torch.where(keep, x, zero).sum(dim) / cnt
+    sq = torch.where(keep, (x - mean.unsqueeze(dim)) ** 2, zero).sum(dim)
+    var = sq / cnt * cnt / torch.clamp(cnt - 1.0, min=1.0)
+    return mean, torch.sqrt(var)
+
+
+@BBOX_ASSIGNERS.register_module()
+class ATSSObbAssigner:
+    """Adaptive Training Sample Selection for rotated boxes (reference
+    ``assigners/atss_obb_assigner.py:13-157``), batched over images:
+
+    1. per gt and level, the ``topk`` priors whose centres are closest to
+       the gt's centre are candidates; a stable ascending sort of the
+       float32 distances ``sqrt(dx^2 + dy^2)`` takes the first ``topk``,
+       so the lowest index wins a tie, as ``jax.lax.top_k`` does;
+    2. the gt's threshold is the mean plus the unbiased std of its
+       candidates' IoUs;
+    3. a candidate at or above the threshold whose centre lies inside the
+       (rotated) gt is positive to it; a prior claimed by several gts goes
+       to the one of highest IoU, the lowest index on a tie.
+
+    Padded gts get IoU 0 and a distance of 1e9 and are never positive.
+    The IoUs are one ``rbbox_overlaps(priors, gts)`` call, a ``(B, N, G)``
+    matrix (``plain_iou``: its plain version on any device)."""
+
+    def __init__(self, topk: int = 9, angle_version: str = 'le90',
+                 iou_calculator: Optional[dict] = None,
+                 plain_iou: bool = False):
+        self.topk = topk
+        self.angle_version = angle_version
+        self.plain_iou = plain_iou
+
+    @torch.no_grad()
+    def statistics(self, priors, num_level_priors, gt_bboxes, gt_mask):
+        """priors (N, 5) shared by the batch; num_level_priors: the priors
+        of each level, in order; gt_bboxes (B, G, 5); gt_mask (B, G) bool.
+        Returns the IoUs (B, N, G), the candidates (B, N, G), each gt's
+        threshold (B, 1, G) and the priors whose centre lies inside each
+        gt (B, N, G)."""
+        bsz, num_gts = gt_mask.shape
+        valid = gt_mask[:, None, :]                            # (B, 1, G)
+        overlaps = rbbox_overlaps(priors, gt_bboxes,
+                                  plain=self.plain_iou)        # (B, N, G)
+        overlaps = torch.where(valid, overlaps, overlaps.new_zeros(()))
+
+        dx = priors[None, :, 0, None] - gt_bboxes[:, None, :, 0]
+        dy = priors[None, :, 1, None] - gt_bboxes[:, None, :, 1]
+        dist = torch.sqrt(dx * dx + dy * dy)
+        dist = torch.where(valid, dist, dist.new_tensor(1e9))  # (B, N, G)
+
+        is_cand = torch.zeros_like(overlaps, dtype=torch.bool)
+        start = 0
+        for n_lvl in num_level_priors:
+            k = min(self.topk, n_lvl)
+            order = torch.sort(dist[:, start:start + n_lvl].transpose(1, 2),
+                               dim=-1, stable=True).indices[..., :k]
+            lvl = torch.zeros((bsz, num_gts, n_lvl), dtype=torch.bool,
+                              device=dist.device)
+            lvl.scatter_(-1, order, True)
+            is_cand[:, start:start + n_lvl] = lvl.transpose(1, 2)
+            start += n_lvl
+
+        cand_iou = torch.where(is_cand, overlaps,
+                               overlaps.new_tensor(float('nan')))
+        mean, std = _nan_mean_std_unbiased(cand_iou, dim=1)
+
+        ga = gt_bboxes[..., 4]
+        cos_a, sin_a = torch.cos(ga)[:, None], torch.sin(ga)[:, None]
+        lx = dx * cos_a + dy * sin_a
+        ly = -dx * sin_a + dy * cos_a
+        inside = (lx.abs() < gt_bboxes[:, None, :, 2] / 2) & \
+            (ly.abs() < gt_bboxes[:, None, :, 3] / 2)
+        return overlaps, is_cand, (mean + std)[:, None, :], inside
+
+    def __call__(self, priors, num_level_priors, gt_bboxes, gt_labels,
+                 gt_mask) -> AssignResult:
+        """priors (N, 5) shared by the batch; num_level_priors: the priors
+        of each level, in order; gt_bboxes (B, G, 5); gt_labels (B, G);
+        gt_mask (B, G) bool. Results (B, N) each."""
+        overlaps, is_cand, thr, inside = self.statistics(
+            priors, num_level_priors, gt_bboxes, gt_mask)
+        is_pos = is_cand & (overlaps >= thr) & inside & gt_mask[:, None, :]
+        pos_iou = torch.where(is_pos, overlaps, overlaps.new_tensor(-1.0))
+        best, best_gt = pos_iou.max(dim=2)                     # (B, N)
+        assigned = torch.where(best > -1, best_gt, NEG)
+        labels = torch.where(
+            assigned >= 0,
+            gt_labels.long().gather(1, assigned.clamp(min=0)), -1)
+        return AssignResult(assigned, overlaps.amax(2), labels)
 
 
 # ---- random numbers ---------------------------------------------------------

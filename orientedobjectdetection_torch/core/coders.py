@@ -1,9 +1,11 @@
 """Rotated box coders (counterparts of
 ``orientedobjectdetection_tpu/core/coders.py``): ``DeltaXYWHAOBBoxCoder``
-(reference ``core/bbox/coder/delta_xywha_rbbox_coder.py:111-283``) and
+(reference ``core/bbox/coder/delta_xywha_rbbox_coder.py:111-283``),
 Oriented R-CNN's ``MidpointOffsetCoder`` (reference
-``delta_midpointoffset_rbbox_coder.py:13-232``). Element-wise over leading
-dims."""
+``delta_midpointoffset_rbbox_coder.py:13-232``), FCOS's
+``DistanceAnglePointCoder`` (``distance_angle_point_coder.py:10-111``) and
+the CSL angle coder ``CSLCoder`` (``angle_coder.py:11-114``). Element-wise
+over leading dims."""
 
 from __future__ import annotations
 
@@ -240,3 +242,99 @@ def poly2obb_from_parallelogram(polys: torch.Tensor) -> torch.Tensor:
     ang = torch.atan2(long_edge[..., 1], long_edge[..., 0])
     return torch.stack([ctr[..., 0], ctr[..., 1], torch.maximum(l1, l2),
                         torch.minimum(l1, l2), ang], -1)
+
+
+@BBOX_CODERS.register_module()
+class DistanceAnglePointCoder:
+    """Point coder: ``(l, t, r, b, theta)``, the distances from a point to
+    the box's four sides in the box's rotated frame, and its angle."""
+
+    encode_size = 5
+
+    def __init__(self, angle_range: str = 'le90'):
+        self.angle_range = angle_range
+
+    def encode(self, points: torch.Tensor, gt_bboxes: torch.Tensor,
+               max_dis: Optional[float] = None, eps: float = 0.1
+               ) -> torch.Tensor:
+        """points (..., 2) and gt_bboxes (..., 5) -> (..., 5)."""
+        gx, gy, gw, gh, ga = gt_bboxes.unbind(-1)
+        cos_a, sin_a = torch.cos(ga), torch.sin(ga)
+        dx = points[..., 0] - gx
+        dy = points[..., 1] - gy
+        ox = dx * cos_a + dy * sin_a
+        oy = -dx * sin_a + dy * cos_a
+        out = torch.stack([gw * 0.5 + ox, gh * 0.5 + oy, gw * 0.5 - ox,
+                           gh * 0.5 - oy, ga], -1)
+        if max_dis is not None:
+            out = torch.cat([out[..., :4].clamp(0, max_dis - eps),
+                             out[..., 4:]], -1)
+        return out
+
+    def decode(self, points: torch.Tensor, pred: torch.Tensor,
+               max_shape=None) -> torch.Tensor:
+        """points (..., 2) and pred (..., 5) ``(l, t, r, b, theta)`` ->
+        (..., 5) boxes, the angle normalized to ``angle_range`` and the
+        centre clipped to ``max_shape`` (h, w) when given."""
+        left, top, right, bottom, a = pred.unbind(-1)
+        cos_a, sin_a = torch.cos(a), torch.sin(a)
+        ox = (right - left) * 0.5
+        oy = (bottom - top) * 0.5
+        cx = points[..., 0] + ox * cos_a - oy * sin_a
+        cy = points[..., 1] + ox * sin_a + oy * cos_a
+        if max_shape is not None:
+            cx = cx.clamp(0, max_shape[1] - 1)
+            cy = cy.clamp(0, max_shape[0] - 1)
+        return torch.stack([cx, cy, left + right, top + bottom,
+                            norm_angle(a, self.angle_range)], -1)
+
+
+@BBOX_CODERS.register_module()
+class CSLCoder:
+    """Circular Smooth Label angle coder: ``omega``-degree bins over the
+    version's span (90 degrees for ``oc``, else 180), smoothed by a
+    circular ``gaussian``, ``triangle``, ``rect`` or ``pulse`` window of
+    ``radius`` bins. ``decode`` is the argmax bin's centre, the lowest bin
+    winning a tie."""
+
+    _OFFSET = {'oc': 0, 'le90': 90, 'le135': 45}
+
+    def __init__(self, angle_version: str = 'le90', omega: int = 1,
+                 window: str = 'gaussian', radius: float = 6):
+        if angle_version not in self._OFFSET:
+            raise ValueError(f'angle_version {angle_version!r}')
+        if window not in ('gaussian', 'triangle', 'rect', 'pulse'):
+            raise ValueError(f'window {window!r}')
+        self.angle_version = angle_version
+        self.omega = omega
+        self.window = window
+        self.radius = radius
+        self.angle_range = 90 if angle_version == 'oc' else 180
+        self.angle_offset = self._OFFSET[angle_version]
+        self.coding_len = self.angle_range // omega
+
+    @property
+    def encode_size(self) -> int:
+        return self.coding_len
+
+    def encode(self, angle_targets: torch.Tensor) -> torch.Tensor:
+        """(..., 1) radians -> (..., coding_len) smooth labels."""
+        deg = angle_targets[..., 0] * (180 / PI) + self.angle_offset
+        bin_ctr = deg / self.omega
+        idx = torch.arange(self.coding_len, dtype=torch.float32,
+                           device=angle_targets.device)
+        diff = (idx - bin_ctr[..., None]).abs()
+        diff = torch.minimum(diff, self.coding_len - diff)
+        if self.window == 'gaussian':
+            return torch.exp(-(diff ** 2) / (2 * self.radius ** 2))
+        if self.window == 'triangle':
+            return (1 - diff / self.radius).clamp(min=0)
+        if self.window == 'rect':
+            return (diff <= self.radius).float()
+        return (diff < 0.5).float()
+
+    def decode(self, angle_preds: torch.Tensor) -> torch.Tensor:
+        """(..., coding_len) logits or scores -> (...) radians."""
+        idx = angle_preds.argmax(-1).float()
+        deg = idx * self.omega + self.omega / 2 - self.angle_offset
+        return deg * (PI / 180)

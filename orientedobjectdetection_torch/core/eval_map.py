@@ -18,11 +18,24 @@ import torch
 from ..ops.iou import rbbox_overlaps
 
 
+def _iou_device(device, caller: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device raises RuntimeError
+    when no card is present (no fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{caller}: no CUDA device is available; pass '
+                           f'device="cpu" to compute the IoUs on the CPU')
+    return device
+
+
 def batched_ious(dets: List[np.ndarray], gts: List[np.ndarray],
-                 device='cpu', plain_iou: bool = False) -> List[np.ndarray]:
+                 device='cuda', plain_iou: bool = False) -> List[np.ndarray]:
     """Per image, the ``(n_i, m_i)`` IoU matrix of its ``(n_i, 5+)`` dets
     against its ``(m_i, 5)`` gts, from one padded ``(B, N, 5) x (B, M, 5)``
-    call on ``device`` (``plain_iou``: the plain version there too)."""
+    call on ``device``: the card by default, which raises without one
+    unless ``'cpu'`` is asked for (``plain_iou``: the plain version there
+    too)."""
+    device = _iou_device(device, 'batched_ious')
     n = max((len(d) for d in dets), default=0)
     m = max((len(g) for g in gts), default=0)
     if n == 0 or m == 0:
@@ -44,12 +57,16 @@ def batched_ious(dets: List[np.ndarray], gts: List[np.ndarray],
 
 def tpfp_default(det_bboxes: np.ndarray, gt_bboxes: np.ndarray,
                  gt_bboxes_ignore: Optional[np.ndarray] = None,
-                 iou_thr: float = 0.5, ious: Optional[np.ndarray] = None):
+                 iou_thr: float = 0.5, ious: Optional[np.ndarray] = None,
+                 device='cuda'):
     """Greedy TP/FP marking of one image and class: each det, by descending
     score, takes the gt of its highest IoU; a det whose best gt is an
     ignore gt counts as neither. ``ious``: the dets against
-    ``[gt_bboxes; gt_bboxes_ignore]``, computed here on the CPU when not
-    given. Returns ``(tp, fp)`` float32 arrays of shape ``(num_dets,)``."""
+    ``[gt_bboxes; gt_bboxes_ignore]``; when not given, :func:`batched_ious`
+    computes them on ``device``: the card by default, which raises without
+    one unless ``'cpu'`` is asked for. Returns ``(tp, fp)`` float32 arrays
+    of shape ``(num_dets,)``."""
+    device = _iou_device(device, 'tpfp_default')
     det_bboxes = np.asarray(det_bboxes, np.float32).reshape(-1, 6)
     gt_bboxes = np.asarray(gt_bboxes, np.float32).reshape(-1, 5)
     if gt_bboxes_ignore is None:
@@ -67,7 +84,7 @@ def tpfp_default(det_bboxes: np.ndarray, gt_bboxes: np.ndarray,
     if num_dets == 0:
         return tp, fp
     if ious is None:
-        ious = batched_ious([det_bboxes], [all_gts])[0]
+        ious = batched_ious([det_bboxes], [all_gts], device)[0]
     ious_max = ious.max(axis=1)
     ious_argmax = ious.argmax(axis=1)
     covered = np.zeros(all_gts.shape[0], bool)
@@ -123,9 +140,7 @@ def eval_rbbox_map(det_results: List[List[np.ndarray]],
     computed (:func:`batched_ious`): the card by default, which raises
     without one unless ``'cpu'`` is asked for; ``nproc`` is accepted and
     unused. Returns ``(mean_ap, per-class dicts)``."""
-    if torch.device(device).type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('eval_rbbox_map: no CUDA device is available; '
-                           'pass device="cpu" to compute the IoUs on the CPU')
+    device = _iou_device(device, 'eval_rbbox_map')
     num_classes = len(det_results[0])
     mode = '11points' if use_07_metric else 'area'
     eval_results = []
@@ -144,7 +159,7 @@ def eval_rbbox_map(det_results: List[List[np.ndarray]],
                 cls_gts_ig.append(np.zeros((0, 5), np.float32))
         all_gts = [np.vstack([g, gi]) for g, gi in zip(cls_gts, cls_gts_ig)]
         ious = batched_ious(cls_dets, all_gts, device, plain_iou)
-        tpfp = [tpfp_default(d, g, gi, iou_thr, iou)
+        tpfp = [tpfp_default(d, g, gi, iou_thr, iou, device)
                 for d, g, gi, iou in zip(cls_dets, cls_gts, cls_gts_ig, ious)]
         tp = np.concatenate([t for t, _ in tpfp])
         fp = np.concatenate([f for _, f in tpfp])

@@ -2,10 +2,14 @@ from .. import core  # noqa: F401  (registers anchors, coders and assigners)
 from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
                               NECKS)
 from .backbones import ResNet
-from .dense_heads import OrientedRPNHead, RotatedRetinaHead
-from .detectors import (OrientedRCNN, RotatedRetinaNet,
+from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoURRetinaHead,
+                          OrientedRPNHead, RotatedATSSHead, RotatedFCOSHead,
+                          RotatedRetinaHead)
+from .detectors import (OrientedRCNN, RotatedFCOS, RotatedRetinaNet,
                         RotatedSingleStageDetector, RotatedTwoStageDetector)
-from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
+from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
+                     GIoULoss, IoULoss, KFLoss, L1Loss, RotatedIoULoss,
+                     SmoothFocalLoss, SmoothL1Loss)
 from .necks import FPN
 from .roi_heads import OrientedStandardRoIHead, RotatedShared2FCBBoxHead
 
@@ -23,10 +27,13 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
 
 
 __all__ = [
-    'ResNet', 'FPN', 'RotatedRetinaHead', 'RotatedRetinaNet',
-    'RotatedSingleStageDetector', 'OrientedRPNHead',
-    'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead', 'OrientedRCNN',
-    'RotatedTwoStageDetector', 'CrossEntropyLoss', 'FocalLoss', 'L1Loss',
-    'SmoothL1Loss', 'build_detector', 'MODELS', 'BACKBONES', 'NECKS',
+    'ResNet', 'FPN', 'RotatedRetinaHead', 'KFIoURRetinaHead',
+    'RotatedATSSHead', 'CSLRRetinaHead', 'RotatedFCOSHead', 'CSLRFCOSHead',
+    'RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
+    'OrientedRPNHead', 'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead',
+    'OrientedRCNN', 'RotatedTwoStageDetector', 'CrossEntropyLoss',
+    'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
+    'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
+    'build_detector', 'MODELS', 'BACKBONES', 'NECKS',
     'HEADS', 'DETECTORS', 'LOSSES',
 ]

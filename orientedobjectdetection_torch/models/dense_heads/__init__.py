@@ -1,4 +1,8 @@
 from .oriented_rpn_head import OrientedRPNHead
-from .rotated_anchor_head import RotatedRetinaHead
+from .rotated_anchor_head import (CSLRRetinaHead, KFIoURRetinaHead,
+                                  RotatedATSSHead, RotatedRetinaHead)
+from .rotated_fcos_head import CSLRFCOSHead, RotatedFCOSHead
 
-__all__ = ['OrientedRPNHead', 'RotatedRetinaHead']
+__all__ = ['OrientedRPNHead', 'RotatedRetinaHead', 'KFIoURRetinaHead',
+           'RotatedATSSHead', 'CSLRRetinaHead', 'RotatedFCOSHead',
+           'CSLRFCOSHead']

@@ -1,7 +1,8 @@
-"""Rotated RetinaNet head: towers, batched targets and loss, batched decode
+"""Rotated RetinaNet heads: towers, batched targets and loss, batched decode
 (counterpart of
 ``orientedobjectdetection_tpu/models/dense_heads/rotated_anchor_head.py``:
-``RotatedRetinaHead`` and ``AnchorHeadLogic``).
+``RotatedRetinaHead`` and ``AnchorHeadLogic``, and the variants
+``KFIoURRetinaHead``, ``RotatedATSSHead`` and ``CSLRRetinaHead``).
 
 The towers run NCHW. At the loss and decode boundaries the maps are
 permuted to the JAX package's channels-last order, channel ``a * C + c`` at
@@ -20,6 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...ops.nms import multiclass_nms_rotated, topk_candidates
 from ...utils.registry import (BBOX_ASSIGNERS, BBOX_CODERS, HEADS, LOSSES,
@@ -92,15 +94,20 @@ class RotatedRetinaHead(nn.Module):
         0.01."""
         self.retina_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
 
+    def towers(self, x):
+        """One level's class and regression tower features."""
+        c = x
+        for conv in self.cls_convs:
+            c = conv(c)
+        r = x
+        for conv in self.reg_convs:
+            r = conv(r)
+        return c, r
+
     def forward(self, feats):
         cls_scores, bbox_preds = [], []
         for x in feats:
-            c = x
-            for conv in self.cls_convs:
-                c = conv(c)
-            r = x
-            for conv in self.reg_convs:
-                r = conv(r)
+            c, r = self.towers(x)
             cls_scores.append(self.retina_cls(c))
             bbox_preds.append(self.retina_reg(r))
         return tuple(cls_scores), tuple(bbox_preds)
@@ -122,20 +129,22 @@ class RotatedRetinaHead(nn.Module):
         return self._anchor_cache[key]
 
     # ---- targets and loss (batched) -------------------------------------
-    @torch.no_grad()
-    def _targets(self, anchors, gt_bboxes, gt_labels, gt_mask,
-                 gt_ignore=None, gt_ignore_mask=None):
-        """anchors (N, 5) and padded gt (B, G, 5) / (B, G) / (B, G) ->
-        per-anchor labels (B, N), label weights, box targets (B, N, E), box
-        weights and the positive mask. ``gt_ignore`` / ``gt_ignore_mask``
-        (padded ignore regions) reach the assigner when its
-        ``ignore_iof_thr`` is set."""
+    def _assign(self, anchors, featmap_sizes, gt_bboxes, gt_labels, gt_mask,
+                gt_ignore=None, gt_ignore_mask=None):
+        """The assigner's result for (N, 5) anchors and the padded gts.
+        ``gt_ignore`` / ``gt_ignore_mask`` (padded ignore regions) reach the
+        assigner when its ``ignore_iof_thr`` is set."""
         if gt_ignore is not None and self.assigner.ignore_iof_thr > 0:
-            assign = self.assigner(anchors, gt_bboxes, gt_labels, gt_mask,
-                                   gt_bboxes_ignore=gt_ignore,
-                                   gt_ignore_mask=gt_ignore_mask)
-        else:
-            assign = self.assigner(anchors, gt_bboxes, gt_labels, gt_mask)
+            return self.assigner(anchors, gt_bboxes, gt_labels, gt_mask,
+                                 gt_bboxes_ignore=gt_ignore,
+                                 gt_ignore_mask=gt_ignore_mask)
+        return self.assigner(anchors, gt_bboxes, gt_labels, gt_mask)
+
+    @torch.no_grad()
+    def _targets(self, anchors, gt_bboxes, assign):
+        """anchors (N, 5), padded gts (B, G, 5) and their assignment ->
+        per-anchor labels (B, N), label weights, box targets (B, N, E), box
+        weights and the positive mask."""
         pos = assign.assigned_gt_inds >= 0
         neg = assign.assigned_gt_inds == -1
         safe_idx = assign.assigned_gt_inds.clamp(min=0)
@@ -173,16 +182,25 @@ class RotatedRetinaHead(nn.Module):
                 ignore regions.
         Returns dict(loss_cls=..., loss_bbox=...) of float32 scalars.
         """
+        return self._loss(outputs, gt_bboxes, gt_labels, gt_mask,
+                          gt_ignore, gt_ignore_mask)[0]
+
+    def _loss(self, outputs, gt_bboxes, gt_labels, gt_mask,
+              gt_ignore=None, gt_ignore_mask=None):
+        """The losses, and the targets and positive count they came from
+        (a subclass adds a term on the same targets)."""
         if self.assigner is None or self.cls_loss is None or \
                 self.bbox_loss is None:
             raise RuntimeError('the head was built without loss_cls, '
                                'loss_bbox or train_cfg.assigner')
-        cls_scores, bbox_preds = outputs
+        cls_scores, bbox_preds = outputs[0], outputs[1]
         featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
         anchors = self.flat_anchors(featmap_sizes, cls_scores[0].device)
-        labels, label_weights, bbox_targets, bbox_weights, pos = \
-            self._targets(anchors, gt_bboxes.float(), gt_labels, gt_mask,
-                          gt_ignore, gt_ignore_mask)
+        gt_bboxes = gt_bboxes.float()
+        assign = self._assign(anchors, featmap_sizes, gt_bboxes, gt_labels,
+                              gt_mask, gt_ignore, gt_ignore_mask)
+        targets = self._targets(anchors, gt_bboxes, assign)
+        labels, label_weights, bbox_targets, bbox_weights, pos = targets
         cls_flat, box_flat = self._flatten_preds(cls_scores, bbox_preds)
         # batch-wide positive count, at least 1 (reference
         # rotated_anchor_head.py:455-459)
@@ -191,7 +209,7 @@ class RotatedRetinaHead(nn.Module):
                                  avg_factor=num_pos)
         loss_bbox = self._reg_loss(anchors, box_flat, bbox_targets,
                                    bbox_weights, num_pos)
-        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox), targets, num_pos
 
     def _reg_loss(self, anchors, box_flat, bbox_targets, bbox_weights,
                   num_pos):
@@ -233,8 +251,8 @@ class RotatedRetinaHead(nn.Module):
         level_anchors = self.anchors(featmap_sizes, cls_scores[0].device)
         c_n, e_n = self.cls_out_channels, self.coder.encode_size
         cand_boxes, cand_scores = [], []
-        for scores, deltas, anchors in zip(cls_scores, bbox_preds,
-                                           level_anchors):
+        for lvl, (scores, deltas, anchors) in enumerate(
+                zip(cls_scores, bbox_preds, level_anchors)):
             b = scores.shape[0]
             # NCHW -> (B, h*w*A, C): channel a*C + c at each location
             logits = scores.permute(0, 2, 3, 1).reshape(b, -1, c_n)
@@ -248,11 +266,18 @@ class RotatedRetinaHead(nn.Module):
                 1, idx[..., None].expand(-1, -1, c_n)).float()
             sel_deltas = deltas.gather(
                 1, idx[..., None].expand(-1, -1, e_n)).float()
+            sel_deltas = self._candidate_deltas(outputs, lvl, idx,
+                                                sel_deltas)
             sel_anchors = anchors[idx]                         # (B, k, 5)
             cand_scores.append(torch.sigmoid(sel_logits))
             cand_boxes.append(self.coder.decode(sel_anchors, sel_deltas,
                                                 max_shape=img_shape))
         return torch.cat(cand_boxes, 1), torch.cat(cand_scores, 1)
+
+    def _candidate_deltas(self, outputs, lvl, idx, sel_deltas):
+        """The selected candidates' (B, k, E) float32 deltas of level
+        ``lvl``, before decoding (the CSL head replaces the angle)."""
+        return sel_deltas
 
     def get_bboxes(self, outputs, img_shape=None, scale_factor=None,
                    rescale: bool = False, cfg=None,
@@ -280,3 +305,105 @@ class RotatedRetinaHead(nn.Module):
             max_per_img=int(cfg.get('max_per_img', 2000)),
             max_candidates=int(cfg.get('max_candidates', 2000)),
             plain_pair_mask=plain_pair_mask)
+
+
+@HEADS.register_module()
+class KFIoURRetinaHead(RotatedRetinaHead):
+    """RetinaNet head with the KFIoU loss (reference
+    ``dense_heads/kfiou_rotate_retina_head.py``): ``KFLoss`` takes the
+    encoded deltas and, decoded against the anchors, the predicted and the
+    target boxes."""
+
+    def _reg_loss(self, anchors, box_flat, bbox_targets, bbox_weights,
+                  num_pos):
+        return self.bbox_loss(
+            box_flat, bbox_targets, weight=bbox_weights, avg_factor=num_pos,
+            pred_decode=self.coder.decode(anchors[None], box_flat),
+            targets_decode=self.coder.decode(anchors[None], bbox_targets))
+
+
+@HEADS.register_module()
+class RotatedATSSHead(RotatedRetinaHead):
+    """ATSS-assigned RetinaNet head (reference
+    ``rotated_atss_head.py:12-234``): the RetinaNet towers, with
+    ``ATSSObbAssigner`` given the anchors' count per level. It takes no
+    ignore regions, as in the JAX package."""
+
+    def loss(self, outputs, gt_bboxes, gt_labels, gt_mask):
+        return self._loss(outputs, gt_bboxes, gt_labels, gt_mask)[0]
+
+    def _assign(self, anchors, featmap_sizes, gt_bboxes, gt_labels, gt_mask,
+                gt_ignore=None, gt_ignore_mask=None):
+        num_level = [h * w * self.num_anchors for h, w in featmap_sizes]
+        return self.assigner(anchors, num_level, gt_bboxes, gt_labels,
+                             gt_mask)
+
+
+@HEADS.register_module()
+class CSLRRetinaHead(RotatedRetinaHead):
+    """RetinaNet head with a Circular Smooth Label angle branch (reference
+    ``csl_rotated_retina_head.py``): ``retina_angle_cls``, a 3x3 conv on
+    the regression tower with ``A * coding_len`` outputs, learns the bins
+    of the bbox coder's encoded delta angle with ``loss_angle``
+    (``SmoothFocalLoss``). Decoding writes each candidate's argmax angle
+    into the 5th delta before the bbox coder. Training the branch on the
+    raw gt angle instead is the bug ``RESULTS.md`` "CSL" records: the
+    coder's edge swap then pairs swapped extents with unswapped angles.
+    ``forward`` returns (cls_scores, bbox_preds, angle_clses). It takes no
+    ignore regions, as in the JAX package. The angle loss carries a
+    ``torch.profiler`` range, ``csl.angle_loss``."""
+
+    def __init__(self, *args, angle_coder: Optional[dict] = None,
+                 loss_angle: Optional[dict] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.angle_coder = BBOX_CODERS.build(dict(
+            angle_coder or dict(type='CSLCoder', angle_version='le90',
+                                omega=1, window='gaussian', radius=6)))
+        self.angle_loss = LOSSES.build(dict(
+            loss_angle or dict(type='SmoothFocalLoss', gamma=2.0,
+                               alpha=0.25, loss_weight=0.8)))
+        self.retina_angle_cls = nn.Conv2d(
+            self.retina_reg.in_channels,
+            self.num_anchors * self.angle_coder.coding_len, 3, padding=1)
+
+    @torch.no_grad()
+    def init_cls_prior(self):
+        """The focal prior bias on ``retina_cls`` and on
+        ``retina_angle_cls``."""
+        super().init_cls_prior()
+        self.retina_angle_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
+
+    def forward(self, feats):
+        cls_scores, bbox_preds, angle_clses = [], [], []
+        for x in feats:
+            c, r = self.towers(x)
+            cls_scores.append(self.retina_cls(c))
+            bbox_preds.append(self.retina_reg(r))
+            angle_clses.append(self.retina_angle_cls(r))
+        return tuple(cls_scores), tuple(bbox_preds), tuple(angle_clses)
+
+    def loss(self, outputs, gt_bboxes, gt_labels, gt_mask):
+        losses, targets, num_pos = self._loss(outputs, gt_bboxes, gt_labels,
+                                              gt_mask)
+        _, _, bbox_targets, bbox_weights, pos = targets
+        b, length = outputs[0][0].shape[0], self.angle_coder.coding_len
+        with record_function('csl.angle_loss'):
+            ang_flat = torch.cat([
+                a.permute(0, 2, 3, 1).reshape(b, -1, length)
+                for a in outputs[2]], 1).float()
+            with torch.no_grad():
+                encoded = self.angle_coder.encode(bbox_targets[..., 4:5])
+                ang_targets = torch.where(pos[..., None], encoded,
+                                          encoded.new_zeros(()))
+            losses['loss_angle'] = self.angle_loss(
+                ang_flat, ang_targets, weight=bbox_weights,
+                avg_factor=num_pos)
+        return losses
+
+    def _candidate_deltas(self, outputs, lvl, idx, sel_deltas):
+        ang = outputs[2][lvl]
+        length = self.angle_coder.coding_len
+        logits = ang.permute(0, 2, 3, 1).reshape(ang.shape[0], -1, length)
+        theta = self.angle_coder.decode(
+            logits.gather(1, idx[..., None].expand(-1, -1, length)).float())
+        return torch.cat([sel_deltas[..., :4], theta[..., None]], -1)

@@ -1,5 +1,6 @@
-from .single_stage import RotatedRetinaNet, RotatedSingleStageDetector
+from .single_stage import (RotatedFCOS, RotatedRetinaNet,
+                           RotatedSingleStageDetector)
 from .two_stage import OrientedRCNN, RotatedTwoStageDetector
 
-__all__ = ['RotatedRetinaNet', 'RotatedSingleStageDetector', 'OrientedRCNN',
-           'RotatedTwoStageDetector']
+__all__ = ['RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
+           'OrientedRCNN', 'RotatedTwoStageDetector']

@@ -17,6 +17,7 @@ The training batch is padded, with its masks carried explicitly:
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Optional
 
@@ -44,8 +45,10 @@ def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
 
 @DETECTORS.register_module()
 class RotatedSingleStageDetector(nn.Module):
-    """Input NCHW images; ``forward`` returns the head's per-level
-    (cls_scores, bbox_preds) NCHW maps."""
+    """Input NCHW images; ``forward`` returns the head's per-level NCHW
+    maps: (cls_scores, bbox_preds), with angle_clses after them for a CSL
+    head, or (cls_scores, bbox_preds, angle_preds, centernesses) for
+    FCOS."""
 
     def __init__(self, backbone: dict, neck: Optional[dict] = None,
                  bbox_head: Optional[dict] = None,
@@ -79,9 +82,13 @@ class RotatedSingleStageDetector(nn.Module):
         return self.bbox_head(x)
 
     def loss_from_outputs(self, outputs, batch):
-        """The head's losses for ``forward``'s outputs on a padded batch."""
+        """The head's losses for ``forward``'s outputs on a padded batch.
+        The batch's ignore regions reach a head whose ``loss`` takes them;
+        the others drop them, as in the JAX package."""
         ignore = {}
-        if 'gt_ignore' in batch:
+        takes_ignore = 'gt_ignore' in inspect.signature(
+            self.bbox_head.loss).parameters
+        if 'gt_ignore' in batch and takes_ignore:
             ignore = dict(gt_ignore=batch['gt_ignore'],
                           gt_ignore_mask=batch['gt_ignore_mask'])
         return self.bbox_head.loss(outputs, batch['gt_bboxes'],
@@ -99,3 +106,8 @@ class RotatedSingleStageDetector(nn.Module):
 @DETECTORS.register_module()
 class RotatedRetinaNet(RotatedSingleStageDetector):
     """Thin alias (reference ``detectors/rotated_retinanet.py``)."""
+
+
+@DETECTORS.register_module()
+class RotatedFCOS(RotatedSingleStageDetector):
+    """Thin alias (reference ``detectors/rotated_fcos.py``)."""

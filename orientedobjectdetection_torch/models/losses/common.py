@@ -154,3 +154,101 @@ class CrossEntropyLoss:
                      * logp).sum(-1)
         return self.loss_weight * reduce_loss(loss, weight, self.reduction,
                                               avg_factor)
+
+
+@LOSSES.register_module()
+class SmoothFocalLoss:
+    """Sigmoid focal loss against soft labels in [0, 1] (the CSL angle
+    branch's smoothed bins; reference ``losses/smooth_focal_loss.py``),
+    summed over the bins before the per-prior weight."""
+
+    def __init__(self, gamma: float = 2.0, alpha: float = 0.25,
+                 reduction: str = 'mean', loss_weight: float = 1.0):
+        self.gamma = gamma
+        self.alpha = alpha
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        loss = sigmoid_focal_loss(pred, target, self.gamma,
+                                  self.alpha).sum(-1)
+        return self.loss_weight * reduce_loss(loss, weight, self.reduction,
+                                              avg_factor)
+
+
+def _xyxy(boxes):
+    """(..., 5) ``(cx, cy, w, h, a)`` -> (..., 4) axis-aligned corners,
+    the angle ignored."""
+    half = boxes[..., 2:4] / 2
+    return torch.cat([boxes[..., :2] - half, boxes[..., :2] + half], -1)
+
+
+def _hbb_inter_union(pred, target, eps: float):
+    p, t = _xyxy(pred), _xyxy(target)
+    wh = (torch.minimum(p[..., 2:], t[..., 2:])
+          - torch.maximum(p[..., :2], t[..., :2])).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = pred[..., 2] * pred[..., 3] + target[..., 2] * target[..., 3] \
+        - inter
+    return p, t, inter, union
+
+
+def _box_weight(weight, pred):
+    """A per-coordinate weight (one more dim than the per-box loss) is
+    averaged over its last dim."""
+    if weight is not None and weight.dim() > pred.dim() - 1:
+        weight = weight.mean(-1)
+    return weight
+
+
+def _iou_mode_loss(ious, mode: str):
+    if mode == 'linear':
+        return 1 - ious
+    if mode == 'square':
+        return 1 - ious ** 2
+    return -torch.log(ious)
+
+
+@LOSSES.register_module()
+class IoULoss:
+    """Axis-aligned IoU loss over ``(cx, cy, w, h, 0)`` boxes (the
+    separate-angle FCOS recipes' horizontal boxes in the point frame):
+    ``'linear'`` 1 - IoU, ``'square'`` 1 - IoU^2 or ``'log'`` -log IoU,
+    the IoU clipped to [eps, 1]."""
+
+    def __init__(self, linear: bool = False, eps: float = 1e-6,
+                 reduction: str = 'mean', loss_weight: float = 1.0,
+                 mode: str = 'log'):
+        self.mode = 'linear' if linear else mode
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        _, _, inter, union = _hbb_inter_union(pred, target, self.eps)
+        ious = (inter / union.clamp(min=self.eps)).clamp(self.eps, 1.0)
+        return self.loss_weight * reduce_loss(
+            _iou_mode_loss(ious, self.mode), _box_weight(weight, pred),
+            self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class GIoULoss:
+    """Axis-aligned GIoU loss over ``(cx, cy, w, h, 0)`` boxes (mmdet's
+    GIoULoss; ``configs/rotated_fcos/rotated_fcos_sep_angle_*.py``)."""
+
+    def __init__(self, eps: float = 1e-6, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        self.eps = eps
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        p, t, inter, union = _hbb_inter_union(pred, target, self.eps)
+        union = union.clamp(min=self.eps)
+        ewh = (torch.maximum(p[..., 2:], t[..., 2:])
+               - torch.minimum(p[..., :2], t[..., :2])).clamp(min=0)
+        enclose = (ewh[..., 0] * ewh[..., 1]).clamp(min=self.eps)
+        giou = inter / union - (enclose - union) / enclose
+        return self.loss_weight * reduce_loss(
+            1 - giou, _box_weight(weight, pred), self.reduction, avg_factor)

@@ -3,7 +3,11 @@
 ``lateral_convs.i.conv``, ``fpn_convs.i.conv``, and the extra levels in
 ``fpn_convs`` after the laterals. With ``add_extra_convs=False`` the extra
 levels have no parameters: each is a 1x1 max pool with stride 2 of the
-level before it, which is that level's every second row and column."""
+level before it, which is that level's every second row and column.
+Otherwise each extra level is a 3x3 stride-2 conv, the first reading the
+last input (``'on_input'``, or ``True``), the last lateral
+(``'on_lateral'``) or the last output (``'on_output'``), each later one the
+level before it (after a ReLU with ``relu_before_extra_convs``)."""
 
 from __future__ import annotations
 
@@ -40,10 +44,12 @@ class FPN(nn.Module):
                  act_cfg: Optional[dict] = None,
                  init_cfg: Optional[dict] = None):
         super().__init__()
-        if add_extra_convs not in (False, True, 'on_input'):
-            raise NotImplementedError(
-                f'add_extra_convs={add_extra_convs!r} is not ported yet')
-        self.add_extra_convs = bool(add_extra_convs)
+        if add_extra_convs is True:
+            add_extra_convs = 'on_input'
+        if add_extra_convs not in (False, 'on_input', 'on_lateral',
+                                   'on_output'):
+            raise ValueError(f'add_extra_convs={add_extra_convs!r}')
+        self.add_extra_convs = add_extra_convs
         self.in_channels = list(in_channels)
         self.num_outs = num_outs
         self.start_level = start_level
@@ -57,7 +63,8 @@ class FPN(nn.Module):
                  for _ in used]
         if self.add_extra_convs:
             for k in range(num_outs - len(used)):
-                cin = used[-1] if k == 0 else out_channels
+                cin = used[-1] if k == 0 and add_extra_convs == 'on_input' \
+                    else out_channels
                 convs.append(ConvModule(cin, out_channels, 3, 2, 1))
         self.fpn_convs = nn.ModuleList(convs)
 
@@ -76,7 +83,8 @@ class FPN(nn.Module):
             for _ in range(self.num_outs - n_lat):
                 outs.append(outs[-1][:, :, ::2, ::2])
             return tuple(outs)
-        src = used[-1]                     # extra levels 'on_input'
+        src = {'on_input': used[-1], 'on_lateral': laterals[-1],
+               'on_output': outs[-1]}[self.add_extra_convs]
         for k in range(self.num_outs - n_lat):
             if k > 0 and self.relu_before_extra_convs:
                 src = F.relu(src)

@@ -1,5 +1,5 @@
 from .boxes import hbb2obb, norm_angle, obb2hbb, obb2poly, obb2xyxy
-from .iou import box_iou_rotated, rbbox_overlaps
+from .iou import box_iou_rotated, diff_iou_rotated_2d, rbbox_overlaps
 from .iou_kernels import (box_iou_rotated_matrix,
                           box_iou_rotated_matrix_plain, nms_pair_mask,
                           nms_pair_mask_plain)
@@ -12,7 +12,7 @@ from .roi_align_rotated import roi_align_rotated
 
 __all__ = [
     'norm_angle', 'obb2hbb', 'obb2poly', 'obb2xyxy', 'hbb2obb',
-    'box_iou_rotated', 'rbbox_overlaps',
+    'box_iou_rotated', 'diff_iou_rotated_2d', 'rbbox_overlaps',
     'box_iou_rotated_matrix', 'box_iou_rotated_matrix_plain',
     'nms_pair_mask', 'nms_pair_mask_plain', 'nms_rotated',
     'multiclass_nms_rotated', 'topk_candidates', 'hbb_overlaps', 'nms_hbb',

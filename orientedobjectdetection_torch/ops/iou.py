@@ -55,8 +55,10 @@ def _edge_contributions(corners_a, corners_b):
     parallel_out = (den.abs() <= 1e-12) & (num < 0)
     lower = torch.where(parallel_out, lower.new_tensor(big), lower)
 
-    t0 = torch.clamp(lower.amax(-1), min=0.0)          # (..., 4A)
-    t1 = torch.clamp(upper.amin(-1), max=1.0)
+    # torch.maximum / minimum, not clamp: at a tie the gradient splits
+    # half and half, as jnp.maximum's does
+    t0 = torch.maximum(lower.amax(-1), lower.new_zeros(()))   # (..., 4A)
+    t1 = torch.minimum(upper.amin(-1), upper.new_ones(()))
     p0 = a + t0[..., None] * d
     p1 = a + t1[..., None] * d
     contrib = torch.where(t1 > t0, _cross2(p0, p1), t0.new_tensor(0.0))
@@ -74,7 +76,7 @@ def _intersect_area_rel(rel1, ctr1, rel2, ctr2):
     c1 = rel1 + u[..., None, :]
     c2 = rel2 - u[..., None, :]
     area2 = _edge_contributions(c1, c2) + _edge_contributions(c2, c1)
-    return torch.clamp(0.5 * area2, min=0.0)
+    return torch.maximum(0.5 * area2, area2.new_zeros(()))
 
 
 def box_area(boxes):
@@ -114,7 +116,16 @@ def box_iou_rotated(boxes1: torch.Tensor, boxes2: torch.Tensor,
     # physical bound (degenerate / parallel-edge numerical safety)
     inter = torch.minimum(inter, torch.minimum(area1, area2))
     denom = area1 + area2 - inter if mode == 'iou' else area1.expand_as(inter)
-    return inter / torch.clamp(denom, min=eps)
+    return inter / torch.maximum(denom, denom.new_tensor(eps))
+
+
+def diff_iou_rotated_2d(boxes1: torch.Tensor,
+                       boxes2: torch.Tensor) -> torch.Tensor:
+    """Aligned, differentiable rotated IoU, (..., N, 5) x (..., N, 5) ->
+    (..., N): :func:`box_iou_rotated` with ``aligned=True`` (mmcv's
+    ``diff_iou_rotated_2d``, which the reference's rotated IoU loss
+    calls)."""
+    return box_iou_rotated(boxes1, boxes2, mode='iou', aligned=True)
 
 
 def _clamp_wh(boxes: torch.Tensor) -> torch.Tensor:

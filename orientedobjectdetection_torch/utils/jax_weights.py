@@ -3,9 +3,10 @@
 layout (:func:`to_jax_layout`), so gradients and updated parameters of the
 two packages can be compared name by name.
 
-Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a Rotated
-RetinaNet (ResNet + FPN + RotatedRetinaHead) or an Oriented R-CNN (ResNet +
-FPN + OrientedRPNHead + OrientedStandardRoIHead) built by
+Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a single-stage
+detector (ResNet + FPN + a RetinaNet-family head or an FCOS head) or an
+Oriented R-CNN (ResNet + FPN + OrientedRPNHead + OrientedStandardRoIHead)
+built by
 ``orientedobjectdetection_tpu``, as nested dicts of numpy arrays. Output: a
 state dict with mmrotate names, the same mapping as
 ``tools/model_converters/convert_torch_weights.py:synthesize_reference_state``:
@@ -18,7 +19,14 @@ state dict with mmrotate names, the same mapping as
 - FPN ``lateral_i/fpn_i`` -> ``lateral_convs.i.conv/fpn_convs.i.conv`` and
   ``extra_k`` -> ``fpn_convs.{n_lateral + k}.conv``;
 - head ``cls_conv_i/reg_conv_i`` -> ``cls_convs.i.conv/reg_convs.i.conv``,
-  ``cls_out/reg_out`` -> ``retina_cls/retina_reg``;
+  ``cls_out/reg_out`` -> ``retina_cls/retina_reg``, CSL's ``angle_out`` ->
+  ``retina_angle_cls``; FCOS's GroupNorms ``cls_gn_i/reg_gn_i`` (``scale``,
+  ``bias``) -> ``cls_convs.i.gn/reg_convs.i.gn`` (``weight``, ``bias``),
+  its ``Scale`` parameters ``scale_{lvl}`` / ``scale_angle_{lvl}`` ->
+  ``scales.{lvl}.scale`` / ``scale_angles.{lvl}.scale`` (mmrotate shares
+  one ``scale_angle`` over the levels; the JAX package has one a level),
+  and ``conv_cls``, ``conv_reg``, ``conv_angle`` and ``conv_centerness``
+  keep their names;
 - ``rpn_head.{rpn_conv,rpn_cls,rpn_reg}`` keep their names;
 - ``roi_head.bbox_head.shared_fc_i`` -> ``shared_fcs.i``, ``fc_cls`` and
   ``fc_reg`` keep theirs; a dense kernel ``(in, out)`` becomes a linear
@@ -36,7 +44,8 @@ import torch
 
 _BN_FIELDS = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
               'var': 'running_var'}
-_RETINA_OUT = {'cls_out': 'retina_cls', 'reg_out': 'retina_reg'}
+_RETINA_OUT = {'cls_out': 'retina_cls', 'reg_out': 'retina_reg',
+               'angle_out': 'retina_angle_cls'}
 
 
 def _walk(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -51,7 +60,9 @@ def _tensor(path, v) -> torch.Tensor:
     # convolution HWIO -> OIHW, dense (in, out) -> (out, in)
     if path[-1] == 'kernel':
         v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
-    return torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    # ascontiguousarray makes a 0-d array (a Scale) 1-d: keep the shape
+    return torch.from_numpy(np.ascontiguousarray(
+        v, dtype=np.float32).reshape(v.shape))
 
 
 def _field(leaf: str) -> str:
@@ -84,8 +95,15 @@ def _neck_name(path, n_lateral: int) -> str:
 
 def _head_name(path) -> str:
     mod, leaf = path
-    m = re.fullmatch(r'(cls|reg)_conv_(\d+)', mod)
-    base = f'{m.group(1)}_convs.{m.group(2)}.conv' if m else _RETINA_OUT[mod]
+    m = re.fullmatch(r'(cls|reg)_(conv|gn)_(\d+)', mod)
+    s = re.fullmatch(r'scale(_angle)?_(\d+)', mod)
+    if m:
+        base = f'{m.group(1)}_convs.{m.group(3)}.{m.group(2)}'
+    elif s:
+        return f'bbox_head.scale{"_angle" if s.group(1) else ""}s.' \
+               f'{s.group(2)}.scale'
+    else:
+        base = _RETINA_OUT.get(mod, mod)
     return f'bbox_head.{base}.{_field(leaf)}'
 
 
@@ -133,6 +151,11 @@ _RETINA_OUT_BACK = {v: k for k, v in _RETINA_OUT.items()}
 def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
     """Port name -> (collection, module path..., leaf) in the flax tree."""
     top, *mods, field = name.split('.')
+    if top == 'bbox_head' and mods[0] in ('scales', 'scale_angles'):
+        lvl = mods[1]
+        mod = f'scale_{lvl}' if mods[0] == 'scales' else \
+            f'scale_angle_{lvl}'
+        return ('params', top, mod, 'scale')
     if field == 'weight':
         leaf = 'kernel' if ndim == 4 or top == 'roi_head' else 'scale'
     else:
@@ -155,8 +178,8 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
     elif top == 'bbox_head':
         if mods[0] in _RETINA_OUT_BACK:
             mods = [_RETINA_OUT_BACK[mods[0]]]
-        else:                                    # cls_convs.<i>.conv
-            mods = [f'{mods[0][:3]}_conv_{mods[1]}']
+        elif mods[0] in ('cls_convs', 'reg_convs'):  # <tower>.<i>.conv|gn
+            mods = [f'{mods[0][:3]}_{mods[2]}_{mods[1]}']
     elif top == 'rpn_head':
         pass                                     # rpn_conv / rpn_cls / rpn_reg
     elif top == 'roi_head':
@@ -186,5 +209,5 @@ def to_jax_layout(state_dict) -> Dict[str, dict]:
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[leaf] = np.ascontiguousarray(v)
+        node[leaf] = np.ascontiguousarray(v).reshape(v.shape)
     return out

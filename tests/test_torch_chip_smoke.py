@@ -246,6 +246,17 @@ def test_phase_main_path_kernels_rehearsal():
     captured['hrsc_assign'] = [captured['train_step']] * 3
     captured['hrsc_train_eval_iou'] = []
     captured['hrsc_eval_iou'] = captured['eval_iou'][1:]
+    # phases 23-26: one FCOS and one CSL request's candidates, one ATSS
+    # (priors as rows) and one KFIoU step's assigner inputs, the tiny loops'
+    captured['fcos'] = captured['retinanet']
+    captured['csl'] = captured['orcnn']
+    captured['atss_train'] = (anchors, gts.clamp(min=1e-3), 'iou')
+    captured['kfiou_train'] = captured['train_step']
+    captured['csl_loop_assign'] = [captured['train_step']] * 2
+    captured['fcos_loop_eval_iou'] = captured['eval_iou'][1:]
+    captured['csl_loop_eval_iou'] = captured['eval_iou']
+    captured['fcos_loop_nms'] = [captured['orcnn']]
+    captured['csl_loop_nms'] = one
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -255,9 +266,11 @@ def test_phase_main_path_kernels_rehearsal():
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
     assert iou['max_abs_err'] == 0.0
     assert sorted(iou['main_path_inputs']) == [
-        'eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'orcnn_loop_eval_iou',
-        'orcnn_loop_roi', 'orcnn_loop_rpn', 'orcnn_train_roi',
-        'orcnn_train_rpn', 'train_step']
+        'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
+        'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
+        'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
+        'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
+    assert iou['main_path_inputs']['csl_loop_assign']['inputs_held'] == 2
     assert iou['main_path_inputs']['hrsc_assign']['inputs_held'] == 3
     for got in iou['main_path_inputs'].values():
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
@@ -269,7 +282,8 @@ def test_phase_main_path_kernels_rehearsal():
     assert pair['main_path_inputs']['patch_merge']['inputs_held'] == 2
     assert pair['main_path_inputs']['submission_merge']['largest_n'] == 90
     for key in ('retinanet', 'orcnn', 'orcnn_loop_eval', 'patch_merge',
-                'submission_merge'):
+                'submission_merge', 'fcos', 'csl', 'fcos_loop_nms',
+                'csl_loop_nms'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert 0 <= got['pairs_in_reach'] <= got['same_class_pairs']
@@ -629,3 +643,100 @@ def test_phase_augment_rehearsal(tmp_path):
     sets = tmp_path / 'hrsc' / 'ImageSets'
     assert len((sets / 'trainval.txt').read_text().split()) == 4
     assert (sets / 'test.txt').read_text().split() == ['H0004', 'H0005']
+
+
+# ---- phases 23-26 at a tiny size: the published configs at 128 px --------
+def test_phase_fcos_rehearsal():
+    runs, captured = chip_smoke.phase_fcos(
+        'cpu', bsz=1, size=128, slice_bsz=1, warm=1, timed=1, train_warm=1,
+        train_timed=1, g=8, valid=3, max_candidates=300, dtype=torch.float32,
+        padded_g=16, padded_valid=5)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]
+    boxes, cls = captured['fcos']
+    assert boxes.shape == (1, 300, 5) and cls.shape == (1, 300)
+
+
+@pytest.mark.parametrize('family', list(chip_smoke.FAMILY_CONFIGS))
+def test_phase_anchor_families_rehearsal(family):
+    runs, captured = chip_smoke.phase_anchor_families(
+        'cpu', bsz=1, size=128, slice_bsz=1, warm=1, timed=1, serve_warm=1,
+        serve_timed=1, g=8, valid=3, max_candidates=300, dtype=torch.float32,
+        families=(family,), padded_g=16, padded_valid=5)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]      # training, serving
+    boxes1, boxes2, mode = captured[f'{family}_train']
+    assert mode == 'iou'
+    if family == 'atss':          # priors as rows, the batch's gts columns
+        assert boxes1.dim() == 2 and boxes2.shape == (1, 8, 5)
+    else:
+        assert boxes1.shape == (1, 8, 5) and boxes2.dim() == 2
+    assert captured[family][0].shape == (1, 300, 5)
+
+
+def test_check_atss_assigner_refuses_a_moved_assignment(monkeypatch):
+    from orientedobjectdetection_torch.core import (ATSSObbAssigner,
+                                                    AssignResult)
+    assigner = ATSSObbAssigner()
+    anchors = chip_smoke.config_anchors(128, 'cpu')[::9].contiguous()
+    gts, labels, mask = chip_smoke.seeded_gts(anchors, 1, 8, 3, 4)
+    num_level = [len(anchors)]
+    positives, differ = chip_smoke.check_atss_assigner(
+        assigner, anchors, num_level, gts, labels, mask)
+    assert positives > 0 and differ == 0
+    call = ATSSObbAssigner.__call__
+
+    def moved(self, *args):
+        result = call(self, *args)
+        if self.plain_iou:
+            return result
+        inds = result.assigned_gt_inds.clone()
+        inds[0, int((inds[0] >= 0).nonzero()[0])] = -1
+        return AssignResult(inds, result.max_overlaps, result.labels)
+
+    monkeypatch.setattr(ATSSObbAssigner, '__call__', moved)
+    with pytest.raises(AssertionError, match='outside the band'):
+        chip_smoke.check_atss_assigner(assigner, anchors, num_level, gts,
+                                       labels, mask)
+
+
+TINY_FAMILY = '''
+model = dict(test_cfg=dict(nms_pre=64, max_candidates=64, max_per_img=50))
+''' + TINY_PIPELINES
+
+
+def test_phase_family_loops_rehearsal(tmp_path):
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    root = str(tmp_path / 'tiny')
+    generate_synth(root, 4, 128, seed=0)
+    configs = {k: derived_config(tmp_path, v, TINY_FAMILY)
+               for k, v in chip_smoke.FAMILY_TINY_CONFIGS.items()}
+    runs, inputs = chip_smoke.phase_family_loops(
+        root, str(tmp_path / 'work'), configs=configs, steps=2,
+        dtype=torch.float32, device='cpu', log_interval=1)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]
+    assert inputs['fcos_loop_assign'] == []          # FCOS has no assigner
+    assert len(inputs['csl_loop_assign']) == 2       # one matrix a step
+    for key in ('fcos_loop_eval_iou', 'csl_loop_eval_iou', 'fcos_loop_nms',
+                'csl_loop_nms'):
+        assert inputs[key], key
+
+
+def test_same_params_allows_a_float32_step_and_nothing_more():
+    w = torch.full((4,), 0.01)
+    step = float(torch.nextafter(w[0], torch.tensor(1.0)) - w[0])
+    moved = w + 30 * step              # a change of a few float32 steps
+    ref = dict(metrics={'loss': 1.0}, before={'w': w},
+               after={'w': moved.clone()},
+               detector=torch.nn.ParameterDict(
+                   {'w': torch.nn.Parameter(w.clone())}))
+
+    def got(after):
+        return dict(metrics={'loss': 1.0}, after={'w': after})
+
+    rounded = moved.clone()
+    rounded[0] += step                 # one update rounded the other way
+    chip_smoke.same_params(got(rounded), ref, 'one step')
+    apart = moved.clone()
+    apart[0] += 3 * step               # 10% of the change: a real difference
+    with pytest.raises(AssertionError, match='float32 step'):
+        chip_smoke.same_params(got(apart), ref, 'three steps')

@@ -90,13 +90,23 @@ def test_eval_rbbox_map_defaults_to_the_card(monkeypatch):
         eval_map.eval_rbbox_map(dets, anns, logger='silent')
 
 
+@pytest.mark.parametrize('fn', ['tpfp_default', 'batched_ious'])
+def test_tpfp_default_and_batched_ious_default_to_the_card(monkeypatch, fn):
+    dets, anns = seeded_set(0)
+    d, g = dets[0][0], anns[0]['bboxes']
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    args = (d, g) if fn == 'tpfp_default' else ([d], [g])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        getattr(eval_map, fn)(*args)
+
+
 def test_tpfp_default_ignore_and_duplicates_match_jax():
     dets, anns = seeded_set(4, num_imgs=12)
     for res, ann in zip(dets, anns):
         for c, d in enumerate(res):
             g = ann['bboxes'][ann['labels'] == c]
             gi = ann['bboxes_ignore'][ann['labels_ignore'] == c]
-            tp, fp = eval_map.tpfp_default(d, g, gi)
+            tp, fp = eval_map.tpfp_default(d, g, gi, device='cpu')
             ref_tp, ref_fp = jax_eval.tpfp_default(d, g, gi)
             np.testing.assert_array_equal(tp, ref_tp)
             np.testing.assert_array_equal(fp, ref_fp)

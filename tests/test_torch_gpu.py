@@ -788,3 +788,70 @@ def test_eval_iou_matrices_kernel_equals_plain(cuda, seed):
     ref_map = eval_rbbox_map(results, anns, device=cuda, plain_iou=True,
                              logger='silent')[0]
     assert abs(got_map - ref_map) <= 1e-4
+
+
+@pytest.mark.parametrize('g,valid', [(32, 8), (512, 64)])
+def test_atss_iou_matrix_priors_as_rows(cuda, g, valid):
+    """ATSS's orientation: ``rbbox_overlaps(priors, gts)`` with the 21,824
+    single-anchor priors of a 1024^2 image first and the batch's padded gts
+    second; the kernel keeps the gts in shared memory and hands back the
+    transpose of the ``(B, G, N)`` buffer it wrote. Then the whole assigner
+    with the kernel and with the plain matrix."""
+    from orientedobjectdetection_torch.core import (ATSSObbAssigner,
+                                                    RotatedAnchorGenerator)
+    strides = [8, 16, 32, 64, 128]
+    levels = RotatedAnchorGenerator(
+        octave_base_scale=4, scales_per_octave=1, ratios=[1.0],
+        strides=strides).grid_priors([(1024 // s, 1024 // s)
+                                      for s in strides], device=cuda)
+    priors = torch.cat(levels, 0)
+    assert priors.shape == (21824, 5)
+    rng = np.random.default_rng(g)
+    gts = np.zeros((8, g, 5), np.float32)
+    gts[:, :valid] = np.stack([rng.uniform(0, 1024, (8, valid)),
+                               rng.uniform(0, 1024, (8, valid)),
+                               rng.uniform(8, 200, (8, valid)),
+                               rng.uniform(8, 200, (8, valid)),
+                               rng.uniform(-1.5, 1.5, (8, valid))], -1)
+    gts = torch.from_numpy(gts).to(cuda)
+    before = box_iou_rotated_matrix.launches
+    got = rbbox_overlaps(priors, gts)
+    assert box_iou_rotated_matrix.launches == before + 1
+    assert got.shape == (8, 21824, g)
+    ref = rbbox_overlaps(priors, gts, plain=True)
+    assert float((got - ref).abs().max()) <= IOU_ATOL
+    mask = torch.arange(g, device=cuda)[None].expand(8, g) < valid
+    labels = torch.zeros((8, g), dtype=torch.int64, device=cuda)
+    num_level = [len(lv) for lv in levels]
+    kernel = ATSSObbAssigner()(priors, num_level, gts, labels, mask)
+    plain = ATSSObbAssigner(plain_iou=True)(priors, num_level, gts, labels,
+                                            mask)
+    assert (kernel.assigned_gt_inds >= 0).sum() > 0
+    assert int((kernel.assigned_gt_inds != plain.assigned_gt_inds).sum()) \
+        <= 2
+    assert kernel.assigned_gt_inds.max() < valid
+
+
+def test_tpfp_default_on_the_card_equals_the_cpu(cuda):
+    """``tpfp_default`` computes its IoUs on the card by default: the same
+    TP / FP marks as with ``device='cpu'``."""
+    from orientedobjectdetection_torch.core.eval_map import tpfp_default
+    rng = np.random.default_rng(3)
+
+    def boxes(n):
+        return np.stack([rng.uniform(0, 256, n), rng.uniform(0, 256, n),
+                         rng.uniform(4, 60, n), rng.uniform(4, 60, n),
+                         rng.uniform(-np.pi / 2, np.pi / 2, n)],
+                        -1).astype(np.float32)
+
+    gts, ignore = boxes(12), boxes(3)
+    dets = np.concatenate([np.concatenate(
+        [gts + rng.normal(0, 2, gts.shape).astype(np.float32), boxes(40)]),
+        rng.random((52, 1)).astype(np.float32)], 1)
+    before = box_iou_rotated_matrix.launches
+    got = tpfp_default(dets, gts, ignore)
+    assert box_iou_rotated_matrix.launches == before + 1
+    ref = tpfp_default(dets, gts, ignore, device='cpu')
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
+    assert got[0].sum() > 0

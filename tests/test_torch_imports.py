@@ -32,7 +32,9 @@ def test_scan_covers_the_package():
             'two_stage.py', 'image_io.py', 'eval_map.py', 'pipelines.py',
             'dota.py', 'loader.py', 'eval.py', 'train.py', 'test.py',
             'generate_synth.py', 'patch.py', 'hrsc.py', 'wrappers.py',
-            'img_split.py'} <= names
+            'img_split.py', 'rotated_fcos_head.py', 'gaussian_dist_loss.py',
+            'kf_iou_loss.py', 'rotated_iou_loss.py', 'rotated_anchor_head.py',
+            'coders.py', 'anchors.py', 'fpn.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools

@@ -267,8 +267,12 @@ def test_fpn_without_extra_convs_matches_jax(tiny):
                                    rtol=1e-4, atol=1e-4 * np.abs(r).max())
     # the fifth level is every second cell of the fourth
     assert torch.equal(got[4], got[3][:, :, ::2, ::2])
-    with pytest.raises(NotImplementedError):
-        FPN(add_extra_convs='on_output')
+    # 'on_output' builds since slice 9 (its first extra conv reads the
+    # 256-channel last output); an unknown mode raises
+    extra = FPN(add_extra_convs='on_output').fpn_convs[4].conv
+    assert extra.in_channels == 256
+    with pytest.raises(ValueError):
+        FPN(add_extra_convs='on_nothing')
 
 
 def test_rpn_forward_and_proposals_match_jax(tiny):
