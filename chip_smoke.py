@@ -5,9 +5,11 @@ Drives the port's main paths at full width with seeded random weights:
 serving and training of Rotated RetinaNet R50-FPN le90
 (configs/rotated_retinanet/rotated_retinanet_obb_r50_fpn_1x_dota_le90.py),
 of Oriented R-CNN R50-FPN le90
-(configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py) and of the
+(configs/oriented_rcnn/oriented_rcnn_r50_fpn_1x_dota_le90.py), of the
 other single-stage recipes (Rotated FCOS, Rotated ATSS, KFIoU, GWD,
-KLD-stable and CSL, each at its published R50-FPN DOTA config), through
+KLD-stable and CSL, each at its published R50-FPN DOTA config) and of the
+refine detectors (S2ANet R50-FPN le135 and R3Det R50-FPN oc; the KFIoU
+refine recipes and the two-stage R3Det cascade in float32), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -130,6 +132,30 @@ plain PyTorch version:
     loops    through ``train_detector`` on phase 18's tiny-synth set: 20
              bfloat16 steps and the evaluation (B1 in its NMS, B2 in its
              IoUs and in CSL's assigner), every input recorded
+27. refine   S2ANet and R3Det (their R50 DOTA configs) in float32 at 2
+    slice    images of 1024^2: the same outputs decoded with the pair-mask
+             kernel and with its plain version give the same detections;
+             one train step with the IoU-matrix kernel and one with the
+             plain matrix from one seeded state: each stage's assigner
+             (the first on its anchors, the refine stage on each image's
+             rois) alike up to the band, losses within LOSS_RTOL,
+             parameters within PARAM_RTOL; the same for one step of the
+             two KFIoU refine recipes and of the two-stage R3Det cascade
+28. refine   bfloat16 requests of 8 raw 1024^2 images through each: imgs/s,
+    serving  forward / decode+NMS, peak memory, one pair-mask launch a
+             request; one request profiled by the ``refine.*`` ranges
+             (first stage, rois, align / FRM, refine head, decode + NMS)
+29. refine   bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid: 2
+    training warm + 5 timed steps, imgs/s, peak memory, two
+             box_iou_rotated launches a step (the first stage's shared
+             anchors, the refine stage's per-image rois); one step at the
+             loader's G=512; one step profiled by ``train.*`` and
+             ``refine.*`` (with each stage's targets and loss); the align
+             / FRM sampling's forward and backward alone on a step's inputs
+30. refine   ``s2anet_tiny_synth.py`` and ``r3det_tiny_synth.py`` through
+    loops    ``train_detector`` on phase 18's set: 20 bfloat16 steps (two
+             box_iou_rotated launches each) and the evaluation, every input
+             recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -150,7 +176,11 @@ plain PyTorch version:
              phases 23-26: one FCOS and one CSL request's NMS candidates,
              one ATSS and one KFIoU train step's assigner inputs (ATSS:
              21,824 single-anchor priors as rows x the gts), the tiny
-             loops' assigner, evaluation IoU and NMS inputs; each held
+             loops' assigner, evaluation IoU and NMS inputs; and those of
+             phases 27-30: the refine detectors' NMS candidates (the top
+             2000 over all levels at once), their first and refine stages'
+             assigner inputs (gts x each image's 21,824 rois) at G=32 and
+             G=512, the float32 steps' and the tiny loops'; each held
              against its plain version, the largest of each kind timed
              beside its bound
 
@@ -159,11 +189,13 @@ each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 ``train_detector`` run, 17's ``eval_from_state``, 18, 19's timed image,
 20's timed images, 21's evaluations and ``format_results``, 22's
 ``train_detector`` run and its ``evaluate``, 23's requests, 24's steps,
-25's bfloat16 steps and requests of each recipe, 26's runs) and read
+25's bfloat16 steps and requests of each recipe, 26's runs, 28's
+requests and 29's steps of each refine detector, 30's runs) and read
 just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's runs. Phases 15-22 and 26 write their data and work directories under
+26's and 30's runs. Phases 15-22, 26 and 30 write their data and work
+directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -865,7 +897,7 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     and stage 1), normalizing raw uint8 BGR images on the device. Returns
     (detector, state, train_step). ``plain_iou``: the assigner, where the
     head has one, computes its IoU matrix with the plain version (a
-    reference run)."""
+    reference run; a refine detector's in every stage)."""
     from orientedobjectdetection_torch.models import build_detector
     from orientedobjectdetection_torch.parallel import (
         build_lr_schedule, build_optimizer, create_train_state,
@@ -873,9 +905,9 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     from orientedobjectdetection_torch.utils import Config
     cfg = Config.fromfile(config)
     detector = build_detector(dict(cfg.model))
-    head = detector.bbox_head
-    if getattr(head, 'assigner', None) is not None:
-        head.assigner.plain_iou = plain_iou
+    for assigner in assigners(detector):
+        assigner.plain_iou = plain_iou
+    head = getattr(detector, 'bbox_head', None)
     schedule = build_lr_schedule(dict(cfg.lr_config), cfg.optimizer['lr'],
                                  steps_per_epoch=1000)
     tx = build_optimizer(dict(cfg.optimizer), schedule,
@@ -889,6 +921,15 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     step = make_train_step(detector, tx, device_norm=cfg.img_norm_cfg,
                            dtype=dtype)
     return detector, state, step
+
+
+def assigners(detector) -> list:
+    """The assigners of a single-stage detector's head or of each stage of
+    a refine detector, in the order a train step runs them."""
+    heads = detector.heads() if hasattr(detector, 'heads') else \
+        [detector.bbox_head]
+    return [h.assigner for h in heads
+            if getattr(h, 'assigner', None) is not None]
 
 
 def train_batch(bsz, size, g, valid, seed, device) -> dict:
@@ -2889,12 +2930,15 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                           dtype=torch.bfloat16, profile=False, padded_g=0,
                           padded_valid=64) -> tuple:
     """``warm + timed`` steps on one fixed batch: imgs/s, peak memory, one
-    IoU-matrix launch a step for a head with an assigner (FCOS has none),
-    finite losses. ``profile``: one more step split by the ``train.*`` and
-    the heads' ``fcos.*`` and ``csl.*`` ranges. ``padded_g``: one more
-    step at the loader's padding (``padded_g`` gts, ``padded_valid`` of
-    them valid), for its peak memory. Returns the launch counts, imgs/s
-    and one more step's IoU-matrix inputs (None without an assigner)."""
+    IoU-matrix launch a step for each assigner (FCOS has none, a refine
+    detector one a stage), finite losses. ``profile``: one more step split
+    by the ``train.*`` and the heads' ``fcos.*`` and ``csl.*`` ranges and
+    the refine detectors' ``refine.*``. ``padded_g``: one more step at the
+    loader's padding (``padded_g`` gts, ``padded_valid`` of them valid), for
+    its peak memory. Returns dict(counts, rate (imgs/s), inputs: one more
+    step's IoU-matrix inputs, padded_inputs: those of the padded step (both
+    None without an assigner), step_once: a function that takes one more
+    step)."""
     on_card = torch.device(device).type == 'cuda'
     detector, state, step = build_trainer(device, dtype, config=config)
     batch = train_batch(bsz, size, g, valid, 100, device)
@@ -2911,7 +2955,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
     sync(device)
     seconds = time.perf_counter() - t0
     counts = read_launches()
-    per_step = int(getattr(detector.bbox_head, 'assigner', None) is not None)
+    per_step = len(assigners(detector))
     launches = counts['box_iou_rotated']
     if launches != (per_step * (warm + timed) if on_card else 0):
         raise AssertionError(f'{label}: box_iou_rotated launched {launches} '
@@ -2927,27 +2971,30 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
         f'warm: {bsz * timed / seconds:.2f} imgs/s, '
         f'{1e3 * seconds / timed:.2f} ms per step; peak memory {mem:.2f} '
         f'GiB; box_iou_rotated launches {launches}; {terms}')
+    from orientedobjectdetection_torch.ops import iou_kernels
+    inputs = padded_inputs = None
     if padded_g:
         padded = train_batch(bsz, size, padded_g, padded_valid, 110, device)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        state, metrics = step(state, padded)
+        with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+            state, metrics = step(state, padded)
         sync(device)
         check_metrics(metrics)
+        padded_inputs = [args for args, _ in calls] if per_step else None
         mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
             else float('nan')
         log(f'[{label}-training] one step at the loader\'s padding, '
             f'G={padded_g} ({padded_valid} valid): peak memory {mem:.2f} '
             f'GiB')
-    inputs = None
     if per_step:
-        from orientedobjectdetection_torch.ops import iou_kernels
         with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
             state, _ = step(state, batch)
-        inputs = calls[0][0]
+        inputs = [args for args, _ in calls]
     if profile:
         prof = profile_run(lambda: step(state, batch), device,
-                           f'{label} train step', ('train.', 'fcos.', 'csl.'))
+                           f'{label} train step',
+                           ('train.', 'fcos.', 'csl.', 'refine.'))
         if prof['busy_us']:
             spans = prof['spans']
             named = sum(spans.get(k, 0) for k in
@@ -2960,7 +3007,9 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                 f'optimizer {spans.get("train.update", 0) / 1e3:.2f} ms, '
                 f'backward (the rest) '
                 f'{(prof["busy_us"] - named) / 1e3:.2f} ms')
-    return counts, bsz * timed / seconds, inputs
+    return dict(counts=counts, rate=bsz * timed / seconds, inputs=inputs,
+                padded_inputs=padded_inputs,
+                step_once=lambda: step(state, batch))
 
 
 def phase_fcos(device, card='', bsz=8, size=1024, slice_bsz=2, warm=3,
@@ -2979,7 +3028,7 @@ def phase_fcos(device, card='', bsz=8, size=1024, slice_bsz=2, warm=3,
     training = phase_family_training(
         FCOS_CONFIG, 'fcos', device, card, bsz, size, g, valid, train_warm,
         train_timed, dtype, profile=True, padded_g=padded_g,
-        padded_valid=padded_valid)[0]
+        padded_valid=padded_valid)['counts']
     return [serving, training], {'fcos': nms_inputs}
 
 
@@ -3000,12 +3049,13 @@ def phase_anchor_families(device, card='', bsz=8, size=1024, slice_bsz=2,
         config = FAMILY_CONFIGS[label]
         phase_family_train_slice(config, label, device, slice_bsz, size, g,
                                  valid)
-        counts, _, inputs = phase_family_training(
+        run = phase_family_training(
             config, label, device, card, bsz, size, g, valid, warm, timed,
             dtype, profile=label == 'csl',
             padded_g=padded_g if label == 'atss' else 0,
             padded_valid=padded_valid)
-        captured[f'{label}_train'] = inputs
+        counts = run['counts']
+        captured[f'{label}_train'] = run['inputs'][0]
         phase_family_slice(config, label, device, slice_bsz, size,
                            max_candidates)
         serving, captured[label] = phase_family_serving(
@@ -3017,29 +3067,31 @@ def phase_anchor_families(device, card='', bsz=8, size=1024, slice_bsz=2,
 
 def phase_family_loops(root, work_root, card='', configs=None, steps=20,
                        dtype=torch.bfloat16, device='cuda',
-                       log_interval=5) -> tuple:
+                       log_interval=5, per_step=None) -> tuple:
     """Phase 26: the FCOS and CSL tiny-synth configs through
     ``train_detector`` on phase 18's set, ``steps`` steps and the
     evaluation (B1 in its NMS, B2 in its IoUs and in CSL's assigner). The
     evaluation keeps scores from ``EVAL_SCORE_THR`` on: after 20 steps the
     focal prior still holds most scores under the configs' 0.05, and
-    ``eval_rbbox_map`` computes no IoU without a detection. Returns the
-    runs' launch counts and every input they gave the kernels."""
+    ``eval_rbbox_map`` computes no IoU without a detection. ``per_step``:
+    label -> the IoU-matrix launches of a step (by default none for FCOS,
+    one for the others). Returns the runs' launch counts and every input
+    they gave the kernels."""
     from orientedobjectdetection_torch.ops import iou_kernels, nms
     configs = configs or FAMILY_TINY_CONFIGS
     runs, inputs = [], {}
     for label, config in configs.items():
         cfg = synth_config(config, root)
         cfg.merge_from_dict({'model.test_cfg.score_thr': EVAL_SCORE_THR})
-        per_step = int(label != 'fcos')
+        launches = (per_step or {}).get(label, int(label != 'fcos'))
         with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices, \
                 recording(nms, 'nms_pair_mask') as masks:
             _, counts, seconds, log_lines = run_trainer(
                 cfg, os.path.join(work_root, label), steps, device, dtype,
-                per_step, log_interval)
-        train = matrices[:per_step * steps]
+                launches, log_interval)
+        train = matrices[:launches * steps]
         if not masks or len(matrices) <= len(train) or len(train) != \
-                per_step * steps:
+                launches * steps:
             raise AssertionError(f'{label}: recorded {len(matrices)} IoU '
                                  f'matrices and {len(masks)} pair masks')
         inputs[f'{label}_loop_assign'] = [args for args, _ in train]
@@ -3099,11 +3151,424 @@ def held_families(device, captured, by_name, card, reps, plain_reps) -> None:
                         plain_reps)
 
 
+# ---- 27.-30. the refine detectors -----------------------------------------
+REFINE_CONFIGS = {
+    's2anet': os.path.join(ROOT, 'configs', 's2anet',
+                           's2anet_r50_fpn_1x_dota_le135.py'),
+    'r3det': os.path.join(ROOT, 'configs', 'r3det',
+                          'r3det_r50_fpn_1x_dota_oc.py'),
+}
+# phase 27's other float32 steps: the KFIoU refine recipes and the cascade
+REFINE_RECIPES = {
+    's2anet_kfiou': os.path.join(ROOT, 'configs', 'kfiou',
+                                 's2anet_kfiou_ln_r50_fpn_1x_dota_le135.py'),
+    'r3det_kfiou': os.path.join(ROOT, 'configs', 'kfiou',
+                                'r3det_kfiou_ln_r50_fpn_1x_dota_oc.py'),
+    'r3det_refine': os.path.join(ROOT, 'configs', 'r3det',
+                                 'r3det_refine_r50_fpn_1x_dota_oc.py'),
+}
+REFINE_TINY_CONFIGS = {
+    's2anet': os.path.join(ROOT, 'configs', 's2anet',
+                           's2anet_tiny_synth.py'),
+    'r3det': os.path.join(ROOT, 'configs', 'r3det', 'r3det_tiny_synth.py'),
+}
+# the refine detectors' record_function ranges, serving and training
+REFINE_RANGES = ('refine.first_stage', 'refine.rois', 'refine.align',
+                 'refine.head', 'refine.decode_nms')
+REFINE_TRAIN_RANGES = REFINE_RANGES[:4] + ('refine.first_loss',
+                                           'refine.refine_loss')
+
+
+def seed_refine_detections(detector) -> None:
+    """Seeded refine weights made to give real boxes: the last stage's class
+    bias zeroed (scores near 0.5) and every stage's regression scaled down
+    (rois near their anchors and boxes near their rois, where they overlap
+    as a trained detector's do)."""
+    with torch.no_grad():
+        for head in detector.heads():
+            reg = head.odm_reg if hasattr(head, 'odm_reg') else \
+                head.retina_reg
+            reg.weight.mul_(0.05)
+        last = detector.heads()[-1]
+        (last.odm_cls if hasattr(last, 'odm_cls') else
+         last.retina_cls).bias.zero_()
+
+
+def build_refine_bundle(config, device, dtype, max_candidates=2000,
+                        seed=0):
+    """:func:`build_bundle` for a refine detector: its ``test_cfg`` decides
+    the last stage's decode (:func:`seed_refine_detections`)."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(config)
+    bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
+                           device_norm=cfg.img_norm_cfg)
+    bundle.detector.test_cfg['max_candidates'] = max_candidates
+    seed_refine_detections(bundle.detector)
+    return bundle
+
+
+def refine_nms_cut(bundle, outputs) -> torch.Tensor:
+    """Per image, the lowest score entering NMS: the ``max_candidates``-th
+    (candidate, class) score of the last stage's top ``nms_pre``
+    locations."""
+    from orientedobjectdetection_torch.models.dense_heads import \
+        rotated_anchor_head
+    detector = bundle.detector
+    head, outs, _ = detector.last_stage(outputs)
+    cfg = detector.test_cfg
+    logits = rotated_anchor_head.flatten_levels(outs[0],
+                                                head.cls_out_channels)
+    k = min(int(cfg.get('nms_pre', 2000)), logits.shape[1])
+    top = logits.amax(-1).topk(k, dim=1)[1]
+    scores = torch.sigmoid(logits.gather(1, top[..., None].expand(
+        -1, -1, logits.shape[-1]))).flatten(1)
+    n = min(int(cfg.get('max_candidates', 2000)), scores.shape[1])
+    return scores.topk(n)[0][:, -1]
+
+
+def phase_refine_serving_slice(config, label, device, bsz=2, size=1024,
+                               max_candidates=2000) -> list:
+    """float32: the same outputs decoded with the pair-mask kernel and with
+    its plain version give the same detections (:func:`same_detections`).
+    Returns the request's pair-mask inputs (boxes, class ids)."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    from orientedobjectdetection_torch.ops import nms
+    bundle = build_refine_bundle(config, device, torch.float32,
+                                 max_candidates)
+    plain = DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    outputs = bundle.forward(raw_images(bsz, size, 120))
+    with recording(nms, 'nms_pair_mask') as calls:
+        got = bundle.decode(outputs)
+    sync(device)
+    check_dets(*got, bsz, bundle.num_classes)
+    err, moved, aside = same_detections(got, plain.decode(outputs),
+                                        refine_nms_cut(bundle, outputs))
+    log(f'[{label}-slice] float32 B={bsz} {size}^2: kernel and plain pair '
+        f'mask give the same detections (max |diff| {err:.3g}; {moved} rows '
+        f'within {SCORE_BAND} in score in another place, {aside} set aside '
+        f'at the NMS cut); valid dets per image {got[2].sum(1).tolist()}')
+    return [(args[0], args[2]) for args, _ in calls]
+
+
+def refine_anchors(size, device) -> list:
+    """The refine detectors' first-stage anchors for a ``size`` x ``size``
+    image: S2ANet's FAM (a 4-stride square a location, 21,824 at 1024^2)
+    and R3Det's stage 0 (9 a location, 196,416)."""
+    from orientedobjectdetection_torch import core  # noqa: F401 (registers)
+    from orientedobjectdetection_torch.utils import Config
+    from orientedobjectdetection_torch.utils.registry import PRIOR_GENERATORS
+    out = []
+    for config, head in ((REFINE_CONFIGS['s2anet'], 'fam_head'),
+                         (REFINE_CONFIGS['r3det'], 'bbox_head')):
+        gen = PRIOR_GENERATORS.build(dict(
+            Config.fromfile(config).model[head]['anchor_generator']))
+        sizes = [(-(-size // s[1]), -(-size // s[0])) for s in gen.strides]
+        out.append(torch.cat(gen.grid_priors(sizes, device=device), 0))
+    return out
+
+
+def well_posed_batch(bsz, size, g, valid, seed, device, margin=1e-4,
+                     thresholds=(0.4, 0.5)) -> dict:
+    """:func:`train_batch` with gts drawn so that the MaxIoU assignment on
+    each refine detector's first-stage anchors is decided by more than
+    ``margin``: each gt's best anchor leads its next, no anchor's best IoU
+    lies that close to a threshold, and no two gts come that close on an
+    anchor. Square anchors inside a gt, or crossed by it, tie in exact
+    arithmetic, so that the kernel's rounding and the plain version's pick
+    other anchors there, and the losses of a kernel step and a plain step
+    part by percents: their comparison needs a decided assignment."""
+    from orientedobjectdetection_torch.ops.iou_kernels import (
+        box_iou_rotated_matrix_plain)
+    anchor_sets = refine_anchors(size, device)
+    cands, cand_labels, _ = seeded_gts(config_anchors(size, 'cpu'), bsz,
+                                       8 * valid, 8 * valid, seed)
+    gts = torch.zeros((bsz, g, 5))
+    labels = torch.zeros((bsz, g), dtype=cand_labels.dtype)
+    for b in range(bsz):
+        ious = [box_iou_rotated_matrix_plain(cands[b].to(device), a)
+                for a in anchor_sets]
+        best = [torch.zeros(len(a), device=device) for a in anchor_sets]
+        keep = []
+        for i in range(cands.shape[1]):
+            rows = [iou[i] for iou in ious]
+            ok = all(
+                float(row.topk(2)[0].diff().abs()) > margin and
+                not ((row - run).abs() <= margin)[(row > 0) &
+                                                  (run > 0)].any() and
+                not any(((row - t).abs() <= margin)[row > run].any()
+                        for t in thresholds)
+                for row, run in zip(rows, best))
+            if ok:
+                keep.append(i)
+                best = [torch.maximum(run, row) for row, run in
+                        zip(rows, best)]
+            if len(keep) == valid:
+                break
+        if len(keep) < valid:
+            raise AssertionError(f'image {b}: {len(keep)} of {valid} gts '
+                                 f'with a decided assignment')
+        gts[b, :valid] = cands[b, keep]
+        labels[b, :valid] = cand_labels[b, keep]
+    batch = dict(images=raw_images(bsz, size, seed + 1), gt_bboxes=gts,
+                 gt_labels=labels,
+                 gt_mask=torch.arange(g)[None].expand(bsz, g) < valid)
+    if torch.device(device).type == 'cuda':
+        batch = {k: v.pin_memory() for k, v in batch.items()}
+    return batch
+
+
+def refine_rois(detector, batch, norm, device) -> list:
+    """The rois each refine stage of ``detector`` ran on for ``batch``'s
+    images (float32 forward, no gradient)."""
+    from orientedobjectdetection_torch.parallel.train_state import \
+        normalize_images
+    images = normalize_images(batch['images'].to(device), norm)
+    with torch.no_grad():
+        out = detector(images.permute(0, 3, 1, 2))
+    return [out['rois']] if 'rois' in out else out['stage_rois']
+
+
+def phase_refine_train_slice(config, label, device, bsz=2, size=1024, g=32,
+                             valid=8) -> list:
+    """float32: one step from one seeded state with the IoU-matrix kernel
+    and one with the plain matrix. Each stage's assigner assigns alike with
+    both (:func:`check_assigner`: the first stage on its anchors, each
+    refine stage on the rois it got); the losses agree within LOSS_RTOL,
+    the parameters as :func:`same_params` says. Returns the kernel step's
+    IoU-matrix inputs. The gts are :func:`well_posed_batch`'s."""
+    from orientedobjectdetection_torch.ops import iou_kernels
+    from orientedobjectdetection_torch.utils import Config
+    batch = well_posed_batch(bsz, size, g, valid, 130, device)
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+        kernel = family_step(config, device, batch, False)
+    detector = kernel['detector']
+    with torch.no_grad():
+        for n, p in detector.named_parameters():
+            p.copy_(kernel['before'][n])
+    gts, labels, mask = (batch[k].to(device) for k in
+                         ('gt_bboxes', 'gt_labels', 'gt_mask'))
+    first, *refine = detector.heads()
+    priors = [head_anchors(first, size, device)[0]] + refine_rois(
+        detector, batch, Config.fromfile(config).img_norm_cfg, device)
+    checked = []
+    for head, p in zip([first, *refine], priors):
+        positives, differ = check_assigner(head.assigner, p, gts.float(),
+                                           labels, mask)
+        if positives < 1:
+            raise AssertionError(f'{label}: a stage has no positive')
+        checked.append(f'{tuple(p.shape)}: {positives} positives, {differ} '
+                       f'differ')
+    plain = family_step(config, device, batch, True)
+    worst = same_params(kernel, plain, label)
+    log(f'[{label}-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): priors {"; ".join(checked)} (all in the band); losses '
+        f'{kernel["metrics"]} equal to the plain matrix\'s within '
+        f'{LOSS_RTOL}; parameters within {worst:.3g} of each tensor\'s '
+        f'change (<= {PARAM_RTOL}, or a float32 step of the value)')
+    return [args for args, _ in calls]
+
+
+def phase_refine_slice(device, bsz=2, size=1024, g=32, valid=8,
+                       max_candidates=2000) -> dict:
+    """Phase 27: S2ANet and R3Det in float32, served
+    (:func:`phase_refine_serving_slice`) and trained
+    (:func:`phase_refine_train_slice`), then one float32 step each, kernel
+    against plain, for the KFIoU refine recipes and the two-stage cascade.
+    Returns their pair-mask and IoU-matrix inputs."""
+    captured = {}
+    for label, config in REFINE_CONFIGS.items():
+        captured[f'{label}_slice_nms'] = phase_refine_serving_slice(
+            config, label, device, bsz, size, max_candidates)
+        captured[f'{label}_slice_assign'] = phase_refine_train_slice(
+            config, label, device, bsz, size, g, valid)
+    for label, config in REFINE_RECIPES.items():
+        captured[f'{label}_slice_assign'] = phase_refine_train_slice(
+            config, label, device, bsz, size, g, valid)
+    return captured
+
+
+def refine_profile_split(prof, label) -> None:
+    """One line of a profiled request's or step's device time by
+    ``refine.*`` range."""
+    if not prof['busy_us']:
+        return
+    spans = prof['spans']
+    parts = ', '.join(f'{k.split(".", 1)[1]} {spans[k] / 1e3:.2f}'
+                      for k in REFINE_TRAIN_RANGES + REFINE_RANGES[4:]
+                      if k in spans)
+    b1_us = sum(us for name, us in prof['kernels'].items()
+                if 'pair_mask' in name)
+    b2_us = sum(us for name, us in prof['kernels'].items()
+                if 'iou_matrix_kernel' in name)
+    log(f'[profile] {label} device ms by range: {parts}; nms_pair_mask '
+        f'{b1_us / 1e3:.3f}, box_iou_rotated {b2_us / 1e3:.3f}')
+
+
+def phase_refine_serving(device, card='', bsz=8, size=1024, warm=3,
+                         timed=10, dtype=torch.bfloat16,
+                         max_candidates=2000) -> tuple:
+    """Phase 28: requests of ``bsz`` raw images through each refine bundle:
+    imgs/s, the split between forward and decode + NMS, peak memory, one
+    pair-mask launch a request; one more request's NMS inputs recorded and
+    one profiled by its ``refine.*`` ranges. Returns the launch counts of
+    each detector's requests and the NMS inputs by detector."""
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label, config in REFINE_CONFIGS.items():
+        bundle = build_refine_bundle(config, device, dtype, max_candidates)
+        images = raw_images(bsz, size, 140)
+        if on_card:
+            images = images.pin_memory()
+        fwd, dec, _, (dets, labels, valid), counts = timed_requests(
+            bundle, images, warm, timed, device)
+        launches = counts['nms_pair_mask']
+        if launches != (warm + timed if on_card else 0):
+            raise AssertionError(f'{label}: nms_pair_mask launched '
+                                 f'{launches} times for {warm + timed} '
+                                 f'requests')
+        check_dets(dets, labels, valid, bsz, bundle.num_classes)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} '
+            f'B={bsz} {size}^2, {timed} timed requests after {warm} warm: '
+            f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+            f'{1e3 * fwd / timed:.2f} ms, decode+NMS {1e3 * dec / timed:.2f}'
+            f' ms; peak memory {mem:.2f} GiB; nms_pair_mask launches '
+            f'{launches}; valid dets per image {valid.sum(1).tolist()}')
+        with recording(nms, 'nms_pair_mask') as calls:
+            bundle(images)
+        boxes, _, cls = calls[0][0]
+        captured[label] = (boxes, cls)
+        prof = profile_run(lambda: bundle(images), device,
+                           f'{label} request', 'refine.')
+        refine_profile_split(prof, f'{label} request')
+        runs.append(counts)
+    return runs, captured
+
+
+def time_sampling(calls, device, card, label, reps) -> dict:
+    """The align / FRM sampling of one step alone, on the inputs it got
+    (``recording`` of ``align_conv_sample`` or ``rotated_feature_align``):
+    its forward over the levels and its backward into the features (a
+    gather's backward, a scatter-add), each over ``reps`` runs."""
+    fn = calls[0][2]
+    feats = [args[0].detach().requires_grad_() for args, _, _ in calls]
+    rest = [args[1:] for args, _, _ in calls]
+
+    def forward():
+        return [fn(f, *r) for f, r in zip(feats, rest)]
+
+    fwd = time_ms(forward, reps, device, warmup=1)
+    outs = forward()
+    grads = [torch.ones_like(o) for o in outs]
+    bwd = time_ms(lambda: torch.autograd.grad(outs, feats, grads,
+                                              retain_graph=True),
+                  reps, device, warmup=1)
+    shapes = [tuple(f.shape) for f in feats]
+    log(f'[{label}-training] {card} | {fn.__name__} alone on one step\'s '
+        f'inputs, levels {shapes} {str(feats[0].dtype).split(".")[-1]}: '
+        f'forward {fwd:.3f} ms, backward {bwd:.3f} ms')
+    return dict(forward_ms=fwd, backward_ms=bwd)
+
+
+def record_sampling(step_once, label) -> list:
+    """One step with the refine detector's sampling function recorded:
+    (args, None, the function) of each level's call."""
+    from orientedobjectdetection_torch.models.detectors import \
+        refine_detectors
+    name = 'align_conv_sample' if label.startswith('s2anet') else \
+        'rotated_feature_align'
+    fn = getattr(refine_detectors, name)
+    with recording(refine_detectors, name, keep_results=False) as calls:
+        step_once()
+    return [(args, None, fn) for args, _ in calls]
+
+
+def phase_refine_training(device, card='', bsz=8, size=1024, g=32, valid=8,
+                          warm=2, timed=5, dtype=torch.bfloat16,
+                          padded_g=512, padded_valid=64, reps=10) -> tuple:
+    """Phase 29: each refine detector trained as phase 25 trains a recipe
+    (imgs/s, peak memory, two IoU-matrix launches a step: the first
+    stage's shared anchors and the refine stage's per-image rois), one
+    profiled step split by the ``train.*`` and ``refine.*`` ranges, one
+    step at the loader's padding, and the align / FRM sampling alone on a
+    step's inputs. Returns the launch counts and the recorded IoU-matrix
+    inputs of one step at G=``g`` and of the padded step."""
+    runs, captured = [], {}
+    for label, config in REFINE_CONFIGS.items():
+        run = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, profile=True, padded_g=padded_g,
+            padded_valid=padded_valid)
+        runs.append(run['counts'])
+        captured[f'{label}_train'] = run['inputs']
+        captured[f'{label}_train_padded'] = run['padded_inputs']
+        captured[f'{label}_sampling'] = time_sampling(
+            record_sampling(run['step_once'], label), device, card, label,
+            reps)
+    return runs, captured
+
+
+def phase_refine_loops(root, work_root, card='', configs=None, steps=20,
+                       dtype=torch.bfloat16, device='cuda',
+                       log_interval=5) -> tuple:
+    """Phase 30: the S2ANet and R3Det tiny-synth configs through
+    ``train_detector`` on phase 18's set as phase 26 runs its families (two
+    IoU-matrix launches a step, the evaluation's NMS and IoUs)."""
+    configs = configs or REFINE_TINY_CONFIGS
+    return phase_family_loops(root, work_root, card, configs, steps, dtype,
+                              device, log_interval,
+                              per_step={k: 2 for k in configs})
+
+
+def held_refine(device, captured, by_name, card, reps, plain_reps) -> None:
+    """Phases 27-30's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on each refine
+    detector's slice and served requests' candidates (top-k over all
+    levels at once) and on the tiny loops' evaluations; B2 on each train
+    step's first-stage input (gts x shared anchors) and refine input (gts
+    x each image's own rois), at G=32 and at the loader's G=512, and on the
+    slices' and tiny loops' inputs."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    for label in REFINE_CONFIGS:
+        held_pair_masks(captured[f'{label}_slice_nms'] + [captured[label]],
+                        f'{label} slice and served requests', label, pair,
+                        device, card, reps, plain_reps)
+        for key, stage in ((f'{label}_train', 'G=32'),
+                           (f'{label}_train_padded', 'G=512')):
+            first, *refine = captured[key]
+            held_iou_matrices([first], f'{label} first stage\'s assigner '
+                              f'({stage})', f'{key}_first', iou, device,
+                              card, reps, plain_reps)
+            held_iou_matrices(refine, f'{label} refine assigner ({stage}, '
+                              f'each image\'s rois)', f'{key}_refine', iou,
+                              device, card, reps, plain_reps)
+    for label in list(REFINE_CONFIGS) + list(REFINE_RECIPES):
+        held_iou_matrices(captured.get(f'{label}_slice_assign', []),
+                          f'{label} float32 slice step', f'{label}_slice',
+                          iou, device, card, reps, plain_reps)
+    for label in REFINE_TINY_CONFIGS:
+        held_iou_matrices(captured[f'{label}_loop_assign'], f'tiny {label} '
+                          f'loop\'s assigners', f'{label}_loop_assign', iou,
+                          device, card, reps, plain_reps)
+        held_iou_matrices(captured[f'{label}_loop_eval_iou'], f'tiny '
+                          f'{label} loop\'s evaluation',
+                          f'{label}_loop_eval_iou', iou, device, card, reps,
+                          plain_reps)
+        held_pair_masks(captured[f'{label}_loop_nms'], f'tiny {label} '
+                        f'loop\'s evaluation', f'{label}_loop_nms', pair,
+                        device, card, reps, plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
-    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14, 17
-    and 18: each kernel against its plain version with the same
+    """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
+    17-30: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
@@ -3160,6 +3625,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
             plain_reps, mode)
     held_loops(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_families(device, captured, by_name, card, reps, plain_reps)
+    held_refine(device, captured, by_name, card, reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -3386,6 +3852,19 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_families'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 23-26] {time.perf_counter() - t23:.1f} s')
+    t27 = time.perf_counter()
+    captured.update(phase_refine_slice('cuda'))
+    refine_serving, refine_inputs = phase_refine_serving('cuda',
+                                                         card=info['card'])
+    captured.update(refine_inputs)
+    refine_training, refine_inputs = phase_refine_training(
+        'cuda', card=info['card'])
+    captured.update(refine_inputs)
+    refine_loops, loop_inputs = phase_refine_loops(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_refine'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 27-30] {time.perf_counter() - t27:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -3394,12 +3873,14 @@ def main() -> int:
         # the evaluator's run, the two-stage trainer's run, the huge image,
         # the flips, the submission's evaluations and merges, the HRSC run
         # with its evaluation, FCOS serving and training, the anchor
-        # recipes' training and serving, and the tiny FCOS and CSL runs
-        # with their evaluations
+        # recipes' training and serving, the tiny FCOS and CSL runs with
+        # their evaluations, S2ANet's and R3Det's requests and steps, and
+        # their tiny runs with their evaluations
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
-            *fcos, *families, *loops))
+            *fcos, *families, *loops, *refine_serving, *refine_training,
+            *refine_loops))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

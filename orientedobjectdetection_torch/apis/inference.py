@@ -27,6 +27,7 @@ from torch import nn
 from ..core.patch import get_multiscale_patch, slide_window, \
     translate_and_merge
 from ..models import build_detector
+from ..models.detectors.single_stage import WEIGHTED_LAYERS
 from ..ops.boxes import rbbox_flip
 from ..ops.nms import nms_rotated_np
 from ..utils.config import Config
@@ -44,7 +45,9 @@ class DetectorBundle:
     uint8 BGR images. ``plain_pair_mask`` makes the NMS build its pair mask
     with the plain PyTorch version instead of the CUDA kernel, and
     ``plain_roi_align`` does the same for a two-stage detector's RoIAlign
-    (reference runs on the card)."""
+    (reference runs on the card). A refine detector's (S2ANet, R3Det)
+    class count is its ODM head's, else its last refine head's, else its
+    FAM head's, as in the JAX package."""
 
     def __init__(self, cfg, detector: nn.Module, dtype=torch.float32,
                  device_norm: Optional[dict] = None,
@@ -56,14 +59,20 @@ class DetectorBundle:
         self.device_norm = dict(device_norm) if device_norm else None
         self.plain_pair_mask = plain_pair_mask
         self.plain_roi_align = plain_roi_align
-        head = cfg.model.get('bbox_head')
-        if head is None and cfg.model.get('roi_head'):       # two-stage
-            head = cfg.model['roi_head']['bbox_head']
+        model = cfg.model
+        self.two_stage = bool(model.get('roi_head'))
+        head = model.get('bbox_head')
+        if head is None and self.two_stage:
+            head = model['roi_head']['bbox_head']
+        if head is None:                        # refine (S2ANet)
+            head = model.get('odm_head') or \
+                (model.get('refine_heads') or [None])[-1] or \
+                model.get('fam_head')
         if head is None:
-            raise ValueError('the model config has neither bbox_head nor '
-                             'roi_head.bbox_head')
+            raise ValueError('the model config has no bbox_head, '
+                             'roi_head.bbox_head, odm_head, refine_heads '
+                             'or fam_head')
         self.num_classes = int(head['num_classes'])
-        self.two_stage = cfg.model.get('bbox_head') is None
         self.device = next(detector.parameters()).device
 
     def prepare(self, images: torch.Tensor) -> torch.Tensor:
@@ -77,16 +86,15 @@ class DetectorBundle:
 
     @torch.inference_mode()
     def forward(self, images: torch.Tensor):
-        """(B, H, W, 3) images -> the detector's outputs in float32: the
-        head's per-level maps, or a two-stage detector's dict of proposals
-        and RoI-head outputs."""
+        """(B, H, W, 3) images -> the detector's outputs with every
+        floating-point tensor in float32: the head's per-level maps, a
+        two-stage detector's dict of proposals and RoI-head outputs, or a
+        refine detector's dict of its stages' maps and rois."""
         x = self.prepare(images)
         if self.two_stage:
-            outputs = self.detector(x, plain_roi_align=self.plain_roi_align)
-            return {k: v.float() if v.is_floating_point() else v
-                    for k, v in outputs.items()}
-        outputs = self.detector(x)
-        return tuple(tuple(o.float() for o in level) for level in outputs)
+            return _float32(self.detector(
+                x, plain_roi_align=self.plain_roi_align))
+        return _float32(self.detector(x))
 
     @torch.inference_mode()
     def decode(self, outputs):
@@ -98,6 +106,16 @@ class DetectorBundle:
         return self.decode(self.forward(images))
 
 
+def _float32(outputs):
+    """Nested dicts, lists and tuples of tensors with every floating-point
+    tensor cast to float32."""
+    if isinstance(outputs, dict):
+        return {k: _float32(v) for k, v in outputs.items()}
+    if isinstance(outputs, (list, tuple)):
+        return type(outputs)(_float32(v) for v in outputs)
+    return outputs.float() if outputs.is_floating_point() else outputs
+
+
 def init_detector(config: Union[str, Config], checkpoint=None,
                   device: Union[str, torch.device] = 'cuda',
                   dtype=torch.float32, seed: int = 0,
@@ -106,8 +124,8 @@ def init_detector(config: Union[str, Config], checkpoint=None,
     ``checkpoint`` (a state dict with mmrotate names, or the path of a
     ``.pth`` holding one, such as a training checkpoint) over them, and
     move it
-    to ``device`` in ``dtype`` (convolutions and linear layers; frozen BN
-    stays float32).
+    to ``device`` in ``dtype`` (convolutions, linear layers and ORConv2d;
+    frozen BN stays float32).
 
     Raises RuntimeError when ``device`` is a CUDA device and none is
     present: it never falls back to the CPU."""
@@ -131,7 +149,7 @@ def init_detector(config: Union[str, Config], checkpoint=None,
             {k: torch.as_tensor(v) for k, v in state.items()})
     detector.eval().to(device)
     for m in detector.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, WEIGHTED_LAYERS):
             m.to(dtype)
     return DetectorBundle(config, detector, dtype, device_norm=device_norm)
 

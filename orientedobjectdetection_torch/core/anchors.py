@@ -1,6 +1,6 @@
 """Rotated anchors and point priors (counterpart of
-``orientedobjectdetection_tpu/core/anchors.py``: ``RotatedAnchorGenerator``
-and ``MlvlPointGenerator``).
+``orientedobjectdetection_tpu/core/anchors.py``: ``RotatedAnchorGenerator``,
+``PseudoAnchorGenerator`` and ``MlvlPointGenerator``).
 
 mmdet's horizontal anchor grid with a zero angle appended, per level
 ``(H*W*A, 5)`` in ``(h*w, A)`` order: location-major, then the A base
@@ -97,6 +97,38 @@ class RotatedAnchorGenerator:
             multi_level.append(
                 torch.stack([cx, cy, ww, hh, torch.zeros_like(cx)], -1))
         return multi_level
+
+
+@PRIOR_GENERATORS.register_module()
+class PseudoAnchorGenerator:
+    """The refine heads' generator (reference ``anchor_generator.py:54-75``):
+    one anchor a location, whose box the previous stage gives, so it has
+    valid flags and no grid priors."""
+
+    def __init__(self, strides: Sequence[int]):
+        self.strides = [(s, s) if isinstance(s, int) else s for s in strides]
+
+    @property
+    def num_base_anchors(self) -> List[int]:
+        return [1 for _ in self.strides]
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.strides)
+
+    def valid_flags(self, featmap_sizes: Sequence[Tuple[int, int]],
+                    pad_shape, device='cpu') -> List[torch.Tensor]:
+        """Per level (H*W,) bool: the location's cell lies inside the padded
+        image (mmdet semantics)."""
+        flags = []
+        for lvl, (h, w) in enumerate(featmap_sizes):
+            stride_w, stride_h = self.strides[lvl]
+            valid_w = min(int(np.ceil(pad_shape[1] / stride_w)), w)
+            valid_h = min(int(np.ceil(pad_shape[0] / stride_h)), h)
+            vx = torch.arange(w, device=device) < valid_w
+            vy = torch.arange(h, device=device) < valid_h
+            flags.append((vy[:, None] & vx[None, :]).reshape(-1))
+        return flags
 
 
 @PRIOR_GENERATORS.register_module()

@@ -2,11 +2,14 @@ from .. import core  # noqa: F401  (registers anchors, coders and assigners)
 from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
                               NECKS)
 from .backbones import ResNet
-from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoURRetinaHead,
-                          OrientedRPNHead, RotatedATSSHead, RotatedFCOSHead,
-                          RotatedRetinaHead)
-from .detectors import (OrientedRCNN, RotatedFCOS, RotatedRetinaNet,
-                        RotatedSingleStageDetector, RotatedTwoStageDetector)
+from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
+                          KFIoURRetinaHead, KFIoURRetinaRefineHead,
+                          ODMRefineHead, OrientedRPNHead, RotatedATSSHead,
+                          RotatedFCOSHead, RotatedRetinaHead,
+                          RotatedRetinaRefineHead)
+from .detectors import (OrientedRCNN, R3Det, RotatedFCOS, RotatedRetinaNet,
+                        RotatedSingleStageDetector, RotatedTwoStageDetector,
+                        S2ANet)
 from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
                      GIoULoss, IoULoss, KFLoss, L1Loss, RotatedIoULoss,
                      SmoothFocalLoss, SmoothL1Loss)
@@ -31,7 +34,9 @@ __all__ = [
     'RotatedATSSHead', 'CSLRRetinaHead', 'RotatedFCOSHead', 'CSLRFCOSHead',
     'RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
     'OrientedRPNHead', 'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead',
-    'OrientedRCNN', 'RotatedTwoStageDetector', 'CrossEntropyLoss',
+    'OrientedRCNN', 'RotatedTwoStageDetector', 'RotatedRetinaRefineHead',
+    'KFIoURRetinaRefineHead', 'ODMRefineHead', 'KFIoUODMRefineHead',
+    'S2ANet', 'R3Det', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS',

@@ -1,8 +1,9 @@
 """Rotated RetinaNet heads: towers, batched targets and loss, batched decode
 (counterpart of
 ``orientedobjectdetection_tpu/models/dense_heads/rotated_anchor_head.py``:
-``RotatedRetinaHead`` and ``AnchorHeadLogic``, and the variants
-``KFIoURRetinaHead``, ``RotatedATSSHead`` and ``CSLRRetinaHead``).
+``RotatedRetinaHead`` and ``AnchorHeadLogic``, here ``AnchorHead``, with
+``filter_bboxes``, and the variants ``KFIoURRetinaHead``,
+``RotatedATSSHead`` and ``CSLRRetinaHead``).
 
 The towers run NCHW. At the loss and decode boundaries the maps are
 permuted to the JAX package's channels-last order, channel ``a * C + c`` at
@@ -29,29 +30,47 @@ from ...utils.registry import (BBOX_ASSIGNERS, BBOX_CODERS, HEADS, LOSSES,
 from ..blocks import ConvModule
 
 
-@HEADS.register_module()
-class RotatedRetinaHead(nn.Module):
-    """RetinaNet head: ``stacked_convs`` 3x3 convs per tower, then A*C
-    class logits (``retina_cls``) and A*5 box deltas (``retina_reg``).
+def batched(anchors: torch.Tensor) -> torch.Tensor:
+    """Anchors shared by the batch (N, 5) or per image (B, N, 5) -> a shape
+    that broadcasts against (B, N, 5)."""
+    return anchors if anchors.dim() == 3 else anchors[None]
 
-    ``loss_cls`` / ``loss_bbox`` and ``train_cfg['assigner']`` are built
-    once, here; a head built without them serves but cannot compute a loss.
-    ``assign_by_circumhbbox`` (an angle-version string) switches the
-    assigner to the gts' circumscribed horizontal boxes, as the reference
-    head option does (``rotated_anchor_head.py:231-239``)."""
 
-    def __init__(self, num_classes: int = 15, in_channels: int = 256,
-                 feat_channels: int = 256, stacked_convs: int = 4,
-                 anchor_generator: Optional[dict] = None,
-                 bbox_coder: Optional[dict] = None,
+def flatten_levels(maps, width: int) -> torch.Tensor:
+    """Per-level NCHW maps -> (B, N, width) in the anchors' order:
+    location-major, channel ``a * width + e`` at each location."""
+    b = maps[0].shape[0]
+    return torch.cat([m.permute(0, 2, 3, 1).reshape(b, -1, width)
+                      for m in maps], 1)
+
+
+def check_exact_topk(cfg: dict) -> None:
+    """``cfg['approx_topk']``: the JAX package's switch to an approximate
+    top-k (``approx_max_k``), which the port does not have; true raises
+    ValueError, false or absent runs the exact top-k."""
+    if cfg.get('approx_topk', False):
+        raise ValueError('test_cfg.approx_topk=True asks for an '
+                         'approximate top-k, which the port does not '
+                         'have; set it False for the exact top-k')
+
+
+class AnchorHead(nn.Module):
+    """What the anchor heads share besides their layers: anchors, batched
+    targets and loss, decode. ``loss_cls`` / ``loss_bbox`` and
+    ``train_cfg['assigner']`` are built once, here; a head built without
+    them serves but cannot compute a loss. ``assign_by_circumhbbox`` (an
+    angle-version string) switches the assigner to the gts' circumscribed
+    horizontal boxes, as the reference head option does
+    (``rotated_anchor_head.py:231-239``)."""
+
+    def __init__(self, num_classes: int,
+                 anchor_generator: dict, bbox_coder: dict,
                  loss_cls: Optional[dict] = None,
                  loss_bbox: Optional[dict] = None,
                  assign_by_circumhbbox: Optional[str] = None,
                  reg_decoded_bbox: bool = False,
                  train_cfg: Optional[dict] = None,
-                 test_cfg: Optional[dict] = None,
-                 norm_cfg: Optional[dict] = None,
-                 init_cfg: Optional[dict] = None):
+                 test_cfg: Optional[dict] = None):
         super().__init__()
         self.num_classes = num_classes
         self.train_cfg = train_cfg
@@ -69,48 +88,11 @@ class RotatedRetinaHead(nn.Module):
         self.prior_generator = PRIOR_GENERATORS.build(dict(anchor_generator))
         self.coder = BBOX_CODERS.build(dict(bbox_coder))
         self.num_anchors = self.prior_generator.num_base_anchors[0]
-        self.cls_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels,
-                       feat_channels, 3, padding=1, relu=True)
-            for i in range(stacked_convs))
-        self.reg_convs = nn.ModuleList(
-            ConvModule(in_channels if i == 0 else feat_channels,
-                       feat_channels, 3, padding=1, relu=True)
-            for i in range(stacked_convs))
-        self.retina_cls = nn.Conv2d(feat_channels,
-                                    self.num_anchors * num_classes, 3,
-                                    padding=1)
-        self.retina_reg = nn.Conv2d(feat_channels, self.num_anchors * 5, 3,
-                                    padding=1)
         self._anchor_cache: Dict[tuple, Sequence[torch.Tensor]] = {}
 
     @property
     def cls_out_channels(self) -> int:
         return self.num_classes      # sigmoid classifier
-
-    @torch.no_grad()
-    def init_cls_prior(self):
-        """Focal-loss prior bias on ``retina_cls``: every score starts near
-        0.01."""
-        self.retina_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
-
-    def towers(self, x):
-        """One level's class and regression tower features."""
-        c = x
-        for conv in self.cls_convs:
-            c = conv(c)
-        r = x
-        for conv in self.reg_convs:
-            r = conv(r)
-        return c, r
-
-    def forward(self, feats):
-        cls_scores, bbox_preds = [], []
-        for x in feats:
-            c, r = self.towers(x)
-            cls_scores.append(self.retina_cls(c))
-            bbox_preds.append(self.retina_reg(r))
-        return tuple(cls_scores), tuple(bbox_preds)
 
     def anchors(self, featmap_sizes, device) -> Sequence[torch.Tensor]:
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
@@ -142,15 +124,16 @@ class RotatedRetinaHead(nn.Module):
 
     @torch.no_grad()
     def _targets(self, anchors, gt_bboxes, assign):
-        """anchors (N, 5), padded gts (B, G, 5) and their assignment ->
-        per-anchor labels (B, N), label weights, box targets (B, N, E), box
-        weights and the positive mask."""
+        """anchors (N, 5) shared by the batch or (B, N, 5) per image, padded
+        gts (B, G, 5) and their assignment -> per-anchor labels (B, N),
+        label weights, box targets (B, N, E), box weights and the positive
+        mask."""
         pos = assign.assigned_gt_inds >= 0
         neg = assign.assigned_gt_inds == -1
         safe_idx = assign.assigned_gt_inds.clamp(min=0)
         matched_gt = gt_bboxes.gather(
             1, safe_idx[..., None].expand(-1, -1, gt_bboxes.shape[-1]))
-        bbox_targets = self.coder.encode(anchors[None], matched_gt)
+        bbox_targets = self.coder.encode(batched(anchors), matched_gt)
         bbox_targets = torch.where(pos[..., None], bbox_targets,
                                    bbox_targets.new_zeros(()))
         bbox_weights = pos.float()
@@ -162,14 +145,8 @@ class RotatedRetinaHead(nn.Module):
     def _flatten_preds(self, cls_scores, bbox_preds):
         """Per-level NCHW maps -> float32 (B, N, C) and (B, N, E), in the
         anchors' order: location-major, channel ``a * C + c``."""
-        b = cls_scores[0].shape[0]
-        cls_flat = torch.cat([
-            s.permute(0, 2, 3, 1).reshape(b, -1, self.cls_out_channels)
-            for s in cls_scores], 1)
-        box_flat = torch.cat([
-            p.permute(0, 2, 3, 1).reshape(b, -1, self.coder.encode_size)
-            for p in bbox_preds], 1)
-        return cls_flat.float(), box_flat.float()
+        return (flatten_levels(cls_scores, self.cls_out_channels).float(),
+                flatten_levels(bbox_preds, self.coder.encode_size).float())
 
     def loss(self, outputs, gt_bboxes, gt_labels, gt_mask,
              gt_ignore=None, gt_ignore_mask=None):
@@ -186,16 +163,18 @@ class RotatedRetinaHead(nn.Module):
                           gt_ignore, gt_ignore_mask)[0]
 
     def _loss(self, outputs, gt_bboxes, gt_labels, gt_mask,
-              gt_ignore=None, gt_ignore_mask=None):
+              gt_ignore=None, gt_ignore_mask=None, anchors=None):
         """The losses, and the targets and positive count they came from
-        (a subclass adds a term on the same targets)."""
+        (a subclass adds a term on the same targets). ``anchors``: (B, N,
+        5) per image in place of the grid's (a refine stage's)."""
         if self.assigner is None or self.cls_loss is None or \
                 self.bbox_loss is None:
             raise RuntimeError('the head was built without loss_cls, '
                                'loss_bbox or train_cfg.assigner')
         cls_scores, bbox_preds = outputs[0], outputs[1]
         featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
-        anchors = self.flat_anchors(featmap_sizes, cls_scores[0].device)
+        if anchors is None:
+            anchors = self.flat_anchors(featmap_sizes, cls_scores[0].device)
         gt_bboxes = gt_bboxes.float()
         assign = self._assign(anchors, featmap_sizes, gt_bboxes, gt_labels,
                               gt_mask, gt_ignore, gt_ignore_mask)
@@ -217,8 +196,8 @@ class RotatedRetinaHead(nn.Module):
         set, predictions and targets are decoded first and the loss
         compares boxes instead of deltas."""
         if self.reg_decoded_bbox:
-            decoded = self.coder.decode(anchors[None], box_flat)
-            target_boxes = self.coder.decode(anchors[None], bbox_targets)
+            decoded = self.coder.decode(batched(anchors), box_flat)
+            target_boxes = self.coder.decode(batched(anchors), bbox_targets)
             return self.bbox_loss(decoded, target_boxes, weight=bbox_weights,
                                   avg_factor=num_pos)
         return self.bbox_loss(box_flat, bbox_targets, weight=bbox_weights,
@@ -236,15 +215,11 @@ class RotatedRetinaHead(nn.Module):
             boxes (B, K, 5) float32 and sigmoid scores (B, K, C), K summed
             over levels.
 
-        ``cfg['approx_topk']``: the JAX package's switch to an approximate
-        top-k (``approx_max_k``), which the port does not have; true raises
-        ValueError, false or absent runs the exact top-k.
+        ``cfg['approx_topk']`` true raises ValueError
+        (:func:`check_exact_topk`).
         """
         cfg = cfg if cfg is not None else self.test_cfg
-        if cfg.get('approx_topk', False):
-            raise ValueError('test_cfg.approx_topk=True asks for an '
-                             'approximate top-k, which the port does not '
-                             'have; set it False for the exact top-k')
+        check_exact_topk(cfg)
         nms_pre = int(cfg.get('nms_pre', 1000))
         cls_scores, bbox_preds = outputs[0], outputs[1]
         featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
@@ -307,6 +282,104 @@ class RotatedRetinaHead(nn.Module):
             plain_pair_mask=plain_pair_mask)
 
 
+    def filter_bboxes(self, cls_scores, bbox_preds) -> list:
+        """R3Det's first-stage rois (reference ``rotated_retina_head.py
+        :122-180``): at each location the anchor of the highest class logit
+        (max over classes, then the first argmax over anchors), decoded in
+        float32 against the head's anchors. Returns per-level (B, H*W, 5)
+        boxes."""
+        featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
+        level_anchors = self.anchors(featmap_sizes, cls_scores[0].device)
+        a_n, c_n = self.num_anchors, self.cls_out_channels
+        rois = []
+        for scores, deltas, anchors in zip(cls_scores, bbox_preds,
+                                           level_anchors):
+            b, _, h, w = scores.shape
+            d = deltas.permute(0, 2, 3, 1).reshape(b, h * w, a_n, 5)
+            a = anchors.reshape(h * w, a_n, 5)
+            if a_n == 1:
+                best_deltas, best_anchors = d[:, :, 0], a[None, :, 0]
+            else:
+                s = scores.permute(0, 2, 3, 1).reshape(b, h * w, a_n, c_n)
+                best = s.amax(-1).argmax(-1)                   # (B, h*w)
+                best_deltas = d.gather(2, best[..., None, None].expand(
+                    -1, -1, 1, 5))[:, :, 0]
+                best_anchors = a[torch.arange(h * w, device=best.device),
+                                 best]
+            rois.append(self.coder.decode(best_anchors, best_deltas.float()))
+        return rois
+
+
+@HEADS.register_module()
+class RotatedRetinaHead(AnchorHead):
+    """RetinaNet head: ``stacked_convs`` 3x3 convs per tower, then A*C
+    class logits (``retina_cls``) and A*5 box deltas (``retina_reg``)."""
+
+    def __init__(self, num_classes: int = 15, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 anchor_generator: Optional[dict] = None,
+                 bbox_coder: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 loss_bbox: Optional[dict] = None,
+                 assign_by_circumhbbox: Optional[str] = None,
+                 reg_decoded_bbox: bool = False,
+                 train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None,
+                 norm_cfg: Optional[dict] = None,
+                 init_cfg: Optional[dict] = None):
+        super().__init__(num_classes, anchor_generator, bbox_coder,
+                         loss_cls, loss_bbox, assign_by_circumhbbox,
+                         reg_decoded_bbox, train_cfg, test_cfg)
+        self.cls_convs = nn.ModuleList(
+            ConvModule(in_channels if i == 0 else feat_channels,
+                       feat_channels, 3, padding=1, relu=True)
+            for i in range(stacked_convs))
+        self.reg_convs = nn.ModuleList(
+            ConvModule(in_channels if i == 0 else feat_channels,
+                       feat_channels, 3, padding=1, relu=True)
+            for i in range(stacked_convs))
+        self.retina_cls = nn.Conv2d(feat_channels,
+                                    self.num_anchors * num_classes, 3,
+                                    padding=1)
+        self.retina_reg = nn.Conv2d(feat_channels, self.num_anchors * 5, 3,
+                                    padding=1)
+
+    @torch.no_grad()
+    def init_cls_prior(self):
+        """Focal-loss prior bias on ``retina_cls``: every score starts near
+        0.01."""
+        self.retina_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
+
+    def towers(self, x):
+        """One level's class and regression tower features."""
+        c = x
+        for conv in self.cls_convs:
+            c = conv(c)
+        r = x
+        for conv in self.reg_convs:
+            r = conv(r)
+        return c, r
+
+    def forward(self, feats):
+        cls_scores, bbox_preds = [], []
+        for x in feats:
+            c, r = self.towers(x)
+            cls_scores.append(self.retina_cls(c))
+            bbox_preds.append(self.retina_reg(r))
+        return tuple(cls_scores), tuple(bbox_preds)
+
+
+def kfiou_reg_loss(head, anchors, box_flat, bbox_targets, bbox_weights,
+                   num_pos):
+    """``KFLoss`` on the encoded deltas and, decoded against the anchors
+    (shared or per image), the predicted and the target boxes."""
+    anchors = batched(anchors)
+    return head.bbox_loss(
+        box_flat, bbox_targets, weight=bbox_weights, avg_factor=num_pos,
+        pred_decode=head.coder.decode(anchors, box_flat),
+        targets_decode=head.coder.decode(anchors, bbox_targets))
+
+
 @HEADS.register_module()
 class KFIoURRetinaHead(RotatedRetinaHead):
     """RetinaNet head with the KFIoU loss (reference
@@ -316,10 +389,8 @@ class KFIoURRetinaHead(RotatedRetinaHead):
 
     def _reg_loss(self, anchors, box_flat, bbox_targets, bbox_weights,
                   num_pos):
-        return self.bbox_loss(
-            box_flat, bbox_targets, weight=bbox_weights, avg_factor=num_pos,
-            pred_decode=self.coder.decode(anchors[None], box_flat),
-            targets_decode=self.coder.decode(anchors[None], bbox_targets))
+        return kfiou_reg_loss(self, anchors, box_flat, bbox_targets,
+                              bbox_weights, num_pos)
 
 
 @HEADS.register_module()

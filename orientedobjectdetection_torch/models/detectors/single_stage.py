@@ -25,17 +25,23 @@ import torch
 from torch import nn
 
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ..utils_rotation import ORConv2d
+
+# the layers with a weight and a bias: seeded by init_seeded_weights, cast
+# to the serving dtype by init_detector
+WEIGHTED_LAYERS = (nn.Conv2d, nn.Linear, ORConv2d)
 
 
 @torch.no_grad()
 def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
     """Seeded random weights from a CPU ``torch.Generator``: LeCun-normal
-    convolution and linear weights, zero biases; frozen BN keeps its
-    identity statistics. The same seed gives the same weights on any device
-    as long as the module is still on the CPU."""
+    weights of the ``WEIGHTED_LAYERS`` (convolutions, linear layers and
+    ORConv2d's 5-D filters), zero biases; frozen BN keeps its identity
+    statistics. The same seed gives the same weights on any device as long
+    as the module is still on the CPU."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, WEIGHTED_LAYERS):
             fan_in = m.weight[0].numel()
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                            / math.sqrt(fan_in))

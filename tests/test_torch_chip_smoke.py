@@ -257,6 +257,24 @@ def test_phase_main_path_kernels_rehearsal():
     captured['csl_loop_eval_iou'] = captured['eval_iou']
     captured['fcos_loop_nms'] = [captured['orcnn']]
     captured['csl_loop_nms'] = one
+    # phases 27-30: each refine detector's slice and served candidates, its
+    # train steps' first-stage (shared anchors) and refine (each image's
+    # rois) inputs at G=32 and G=512, the float32 steps', the tiny loops'
+    per_image = (gts.clamp(min=1e-3), props.clamp(min=1e-3), 'iou')
+    for label in ('s2anet', 'r3det'):
+        captured[label] = captured['retinanet']
+        captured[f'{label}_slice_nms'] = [captured['orcnn']]
+        captured[f'{label}_train'] = [captured['train_step'], per_image]
+        captured[f'{label}_train_padded'] = [captured['train_step'],
+                                             per_image]
+        captured[f'{label}_slice_assign'] = [captured['train_step'],
+                                             per_image]
+        captured[f'{label}_loop_assign'] = [captured['train_step'],
+                                            per_image] * 2
+        captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
+        captured[f'{label}_loop_nms'] = [captured['orcnn']]
+    captured['r3det_refine_slice_assign'] = [captured['train_step'],
+                                             per_image, per_image]
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -265,11 +283,20 @@ def test_phase_main_path_kernels_rehearsal():
     pair, roi, iou = records
     assert pair['max_abs_err'] == 0 and roi['max_abs_err'] == 0.0
     assert iou['max_abs_err'] == 0.0
-    assert sorted(iou['main_path_inputs']) == [
+    refine = [f'{label}_{key}' for label in ('r3det', 's2anet')
+              for key in ('loop_assign', 'loop_eval_iou', 'slice',
+                          'train_first', 'train_padded_first',
+                          'train_padded_refine', 'train_refine')]
+    assert sorted(iou['main_path_inputs']) == sorted([
         'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
         'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
-        'orcnn_train_roi', 'orcnn_train_rpn', 'train_step']
+        'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
+        'r3det_refine_slice'] + refine)
+    assert iou['main_path_inputs']['s2anet_loop_assign']['inputs_held'] == 4
+    assert iou['main_path_inputs']['r3det_refine_slice']['inputs_held'] == 3
+    assert iou['main_path_inputs']['s2anet_train_refine']['pairs_in_reach'] \
+        == iou['main_path_inputs']['orcnn_train_roi']['pairs_in_reach']
     assert iou['main_path_inputs']['csl_loop_assign']['inputs_held'] == 2
     assert iou['main_path_inputs']['hrsc_assign']['inputs_held'] == 3
     for got in iou['main_path_inputs'].values():
@@ -283,7 +310,8 @@ def test_phase_main_path_kernels_rehearsal():
     assert pair['main_path_inputs']['submission_merge']['largest_n'] == 90
     for key in ('retinanet', 'orcnn', 'orcnn_loop_eval', 'patch_merge',
                 'submission_merge', 'fcos', 'csl', 'fcos_loop_nms',
-                'csl_loop_nms'):
+                'csl_loop_nms', 's2anet', 'r3det', 's2anet_loop_nms',
+                'r3det_loop_nms'):
         got = pair['main_path_inputs'][key]
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert 0 <= got['pairs_in_reach'] <= got['same_class_pairs']
@@ -740,3 +768,131 @@ def test_same_params_allows_a_float32_step_and_nothing_more():
     apart[0] += 3 * step               # 10% of the change: a real difference
     with pytest.raises(AssertionError, match='float32 step'):
         chip_smoke.same_params(got(apart), ref, 'three steps')
+
+
+# ---- phases 27-30 at a tiny size: the published refine configs with a
+# ResNet-18 backbone at 128 px
+TINY_REFINE = '''
+model = dict(
+    backbone=dict(depth=18),
+    neck=dict(in_channels=[64, 128, 256, 512]),
+    test_cfg=dict(nms_pre=300, max_candidates=300, max_per_img=100))
+'''
+
+
+@pytest.fixture
+def tiny_refine(tmp_path, monkeypatch):
+    """The phases' refine configs replaced by ResNet-18 copies (the three
+    float32 recipes by the cascade alone)."""
+    configs = {k: derived_config(tmp_path, v, TINY_REFINE)
+               for k, v in chip_smoke.REFINE_CONFIGS.items()}
+    recipes = {'r3det_refine': derived_config(
+        tmp_path, chip_smoke.REFINE_RECIPES['r3det_refine'], TINY_REFINE)}
+    monkeypatch.setattr(chip_smoke, 'REFINE_CONFIGS', configs)
+    monkeypatch.setattr(chip_smoke, 'REFINE_RECIPES', recipes)
+    return configs
+
+
+def test_phase_refine_slice_rehearsal(tiny_refine):
+    captured = chip_smoke.phase_refine_slice('cpu', bsz=1, size=128, g=8,
+                                             valid=3, max_candidates=300)
+    for label in ('s2anet', 'r3det'):
+        (boxes, cls), = captured[f'{label}_slice_nms']
+        assert boxes.shape == (1, 300, 5) and cls.shape == (1, 300)
+        first, refine = captured[f'{label}_slice_assign']
+        assert first[0].shape == (1, 8, 5) and first[1].dim() == 2
+        # the refine stage: each image's own rois, one a location
+        assert refine[0].shape == (1, 8, 5)
+        assert refine[1].shape == (1, 341, 5) and refine[2] == 'iou'
+    assert len(captured['r3det_refine_slice_assign']) == 3   # s0, sr0, sr1
+
+
+def test_phase_refine_serving_rehearsal(tiny_refine):
+    runs, captured = chip_smoke.phase_refine_serving(
+        'cpu', bsz=1, size=128, warm=1, timed=1, dtype=torch.float32,
+        max_candidates=300)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]
+    for label in ('s2anet', 'r3det'):
+        boxes, cls = captured[label]
+        assert boxes.shape == (1, 300, 5) and cls.shape == (1, 300)
+
+
+def test_phase_refine_training_rehearsal(tiny_refine):
+    runs, captured = chip_smoke.phase_refine_training(
+        'cpu', bsz=1, size=128, g=8, valid=3, warm=1, timed=1,
+        dtype=torch.float32, padded_g=16, padded_valid=5, reps=1)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]
+    for label in ('s2anet', 'r3det'):
+        first, refine = captured[f'{label}_train']
+        assert first[0].shape == (1, 8, 5) and first[1].dim() == 2
+        assert refine[1].shape == (1, 341, 5)
+        padded = captured[f'{label}_train_padded']
+        assert len(padded) == 2 and padded[1][0].shape == (1, 16, 5)
+        sampling = captured[f'{label}_sampling']
+        assert sampling['forward_ms'] > 0 and sampling['backward_ms'] > 0
+
+
+def test_refine_ranges_are_the_detectors():
+    """The ranges phases 28-29 split by are the ones the detectors open,
+    in a profiled CPU train step and request of a tiny S2ANet and R3Det."""
+    from torch.profiler import profile
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.utils import Config
+    seen = set()
+    for config in chip_smoke.REFINE_TINY_CONFIGS.values():
+        detector = build_detector(dict(Config.fromfile(config).model))
+        detector.init_weights(0)
+        images = torch.randn(1, 3, 64, 64)
+        batch = dict(gt_bboxes=torch.tensor([[[30.0, 30, 20, 10, 0.3]]]),
+                     gt_labels=torch.zeros(1, 1, dtype=torch.long),
+                     gt_mask=torch.ones(1, 1, dtype=torch.bool))
+        with profile() as prof:
+            out = detector(images)
+            detector.loss_from_outputs(out, batch)
+            with torch.no_grad():
+                detector.bboxes_from_outputs(detector(images))
+        seen |= {e.key for e in prof.key_averages()
+                 if e.key.startswith('refine.')}
+    assert seen == set(chip_smoke.REFINE_TRAIN_RANGES +
+                       chip_smoke.REFINE_RANGES)
+
+
+def test_pairs_in_reach_for_per_image_columns():
+    """The refine assigner's layout, each image's gts against its own rois:
+    phase 12 counts the pairs in reach image by image and bounds the
+    (B, G, N) output."""
+    from orientedobjectdetection_torch.ops.iou_kernels import pairs_in_reach
+    anchors = chip_smoke.config_anchors(128, 'cpu')[::9].contiguous()
+    gts = chip_smoke.seeded_gts(anchors, 2, 8, 3, 11)[0].clamp(min=1e-3)
+    rois = torch.stack([anchors, anchors.flip(0)])
+    rois[1, :, :2] += 7.0
+    err, live = chip_smoke.check_iou_matrix(gts, rois, 'iou')
+    assert err == 0.0
+    assert live == sum(int(pairs_in_reach(gts[b], rois[b]).sum())
+                       for b in range(2))
+    assert 0 < live < chip_smoke.matrix_pairs(gts, rois) == 2 * 8 * 341
+    bound, by = chip_smoke.iou_matrix_bound_ms(gts, rois, live)
+    t_bytes = (gts.numel() + rois.numel() + 2 * 8 * 341) * 4 / \
+        chip_smoke.PEAK_BYTES * 1e3
+    t_ops = live * chip_smoke.FLOP_PER_IOU_PAIR / chip_smoke.PEAK_FP32 * 1e3
+    assert bound == pytest.approx(max(t_bytes, t_ops))
+    assert by == ('bytes' if t_bytes >= t_ops else 'operations')
+
+
+def test_phase_refine_loops_rehearsal(tmp_path):
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    root = str(tmp_path / 'tiny')
+    generate_synth(root, 4, 128, seed=0)
+    configs = {k: derived_config(tmp_path, v, TINY_FAMILY)
+               for k, v in chip_smoke.REFINE_TINY_CONFIGS.items()}
+    runs, inputs = chip_smoke.phase_refine_loops(
+        root, str(tmp_path / 'work'), configs=configs, steps=2,
+        dtype=torch.float32, device='cpu', log_interval=1)
+    assert runs == [NO_LAUNCHES, NO_LAUNCHES]
+    for label in ('s2anet', 'r3det'):
+        assign = inputs[f'{label}_loop_assign']
+        assert len(assign) == 4                      # two matrices a step
+        assert assign[0][1].dim() == 2 and assign[1][1].dim() == 3
+        assert inputs[f'{label}_loop_eval_iou'] and \
+            inputs[f'{label}_loop_nms']

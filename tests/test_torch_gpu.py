@@ -855,3 +855,123 @@ def test_tpfp_default_on_the_card_equals_the_cpu(cuda):
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
     assert got[0].sum() > 0
+
+
+def refined_rois(bsz, size, seed, device, far=0.05):
+    """Each image's refined boxes as a refine stage sees them: S2ANet's FAM
+    anchors of a ``size``^2 image (one 4-stride square a location, 21,824 at
+    1024^2) decoded with random deltas, a ``far`` share of them thrown
+    far off their anchors (a seeded head's outliers)."""
+    from orientedobjectdetection_torch.core import (DeltaXYWHAOBBoxCoder,
+                                                    RotatedAnchorGenerator)
+    strides = [8, 16, 32, 64, 128]
+    anchors = torch.cat(RotatedAnchorGenerator(
+        scales=[4], ratios=[1.0], strides=strides).grid_priors(
+            [(-(-size // s), -(-size // s)) for s in strides]), 0)
+    rng = np.random.default_rng(seed)
+    deltas = rng.normal(0, 0.3, (bsz, len(anchors), 5))
+    out = rng.random((bsz, len(anchors))) < far
+    deltas[out, :2] *= 40.0
+    deltas[out, 2:4] += 2.5
+    coder = DeltaXYWHAOBBoxCoder(angle_range='le135', norm_factor=1,
+                                 edge_swap=False, proj_xy=True)
+    rois = coder.decode(anchors[None], torch.from_numpy(
+        deltas.astype(np.float32)))
+    return rois.to(device)
+
+
+@pytest.mark.parametrize('g,valid', [(32, 8), (512, 64)])
+def test_iou_matrix_on_refined_rois(cuda, g, valid):
+    """The refine stages' assigner input: each image's padded gts against
+    its own 21,824 refined boxes (``cols_batched``), some far from any
+    anchor and large; within IOU_ATOL of the plain version, exactly 0 out
+    of reach; then the MaxIoU assigner alike with the kernel and the plain
+    matrix outside a band of 1e-5 around its thresholds."""
+    from orientedobjectdetection_torch.ops.iou import _clamp_wh
+    rois = _clamp_wh(refined_rois(8, 1024, g, cuda))
+    assert rois.shape == (8, 21824, 5)
+    rng = np.random.default_rng(g + 1)
+    gts = np.zeros((8, g, 5), np.float32)
+    gts[:, :valid] = np.stack([rng.uniform(0, 1024, (8, valid)),
+                               rng.uniform(0, 1024, (8, valid)),
+                               rng.uniform(8, 200, (8, valid)),
+                               rng.uniform(8, 200, (8, valid)),
+                               rng.uniform(-1.5, 1.5, (8, valid))], -1)
+    gts = _clamp_wh(torch.from_numpy(gts).to(cuda))
+    live = check_iou_matrix(gts, rois, 'iou')
+    assert live[:, :valid].any()
+    mask = torch.arange(g, device=cuda)[None].expand(8, g) < valid
+    labels = torch.zeros((8, g), dtype=torch.int64, device=cuda)
+    kw = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0)
+    got = MaxIoUAssigner(**kw)(rois, gts, labels, mask)
+    ref = MaxIoUAssigner(plain_iou=True, **kw)(rois, gts, labels, mask)
+    band = ((ref.max_overlaps - 0.4).abs() < 1e-5) | \
+        ((ref.max_overlaps - 0.5).abs() < 1e-5)
+    assert torch.equal(got.assigned_gt_inds[~band],
+                       ref.assigned_gt_inds[~band])
+    assert (got.assigned_gt_inds >= 0).any()
+
+
+REFINE_TINY = ['configs/s2anet/s2anet_tiny_synth.py',
+               'configs/r3det/r3det_tiny_synth.py']
+
+
+@pytest.mark.parametrize('config', REFINE_TINY)
+def test_refine_train_step_kernel_equals_plain(cuda, config):
+    """A tiny S2ANet / R3Det train step on the card from one seeded state:
+    two IoU-matrix launches (the first stage's shared anchors, the refine
+    stage's per-image rois) and none with the plain matrix; the same
+    losses within 1e-4. The gts are ``chip_smoke.well_posed_batch``'s,
+    whose first-stage assignment no rounding decides."""
+    import chip_smoke
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.parallel import (create_train_state,
+                                                        build_optimizer,
+                                                        make_train_step)
+    rng = np.random.default_rng(4)
+    batch = chip_smoke.well_posed_batch(2, 256, 16, 6, 4, cuda)
+    batch['images'] = torch.from_numpy(rng.normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    batch['gt_labels'] = batch['gt_labels'] % 2
+    metrics = []
+    for plain in (False, True):
+        cfg = Config.fromfile(config)
+        detector = build_detector(dict(cfg.model))
+        for head in detector.heads():
+            head.assigner.plain_iou = plain
+        tx = build_optimizer(dict(cfg.optimizer), 0.01,
+                             grad_clip=dict(max_norm=35))
+        state = create_train_state(detector, tx, device=cuda, seed=0)
+        step = make_train_step(detector, tx)
+        before = box_iou_rotated_matrix.launches
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        assert box_iou_rotated_matrix.launches - before == \
+            (0 if plain else 2)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for k, v in metrics[1].items():
+        if k != 'grad_norm':
+            assert abs(metrics[0][k] - v) <= 1e-4 * abs(v), k
+
+
+@pytest.mark.parametrize('config', REFINE_TINY)
+def test_refine_bundle_kernel_equals_plain(cuda, config):
+    """A tiny S2ANet / R3Det served on the card (class bias zeroed, so
+    scores pass score_thr): one pair-mask launch a request, the same
+    detections with the plain pair mask."""
+    bundle = init_detector(config, device=cuda, seed=0)
+    last = bundle.detector.heads()[-1]
+    with torch.no_grad():
+        (last.odm_cls if hasattr(last, 'odm_cls') else
+         last.retina_cls).bias.zero_()
+    plain = DetectorBundle(bundle.cfg, bundle.detector, plain_pair_mask=True)
+    images = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    before = nms_pair_mask.launches
+    dets, labels, valid = bundle(images)
+    torch.cuda.synchronize()
+    assert nms_pair_mask.launches == before + 1
+    p_dets, p_labels, p_valid = plain(images)
+    assert valid.any()
+    assert torch.equal(valid, p_valid) and torch.equal(labels, p_labels)
+    assert (dets - p_dets).abs().max() <= 1e-3

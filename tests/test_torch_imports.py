@@ -34,7 +34,9 @@ def test_scan_covers_the_package():
             'generate_synth.py', 'patch.py', 'hrsc.py', 'wrappers.py',
             'img_split.py', 'rotated_fcos_head.py', 'gaussian_dist_loss.py',
             'kf_iou_loss.py', 'rotated_iou_loss.py', 'rotated_anchor_head.py',
-            'coders.py', 'anchors.py', 'fpn.py'} <= names
+            'coders.py', 'anchors.py', 'fpn.py', 'feature_align.py',
+            'utils_rotation.py', 'refine_heads.py',
+            'refine_detectors.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools
