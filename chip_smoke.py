@@ -9,7 +9,9 @@ of Oriented R-CNN R50-FPN le90
 other single-stage recipes (Rotated FCOS, Rotated ATSS, KFIoU, GWD,
 KLD-stable and CSL, each at its published R50-FPN DOTA config) and of the
 refine detectors (S2ANet R50-FPN le135 and R3Det R50-FPN oc; the KFIoU
-refine recipes and the two-stage R3Det cascade in float32), through
+refine recipes and the two-stage R3Det cascade in float32) and of the
+horizontal-proposal two-stage families (Rotated Faster R-CNN, Gliding
+Vertex and RoI Transformer, each R50-FPN le90), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -156,6 +158,29 @@ plain PyTorch version:
     loops    ``train_detector`` on phase 18's set: 20 bfloat16 steps (two
              box_iou_rotated launches each) and the evaluation, every input
              recorded
+31. hbb      Rotated Faster R-CNN, Gliding Vertex and RoI Transformer (their
+    slice    R50 DOTA configs, regressions x 0.05) in float32 at 2 images of
+             1024^2: the detections with the RoIAlign kernel equal those
+             with its plain version, and with the pair-mask kernel those
+             with its plain mask; one train step with the IoU-matrix kernel
+             and one with the plain matrix on gts whose RPN assignment is
+             decided: the RPN's and each RoI stage's assigner alike up to
+             the band, losses within LOSS_RTOL, parameters within PARAM_RTOL
+32. hbb      bfloat16 requests of 8 raw 1024^2 images through each: imgs/s,
+    serving  forward / decode+NMS, peak memory, roi_align_rotated launches
+             a request (1, 1, 2: RoI Transformer pools once a stage), one
+             pair-mask launch; one RoI Transformer request profiled by the
+             ``two_stage.*`` ranges, each stage's RoIAlign in its own
+33. hbb      bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid: 2
+    training warm + 5 timed steps (RoI Transformer 3 + 10), imgs/s, peak
+             memory, 2 / 2 / 3 box_iou_rotated launches a step and none of
+             the others, a falling loss (one sampling key for every step);
+             one step at the loader's G=512; one step profiled with no host
+             sync inside the RPN targets or a RoI stage's sampler; RoI
+             Transformer's gather pooling of each stage timed alone
+34. hbb      the three tiny-synth configs through ``train_detector`` on
+    loops    phase 18's set: 20 bfloat16 steps and the evaluation, every
+             input recorded (the evaluation's RoIAlign inputs too)
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -180,9 +205,13 @@ plain PyTorch version:
              phases 27-30: the refine detectors' NMS candidates (the top
              2000 over all levels at once), their first and refine stages'
              assigner inputs (gts x each image's 21,824 rois) at G=32 and
-             G=512, the float32 steps' and the tiny loops'; each held
-             against its plain version, the largest of each kind timed
-             beside its bound
+             G=512, the float32 steps' and the tiny loops'; and those of
+             phases 31-34: each family's served RoIs (theta-0 proposals,
+             Faster R-CNN's at 1 sample a bin side; RoI Transformer's
+             rotated stage-1 RoIs), candidates, RPN and RoI-stage assigner
+             inputs at G=32 and G=512, the float32 slices' and the tiny
+             loops'; each held against its plain version, the largest of
+             each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -190,12 +219,13 @@ each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 20's timed images, 21's evaluations and ``format_results``, 22's
 ``train_detector`` run and its ``evaluate``, 23's requests, 24's steps,
 25's bfloat16 steps and requests of each recipe, 26's runs, 28's
-requests and 29's steps of each refine detector, 30's runs) and read
+requests and 29's steps of each refine detector, 30's runs, 32's
+requests and 33's steps of each two-stage family, 34's runs) and read
 just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's and 30's runs. Phases 15-22, 26 and 30 write their data and work
-directories under
+26's, 30's and 34's runs. Phases 15-22, 26, 30 and 34 write their data and
+work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -924,8 +954,10 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
 
 
 def assigners(detector) -> list:
-    """The assigners of a single-stage detector's head or of each stage of
-    a refine detector, in the order a train step runs them."""
+    """The assigners of a single-stage detector's head, of each stage of a
+    refine detector, or of a two-stage detector's RPN and RoI stages."""
+    if hasattr(detector, 'assigners'):
+        return detector.assigners()
     heads = detector.heads() if hasattr(detector, 'heads') else \
         [detector.bbox_head]
     return [h.assigner for h in heads
@@ -1154,14 +1186,15 @@ def seeded_pyramid(bsz, size, channels, dtype, device, seed) -> list:
             for s in (4, 8, 16, 32)]
 
 
-def check_roi_align(feats, rois, clockwise, padding=True) -> float:
+def check_roi_align(feats, rois, clockwise, padding=True,
+                    ratio=2) -> float:
     """Kernel (wrapper) vs plain version on the same device tensors, held
     per element to ``ROI_RTOL`` and ``ROI_BF16_STEP``. Returns
     max |kernel - plain|; padding RoIs must give exact zeros, and with
-    ``padding`` the input must have some."""
+    ``padding`` the input must have some. ``ratio``: samples a bin side."""
     from orientedobjectdetection_torch.ops.roi_align_kernels import (
         roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain)
-    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0, clockwise)
+    args = (feats, rois, (7, 7), ROI_SCALES, ratio, 56.0, clockwise)
     got = roi_align_rotated_pyramid(*args)
     ref = roi_align_rotated_pyramid_plain(*args)
     if got.shape != ref.shape or got.dtype != feats[0].dtype or \
@@ -1185,15 +1218,18 @@ def check_roi_align(feats, rois, clockwise, padding=True) -> float:
     return float(diff.max())
 
 
-def roi_align_work(feats, rois, clockwise=False) -> tuple:
+def roi_align_work(feats, rois, clockwise=False, ratio=2) -> tuple:
     """What these inputs need: (feature cells some sample's bilinear corner
-    reads, counted once each; RoIs that are not padding; RoIs per level)."""
+    reads, counted once each; RoIs that are not padding; RoIs per level).
+    ``ratio``: samples a bin side."""
     from orientedobjectdetection_torch.ops.roi_align_rotated import (
         level_of_rois)
     dev = rois.device
     lvl = level_of_rois(rois, len(feats), 56.0)
     live = (rois[..., 2] > 1e-3) & (rois[..., 3] > 1e-3)
-    g = (torch.arange(14, dtype=torch.float32, device=dev) + 0.5) / 14 - 0.5
+    side = 7 * ratio
+    g = (torch.arange(side, dtype=torch.float32, device=dev) + 0.5) / side \
+        - 0.5
     gyy, gxx = (t.reshape(-1) for t in torch.meshgrid(g, g, indexing='ij'))
     cx, cy, w, h, a = (rois[..., i, None] for i in range(5))
     a = -a if clockwise else a
@@ -1219,17 +1255,17 @@ def roi_align_work(feats, rois, clockwise=False) -> tuple:
     return cells, int(live.sum()), per_level
 
 
-def roi_align_bound_ms(feats, rois, cells, live) -> tuple:
+def roi_align_bound_ms(feats, rois, cells, live, ratio=2) -> tuple:
     """Least time for these inputs: the RoIs and every feature cell that is
-    touched read once, the output written once, and 196 samples x 4 corner
-    FMAs per channel of every RoI that is not padding, at the published
-    peaks."""
+    touched read once, the output written once, and 49 x ratio^2 samples
+    (196 at ratio 2) x 4 corner FMAs per channel of every RoI that is not
+    padding, at the published peaks."""
     c = feats[0].shape[-1]
     elt = feats[0].element_size()
     out_elems = rois.shape[0] * rois.shape[1] * 49 * c
     nbytes = rois.numel() * 4 + (cells * c + out_elems) * elt
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = live * 196 * 4 * 2 * c / PEAK_FP32 * 1e3
+    t_ops = live * 49 * ratio ** 2 * 4 * 2 * c / PEAK_FP32 * 1e3
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                  else 'operations')
 
@@ -1253,14 +1289,16 @@ def phase_roi_kernel(device, card='', bsz=8, r=2000, size=1024, channels=256,
     for name, (feats, boxes) in cases.items():
         bound = f'{ROI_RTOL:.3g} x max |feature|' + (
             f' + {ROI_BF16_STEP:.3g} x |plain|' if 'bfloat16' in name else '')
-        for clockwise in (False, True):
-            err = check_roi_align(feats, boxes, clockwise)
+        # 2 samples a bin side, and 1 (Rotated Faster R-CNN's)
+        for clockwise, ratio in ((False, 2), (True, 2), (False, 1),
+                                 (True, 1)):
+            err = check_roi_align(feats, boxes, clockwise, ratio=ratio)
             max_err = max(max_err, err)
             log(f'[kernel] roi_align_rotated {name} B={boxes.shape[0]} '
                 f'R={boxes.shape[1]} C={feats[0].shape[-1]} levels '
-                f'{[f.shape[1] for f in feats]} clockwise={clockwise}: max '
-                f'|kernel - plain| {err:.3g}, each element <= {bound}; '
-                f'padding RoIs exactly 0')
+                f'{[f.shape[1] for f in feats]} clockwise={clockwise} '
+                f'sampling_ratio={ratio}: max |kernel - plain| {err:.3g}, '
+                f'each element <= {bound}; padding RoIs exactly 0')
     cells, live, per_level = roi_align_work(feats32, rois)
     if min(per_level) < 1:
         raise AssertionError(f'a pyramid level got no RoI: {per_level}')
@@ -1281,17 +1319,17 @@ def phase_roi_kernel(device, card='', bsz=8, r=2000, size=1024, channels=256,
 
 
 def time_roi_align(feats, rois, work, device, card, label, reps,
-                   plain_reps) -> dict:
+                   plain_reps, ratio=2) -> dict:
     """Kernel (``reps`` launches) and plain version on one input, beside
     the bound for ``work`` = (cells touched, live RoIs)."""
     from orientedobjectdetection_torch.ops.roi_align_kernels import (
         roi_align_rotated_pyramid, roi_align_rotated_pyramid_plain,
         vector_path)
-    args = (feats, rois, (7, 7), ROI_SCALES, 2, 56.0)
+    args = (feats, rois, (7, 7), ROI_SCALES, ratio, 56.0)
     ms = time_ms(lambda: roi_align_rotated_pyramid(*args), reps, device)
     plain_ms = time_ms(lambda: roi_align_rotated_pyramid_plain(*args),
                        plain_reps, device, warmup=1)
-    bound_ms, bound_by = roi_align_bound_ms(feats, rois, *work)
+    bound_ms, bound_by = roi_align_bound_ms(feats, rois, *work, ratio)
     path = 'vector' if vector_path(feats) else 'scalar'
     log(f'[kernel] {card} | roi_align_rotated {label} ({path} path): kernel '
         f'{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms '
@@ -1672,9 +1710,12 @@ def syncs_inside(prof, ranges, watch=SYNC_EVENTS) -> dict:
     """Events named in ``watch`` that ran inside a ``record_function``
     range named in ``ranges``, on its thread, each with the host operators
     around it, outermost first. Returns range name -> ['event in op > op',
-    ...]."""
+    ...]. The ranges are their host-side spans: a range's device-side span
+    (first to last of its kernels, on the device's clock) also carries its
+    name, and the host may be running later operators by then."""
     events = list(prof.events())
-    spans = [e for e in events if e.name in ranges]
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e for e in events if e.name in ranges and e.device_type != cuda]
     found = {name: [] for name in ranges}
 
     def inside(e, outer):
@@ -1771,10 +1812,10 @@ def phase_orcnn_training(device, card='', bsz=8, size=1024, g=32, valid=8,
     return counts, {'orcnn_train_rpn': rpn[0], 'orcnn_train_roi': roi[0]}
 
 
-def time_gather_pooling(args, device, card, reps) -> None:
+def time_gather_pooling(args, device, card, reps, label='orcnn') -> dict:
     """The training path's RoI pooling (the gather formulation) alone on
     one step's levels and sampled RoIs: its forward, and its backward into
-    the levels, each over ``reps`` runs."""
+    the levels, each over ``reps`` runs (ms)."""
     from orientedobjectdetection_torch.ops.roi_align_rotated import (
         roi_align_rotated)
     levels = [f.detach().requires_grad_() for f in args[0]]
@@ -1787,10 +1828,11 @@ def time_gather_pooling(args, device, card, reps) -> None:
                                               retain_graph=True),
                   reps, device, warmup=1)
     rois = rest[0]
-    log(f'[orcnn-training] {card} | gather RoI pooling alone, B='
+    log(f'[{label}-training] {card} | gather RoI pooling alone, B='
         f'{rois.shape[0]} R={rois.shape[1]} C={levels[0].shape[-1]} '
         f'{str(levels[0].dtype).split(".")[-1]}: forward {fwd:.3f} ms, '
         f'backward {bwd:.3f} ms')
+    return dict(forward_ms=fwd, backward_ms=bwd)
 
 
 def profile_orcnn_step(step, device) -> None:
@@ -2928,14 +2970,18 @@ def phase_family_train_slice(config, label, device, bsz=2, size=1024, g=32,
 def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                           g=32, valid=8, warm=3, timed=10,
                           dtype=torch.bfloat16, profile=False, padded_g=0,
-                          padded_valid=64) -> tuple:
+                          padded_valid=64, falling=False, rng=None) -> tuple:
     """``warm + timed`` steps on one fixed batch: imgs/s, peak memory, one
     IoU-matrix launch a step for each assigner (FCOS has none, a refine
     detector one a stage), finite losses. ``profile``: one more step split
     by the ``train.*`` and the heads' ``fcos.*`` and ``csl.*`` ranges and
     the refine detectors' ``refine.*``. ``padded_g``: one more step at the
     loader's padding (``padded_g`` gts, ``padded_valid`` of them valid), for
-    its peak memory. Returns dict(counts, rate (imgs/s), inputs: one more
+    its peak memory. ``falling``: the loss of the last step must be below
+    the first's (on the fixed batch). ``rng``: a two-stage detector's
+    sampling key for every step (the same RoIs each step; by default the
+    step's own). Returns dict(counts, rate (imgs/s),
+    inputs: one more
     step's IoU-matrix inputs, padded_inputs: those of the padded step (both
     None without an assigner), step_once: a function that takes one more
     step)."""
@@ -2950,7 +2996,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
         if i == warm:
             sync(device)
             t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+        state, metrics = step(state, batch, rng)
         history.append(metrics)
     sync(device)
     seconds = time.perf_counter() - t0
@@ -2962,10 +3008,13 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                              f'times in {warm + timed} steps')
     for metrics in history:
         check_metrics(metrics)
+    if falling and not float(history[-1]['loss']) < float(history[0]['loss']):
+        raise AssertionError(f'{label}: the loss did not fall on the fixed '
+                             f'batch: {[float(m["loss"]) for m in history]}')
     mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
         else float('nan')
     terms = {k: f'{float(history[0][k]):.4f} -> {float(history[-1][k]):.4f}'
-             for k in history[0] if k.startswith('loss')}
+             for k in history[0] if 'loss' in k}
     log(f'[{label}-training] {card} | {str(dtype).split(".")[-1]} B={bsz} '
         f'{size}^2, G={g} ({valid} valid), {timed} timed steps after {warm} '
         f'warm: {bsz * timed / seconds:.2f} imgs/s, '
@@ -2978,7 +3027,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
-            state, metrics = step(state, padded)
+            state, metrics = step(state, padded, rng)
         sync(device)
         check_metrics(metrics)
         padded_inputs = [args for args, _ in calls] if per_step else None
@@ -2989,10 +3038,10 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
             f'GiB')
     if per_step:
         with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
-            state, _ = step(state, batch)
+            state, _ = step(state, batch, rng)
         inputs = [args for args, _ in calls]
     if profile:
-        prof = profile_run(lambda: step(state, batch), device,
+        prof = profile_run(lambda: step(state, batch, rng), device,
                            f'{label} train step',
                            ('train.', 'fcos.', 'csl.', 'refine.'))
         if prof['busy_us']:
@@ -3009,7 +3058,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                 f'{(prof["busy_us"] - named) / 1e3:.2f} ms')
     return dict(counts=counts, rate=bsz * timed / seconds, inputs=inputs,
                 padded_inputs=padded_inputs,
-                step_once=lambda: step(state, batch))
+                step_once=lambda: step(state, batch, rng))
 
 
 def phase_fcos(device, card='', bsz=8, size=1024, slice_bsz=2, warm=3,
@@ -3076,7 +3125,10 @@ def phase_family_loops(root, work_root, card='', configs=None, steps=20,
     ``eval_rbbox_map`` computes no IoU without a detection. ``per_step``:
     label -> the IoU-matrix launches of a step (by default none for FCOS,
     one for the others). Returns the runs' launch counts and every input
-    they gave the kernels."""
+    they gave the kernels (a two-stage detector's evaluation RoIAlign
+    inputs too: levels, RoIs, sampling ratio)."""
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
     from orientedobjectdetection_torch.ops import iou_kernels, nms
     configs = configs or FAMILY_TINY_CONFIGS
     runs, inputs = [], {}
@@ -3085,7 +3137,9 @@ def phase_family_loops(root, work_root, card='', configs=None, steps=20,
         cfg.merge_from_dict({'model.test_cfg.score_thr': EVAL_SCORE_THR})
         launches = (per_step or {}).get(label, int(label != 'fcos'))
         with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices, \
-                recording(nms, 'nms_pair_mask') as masks:
+                recording(nms, 'nms_pair_mask') as masks, \
+                recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                          keep_results=False) as pools:
             _, counts, seconds, log_lines = run_trainer(
                 cfg, os.path.join(work_root, label), steps, device, dtype,
                 launches, log_interval)
@@ -3099,6 +3153,8 @@ def phase_family_loops(root, work_root, card='', configs=None, steps=20,
             args for args, _ in matrices[len(train):]]
         inputs[f'{label}_loop_nms'] = [(args[0], args[2])
                                        for args, _ in masks]
+        inputs[f'{label}_loop_roi_align'] = [(args[0], args[1], args[4])
+                                             for args, _ in pools]
         runs.append(counts)
         val = [r for r in log_lines if r.get('mode') == 'val'][0]
         losses = [r['loss'] for r in log_lines if 'loss' in r]
@@ -3271,24 +3327,30 @@ def refine_anchors(size, device) -> list:
 
 
 def well_posed_batch(bsz, size, g, valid, seed, device, margin=1e-4,
-                     thresholds=(0.4, 0.5)) -> dict:
+                     thresholds=(0.4, 0.5), anchor_sets=None,
+                     view=None) -> dict:
     """:func:`train_batch` with gts drawn so that the MaxIoU assignment on
-    each refine detector's first-stage anchors is decided by more than
-    ``margin``: each gt's best anchor leads its next, no anchor's best IoU
-    lies that close to a threshold, and no two gts come that close on an
-    anchor. Square anchors inside a gt, or crossed by it, tie in exact
-    arithmetic, so that the kernel's rounding and the plain version's pick
-    other anchors there, and the losses of a kernel step and a plain step
-    part by percents: their comparison needs a decided assignment."""
+    each set of ``anchor_sets`` (by default each refine detector's
+    first-stage anchors) is decided by more than ``margin``: each gt's
+    best anchor leads its next, no anchor's best IoU lies that close to a
+    threshold, and no two gts come that close on an anchor. ``view`` maps
+    the gts to the boxes the assigner compares (a horizontal RPN's
+    ``obb2hbb``). Square anchors inside a gt, or crossed by it, tie in
+    exact arithmetic, so that the kernel's rounding and the plain
+    version's pick other anchors there, and the losses of a kernel step
+    and a plain step part by percents: their comparison needs a decided
+    assignment."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
         box_iou_rotated_matrix_plain)
-    anchor_sets = refine_anchors(size, device)
+    if anchor_sets is None:
+        anchor_sets = refine_anchors(size, device)
     cands, cand_labels, _ = seeded_gts(config_anchors(size, 'cpu'), bsz,
                                        8 * valid, 8 * valid, seed)
+    seen = cands if view is None else view(cands)
     gts = torch.zeros((bsz, g, 5))
     labels = torch.zeros((bsz, g), dtype=cand_labels.dtype)
     for b in range(bsz):
-        ious = [box_iou_rotated_matrix_plain(cands[b].to(device), a)
+        ious = [box_iou_rotated_matrix_plain(seen[b].to(device), a)
                 for a in anchor_sets]
         best = [torch.zeros(len(a), device=device) for a in anchor_sets]
         keep = []
@@ -3564,6 +3626,417 @@ def held_refine(device, captured, by_name, card, reps, plain_reps) -> None:
                         device, card, reps, plain_reps)
 
 
+# ---- 31.-34. the horizontal-proposal two-stage families -------------------
+HBB_CONFIGS = {
+    'faster': os.path.join(ROOT, 'configs', 'rotated_faster_rcnn',
+                           'rotated_faster_rcnn_r50_fpn_1x_dota_le90.py'),
+    'gv': os.path.join(ROOT, 'configs', 'gliding_vertex',
+                       'gliding_vertex_r50_fpn_1x_dota_le90.py'),
+    'roitrans': os.path.join(ROOT, 'configs', 'roi_trans',
+                             'roi_trans_r50_fpn_1x_dota_le90.py'),
+}
+HBB_TINY_CONFIGS = {
+    'faster': os.path.join(ROOT, 'configs', 'rotated_faster_rcnn',
+                           'rotated_faster_rcnn_tiny_synth.py'),
+    'gv': os.path.join(ROOT, 'configs', 'gliding_vertex',
+                       'gliding_vertex_tiny_synth.py'),
+    'roitrans': os.path.join(ROOT, 'configs', 'roi_trans',
+                             'roi_trans_tiny_synth.py'),
+}
+# RoIAlign launches a request (RoI Transformer pools once a stage) and
+# IoU-matrix launches a train step (the RPN's assigner and each RoI stage's)
+HBB_POOLS = {'faster': 1, 'gv': 1, 'roitrans': 2}
+HBB_ASSIGNS = {'faster': 2, 'gv': 2, 'roitrans': 3}
+# phase 33's steps: (warm, timed)
+HBB_STEPS = {'faster': (2, 5), 'gv': (2, 5), 'roitrans': (3, 10)}
+# the samplers' ranges: no host synchronisation inside them
+HBB_SAMPLERS = ('two_stage.rpn_targets', 'two_stage.sample_rois',
+                'two_stage.sample_rois_0', 'two_stage.sample_rois_1')
+
+
+def seed_hbb_detections(detector) -> None:
+    """The RPN's and every RoI stage's regression scaled down, as
+    :func:`seed_refine_detections` does: proposals near their anchors and
+    each stage's boxes near its RoIs, so RoI Transformer's stage-1 RoIs
+    stay where a trained detector's are."""
+    with torch.no_grad():
+        detector.rpn_head.rpn_reg.weight.mul_(0.05)
+        for name, module in detector.roi_head.named_modules():
+            if name.split('.')[-1] == 'fc_reg':
+                module.weight.mul_(0.05)
+
+
+def build_hbb_bundle(config, device, dtype, max_num=2000,
+                     max_candidates=2000, seed=0):
+    """:func:`build_orcnn_bundle` for a horizontal-proposal detector
+    (:func:`seed_hbb_detections`)."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(config)
+    bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
+                           device_norm=cfg.img_norm_cfg)
+    det = bundle.detector
+    det.test_cfg['rpn']['max_per_img'] = max_num
+    det.test_cfg['rcnn']['max_candidates'] = max_candidates
+    seed_hbb_detections(det)
+    return bundle
+
+
+def hbb_cut(outputs, max_candidates) -> torch.Tensor:
+    """Per image, the lowest (RoI, class) score entering NMS."""
+    if 'roi_outputs' in outputs:
+        logits = outputs['roi_outputs']['cls_score']
+    elif 'head_outputs' in outputs:
+        logits = outputs['head_outputs'][0]
+    else:
+        logits = outputs['cls_score']
+    scores = torch.softmax(logits.float(), -1)[..., :-1].flatten(1)
+    return scores.topk(min(max_candidates, scores.shape[1]))[0][:, -1]
+
+
+def pooled_inputs(calls) -> list:
+    """(levels, RoIs, sampling ratio) of recorded RoIAlign-kernel calls."""
+    return [(args[0], args[1], args[4]) for args, _ in calls]
+
+
+def phase_hbb_serving_slice(config, label, device, bsz=2, size=1024,
+                            max_num=2000, max_candidates=2000) -> dict:
+    """float32: the detections with the RoIAlign kernel equal those with
+    its plain version, and the same outputs decoded with the pair-mask
+    kernel and with its plain version give the same detections, up to
+    near-ties in score (:func:`same_detections`). Returns the request's
+    RoIAlign inputs and pair-mask inputs."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import nms
+    bundle = build_hbb_bundle(config, device, torch.float32, max_num,
+                              max_candidates)
+    plain_roi, plain_mask = (
+        DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                       device_norm=bundle.device_norm, **{switch: True})
+        for switch in ('plain_roi_align', 'plain_pair_mask'))
+    images = raw_images(bsz, size, 150)
+    with recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                   keep_results=False) as pools, \
+            recording(nms, 'nms_pair_mask') as masks:
+        outputs = bundle.forward(images)
+        got = bundle.decode(outputs)
+    sync(device)
+    check_dets(*got, bsz, bundle.num_classes)
+    if len(pools) != HBB_POOLS[label]:
+        raise AssertionError(f'{label}: {len(pools)} RoIAlign calls a '
+                             f'request')
+    cut = hbb_cut(outputs, max_candidates)
+    mask_err, mask_moved, mask_aside = same_detections(
+        got, plain_mask.decode(outputs), cut)
+    roi_err, roi_moved, roi_aside = same_detections(
+        got, plain_roi.decode(plain_roi.forward(images)), cut)
+    sync(device)
+    rois = [tuple(r.shape) for _, r, _ in pooled_inputs(pools)]
+    log(f'[{label}-slice] float32 B={bsz} {size}^2: RoIAlign kernel and '
+        f'plain version give the same detections (max |diff| '
+        f'{roi_err:.3g}; {roi_moved} rows within {SCORE_BAND} in score in '
+        f'another place, {roi_aside} set aside at the NMS cut), pair-mask '
+        f'kernel and plain mask too (max |diff| {mask_err:.3g}; '
+        f'{mask_moved} moved, {mask_aside} set aside); RoIAlign inputs '
+        f'{rois}; valid dets per image {got[2].sum(1).tolist()}')
+    return {f'{label}_slice_roi': pooled_inputs(pools),
+            f'{label}_slice_nms': [(args[0], args[2]) for args, _ in masks]}
+
+
+def hbb_anchor_view(size, device) -> tuple:
+    """The horizontal RPN's anchors of a ``size`` x ``size`` image as its
+    assigner compares them (theta-0 rotated boxes), and the gts' view
+    there (their circumscribed horizontal boxes)."""
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.ops.boxes import obb2hbb
+    from orientedobjectdetection_torch.utils import Config
+    rpn = build_detector(dict(Config.fromfile(
+        HBB_CONFIGS['gv']).model)).rpn_head
+    sizes = [(-(-size // s[1]), -(-size // s[0]))
+             for s in rpn.prior_generator.strides]
+    return [rpn.train_anchors(sizes, device)[1]], \
+        lambda gts: obb2hbb(gts, rpn.version)
+
+
+def phase_hbb_train_slice(config, label, device, bsz=2, size=1024, g=32,
+                          valid=8) -> list:
+    """float32: one step from one seeded state with the IoU-matrix kernel
+    and one with the plain matrix, on gts whose RPN assignment is decided
+    (:func:`well_posed_batch` on the RPN's anchors). Each assigner (the
+    RPN's, each RoI stage's on the proposals or RoIs it got) assigns alike
+    with both outside ASSIGN_BAND (:func:`check_assigner`); the losses
+    agree within LOSS_RTOL and the parameters as :func:`same_params` says.
+    Returns the kernel step's IoU-matrix inputs."""
+    from orientedobjectdetection_torch.ops import iou_kernels
+    anchors, view = hbb_anchor_view(size, device)
+    batch = well_posed_batch(bsz, size, g, valid, 160, device,
+                             thresholds=(0.3, 0.7), anchor_sets=anchors,
+                             view=view)
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+        kernel = family_step(config, device, batch, False)
+    rpn = [args for args, _ in calls if args[1].dim() == 2]
+    roi = [args for args, _ in calls if args[1].dim() == 3]
+    if len(rpn) != 1 or len(roi) != HBB_ASSIGNS[label] - 1:
+        raise AssertionError(f'{label}: {len(calls)} IoU matrices a step')
+    mask = batch['gt_mask'].to(device)
+    labels = torch.zeros_like(batch['gt_labels']).to(device)
+    first, *stages = assigners(kernel['detector'])
+    checked = []
+    for assigner, (gts, priors, _), name in zip(
+            [first, *stages], rpn + roi,
+            ['RPN'] + [f'RoI stage {i}' for i in range(len(roi))]):
+        positives, differ = check_assigner(assigner, priors, gts, labels,
+                                           mask)
+        if positives < 1 or (differ and name != 'RPN'):
+            raise AssertionError(f'{label} {name}: {positives} positives, '
+                                 f'{differ} assigned differently')
+        checked.append(f'{name} {tuple(priors.shape)}: {positives} '
+                       f'positives, {differ} differ')
+    plain = family_step(config, device, batch, True)
+    worst = same_params(kernel, plain, label)
+    log(f'[{label}-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): {"; ".join(checked)} (in the band); losses '
+        f'{kernel["metrics"]} equal to the plain matrix\'s within '
+        f'{LOSS_RTOL}; parameters within {worst:.3g} of each tensor\'s '
+        f'change (<= {PARAM_RTOL}, or a float32 step of the value)')
+    return [args for args, _ in calls]
+
+
+def phase_hbb_slice(device, bsz=2, size=1024, g=32, valid=8, max_num=2000,
+                    max_candidates=2000) -> dict:
+    """Phase 31: Rotated Faster R-CNN, Gliding Vertex and RoI Transformer
+    in float32, served (:func:`phase_hbb_serving_slice`) and trained
+    (:func:`phase_hbb_train_slice`). Returns their kernel inputs."""
+    captured = {}
+    for label, config in HBB_CONFIGS.items():
+        captured.update(phase_hbb_serving_slice(
+            config, label, device, bsz, size, max_num, max_candidates))
+        captured[f'{label}_slice_assign'] = phase_hbb_train_slice(
+            config, label, device, bsz, size, g, valid)
+    return captured
+
+
+def phase_hbb_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
+                      dtype=torch.bfloat16, max_num=2000,
+                      max_candidates=2000) -> tuple:
+    """Phase 32: requests of ``bsz`` raw images through each bundle:
+    imgs/s, forward / decode + NMS, peak memory, RoIAlign launches a
+    request (1, 1, 2) and one pair-mask launch; one more request's kernel
+    inputs recorded; one RoI Transformer request profiled by its
+    ``two_stage.*`` ranges, each stage's RoIAlign in its own. Returns the
+    launch counts and the inputs."""
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label, config in HBB_CONFIGS.items():
+        bundle = build_hbb_bundle(config, device, dtype, max_num,
+                                  max_candidates)
+        images = raw_images(bsz, size, 170)
+        if on_card:
+            images = images.pin_memory()
+        fwd, dec, _, (dets, labels, valid), counts = timed_requests(
+            bundle, images, warm, timed, device)
+        n = warm + timed if on_card else 0
+        expected = {'roi_align_rotated': HBB_POOLS[label] * n,
+                    'nms_pair_mask': n, 'box_iou_rotated': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + timed} '
+                                 f'requests {counts}, expected {expected}')
+        check_dets(dets, labels, valid, bsz, bundle.num_classes)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} '
+            f'B={bsz} {size}^2, {timed} timed requests after {warm} warm: '
+            f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+            f'{1e3 * fwd / timed:.2f} ms, decode+NMS {1e3 * dec / timed:.2f}'
+            f' ms; peak memory {mem:.2f} GiB; launches in {warm + timed} '
+            f'requests: roi_align_rotated {counts["roi_align_rotated"]}, '
+            f'nms_pair_mask {counts["nms_pair_mask"]}; valid dets per image '
+            f'{valid.sum(1).tolist()}')
+        with recording(nms, 'nms_pair_mask') as masks, \
+                recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                          keep_results=False) as pools:
+            bundle(images)
+        captured[label] = (masks[0][0][0], masks[0][0][2])
+        captured[f'{label}_roi'] = pooled_inputs(pools)
+        if label == 'roitrans':
+            prof = profile_run(lambda: bundle(images), device,
+                               'roitrans request', 'two_stage.')
+            if prof['busy_us']:
+                b3_us = sum(us for k, us in prof['kernels'].items()
+                            if 'roi_align_rotated_kernel' in k)
+                b1_us = sum(us for k, us in prof['kernels'].items()
+                            if 'pair_mask' in k)
+                log(f'[profile] roitrans request: roi_align_rotated '
+                    f'{b3_us / 1e3:.3f} ms in {HBB_POOLS[label]} launches, '
+                    f'one in each of two_stage.roialign_head_0 and _1 '
+                    f'(their extents above); nms_pair_mask '
+                    f'{b1_us / 1e3:.3f} ms')
+        runs.append(counts)
+        del bundle
+    return runs, captured
+
+
+def profile_hbb_step(step, device, label) -> None:
+    """One train step under the profiler, split by the ``train.*`` and
+    ``two_stage.*`` ranges. Fails if a host read of a device value ran
+    inside the RPN targets or a RoI stage's sampler."""
+    prof = profile_run(step, device, f'{label} train step',
+                       ('train.', 'two_stage.'))
+    found = syncs_inside(prof['prof'], HBB_SAMPLERS)
+    if any(found.values()):
+        raise AssertionError(f'{label}: host synchronisation inside the '
+                             f'sampler: {found}')
+    ran = [k for k in HBB_SAMPLERS if k in prof['spans']]
+    log(f'[profile] {label}: no host synchronisation inside {ran}')
+
+
+def phase_hbb_training(device, card='', bsz=8, size=1024, g=32, valid=8,
+                       dtype=torch.bfloat16, padded_g=512, padded_valid=64,
+                       steps=None, reps=10) -> tuple:
+    """Phase 33: each family trained on one fixed batch
+    (:func:`phase_family_training`: imgs/s, peak memory, 2 / 2 / 3
+    IoU-matrix launches a step and none of the other kernels, a falling
+    loss, one step at the loader's padding), one step profiled with no
+    host sync inside the samplers; for RoI Transformer the gather pooling
+    of each stage alone on a step's inputs. Returns the launch counts, and
+    the IoU-matrix inputs of one step at G=``g`` and of the padded step.
+    Every step samples with one key, so the loss compares like with
+    like."""
+    from orientedobjectdetection_torch.core import SampleKey
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label, config in HBB_CONFIGS.items():
+        warm, timed = (steps or HBB_STEPS)[label]
+        run = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, padded_g=padded_g, padded_valid=padded_valid,
+            falling=True, rng=SampleKey(step=0))
+        counts = run['counts']
+        expected = {'box_iou_rotated': HBB_ASSIGNS[label] * (warm + timed)
+                    if on_card else 0,
+                    'roi_align_rotated': 0, 'nms_pair_mask': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + timed} '
+                                 f'steps {counts}, expected {expected}')
+        runs.append(counts)
+        captured[f'{label}_train'] = run['inputs']
+        captured[f'{label}_train_padded'] = run['padded_inputs']
+        profile_hbb_step(run['step_once'], device, label)
+        if label == 'roitrans':
+            with recording(oriented_roi_head, 'roi_align_rotated',
+                           keep_results=False) as pools:
+                run['step_once']()
+            if len(pools) != 2:
+                raise AssertionError(f'{len(pools)} gather poolings a step')
+            captured['roitrans_gather'] = [
+                time_gather_pooling(args, device, card, reps,
+                                    label=f'roitrans stage {i}')
+                for i, (args, _) in enumerate(pools)]
+    return runs, captured
+
+
+def phase_hbb_loops(root, work_root, card='', configs=None, steps=20,
+                    dtype=torch.bfloat16, device='cuda',
+                    log_interval=5) -> tuple:
+    """Phase 34: the three tiny-synth configs through ``train_detector`` on
+    phase 18's set as phase 26 runs its families (2 / 2 / 3 IoU-matrix
+    launches a step; the evaluation's RoIAlign, NMS and IoUs)."""
+    configs = configs or HBB_TINY_CONFIGS
+    return phase_family_loops(root, work_root, card, configs, steps, dtype,
+                              device, log_interval,
+                              per_step={k: HBB_ASSIGNS[k] for k in configs})
+
+
+def held_roi_inputs(calls, label, key, roi, device, card, reps,
+                    plain_reps) -> None:
+    """Every (levels, RoIs, sampling ratio) of ``calls`` against the plain
+    version (ROI_RTOL, ROI_BF16_STEP); the largest timed beside its bound
+    into ``roi['main_path_inputs'][key]``."""
+    if not calls:
+        raise AssertionError(f'the {label} gave no RoIAlign input')
+    errs = [check_roi_align(levels, rois, False, padding=False, ratio=ratio)
+            for levels, rois, ratio in calls]
+    roi['max_abs_err'] = max([roi['max_abs_err']] + errs)
+    levels, rois, ratio = max(calls, key=lambda c: c[1].shape[0] *
+                              c[1].shape[1])
+    cells, live, per_level = roi_align_work(levels, rois, ratio=ratio)
+    theta0 = int(((rois[..., 4] == 0) & (rois[..., 2] > 1e-3)).sum())
+    log(f'[main-path] roi_align_rotated on the {len(calls)} inputs of the '
+        f'{label}, largest B={rois.shape[0]} R={rois.shape[1]} '
+        f'C={levels[0].shape[-1]} {str(levels[0].dtype).split(".")[-1]} '
+        f'sampling_ratio={ratio}: max |kernel - plain| {max(errs):.3g}; '
+        f'{live} live RoIs ({theta0} at theta 0), per level {per_level}, '
+        f'{cells} feature cells touched')
+    timing = time_roi_align(levels, rois, (cells, live), device, card,
+                            f'{label}\'s largest input', reps, plain_reps,
+                            ratio=ratio)
+    roi['main_path_inputs'][key] = dict(
+        timing, live_rois=live, rois_per_level=per_level, cells=cells,
+        sampling_ratio=ratio, theta0_rois=theta0, inputs_held=len(calls))
+
+
+def held_hbb(device, captured, by_name, card, reps, roi_reps,
+             plain_reps) -> None:
+    """Phases 31-34's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B3 on each
+    family's served RoIs (Faster R-CNN's and Gliding Vertex's theta-0
+    proposals, RoI Transformer's theta-0 stage 0 and rotated stage 1) and
+    on the float32 slices' and the tiny loops' evaluations; B1 on each
+    family's slice and served candidates and the loops' evaluations; B2
+    on each train step's RPN input (gts x the shared anchors) and each RoI
+    stage's (gts x each image's proposals or RoIs), at G=32 and at the
+    loader's G=512, and on the slices' and the loops' inputs."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    roi = by_name['roi_align_rotated']
+    for label in HBB_CONFIGS:
+        for stage, inputs in enumerate(captured[f'{label}_roi']):
+            held_roi_inputs([inputs], f'{label} request (stage {stage})',
+                            f'{label}_s{stage}', roi, device, card,
+                            roi_reps, plain_reps)
+        held_roi_inputs(captured[f'{label}_slice_roi'], f'{label} float32 '
+                        f'slice', f'{label}_slice', roi, device, card,
+                        roi_reps, plain_reps)
+        held_pair_masks(captured[f'{label}_slice_nms'] + [captured[label]],
+                        f'{label} slice and served requests', label, pair,
+                        device, card, reps, plain_reps)
+        for key, stage in ((f'{label}_train', 'G=32'),
+                           (f'{label}_train_padded', 'G=512')):
+            calls = captured[key]
+            held_iou_matrices([c for c in calls if c[1].dim() == 2],
+                              f'{label} RPN assigner ({stage})',
+                              f'{key}_rpn', iou, device, card, reps,
+                              plain_reps)
+            for i, c in enumerate(c for c in calls if c[1].dim() == 3):
+                held_iou_matrices([c], f'{label} RoI stage {i} assigner '
+                                  f'({stage}, each image\'s proposals)',
+                                  f'{key}_roi{i}', iou, device, card, reps,
+                                  plain_reps)
+        held_iou_matrices(captured[f'{label}_slice_assign'], f'{label} '
+                          f'float32 slice step', f'{label}_slice', iou,
+                          device, card, reps, plain_reps)
+    for label in HBB_TINY_CONFIGS:
+        held_iou_matrices(captured[f'{label}_loop_assign'], f'tiny {label} '
+                          f'loop\'s assigners', f'{label}_loop_assign', iou,
+                          device, card, reps, plain_reps)
+        held_iou_matrices(captured[f'{label}_loop_eval_iou'], f'tiny '
+                          f'{label} loop\'s evaluation',
+                          f'{label}_loop_eval_iou', iou, device, card, reps,
+                          plain_reps)
+        held_pair_masks(captured[f'{label}_loop_nms'], f'tiny {label} '
+                        f'loop\'s evaluation', f'{label}_loop_nms', pair,
+                        device, card, reps, plain_reps)
+        held_roi_inputs(captured[f'{label}_loop_roi_align'], f'tiny {label} '
+                        f'loop\'s evaluation', f'{label}_loop_eval', roi,
+                        device, card, roi_reps, plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
@@ -3626,6 +4099,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_loops(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_families(device, captured, by_name, card, reps, plain_reps)
     held_refine(device, captured, by_name, card, reps, plain_reps)
+    held_hbb(device, captured, by_name, card, reps, roi_reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -3865,6 +4339,17 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_refine'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 27-30] {time.perf_counter() - t27:.1f} s')
+    t31 = time.perf_counter()
+    captured.update(phase_hbb_slice('cuda'))
+    hbb_serving, hbb_inputs = phase_hbb_serving('cuda', card=info['card'])
+    captured.update(hbb_inputs)
+    hbb_training, hbb_inputs = phase_hbb_training('cuda', card=info['card'])
+    captured.update(hbb_inputs)
+    hbb_loops, loop_inputs = phase_hbb_loops(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_hbb'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 31-34] {time.perf_counter() - t31:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -3875,12 +4360,13 @@ def main() -> int:
         # with its evaluation, FCOS serving and training, the anchor
         # recipes' training and serving, the tiny FCOS and CSL runs with
         # their evaluations, S2ANet's and R3Det's requests and steps, and
-        # their tiny runs with their evaluations
+        # their tiny runs with their evaluations, and the same for Rotated
+        # Faster R-CNN, Gliding Vertex and RoI Transformer
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
             *fcos, *families, *loops, *refine_serving, *refine_training,
-            *refine_loops))
+            *refine_loops, *hbb_serving, *hbb_training, *hbb_loops))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -47,7 +47,13 @@ class DetectorBundle:
     ``plain_roi_align`` does the same for a two-stage detector's RoIAlign
     (reference runs on the card). A refine detector's (S2ANet, R3Det)
     class count is its ODM head's, else its last refine head's, else its
-    FAM head's, as in the JAX package."""
+    FAM head's, and a two-stage detector's that of its last RoI bbox head,
+    as in the JAX package.
+
+    Serving runs in inference mode. The heads keep the anchors and coder
+    constants they make in it apart from those they make outside it
+    (:func:`..core.anchors.cached`), so a later train step on the same
+    module can save its own for the backward."""
 
     def __init__(self, cfg, detector: nn.Module, dtype=torch.float32,
                  device_norm: Optional[dict] = None,
@@ -64,6 +70,8 @@ class DetectorBundle:
         head = model.get('bbox_head')
         if head is None and self.two_stage:
             head = model['roi_head']['bbox_head']
+            if isinstance(head, (list, tuple)):    # RoI Transformer's stages
+                head = head[-1]
         if head is None:                        # refine (S2ANet)
             head = model.get('odm_head') or \
                 (model.get('refine_heads') or [None])[-1] or \

@@ -3,8 +3,10 @@ from .anchors import (MlvlPointGenerator, PseudoAnchorGenerator,
 from .assigners import (AssignResult, ATSSObbAssigner, MaxIoUAssigner,
                         PseudoSampler, RRandomSampler, SampleKey,
                         SamplingResult, random_sample_masks, rng_from_gt)
-from .coders import (CSLCoder, DeltaXYWHAOBBoxCoder, DistanceAnglePointCoder,
-                     MidpointOffsetCoder, poly2obb_from_parallelogram)
+from .coders import (CSLCoder, DeltaXYWHAHBBoxCoder, DeltaXYWHAOBBoxCoder,
+                     DeltaXYWHBBoxCoder, DistanceAnglePointCoder, GVFixCoder,
+                     GVRatioCoder, MidpointOffsetCoder,
+                     poly2obb_from_parallelogram)
 
 __all__ = ['RotatedAnchorGenerator', 'PseudoAnchorGenerator',
            'MlvlPointGenerator',
@@ -12,5 +14,6 @@ __all__ = ['RotatedAnchorGenerator', 'PseudoAnchorGenerator',
            'ATSSObbAssigner', 'PseudoSampler', 'RRandomSampler', 'SampleKey',
            'SamplingResult', 'random_sample_masks', 'rng_from_gt',
            'DeltaXYWHAOBBoxCoder', 'MidpointOffsetCoder',
-           'DistanceAnglePointCoder', 'CSLCoder',
+           'DistanceAnglePointCoder', 'CSLCoder', 'DeltaXYWHBBoxCoder',
+           'DeltaXYWHAHBBoxCoder', 'GVFixCoder', 'GVRatioCoder',
            'poly2obb_from_parallelogram']

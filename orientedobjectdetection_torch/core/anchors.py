@@ -18,6 +18,19 @@ import torch
 from ..utils.registry import PRIOR_GENERATORS
 
 
+def cached(cache: dict, key, make):
+    """``cache[key]``, made by ``make()`` on a miss, kept apart for calls in
+    inference mode and outside it: a head keeps its anchors and constants
+    across calls, and a tensor made in inference mode (while a request is
+    served) could not be saved for the backward of a later train step on
+    the same module, while serving keeps the inference tensors it would
+    have made anyway."""
+    key = (key, torch.is_inference_mode_enabled())
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
 @PRIOR_GENERATORS.register_module()
 class RotatedAnchorGenerator:
     """Anchor centers at ``x * stride`` (mmdet's default offset 0)."""

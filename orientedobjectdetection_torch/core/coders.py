@@ -4,8 +4,11 @@
 Oriented R-CNN's ``MidpointOffsetCoder`` (reference
 ``delta_midpointoffset_rbbox_coder.py:13-232``), FCOS's
 ``DistanceAnglePointCoder`` (``distance_angle_point_coder.py:10-111``) and
-the CSL angle coder ``CSLCoder`` (``angle_coder.py:11-114``). Element-wise
-over leading dims."""
+the CSL angle coder ``CSLCoder`` (``angle_coder.py:11-114``), and for the
+horizontal-proposal detectors mmdet's ``DeltaXYWHBBoxCoder``,
+``DeltaXYWHAHBBoxCoder`` (``delta_xywha_hbbox_coder.py``) and Gliding
+Vertex's ``GVFixCoder`` / ``GVRatioCoder`` (``gliding_vertex_coder.py``).
+Element-wise over leading dims."""
 
 from __future__ import annotations
 
@@ -16,16 +19,15 @@ import torch
 
 from ..ops.boxes import PI, norm_angle, obb2poly
 from ..utils.registry import BBOX_CODERS
+from .anchors import cached
 
 
 def _stats_on(cache: dict, means, stds, like: torch.Tensor):
     """(means, stds) as tensors on ``like``'s device and dtype, kept in
     ``cache``: made once per device and dtype, because a copy from the host
     waits for the device, and the train step's targets should not."""
-    key = (like.device, like.dtype)
-    if key not in cache:
-        cache[key] = (like.new_tensor(means), like.new_tensor(stds))
-    return cache[key]
+    return cached(cache, (like.device, like.dtype),
+                  lambda: (like.new_tensor(means), like.new_tensor(stds)))
 
 
 @BBOX_CODERS.register_module()
@@ -131,6 +133,13 @@ class DeltaXYWHAOBBoxCoder:
                              self.angle_range)
             return torch.stack([gx, gy, w_r, h_r, a_r], -1)
         return torch.stack([gx, gy, gw, gh, ga], -1)
+
+
+@BBOX_CODERS.register_module()
+class DeltaXYWHAHBBoxCoder(DeltaXYWHAOBBoxCoder):
+    """Horizontal rois (theta-0 rotated boxes) -> rotated boxes (reference
+    ``delta_xywha_hbbox_coder.py``): the OBB coder's arithmetic with the
+    roi angle 0, as the JAX package's subclass."""
 
 
 @BBOX_CODERS.register_module()
@@ -338,3 +347,125 @@ class CSLCoder:
         idx = angle_preds.argmax(-1).float()
         deg = idx * self.omega + self.omega / 2 - self.angle_offset
         return deg * (PI / 180)
+
+
+@BBOX_CODERS.register_module()
+class DeltaXYWHBBoxCoder:
+    """mmdet's 4-parameter axis-aligned delta coder over xyxy boxes, for
+    the horizontal-proposal RPN (Gliding Vertex, Rotated Faster R-CNN, RoI
+    Transformer) and the Gliding Vertex box branch. ``decode`` clips the
+    corners to ``max_shape`` (h, w) when given."""
+
+    encode_size = 4
+
+    def __init__(self, target_means: Sequence[float] = (0., 0., 0., 0.),
+                 target_stds: Sequence[float] = (1., 1., 1., 1.)):
+        self.means = tuple(float(m) for m in target_means)
+        self.stds = tuple(float(s) for s in target_stds)
+        self._stats_cache = {}
+
+    def _stats(self, like: torch.Tensor):
+        return _stats_on(self._stats_cache, self.means, self.stds, like)
+
+    def encode(self, bboxes: torch.Tensor,
+               gt_bboxes: torch.Tensor) -> torch.Tensor:
+        """bboxes, gt_bboxes (..., 4) xyxy -> deltas (..., 4)."""
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        gx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        gy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        gw = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+        gh = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+        deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                              torch.log(gw / pw), torch.log(gh / ph)], -1)
+        means, stds = self._stats(deltas)
+        return (deltas - means) / stds
+
+    def decode(self, bboxes: torch.Tensor, pred: torch.Tensor,
+               max_shape=None, wh_ratio_clip: float = 16 / 1000
+               ) -> torch.Tensor:
+        """bboxes (..., 4) xyxy; pred (..., 4) -> xyxy boxes (..., 4)."""
+        means, stds = self._stats(pred)
+        dx, dy, dw, dh = (pred * stds + means).unbind(-1)
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        max_ratio = abs(math.log(wh_ratio_clip))
+        gx = px + pw * dx
+        gy = py + ph * dy
+        gw = pw * torch.exp(dw.clamp(-max_ratio, max_ratio))
+        gh = ph * torch.exp(dh.clamp(-max_ratio, max_ratio))
+        x1, y1 = gx - gw / 2, gy - gh / 2
+        x2, y2 = gx + gw / 2, gy + gh / 2
+        if max_shape is not None:
+            x1, x2 = x1.clamp(0, max_shape[1]), x2.clamp(0, max_shape[1])
+            y1, y2 = y1.clamp(0, max_shape[0]), y2.clamp(0, max_shape[0])
+        return torch.stack([x1, y1, x2, y2], -1)
+
+
+def _edge_vertices(gt_obbs: torch.Tensor, version: str):
+    """The gts' corner points (..., 4, 2) and the bounds of their
+    circumscribed box."""
+    pts = obb2poly(gt_obbs, version).reshape(gt_obbs.shape[:-1] + (4, 2))
+    xs, ys = pts[..., 0], pts[..., 1]
+    return xs, ys, xs.amin(-1), xs.amax(-1), ys.amin(-1), ys.amax(-1)
+
+
+@BBOX_CODERS.register_module()
+class GVFixCoder:
+    """Gliding Vertex (reference ``gliding_vertex_coder.py``): a gt as the
+    four gliding offsets of its vertices along the edges of its
+    circumscribed box, each as a fraction of that edge: the top vertex's
+    from the left end, the right's from the top, the bottom's from the
+    right, the left's from the bottom. The vertex on an edge is the first
+    of the corners at that extreme (an axis-aligned gt has two there), as
+    ``jnp.argmin`` / ``argmax`` pick it."""
+
+    encode_size = 4
+
+    def __init__(self, angle_range: str = 'le90'):
+        self.version = angle_range
+
+    def encode(self, gt_obbs: torch.Tensor) -> torch.Tensor:
+        """gt_obbs (..., 5) -> gliding offsets (..., 4)."""
+        xs, ys, xmin, xmax, ymin, ymax = _edge_vertices(gt_obbs,
+                                                        self.version)
+        w = (xmax - xmin).clamp(min=1e-6)
+        h = (ymax - ymin).clamp(min=1e-6)
+
+        def at(v, idx):
+            return v.gather(-1, idx[..., None])[..., 0]
+
+        return torch.stack([(at(xs, ys.argmin(-1)) - xmin) / w,
+                            (at(ys, xs.argmax(-1)) - ymin) / h,
+                            (xmax - at(xs, ys.argmax(-1))) / w,
+                            (ymax - at(ys, xs.argmin(-1))) / h], -1)
+
+    def decode(self, hbbs: torch.Tensor,
+               fix_deltas: torch.Tensor) -> torch.Tensor:
+        """hbbs (..., 4) xyxy and offsets (..., 4) -> polygons (..., 8)."""
+        x1, y1, x2, y2 = hbbs.unbind(-1)
+        w, h = x2 - x1, y2 - y1
+        dt, dr, db, dl = fix_deltas.unbind(-1)
+        return torch.stack([x1 + w * dt, y1, x2, y1 + h * dr,
+                            x2 - w * db, y2, x1, y2 - h * dl], -1)
+
+
+@BBOX_CODERS.register_module()
+class GVRatioCoder:
+    """Gliding Vertex's rectangularity: the gt's area over that of its
+    circumscribed box, (..., 1)."""
+
+    encode_size = 1
+
+    def __init__(self, angle_range: str = 'le90'):
+        self.version = angle_range
+
+    def encode(self, gt_obbs: torch.Tensor) -> torch.Tensor:
+        _, _, xmin, xmax, ymin, ymax = _edge_vertices(gt_obbs, self.version)
+        hbb_area = (xmax - xmin) * (ymax - ymin)
+        obb_area = gt_obbs[..., 2] * gt_obbs[..., 3]
+        return (obb_area / hbb_area.clamp(min=1e-6))[..., None]

@@ -1,16 +1,19 @@
-// RoIAlignRotated (7x7 bins, 2x2 samples per bin) over an FPN pyramid with
-// per-RoI level routing, hand-written for Hopper (sm_90a).
+// RoIAlignRotated (7x7 bins, 2x2 samples per bin, or 1 with sampling ratio
+// 1) over an FPN pyramid with per-RoI level routing, hand-written for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel orientedobjectdetection_tpu/ops/roi_align_pallas.py:
 // roi_align_rotated_pallas (kernel body _make_kernel). It computes the
 // contract of the gather formulation,
 // orientedobjectdetection_torch/ops/roi_align_rotated.py: for RoI
 // (cx, cy, w, h, theta) routed to pyramid level l, a 14x14 sample grid at
-// ((k + 0.5) / 14 - 0.5) * (w, h), rotated by theta (negated when
+// ((k + 0.5) / 14 - 0.5) * (w, h) (7x7 at ((k + 0.5) / 7 - 0.5) with
+// sampling ratio 1, the Rotated Faster R-CNN config's), rotated by theta
+// (negated when
 // `clockwise`), shifted to (cx, cy), times the level's scale, minus 0.5;
 // four bilinear corners per sample, a corner whose integer coordinate lies
 // outside [0, W) x [0, H) contributing 0 (masked, not clamped, as mmcv); the
-// mean of each bin's 2x2 samples; exact zeros for RoIs with w <= 1e-3 or
+// mean of each bin's samples; exact zeros for RoIs with w <= 1e-3 or
 // h <= 1e-3.
 //
 // What is NOT carried over from the TPU kernel: its per-RoI window copy, the
@@ -82,9 +85,10 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
-constexpr int kGrid = 14;              // samples per side: 7 bins x 2
 constexpr int kBinsSide = 7;
-constexpr int kRowSamples = 2 * kGrid;  // samples of one row of bins
+constexpr int kMaxRatio = 2;           // samples per bin side
+// samples of one row of bins at the largest ratio: 2 rows of 14
+constexpr int kMaxRowSamples = kMaxRatio * kBinsSide * kMaxRatio;
 constexpr int kThreads = 256;
 constexpr int kMaxTeams = 4;           // RoIs per block
 
@@ -184,17 +188,20 @@ struct Lane<float, 1> {             // scalar path, float32
 // Block: `teams` RoIs of one image (blockIdx.y), consecutive from
 // blockIdx.x * teams, each pooled by a team of `team` threads; thread
 // t belongs to team t / team. A lane walks the channel vectors
-// lane, lane + team, ... < channels / kVec.
-template <typename T, int kVec>
+// lane, lane + team, ... < channels / kVec. kRatio samples per bin side.
+template <typename T, int kVec, int kRatio>
 __global__ void __launch_bounds__(kThreads, 2)
 roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
                          const int* __restrict__ levels, T* __restrict__ out,
                          int num_rois, int channels, int team, int teams,
                          bool clockwise) {
   using L = Lane<T, kVec>;
+  constexpr int kGrid = kBinsSide * kRatio;        // samples per side
+  constexpr int kRowSamples = kRatio * kGrid;      // of one row of bins
+  constexpr int kBinSamples = kRatio * kRatio;
   __shared__ RoiGeometry s_roi[kMaxTeams];
-  __shared__ int4 s_cell[2][kMaxTeams][kRowSamples];   // offsets, -1 masked
-  __shared__ float4 s_wgt[2][kMaxTeams][kRowSamples];
+  __shared__ int4 s_cell[2][kMaxTeams][kMaxRowSamples];  // offsets, -1 masked
+  __shared__ float4 s_wgt[2][kMaxTeams][kMaxRowSamples];
 
   const int tid = threadIdx.x;
   const int vecs = channels / kVec;
@@ -256,15 +263,16 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
     }
   }
 
-  // Geometry of one row of bins (sample rows 2 * by and 2 * by + 1) of every
-  // RoI of the block into buffer `buf`: corner offsets into the level (in
-  // elements, -1 when masked) and bilinear weights.
+  // Geometry of one row of bins (sample rows kRatio * by to
+  // kRatio * by + kRatio - 1) of every RoI of the block into buffer `buf`:
+  // corner offsets into the level (in elements, -1 when masked) and
+  // bilinear weights.
   auto stage_row = [&](int by, int buf) {
     for (int i = tid; i < teams * kRowSamples; i += blockDim.x) {
       const int kk = i / kRowSamples;
       const int s = i - kk * kRowSamples;
       const RoiGeometry g = s_roi[kk];
-      const int p = (2 * by + s / kGrid) * kGrid + s % kGrid;
+      const int p = (kRatio * by + s / kGrid) * kGrid + s % kGrid;
       const float gx = (static_cast<float>(p % kGrid) + 0.5f) / kGrid - 0.5f;
       const float gy = (static_cast<float>(p / kGrid) + 0.5f) / kGrid - 0.5f;
       const float lx = gx * g.w, ly = gy * g.h;
@@ -303,21 +311,21 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
     if (by + 1 < kBinsSide) stage_row(by + 1, buf ^ 1);
     if (live) {
       for (int bx = 0; bx < kBinsSide; ++bx) {
-        // the bin's 4 samples x 4 corners: one 16-byte read of offsets and
+        // the bin's samples x 4 corners: one 16-byte read of offsets and
         // one of weights per sample
-        int q[4];                            // the samples, in s_cell
-        int4 cell[4];
+        int q[kBinSamples];                  // the samples, in s_cell
+        int4 cell[kBinSamples];
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          q[s] = (s >> 1) * kGrid + 2 * bx + (s & 1);
+        for (int s = 0; s < kBinSamples; ++s) {
+          q[s] = (s / kRatio) * kGrid + kRatio * bx + s % kRatio;
           cell[s] = s_cell[buf][k][q[s]];
         }
         T* ob = o + static_cast<size_t>(by * kBinsSide + bx) * channels;
         for (int v = lane; v < vecs; v += team) {
           const T* src = base + v * kVec;
-          typename L::Raw raw[16];
+          typename L::Raw raw[4 * kBinSamples];
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {       // all 16 loads in flight
+          for (int s = 0; s < kBinSamples; ++s) {  // all loads in flight
             const int4 c = cell[s];
             raw[4 * s + 0] = c.x >= 0 ? L::load(src + c.x) : L::zero();
             raw[4 * s + 1] = c.y >= 0 ? L::load(src + c.y) : L::zero();
@@ -327,7 +335,7 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
           // a masked corner loaded zeros: adding its w * 0 leaves the sum
           float acc[kVec] = {};
 #pragma unroll
-          for (int s = 0; s < 4; ++s) {
+          for (int s = 0; s < kBinSamples; ++s) {
             const float4 w = s_wgt[buf][k][q[s]];
             L::fma(acc, w.x, raw[4 * s + 0]);
             L::fma(acc, w.y, raw[4 * s + 1]);
@@ -335,7 +343,7 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
             L::fma(acc, w.w, raw[4 * s + 3]);
           }
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[e] *= 0.25f;
+          for (int e = 0; e < kVec; ++e) acc[e] *= 1.0f / kBinSamples;
           L::store(ob + v * kVec, acc);
         }
       }
@@ -344,7 +352,7 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
   }
 }
 
-template <typename T, int kVec>
+template <typename T, int kVec, int kRatio>
 void launch(const Pyramid& pyr, const float* rois, const int* levels, T* out,
             int batch, int num_rois, int channels, bool clockwise,
             cudaStream_t stream) {
@@ -354,8 +362,21 @@ void launch(const Pyramid& pyr, const float* rois, const int* levels, T* out,
   if (teams > kMaxTeams) teams = kMaxTeams;
   const int threads = ((teams * team + 31) / 32) * 32;
   const dim3 grid((num_rois + teams - 1) / teams, batch);
-  roi_align_rotated_kernel<T, kVec><<<grid, threads, 0, stream>>>(
+  roi_align_rotated_kernel<T, kVec, kRatio><<<grid, threads, 0, stream>>>(
       pyr, rois, levels, out, num_rois, channels, team, teams, clockwise);
+}
+
+template <typename T, int kVec>
+void launch_ratio(int ratio, const Pyramid& pyr, const float* rois,
+                  const int* levels, T* out, int batch, int num_rois,
+                  int channels, bool clockwise, cudaStream_t stream) {
+  if (ratio == 1) {
+    launch<T, kVec, 1>(pyr, rois, levels, out, batch, num_rois, channels,
+                       clockwise, stream);
+  } else {
+    launch<T, kVec, 2>(pyr, rois, levels, out, batch, num_rois, channels,
+                       clockwise, stream);
+  }
 }
 
 }  // namespace
@@ -368,16 +389,19 @@ void launch(const Pyramid& pyr, const float* rois, const int* levels, T* out,
 // type, all contiguous on the current device. `vector`: take the 16-byte
 // path, which needs channels a multiple of 16 bytes and every level and the
 // output 16-byte aligned (checked here too: cudaErrorMisalignedAddress
-// otherwise). Launches on `stream` without synchronising and returns
-// cudaGetLastError() of the launch.
+// otherwise). `sampling_ratio`: 1 or 2 samples per bin side. Launches on
+// `stream` without synchronising and returns cudaGetLastError() of the
+// launch.
 extern "C" int roi_align_rotated(const void* const* feats, const int* hs,
                                  const int* ws, const float* scales,
                                  int num_levels, const void* rois,
                                  const void* levels, void* out, int batch,
                                  int num_rois, int channels, int is_bf16,
-                                 int vector, int clockwise, void* stream) {
+                                 int vector, int clockwise,
+                                 int sampling_ratio, void* stream) {
   if (batch == 0 || num_rois == 0 || channels == 0) return 0;
-  if (num_levels < 1 || num_levels > kMaxLevels || batch > 65535) {
+  if (num_levels < 1 || num_levels > kMaxLevels || batch > 65535 ||
+      sampling_ratio < 1 || sampling_ratio > kMaxRatio) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pyramid pyr;
@@ -405,19 +429,24 @@ extern "C" int roi_align_rotated(const void* const* feats, const int* hs,
   const auto* r = static_cast<const float*>(rois);
   const auto* lv = static_cast<const int*>(levels);
   const bool cw = clockwise != 0;
+  const int sr = sampling_ratio;
   if (is_bf16) {
     auto* o = static_cast<__nv_bfloat16*>(out);
     if (vector) {
-      launch<__nv_bfloat16, 8>(pyr, r, lv, o, batch, num_rois, channels, cw, s);
+      launch_ratio<__nv_bfloat16, 8>(sr, pyr, r, lv, o, batch, num_rois,
+                                     channels, cw, s);
     } else {
-      launch<__nv_bfloat16, 1>(pyr, r, lv, o, batch, num_rois, channels, cw, s);
+      launch_ratio<__nv_bfloat16, 1>(sr, pyr, r, lv, o, batch, num_rois,
+                                     channels, cw, s);
     }
   } else {
     auto* o = static_cast<float*>(out);
     if (vector) {
-      launch<float, 4>(pyr, r, lv, o, batch, num_rois, channels, cw, s);
+      launch_ratio<float, 4>(sr, pyr, r, lv, o, batch, num_rois, channels,
+                             cw, s);
     } else {
-      launch<float, 1>(pyr, r, lv, o, batch, num_rois, channels, cw, s);
+      launch_ratio<float, 1>(sr, pyr, r, lv, o, batch, num_rois, channels,
+                             cw, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

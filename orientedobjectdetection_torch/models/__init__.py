@@ -6,15 +6,18 @@ from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
                           KFIoURRetinaHead, KFIoURRetinaRefineHead,
                           ODMRefineHead, OrientedRPNHead, RotatedATSSHead,
                           RotatedFCOSHead, RotatedRetinaHead,
-                          RotatedRetinaRefineHead)
-from .detectors import (OrientedRCNN, R3Det, RotatedFCOS, RotatedRetinaNet,
+                          RotatedRetinaRefineHead, RotatedRPNHead)
+from .detectors import (GlidingVertex, OrientedRCNN, R3Det, RoITransformer,
+                        RotatedFasterRCNN, RotatedFCOS, RotatedRetinaNet,
                         RotatedSingleStageDetector, RotatedTwoStageDetector,
                         S2ANet)
 from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
                      GIoULoss, IoULoss, KFLoss, L1Loss, RotatedIoULoss,
                      SmoothFocalLoss, SmoothL1Loss)
 from .necks import FPN
-from .roi_heads import OrientedStandardRoIHead, RotatedShared2FCBBoxHead
+from .roi_heads import (GVBBoxHead, GVRatioRoIHead, OrientedStandardRoIHead,
+                        RoITransRoIHead, RotatedKFIoUShared2FCBBoxHead,
+                        RotatedShared2FCBBoxHead, RotatedStandardRoIHead)
 
 
 def build_detector(cfg, train_cfg=None, test_cfg=None):
@@ -36,7 +39,10 @@ __all__ = [
     'OrientedRPNHead', 'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead',
     'OrientedRCNN', 'RotatedTwoStageDetector', 'RotatedRetinaRefineHead',
     'KFIoURRetinaRefineHead', 'ODMRefineHead', 'KFIoUODMRefineHead',
-    'S2ANet', 'R3Det', 'CrossEntropyLoss',
+    'S2ANet', 'R3Det', 'RotatedRPNHead', 'RotatedStandardRoIHead',
+    'RotatedKFIoUShared2FCBBoxHead', 'GVBBoxHead', 'GVRatioRoIHead',
+    'RoITransRoIHead', 'RotatedFasterRCNN', 'GlidingVertex',
+    'RoITransformer', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS',

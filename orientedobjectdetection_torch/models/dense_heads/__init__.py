@@ -4,8 +4,9 @@ from .rotated_anchor_head import (CSLRRetinaHead, KFIoURRetinaHead,
 from .refine_heads import (KFIoUODMRefineHead, KFIoURRetinaRefineHead,
                            ODMRefineHead, RotatedRetinaRefineHead)
 from .rotated_fcos_head import CSLRFCOSHead, RotatedFCOSHead
+from .rotated_rpn_head import RotatedRPNHead
 
 __all__ = ['OrientedRPNHead', 'RotatedRetinaHead', 'KFIoURRetinaHead',
            'RotatedATSSHead', 'CSLRRetinaHead', 'RotatedFCOSHead',
            'CSLRFCOSHead', 'RotatedRetinaRefineHead', 'KFIoURRetinaRefineHead',
-           'ODMRefineHead', 'KFIoUODMRefineHead']
+           'ODMRefineHead', 'KFIoUODMRefineHead', 'RotatedRPNHead']

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
+from ...core.anchors import cached
 from ...core.assigners import (MaxIoUAssigner, random_sample_masks,
                                rng_from_gt)
 from ...ops.boxes import hbb2obb, obb2hbb, obb2xyxy
@@ -39,6 +40,8 @@ class OrientedRPNHead(nn.Module):
     (defaults: IoU 0.7 / 0.3 / 0.3, 256 anchors at 0.5); the losses default
     to sigmoid cross entropy and smooth L1 with beta 1/9, as the JAX
     package's do."""
+
+    default_nms_thr = 0.8
 
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
                  num_classes: int = 1,
@@ -67,18 +70,37 @@ class OrientedRPNHead(nn.Module):
             scales=[8], ratios=[0.5, 1.0, 2.0], strides=[4, 8, 16, 32, 64]))
         anchors['type'] = 'RotatedAnchorGenerator'
         self.prior_generator = PRIOR_GENERATORS.build(anchors)
-        self.coder = BBOX_CODERS.build(dict(
-            bbox_coder or dict(type='MidpointOffsetCoder',
-                               angle_range=version)))
+        self.coder = self.build_coder(bbox_coder)
         self.num_anchors = self.prior_generator.num_base_anchors[0]
         self.rpn_conv = nn.Conv2d(in_channels, feat_channels, 3, padding=1)
         self.rpn_cls = nn.Conv2d(feat_channels, self.num_anchors, 1)
-        self.rpn_reg = nn.Conv2d(feat_channels, self.num_anchors * 6, 1)
+        self.rpn_reg = nn.Conv2d(feat_channels,
+                                 self.num_anchors * self.coder.encode_size, 1)
         self._anchor_cache: Dict[tuple, Sequence[torch.Tensor]] = {}
+
+    def build_coder(self, bbox_coder: Optional[dict]):
+        return BBOX_CODERS.build(dict(
+            bbox_coder or dict(type='MidpointOffsetCoder',
+                               angle_range=self.version)))
+
+    def regression_targets(self, anchors_xyxy, matched):
+        """Deltas of the anchors (N, 4) xyxy to their matched rotated gts
+        (B, N, 5)."""
+        return self.coder.encode(anchors_xyxy[None], matched)
+
+    def keep_size(self, boxes, min_bbox_size: float):
+        """The decoded candidates (B, K, 5) whose w and h reach
+        ``min_bbox_size``."""
+        return (boxes[..., 2] >= min_bbox_size) & \
+            (boxes[..., 3] >= min_bbox_size)
+
+    def candidate_hbbs(self, boxes):
+        """The xyxy boxes the proposals' NMS compares."""
+        return obb2xyxy(boxes, self.version)
 
     def forward(self, feats):
         """NCHW levels -> per-level (cls_scores (B, A, H, W),
-        bbox_preds (B, A*6, H, W))."""
+        bbox_preds (B, A*E, H, W)), E the coder's ``encode_size``."""
         cls_scores, bbox_preds = [], []
         for x in feats:
             t = F.relu(self.rpn_conv(x))
@@ -88,21 +110,22 @@ class OrientedRPNHead(nn.Module):
 
     def anchors(self, featmap_sizes, device) -> Sequence[torch.Tensor]:
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
-        if key not in self._anchor_cache:
-            self._anchor_cache[key] = self.prior_generator.grid_priors(
-                featmap_sizes, device=device)
-        return self._anchor_cache[key]
+        return cached(self._anchor_cache, key,
+                      lambda: self.prior_generator.grid_priors(
+                          featmap_sizes, device=device))
 
     def train_anchors(self, featmap_sizes, device):
         """The anchors of all levels as xyxy boxes (N, 4) and as the
         rotated boxes the assigner compares, ``hbb2obb`` of those (N, 5)."""
         key = (tuple(tuple(s) for s in featmap_sizes), str(device), 'train')
-        if key not in self._anchor_cache:
+
+        def make():
             xyxy = obb2xyxy(torch.cat(list(self.anchors(featmap_sizes,
                                                         device)), 0),
                             self.version)
-            self._anchor_cache[key] = (xyxy, hbb2obb(xyxy, self.version))
-        return self._anchor_cache[key]
+            return xyxy, hbb2obb(xyxy, self.version)
+
+        return cached(self._anchor_cache, key, make)
 
     @torch.no_grad()
     def targets(self, anchors_xyxy, anchors_rot, gt_bboxes, gt_mask):
@@ -121,7 +144,7 @@ class OrientedRPNHead(nn.Module):
             neg_pos_ub=int(samp.get('neg_pos_ub', -1)))
         safe = assign.assigned_gt_inds.clamp(min=0)
         matched = gt_bboxes.gather(1, safe[..., None].expand(-1, -1, 5))
-        deltas = self.coder.encode(anchors_xyxy[None], matched)
+        deltas = self.regression_targets(anchors_xyxy, matched)
         deltas = torch.where(pos[..., None], deltas, 0.0)
         return pos.float(), (pos | neg).float(), deltas, pos.float()
 
@@ -141,7 +164,8 @@ class OrientedRPNHead(nn.Module):
         # NCHW -> location-major, anchor a of a location at loc * A + a
         cls_flat = torch.cat([s.permute(0, 2, 3, 1).reshape(b, -1)
                               for s in cls_scores], 1).float()
-        box_flat = torch.cat([p.permute(0, 2, 3, 1).reshape(b, -1, 6)
+        e = self.coder.encode_size
+        box_flat = torch.cat([p.permute(0, 2, 3, 1).reshape(b, -1, e)
                               for p in bbox_preds], 1).float()
         num_samples = label_weights.sum().clamp(min=1.0)
         loss_cls = self.cls_loss(cls_flat[..., None], fg[..., None],
@@ -169,12 +193,13 @@ class OrientedRPNHead(nn.Module):
         nms_pre = int(cfg.get('nms_pre', 2000))
         max_num = int(cfg.get('max_per_img', cfg.get('max_num', 2000)))
         nms_cfg = cfg.get('nms', {})
-        iou_thr = float(nms_cfg.get('iou_thr',
-                                    nms_cfg.get('iou_threshold', 0.8)))
+        iou_thr = float(nms_cfg.get('iou_thr', nms_cfg.get(
+            'iou_threshold', self.default_nms_thr)))
         min_bbox_size = float(cfg.get('min_bbox_size', 0))
 
         featmap_sizes = [tuple(s.shape[-2:]) for s in cls_scores]
         level_anchors = self.anchors(featmap_sizes, cls_scores[0].device)
+        e = self.coder.encode_size
         cand_boxes, cand_scores = [], []
         for logits, deltas, anchors in zip(cls_scores, bbox_preds,
                                            level_anchors):
@@ -182,24 +207,25 @@ class OrientedRPNHead(nn.Module):
             # NCHW -> (B, h*w*A): anchor a of a location at index loc*A + a
             scores = torch.sigmoid(
                 logits.permute(0, 2, 3, 1).reshape(b, -1).float())
-            deltas = deltas.permute(0, 2, 3, 1).reshape(b, -1, 6).float()
+            deltas = deltas.permute(0, 2, 3, 1).reshape(b, -1, e).float()
             k = min(nms_pre, scores.shape[1])
             top_s, top_i = topk_candidates(scores, k)          # (B, k)
             anchors_xyxy = obb2xyxy(anchors[top_i], self.version)
-            sel = deltas.gather(1, top_i[..., None].expand(-1, -1, 6))
+            sel = deltas.gather(1, top_i[..., None].expand(-1, -1, e))
             cand_boxes.append(self.coder.decode(anchors_xyxy, sel))
             cand_scores.append(top_s)
         boxes = torch.cat(cand_boxes, 1)
         scores = torch.cat(cand_scores, 1)
-        ok = (boxes[..., 2] >= min_bbox_size) & \
-            (boxes[..., 3] >= min_bbox_size)
-        scores = torch.where(ok, scores, scores.new_tensor(NEG_INF))
+        ok = self.keep_size(boxes, min_bbox_size)
+        if ok is not None:
+            scores = torch.where(ok, scores, scores.new_tensor(NEG_INF))
         # cap the NMS problem size
         k = min(max_candidates, scores.shape[1])
         top_s, top_i = topk_candidates(scores, k)
-        top_b = boxes.gather(1, top_i[..., None].expand(-1, -1, 5))
+        d = boxes.shape[-1]
+        top_b = boxes.gather(1, top_i[..., None].expand(-1, -1, d))
         valid = top_s > NEG_INF / 2
-        hbbs = obb2xyxy(top_b, self.version)
+        hbbs = self.candidate_hbbs(top_b)
         hbbs = torch.where(valid[..., None], hbbs, torch.zeros_like(hbbs))
         keep, _ = nms_hbb(hbbs, top_s, iou_thr, valid_mask=valid)
         kept_scores = torch.where(keep, top_s, top_s.new_tensor(NEG_INF))
@@ -208,7 +234,7 @@ class OrientedRPNHead(nn.Module):
             top_b = F.pad(top_b, (0, 0, 0, max_num - k))
         out_s, out_i = topk_candidates(kept_scores, max_num)
         out_valid = out_s > NEG_INF / 2
-        out_b = top_b.gather(1, out_i[..., None].expand(-1, -1, 5))
+        out_b = top_b.gather(1, out_i[..., None].expand(-1, -1, d))
         out_b = torch.where(out_valid[..., None], out_b,
                             torch.zeros_like(out_b))
         out_s = torch.where(out_valid, out_s, torch.zeros_like(out_s))

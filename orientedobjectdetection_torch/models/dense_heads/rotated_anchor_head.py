@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ...core.anchors import cached
 from ...ops.nms import multiclass_nms_rotated, topk_candidates
 from ...utils.registry import (BBOX_ASSIGNERS, BBOX_CODERS, HEADS, LOSSES,
                                PRIOR_GENERATORS)
@@ -81,14 +82,18 @@ class AnchorHead(nn.Module):
         self.bbox_loss = LOSSES.build(dict(loss_bbox)) if loss_bbox else None
         self.assigner = None
         if train_cfg and train_cfg.get('assigner'):
-            assigner = dict(train_cfg['assigner'])
-            if assign_by_circumhbbox is not None:
-                assigner['assign_by_circumhbbox'] = assign_by_circumhbbox
-            self.assigner = BBOX_ASSIGNERS.build(assigner)
+            self.assigner = self.build_assigner(dict(train_cfg['assigner']))
         self.prior_generator = PRIOR_GENERATORS.build(dict(anchor_generator))
         self.coder = BBOX_CODERS.build(dict(bbox_coder))
         self.num_anchors = self.prior_generator.num_base_anchors[0]
         self._anchor_cache: Dict[tuple, Sequence[torch.Tensor]] = {}
+
+    def build_assigner(self, cfg: dict):
+        """The assigner of ``train_cfg['assigner']``, on the gts'
+        circumscribed boxes when the head asks for it."""
+        if self.assign_by_circumhbbox is not None:
+            cfg['assign_by_circumhbbox'] = self.assign_by_circumhbbox
+        return BBOX_ASSIGNERS.build(cfg)
 
     @property
     def cls_out_channels(self) -> int:
@@ -96,19 +101,16 @@ class AnchorHead(nn.Module):
 
     def anchors(self, featmap_sizes, device) -> Sequence[torch.Tensor]:
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
-        if key not in self._anchor_cache:
-            self._anchor_cache[key] = self.prior_generator.grid_priors(
-                featmap_sizes, device=device)
-        return self._anchor_cache[key]
+        return cached(self._anchor_cache, key,
+                      lambda: self.prior_generator.grid_priors(
+                          featmap_sizes, device=device))
 
     def flat_anchors(self, featmap_sizes, device) -> torch.Tensor:
         """(N, 5) anchors concatenated over levels, the same for every
         image."""
         key = (tuple(tuple(s) for s in featmap_sizes), str(device), 'flat')
-        if key not in self._anchor_cache:
-            self._anchor_cache[key] = torch.cat(
-                list(self.anchors(featmap_sizes, device)), 0)
-        return self._anchor_cache[key]
+        return cached(self._anchor_cache, key, lambda: torch.cat(
+            list(self.anchors(featmap_sizes, device)), 0))
 
     # ---- targets and loss (batched) -------------------------------------
     def _assign(self, anchors, featmap_sizes, gt_bboxes, gt_labels, gt_mask,
@@ -398,7 +400,12 @@ class RotatedATSSHead(RotatedRetinaHead):
     """ATSS-assigned RetinaNet head (reference
     ``rotated_atss_head.py:12-234``): the RetinaNet towers, with
     ``ATSSObbAssigner`` given the anchors' count per level. It takes no
-    ignore regions, as in the JAX package."""
+    ignore regions, as in the JAX package. Its assigner is built from
+    ``train_cfg['assigner']`` alone: the head's ``assign_by_circumhbbox``
+    is not read (JAX ``rotated_anchor_head.py:401-406``)."""
+
+    def build_assigner(self, cfg: dict):
+        return BBOX_ASSIGNERS.build(cfg)
 
     def loss(self, outputs, gt_bboxes, gt_labels, gt_mask):
         return self._loss(outputs, gt_bboxes, gt_labels, gt_mask)[0]

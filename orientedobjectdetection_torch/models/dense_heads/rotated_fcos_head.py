@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
-from ...core.anchors import MlvlPointGenerator
+from ...core.anchors import MlvlPointGenerator, cached
 from ...core.coders import DistanceAnglePointCoder
 from ...ops.nms import multiclass_nms_rotated, topk_candidates
 from ...utils.registry import BBOX_CODERS, HEADS, LOSSES
@@ -189,7 +189,8 @@ class RotatedFCOSHead(nn.Module):
         """(N, 2) points over every level, and each point's (N, 2) regress
         range and (N,) stride, float32 on ``device``."""
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
-        if key not in self._point_cache:
+
+        def make():
             pts = self.prior_generator.grid_priors(featmap_sizes, device)
             ranges = [torch.tensor(self.regress_ranges[lvl],
                                    device=device).expand(len(p), 2)
@@ -197,9 +198,9 @@ class RotatedFCOSHead(nn.Module):
             strides = [torch.full((len(p),), float(self.strides[lvl]),
                                   device=device)
                        for lvl, p in enumerate(pts)]
-            self._point_cache[key] = (torch.cat(pts), torch.cat(ranges),
-                                      torch.cat(strides))
-        return self._point_cache[key]
+            return torch.cat(pts), torch.cat(ranges), torch.cat(strides)
+
+        return cached(self._point_cache, key, make)
 
     @torch.no_grad()
     def targets(self, points, ranges, strides, gt_bboxes, gt_labels,

@@ -74,16 +74,21 @@ class RotatedShared2FCBBoxHead(nn.Module):
         loss_cls = self.cls_loss(
             cls_score.float(), labels, weight=label_weights,
             avg_factor=label_weights.sum().clamp(min=1.0))
-        bbox_pred = bbox_pred.float()
-        if not self.reg_class_agnostic:
-            b, r = bbox_pred.shape[:2]
-            per_class = bbox_pred.reshape(b, r, self.num_classes, 5)
-            safe = labels.clamp(0, self.num_classes - 1)
-            bbox_pred = per_class.gather(
-                2, safe[..., None, None].expand(-1, -1, 1, 5))[..., 0, :]
-        loss_bbox = self.bbox_loss(bbox_pred, bbox_targets,
-                                   weight=bbox_weights, avg_factor=num_pos)
+        loss_bbox = self.bbox_loss(
+            self.pred_at_labels(bbox_pred.float(), labels), bbox_targets,
+            weight=bbox_weights, avg_factor=num_pos)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+
+    def pred_at_labels(self, bbox_pred, labels):
+        """(B, R, 5) deltas: a per-class regression read at each RoI's label
+        (background reads the last class); agnostic ones as they are."""
+        if self.reg_class_agnostic:
+            return bbox_pred
+        b, r = bbox_pred.shape[:2]
+        per_class = bbox_pred.reshape(b, r, self.num_classes, 5)
+        safe = labels.clamp(0, self.num_classes - 1)
+        return per_class.gather(
+            2, safe[..., None, None].expand(-1, -1, 1, 5))[..., 0, :]
 
     def decode_bboxes(self, rois, bbox_pred, img_shape=None):
         """rois (B, R, 5); bbox_pred (B, R, 5 or C*5) -> decoded
@@ -94,3 +99,28 @@ class RotatedShared2FCBBoxHead(nn.Module):
         bp = bbox_pred.reshape(b, r, self.num_classes, 5)
         return self.coder.decode(rois[:, :, None, :], bp,
                                  max_shape=img_shape)
+
+
+@HEADS.register_module()
+class RotatedKFIoUShared2FCBBoxHead(RotatedShared2FCBBoxHead):
+    """The shared-2FC head trained with the KFIoU loss (reference
+    ``bbox_heads/kfiou_rotate_bbox_head.py``, the stage-1 head of the
+    ``configs/kfiou/roi_trans_kfiou_ln_*`` configs): ``KFLoss`` reads the
+    deltas and the boxes decoded from the predicted and the target deltas
+    against the RoIs."""
+
+    def __init__(self, *args, loss_bbox: Optional[dict] = None, **kwargs):
+        super().__init__(*args, loss_bbox=loss_bbox or dict(
+            type='KFLoss', loss_weight=1.0), **kwargs)
+
+    def loss(self, cls_score, bbox_pred, rois, labels, label_weights,
+             bbox_targets, bbox_weights, num_pos):
+        loss_cls = self.cls_loss(
+            cls_score.float(), labels, weight=label_weights,
+            avg_factor=label_weights.sum().clamp(min=1.0))
+        bbox_pred = self.pred_at_labels(bbox_pred.float(), labels)
+        loss_bbox = self.bbox_loss(
+            bbox_pred, bbox_targets, weight=bbox_weights, avg_factor=num_pos,
+            pred_decode=self.coder.decode(rois, bbox_pred),
+            targets_decode=self.coder.decode(rois, bbox_targets))
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)

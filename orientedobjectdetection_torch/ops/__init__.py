@@ -1,4 +1,5 @@
-from .boxes import hbb2obb, norm_angle, obb2hbb, obb2poly, obb2xyxy
+from .boxes import (hbb2obb, norm_angle, obb2hbb, obb2poly, obb2xyxy,
+                    poly2obb)
 from .feature_align import (align_conv_sample, bilinear_sample,
                             deform_conv_sample, rotated_feature_align)
 from .iou import box_iou_rotated, diff_iou_rotated_2d, rbbox_overlaps
@@ -13,7 +14,7 @@ from .roi_align_kernels import (roi_align_rotated_pyramid,
 from .roi_align_rotated import roi_align_rotated
 
 __all__ = [
-    'norm_angle', 'obb2hbb', 'obb2poly', 'obb2xyxy', 'hbb2obb',
+    'norm_angle', 'obb2hbb', 'obb2poly', 'obb2xyxy', 'hbb2obb', 'poly2obb',
     'box_iou_rotated', 'diff_iou_rotated_2d', 'rbbox_overlaps',
     'box_iou_rotated_matrix', 'box_iou_rotated_matrix_plain',
     'nms_pair_mask', 'nms_pair_mask_plain', 'nms_rotated',

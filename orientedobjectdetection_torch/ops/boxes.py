@@ -52,6 +52,40 @@ def obb2poly(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
                         x - wx + hx, y - wy + hy], -1)
 
 
+def poly2obb(polys: torch.Tensor, version: str = 'oc') -> torch.Tensor:
+    """(..., 8) polygons -> (..., 5) obbs, batched: the reference's
+    edge-based construction (``transforms.py:242-331``). The corners are
+    taken to form a rectangle and are not re-fit: w and h are edge lengths,
+    the angle comes from the longer edge (le90 / le135) or the oc quadrant
+    rule. Unlike :func:`poly2obb_np` (the least rectangle of any polygon),
+    a quadrilateral that is not a rectangle gives this construction's
+    box, as the Gliding Vertex decode needs."""
+    pts = polys.reshape(polys.shape[:-1] + (4, 2))
+    if version == 'oc':
+        cx = pts[..., 0].mean(-1)
+        cy = pts[..., 1].mean(-1)
+        e01 = torch.linalg.norm(pts[..., 0, :] - pts[..., 1, :], dim=-1)
+        e12 = torch.linalg.norm(pts[..., 1, :] - pts[..., 2, :], dim=-1)
+        theta0 = torch.atan2(-(pts[..., 1, 0] - pts[..., 0, 0]),
+                             pts[..., 1, 1] - pts[..., 0, 1])
+        odd = torch.remainder(torch.floor(theta0 / (PI * 0.5)), 2) == 0
+        return torch.stack([cx, cy, torch.where(odd, e12, e01),
+                            torch.where(odd, e01, e12),
+                            torch.remainder(theta0, PI * 0.5)], -1)
+    if version not in ('le90', 'le135'):
+        raise NotImplementedError(version)
+    pt1, pt2, pt3, pt4 = pts.unbind(-2)
+    edge1 = torch.linalg.norm(pt1 - pt2, dim=-1)
+    edge2 = torch.linalg.norm(pt2 - pt3, dim=-1)
+    angle1 = torch.atan2(pt2[..., 1] - pt1[..., 1], pt2[..., 0] - pt1[..., 0])
+    angle2 = torch.atan2(pt4[..., 1] - pt1[..., 1], pt4[..., 0] - pt1[..., 0])
+    angles = norm_angle(torch.where(edge1 > edge2, angle1, angle2), version)
+    return torch.stack([(pt1[..., 0] + pt3[..., 0]) / 2,
+                        (pt1[..., 1] + pt3[..., 1]) / 2,
+                        torch.maximum(edge1, edge2),
+                        torch.minimum(edge1, edge2), angles], -1)
+
+
 def obb2hbb(obbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
     """(..., 5) obbs -> (..., 5) circumscribed horizontal boxes in obb form
     (reference ``transforms.py:502-576``): ``oc`` swaps w/h and sets

@@ -38,9 +38,10 @@ PLAIN_ROI_BLOCK = 128
 
 
 def _check(feats, rois, out_size, spatial_scales, sampling_ratio):
-    if tuple(out_size) != (7, 7) or sampling_ratio != 2:
+    if tuple(out_size) != (7, 7) or sampling_ratio not in (1, 2):
         raise ValueError(f'the kernel is specialized to 7x7 bins with '
-                         f'sampling_ratio 2, got out_size={tuple(out_size)} '
+                         f'sampling_ratio 1 or 2, got '
+                         f'out_size={tuple(out_size)} '
                          f'sampling_ratio={sampling_ratio}')
     if not 1 <= len(feats) <= MAX_LEVELS or \
             len(feats) != len(spatial_scales):
@@ -108,7 +109,8 @@ def roi_align_rotated_pyramid(
         spatial_scales: Sequence[float] = (1 / 4, 1 / 8, 1 / 16, 1 / 32),
         sampling_ratio: int = 2, finest_scale: float = 56.0,
         clockwise: bool = False) -> torch.Tensor:
-    """RoIAlignRotated, 7x7 bins with 2x2 samples, no gradient.
+    """RoIAlignRotated, 7x7 bins with 2x2 samples (1 with
+    ``sampling_ratio=1``), no gradient.
 
     ``feats``: up to four levels ``(B, H_l, W_l, C)``, channels-last,
     contiguous, float32 or bfloat16; ``rois (B, R, 5)`` float32
@@ -126,7 +128,7 @@ def roi_align_rotated_pyramid(
     from ..utils.cuda_build import build
     fn = build([KERNEL])[KERNEL].lib.roi_align_rotated
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
@@ -153,7 +155,8 @@ def roi_align_rotated_pyramid(
             err = fn(ptrs, hs, ws, scales, n, rois.data_ptr(),
                      levels.data_ptr(), out.data_ptr(), b, r, c,
                      int(feats[0].dtype == torch.bfloat16),
-                     int(vector_path(feats)), int(clockwise), stream)
+                     int(vector_path(feats)), int(clockwise),
+                     int(sampling_ratio), stream)
         if err != 0:
             raise RuntimeError(
                 f'roi_align_rotated launch failed: CUDA error {err}')

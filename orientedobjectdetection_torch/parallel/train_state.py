@@ -218,7 +218,9 @@ def make_train_step(detector: nn.Module, tx: Transform,
     rng=rng)``.
 
     ``metrics``: the detector's losses (``loss_cls`` and ``loss_bbox``; a
-    two-stage detector adds ``loss_rpn_cls`` and ``loss_rpn_bbox``),
+    two-stage detector adds ``loss_rpn_cls`` and ``loss_rpn_bbox``, Gliding
+    Vertex ``loss_fix`` and ``loss_ratio``, and RoI Transformer names each
+    stage's ``s{i}_loss_cls`` and ``s{i}_loss_bbox``),
     ``loss`` and ``grad_norm``, as 0-d tensors on the device; nothing in
     the step waits for them.
     ``grad_norm`` is the global norm of the trainable parameters' gradients

@@ -4,9 +4,10 @@ layout (:func:`to_jax_layout`), so gradients and updated parameters of the
 two packages can be compared name by name.
 
 Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a single-stage
-detector (ResNet + FPN + a RetinaNet-family head or an FCOS head), an
-Oriented R-CNN (ResNet + FPN + OrientedRPNHead + OrientedStandardRoIHead),
-an S2ANet or an R3Det built by
+detector (ResNet + FPN + a RetinaNet-family head or an FCOS head), a
+two-stage detector (ResNet + FPN + OrientedRPNHead or RotatedRPNHead + the
+RoI head of Oriented R-CNN, Rotated Faster R-CNN, Gliding Vertex or RoI
+Transformer), an S2ANet or an R3Det built by
 ``orientedobjectdetection_tpu``, as nested dicts of numpy arrays. Output: a
 state dict with mmrotate names, the same mapping as
 ``tools/model_converters/convert_torch_weights.py:synthesize_reference_state``
@@ -30,9 +31,11 @@ state dict with mmrotate names, the same mapping as
   keep their names;
 - ``rpn_head.{rpn_conv,rpn_cls,rpn_reg}`` keep their names;
 - ``roi_head.bbox_head.shared_fc_i`` -> ``shared_fcs.i``, ``fc_cls`` and
-  ``fc_reg`` keep theirs; a dense kernel ``(in, out)`` becomes a linear
-  weight ``(out, in)`` by a transpose alone (the pooled features are
-  flattened ``(7, 7, C)`` in both packages);
+  ``fc_reg`` (and Gliding Vertex's ``fc_fix`` and ``fc_ratio``) keep
+  theirs; a dense kernel ``(in, out)`` becomes a linear weight
+  ``(out, in)`` by a transpose alone (the pooled features are flattened
+  ``(7, 7, C)`` in both packages); RoI Transformer's stage heads
+  ``roi_head/bbox_head_{i}`` <-> ``roi_head.bbox_head.{i}``;
 - S2ANet: ``fam_head`` and ``odm_head`` take the head mapping (``or_conv``,
   ``odm_cls`` and ``odm_reg`` keep their names; ``or_conv``'s kernel
   ``(9, in, nOr, out)`` <-> mmcv's ``(out, in, nOr, 3, 3)``, the
@@ -125,15 +128,18 @@ def _head_name(path, prefix: str = 'bbox_head') -> str:
 
 def _roi_head_name(path) -> str:
     sub, mod, leaf = path
-    if sub != 'bbox_head':
+    stage = re.fullmatch(r'bbox_head(?:_(\d+))?', sub)
+    if not stage:
         raise ValueError(f'unhandled flax path roi_head/{"/".join(path)}')
     m = re.fullmatch(r'shared_fc_(\d+)', mod)
     base = f'shared_fcs.{m.group(1)}' if m else mod
-    return f'roi_head.bbox_head.{base}.{_field(leaf)}'
+    head = 'bbox_head' if stage.group(1) is None else \
+        f'bbox_head.{stage.group(1)}'
+    return f'roi_head.{head}.{base}.{_field(leaf)}'
 
 
 def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
-    """flax variables of a single-stage detector, an Oriented R-CNN, an
+    """flax variables of a single-stage detector, a two-stage detector, an
     S2ANet or an R3Det -> the port's state dict."""
     params = variables['params']
     n_lateral = sum(1 for k in params.get('neck', {})
@@ -213,6 +219,8 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
     elif top == 'rpn_head':
         pass                                     # rpn_conv / rpn_cls / rpn_reg
     elif top == 'roi_head':
+        if mods[1].isdigit():                    # bbox_head.<stage>.<...>
+            mods = [f'{mods[0]}_{mods[1]}', *mods[2:]]
         if mods[1] == 'shared_fcs':              # bbox_head.shared_fcs.<i>
             mods = [mods[0], f'shared_fc_{mods[2]}']
     else:

@@ -245,7 +245,7 @@ def roi_align_variants(inputs: dict, workdir: Path,
         flags = [ctypes.c_int(b), ctypes.c_int(r), ctypes.c_int(c),
                  ctypes.c_int(int(feats[0].dtype == torch.bfloat16)),
                  ctypes.c_int(int(vector_path(feats))), ctypes.c_int(0),
-                 ctypes.c_void_p(stream)]
+                 ctypes.c_int(2), ctypes.c_void_p(stream)]
         runs = {}
         for variant, fn in fns.items():
             out = torch.empty_like(ref)

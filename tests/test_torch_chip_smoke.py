@@ -275,6 +275,28 @@ def test_phase_main_path_kernels_rehearsal():
         captured[f'{label}_loop_nms'] = [captured['orcnn']]
     captured['r3det_refine_slice_assign'] = [captured['train_step'],
                                              per_image, per_image]
+    # phases 31-34: each family's served and float32 RoIAlign inputs (one a
+    # stage; Faster R-CNN's at one sample a bin side), candidates, train
+    # steps' RPN and RoI-stage inputs at G=32 and G=512, the tiny loops'
+    theta0 = rois.clone()
+    theta0[..., 4] = 0.0
+    pooled = (feats, rois[:, :int(live.sum())].contiguous(), 2)
+    light_rpn = (gts.clamp(min=1e-3), anchors[::9].contiguous(), 'iou')
+    for label, stages in chip_smoke.HBB_POOLS.items():
+        ratio = 1 if label == 'faster' else 2
+        captured[label] = captured['retinanet']
+        captured[f'{label}_roi'] = [(feats, theta0, ratio)] + \
+            [pooled] * (stages - 1)
+        captured[f'{label}_slice_roi'] = [(feats, theta0, ratio)]
+        captured[f'{label}_slice_nms'] = [captured['orcnn']]
+        steps = [light_rpn] + [per_image] * stages
+        captured[f'{label}_train'] = steps
+        captured[f'{label}_train_padded'] = steps
+        captured[f'{label}_slice_assign'] = steps
+        captured[f'{label}_loop_assign'] = steps * 2
+        captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
+        captured[f'{label}_loop_nms'] = [captured['orcnn']]
+        captured[f'{label}_loop_roi_align'] = [(feats, theta0, ratio)] * 2
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -287,12 +309,27 @@ def test_phase_main_path_kernels_rehearsal():
               for key in ('loop_assign', 'loop_eval_iou', 'slice',
                           'train_first', 'train_padded_first',
                           'train_padded_refine', 'train_refine')]
+    hbb = [f'{label}_{key}' for label, stages in chip_smoke.HBB_POOLS.items()
+           for key in ['loop_assign', 'loop_eval_iou', 'slice',
+                       'train_rpn', 'train_padded_rpn'] +
+           [f'train{pad}_roi{i}' for pad in ('', '_padded')
+            for i in range(stages)]]
     assert sorted(iou['main_path_inputs']) == sorted([
         'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
         'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
-        'r3det_refine_slice'] + refine)
+        'r3det_refine_slice'] + refine + hbb)
+    assert sorted(roi['main_path_inputs']) == sorted(
+        ['orcnn', 'orcnn_loop_eval'] +
+        [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
+         for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'])
+    assert roi['main_path_inputs']['faster_s0']['sampling_ratio'] == 1
+    assert roi['main_path_inputs']['gv_loop_eval']['inputs_held'] == 2
+    assert roi['main_path_inputs']['gv_s0']['theta0_rois'] == \
+        roi['main_path_inputs']['gv_s0']['live_rois'] > 0
+    assert iou['main_path_inputs']['roitrans_loop_assign'][
+        'inputs_held'] == 6
     assert iou['main_path_inputs']['s2anet_loop_assign']['inputs_held'] == 4
     assert iou['main_path_inputs']['r3det_refine_slice']['inputs_held'] == 3
     assert iou['main_path_inputs']['s2anet_train_refine']['pairs_in_reach'] \
@@ -318,10 +355,13 @@ def test_phase_main_path_kernels_rehearsal():
     loop = pair['main_path_inputs']['orcnn_loop_eval']
     assert loop['inputs_held'] == 2 and loop['same_class_pairs'] == \
         pair['main_path_inputs']['retinanet']['same_class_pairs']
-    for key in ('orcnn', 'orcnn_loop_eval'):
-        got = roi['main_path_inputs'][key]
+    for got in roi['main_path_inputs'].values():
         assert got['bound_by'] in ('bytes', 'operations') and got['cells'] > 0
         assert got['live_rois'] == sum(got['rois_per_level'])
+        assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
+    for label in chip_smoke.HBB_POOLS:
+        for key in (label, f'{label}_loop_nms'):
+            assert pair['main_path_inputs'][key]['ms'] > 0
 
 
 def test_pair_mask_rows_hold_a_large_input_in_blocks(monkeypatch):
@@ -896,3 +936,114 @@ def test_phase_refine_loops_rehearsal(tmp_path):
         assert assign[0][1].dim() == 2 and assign[1][1].dim() == 3
         assert inputs[f'{label}_loop_eval_iou'] and \
             inputs[f'{label}_loop_nms']
+
+
+# ---- phases 31-34 at a tiny size: the published two-stage configs with a
+# ResNet-18 backbone at 128 px
+TINY_HBB = '''
+model = dict(
+    backbone=dict(depth=18),
+    neck=dict(in_channels=[64, 128, 256, 512]),
+    train_cfg=dict(rpn_proposal=dict(nms_pre=128, max_per_img=64)),
+    test_cfg=dict(rpn=dict(nms_pre=128, max_per_img=64)))
+'''
+
+
+@pytest.fixture
+def tiny_hbb(tmp_path, monkeypatch):
+    """The phases' configs replaced by ResNet-18 copies."""
+    configs = {k: derived_config(tmp_path, v, TINY_HBB)
+               for k, v in chip_smoke.HBB_CONFIGS.items()}
+    monkeypatch.setattr(chip_smoke, 'HBB_CONFIGS', configs)
+    return configs
+
+
+def test_phase_hbb_slice_rehearsal(tiny_hbb):
+    captured = chip_smoke.phase_hbb_slice('cpu', bsz=1, size=128, g=8,
+                                          valid=3, max_num=64,
+                                          max_candidates=64)
+    for label, stages in chip_smoke.HBB_POOLS.items():
+        pools = captured[f'{label}_slice_roi']
+        assert len(pools) == stages
+        levels, rois, ratio = pools[0]
+        assert rois.shape == (1, 64, 5) and levels[0].shape[1:3] == (32, 32)
+        assert ratio == (1 if label == 'faster' else 2)
+        assert (rois[..., 4] == 0).all()                # theta-0 proposals
+        if stages == 2:                                 # rotated stage 1
+            assert (pools[1][1][..., 4] != 0).any()
+        (boxes, cls), = captured[f'{label}_slice_nms']
+        assert boxes.shape[-1] == 5
+        calls = captured[f'{label}_slice_assign']
+        assert len(calls) == chip_smoke.HBB_ASSIGNS[label]
+        assert calls[-1][1].dim() == 2                  # the RPN's, last
+        assert all(c[1].dim() == 3 for c in calls[:-1])
+
+
+def test_phase_hbb_serving_rehearsal(tiny_hbb):
+    runs, captured = chip_smoke.phase_hbb_serving(
+        'cpu', bsz=1, size=128, warm=1, timed=1, dtype=torch.float32,
+        max_num=64, max_candidates=64)
+    assert runs == [NO_LAUNCHES] * 3
+    for label, stages in chip_smoke.HBB_POOLS.items():
+        assert len(captured[f'{label}_roi']) == stages
+        assert captured[label][0].shape[-1] == 5
+
+
+def test_phase_hbb_training_rehearsal(tiny_hbb):
+    steps = {k: (2, 6) for k in chip_smoke.HBB_CONFIGS}
+    runs, captured = chip_smoke.phase_hbb_training(
+        'cpu', bsz=1, size=128, g=8, valid=3, dtype=torch.float32,
+        padded_g=16, padded_valid=5, steps=steps, reps=1)
+    assert runs == [NO_LAUNCHES] * 3
+    for label, assigns in chip_smoke.HBB_ASSIGNS.items():
+        calls = captured[f'{label}_train']
+        assert len(calls) == assigns and calls[-1][1].dim() == 2
+        assert captured[f'{label}_train_padded'][0][0].shape == (1, 16, 5)
+    assert len(captured['roitrans_gather']) == 2
+
+
+def test_hbb_ranges_are_the_detectors():
+    """The samplers' ranges phase 33 watches and RoI Transformer's stage
+    ranges are the ones the detectors open, in a profiled CPU train step
+    and request."""
+    from torch.profiler import profile
+    from orientedobjectdetection_torch.core import SampleKey
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.utils import Config
+    detector = build_detector(dict(Config.fromfile(
+        chip_smoke.HBB_TINY_CONFIGS['roitrans']).model))
+    detector.init_weights(0)
+    images = torch.randn(1, 3, 64, 64)
+    batch = dict(gt_bboxes=torch.tensor([[[30.0, 30, 20, 10, 0.3]]]),
+                 gt_labels=torch.zeros(1, 1, dtype=torch.long),
+                 gt_mask=torch.ones(1, 1, dtype=torch.bool))
+    with profile() as prof:
+        out = detector(images, batch=batch, train=True,
+                       rng=SampleKey(step=0))
+        detector.loss_from_outputs(out, batch)
+        with torch.no_grad():
+            detector.bboxes_from_outputs(detector(images))
+    seen = {e.key for e in prof.key_averages()
+            if e.key.startswith('two_stage.')}
+    assert set(chip_smoke.HBB_SAMPLERS) - seen == {'two_stage.sample_rois'}
+    assert {'two_stage.roialign_head_0', 'two_stage.roialign_head_1',
+            'two_stage.roi_pool_0', 'two_stage.roi_pool_1'} <= seen
+
+
+def test_phase_hbb_loops_rehearsal(tmp_path):
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    root = str(tmp_path / 'tiny')
+    generate_synth(root, 4, 128, seed=0)
+    configs = {k: derived_config(tmp_path, v, TINY_FAMILY)
+               for k, v in chip_smoke.HBB_TINY_CONFIGS.items()}
+    runs, inputs = chip_smoke.phase_hbb_loops(
+        root, str(tmp_path / 'work'), configs=configs, steps=2,
+        dtype=torch.float32, device='cpu', log_interval=1)
+    assert runs == [NO_LAUNCHES] * 3
+    for label, assigns in chip_smoke.HBB_ASSIGNS.items():
+        assert len(inputs[f'{label}_loop_assign']) == 2 * assigns
+        pools = inputs[f'{label}_loop_roi_align']
+        assert len(pools) == chip_smoke.HBB_POOLS[label]  # one eval batch
+        assert pools[0][2] == (1 if label == 'faster' else 2)
+        assert inputs[f'{label}_loop_nms']

@@ -686,6 +686,75 @@ def test_small_two_stage_slice_kernels_equal_plain(cuda):
     same_detections((dets, labels, valid), plain_roi.decode(p_outputs), cut)
 
 
+@pytest.mark.parametrize('ratio', [1, 2])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('theta', ['zero', 'stage1'])
+def test_roi_align_on_theta0_and_refined_rois(cuda, ratio, dtype, theta):
+    """The horizontal-proposal detectors' RoIs: theta-0 proposals (Rotated
+    Faster R-CNN pools them at 1 sample a bin side, Gliding Vertex and RoI
+    Transformer's stage 0 at 2), and RoI Transformer's stage-1 RoIs, those
+    proposals decoded with seeded deltas (some giant, some over the
+    edge)."""
+    from orientedobjectdetection_torch.core import DeltaXYWHAHBBoxCoder
+    feats, rois = roi_case(2, 120, 256, 64, dtype, 11 + ratio, cuda)
+    rois[..., 4] = 0.0
+    if theta == 'stage1':
+        deltas = torch.from_numpy(np.random.default_rng(5).normal(
+            0, 1.5, (2, 120, 5)).astype(np.float32)).to(cuda)
+        coder = DeltaXYWHAHBBoxCoder(angle_range='le90', norm_factor=2,
+                                     edge_swap=True,
+                                     target_stds=(0.1, 0.1, 0.2, 0.2, 0.1))
+        live = rois[..., 2:3] > 0
+        rois = torch.where(live, coder.decode(rois, deltas), rois)
+        assert (rois[..., 4].abs() > 1e-3).float().mean() > 0.5
+    args = (feats, rois.contiguous(), (7, 7), ROI_SCALES, ratio, 56.0)
+    before = roi_align_rotated_pyramid.launches
+    got = roi_align_rotated_pyramid(*args)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid.launches == before + 1
+    ref = roi_align_rotated_pyramid_plain(*args)
+    scale = max(float(f.abs().max()) for f in feats)
+    allowed = ROI_RTOL * scale + ROI_BF16_STEP[dtype] * ref.float().abs()
+    assert ((got.float() - ref.float()).abs() <= allowed).all()
+    assert not got[:, -15:].any()                   # padding: exact zeros
+    assert got[:, :-15].abs().max() > 0
+
+
+@pytest.mark.parametrize('family', ['rotated_faster_rcnn/'
+                                    'rotated_faster_rcnn_tiny_synth.py',
+                                    'gliding_vertex/'
+                                    'gliding_vertex_tiny_synth.py',
+                                    'roi_trans/roi_trans_tiny_synth.py'])
+def test_small_hbb_slice_kernels_equal_plain(cuda, family):
+    """The tiny horizontal-proposal detectors on the card: 1 / 1 / 2
+    RoIAlign launches a request, and the RoIAlign and pair-mask kernels
+    give the same detections as their plain versions up to near-ties in
+    score."""
+    import os.path as osp
+
+    from chip_smoke import HBB_POOLS, hbb_cut, same_detections, \
+        seed_hbb_detections
+    cfg = Config.fromfile(osp.join(osp.dirname(__file__), '..', 'configs',
+                                   family))
+    bundle = init_detector(cfg, device=cuda, seed=1)
+    seed_hbb_detections(bundle.detector)
+    pools = HBB_POOLS[{'rotated_faster_rcnn': 'faster',
+                       'gliding_vertex': 'gv',
+                       'roi_trans': 'roitrans'}[family.split('/')[0]]]
+    images = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    roi_before = roi_align_rotated_pyramid.launches
+    outputs = bundle.forward(images)
+    got = bundle.decode(outputs)
+    assert roi_align_rotated_pyramid.launches == roi_before + pools
+    assert got[2].sum() > 20
+    cut = hbb_cut(outputs, 2000)
+    for switch in ('plain_roi_align', 'plain_pair_mask'):
+        plain = DetectorBundle(bundle.cfg, bundle.detector, **{switch: True})
+        same_detections(got, plain.decode(plain.forward(images)), cut)
+    assert roi_align_rotated_pyramid.launches == roi_before + 2 * pools
+
+
 # ---- the trainer and the evaluator (configs/rotated_retinanet/
 # rotated_retinanet_tiny_synth.py cut to 128 px, 4 synthetic images)
 TINY_SYNTH = '''

@@ -36,7 +36,8 @@ def test_scan_covers_the_package():
             'kf_iou_loss.py', 'rotated_iou_loss.py', 'rotated_anchor_head.py',
             'coders.py', 'anchors.py', 'fpn.py', 'feature_align.py',
             'utils_rotation.py', 'refine_heads.py',
-            'refine_detectors.py'} <= names
+            'refine_detectors.py', 'rotated_rpn_head.py',
+            'gv_trans_heads.py', 'boxes.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools
