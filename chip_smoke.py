@@ -11,7 +11,9 @@ KLD-stable and CSL, each at its published R50-FPN DOTA config) and of the
 refine detectors (S2ANet R50-FPN le135 and R3Det R50-FPN oc; the KFIoU
 refine recipes and the two-stage R3Det cascade in float32) and of the
 horizontal-proposal two-stage families (Rotated Faster R-CNN, Gliding
-Vertex and RoI Transformer, each R50-FPN le90), through
+Vertex and RoI Transformer, each R50-FPN le90) and of the other backbones
+and ReDet (Swin-T Oriented R-CNN le90, ConvNeXt-T KLD-stable RetinaNet le90
+and ReDet ReR50-ReFPN le90), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -181,6 +183,31 @@ plain PyTorch version:
 34. hbb      the three tiny-synth configs through ``train_detector`` on
     loops    phase 18's set: 20 bfloat16 steps and the evaluation, every
              input recorded (the evaluation's RoIAlign inputs too)
+35. back-    Swin-T Oriented R-CNN, ConvNeXt-T KLD-stable RetinaNet and
+    bones    ReDet ReR50-ReFPN (their DOTA configs, regressions x 0.05) in
+    slice    float32 at 2 images of 1024^2: the detections with the
+             RoIAlign kernel equal those with its plain version (ReDet's
+             before its orientation roll), and with the pair-mask kernel
+             those with its plain mask; one train step with the IoU-matrix
+             kernel and one with the plain matrix from one seeded state
+             (the RetinaNet as phase 25; the two-stage detectors on gts
+             whose RPN assignment is decided): losses within LOSS_RTOL,
+             parameters within PARAM_RTOL (ADAM_FIRM after AdamW); ReDet
+             freezes layer1 and trains its stem
+36. back-    bfloat16 requests of 8 raw 1024^2 images through each: imgs/s,
+    bones    forward / decode+NMS, peak memory, roi_align_rotated launches
+    serving  a request (1 / 0 / 1), one pair-mask launch; one request of
+             each profiled by module (``module.backbone``, ``.neck``, the
+             heads, ReDet's ``two_stage.ri_roll``) with its top kernels
+37. back-    bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid, each
+    bones    config's optimizer (AdamW / AdamW / SGD): 2 warm + 5 timed
+    training steps, imgs/s, peak memory, 2 / 1 / 2 box_iou_rotated
+             launches a step, a falling loss; one step at the loader's
+             G=512; one step profiled by ``train.*``, ``two_stage.*`` and
+             ``module.*`` with no host sync inside the samplers
+38. redet    ``redet_tiny_synth.py`` through ``train_detector`` on phase
+    loop     18's set: 20 bfloat16 steps and the evaluation, every input
+             recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -210,8 +237,13 @@ plain PyTorch version:
              Faster R-CNN's at 1 sample a bin side; RoI Transformer's
              rotated stage-1 RoIs), candidates, RPN and RoI-stage assigner
              inputs at G=32 and G=512, the float32 slices' and the tiny
-             loops'; each held against its plain version, the largest of
-             each kind timed beside its bound
+             loops'; and those of phases 35-38: Swin Oriented R-CNN's
+             and ReDet's served and float32 RoIAlign inputs (ReDet's
+             ReFPN levels, 32 fields x 8 orientations, before the roll),
+             every detector's candidates, their assigners' inputs at G=32
+             and G=512 and the float32 steps', ReDet's tiny loop's; each
+             held against its plain version, the largest of each kind
+             timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -220,12 +252,13 @@ each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 ``train_detector`` run and its ``evaluate``, 23's requests, 24's steps,
 25's bfloat16 steps and requests of each recipe, 26's runs, 28's
 requests and 29's steps of each refine detector, 30's runs, 32's
-requests and 33's steps of each two-stage family, 34's runs) and read
-just after;
+requests and 33's steps of each two-stage family, 34's runs, 36's
+requests and 37's steps of each detector, 38's run) and read just
+after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's, 30's and 34's runs. Phases 15-22, 26, 30 and 34 write their data and
-work directories under
+26's, 30's, 34's and 38's runs. Phases 15-22, 26, 30, 34 and 38 write
+their data and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -272,6 +305,12 @@ LOSS_RTOL = 1e-4         # train step, kernel vs plain matrix
 # seen on an H100 between two steps with equal sampled sets); the sampled
 # sets and the losses themselves are held equal.
 PARAM_RTOL = 1e-2
+# AdamW's first step moves an element by lr * g / (|g| + 1e-8): where the
+# reference gradient is under ADAM_FIRM of its tensor's largest (at the
+# atomics' rounding: Swin's key bias has a gradient of 0 in exact
+# arithmetic), the two steps' element changes are held only to the
+# tensor's largest change, the rest to PARAM_RTOL as for SGD
+ADAM_FIRM = 1e-4
 # events that make the host wait for the device (a read of a device value,
 # or an explicit synchronisation): none may run inside the sampler's ranges.
 # cudaMemcpyAsync alone is not one (PyTorch follows a copy to the host with
@@ -2900,6 +2939,10 @@ def family_step(config, device, batch, plain_iou) -> dict:
     check_metrics(metrics)
     return dict(metrics={k: float(v) for k, v in metrics.items()},
                 before=before, detector=detector,
+                adam=isinstance(state.optimizer, torch.optim.AdamW),
+                grads={n: p.grad.detach().clone()
+                       for n, p in detector.named_parameters()
+                       if p.grad is not None},
                 after={n: p.detach().clone()
                        for n, p in detector.named_parameters()})
 
@@ -2909,7 +2952,9 @@ def same_params(got, ref, label) -> float:
     PARAM_RTOL of each tensor's change or one float32 step of their value
     (a tensor whose change is a few of its own steps, as a neck conv's with
     a tiny gradient is, may round to the next float32 in one update and
-    not in the other), frozen tensors unchanged. Returns the largest
+    not in the other), frozen tensors unchanged. After an AdamW step, the
+    elements whose gradient is under ADAM_FIRM of their tensor's largest
+    are held to that tensor's change instead. Returns the largest
     difference beyond a float32 step relative to its tensor's change."""
     for k, v in ref['metrics'].items():
         if k != 'grad_norm' and abs(got['metrics'][k] - v) > \
@@ -2928,7 +2973,15 @@ def same_params(got, ref, label) -> float:
         step = torch.nextafter(after, torch.full_like(after, float('inf'))) \
             - after
         diff = (got['after'][n] - ref['after'][n]).abs()
-        beyond = float(torch.where(diff > step, diff, 0.0).max())
+        beyond = torch.where(diff > step, diff, 0.0)
+        if ref.get('adam'):
+            grad = ref['grads'][n].abs()
+            loose = grad < ADAM_FIRM * grad.max()
+            if float(torch.where(loose, beyond, 0.0).max()) > scale:
+                raise AssertionError(f'{label}: {n} after the AdamW step '
+                                     f'differs by more than its change')
+            beyond = torch.where(loose, 0.0, beyond)
+        beyond = float(beyond.max())
         worst = max(worst, beyond / scale) if scale else worst
         if beyond > PARAM_RTOL * scale:
             raise AssertionError(f'{label}: {n} after the step differs by '
@@ -2983,8 +3036,8 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
     step's own). Returns dict(counts, rate (imgs/s),
     inputs: one more
     step's IoU-matrix inputs, padded_inputs: those of the padded step (both
-    None without an assigner), step_once: a function that takes one more
-    step)."""
+    None without an assigner), detector, step_once: a function that takes
+    one more step)."""
     on_card = torch.device(device).type == 'cuda'
     detector, state, step = build_trainer(device, dtype, config=config)
     batch = train_batch(bsz, size, g, valid, 100, device)
@@ -3057,7 +3110,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                 f'backward (the rest) '
                 f'{(prof["busy_us"] - named) / 1e3:.2f} ms')
     return dict(counts=counts, rate=bsz * timed / seconds, inputs=inputs,
-                padded_inputs=padded_inputs,
+                padded_inputs=padded_inputs, detector=detector,
                 step_once=lambda: step(state, batch, rng))
 
 
@@ -3724,7 +3777,7 @@ def phase_hbb_serving_slice(config, label, device, bsz=2, size=1024,
         got = bundle.decode(outputs)
     sync(device)
     check_dets(*got, bsz, bundle.num_classes)
-    if len(pools) != HBB_POOLS[label]:
+    if len(pools) != ROI_POOLS[label]:
         raise AssertionError(f'{label}: {len(pools)} RoIAlign calls a '
                              f'request')
     cut = hbb_cut(outputs, max_candidates)
@@ -3745,15 +3798,16 @@ def phase_hbb_serving_slice(config, label, device, bsz=2, size=1024,
             f'{label}_slice_nms': [(args[0], args[2]) for args, _ in masks]}
 
 
-def hbb_anchor_view(size, device) -> tuple:
-    """The horizontal RPN's anchors of a ``size`` x ``size`` image as its
-    assigner compares them (theta-0 rotated boxes), and the gts' view
-    there (their circumscribed horizontal boxes)."""
+def hbb_anchor_view(size, device, config=None) -> tuple:
+    """The RPN's anchors of a ``size`` x ``size`` image as its assigner
+    compares them (theta-0 rotated boxes), and the gts' view there (their
+    circumscribed horizontal boxes): the horizontal RPN's of Gliding Vertex
+    by default, or ``config``'s (an oriented RPN assigns the same way)."""
     from orientedobjectdetection_torch.models import build_detector
     from orientedobjectdetection_torch.ops.boxes import obb2hbb
     from orientedobjectdetection_torch.utils import Config
     rpn = build_detector(dict(Config.fromfile(
-        HBB_CONFIGS['gv']).model)).rpn_head
+        config or HBB_CONFIGS['gv']).model)).rpn_head
     sizes = [(-(-size // s[1]), -(-size // s[0]))
              for s in rpn.prior_generator.strides]
     return [rpn.train_anchors(sizes, device)[1]], \
@@ -3761,16 +3815,17 @@ def hbb_anchor_view(size, device) -> tuple:
 
 
 def phase_hbb_train_slice(config, label, device, bsz=2, size=1024, g=32,
-                          valid=8) -> list:
+                          valid=8, check_detector=None) -> list:
     """float32: one step from one seeded state with the IoU-matrix kernel
     and one with the plain matrix, on gts whose RPN assignment is decided
     (:func:`well_posed_batch` on the RPN's anchors). Each assigner (the
     RPN's, each RoI stage's on the proposals or RoIs it got) assigns alike
     with both outside ASSIGN_BAND (:func:`check_assigner`); the losses
     agree within LOSS_RTOL and the parameters as :func:`same_params` says.
-    Returns the kernel step's IoU-matrix inputs."""
+    ``check_detector``: called with the kernel step's detector. Returns the
+    kernel step's IoU-matrix inputs."""
     from orientedobjectdetection_torch.ops import iou_kernels
-    anchors, view = hbb_anchor_view(size, device)
+    anchors, view = hbb_anchor_view(size, device, config)
     batch = well_posed_batch(bsz, size, g, valid, 160, device,
                              thresholds=(0.3, 0.7), anchor_sets=anchors,
                              view=view)
@@ -3778,8 +3833,10 @@ def phase_hbb_train_slice(config, label, device, bsz=2, size=1024, g=32,
         kernel = family_step(config, device, batch, False)
     rpn = [args for args, _ in calls if args[1].dim() == 2]
     roi = [args for args, _ in calls if args[1].dim() == 3]
-    if len(rpn) != 1 or len(roi) != HBB_ASSIGNS[label] - 1:
+    if len(rpn) != 1 or len(roi) != ASSIGNS[label] - 1:
         raise AssertionError(f'{label}: {len(calls)} IoU matrices a step')
+    if check_detector is not None:
+        check_detector(kernel['detector'])
     mask = batch['gt_mask'].to(device)
     labels = torch.zeros_like(batch['gt_labels']).to(device)
     first, *stages = assigners(kernel['detector'])
@@ -3993,9 +4050,17 @@ def held_hbb(device, captured, by_name, card, reps, roi_reps,
     on each train step's RPN input (gts x the shared anchors) and each RoI
     stage's (gts x each image's proposals or RoIs), at G=32 and at the
     loader's G=512, and on the slices' and the loops' inputs."""
+    held_two_stage(device, captured, by_name, card, reps, roi_reps,
+                   plain_reps, HBB_CONFIGS, HBB_TINY_CONFIGS)
+
+
+def held_two_stage(device, captured, by_name, card, reps, roi_reps,
+                   plain_reps, configs, tiny_configs) -> None:
+    """:func:`held_hbb` for the two-stage detectors ``configs`` and the
+    tiny loops ``tiny_configs``."""
     pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
     roi = by_name['roi_align_rotated']
-    for label in HBB_CONFIGS:
+    for label in configs:
         for stage, inputs in enumerate(captured[f'{label}_roi']):
             held_roi_inputs([inputs], f'{label} request (stage {stage})',
                             f'{label}_s{stage}', roi, device, card,
@@ -4006,22 +4071,12 @@ def held_hbb(device, captured, by_name, card, reps, roi_reps,
         held_pair_masks(captured[f'{label}_slice_nms'] + [captured[label]],
                         f'{label} slice and served requests', label, pair,
                         device, card, reps, plain_reps)
-        for key, stage in ((f'{label}_train', 'G=32'),
-                           (f'{label}_train_padded', 'G=512')):
-            calls = captured[key]
-            held_iou_matrices([c for c in calls if c[1].dim() == 2],
-                              f'{label} RPN assigner ({stage})',
-                              f'{key}_rpn', iou, device, card, reps,
-                              plain_reps)
-            for i, c in enumerate(c for c in calls if c[1].dim() == 3):
-                held_iou_matrices([c], f'{label} RoI stage {i} assigner '
-                                  f'({stage}, each image\'s proposals)',
-                                  f'{key}_roi{i}', iou, device, card, reps,
-                                  plain_reps)
+        held_train_matrices(captured, label, iou, device, card, reps,
+                            plain_reps)
         held_iou_matrices(captured[f'{label}_slice_assign'], f'{label} '
                           f'float32 slice step', f'{label}_slice', iou,
                           device, card, reps, plain_reps)
-    for label in HBB_TINY_CONFIGS:
+    for label in tiny_configs:
         held_iou_matrices(captured[f'{label}_loop_assign'], f'tiny {label} '
                           f'loop\'s assigners', f'{label}_loop_assign', iou,
                           device, card, reps, plain_reps)
@@ -4037,14 +4092,298 @@ def held_hbb(device, captured, by_name, card, reps, roi_reps,
                         device, card, roi_reps, plain_reps)
 
 
+def held_train_matrices(captured, label, iou, device, card, reps,
+                        plain_reps) -> None:
+    """B2 on a two-stage train step's RPN input (gts x the shared anchors)
+    and each RoI stage's (gts x each image's proposals or RoIs), at G=32
+    and at the loader's G=512."""
+    for key, stage in ((f'{label}_train', 'G=32'),
+                       (f'{label}_train_padded', 'G=512')):
+        calls = captured[key]
+        held_iou_matrices([c for c in calls if c[1].dim() == 2],
+                          f'{label} RPN assigner ({stage})',
+                          f'{key}_rpn', iou, device, card, reps,
+                          plain_reps)
+        for i, c in enumerate(c for c in calls if c[1].dim() == 3):
+            held_iou_matrices([c], f'{label} RoI stage {i} assigner '
+                              f'({stage}, each image\'s proposals)',
+                              f'{key}_roi{i}', iou, device, card, reps,
+                              plain_reps)
+
+
+# ---- 35-38. the other backbones (Swin, ConvNeXt) and ReDet ---------------
+BACKBONE_CONFIGS = {
+    'swin': os.path.join(ROOT, 'configs', 'oriented_rcnn',
+                         'oriented_rcnn_swin_tiny_fpn_1x_dota_le90.py'),
+    'convnext': os.path.join(
+        ROOT, 'configs', 'convnext',
+        'rotated_retinanet_obb_kld_stable_convnext_adamw_fpn_1x_dota_le90'
+        '.py'),
+    'redet': os.path.join(ROOT, 'configs', 'redet',
+                          'redet_re50_refpn_1x_dota_le90.py'),
+}
+REDET_TINY_CONFIGS = {
+    'redet': os.path.join(ROOT, 'configs', 'redet', 'redet_tiny_synth.py'),
+}
+# RoIAlign launches a request and IoU-matrix launches a train step
+BACKBONE_POOLS = {'swin': 1, 'convnext': 0, 'redet': 1}
+BACKBONE_ASSIGNS = {'swin': 2, 'convnext': 1, 'redet': 2}
+ROI_POOLS = {**HBB_POOLS, **BACKBONE_POOLS}
+ASSIGNS = {**HBB_ASSIGNS, **BACKBONE_ASSIGNS}
+# phase 37's steps: (warm, timed)
+BACKBONE_STEPS = {'swin': (2, 5), 'convnext': (2, 5), 'redet': (2, 5)}
+# the detector's modules that a profiled request or step splits by, each
+# in a ``module.<name>`` range
+PROFILED_MODULES = ('backbone', 'neck', 'rpn_head', 'roi_head', 'bbox_head')
+
+
+def two_stage(label) -> bool:
+    return BACKBONE_POOLS[label] > 0
+
+
+@contextlib.contextmanager
+def module_ranges(detector, names=PROFILED_MODULES):
+    """Each of the detector's modules ``names`` runs its forward inside a
+    ``record_function`` range ``module.<name>`` while the context is open
+    (an instance attribute over the class's ``forward``)."""
+    from torch.profiler import record_function
+    wrapped = []
+    for name in names:
+        module = getattr(detector, name, None)
+        if module is None:
+            continue
+
+        def forward(*args, _forward=module.forward, _name=name, **kwargs):
+            with record_function(f'module.{_name}'):
+                return _forward(*args, **kwargs)
+
+        module.forward = forward
+        wrapped.append(module)
+    try:
+        yield
+    finally:
+        for module in wrapped:
+            del module.forward
+
+
+def check_redet_frozen(detector) -> None:
+    """ReDet at ``frozen_stages=1`` trains its stem and freezes layer1, as
+    the JAX package does."""
+    frozen = {n for n, p in detector.named_parameters()
+              if not p.requires_grad}
+    layer1 = {n for n, _ in detector.named_parameters()
+              if n.startswith('backbone.layer1.')}
+    if frozen != layer1 or not layer1:
+        raise AssertionError(f'ReDet freezes {sorted(frozen)[:4]}..., not '
+                             f'layer1 alone')
+    log(f'[redet-train-slice] {len(frozen)} tensors frozen (layer1); the '
+        f'stem (backbone.conv1, backbone.bn1) trains')
+
+
+def phase_backbone_slice(device, bsz=2, size=1024, g=32, valid=8,
+                         max_num=2000, max_candidates=2000) -> dict:
+    """Phase 35: Swin-T Oriented R-CNN, ConvNeXt-T KLD-stable RetinaNet and
+    ReDet ReR50-ReFPN at their DOTA configs in float32: the two-stage
+    detectors served with the RoIAlign kernel and with its plain version,
+    and decoded with the pair-mask kernel and its plain version
+    (:func:`phase_hbb_serving_slice`; ReDet's RoIAlign inputs are its
+    levels before the orientation roll), a train step with the IoU-matrix
+    kernel and one with the plain matrix on gts whose RPN assignment is
+    decided (:func:`phase_hbb_train_slice`; ReDet's layer1 frozen and its
+    stem trained); the RetinaNet as phase 25 holds its R50 sibling
+    (:func:`phase_family_slice`, :func:`phase_family_train_slice`).
+    Returns the two-stage detectors' kernel inputs."""
+    captured = {}
+    for label, config in BACKBONE_CONFIGS.items():
+        if not two_stage(label):
+            phase_family_slice(config, label, device, bsz, size,
+                               max_candidates)
+            phase_family_train_slice(config, label, device, bsz, size, g,
+                                     valid)
+            continue
+        captured.update(phase_hbb_serving_slice(
+            config, label, device, bsz, size, max_num, max_candidates))
+        captured[f'{label}_slice_assign'] = phase_hbb_train_slice(
+            config, label, device, bsz, size, g, valid,
+            check_redet_frozen if label == 'redet' else None)
+    return captured
+
+
+def build_backbone_bundle(label, device, dtype, max_num=2000,
+                          max_candidates=2000):
+    """Phase 35-36's bundle of ``label``: seeded weights made to give real
+    boxes (:func:`seed_hbb_detections` or :func:`seed_detections`)."""
+    config = BACKBONE_CONFIGS[label]
+    if two_stage(label):
+        return build_hbb_bundle(config, device, dtype, max_num,
+                                max_candidates)
+    return build_bundle(device, dtype, max_candidates, config=config)
+
+
+def profile_modules(bundle, images, device, label) -> None:
+    """One request profiled with the detector's modules in their own
+    ranges (``module.*``), ReDet's orientation roll in its own
+    (``two_stage.ri_roll``, inside ``module.roi_head``) and the decode +
+    NMS in ``request.decode_nms``; the top device kernels follow."""
+    from torch.profiler import record_function
+
+    def request():
+        outputs = bundle.forward(images)
+        with record_function('request.decode_nms'):
+            bundle.decode(outputs)
+
+    with module_ranges(bundle.detector):
+        prof = profile_run(request, device, f'{label} request',
+                           ('module.', 'two_stage.', 'request.'))
+    if prof['busy_us']:
+        spans = prof['spans']
+        log(f'[profile] {label} request by module (device ms in its '
+            f'kernels): ' + ', '.join(
+                f'{k} {v / 1e3:.2f}' for k, v in spans.items()))
+
+
+def phase_backbone_serving(device, card='', bsz=8, size=1024, warm=3,
+                           timed=10, dtype=torch.bfloat16, max_num=2000,
+                           max_candidates=2000) -> tuple:
+    """Phase 36: requests of ``bsz`` raw images through each bundle:
+    imgs/s, forward / decode + NMS, peak memory, RoIAlign launches a
+    request (1 / 0 / 1) and one pair-mask launch; one more request's kernel
+    inputs recorded; one request profiled by module
+    (:func:`profile_modules`). Returns the launch counts and the
+    inputs."""
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label in BACKBONE_CONFIGS:
+        bundle = build_backbone_bundle(label, device, dtype, max_num,
+                                       max_candidates)
+        images = raw_images(bsz, size, 180)
+        if on_card:
+            images = images.pin_memory()
+        fwd, dec, _, (dets, labels, valid), counts = timed_requests(
+            bundle, images, warm, timed, device)
+        n = warm + timed if on_card else 0
+        expected = {'roi_align_rotated': ROI_POOLS[label] * n,
+                    'nms_pair_mask': n, 'box_iou_rotated': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + timed} '
+                                 f'requests {counts}, expected {expected}')
+        check_dets(dets, labels, valid, bsz, bundle.num_classes)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} '
+            f'B={bsz} {size}^2, {timed} timed requests after {warm} warm: '
+            f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+            f'{1e3 * fwd / timed:.2f} ms, decode+NMS {1e3 * dec / timed:.2f}'
+            f' ms; peak memory {mem:.2f} GiB; launches in {warm + timed} '
+            f'requests: roi_align_rotated {counts["roi_align_rotated"]}, '
+            f'nms_pair_mask {counts["nms_pair_mask"]}; valid dets per image '
+            f'{valid.sum(1).tolist()}')
+        with recording(nms, 'nms_pair_mask') as masks, \
+                recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                          keep_results=False) as pools:
+            bundle(images)
+        captured[label] = (masks[0][0][0], masks[0][0][2])
+        if two_stage(label):
+            captured[f'{label}_roi'] = pooled_inputs(pools)
+        profile_modules(bundle, images, device, label)
+        runs.append(counts)
+        del bundle
+    return runs, captured
+
+
+def phase_backbone_training(device, card='', bsz=8, size=1024, g=32,
+                            valid=8, dtype=torch.bfloat16, padded_g=512,
+                            padded_valid=64, steps=None) -> tuple:
+    """Phase 37: each detector trained on one fixed batch with its config's
+    optimizer (:func:`phase_family_training`: imgs/s, peak memory, 2 / 1 /
+    2 IoU-matrix launches a step and none of the other kernels, a falling
+    loss, one step at the loader's padding); one step profiled by the
+    ``train.*``, ``two_stage.*`` and ``module.*`` ranges, with no host
+    sync inside the RPN targets or the RoI sampler. Returns the launch
+    counts, and the IoU-matrix inputs of one step at G=``g`` and of the
+    padded step. A two-stage detector samples with one key every step, so
+    the loss compares like with like."""
+    from orientedobjectdetection_torch.core import SampleKey
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label, config in BACKBONE_CONFIGS.items():
+        warm, timed = (steps or BACKBONE_STEPS)[label]
+        run = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, padded_g=padded_g, padded_valid=padded_valid,
+            falling=True, rng=SampleKey(step=0) if two_stage(label)
+            else None)
+        counts = run['counts']
+        expected = {'box_iou_rotated': ASSIGNS[label] * (warm + timed)
+                    if on_card else 0,
+                    'roi_align_rotated': 0, 'nms_pair_mask': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + timed} '
+                                 f'steps {counts}, expected {expected}')
+        runs.append(counts)
+        captured[f'{label}_train'] = run['inputs']
+        captured[f'{label}_train_padded'] = run['padded_inputs']
+        with module_ranges(run['detector']):
+            prof = profile_run(run['step_once'], device,
+                               f'{label} train step',
+                               ('train.', 'two_stage.', 'module.'))
+        found = syncs_inside(prof['prof'], HBB_SAMPLERS)
+        if any(found.values()):
+            raise AssertionError(f'{label}: host synchronisation inside '
+                                 f'the sampler: {found}')
+        if two_stage(label):
+            ran = [k for k in HBB_SAMPLERS if k in prof['spans']]
+            log(f'[profile] {label}: no host synchronisation inside {ran}')
+    return runs, captured
+
+
+def phase_redet_loop(root, work_root, card='', configs=None, steps=20,
+                     dtype=torch.bfloat16, device='cuda',
+                     log_interval=5) -> tuple:
+    """Phase 38: ``redet_tiny_synth.py`` through ``train_detector`` on
+    phase 18's set as phase 34 runs its families (2 IoU-matrix launches a
+    step; the evaluation's RoIAlign, NMS and IoUs), every input
+    recorded."""
+    configs = configs or REDET_TINY_CONFIGS
+    return phase_family_loops(root, work_root, card, configs, steps, dtype,
+                              device, log_interval,
+                              per_step={k: 2 for k in configs})
+
+
+def held_backbones(device, captured, by_name, card, reps, roi_reps,
+                   plain_reps) -> None:
+    """Phases 35-38's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: the two-stage
+    detectors' as :func:`held_two_stage` holds them (B3 on Swin Oriented
+    R-CNN's proposals and on ReDet's ReFPN levels before the roll), and
+    the ConvNeXt RetinaNet's served candidates (B1) and assigner inputs
+    (B2) at G=32 and at the loader's G=512."""
+    held_two_stage(device, captured, by_name, card, reps, roi_reps,
+                   plain_reps,
+                   {k: v for k, v in BACKBONE_CONFIGS.items()
+                    if two_stage(k)}, REDET_TINY_CONFIGS)
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    held_pair_masks([captured['convnext']], 'ConvNeXt RetinaNet request',
+                    'convnext', pair, device, card, reps, plain_reps)
+    for key, stage in (('convnext_train', 'G=32'),
+                       ('convnext_train_padded', 'G=512')):
+        held_iou_matrices(captured[key], f'ConvNeXt RetinaNet assigner '
+                          f'({stage})', key, iou, device, card, reps,
+                          plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
-    17-30: each kernel against its plain version with the same
+    17-38: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
+    HELD_MATRICES.clear()
     pair = by_name['nms_pair_mask']
     pair['main_path_inputs'] = {}
     for key, label in (('retinanet', 'RetinaNet request'),
@@ -4100,6 +4439,8 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_families(device, captured, by_name, card, reps, plain_reps)
     held_refine(device, captured, by_name, card, reps, plain_reps)
     held_hbb(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_backbones(device, captured, by_name, card, reps, roi_reps,
+                   plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -4152,24 +4493,54 @@ def held_loops(device, captured, by_name, card, reps, roi_reps,
         inputs_held=len(calls))
 
 
+# IoU-matrix inputs phase 12 has held, with their check and timing: the
+# two-stage detectors' RPN inputs are the same seeded gts against the same
+# anchors in every family, bit for bit, and the plain matrix at G=512
+# takes seconds
+HELD_MATRICES = []
+
+
+def held_matrix(args, device, card, reps, plain_reps, label) -> dict:
+    """:func:`check_iou_matrix` of ``args`` and, where ``label`` is given,
+    :func:`time_iou_matrix`, or those of an equal input held before."""
+    for old, result in HELD_MATRICES:
+        if old[2] == args[2] and all(
+                a.shape == b.shape and torch.equal(a, b)
+                for a, b in zip(old[:2], args[:2])):
+            break
+    else:
+        result = dict(zip(('err', 'live'), check_iou_matrix(*args)), seen=0)
+        HELD_MATRICES.append((args, result))
+    result['seen'] += 1
+    if label and 'timing' not in result:
+        result['timing'] = time_iou_matrix(
+            args[0], args[1], result['live'], device, card, label, reps,
+            plain_reps, args[2])
+    return result
+
+
 def held_iou_matrices(calls, label, key, iou, device, card, reps,
                       plain_reps) -> None:
     """Every (boxes1, boxes2, mode) of ``calls`` against the plain matrix;
-    the largest timed into ``iou['main_path_inputs'][key]``."""
+    the largest timed into ``iou['main_path_inputs'][key]``. An input equal
+    to one held before takes that one's check and timing."""
     if not calls:
         log(f'[main-path] box_iou_rotated: the {label} gave no input')
         return
-    held = [check_iou_matrix(*args) for args in calls]
-    iou['max_abs_err'] = max([iou['max_abs_err']] + [err for err, _ in held])
     big = max(range(len(calls)), key=lambda i: matrix_pairs(*calls[i][:2]))
+    held = [held_matrix(args, device, card, reps, plain_reps,
+                        f'{label}\'s largest input' if i == big else None)
+            for i, args in enumerate(calls)]
+    err = max(h['err'] for h in held)
+    iou['max_abs_err'] = max(iou['max_abs_err'], err)
     boxes1, boxes2, mode = calls[big]
+    again = sum(h['seen'] > 1 for h in held)
     log(f'[main-path] box_iou_rotated on the {len(calls)} inputs of the '
-        f'{label}, largest {tuple(boxes1.shape)} x {tuple(boxes2.shape)} '
-        f'{mode}: max |kernel - plain| {max(err for err, _ in held):.3g} <= '
-        f'{IOU_ATOL}; out-of-reach pairs exactly 0')
-    iou['main_path_inputs'][key] = dict(time_iou_matrix(
-        boxes1, boxes2, held[big][1], device, card, f'{label}\'s largest '
-        f'input', reps, plain_reps, mode), inputs_held=len(calls))
+        f'{label} ({again} equal to inputs held before), largest '
+        f'{tuple(boxes1.shape)} x {tuple(boxes2.shape)} {mode}: max |kernel '
+        f'- plain| {err:.3g} <= {IOU_ATOL}; out-of-reach pairs exactly 0')
+    iou['main_path_inputs'][key] = dict(held[big]['timing'],
+                                        inputs_held=len(calls))
 
 
 def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS) -> tuple:
@@ -4350,6 +4721,19 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_hbb'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 31-34] {time.perf_counter() - t31:.1f} s')
+    t35 = time.perf_counter()
+    captured.update(phase_backbone_slice('cuda'))
+    backbone_serving, backbone_inputs = phase_backbone_serving(
+        'cuda', card=info['card'])
+    captured.update(backbone_inputs)
+    backbone_training, backbone_inputs = phase_backbone_training(
+        'cuda', card=info['card'])
+    captured.update(backbone_inputs)
+    redet_loop, loop_inputs = phase_redet_loop(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_redet'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 35-38] {time.perf_counter() - t35:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -4361,12 +4745,14 @@ def main() -> int:
         # recipes' training and serving, the tiny FCOS and CSL runs with
         # their evaluations, S2ANet's and R3Det's requests and steps, and
         # their tiny runs with their evaluations, and the same for Rotated
-        # Faster R-CNN, Gliding Vertex and RoI Transformer
+        # Faster R-CNN, Gliding Vertex and RoI Transformer, and for the
+        # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run)
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
             *fcos, *families, *loops, *refine_serving, *refine_training,
-            *refine_loops, *hbb_serving, *hbb_training, *hbb_loops))
+            *refine_loops, *hbb_serving, *hbb_training, *hbb_loops,
+            *backbone_serving, *backbone_training, *redet_loop))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

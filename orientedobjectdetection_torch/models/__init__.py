@@ -1,20 +1,20 @@
 from .. import core  # noqa: F401  (registers anchors, coders and assigners)
 from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
                               NECKS)
-from .backbones import ResNet
+from .backbones import ConvNeXt, ReResNet, ResNet, Swin, SwinTransformer
 from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
                           KFIoURRetinaHead, KFIoURRetinaRefineHead,
                           ODMRefineHead, OrientedRPNHead, RotatedATSSHead,
                           RotatedFCOSHead, RotatedRetinaHead,
                           RotatedRetinaRefineHead, RotatedRPNHead)
-from .detectors import (GlidingVertex, OrientedRCNN, R3Det, RoITransformer,
-                        RotatedFasterRCNN, RotatedFCOS, RotatedRetinaNet,
-                        RotatedSingleStageDetector, RotatedTwoStageDetector,
-                        S2ANet)
+from .detectors import (GlidingVertex, OrientedRCNN, R3Det, ReDet,
+                        RoITransformer, RotatedFasterRCNN, RotatedFCOS,
+                        RotatedRetinaNet, RotatedSingleStageDetector,
+                        RotatedTwoStageDetector, S2ANet)
 from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
                      GIoULoss, IoULoss, KFLoss, L1Loss, RotatedIoULoss,
                      SmoothFocalLoss, SmoothL1Loss)
-from .necks import FPN
+from .necks import FPN, ReFPN
 from .roi_heads import (GVBBoxHead, GVRatioRoIHead, OrientedStandardRoIHead,
                         RoITransRoIHead, RotatedKFIoUShared2FCBBoxHead,
                         RotatedShared2FCBBoxHead, RotatedStandardRoIHead)
@@ -33,7 +33,8 @@ def build_detector(cfg, train_cfg=None, test_cfg=None):
 
 
 __all__ = [
-    'ResNet', 'FPN', 'RotatedRetinaHead', 'KFIoURRetinaHead',
+    'ResNet', 'SwinTransformer', 'Swin', 'ConvNeXt', 'ReResNet', 'FPN',
+    'ReFPN', 'RotatedRetinaHead', 'KFIoURRetinaHead',
     'RotatedATSSHead', 'CSLRRetinaHead', 'RotatedFCOSHead', 'CSLRFCOSHead',
     'RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
     'OrientedRPNHead', 'OrientedStandardRoIHead', 'RotatedShared2FCBBoxHead',
@@ -42,7 +43,7 @@ __all__ = [
     'S2ANet', 'R3Det', 'RotatedRPNHead', 'RotatedStandardRoIHead',
     'RotatedKFIoUShared2FCBBoxHead', 'GVBBoxHead', 'GVRatioRoIHead',
     'RoITransRoIHead', 'RotatedFasterRCNN', 'GlidingVertex',
-    'RoITransformer', 'CrossEntropyLoss',
+    'RoITransformer', 'ReDet', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS',

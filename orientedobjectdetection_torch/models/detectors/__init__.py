@@ -1,9 +1,9 @@
 from .single_stage import (RotatedFCOS, RotatedRetinaNet,
                            RotatedSingleStageDetector)
 from .refine_detectors import R3Det, S2ANet
-from .two_stage import (GlidingVertex, OrientedRCNN, RoITransformer,
+from .two_stage import (GlidingVertex, OrientedRCNN, ReDet, RoITransformer,
                         RotatedFasterRCNN, RotatedTwoStageDetector)
 
 __all__ = ['RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
            'OrientedRCNN', 'RotatedTwoStageDetector', 'S2ANet', 'R3Det',
-           'RotatedFasterRCNN', 'GlidingVertex', 'RoITransformer']
+           'RotatedFasterRCNN', 'GlidingVertex', 'RoITransformer', 'ReDet']

@@ -37,14 +37,15 @@ def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
     """Seeded random weights from a CPU ``torch.Generator``: LeCun-normal
     weights of the ``WEIGHTED_LAYERS`` (convolutions, linear layers and
     ORConv2d's 5-D filters), zero biases; frozen BN keeps its identity
-    statistics. The same seed gives the same weights on any device as long
-    as the module is still on the CPU."""
+    statistics. A steerable ORConv2d's free parameter is its basis
+    coefficients, seeded in the same way. The same seed gives the same
+    weights on any device as long as the module is still on the CPU."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
         if isinstance(m, WEIGHTED_LAYERS):
-            fan_in = m.weight[0].numel()
-            m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                           / math.sqrt(fan_in))
+            w = m.coeff if getattr(m, 'steerable', False) else m.weight
+            w.copy_(torch.randn(w.shape, generator=gen)
+                    / math.sqrt(w[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
 

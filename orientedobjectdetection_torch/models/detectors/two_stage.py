@@ -16,6 +16,9 @@ head's loss) and ``roi_loss`` when training. RoI Transformer's stages have
 a range each: ``roialign_head_{i}`` when serving, ``sample_rois_{i}`` and
 ``roi_pool_{i}`` when training.
 
+``ReDet`` (JAX ``two_stage.py:299-303``) is the same detector on the
+equivariant ``ReResNet`` / ``ReFPN`` with the ``RiRoIAlignRotated`` RoI
+layer, whose roll has its own range, ``two_stage.ri_roll``.
 ``RotatedFasterRCNN`` is the same detector with the horizontal-proposal
 RPN and :class:`RotatedStandardRoIHead`; ``GlidingVertex`` and
 ``RoITransformer`` (JAX ``two_stage.py:132-296``) keep its construction,
@@ -256,3 +259,9 @@ class RoITransformer(RotatedTwoStageDetector):
             return self.roi_head.get_bboxes(
                 outputs['roi_outputs'], cfg=cfg, img_shape=img_shape,
                 plain_pair_mask=plain_pair_mask)
+
+
+@DETECTORS.register_module()
+class ReDet(RotatedTwoStageDetector):
+    """Thin alias (reference ``detectors/redet.py``): ``ReResNet`` ->
+    ``ReFPN`` -> oriented RPN -> ``RiRoIAlignRotated`` RoI head."""

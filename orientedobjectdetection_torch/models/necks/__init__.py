@@ -1,3 +1,4 @@
+from ..backbones.re_resnet import ReFPN
 from .fpn import FPN
 
-__all__ = ['FPN']
+__all__ = ['FPN', 'ReFPN']

@@ -26,6 +26,12 @@ sampled RoIs are ordered positives first, then negatives, then padding, by
 a stable sort of the sampling scores (:func:`sample_roi_set`, which the
 other two-stage heads share).
 
+ReDet's ``RiRoIAlignRotated`` layer pools in the same two ways and then
+rolls each RoI's orientation channels by its angle bin
+(``backbones/re_resnet.py:ri_roll``, in a ``two_stage.ri_roll`` range):
+features aligned into the RoI's frame. As in the JAX package it pools with
+the gather op's default ``finest_scale`` (56), not the config's.
+
 ``RotatedStandardRoIHead`` (Rotated Faster R-CNN) takes horizontal
 proposals: it pools and assigns them as theta-0 rotated boxes, on the gts'
 circumscribed horizontal boxes, and regresses the rotated gts.
@@ -37,6 +43,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ...core.assigners import (MaxIoUAssigner, NEG, masks_from_scores,
                                sample_scores)
@@ -46,6 +53,7 @@ from ...ops.roi_align_kernels import (roi_align_rotated_pyramid,
                                       roi_align_rotated_pyramid_plain)
 from ...ops.roi_align_rotated import roi_align_rotated
 from ...utils.registry import HEADS
+from ..backbones.re_resnet import ri_roll
 
 
 def build_max_iou_assigner(cfg: Optional[dict]) -> MaxIoUAssigner:
@@ -137,7 +145,9 @@ def pool_rois(feats, rois: torch.Tensor, strides, out_size=(7, 7),
 class OrientedStandardRoIHead(nn.Module):
     """``bbox_head`` is the one submodule with parameters. The
     ``roi_layer``'s ``clockwise`` key is not read and the op runs with
-    ``clockwise=False``, as in the JAX package. ``train_cfg`` holds the
+    ``clockwise=False``, as in the JAX package; ``RiRoIAlignRotated``'s
+    ``num_samples`` and ``num_orientations`` are not read either (2
+    samples a bin side, 8 orientations). ``train_cfg`` holds the
     ``assigner`` (default IoU 0.5 / 0.5 / 0.5 without low-quality matches)
     and the ``sampler`` (512 at 0.25, gts added as proposals)."""
 
@@ -155,10 +165,11 @@ class OrientedStandardRoIHead(nn.Module):
         self.bbox_roi_extractor = dict(bbox_roi_extractor or {})
         layer_type = self.bbox_roi_extractor.get('roi_layer', {}).get(
             'type', 'RoIAlignRotated')
-        if layer_type not in ('RoIAlignRotated', 'RoIAlign'):
-            raise NotImplementedError(
-                f'roi_layer {layer_type!r} is not ported yet (ReDet, '
-                f'ROADMAP A.9)')
+        if layer_type not in ('RoIAlignRotated', 'RoIAlign',
+                              'RiRoIAlignRotated'):
+            raise NotImplementedError(f'roi_layer {layer_type!r} is not '
+                                      f'ported')
+        self.rotation_invariant = layer_type == 'RiRoIAlignRotated'
         head = dict(bbox_head or dict(type='RotatedShared2FCBBoxHead'))
         if head.get('train_cfg') is None:
             head['train_cfg'] = train_cfg
@@ -182,11 +193,17 @@ class OrientedStandardRoIHead(nn.Module):
 
     def pool(self, feats, rois: torch.Tensor, plain_roi_align: bool = False,
              train: bool = False) -> torch.Tensor:
-        """:func:`pool_rois` with this head's ``roi_layer`` settings."""
+        """:func:`pool_rois` with this head's ``roi_layer`` settings, then
+        for ``RiRoIAlignRotated`` the orientation roll."""
         rc = self.roi_cfg
-        return pool_rois(feats, rois, rc['strides'], rc['out_size'],
-                         rc['sampling_ratio'], rc['finest_scale'],
-                         plain_roi_align, train)
+        finest = 56.0 if self.rotation_invariant else rc['finest_scale']
+        pooled = pool_rois(feats, rois, rc['strides'], rc['out_size'],
+                           rc['sampling_ratio'], finest, plain_roi_align,
+                           train)
+        if not self.rotation_invariant:
+            return pooled
+        with record_function('two_stage.ri_roll'):
+            return ri_roll(pooled, rois)
 
     def forward(self, feats, rois: torch.Tensor,
                 plain_roi_align: bool = False):

@@ -77,10 +77,14 @@ def frozen_mask(model: nn.Module, frozen_stages: int = -1) -> Dict[str, bool]:
     """``{parameter name: trainable}`` over ``model.named_parameters()``.
     ``frozen_stages >= 0`` freezes the ResNet stem (``backbone.conv1``,
     ``backbone.bn1``) and the first ``frozen_stages`` stages (reference
-    ``ResNet._freeze_stages``; ``frozen_stages=1`` in every R50 config)."""
+    ``ResNet._freeze_stages``; ``frozen_stages=1`` in every R50 config),
+    the names the JAX package's ``frozen_mask`` matches: a backbone whose
+    ``freeze_stem`` is False (ReResNet, whose JAX stem has other names)
+    keeps its stem trainable, and Swin's and ConvNeXt's names match none."""
     frozen = []
     if frozen_stages >= 0:
-        frozen += ['backbone.conv1.', 'backbone.bn1.']
+        if getattr(getattr(model, 'backbone', None), 'freeze_stem', True):
+            frozen += ['backbone.conv1.', 'backbone.bn1.']
         frozen += [f'backbone.layer{s}.' for s in range(1, frozen_stages + 1)]
     return {name: not name.startswith(tuple(frozen))
             for name, _ in model.named_parameters()}
@@ -130,11 +134,17 @@ class Transform:
         """One update from the gradients that ``backward`` left on the
         trainable parameters. Returns their global norm before the clip, a
         0-d tensor on the device. optax's clip: scale by
-        ``max_norm / norm`` where ``norm >= max_norm`` (no epsilon)."""
+        ``max_norm / norm`` where ``norm >= max_norm`` (no epsilon). A
+        trainable parameter that the loss does not reach (a backbone
+        out-norm whose level the FPN skips) takes a zero gradient, so that
+        it is decayed and carries its momentum as optax's update does."""
         optimizer = state.optimizer
-        grads: List[torch.Tensor] = [
-            p.grad for group in optimizer.param_groups
-            for p in group['params'] if p.grad is not None]
+        grads: List[torch.Tensor] = []
+        for group in optimizer.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.max_norm is not None:

@@ -44,7 +44,36 @@ state dict with mmrotate names, the same mapping as
   .weight`` ``(C, C, 3, 3)`` (``convert_deform_to_dense``);
 - R3Det: ``feat_refine_{i}`` <-> ``feat_refine_module.{i}`` (``conv_5_1``,
   ``conv_1_5``, ``conv_1_1``) and ``refine_head_{i}`` <->
-  ``refine_head.{i}`` with the head mapping.
+  ``refine_head.{i}`` with the head mapping;
+- the other backbones, with the names of the converter's
+  ``torch_swin_to_flax``, ``torch_convnext_to_flax`` and ``_synth_re_*``,
+  one rule table read both ways (``_MODULES``): Swin (mmdet) ``patch_embed`` /
+  ``patch_norm`` <-> ``patch_embed.projection`` / ``.norm``,
+  ``stage{i}_block{j}`` <-> ``stages.{i}.blocks.{j}`` (``attn/qkv``,
+  ``attn/proj``, ``attn/rel_pos_bias`` <-> ``attn.w_msa.qkv``, ``.proj``,
+  ``.relative_position_bias_table``; ``fc1`` / ``fc2`` <-> ``ffn.layers.0.0``
+  / ``ffn.layers.1``), the merge at the start of stage i ``merge_norm_{i}``
+  / ``merge_reduce_{i}`` <-> ``stages.{i-1}.downsample.norm`` /
+  ``.reduction`` with its 4C axis turned from tap-major to mmdet's
+  channel-major (the converter's ``_swin_merge_perm``), ``out_norm_{i}``
+  <-> ``norm{i}``; a JAX bias table of a window that shrank with its map
+  (``(2 ws - 1)^2`` rows) goes to the central block of the port's ``(2
+  window_size - 1)^2`` rows, zeros around it, and back to the template's
+  shape; ConvNeXt (mmcls) ``stem_conv`` / ``stem_norm`` <->
+  ``downsample_layers.0.0`` / ``.0.1``, ``down_norm_{i}`` / ``down_conv_{i}``
+  <-> ``downsample_layers.{i}.0`` / ``.{i}.1``, ``stage{i}_block{j}``
+  (``dwconv``, ``norm``, ``pwconv1``, ``pwconv2``, ``gamma``) <->
+  ``stages.{i}.{j}`` (``depthwise_conv``, ``norm``, ``pointwise_conv1``,
+  ``pointwise_conv2``, ``gamma``), ``out_norm_{i}`` <-> ``norm{i}``; LayerNorm
+  ``scale`` <-> ``weight``; ReResNet (mmrotate) ``stem_lift`` / ``stem_bn``
+  <-> ``conv1`` / ``bn1``, ``layer{i}_{j}`` (``conv1``, ``conv2/orconv``,
+  ``conv3``, ``ds_conv``, ``bn*``, ``ds_bn``) <-> ``layer{i}.{j}``
+  (``conv1``, ``conv2``, ``conv3``, ``downsample.0``, ``bn*``,
+  ``downsample.1``) and ReFPN ``lateral_{i}``, ``fpn_{i}/orconv`` (its bias
+  on ``fpn_{i}``) <-> ``lateral_convs.{i}.conv``, ``fpn_convs.{i}.conv``: the
+  tied tensors, a group convolution's taps ``(k*k, in, in_or, out)`` <->
+  ``(out, in, in_or, k, k)`` and steerable coefficients ``(17, in, in_or,
+  out)`` <-> ``coeff`` ``(out, in, in_or, 17)``.
 """
 
 from __future__ import annotations
@@ -138,15 +167,208 @@ def _roi_head_name(path) -> str:
     return f'roi_head.{head}.{base}.{_field(leaf)}'
 
 
-def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
+# ---- Swin, ConvNeXt, ReResNet and ReFPN -------------------------------------
+# (flax module path, port module path, kind[, leaves]) for each backbone
+# other than ResNet and for ReFPN; ``{i}`` stands for a number and ``{i-1}``
+# for one less; ``leaves`` limits a rule to those flax leaves
+_MODULES = {
+    'swin': [
+        ('patch_embed', 'patch_embed.projection', 'conv'),
+        ('patch_norm', 'patch_embed.norm', 'norm'),
+        ('merge_norm_{i}', 'stages.{i-1}.downsample.norm', 'merge_norm'),
+        ('merge_reduce_{i}', 'stages.{i-1}.downsample.reduction',
+         'merge_dense'),
+        ('stage{i}_block{j}/norm{k}', 'stages.{i}.blocks.{j}.norm{k}',
+         'norm'),
+        ('stage{i}_block{j}/attn/qkv', 'stages.{i}.blocks.{j}.attn.w_msa.qkv',
+         'dense'),
+        ('stage{i}_block{j}/attn/proj',
+         'stages.{i}.blocks.{j}.attn.w_msa.proj', 'dense'),
+        ('stage{i}_block{j}/attn', 'stages.{i}.blocks.{j}.attn.w_msa',
+         'table'),
+        ('stage{i}_block{j}/fc1', 'stages.{i}.blocks.{j}.ffn.layers.0.0',
+         'dense'),
+        ('stage{i}_block{j}/fc2', 'stages.{i}.blocks.{j}.ffn.layers.1',
+         'dense'),
+        ('out_norm_{i}', 'norm{i}', 'norm'),
+    ],
+    'convnext': [
+        ('stem_conv', 'downsample_layers.0.0', 'conv'),
+        ('stem_norm', 'downsample_layers.0.1', 'norm'),
+        ('down_norm_{i}', 'downsample_layers.{i}.0', 'norm'),
+        ('down_conv_{i}', 'downsample_layers.{i}.1', 'conv'),
+        ('stage{i}_block{j}/dwconv', 'stages.{i}.{j}.depthwise_conv', 'conv'),
+        ('stage{i}_block{j}/norm', 'stages.{i}.{j}.norm', 'norm'),
+        ('stage{i}_block{j}/pwconv{k}', 'stages.{i}.{j}.pointwise_conv{k}',
+         'dense'),
+        ('stage{i}_block{j}', 'stages.{i}.{j}', 'gamma'),
+        ('out_norm_{i}', 'norm{i}', 'norm'),
+    ],
+    're': [
+        ('stem_lift', 'conv1', 'group'),
+        ('stem_bn', 'bn1', 'bn'),
+        ('layer{i}_{j}/conv2/orconv', 'layer{i}.{j}.conv2', 'group'),
+        ('layer{i}_{j}/conv{k}', 'layer{i}.{j}.conv{k}', 'group'),
+        ('layer{i}_{j}/bn{k}', 'layer{i}.{j}.bn{k}', 'bn'),
+        ('layer{i}_{j}/ds_conv', 'layer{i}.{j}.downsample.0', 'group'),
+        ('layer{i}_{j}/ds_bn', 'layer{i}.{j}.downsample.1', 'bn'),
+    ],
+    'refpn': [
+        ('lateral_{i}', 'lateral_convs.{i}.conv', 'group'),
+        ('fpn_{i}/orconv', 'fpn_convs.{i}.conv', 'group',
+         ('kernel', 'coeff')),
+        ('fpn_{i}', 'fpn_convs.{i}.conv', 'group', ('bias',)),
+    ],
+}
+# flax leaf -> port field, by kind of module
+_LEAVES = {
+    'conv': {'kernel': 'weight', 'bias': 'bias'},
+    'dense': {'kernel': 'weight', 'bias': 'bias'},
+    'merge_dense': {'kernel': 'weight'},
+    'norm': {'scale': 'weight', 'bias': 'bias'},
+    'merge_norm': {'scale': 'weight', 'bias': 'bias'},
+    'table': {'rel_pos_bias': 'relative_position_bias_table'},
+    'gamma': {'gamma': 'gamma'},
+    'group': {'kernel': 'weight', 'coeff': 'coeff', 'bias': 'bias'},
+    'bn': _BN_FIELDS,
+}
+
+
+_NUMBER = re.compile(r'\{(\w)(-1)?\}')
+
+
+def _pattern(template: str) -> str:
+    """A module template -> a regex with a group a number (``{i-1}`` as
+    ``i_less``)."""
+    out = re.escape(template).replace(r'\{', '{').replace(r'\}', '}') \
+        .replace(r'\-', '-')
+    return _NUMBER.sub(lambda m: f'(?P<{m.group(1)}'
+                       f'{"_less" if m.group(2) else ""}>\\d+)', out)
+
+
+def _fill(template: str, numbers: dict) -> str:
+    def number(m):
+        key = m.group(1)
+        if m.group(2):                     # {i-1}
+            return str(int(numbers[key]) - 1)
+        if key in numbers:
+            return numbers[key]
+        return str(int(numbers[key + '_less']) + 1)
+    return _NUMBER.sub(number, template)
+
+
+def _rule(kind: str, module: str, leaf: str, to_port: bool):
+    """The rule of ``_MODULES[kind]`` for a flax module path (``/``) and
+    leaf (``to_port``), or for a port module path (``.``) and field.
+    Returns (the other side's module path, the flax leaf, the rule's kind
+    of module)."""
+    for flax, port, mod_kind, *only in _MODULES[kind]:
+        leaves = _LEAVES[mod_kind]
+        if not to_port:
+            leaves = {v: k for k, v in leaves.items()}
+        if leaf not in leaves:
+            continue
+        flax_leaf = leaf if to_port else leaves[leaf]
+        if only and flax_leaf not in only[0]:
+            continue
+        src, dst = (flax, port) if to_port else (port, flax)
+        m = re.fullmatch(_pattern(src), module)
+        if m:
+            return _fill(dst, m.groupdict()), flax_leaf, mod_kind
+    raise ValueError(f'unhandled {kind} module {module!r} ({leaf})')
+
+
+def backbone_kind(names) -> str:
+    """'swin', 'convnext', 're' or 'resnet' from the backbone's flax module
+    names."""
+    names = set(names)
+    for kind, mark in (('swin', 'patch_embed'), ('convnext', 'stem_conv'),
+                       ('re', 'stem_lift')):
+        if mark in names:
+            return kind
+    return 'resnet'
+
+
+def _merge_perm(c4: int) -> np.ndarray:
+    """mmdet's channel-major index ``c * 4 + tap`` -> the JAX package's
+    tap-major ``tap * C + c`` (``perm[port] = jax``)."""
+    c = c4 // 4
+    return (np.arange(4)[None, :] * c + np.arange(c)[:, None]).reshape(-1)
+
+
+def _to_port(v: np.ndarray, mod_kind: str, leaf: str,
+             window_size: int) -> np.ndarray:
+    """A flax tensor -> the port's layout."""
+    if mod_kind == 'group' and leaf == 'coeff':   # (17, in, in_or, out)
+        return np.transpose(v, (3, 1, 2, 0))
+    if mod_kind == 'group' and leaf == 'kernel':  # (k*k, in, in_or, out)
+        k = int(round(np.sqrt(v.shape[0])))
+        return np.transpose(v.reshape((k, k) + v.shape[1:]), (4, 2, 3, 0, 1))
+    if mod_kind == 'conv' and leaf == 'kernel':   # HWIO -> OIHW
+        return np.transpose(v, (3, 2, 0, 1))
+    if mod_kind in ('merge_norm', 'merge_dense'):
+        v = v[_merge_perm(v.shape[0])]
+    if leaf == 'kernel':                          # dense (in, out)
+        return v.T
+    if mod_kind == 'table':     # a (2 ws - 1)^2-row table: central block
+        n, side = 2 * window_size - 1, int(round(np.sqrt(v.shape[0])))
+        out = np.zeros((n, n, v.shape[1]), v.dtype)
+        lo = (n - side) // 2
+        out[lo:lo + side, lo:lo + side] = v.reshape(side, side, -1)
+        return out.reshape(n * n, -1)
+    return v
+
+
+def _to_flax(v: np.ndarray, mod_kind: str, leaf: str, rows=None):
+    """The inverse of :func:`_to_port`; ``rows``: a bias table's rows in
+    the template."""
+    if mod_kind == 'group' and leaf == 'coeff':
+        return np.transpose(v, (3, 1, 2, 0))
+    if mod_kind == 'group' and leaf == 'kernel':
+        return np.transpose(v, (3, 4, 1, 2, 0)).reshape(
+            (v.shape[-1] ** 2,) + v.shape[1:3] + v.shape[:1])
+    if mod_kind == 'conv' and leaf == 'kernel':
+        return np.transpose(v, (2, 3, 1, 0))
+    if leaf == 'kernel':
+        v = v.T
+    if mod_kind in ('merge_norm', 'merge_dense'):
+        back = np.empty_like(v)
+        back[_merge_perm(v.shape[0])] = v
+        return back
+    if mod_kind == 'table' and rows is not None:
+        n, side = int(round(np.sqrt(v.shape[0]))), int(round(np.sqrt(rows)))
+        lo = (n - side) // 2
+        return v.reshape(n, n, -1)[lo:lo + side, lo:lo + side].reshape(
+            rows, -1)
+    return v
+
+
+def from_jax_variables(variables,
+                       window_size: int = 7) -> Dict[str, torch.Tensor]:
     """flax variables of a single-stage detector, a two-stage detector, an
-    S2ANet or an R3Det -> the port's state dict."""
+    S2ANet or an R3Det -> the port's state dict. ``window_size``: the Swin
+    window the port's bias tables are built for (7 in every config)."""
     params = variables['params']
     n_lateral = sum(1 for k in params.get('neck', {})
                     if k.startswith('lateral_'))
+    kinds = {'backbone': backbone_kind(params.get('backbone', {})),
+             'neck': 'refpn' if any(
+                 isinstance(v, dict) and 'orconv' in v
+                 for v in params.get('neck', {}).values()) else 'fpn'}
     out: Dict[str, torch.Tensor] = {}
-    for path, v in _walk(params):
-        top, rest = path[0], path[1:]
+    stats = [(('batch_stats', 'backbone') + p, v) for p, v in _walk(
+        variables.get('batch_stats', {}).get('backbone', {}))]
+    for path, v in [(('params',) + p, v) for p, v in _walk(params)] + stats:
+        top, rest = path[1], path[2:]
+        if kinds.get(top) in _MODULES:
+            module, leaf, mod_kind = _rule(kinds[top], '/'.join(rest[:-1]),
+                                           rest[-1], True)
+            out[f'{top}.{module}.{_LEAVES[mod_kind][leaf]}'] = \
+                torch.from_numpy(np.ascontiguousarray(
+                    _to_port(v, mod_kind, leaf, window_size),
+                    dtype=np.float32))
+            continue
+        path = path[1:]
         if top == 'backbone':
             name = _backbone_name(rest)
         elif top == 'neck':
@@ -168,9 +390,6 @@ def from_jax_variables(variables) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f'unhandled flax path {path}')
         out[name] = _tensor(path, v)
-    for path, v in _walk(variables.get('batch_stats', {}).get('backbone',
-                                                              {})):
-        out[_backbone_name(path)] = _tensor(path, v)
     return out
 
 
@@ -228,28 +447,53 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
     return (collection, top, *mods, leaf)
 
 
-def to_jax_layout(state_dict) -> Dict[str, dict]:
+def to_jax_layout(state_dict, template=None) -> Dict[str, dict]:
     """The reverse of :func:`from_jax_variables`: a port ``state_dict`` (or
     any ``{port name: tensor}``, such as gradients by parameter name) -> a
     nested ``{'params': ..., 'batch_stats': ...}`` dict of numpy arrays with
     the flax names and layouts (convolution kernels OIHW -> HWIO, linear
     weights ``(out, in)`` -> ``(in, out)``, ORConv's 5-D weight and the
-    align convolutions as :func:`_tensor` says, the other way)."""
+    align convolutions as :func:`_tensor` says, the other way).
+    ``template``: flax variables (or their shapes) of the same detector;
+    a Swin bias table is cut to the template's rows, where the JAX
+    package's window shrank with its map."""
     n_lateral = len({k.split('.')[2] for k in state_dict
                      if k.startswith('neck.lateral_convs.')})
+    # a group convolution's tensors are 5-D (or steerable coefficients)
+    group = {k.split('.')[0] for k, v in state_dict.items()
+             if torch.as_tensor(v).dim() == 5 or k.endswith('.coeff')}
+    names = {k.split('.')[1] for k in state_dict}
+    kinds = {'backbone': 'swin' if 'patch_embed' in names else
+             'convnext' if 'downsample_layers' in names else
+             're' if 'backbone' in group else 'resnet',
+             'neck': 'refpn' if 'neck' in group else 'fpn'}
     out: Dict[str, dict] = {}
     for name, v in state_dict.items():
         v = torch.as_tensor(v).detach().cpu().numpy()
-        *path, leaf = _jax_path(name, v.ndim, n_lateral)
-        if v.ndim == 5:                  # (out, in, nOr, 3, 3) ORConv
-            v = np.transpose(v, (3, 4, 1, 2, 0)).reshape(
-                (9,) + v.shape[1:3] + v.shape[:1])
-        elif v.ndim == 4 and path[-1].startswith('align_proj_'):
-            v = np.transpose(v, (2, 3, 1, 0)).reshape(-1, v.shape[0])
-        elif v.ndim == 4:                # OIHW -> HWIO
-            v = np.transpose(v, (2, 3, 1, 0))
-        elif v.ndim == 2 and leaf == 'kernel':
-            v = v.T
+        top, *mods, field = name.split('.')
+        if kinds.get(top) in _MODULES:
+            module, leaf, mod_kind = _rule(kinds[top], '.'.join(mods), field,
+                                           False)
+            path = ['batch_stats' if leaf in ('mean', 'var') else 'params',
+                    top, *module.split('/')]
+            rows = None
+            if mod_kind == 'table' and template is not None:
+                node = template
+                for key in path:
+                    node = node[key]
+                rows = node[leaf].shape[0]
+            v = _to_flax(v, mod_kind, leaf, rows)
+        else:
+            *path, leaf = _jax_path(name, v.ndim, n_lateral)
+            if v.ndim == 5:              # (out, in, nOr, 3, 3) ORConv
+                v = np.transpose(v, (3, 4, 1, 2, 0)).reshape(
+                    (9,) + v.shape[1:3] + v.shape[:1])
+            elif v.ndim == 4 and path[-1].startswith('align_proj_'):
+                v = np.transpose(v, (2, 3, 1, 0)).reshape(-1, v.shape[0])
+            elif v.ndim == 4:            # OIHW -> HWIO
+                v = np.transpose(v, (2, 3, 1, 0))
+            elif v.ndim == 2 and leaf == 'kernel':
+                v = v.T
         node = out
         for key in path:
             node = node.setdefault(key, {})

@@ -297,6 +297,23 @@ def test_phase_main_path_kernels_rehearsal():
         captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
         captured[f'{label}_loop_nms'] = [captured['orcnn']]
         captured[f'{label}_loop_roi_align'] = [(feats, theta0, ratio)] * 2
+    # phases 35-38: Swin Oriented R-CNN's and ReDet's inputs as the
+    # families' above (one RoI stage), the ConvNeXt RetinaNet's candidates
+    # and assigner inputs, ReDet's tiny loop
+    for label in ('swin', 'redet'):
+        captured[label] = captured['retinanet']
+        captured[f'{label}_roi'] = [pooled]
+        captured[f'{label}_slice_roi'] = [pooled]
+        captured[f'{label}_slice_nms'] = [captured['orcnn']]
+        for key in ('train', 'train_padded', 'slice_assign'):
+            captured[f'{label}_{key}'] = [light_rpn, per_image]
+    captured['redet_loop_assign'] = [light_rpn, per_image] * 2
+    captured['redet_loop_eval_iou'] = captured['eval_iou'][1:]
+    captured['redet_loop_nms'] = [captured['orcnn']]
+    captured['redet_loop_roi_align'] = [pooled] * 2
+    captured['convnext'] = captured['retinanet']
+    captured['convnext_train'] = [captured['train_step']]
+    captured['convnext_train_padded'] = [captured['train_step']] * 2
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -314,16 +331,26 @@ def test_phase_main_path_kernels_rehearsal():
                        'train_rpn', 'train_padded_rpn'] +
            [f'train{pad}_roi{i}' for pad in ('', '_padded')
             for i in range(stages)]]
+    backbones = [f'{label}_{key}' for label in ('swin', 'redet')
+                 for key in ('slice', 'train_rpn', 'train_padded_rpn',
+                             'train_roi0', 'train_padded_roi0')] + [
+        'redet_loop_assign', 'redet_loop_eval_iou', 'convnext_train',
+        'convnext_train_padded']
     assert sorted(iou['main_path_inputs']) == sorted([
         'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
         'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
-        'r3det_refine_slice'] + refine + hbb)
+        'r3det_refine_slice'] + refine + hbb + backbones)
     assert sorted(roi['main_path_inputs']) == sorted(
         ['orcnn', 'orcnn_loop_eval'] +
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
-         for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'])
+         for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
+        ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
+         'redet_loop_eval'])
+    assert iou['main_path_inputs']['convnext_train_padded'][
+        'inputs_held'] == 2
+    assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
     assert roi['main_path_inputs']['faster_s0']['sampling_ratio'] == 1
     assert roi['main_path_inputs']['gv_loop_eval']['inputs_held'] == 2
     assert roi['main_path_inputs']['gv_s0']['theta0_rois'] == \
@@ -362,6 +389,29 @@ def test_phase_main_path_kernels_rehearsal():
     for label in chip_smoke.HBB_POOLS:
         for key in (label, f'{label}_loop_nms'):
             assert pair['main_path_inputs'][key]['ms'] > 0
+    for key in ('swin', 'redet', 'convnext', 'redet_loop_nms'):
+        assert pair['main_path_inputs'][key]['ms'] > 0
+
+
+def test_held_iou_matrices_check_an_equal_input_once(monkeypatch):
+    """Phase 12 checks and times an input equal to one held before (the
+    two-stage families' RPN inputs) once, and every other input anew."""
+    anchors = chip_smoke.config_anchors(128, 'cpu')
+    gts = chip_smoke.seeded_gts(anchors, 2, 8, 3, 8)[0].clamp(min=1e-3)
+    other = chip_smoke.seeded_gts(anchors, 2, 8, 3, 9)[0].clamp(min=1e-3)
+    checked = []
+    check = chip_smoke.check_iou_matrix
+    monkeypatch.setattr(chip_smoke, 'check_iou_matrix',
+                        lambda *args: checked.append(args) or check(*args))
+    chip_smoke.HELD_MATRICES.clear()
+    iou = dict(max_abs_err=0.0, main_path_inputs={})
+    for key, boxes in (('a', gts), ('b', gts.clone()), ('c', other)):
+        chip_smoke.held_iou_matrices([(boxes, anchors, 'iou')], key, key, iou,
+                                     'cpu', '', 1, 1)
+    assert len(checked) == 2
+    got = iou['main_path_inputs']
+    assert got['a']['ms'] == got['b']['ms'] and got['c']['ms'] > 0
+    assert got['b']['inputs_held'] == 1
 
 
 def test_pair_mask_rows_hold_a_large_input_in_blocks(monkeypatch):
@@ -810,6 +860,30 @@ def test_same_params_allows_a_float32_step_and_nothing_more():
         chip_smoke.same_params(got(apart), ref, 'three steps')
 
 
+def test_same_params_after_adamw_loosens_only_rounding_gradients():
+    """After an AdamW step an element whose gradient is at rounding size
+    may move by up to its tensor's change the other way; an element with
+    a real gradient is held as after SGD."""
+    w = torch.zeros(4)
+    lr = 1e-4
+    after = w - lr * torch.tensor([1.0, 1.0, 1.0, 0.3])
+    ref = dict(metrics={'loss': 1.0}, before={'w': w},
+               after={'w': after.clone()}, adam=True,
+               grads={'w': torch.tensor([2.0, 1.0, 0.5, 1e-9])},
+               detector=torch.nn.ParameterDict(
+                   {'w': torch.nn.Parameter(w.clone())}))
+    noise = after.clone()
+    noise[3] = w[3] + lr * 0.3        # a rounding gradient's other sign
+    chip_smoke.same_params(dict(metrics={'loss': 1.0}, after={'w': noise}),
+                           ref, 'noise')
+    for i, shift in ((0, 0.05 * lr), (3, 3 * lr)):
+        apart = after.clone()
+        apart[i] += shift
+        with pytest.raises(AssertionError):
+            chip_smoke.same_params(dict(metrics={'loss': 1.0},
+                                        after={'w': apart}), ref, 'apart')
+
+
 # ---- phases 27-30 at a tiny size: the published refine configs with a
 # ResNet-18 backbone at 128 px
 TINY_REFINE = '''
@@ -1047,3 +1121,114 @@ def test_phase_hbb_loops_rehearsal(tmp_path):
         assert len(pools) == chip_smoke.HBB_POOLS[label]  # one eval batch
         assert pools[0][2] == (1 if label == 'faster' else 2)
         assert inputs[f'{label}_loop_nms']
+
+
+# ---- phases 35-38 at a tiny size: the Swin, ConvNeXt and ReDet configs cut
+# narrow (a 16-dim Swin of depths 2, a ConvNeXt of dims 16-64 added to the
+# port's ARCHS, ReResNet-18) at 128 px
+TINY_TWO_STAGE = '''
+    train_cfg=dict(rpn_proposal=dict(nms_pre=128, max_per_img=64)),
+    test_cfg=dict(rpn=dict(nms_pre=128, max_per_img=64)))
+'''
+TINY_BACKBONES = {
+    'swin': '''
+model = dict(
+    backbone=dict(embed_dims=16, depths=[2, 2, 2, 2], num_heads=[1, 2, 2, 4]),
+    neck=dict(in_channels=[16, 32, 64, 128]),''' + TINY_TWO_STAGE,
+    'convnext': '''
+model = dict(
+    backbone=dict(arch='narrow'),
+    neck=dict(in_channels=[16, 32, 48, 64], out_channels=32),
+    bbox_head=dict(in_channels=32, feat_channels=32, stacked_convs=1),
+    test_cfg=dict(nms_pre=64, max_candidates=64, max_per_img=50))
+''',
+    'redet': '''
+model = dict(
+    backbone=dict(depth=18),''' + TINY_TWO_STAGE,
+}
+
+
+@pytest.fixture
+def tiny_backbones(tmp_path, monkeypatch):
+    """The phases' configs replaced by narrow copies."""
+    from orientedobjectdetection_torch.models.backbones import convnext
+    monkeypatch.setitem(convnext.ARCHS, 'narrow', dict(
+        depths=(1, 1, 2, 1), dims=(16, 32, 48, 64)))
+    configs = {k: derived_config(tmp_path, v, TINY_BACKBONES[k])
+               for k, v in chip_smoke.BACKBONE_CONFIGS.items()}
+    monkeypatch.setattr(chip_smoke, 'BACKBONE_CONFIGS', configs)
+    return configs
+
+
+def test_phase_backbone_slice_rehearsal(tiny_backbones):
+    captured = chip_smoke.phase_backbone_slice('cpu', bsz=1, size=128, g=8,
+                                               valid=3, max_num=64,
+                                               max_candidates=64)
+    for label in ('swin', 'redet'):
+        (levels, rois, ratio), = captured[f'{label}_slice_roi']
+        assert rois.shape == (1, 64, 5) and ratio == 2
+        assert levels[0].shape[-1] == 256      # ReFPN: 32 fields x 8
+        (boxes, cls), = captured[f'{label}_slice_nms']
+        assert boxes.shape[-1] == 5
+        calls = captured[f'{label}_slice_assign']
+        assert len(calls) == 2 and calls[-1][1].dim() == 2
+    assert 'convnext_slice_assign' not in captured
+
+
+def test_phase_backbone_serving_rehearsal(tiny_backbones):
+    runs, captured = chip_smoke.phase_backbone_serving(
+        'cpu', bsz=1, size=128, warm=1, timed=1, dtype=torch.float32,
+        max_num=64, max_candidates=64)
+    assert runs == [NO_LAUNCHES] * 3
+    assert len(captured['swin_roi']) == len(captured['redet_roi']) == 1
+    assert 'convnext_roi' not in captured
+    for label in chip_smoke.BACKBONE_CONFIGS:
+        assert captured[label][0].shape[-1] == 5
+
+
+def test_phase_backbone_training_rehearsal(tiny_backbones):
+    steps = {k: (2, 6) for k in chip_smoke.BACKBONE_CONFIGS}
+    runs, captured = chip_smoke.phase_backbone_training(
+        'cpu', bsz=1, size=128, g=8, valid=3, dtype=torch.float32,
+        padded_g=16, padded_valid=5, steps=steps)
+    assert runs == [NO_LAUNCHES] * 3
+    for label, assigns in chip_smoke.BACKBONE_ASSIGNS.items():
+        calls = captured[f'{label}_train']
+        assert len(calls) == assigns
+        assert captured[f'{label}_train_padded'][0][0].shape[-2] == 16
+
+
+def test_module_ranges_split_a_request_and_come_off():
+    """The profiled modules run inside their ``module.*`` ranges while the
+    context is open, ReDet's roll inside the RoI head's, and the class's
+    forward is back afterwards."""
+    from torch.profiler import profile
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.utils import Config
+    detector = build_detector(dict(Config.fromfile(
+        chip_smoke.REDET_TINY_CONFIGS['redet']).model))
+    detector.init_weights(0)
+    with profile() as prof, torch.no_grad(), \
+            chip_smoke.module_ranges(detector):
+        detector(torch.randn(1, 3, 64, 64))
+    seen = {e.key for e in prof.key_averages()}
+    assert {'module.backbone', 'module.neck', 'module.rpn_head',
+            'module.roi_head', 'two_stage.ri_roll'} <= seen
+    assert 'forward' not in vars(detector.backbone)
+
+
+def test_phase_redet_loop_rehearsal(tmp_path):
+    from orientedobjectdetection_torch.tools.generate_synth import \
+        generate_synth
+    root = str(tmp_path / 'tiny')
+    generate_synth(root, 4, 128, seed=0)
+    configs = {k: derived_config(tmp_path, v, TINY_FAMILY)
+               for k, v in chip_smoke.REDET_TINY_CONFIGS.items()}
+    runs, inputs = chip_smoke.phase_redet_loop(
+        root, str(tmp_path / 'work'), configs=configs, steps=2,
+        dtype=torch.float32, device='cpu', log_interval=1)
+    assert runs == [NO_LAUNCHES]
+    assert len(inputs['redet_loop_assign']) == 4
+    (levels, rois, ratio), = inputs['redet_loop_roi_align']
+    assert levels[0].shape[-1] == 64 and ratio == 2
+    assert inputs['redet_loop_nms']

@@ -218,7 +218,11 @@ def test_orconv_matches_jax(in_orientations):
 
 def test_orconv_rotates_the_filter():
     """Copy ``o`` of a filter that reads only its top-left tap reads the
-    tap ``o`` ring steps clockwise; the ReDet options raise naming A.9."""
+    tap ``o`` ring steps clockwise. ReDet's options rotate it too: the
+    bilinear operator (``interp``) puts that tap where the ring does at
+    90-degree multiples, and at 45 degrees moves half of it to the ring's
+    next tap (the rest falls outside the grid); a steerable filter (``steerable``) has 17 basis coefficients as
+    its free parameter and rotates exactly at 90-degree multiples."""
     conv = rot.ORConv2d(1, 1)
     with torch.no_grad():
         conv.weight.zero_()
@@ -227,9 +231,21 @@ def test_orconv_rotates_the_filter():
     ring = [0, 1, 2, 5, 8, 7, 6, 3]
     for o in range(8):
         assert w[o].nonzero().flatten().tolist() == [ring[o]]
-    for kw in (dict(interp=True), dict(steerable=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
-            rot.ORConv2d(1, 1, **kw)
+    interp = rot.ORConv2d(1, 1, interp=True)
+    with torch.no_grad():
+        interp.weight.copy_(conv.weight)
+    wi = interp.rotated_weight().reshape(8, 9)
+    for o in range(0, 8, 2):
+        torch.testing.assert_close(wi[o], w[o], rtol=0, atol=1e-6)
+    assert (wi[1].abs() > 1e-6).nonzero().flatten().tolist() == [ring[1]]
+    assert float(wi[1, ring[1]]) == pytest.approx(0.5, abs=1e-6)
+    steer = rot.ORConv2d(1, 1, steerable=True)
+    assert steer.coeff.shape == (1, 1, 1, 17)
+    assert not hasattr(steer, 'weight')
+    ws = steer.rotated_weight().reshape(8, 3, 3)
+    for o in range(0, 8, 2):
+        torch.testing.assert_close(ws[o], torch.rot90(ws[0], -o // 2),
+                                   rtol=0, atol=1e-5)
 
 
 def test_rotation_invariant_pooling_matches_jax():

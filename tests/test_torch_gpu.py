@@ -1044,3 +1044,31 @@ def test_refine_bundle_kernel_equals_plain(cuda, config):
     assert valid.any()
     assert torch.equal(valid, p_valid) and torch.equal(labels, p_labels)
     assert (dets - p_dets).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('fields', [8, 32])
+def test_roi_align_on_re_fpn_levels_then_the_roll(cuda, dtype, fields):
+    """ReDet's serving pooling: the kernel on ReFPN-like levels (``fields``
+    x 8 orientation channels; 8 fields in the tiny config, 32 in the DOTA
+    one) and RoIs at every orientation bin and its boundaries, then the
+    orientation roll, against the plain version and the same roll. The
+    roll is a gather, so the tolerance is the kernel's own."""
+    from orientedobjectdetection_torch.models.backbones.re_resnet import (
+        orientation_shift, ri_roll)
+    feats, rois = roi_case(2, 160, 256, fields * 8, dtype, 21 + fields, cuda)
+    k = torch.arange(160, device=cuda) % 17 - 8
+    rois[..., 4] = (k * (np.pi / 8)).float() + torch.tensor(
+        [0.0, 1e-6, -1e-6, 0.2], device=cuda).repeat(40)
+    args = (feats, rois.contiguous(), (7, 7), ROI_SCALES, 2, 56.0)
+    before = roi_align_rotated_pyramid.launches
+    got = ri_roll(roi_align_rotated_pyramid(*args), rois)
+    torch.cuda.synchronize()
+    assert roi_align_rotated_pyramid.launches == before + 1
+    ref = ri_roll(roi_align_rotated_pyramid_plain(*args), rois)
+    scale = max(float(f.abs().max()) for f in feats)
+    allowed = ROI_RTOL * scale + ROI_BF16_STEP[dtype] * ref.float().abs()
+    assert ((got.float() - ref.float()).abs() <= allowed).all()
+    shifts = orientation_shift(rois[..., 4])
+    assert set(shifts.flatten().tolist()) == set(range(8))
+    assert torch.equal(shifts.cpu(), orientation_shift(rois[..., 4].cpu()))

@@ -37,7 +37,8 @@ def test_scan_covers_the_package():
             'coders.py', 'anchors.py', 'fpn.py', 'feature_align.py',
             'utils_rotation.py', 'refine_heads.py',
             'refine_detectors.py', 'rotated_rpn_head.py',
-            'gv_trans_heads.py', 'boxes.py'} <= names
+            'gv_trans_heads.py', 'boxes.py', 'swin.py', 'convnext.py',
+            're_resnet.py', 'blocks.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools

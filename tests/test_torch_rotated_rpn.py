@@ -150,9 +150,11 @@ class Family:
     after one step of ``make_train_step``. ``model`` overrides
     ``cfg.model`` (a narrowed published config). The stem and layer1 are
     frozen (``frozen_stages=1``, the published configs' setting), as in
-    ``tests/test_torch_two_stage_train.py``."""
+    ``tests/test_torch_two_stage_train.py``. ``opt_config``: the optimizer
+    of both steps (SGD with momentum and weight decay by default)."""
 
-    def __init__(self, path, seed, model=None):
+    def __init__(self, path, seed, model=None, opt_config=OPT_CONFIG):
+        self.opt_config = opt_config
         self.jcfg = JConfig.fromfile(path)
         self.cfg = Config.fromfile(path)
         for cfg in (self.jcfg, self.cfg):
@@ -169,7 +171,8 @@ class Family:
         self.batch = well_posed_batch(seed + 2)
         batch = {k: jnp.asarray(v) for k, v in self.batch.items()}
         params = self.variables['params']
-        stats = self.variables['batch_stats']
+        # a transformer backbone has no BatchNorm statistics
+        stats = self.variables.get('batch_stats', {})
 
         def loss_fn(p):
             out = det.apply({'params': p, 'batch_stats': stats},
@@ -180,7 +183,7 @@ class Family:
 
         (_, (self.j_losses, self.j_outputs)), self.j_grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params)
-        tx = j_ts.build_optimizer(OPT_CONFIG, BASE_LR, grad_clip=CLIP,
+        tx = j_ts.build_optimizer(opt_config, BASE_LR, grad_clip=CLIP,
                                   params=params, frozen_stages=FROZEN)
         state = j_ts.create_train_state(det, None, None, tx,
                                         variables=self.variables)
@@ -197,7 +200,7 @@ class Family:
         """The detector on the carried weights with its optimizer (the
         frozen stages take no gradient) and its train state."""
         detector = build_detector(dict(self.cfg.model))
-        tx = build_optimizer(OPT_CONFIG, BASE_LR, grad_clip=CLIP,
+        tx = build_optimizer(self.opt_config, BASE_LR, grad_clip=CLIP,
                              frozen_stages=FROZEN)
         state = create_train_state(detector, tx, device='cpu',
                                    state_dict=self.state)
@@ -214,7 +217,8 @@ class Family:
         """The carried state loads strictly and goes back unchanged."""
         detector = self.detector()
         assert set(self.state) == set(detector.state_dict())
-        back = dict(leaves(to_jax_layout(detector.state_dict())))
+        back = dict(leaves(to_jax_layout(detector.state_dict(),
+                                         self.variables)))
         ref = dict(leaves(self.variables))
         assert sorted(back) == sorted(ref)
         for name, v in ref.items():
@@ -254,7 +258,7 @@ class Family:
         sum(losses.values()).backward()
         got = dict(leaves(to_jax_layout(
             {n: p.grad for n, p in detector.named_parameters()
-             if p.grad is not None})['params']))
+             if p.grad is not None}, self.variables)['params']))
         ref = dict(leaves(self.j_grads))
         assert len(got) == sum(frozen_mask(detector, FROZEN).values())
         for name, g in got.items():
@@ -275,7 +279,8 @@ class Family:
                 np.testing.assert_allclose(float(v), self.j_metrics[k],
                                            rtol=1e-4, err_msg=k)
         assert float(metrics['grad_norm']) > CLIP['max_norm']
-        after = dict(leaves(to_jax_layout(detector.state_dict())['params']))
+        after = dict(leaves(to_jax_layout(detector.state_dict(),
+                                          self.variables)['params']))
         ref = dict(leaves(self.j_params_after))
         assert sorted(after) == sorted(ref)
         for name, v in after.items():

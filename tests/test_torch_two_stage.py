@@ -435,15 +435,28 @@ def test_init_detector_builds_the_r50_config():
 
 
 def test_training_entry_points_raise(tiny):
-    """What is still to port raises, naming its ROADMAP item: the ReDet
-    RoI layer (A.9). Two-stage training (A.1) runs; it raises only for a
-    call without its batch and rng."""
+    """Two-stage training raises only for a call without its batch and
+    rng. The ReDet RoI layer (``RiRoIAlignRotated``) builds and pools with
+    the gather op's finest scale, 56, whatever the config says; a layer
+    that is not ported raises."""
     images = torch.zeros(1, 3, 64, 64)
     with pytest.raises(ValueError, match='rng'):
         tiny.det(images, train=True)
     cfg = dict(tiny.cfg.model['roi_head'])
-    cfg['bbox_roi_extractor'] = dict(roi_layer=dict(type='RiRoIAlignRotated'))
+    cfg['bbox_roi_extractor'] = dict(roi_layer=dict(type='RiRoIAlignRotated'),
+                                     finest_scale=30)
     cfg.pop('type')
     from orientedobjectdetection_torch.models import OrientedStandardRoIHead
-    with pytest.raises(NotImplementedError, match='ROADMAP A.9'):
+    head = OrientedStandardRoIHead(**cfg)
+    assert head.rotation_invariant and head.roi_cfg['finest_scale'] == 30
+    feats = [torch.randn(1, 64, 64 // s, 64 // s) for s in (4, 8, 16, 32)]
+    rois = torch.tensor([[[30.0, 30, 50, 40, 0.0], [30, 30, 50, 40, 0.8]]])
+    with torch.no_grad():
+        pooled = head.pool(feats, rois)
+        plain = OrientedStandardRoIHead(**dict(
+            cfg, bbox_roi_extractor=dict(finest_scale=56))).pool(feats, rois)
+    assert torch.equal(pooled[0, 0], plain[0, 0])      # theta 0: no roll
+    assert not torch.equal(pooled[0, 1], plain[0, 1])  # one bin: rolled
+    cfg['bbox_roi_extractor'] = dict(roi_layer=dict(type='RoIPool'))
+    with pytest.raises(NotImplementedError, match='RoIPool'):
         OrientedStandardRoIHead(**cfg)

@@ -1,9 +1,11 @@
 """The configs of the other two-stage families build in the port, and the
 two faults found before their port stay repaired:
 
-- every non-Swin Gliding Vertex, RoI Transformer and Rotated Faster R-CNN
-  config builds its detector on the CPU (build only); the three Swin ones
-  raise naming the backbone that is not ported yet;
+- every Gliding Vertex, RoI Transformer and Rotated Faster R-CNN config
+  builds its detector on the CPU (build only), the three Swin ones with
+  the ported ``SwinTransformer``;
+- each of the 13 configs that the Swin, ConvNeXt and ReDet modules
+  unlocked builds its detector on the CPU (build only);
 - the ATSS HBB config builds (its head's ``assign_by_circumhbbox`` no
   longer reaches ``ATSSObbAssigner``, which takes none) and its head loss
   equals the JAX package's on the same features and weights (rtol 1e-4:
@@ -47,6 +49,13 @@ FAMILY_CONFIGS = sorted(
     glob.glob(osp.join(ROOT, 'configs', 'kfiou', 'roi_trans_*.py')))
 SWIN = [c for c in FAMILY_CONFIGS if 'swin' in osp.basename(c)]
 BUILT = [c for c in FAMILY_CONFIGS if c not in SWIN]
+# the configs that the Swin, ConvNeXt and ReDet modules made buildable
+UNLOCKED = sorted(
+    glob.glob(osp.join(ROOT, 'configs', '**', '*swin*.py'), recursive=True) +
+    glob.glob(osp.join(ROOT, 'configs', 'convnext', '*.py')) +
+    glob.glob(osp.join(ROOT, 'configs', 'redet', '*.py')))
+UNLOCKED_BACKBONE = {'swin': 'SwinTransformer', 'convnext': 'ConvNeXt',
+                     'redet': 'ReResNet'}
 DETECTOR = {'gliding_vertex': 'GlidingVertex', 'roi_trans': 'RoITransformer',
             'rotated_faster_rcnn': 'RotatedFasterRCNN',
             'kfiou': 'RoITransformer'}
@@ -56,6 +65,7 @@ ATSS_HBB = osp.join(ROOT, 'configs', 'rotated_atss',
 
 def test_the_family_configs_are_counted():
     assert len(FAMILY_CONFIGS) == 19 and len(BUILT) == 16 and len(SWIN) == 3
+    assert len(UNLOCKED) == 13
 
 
 @pytest.mark.parametrize('config', BUILT,
@@ -69,8 +79,27 @@ def test_config_builds(config):
 
 @pytest.mark.parametrize('config', SWIN, ids=[osp.basename(c) for c in SWIN])
 def test_swin_configs_raise_naming_the_backbone(config):
-    with pytest.raises(KeyError, match='SwinTransformer'):
-        build_detector(dict(Config.fromfile(config).model))
+    """The Swin configs of these families build, with the ported backbone
+    at the published widths (the name is kept from when they raised)."""
+    det = build_detector(dict(Config.fromfile(config).model))
+    family = osp.basename(osp.dirname(config))
+    assert type(det).__name__ == DETECTOR[family]
+    assert type(det.backbone).__name__ == 'SwinTransformer'
+    assert det.neck.in_channels == [96, 192, 384, 768]
+
+
+@pytest.mark.parametrize('config', UNLOCKED,
+                         ids=[osp.basename(c) for c in UNLOCKED])
+def test_unlocked_config_builds(config):
+    det = build_detector(dict(Config.fromfile(config).model))
+    name = osp.basename(config)
+    kind = 'redet' if name.startswith('redet') else \
+        'swin' if 'swin' in name else 'convnext'
+    assert type(det.backbone).__name__ == UNLOCKED_BACKBONE[kind]
+    if kind == 'redet':
+        assert type(det).__name__ == 'ReDet'
+        assert type(det.neck).__name__ == 'ReFPN'
+        assert det.roi_head.rotation_invariant
 
 
 # ---- C.1: the ATSS HBB config ------------------------------------------------
