@@ -13,7 +13,9 @@ refine recipes and the two-stage R3Det cascade in float32) and of the
 horizontal-proposal two-stage families (Rotated Faster R-CNN, Gliding
 Vertex and RoI Transformer, each R50-FPN le90) and of the other backbones
 and ReDet (Swin-T Oriented R-CNN le90, ConvNeXt-T KLD-stable RetinaNet le90
-and ReDet ReR50-ReFPN le90), through
+and ReDet ReR50-ReFPN le90) and of the point-set families (Rotated
+RepPoints oc, Oriented RepPoints le135, G-RepPoints le135, SASM oc and CFA
+le135, each R50-FPN), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -208,6 +210,33 @@ plain PyTorch version:
 38. redet    ``redet_tiny_synth.py`` through ``train_detector`` on phase
     loop     18's set: 20 bfloat16 steps and the evaluation, every input
              recorded
+39. point    Rotated RepPoints, Oriented RepPoints and G-RepPoints (their
+    sets     R50 DOTA configs, the seeded points spread on a 3 x 3 grid, the
+    slice    class bias zeroed) in float32 at 2 images of 1024^2: the same
+             outputs decoded with the pair-mask kernel and with its plain
+             version give the same detections; for each of them, SASM and
+             CFA, one step's targets computed on the card equal those the
+             same code computes from the same outputs on the CPU (the
+             assignments, positives, SASM's positives, CFA's and APAA's
+             keeps), the losses within LOSS_RTOL, the step finite; the
+             chunked convex IoU equals one whole chunk bit for bit
+40. point    bfloat16 requests of 8 raw 1024^2 images through Rotated,
+    sets     Oriented and G-RepPoints: imgs/s, forward / decode+NMS, peak
+    serving  memory, one pair-mask launch a request and no other launch;
+             one request profiled by the ``reppoints.*`` ranges (towers,
+             each deformable sampling, heads, decode + NMS)
+41. point    bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid, each
+    sets     config's optimizer: 2 warm + 5 timed steps of each family,
+    training imgs/s, peak memory, no kernel launch (the assigners use the
+             convex IoU), a falling loss; one step at the loader's G=512
+             (Rotated RepPoints, SASM); one step profiled by ``train.*`` and
+             ``reppoints.*`` with no host sync inside ``reppoints.targets``;
+             the deformable sampling of a step alone (forward and
+             backward), and Rotated RepPoints' convex IoU alone at G=32 and
+             G=512
+42. point    the Oriented RepPoints, SASM, CFA and G-RepPoints tiny-synth
+    sets     configs through ``train_detector`` on phase 18's set: 20
+    loops    bfloat16 steps and the evaluation, every input recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -241,9 +270,11 @@ plain PyTorch version:
              and ReDet's served and float32 RoIAlign inputs (ReDet's
              ReFPN levels, 32 fields x 8 orientations, before the roll),
              every detector's candidates, their assigners' inputs at G=32
-             and G=512 and the float32 steps', ReDet's tiny loop's; each
-             held against its plain version, the largest of each kind
-             timed beside its bound
+             and G=512 and the float32 steps', ReDet's tiny loop's; and
+             those of phases 39-42: the served point-set families'
+             candidates (float32 slice and bfloat16 request) and the tiny
+             loops' evaluation NMS and IoU inputs; each held against its
+             plain version, the largest of each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -253,11 +284,12 @@ each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 25's bfloat16 steps and requests of each recipe, 26's runs, 28's
 requests and 29's steps of each refine detector, 30's runs, 32's
 requests and 33's steps of each two-stage family, 34's runs, 36's
-requests and 37's steps of each detector, 38's run) and read just
-after;
+requests and 37's steps of each detector, 38's run, 40's requests and
+41's steps of each point-set family, 42's runs) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's, 30's, 34's and 38's runs. Phases 15-22, 26, 30, 34 and 38 write
+26's, 30's, 34's, 38's and 42's runs. Phases 15-22, 26, 30, 34, 38 and 42
+write
 their data and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -961,7 +993,8 @@ def time_iou_matrix(boxes1, boxes2, live, device, card, label, reps,
 def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     """``config``'s detector (the RetinaNet R50 config by default) with
     seeded weights (an FCOS head's regression as in
-    :func:`seed_detections`, so its boxes have sides) and the config's
+    :func:`seed_detections`, so its boxes have sides; a point-set head's
+    points spread as :func:`spread_point_sets` spreads them) and the config's
     optimizer (SGD, momentum, weight decay, clip, linear warmup, frozen stem
     and stage 1), normalizing raw uint8 BGR images on the device. Returns
     (detector, state, train_step). ``plain_iou``: the assigner, where the
@@ -987,6 +1020,8 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
         with torch.no_grad():
             head.conv_reg.weight.mul_(0.05)
             head.conv_reg.bias.fill_(2.0)
+    if hasattr(head, 'reppoints_pts_init_out'):
+        spread_point_sets(head)
     step = make_train_step(detector, tx, device_norm=cfg.img_norm_cfg,
                            dtype=dtype)
     return detector, state, step
@@ -3037,7 +3072,7 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
     inputs: one more
     step's IoU-matrix inputs, padded_inputs: those of the padded step (both
     None without an assigner), detector, step_once: a function that takes
-    one more step)."""
+    one more step, step_on: one that takes a step on another batch)."""
     on_card = torch.device(device).type == 'cuda'
     detector, state, step = build_trainer(device, dtype, config=config)
     batch = train_batch(bsz, size, g, valid, 100, device)
@@ -3111,7 +3146,8 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                 f'{(prof["busy_us"] - named) / 1e3:.2f} ms')
     return dict(counts=counts, rate=bsz * timed / seconds, inputs=inputs,
                 padded_inputs=padded_inputs, detector=detector,
-                step_once=lambda: step(state, batch, rng))
+                step_once=lambda: step(state, batch, rng),
+                step_on=lambda other: step(state, other, rng))
 
 
 def phase_fcos(device, card='', bsz=8, size=1024, slice_bsz=2, warm=3,
@@ -4375,11 +4411,396 @@ def held_backbones(device, captured, by_name, card, reps, roi_reps,
                           plain_reps)
 
 
+# ---- 39.-42. the point-set families -----------------------------------------
+REPPOINTS_CONFIGS = {
+    'rotated': os.path.join(ROOT, 'configs', 'rotated_reppoints',
+                            'rotated_reppoints_r50_fpn_1x_dota_oc.py'),
+    'oriented': os.path.join(ROOT, 'configs', 'oriented_reppoints',
+                             'oriented_reppoints_r50_fpn_1x_dota_le135.py'),
+    'g': os.path.join(ROOT, 'configs', 'g_reppoints',
+                      'g_reppoints_r50_fpn_1x_dota_le135.py'),
+    'sasm': os.path.join(ROOT, 'configs', 'sasm_reppoints',
+                         'sasm_reppoints_r50_fpn_1x_dota_oc.py'),
+    'cfa': os.path.join(ROOT, 'configs', 'cfa',
+                        'cfa_r50_fpn_1x_dota_le135.py'),
+}
+# the families served in phase 40 (SASM and CFA serve as Rotated RepPoints)
+REPPOINTS_SERVED = ('rotated', 'oriented', 'g')
+# phase 41's steps at the loader's padding: the two convex-IoU assigners
+REPPOINTS_PADDED = ('rotated', 'sasm')
+REPPOINTS_TINY_CONFIGS = {
+    'oriented': os.path.join(ROOT, 'configs', 'oriented_reppoints',
+                             'oriented_reppoints_tiny_synth.py'),
+    'sasm': os.path.join(ROOT, 'configs', 'sasm_reppoints',
+                         'sasm_tiny_synth.py'),
+    'cfa': os.path.join(ROOT, 'configs', 'cfa', 'cfa_tiny_synth.py'),
+    'g': os.path.join(ROOT, 'configs', 'g_reppoints',
+                      'g_reppoints_tiny_synth.py'),
+}
+# the heads' record_function ranges, serving and training
+REPPOINTS_RANGES = ('reppoints.towers', 'reppoints.sample',
+                    'reppoints.heads', 'reppoints.decode_nms')
+REPPOINTS_TRAIN_RANGES = ('reppoints.targets', 'reppoints.loss')
+# the targets that hold a discrete choice: equal on the card and the CPU
+DISCRETE_TARGETS = ('init_w', 'pos_r', 'neg_r', 'labels_r', 'keep')
+# the seeded initial points: a 3 x 3 grid this many cells apart
+POINT_GRID_CELLS = 2.0
+
+
+def spread_point_sets(head, cells=POINT_GRID_CELLS) -> None:
+    """Seeded point-set weights with a real hull: the two point outputs'
+    weights x 0.05, the initial points' bias on a 3 x 3 grid ``cells``
+    apart (``(dy, dx)`` per point), the refinement's bias 0. Seeded as they
+    come, the 9 points of a set nearly coincide: ``min_area_polygons``
+    finds no edge longer than 1e-9 and gives a zero box, and ``gmm_fit``
+    gives ``eps I``."""
+    grid = torch.tensor([-cells, 0.0, cells])
+    gy, gx = torch.meshgrid(grid, grid, indexing='ij')
+    offsets = torch.stack([gy.reshape(-1), gx.reshape(-1)], -1).reshape(-1)
+    with torch.no_grad():
+        for conv in (head.reppoints_pts_init_out,
+                     head.reppoints_pts_refine_out):
+            conv.weight.mul_(0.05)
+        head.reppoints_pts_init_out.bias.copy_(offsets)
+        head.reppoints_pts_refine_out.bias.zero_()
+
+
+def build_reppoints_bundle(config, device, dtype, max_candidates=2000,
+                           seed=0):
+    """:func:`build_bundle` for a point-set detector: its points spread
+    (:func:`spread_point_sets`) and its class bias zeroed (scores near 0.5,
+    above score_thr)."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(config)
+    bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
+                           device_norm=cfg.img_norm_cfg)
+    head = bundle.detector.bbox_head
+    head.test_cfg['max_candidates'] = max_candidates
+    spread_point_sets(head)
+    with torch.no_grad():
+        head.reppoints_cls_out.bias.zero_()
+    return bundle
+
+
+def reppoints_nms_cut(bundle, outputs) -> torch.Tensor:
+    """Per image, the lowest score entering NMS: the ``max_candidates``-th
+    (candidate, class) score of the top ``nms_pre`` locations."""
+    from orientedobjectdetection_torch.ops.nms import topk_candidates
+    head = bundle.detector.bbox_head
+    cfg = head.test_cfg
+    with torch.inference_mode():
+        scores = torch.sigmoid(head._flat(outputs)[0])
+        k = min(int(cfg.get('nms_pre', 2000)), scores.shape[1])
+        top = topk_candidates(scores.amax(-1), k)[1]
+        sel = scores.gather(1, top[..., None].expand(
+            -1, -1, scores.shape[-1])).flatten(1)
+        n = min(int(cfg.get('max_candidates', 2000)), sel.shape[1])
+        return sel.topk(n)[0][:, -1]
+
+
+def phase_reppoints_serving_slice(config, label, device, bsz=2, size=1024,
+                                  max_candidates=2000) -> list:
+    """float32: the same outputs decoded with the pair-mask kernel and with
+    its plain version give the same detections (:func:`same_detections`).
+    Returns the request's pair-mask inputs (boxes, class ids)."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    from orientedobjectdetection_torch.ops import nms
+    bundle = build_reppoints_bundle(config, device, torch.float32,
+                                    max_candidates)
+    plain = DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    outputs = bundle.forward(raw_images(bsz, size, 190))
+    with recording(nms, 'nms_pair_mask') as calls:
+        got = bundle.decode(outputs)
+    sync(device)
+    check_dets(*got, bsz, bundle.num_classes)
+    err, moved, aside = same_detections(got, plain.decode(outputs),
+                                        reppoints_nms_cut(bundle, outputs))
+    log(f'[{label}-slice] float32 B={bsz} {size}^2: kernel and plain pair '
+        f'mask give the same detections (max |diff| {err:.3g}; {moved} rows '
+        f'within {SCORE_BAND} in score in another place, {aside} set aside '
+        f'at the NMS cut); valid dets per image {got[2].sum(1).tolist()}')
+    return [(args[0], args[2]) for args, _ in calls]
+
+
+def to_device(tree, device):
+    """Nested tuples and lists of tensors moved to ``device``."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def reppoints_targets(head, outputs, gts) -> tuple:
+    """The head's targets and loss terms (float32) of ``outputs`` against
+    ``gts`` (gt_bboxes, gt_labels, gt_mask), on the outputs' device."""
+    tg = head.targets(outputs, *gts)
+    with torch.no_grad():
+        losses = head.losses(head.flat_outputs(outputs), tg)
+    return tg, {k: float(v) for k, v in losses.items()}
+
+
+def phase_reppoints_train_slice(config, label, device, bsz=2, size=1024,
+                                g=32, valid=8) -> None:
+    """float32: one step's targets computed on the card equal those the
+    same code computes on the CPU from the same outputs (the init and
+    refine assignments and positives, SASM's positives, CFA's and APAA's
+    keeps, exactly; the target polygons within 1e-3 px); the loss terms
+    agree within LOSS_RTOL; the train step is finite. The targets run no
+    kernel, so this is the check of the card's sorts and tie breaks. For a
+    MaxConvexIoU assigner, the chunked convex IoU equals one whole chunk
+    bit for bit."""
+    from orientedobjectdetection_torch.models.dense_heads import \
+        rotated_reppoints_head as rp
+    from orientedobjectdetection_torch.ops.boxes import obb2poly
+    from orientedobjectdetection_torch.ops.points import (CONVEX_IOU_PAIRS,
+                                                          convex_iou)
+    from orientedobjectdetection_torch.parallel.train_state import \
+        normalize_images
+    from orientedobjectdetection_torch.utils import Config
+    detector, state, step = build_trainer(device, torch.float32,
+                                          config=config)
+    head = detector.bbox_head
+    batch = train_batch(bsz, size, g, valid, 150, device)
+    norm = Config.fromfile(config).img_norm_cfg
+    images = normalize_images(batch['images'].to(device), norm)
+    with torch.no_grad():
+        outputs = detector(images.permute(0, 3, 1, 2))
+    gts = [batch[k].to(device) for k in ('gt_bboxes', 'gt_labels',
+                                         'gt_mask')]
+    t0 = time.perf_counter()
+    card, card_losses = reppoints_targets(head, outputs, gts)
+    sync(device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, host_losses = reppoints_targets(
+        head, to_device(outputs, 'cpu'), [t.cpu() for t in gts])
+    host_s = time.perf_counter() - t0
+    for k in DISCRETE_TARGETS:
+        if k in card and not torch.equal(card[k].cpu(), host[k]):
+            n = int((card[k].cpu() != host[k]).sum())
+            raise AssertionError(f'{label}: {k} differs between the card and '
+                                 f'the CPU at {n} points')
+    pos_i, pos_r = host['init_w'] > 0, host['pos_r']
+    if not torch.equal(card['arg_r'].cpu()[pos_r], host['arg_r'][pos_r]):
+        raise AssertionError(f'{label}: a positive\'s gt differs')
+    err = max(float((card[k].cpu()[m] - host[k][m]).abs().max())
+              for k, m in (('init_tgt', pos_i), ('ref_tgt', pos_r)))
+    if err > 1e-3:
+        raise AssertionError(f'{label}: target polygons differ by {err}')
+    for k, v in host_losses.items():
+        if abs(card_losses[k] - v) > LOSS_RTOL * abs(v):
+            raise AssertionError(f'{label}: {k} {card_losses[k]} on the card '
+                                 f'vs {v} on the CPU')
+    kept = f', {int(host["keep"].sum())} kept' if 'keep' in host else ''
+    chunks = ''
+    if isinstance(head._assigners()[1], rp.MaxConvexIoUAssigner):
+        sets = head.flat_outputs(outputs)['init'].detach()
+        polys = obb2poly(gts[0].float(), head.version)
+        whole = convex_iou(sets, polys, pairs=1 << 40)
+        if not torch.equal(convex_iou(sets, polys), whole):
+            raise AssertionError(f'{label}: the chunked convex IoU differs '
+                                 f'from one whole chunk')
+        chunks = (f'; convex_iou in chunks of {CONVEX_IOU_PAIRS} pairs '
+                  f'equals one chunk of {sets.shape[1] * g * bsz} bit for '
+                  f'bit')
+    state, metrics = step(state, batch)
+    sync(device)
+    check_metrics(metrics)
+    log(f'[{label}-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): {int(pos_i.sum())} init and {int(pos_r.sum())} refine '
+        f'positives{kept}, equal on the card and the CPU (targets '
+        f'{card_s:.2f} s on the card, {host_s:.2f} s on the CPU); losses '
+        f'{card_losses} within {LOSS_RTOL}{chunks}; the step finite')
+
+
+def phase_reppoints_slice(device, bsz=2, size=1024, g=32, valid=8,
+                          max_candidates=2000) -> dict:
+    """Phase 39: the served families decoded with the pair-mask kernel and
+    its plain version (:func:`phase_reppoints_serving_slice`), and every
+    family's targets on the card against the CPU
+    (:func:`phase_reppoints_train_slice`). Returns the pair-mask inputs."""
+    captured = {}
+    for label in REPPOINTS_SERVED:
+        captured[f'{label}_slice_nms'] = phase_reppoints_serving_slice(
+            REPPOINTS_CONFIGS[label], label, device, bsz, size,
+            max_candidates)
+    for label, config in REPPOINTS_CONFIGS.items():
+        phase_reppoints_train_slice(config, label, device, bsz, size, g,
+                                    valid)
+    return captured
+
+
+def reppoints_profile_split(prof, label) -> None:
+    """One line of a profiled request's or step's device time by
+    ``reppoints.*`` range, with the sampling's share of the busy time."""
+    if not prof['busy_us']:
+        return
+    spans = prof['spans']
+    parts = ', '.join(f'{k.split(".", 1)[1]} {spans[k] / 1e3:.2f}'
+                      for k in REPPOINTS_RANGES + REPPOINTS_TRAIN_RANGES
+                      if k in spans)
+    b1_us = sum(us for name, us in prof['kernels'].items()
+                if 'pair_mask' in name)
+    share = 100 * spans.get('reppoints.sample', 0) / prof['busy_us']
+    log(f'[profile] {label} device ms by range: {parts}; the sampling '
+        f'{share:.1f}% of busy; nms_pair_mask {b1_us / 1e3:.3f}')
+
+
+def phase_reppoints_serving(device, card='', bsz=8, size=1024, warm=3,
+                            timed=10, dtype=torch.bfloat16,
+                            max_candidates=2000) -> tuple:
+    """Phase 40: requests of ``bsz`` raw images through Rotated RepPoints,
+    Oriented RepPoints and G-RepPoints: imgs/s, forward / decode + NMS,
+    peak memory, one pair-mask launch a request and no other; one more
+    request's NMS inputs recorded and one profiled by its ``reppoints.*``
+    ranges. Returns the launch counts and the NMS inputs by family."""
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label in REPPOINTS_SERVED:
+        bundle = build_reppoints_bundle(REPPOINTS_CONFIGS[label], device,
+                                        dtype, max_candidates)
+        images = raw_images(bsz, size, 200)
+        if on_card:
+            images = images.pin_memory()
+        fwd, dec, _, (dets, labels, valid), counts = timed_requests(
+            bundle, images, warm, timed, device)
+        n = warm + timed if on_card else 0
+        expected = {'nms_pair_mask': n, 'box_iou_rotated': 0,
+                    'roi_align_rotated': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + timed} '
+                                 f'requests {counts}, expected {expected}')
+        check_dets(dets, labels, valid, bsz, bundle.num_classes)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} '
+            f'B={bsz} {size}^2, {timed} timed requests after {warm} warm: '
+            f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
+            f'{1e3 * fwd / timed:.2f} ms, decode+NMS {1e3 * dec / timed:.2f}'
+            f' ms; peak memory {mem:.2f} GiB; nms_pair_mask launches '
+            f'{counts["nms_pair_mask"]}; valid dets per image '
+            f'{valid.sum(1).tolist()}')
+        with recording(nms, 'nms_pair_mask') as calls:
+            bundle(images)
+        boxes, _, cls = calls[0][0]
+        captured[label] = (boxes, cls)
+        prof = profile_run(lambda: bundle(images), device,
+                           f'{label} request', 'reppoints.')
+        reppoints_profile_split(prof, f'{label} request')
+        runs.append(counts)
+        del bundle
+    return runs, captured
+
+
+def time_convex_iou(calls, device, card, label, reps) -> dict:
+    """The refine assigner's convex IoU alone on the inputs of one step
+    (``recording`` of the head module's ``convex_iou``)."""
+    from orientedobjectdetection_torch.ops.points import convex_iou
+    sets, polys = calls[0][0][:2]
+    ms = time_ms(lambda: convex_iou(sets, polys), reps, device, warmup=1)
+    pairs = sets.shape[0] * sets.shape[1] * polys.shape[1]
+    log(f'[{label}-training] {card} | convex_iou alone on one step\'s '
+        f'inputs {tuple(sets.shape)} x {tuple(polys.shape)}: {ms:.2f} ms '
+        f'({pairs} pairs, {1e6 * ms / pairs:.3f} ns a pair)')
+    return dict(ms=ms, pairs=pairs)
+
+
+def phase_reppoints_training(device, card='', bsz=8, size=1024, g=32,
+                             valid=8, warm=2, timed=5, dtype=torch.bfloat16,
+                             padded_g=512, padded_valid=64, reps=5) -> tuple:
+    """Phase 41: each family trained on one fixed batch with its config's
+    optimizer (:func:`phase_family_training`: imgs/s, peak memory, no kernel
+    launch, a falling loss; Rotated RepPoints and SASM, the two convex-IoU
+    assigners, one step at the loader's padding too); one step profiled by
+    the ``train.*`` and ``reppoints.*`` ranges with no host sync inside
+    ``reppoints.targets``; the deformable sampling of one step alone
+    (forward and backward), and Rotated RepPoints' convex IoU alone at G=``g``
+    and G=``padded_g``. Returns the launch counts and the timings."""
+    from orientedobjectdetection_torch.models.dense_heads import \
+        rotated_reppoints_head as rp
+    runs, captured = [], {}
+    for label, config in REPPOINTS_CONFIGS.items():
+        padded = label in REPPOINTS_PADDED
+        run = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, padded_g=padded_g if padded else 0,
+            padded_valid=padded_valid, falling=True)
+        if any(run['counts'].values()):
+            raise AssertionError(f'{label}: a kernel launched in training: '
+                                 f'{run["counts"]}')
+        runs.append(run['counts'])
+        prof = profile_run(run['step_once'], device, f'{label} train step',
+                           ('train.', 'reppoints.'))
+        reppoints_profile_split(prof, f'{label} train step')
+        found = syncs_inside(prof['prof'], REPPOINTS_TRAIN_RANGES[:1])
+        if any(found.values()):
+            raise AssertionError(f'{label}: host synchronisation inside the '
+                                 f'targets: {found}')
+        log(f'[profile] {label}: no host synchronisation inside '
+            f'reppoints.targets')
+        with recording(rp, 'deform_conv_sample', keep_results=False) as calls:
+            run['step_once']()
+        captured[f'{label}_sampling'] = time_sampling(
+            [(tuple(a.detach() if torch.is_tensor(a) else a for a in args),
+              None, rp.deform_conv_sample) for args, _ in calls],
+            device, card, label, reps)
+        if label == 'rotated':
+            with recording(rp, 'convex_iou', keep_results=False) as calls:
+                run['step_once']()
+            captured['convex_iou_g32'] = time_convex_iou(
+                calls, device, card, label, reps)
+            with recording(rp, 'convex_iou', keep_results=False) as calls:
+                run['step_on'](train_batch(bsz, size, padded_g, padded_valid,
+                                           110, device))
+            captured['convex_iou_g512'] = time_convex_iou(
+                calls, device, card, label, 2)
+        del run
+    return runs, captured
+
+
+def phase_reppoints_loops(root, work_root, card='', configs=None, steps=20,
+                          dtype=torch.bfloat16, device='cuda',
+                          log_interval=5) -> tuple:
+    """Phase 42: the Oriented RepPoints, SASM, CFA and G-RepPoints
+    tiny-synth configs through ``train_detector`` on phase 18's set as phase
+    26 runs its families (no IoU-matrix launch in training: the point-set
+    assigners use the convex IoU; the evaluation's NMS and IoUs)."""
+    configs = configs or REPPOINTS_TINY_CONFIGS
+    return phase_family_loops(root, work_root, card, configs, steps, dtype,
+                              device, log_interval,
+                              per_step={k: 0 for k in configs})
+
+
+def held_reppoints(device, captured, by_name, card, reps, plain_reps) -> None:
+    """Phases 39-42's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on the served
+    families' slice and request candidates (the top 2000 over all levels)
+    and on the tiny loops' evaluations, B2 on the evaluations' IoUs."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    for label in REPPOINTS_SERVED:
+        held_pair_masks(captured[f'{label}_slice_nms'] + [captured[label]],
+                        f'{label} RepPoints slice and served requests',
+                        f'reppoints_{label}', pair, device, card, reps,
+                        plain_reps)
+    for label in REPPOINTS_TINY_CONFIGS:
+        held_iou_matrices(captured[f'{label}_loop_eval_iou'], f'tiny '
+                          f'{label} RepPoints loop\'s evaluation',
+                          f'reppoints_{label}_loop_eval_iou', iou, device,
+                          card, reps, plain_reps)
+        held_pair_masks(captured[f'{label}_loop_nms'], f'tiny {label} '
+                        f'RepPoints loop\'s evaluation',
+                        f'reppoints_{label}_loop_nms', pair, device, card,
+                        reps, plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
-    17-38: each kernel against its plain version with the same
+    17-42: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
@@ -4441,6 +4862,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_hbb(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_backbones(device, captured, by_name, card, reps, roi_reps,
                    plain_reps)
+    held_reppoints(device, captured, by_name, card, reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -4734,6 +5156,19 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_redet'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 35-38] {time.perf_counter() - t35:.1f} s')
+    t39 = time.perf_counter()
+    captured.update(phase_reppoints_slice('cuda'))
+    reppoints_serving, reppoints_inputs = phase_reppoints_serving(
+        'cuda', card=info['card'])
+    captured.update(reppoints_inputs)
+    reppoints_training, reppoints_inputs = phase_reppoints_training(
+        'cuda', card=info['card'])
+    captured.update(reppoints_inputs)
+    reppoints_loops, loop_inputs = phase_reppoints_loops(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_reppoints'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 39-42] {time.perf_counter() - t39:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -4746,13 +5181,15 @@ def main() -> int:
         # their evaluations, S2ANet's and R3Det's requests and steps, and
         # their tiny runs with their evaluations, and the same for Rotated
         # Faster R-CNN, Gliding Vertex and RoI Transformer, and for the
-        # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run)
+        # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run), and the
+        # point-set families' requests, steps and tiny runs
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
             *fcos, *families, *loops, *refine_serving, *refine_training,
             *refine_loops, *hbb_serving, *hbb_training, *hbb_loops,
-            *backbone_serving, *backbone_training, *redet_loop))
+            *backbone_serving, *backbone_training, *redet_loop,
+            *reppoints_serving, *reppoints_training, *reppoints_loops))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

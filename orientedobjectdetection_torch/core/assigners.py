@@ -174,6 +174,39 @@ def _nan_mean_std_unbiased(x: torch.Tensor, dim: int = 0):
     return mean, torch.sqrt(var)
 
 
+def level_candidates(dist: torch.Tensor, num_level_priors,
+                     topk: int) -> torch.Tensor:
+    """(B, N, G) distances -> (B, N, G) bool: per gt and level, the ``topk``
+    priors of least distance, by a stable ascending sort (the lowest index
+    wins a tie, as ``jax.lax.top_k`` of the negated distances takes it)."""
+    bsz, _, num_gts = dist.shape
+    is_cand = torch.zeros_like(dist, dtype=torch.bool)
+    start = 0
+    for n_lvl in num_level_priors:
+        k = min(topk, n_lvl)
+        order = torch.sort(dist[:, start:start + n_lvl].transpose(1, 2),
+                           dim=-1, stable=True).indices[..., :k]
+        lvl = torch.zeros((bsz, num_gts, n_lvl), dtype=torch.bool,
+                          device=dist.device)
+        lvl.scatter_(-1, order, True)
+        is_cand[:, start:start + n_lvl] = lvl.transpose(1, 2)
+        start += n_lvl
+    return is_cand
+
+
+def _positive_to_best(is_pos, overlaps, gt_labels) -> AssignResult:
+    """The common tail of the ATSS-style assigners: a prior positive to
+    several gts goes to the one of highest overlap, the lowest index on a
+    tie. ``is_pos``, ``overlaps`` (B, N, G)."""
+    pos_iou = torch.where(is_pos, overlaps, overlaps.new_full((), -1.0))
+    best, best_gt = pos_iou.max(dim=2)                         # (B, N)
+    assigned = torch.where(best > -1, best_gt, NEG)
+    labels = torch.where(
+        assigned >= 0,
+        gt_labels.long().gather(1, assigned.clamp(min=0)), -1)
+    return AssignResult(assigned, overlaps.amax(2), labels)
+
+
 @BBOX_ASSIGNERS.register_module()
 class ATSSObbAssigner:
     """Adaptive Training Sample Selection for rotated boxes (reference
@@ -207,31 +240,18 @@ class ATSSObbAssigner:
         Returns the IoUs (B, N, G), the candidates (B, N, G), each gt's
         threshold (B, 1, G) and the priors whose centre lies inside each
         gt (B, N, G)."""
-        bsz, num_gts = gt_mask.shape
         valid = gt_mask[:, None, :]                            # (B, 1, G)
-        overlaps = rbbox_overlaps(priors, gt_bboxes,
-                                  plain=self.plain_iou)        # (B, N, G)
+        overlaps = self.overlaps(priors, gt_bboxes)            # (B, N, G)
         overlaps = torch.where(valid, overlaps, overlaps.new_zeros(()))
 
         dx = priors[None, :, 0, None] - gt_bboxes[:, None, :, 0]
         dy = priors[None, :, 1, None] - gt_bboxes[:, None, :, 1]
         dist = torch.sqrt(dx * dx + dy * dy)
-        dist = torch.where(valid, dist, dist.new_tensor(1e9))  # (B, N, G)
-
-        is_cand = torch.zeros_like(overlaps, dtype=torch.bool)
-        start = 0
-        for n_lvl in num_level_priors:
-            k = min(self.topk, n_lvl)
-            order = torch.sort(dist[:, start:start + n_lvl].transpose(1, 2),
-                               dim=-1, stable=True).indices[..., :k]
-            lvl = torch.zeros((bsz, num_gts, n_lvl), dtype=torch.bool,
-                              device=dist.device)
-            lvl.scatter_(-1, order, True)
-            is_cand[:, start:start + n_lvl] = lvl.transpose(1, 2)
-            start += n_lvl
+        dist = torch.where(valid, dist, dist.new_full((), 1e9))  # (B, N, G)
+        is_cand = level_candidates(dist, num_level_priors, self.topk)
 
         cand_iou = torch.where(is_cand, overlaps,
-                               overlaps.new_tensor(float('nan')))
+                               overlaps.new_full((), float('nan')))
         mean, std = _nan_mean_std_unbiased(cand_iou, dim=1)
 
         ga = gt_bboxes[..., 4]
@@ -250,13 +270,79 @@ class ATSSObbAssigner:
         overlaps, is_cand, thr, inside = self.statistics(
             priors, num_level_priors, gt_bboxes, gt_mask)
         is_pos = is_cand & (overlaps >= thr) & inside & gt_mask[:, None, :]
-        pos_iou = torch.where(is_pos, overlaps, overlaps.new_tensor(-1.0))
-        best, best_gt = pos_iou.max(dim=2)                     # (B, N)
-        assigned = torch.where(best > -1, best_gt, NEG)
-        labels = torch.where(
-            assigned >= 0,
-            gt_labels.long().gather(1, assigned.clamp(min=0)), -1)
-        return AssignResult(assigned, overlaps.amax(2), labels)
+        return _positive_to_best(is_pos, overlaps, gt_labels)
+
+    def overlaps(self, priors, gt_bboxes) -> torch.Tensor:
+        """The priors' (N, 5) rotated IoUs with the gts (B, G, 5) -> (B, N,
+        G)."""
+        return rbbox_overlaps(priors, gt_bboxes, plain=self.plain_iou)
+
+
+@BBOX_ASSIGNERS.register_module()
+class ATSSKldAssigner(ATSSObbAssigner):
+    """ATSS with a KLD similarity in place of the rotated IoU (reference
+    ``assigners/atss_kld_assigner.py``): ``1 / (1 + KL)`` of the priors'
+    and the gts' Gaussians (``R diag((w/2)^2, (h/2)^2) R^T``), KL taken
+    without the square root and clamped at 0. No kernel runs: the
+    similarity is element-wise."""
+
+    def overlaps(self, priors, gt_bboxes) -> torch.Tensor:
+        from ..models.losses.gaussian_dist_loss import (kld,
+                                                        xy_wh_r_2_xy_sigma)
+        shape = (gt_bboxes.shape[0], priors.shape[0], gt_bboxes.shape[1], 5)
+        dist = kld(xy_wh_r_2_xy_sigma(priors[None, :, None].expand(shape)),
+                   xy_wh_r_2_xy_sigma(gt_bboxes[:, None].expand(shape)),
+                   sqrt=False)
+        return 1.0 / (1.0 + dist.clamp(min=0))
+
+
+@BBOX_ASSIGNERS.register_module()
+class SASAssigner:
+    """SASM's shape-adaptive selection over point sets (reference
+    ``assigners/sas_assigner.py:72-222``), batched over images: quality is
+    the convex-hull IoU of a point set with a gt polygon; the candidates
+    are, per gt and level, the ``topk`` point sets whose mean point lies
+    nearest the gt's horizontal-box centre (:func:`level_candidates`); the
+    threshold is the mean plus the unbiased std of the candidates' IoUs
+    times ``exp(-r / 4)``, r the mean aspect ratio of the image's valid gts
+    (the reference's ``.mean(0)`` collapses the per-gt ratios); a
+    positive's mean point lies inside the gt polygon. No kernel runs:
+    ``convex_iou`` is plain tensor code, in chunks."""
+
+    def __init__(self, topk: int = 9):
+        self.topk = topk
+
+    @torch.no_grad()
+    def __call__(self, pointsets, num_level_points, gt_polys, gt_labels,
+                 gt_mask) -> AssignResult:
+        """pointsets (B, N, 2 P); num_level_points: the point sets of each
+        level, in order; gt_polys (B, G, 8) padded; gt_labels, gt_mask (B,
+        G). Results (B, N) each."""
+        from ..ops.points import (_norm2, _sum, convex_iou,
+                                  points_in_polygons)
+        valid = gt_mask[:, None, :]
+        overlaps = convex_iou(pointsets, gt_polys)             # (B, N, G)
+        overlaps = torch.where(valid, overlaps, 0.0)
+        pts = pointsets.reshape(pointsets.shape[:2] + (-1, 2))
+        ctr = _sum(pts, -2) / pts.shape[-2]                    # (B, N, 2)
+        xs, ys = gt_polys[..., 0::2], gt_polys[..., 1::2]
+        gt_ctr = torch.stack([(xs.amin(-1) + xs.amax(-1)) / 2,
+                              (ys.amin(-1) + ys.amax(-1)) / 2], -1)
+        dist = _norm2(ctr[:, :, None] - gt_ctr[:, None])
+        dist = torch.where(valid, dist, 1e9)
+        is_cand = level_candidates(dist, num_level_points, self.topk)
+        mean, std = _nan_mean_std_unbiased(
+            torch.where(is_cand, overlaps, float('nan')), dim=1)
+        e1 = _norm2(gt_polys[..., 2:4] - gt_polys[..., 0:2])
+        e2 = _norm2(gt_polys[..., 4:6] - gt_polys[..., 2:4])
+        ratio = torch.maximum(e1, e2) / torch.clamp(torch.minimum(e1, e2),
+                                                    min=1e-6)
+        mean_ratio = torch.where(gt_mask, ratio, 0.0).sum(-1) / \
+            torch.clamp(gt_mask.sum(-1), min=1)
+        thr = (mean + std) * torch.exp(-0.25 * mean_ratio)[:, None]
+        inside = points_in_polygons(ctr, gt_polys)             # (B, N, G)
+        is_pos = is_cand & (overlaps >= thr[:, None]) & inside & valid
+        return _positive_to_best(is_pos, overlaps, gt_labels)
 
 
 # ---- random numbers ---------------------------------------------------------

@@ -4,16 +4,21 @@ from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
 from .backbones import ConvNeXt, ReResNet, ResNet, Swin, SwinTransformer
 from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
                           KFIoURRetinaHead, KFIoURRetinaRefineHead,
-                          ODMRefineHead, OrientedRPNHead, RotatedATSSHead,
-                          RotatedFCOSHead, RotatedRetinaHead,
-                          RotatedRetinaRefineHead, RotatedRPNHead)
+                          KLDRepPointsHead, ODMRefineHead,
+                          OrientedRepPointsHead, OrientedRPNHead,
+                          RotatedATSSHead, RotatedFCOSHead,
+                          RotatedRepPointsHead, RotatedRetinaHead,
+                          RotatedRetinaRefineHead, RotatedRPNHead,
+                          SAMRepPointsHead)
 from .detectors import (GlidingVertex, OrientedRCNN, R3Det, ReDet,
                         RoITransformer, RotatedFasterRCNN, RotatedFCOS,
-                        RotatedRetinaNet, RotatedSingleStageDetector,
-                        RotatedTwoStageDetector, S2ANet)
+                        RotatedRepPoints, RotatedRetinaNet,
+                        RotatedSingleStageDetector, RotatedTwoStageDetector,
+                        S2ANet)
 from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
-                     GIoULoss, IoULoss, KFLoss, L1Loss, RotatedIoULoss,
-                     SmoothFocalLoss, SmoothL1Loss)
+                     GIoULoss, IoULoss, KFLoss, KLDRepPointsLoss, L1Loss,
+                     RotatedIoULoss, SmoothFocalLoss, SmoothL1Loss,
+                     SpatialBorderLoss)
 from .necks import FPN, ReFPN
 from .roi_heads import (GVBBoxHead, GVRatioRoIHead, OrientedStandardRoIHead,
                         RoITransRoIHead, RotatedKFIoUShared2FCBBoxHead,
@@ -43,7 +48,9 @@ __all__ = [
     'S2ANet', 'R3Det', 'RotatedRPNHead', 'RotatedStandardRoIHead',
     'RotatedKFIoUShared2FCBBoxHead', 'GVBBoxHead', 'GVRatioRoIHead',
     'RoITransRoIHead', 'RotatedFasterRCNN', 'GlidingVertex',
-    'RoITransformer', 'ReDet', 'CrossEntropyLoss',
+    'RoITransformer', 'ReDet', 'RotatedRepPoints', 'RotatedRepPointsHead',
+    'OrientedRepPointsHead', 'SAMRepPointsHead', 'KLDRepPointsHead',
+    'KLDRepPointsLoss', 'SpatialBorderLoss', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS',

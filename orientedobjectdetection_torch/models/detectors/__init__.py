@@ -1,4 +1,4 @@
-from .single_stage import (RotatedFCOS, RotatedRetinaNet,
+from .single_stage import (RotatedFCOS, RotatedRepPoints, RotatedRetinaNet,
                            RotatedSingleStageDetector)
 from .refine_detectors import R3Det, S2ANet
 from .two_stage import (GlidingVertex, OrientedRCNN, ReDet, RoITransformer,
@@ -6,4 +6,5 @@ from .two_stage import (GlidingVertex, OrientedRCNN, ReDet, RoITransformer,
 
 __all__ = ['RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
            'OrientedRCNN', 'RotatedTwoStageDetector', 'S2ANet', 'R3Det',
-           'RotatedFasterRCNN', 'GlidingVertex', 'RoITransformer', 'ReDet']
+           'RotatedFasterRCNN', 'GlidingVertex', 'RoITransformer', 'ReDet',
+           'RotatedRepPoints']

@@ -118,3 +118,10 @@ class RotatedRetinaNet(RotatedSingleStageDetector):
 @DETECTORS.register_module()
 class RotatedFCOS(RotatedSingleStageDetector):
     """Thin alias (reference ``detectors/rotated_fcos.py``)."""
+
+
+@DETECTORS.register_module()
+class RotatedRepPoints(RotatedSingleStageDetector):
+    """Thin alias (reference ``detectors/rotated_reppoints.py``): the
+    point-set heads, whose ``forward`` returns (cls_scores, pts_inits,
+    pts_refines), and Oriented RepPoints' correlation maps after them."""

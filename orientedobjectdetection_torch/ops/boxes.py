@@ -142,6 +142,76 @@ def hbb2obb(hbbs: torch.Tensor, version: str = 'oc') -> torch.Tensor:
                         torch.where(long_first, h, w), a_out], -1)
 
 
+# ---- Gaussians (G-RepPoints) ------------------------------------------------
+def _rotation(cos_t, sin_t) -> torch.Tensor:
+    return torch.stack([cos_t, -sin_t, sin_t, cos_t], -1).reshape(
+        cos_t.shape + (2, 2))
+
+
+def _rotate_diag(rot, diag) -> torch.Tensor:
+    """R diag(d) R^T for (..., 2, 2) rotations and (..., 2) diagonals."""
+    prod = rot[..., :, None, :] * diag[..., None, None, :] * \
+        rot[..., None, :, :]
+    return prod[..., 0] + prod[..., 1]
+
+
+def gt2gaussian(target: torch.Tensor):
+    """(..., 5) obbs -> (mu (..., 2), sigma (..., 2, 2)), sigma =
+    R diag((w/2)^2, (h/2)^2) R^T with w and h clamped to [1e-7, 1e7] (the
+    losses' ``xy_wh_r_2_xy_sigma`` convention)."""
+    wh = target[..., 2:4].clamp(1e-7, 1e7)
+    r = target[..., 4]
+    half = 0.5 * wh
+    return target[..., :2], _rotate_diag(_rotation(torch.cos(r),
+                                                   torch.sin(r)), half * half)
+
+
+def gt2gaussian_poly(polys: torch.Tensor, L: float = 3.0):
+    """(..., 8) or (..., 4, 2) corner polygons -> (mu, sigma), the
+    G-RepPoints convention (reference ``core/bbox/transforms.py:916-937``):
+    mu the corners' mean, sigma = R diag(w^2, h^2) / (4 L^2) R^T with w, h
+    the first two edges' lengths (their squares clamped at 1e-7) and R the
+    first edge's direction, so the box spans +-L sigma."""
+    p = polys.reshape(polys.shape[:-1] + (4, 2)) if polys.shape[-1] == 8 \
+        else polys
+    center = (p[..., 0, :] + p[..., 1, :] + p[..., 2, :] + p[..., 3, :]) / 4
+    edge_1 = p[..., 1, :] - p[..., 0, :]
+    edge_2 = p[..., 2, :] - p[..., 1, :]
+    w2 = torch.clamp(edge_1[..., 0] * edge_1[..., 0] +
+                     edge_1[..., 1] * edge_1[..., 1], min=1e-7)
+    h2 = torch.clamp(edge_2[..., 0] * edge_2[..., 0] +
+                     edge_2[..., 1] * edge_2[..., 1], min=1e-7)
+    rot = _rotation(edge_1[..., 0] / torch.sqrt(w2),
+                    edge_1[..., 1] / torch.sqrt(w2))
+    diag = torch.stack([w2, h2], -1) / (4 * L * L)
+    return center, _rotate_diag(rot, diag)
+
+
+def gaussian2bbox(mu: torch.Tensor, sigma: torch.Tensor,
+                  L: float = 3.0) -> torch.Tensor:
+    """The inverse of :func:`gt2gaussian_poly`: mu (..., 2), sigma (..., 2,
+    2) symmetric -> (..., 8) corner polygons, from the closed-form
+    eigendecomposition of a symmetric 2x2 (eigenvalues clamped at 1e-12;
+    the reference takes an SVD)."""
+    a = sigma[..., 0, 0]
+    b = sigma[..., 0, 1]
+    c = sigma[..., 1, 1]
+    theta = 0.5 * torch.atan2(2 * b, a - c)
+    mean = 0.5 * (a + c)
+    root = torch.sqrt(torch.clamp(((a - c) / 2) ** 2 + b ** 2, min=0.0))
+    lam1 = torch.clamp(mean + root, min=1e-12)
+    lam2 = torch.clamp(mean - root, min=1e-12)
+    h1, h2 = L * torch.sqrt(lam1), L * torch.sqrt(lam2)
+    d = torch.stack([torch.stack([-h1, h2], -1), torch.stack([h1, h2], -1),
+                     torch.stack([h1, -h2], -1),
+                     torch.stack([-h1, -h2], -1)], -2)      # (..., 4, 2)
+    rot = _rotation(torch.cos(theta), torch.sin(theta))
+    # corner k = mu + R d_k
+    prod = rot[..., None, :, :] * d[..., :, None, :]        # (..., 4, 2, 2)
+    corners = mu[..., None, :] + prod[..., 0] + prod[..., 1]
+    return corners.reshape(mu.shape[:-1] + (8,))
+
+
 # ---- numpy twins (the host data path) --------------------------------------
 def min_area_rect(points) -> tuple:
     """The rotated rectangle of least area around ``(n, 2)`` points, in

@@ -4,7 +4,7 @@ layout (:func:`to_jax_layout`), so gradients and updated parameters of the
 two packages can be compared name by name.
 
 Input: the ``{'params': ..., 'batch_stats': ...}`` tree of a single-stage
-detector (ResNet + FPN + a RetinaNet-family head or an FCOS head), a
+detector (ResNet + FPN + a RetinaNet-family, FCOS or point-set head), a
 two-stage detector (ResNet + FPN + OrientedRPNHead or RotatedRPNHead + the
 RoI head of Oriented R-CNN, Rotated Faster R-CNN, Gliding Vertex or RoI
 Transformer), an S2ANet or an R3Det built by
@@ -42,6 +42,15 @@ state dict with mmrotate names, the same mapping as
   converter's ``convert_orconv``); ``align_conv/align_proj_{i}``, a dense
   kernel ``(9 C, C)`` tap-major, <-> ``align_conv.ac.{i}.deform_conv
   .weight`` ``(C, C, 3, 3)`` (``convert_deform_to_dense``);
+- the point-set heads (RepPoints, Oriented RepPoints, SASM, G-RepPoints):
+  the towers and their GroupNorms as FCOS's, ``pts_init_conv``,
+  ``pts_init_out``, ``cls_out`` and ``pts_refine_out`` <->
+  ``reppoints_pts_init_conv``, ``reppoints_pts_init_out``,
+  ``reppoints_cls_out`` and ``reppoints_pts_refine_out``, and the
+  deformable projections ``cls_dcn`` / ``refine_dcn``, dense kernels ``(9
+  C, C)`` tap-major with a bias, <-> ``reppoints_cls_conv`` /
+  ``reppoints_pts_refine_conv`` ``(C, C, 3, 3)`` and their biases (the
+  align projections' reshape);
 - R3Det: ``feat_refine_{i}`` <-> ``feat_refine_module.{i}`` (``conv_5_1``,
   ``conv_1_5``, ``conv_1_1``) and ``refine_head_{i}`` <->
   ``refine_head.{i}`` with the head mapping;
@@ -88,6 +97,16 @@ _BN_FIELDS = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
               'var': 'running_var'}
 _RETINA_OUT = {'cls_out': 'retina_cls', 'reg_out': 'retina_reg',
                'angle_out': 'retina_angle_cls'}
+# the point-set heads' layers, told apart by ``pts_init_conv``
+_REPPOINTS = {'pts_init_conv': 'reppoints_pts_init_conv',
+              'pts_init_out': 'reppoints_pts_init_out',
+              'cls_dcn': 'reppoints_cls_conv', 'cls_out': 'reppoints_cls_out',
+              'refine_dcn': 'reppoints_pts_refine_conv',
+              'pts_refine_out': 'reppoints_pts_refine_out'}
+# dense kernels (9 C, out), tap-major, that are (out, C, 3, 3) convolution
+# weights in the port: S2ANet's align projections, the point-set heads'
+# deformable projections
+_TAP_DENSE = ('align_proj_', 'cls_dcn', 'refine_dcn')
 
 
 def _walk(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -100,11 +119,11 @@ def _walk(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
 
 def _tensor(path, v) -> torch.Tensor:
     # convolution HWIO -> OIHW, dense (in, out) -> (out, in); ORConv's
-    # (9, in, nOr, out) -> (out, in, nOr, 3, 3); an align projection
-    # (9 C, out) tap-major -> a (out, C, 3, 3) convolution weight
+    # (9, in, nOr, out) -> (out, in, nOr, 3, 3); an align or deformable
+    # projection (9 C, out) tap-major -> a (out, C, 3, 3) convolution weight
     if path[-1] == 'kernel' and path[-2] == 'or_conv':
         v = np.transpose(v.reshape((3, 3) + v.shape[1:]), (4, 2, 3, 0, 1))
-    elif path[-1] == 'kernel' and path[-2].startswith('align_proj_'):
+    elif path[-1] == 'kernel' and path[-2].startswith(_TAP_DENSE):
         v = np.transpose(v.reshape(3, 3, -1, v.shape[-1]), (3, 2, 0, 1))
     elif path[-1] == 'kernel':
         v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
@@ -141,7 +160,7 @@ def _neck_name(path, n_lateral: int) -> str:
     return f'neck.{base}.conv.{_field(leaf)}'
 
 
-def _head_name(path, prefix: str = 'bbox_head') -> str:
+def _head_name(path, prefix: str = 'bbox_head', outs=None) -> str:
     mod, leaf = path
     m = re.fullmatch(r'(cls|reg)_(conv|gn)_(\d+)', mod)
     s = re.fullmatch(r'scale(_angle)?_(\d+)', mod)
@@ -151,7 +170,7 @@ def _head_name(path, prefix: str = 'bbox_head') -> str:
         return f'{prefix}.scale{"_angle" if s.group(1) else ""}s.' \
                f'{s.group(2)}.scale'
     else:
-        base = _RETINA_OUT.get(mod, mod)
+        base = (outs or _RETINA_OUT).get(mod, mod)
     return f'{prefix}.{base}.{_field(leaf)}'
 
 
@@ -374,7 +393,8 @@ def from_jax_variables(variables,
         elif top == 'neck':
             name = _neck_name(rest, n_lateral)
         elif top in ('bbox_head', 'fam_head', 'odm_head'):
-            name = _head_name(rest, top)
+            name = _head_name(rest, top, _REPPOINTS if 'pts_init_conv' in
+                              params[top] else None)
         elif top.startswith('refine_head_'):
             name = _head_name(rest, f'refine_head.{top.split("_")[-1]}')
         elif top.startswith('feat_refine_'):
@@ -395,6 +415,7 @@ def from_jax_variables(variables,
 
 _BN_FIELDS_BACK = {v: k for k, v in _BN_FIELDS.items()}
 _RETINA_OUT_BACK = {v: k for k, v in _RETINA_OUT.items()}
+_REPPOINTS_BACK = {v: k for k, v in _REPPOINTS.items()}
 
 
 def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
@@ -429,6 +450,8 @@ def _jax_path(name: str, ndim: int, n_lateral: int) -> tuple:
             top, mods = f'refine_head_{mods[0]}', mods[1:]
         if mods[0] in _RETINA_OUT_BACK:
             mods = [_RETINA_OUT_BACK[mods[0]]]
+        elif mods[0] in _REPPOINTS_BACK:
+            mods = [_REPPOINTS_BACK[mods[0]]]
         elif mods[0] in ('cls_convs', 'reg_convs'):  # <tower>.<i>.conv|gn
             mods = [f'{mods[0][:3]}_{mods[2]}_{mods[1]}']
     elif top == 'feat_refine_module':            # <i>.conv_5_1
@@ -488,7 +511,7 @@ def to_jax_layout(state_dict, template=None) -> Dict[str, dict]:
             if v.ndim == 5:              # (out, in, nOr, 3, 3) ORConv
                 v = np.transpose(v, (3, 4, 1, 2, 0)).reshape(
                     (9,) + v.shape[1:3] + v.shape[:1])
-            elif v.ndim == 4 and path[-1].startswith('align_proj_'):
+            elif v.ndim == 4 and path[-1].startswith(_TAP_DENSE):
                 v = np.transpose(v, (2, 3, 1, 0)).reshape(-1, v.shape[0])
             elif v.ndim == 4:            # OIHW -> HWIO
                 v = np.transpose(v, (2, 3, 1, 0))

@@ -314,6 +314,15 @@ def test_phase_main_path_kernels_rehearsal():
     captured['convnext'] = captured['retinanet']
     captured['convnext_train'] = [captured['train_step']]
     captured['convnext_train_padded'] = [captured['train_step']] * 2
+    # phases 39-42: the served point-set families' slice and request
+    # candidates, the tiny loops' evaluation inputs (training runs no
+    # kernel)
+    for label in chip_smoke.REPPOINTS_SERVED:
+        captured[label] = captured['retinanet']
+        captured[f'{label}_slice_nms'] = [captured['orcnn']]
+    for label in chip_smoke.REPPOINTS_TINY_CONFIGS:
+        captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
+        captured[f'{label}_loop_nms'] = [captured['orcnn']] * 2
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -336,12 +345,14 @@ def test_phase_main_path_kernels_rehearsal():
                              'train_roi0', 'train_padded_roi0')] + [
         'redet_loop_assign', 'redet_loop_eval_iou', 'convnext_train',
         'convnext_train_padded']
+    reppoints = [f'reppoints_{label}_loop_eval_iou'
+                 for label in chip_smoke.REPPOINTS_TINY_CONFIGS]
     assert sorted(iou['main_path_inputs']) == sorted([
         'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
         'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
-        'r3det_refine_slice'] + refine + hbb + backbones)
+        'r3det_refine_slice'] + refine + hbb + backbones + reppoints)
     assert sorted(roi['main_path_inputs']) == sorted(
         ['orcnn', 'orcnn_loop_eval'] +
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
@@ -391,6 +402,12 @@ def test_phase_main_path_kernels_rehearsal():
             assert pair['main_path_inputs'][key]['ms'] > 0
     for key in ('swin', 'redet', 'convnext', 'redet_loop_nms'):
         assert pair['main_path_inputs'][key]['ms'] > 0
+    for label in chip_smoke.REPPOINTS_SERVED:
+        assert pair['main_path_inputs'][f'reppoints_{label}'][
+            'inputs_held'] == 2
+    for label in chip_smoke.REPPOINTS_TINY_CONFIGS:
+        assert pair['main_path_inputs'][f'reppoints_{label}_loop_nms'][
+            'inputs_held'] == 2
 
 
 def test_held_iou_matrices_check_an_equal_input_once(monkeypatch):

@@ -1072,3 +1072,111 @@ def test_roi_align_on_re_fpn_levels_then_the_roll(cuda, dtype, fields):
     shifts = orientation_shift(rois[..., 4])
     assert set(shifts.flatten().tolist()) == set(range(8))
     assert torch.equal(shifts.cpu(), orientation_shift(rois[..., 4].cpu()))
+
+
+# ---- the point-set families (no kernel of their own: B1 serves them) -------
+REPPOINTS_TINY = ['configs/oriented_reppoints/'
+                  'oriented_reppoints_tiny_synth.py',
+                  'configs/cfa/cfa_tiny_synth.py',
+                  'configs/sasm_reppoints/sasm_tiny_synth.py',
+                  'configs/g_reppoints/g_reppoints_tiny_synth.py']
+
+
+def spread_points(head):
+    """The initial points on a 3 x 3 grid 2 cells apart, the point outputs'
+    weights x 0.05 (``chip_smoke.spread_point_sets``)."""
+    grid = torch.tensor([-2.0, 0.0, 2.0])
+    gy, gx = torch.meshgrid(grid, grid, indexing='ij')
+    with torch.no_grad():
+        for conv in (head.reppoints_pts_init_out,
+                     head.reppoints_pts_refine_out):
+            conv.weight.mul_(0.05)
+        head.reppoints_pts_init_out.bias.copy_(
+            torch.stack([gy.reshape(-1), gx.reshape(-1)], -1).reshape(-1))
+        head.reppoints_pts_refine_out.bias.zero_()
+
+
+def test_convex_iou_chunks_on_the_card_equal_one_chunk(cuda):
+    """``convex_iou`` in chunks of 2^14 pairs equals one chunk bit for bit
+    on the card, and the CPU's within 1e-5."""
+    from orientedobjectdetection_torch.ops.points import convex_iou
+    rng = np.random.default_rng(5)
+    sets = rng.uniform(0, 300, (2, 3000, 1, 2)) + \
+        rng.normal(0, 12, (2, 3000, 9, 2))
+    sets = torch.from_numpy(sets.reshape(2, 3000, 18).astype(np.float32))
+    ctr = rng.uniform(0, 300, (2, 32, 1, 2))
+    corners = np.array([[-20, -8], [20, -8], [20, 8], [-20, 8]])
+    polys = torch.from_numpy((ctr + corners).reshape(2, 32, 8).astype(
+        np.float32))
+    whole = convex_iou(sets.to(cuda), polys.to(cuda), pairs=1 << 40)
+    chunked = convex_iou(sets.to(cuda), polys.to(cuda), pairs=1 << 14)
+    assert torch.equal(whole, chunked)
+    assert (whole > 0).sum() > 100
+    assert (whole.cpu() - convex_iou(sets, polys)).abs().max() <= 1e-5
+
+
+def test_rotated_reppoints_bundle_kernel_equals_plain(cuda):
+    """Rotated RepPoints R50 (its DOTA config) served on the card at 256²,
+    points spread and class bias zeroed: one pair-mask launch a request,
+    the same detections with the plain pair mask."""
+    bundle = init_detector(
+        'configs/rotated_reppoints/rotated_reppoints_r50_fpn_1x_dota_oc.py',
+        device=cuda, seed=0)
+    head = bundle.detector.bbox_head
+    spread_points(head)
+    with torch.no_grad():
+        head.reppoints_cls_out.bias.zero_()
+    plain = DetectorBundle(bundle.cfg, bundle.detector, plain_pair_mask=True)
+    images = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    before = nms_pair_mask.launches
+    dets, labels, valid = bundle(images)
+    torch.cuda.synchronize()
+    assert nms_pair_mask.launches == before + 1
+    p_dets, p_labels, p_valid = plain(images)
+    assert valid.sum() > 100
+    assert torch.equal(valid, p_valid) and torch.equal(labels, p_labels)
+    assert (dets - p_dets).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('config', REPPOINTS_TINY)
+def test_reppoints_targets_on_the_card_equal_the_cpu(cuda, config):
+    """A tiny-synth point-set detector's targets of one batch (256², G=16
+    with 6 valid), from the same outputs on the card and on the CPU: the
+    assignments, positives and keeps equal, the losses within 1e-4."""
+    from orientedobjectdetection_torch.models import build_detector
+    detector = build_detector(dict(Config.fromfile(config).model))
+    detector.init_weights(0)
+    head = detector.bbox_head
+    spread_points(head)
+    detector.to(cuda)
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.normal(0, 1, (2, 3, 256, 256)).astype(
+        np.float32)).to(cuda)
+    obb = np.stack([rng.uniform(30, 226, (2, 16)),
+                    rng.uniform(30, 226, (2, 16)),
+                    rng.uniform(12, 70, (2, 16)),
+                    rng.uniform(12, 70, (2, 16)),
+                    rng.uniform(-0.7, 0.7, (2, 16))], -1).astype(np.float32)
+    gts = [torch.from_numpy(obb),
+           torch.from_numpy(rng.integers(0, 15, (2, 16))),
+           torch.arange(16)[None].expand(2, 16) < 6]
+    with torch.no_grad():
+        outputs = detector(images)
+
+    def cpu(tree):
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree.cpu()
+
+    card = head.targets(outputs, *[t.to(cuda) for t in gts])
+    host = head.targets(cpu(outputs), *gts)
+    for k in ('init_w', 'pos_r', 'neg_r', 'labels_r', 'keep'):
+        if k in host:
+            assert torch.equal(card[k].cpu(), host[k]), k
+    assert host['pos_r'].sum() > 0
+    with torch.no_grad():
+        on_card = head.losses(head.flat_outputs(outputs), card)
+        on_cpu = head.losses(head.flat_outputs(cpu(outputs)), host)
+    for k, v in on_cpu.items():
+        assert abs(float(on_card[k]) - float(v)) <= 1e-4 * abs(float(v)), k

@@ -38,7 +38,9 @@ def test_scan_covers_the_package():
             'utils_rotation.py', 'refine_heads.py',
             'refine_detectors.py', 'rotated_rpn_head.py',
             'gv_trans_heads.py', 'boxes.py', 'swin.py', 'convnext.py',
-            're_resnet.py', 'blocks.py'} <= names
+            're_resnet.py', 'blocks.py', 'points.py', 'gmm.py',
+            'rotated_reppoints_head.py', 'kld_reppoints_loss.py',
+            'spatial_border_loss.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools
