@@ -15,7 +15,10 @@ Vertex and RoI Transformer, each R50-FPN le90) and of the other backbones
 and ReDet (Swin-T Oriented R-CNN le90, ConvNeXt-T KLD-stable RetinaNet le90
 and ReDet ReR50-ReFPN le90) and of the point-set families (Rotated
 RepPoints oc, Oriented RepPoints le135, G-RepPoints le135, SASM oc and CFA
-le135, each R50-FPN), through
+le135, each R50-FPN) and of the RotatedYOLOv8 models (configs/jy/:
+prototype4, CSPNeXt-M with the YOLOv8 PAFPN and head, trained with frozen
+and with live BatchNorm; prototype3, CSPNeXt-L with MSARC; the CSPDarknet /
+PAFPN_E / MSDCN-head model; the 1x1 objectness head), through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -237,6 +240,29 @@ plain PyTorch version:
 42. point    the Oriented RepPoints, SASM, CFA and G-RepPoints tiny-synth
     sets     configs through ``train_detector`` on phase 18's set: 20
     loops    bfloat16 steps and the evaluation, every input recorded
+43. yolov8   prototype4 and objectness-loss3 (seeded, the class bias
+    slice    zeroed) in float32, 2 images of 1024^2: detections with the
+             pair-mask kernel equal those with its plain version; one
+             step's assignments (labels, positives, targets) with the
+             IoU-matrix kernel equal those with the plain matrix, the
+             losses within LOSS_RTOL; one prototype4 step with live
+             BatchNorm: finite losses, every running statistic moved, a
+             stem BatchNorm's by the EMA of the biased batch variance
+44. yolov8   bfloat16 requests of 8 raw 1024^2 images through prototype4
+    serving  (10 timed), prototype3 and the MSDCN model (5 timed each):
+             imgs/s, forward / decode+NMS, peak memory, one pair-mask
+             launch a request and no other; one request profiled by
+             ``module.backbone`` / ``neck`` / ``bbox_head`` and
+             ``yolov8.*`` ranges
+45. yolov8   bfloat16 autocast, batch 8 of 1024^2, G=32 with 8 valid,
+    training prototype4 with its SGD, frozen and live BatchNorm: 2 warm +
+             5 timed steps, imgs/s, peak memory, one IoU-matrix launch a
+             step, a falling loss; one frozen step at the loader's G=512;
+             one step profiled by ``train.*`` and ``yolov8.*`` with no host
+             sync inside ``yolov8.targets``
+46. yolov8   the RotatedYOLOv8 tiny-synth config through ``train_detector``
+    loop     on phase 18's set: 20 bfloat16 steps and the evaluation, every
+             input recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -273,8 +299,12 @@ plain PyTorch version:
              and G=512 and the float32 steps', ReDet's tiny loop's; and
              those of phases 39-42: the served point-set families'
              candidates (float32 slice and bfloat16 request) and the tiny
-             loops' evaluation NMS and IoU inputs; each held against its
-             plain version, the largest of each kind timed beside its bound
+             loops' evaluation NMS and IoU inputs; and those of phases
+             43-46: the YOLOv8 models' candidates, the assigner's decoded
+             predictions x gts (both batched) of the float32 steps, of
+             prototype4's steps at G=32 and G=512 and of the tiny loop, and
+             its evaluation's; each held against its plain version, the
+             largest of each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -285,11 +315,12 @@ each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
 requests and 29's steps of each refine detector, 30's runs, 32's
 requests and 33's steps of each two-stage family, 34's runs, 36's
 requests and 37's steps of each detector, 38's run, 40's requests and
-41's steps of each point-set family, 42's runs) and read just after;
+41's steps of each point-set family, 42's runs, 44's requests of each
+YOLOv8 model, 45's frozen and live steps, 46's run) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's, 30's, 34's, 38's and 42's runs. Phases 15-22, 26, 30, 34, 38 and 42
-write
+26's, 30's, 34's, 38's, 42's and 46's runs. Phases 15-22, 26, 30, 34, 38,
+42 and 46 write
 their data and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -990,7 +1021,8 @@ def time_iou_matrix(boxes1, boxes2, live, device, card, label, reps,
 
 
 # ---- 7./8. the trainer ------------------------------------------------------
-def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
+def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG,
+                  norm_eval=True):
     """``config``'s detector (the RetinaNet R50 config by default) with
     seeded weights (an FCOS head's regression as in
     :func:`seed_detections`, so its boxes have sides; a point-set head's
@@ -999,7 +1031,8 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     and stage 1), normalizing raw uint8 BGR images on the device. Returns
     (detector, state, train_step). ``plain_iou``: the assigner, where the
     head has one, computes its IoU matrix with the plain version (a
-    reference run; a refine detector's in every stage)."""
+    reference run; a refine detector's in every stage). ``norm_eval=False``:
+    the step trains with live BatchNorm."""
     from orientedobjectdetection_torch.models import build_detector
     from orientedobjectdetection_torch.parallel import (
         build_lr_schedule, build_optimizer, create_train_state,
@@ -1023,7 +1056,7 @@ def build_trainer(device, dtype, seed=0, plain_iou=False, config=CONFIG):
     if hasattr(head, 'reppoints_pts_init_out'):
         spread_point_sets(head)
     step = make_train_step(detector, tx, device_norm=cfg.img_norm_cfg,
-                           dtype=dtype)
+                           dtype=dtype, norm_eval=norm_eval)
     return detector, state, step
 
 
@@ -3058,7 +3091,8 @@ def phase_family_train_slice(config, label, device, bsz=2, size=1024, g=32,
 def phase_family_training(config, label, device, card='', bsz=8, size=1024,
                           g=32, valid=8, warm=3, timed=10,
                           dtype=torch.bfloat16, profile=False, padded_g=0,
-                          padded_valid=64, falling=False, rng=None) -> tuple:
+                          padded_valid=64, falling=False, rng=None,
+                          norm_eval=True) -> tuple:
     """``warm + timed`` steps on one fixed batch: imgs/s, peak memory, one
     IoU-matrix launch a step for each assigner (FCOS has none, a refine
     detector one a stage), finite losses. ``profile``: one more step split
@@ -3068,13 +3102,15 @@ def phase_family_training(config, label, device, card='', bsz=8, size=1024,
     its peak memory. ``falling``: the loss of the last step must be below
     the first's (on the fixed batch). ``rng``: a two-stage detector's
     sampling key for every step (the same RoIs each step; by default the
-    step's own). Returns dict(counts, rate (imgs/s),
+    step's own). ``norm_eval=False``: live BatchNorm. Returns dict(counts,
+    rate (imgs/s),
     inputs: one more
     step's IoU-matrix inputs, padded_inputs: those of the padded step (both
     None without an assigner), detector, step_once: a function that takes
     one more step, step_on: one that takes a step on another batch)."""
     on_card = torch.device(device).type == 'cuda'
-    detector, state, step = build_trainer(device, dtype, config=config)
+    detector, state, step = build_trainer(device, dtype, config=config,
+                                          norm_eval=norm_eval)
     batch = train_batch(bsz, size, g, valid, 100, device)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -4796,11 +4832,402 @@ def held_reppoints(device, captured, by_name, card, reps, plain_reps) -> None:
                         reps, plain_reps)
 
 
+# ---- 43-46. the RotatedYOLOv8 / jy stack and live BatchNorm ----------------
+YOLO_CONFIGS = {
+    'prototype4': os.path.join(ROOT, 'configs', 'jy', 'prototype4.py'),
+    'obj1x1': os.path.join(ROOT, 'configs', 'jy', 'objectness-loss3.py'),
+    'prototype3': os.path.join(ROOT, 'configs', 'jy', 'prototype3.py'),
+    'msdcn': os.path.join(ROOT, 'configs', 'jy',
+                          'expaned-neck-msdcn-head.py'),
+}
+# phase 43's float32 slice and phase 44's served models (requests a model)
+YOLO_SLICE = ('prototype4', 'obj1x1')
+YOLO_SERVED = {'prototype4': 10, 'prototype3': 5, 'msdcn': 5}
+YOLO_TINY_CONFIGS = {
+    'yolov8': os.path.join(ROOT, 'configs', 'jy',
+                           'rotated_yolov8_tiny_synth.py'),
+}
+YOLO_RANGES = ('module.backbone', 'module.neck', 'module.bbox_head',
+               'yolov8.msarc', 'yolov8.dcn_sample', 'yolov8.decode_nms')
+YOLO_TRAIN_RANGES = ('yolov8.targets', 'yolov8.loss')
+# phase 43's live step: the running statistics against the EMA of the
+# biased batch variance computed from the layer's input by a hook (the
+# same reductions; float32 rounding of the EMA)
+BN_RTOL = 1e-6
+
+
+def zero_yolo_class_bias(head) -> None:
+    """Seeded weights made to give real boxes: the class bias
+    ``log(5 / num_classes / (1024 / stride)^2)`` puts every score under
+    score_thr; zeroed, scores start near 0.5."""
+    with torch.no_grad():
+        for name in head.prior_biases():
+            if name.startswith(('cls_pred_', 'fg_pred_')):
+                getattr(head, name).bias.zero_()
+
+
+def build_yolo_bundle(config, device, dtype, max_candidates=2000, seed=0):
+    """:func:`build_bundle` for a YOLOv8 detector, its class bias zeroed
+    (:func:`zero_yolo_class_bias`)."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.utils import Config
+    cfg = Config.fromfile(config)
+    bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
+                           device_norm=cfg.img_norm_cfg)
+    head = bundle.detector.bbox_head
+    head.test_cfg['max_candidates'] = max_candidates
+    zero_yolo_class_bias(head)
+    return bundle
+
+
+def yolo_nms_cut(bundle, outputs) -> torch.Tensor:
+    """Per image, the lowest score entering NMS: the ``max_candidates``-th
+    (point, class) score of the top ``nms_pre`` points."""
+    from orientedobjectdetection_torch.models.dense_heads.rotated_fcos_head \
+        import _flat
+    from orientedobjectdetection_torch.ops.nms import topk_candidates
+    head = bundle.detector.bbox_head
+    cfg = head.test_cfg
+    with torch.inference_mode():
+        logits = head.score_logits(outputs)
+        flat = _flat(logits, logits[0].shape[0], head.num_classes).float()
+        k = min(int(cfg.get('nms_pre', 2000)), flat.shape[1])
+        top = topk_candidates(flat.amax(-1), k)[1]
+        scores = torch.sigmoid(flat.gather(1, top[..., None].expand(
+            -1, -1, flat.shape[-1]))).flatten(1)
+        n = min(int(cfg.get('max_candidates', 2000)), scores.shape[1])
+        return scores.topk(n)[0][:, -1]
+
+
+def phase_yolo_serving_slice(config, label, device, bsz=2, size=1024,
+                             max_candidates=2000) -> list:
+    """float32: the same outputs decoded with the pair-mask kernel and with
+    its plain version give the same detections (:func:`same_detections`).
+    Returns the request's pair-mask inputs (boxes, class ids)."""
+    from orientedobjectdetection_torch.apis import DetectorBundle
+    from orientedobjectdetection_torch.ops import nms
+    bundle = build_yolo_bundle(config, device, torch.float32,
+                               max_candidates)
+    plain = DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
+                           device_norm=bundle.device_norm,
+                           plain_pair_mask=True)
+    outputs = bundle.forward(raw_images(bsz, size, 230))
+    with recording(nms, 'nms_pair_mask') as calls:
+        got = bundle.decode(outputs)
+    sync(device)
+    check_dets(*got, bsz, bundle.num_classes)
+    err, moved, aside = same_detections(got, plain.decode(outputs),
+                                        yolo_nms_cut(bundle, outputs))
+    log(f'[{label}-slice] float32 B={bsz} {size}^2: kernel and plain pair '
+        f'mask give the same detections (max |diff| {err:.3g}; {moved} rows '
+        f'within {SCORE_BAND} in score in another place, {aside} set aside '
+        f'at the NMS cut); valid dets per image {got[2].sum(1).tolist()}')
+    return [(args[0], args[2]) for args, _ in calls]
+
+
+def yolo_targets(head, outputs, gts, plain_iou) -> tuple:
+    """The head's targets (labels, bbox and angle targets, positives) and
+    float32 loss terms of ``outputs`` against ``gts``, the assigner's IoU
+    matrix by the kernel or (``plain_iou``) by its plain version."""
+    head.assigner.plain_iou = plain_iou
+    try:
+        tg = head.targets(outputs, *gts)
+        with torch.no_grad():
+            losses = head.losses(outputs, *tg)
+    finally:
+        head.assigner.plain_iou = False
+    return tg, {k: float(v) for k, v in losses.items()}
+
+
+def check_live_bn(detector, step, state, batch, device) -> str:
+    """One ``norm_eval=False`` step: finite losses, and every BatchNorm's
+    running statistics moved to ``0.9 old + 0.1 batch``, the batch's
+    mean and BIASED variance of the layer's float32 input (hooks record
+    them): within BN_RTOL of that, and nearer to it than to the EMA of the
+    unbiased variance wherever the two differ."""
+    from orientedobjectdetection_torch.models.blocks import FrozenBatchNorm
+    norms = {n: m for n, m in detector.named_modules()
+             if isinstance(m, FrozenBatchNorm)}
+    before = {n: (m.running_mean.clone(), m.running_var.clone())
+              for n, m in norms.items()}
+    seen = {}
+
+    def record(name):
+        def hook(module, args):
+            x = args[0].detach().float()
+            seen[name] = (x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False),
+                          x.var((0, 2, 3), unbiased=True))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(n)) for n, m in norms.items()]
+    try:
+        state, metrics = step(state, batch)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    sync(device)
+    check_metrics(metrics)
+    worst = 0.0
+    for name, bn in norms.items():
+        mean, biased, unbiased = seen[name]
+        mean0, var0 = before[name]
+        expect_var = 0.9 * var0 + 0.1 * biased
+        other = 0.9 * var0 + 0.1 * unbiased
+        for what, got, expect in (('mean', bn.running_mean,
+                                   0.9 * mean0 + 0.1 * mean),
+                                  ('var', bn.running_var, expect_var)):
+            err = float(((got - expect).abs() / expect.abs().clamp(
+                min=1e-6)).max())
+            worst = max(worst, err)
+            if err > BN_RTOL:
+                raise AssertionError(f'live BN {name} running {what} off '
+                                     f'the biased EMA by {err:.3g} '
+                                     f'(relative)')
+        apart = other != expect_var
+        if ((bn.running_var - expect_var).abs() >=
+                (bn.running_var - other).abs())[apart].any():
+            raise AssertionError(f'live BN {name}: the running var is as '
+                                 f'near the unbiased EMA as the biased one')
+    return (f'live BN: {len(norms)} BatchNorms, each on the biased-variance '
+            f'EMA (largest relative error {worst:.3g} <= {BN_RTOL}); losses '
+            f'{ {k: round(float(v), 4) for k, v in metrics.items()} }')
+
+
+def phase_yolo_train_slice(config, label, device, bsz=2, size=1024, g=32,
+                           valid=8, live=False) -> list:
+    """float32: one step's assignments (labels, positives, targets) with
+    the IoU-matrix kernel equal those with the plain matrix from the same
+    outputs, the loss terms within LOSS_RTOL, the train step finite;
+    ``live``: one more step with live BatchNorm (:func:`check_live_bn`).
+    Returns the assigner's IoU-matrix inputs."""
+    from orientedobjectdetection_torch.ops import iou_kernels
+    from orientedobjectdetection_torch.parallel.train_state import \
+        normalize_images
+    from orientedobjectdetection_torch.utils import Config
+    detector, state, step = build_trainer(device, torch.float32,
+                                          config=config)
+    head = detector.bbox_head
+    batch = train_batch(bsz, size, g, valid, 170, device)
+    norm = Config.fromfile(config).img_norm_cfg
+    images = normalize_images(batch['images'].to(device), norm)
+    with torch.no_grad():
+        outputs = detector(images.permute(0, 3, 1, 2))
+    gts = [batch[k].to(device) for k in ('gt_bboxes', 'gt_labels',
+                                         'gt_mask')]
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as calls:
+        card, card_losses = yolo_targets(head, outputs, gts, False)
+    plain, plain_losses = yolo_targets(head, outputs, gts, True)
+    sync(device)
+    for i, what in enumerate(('labels', 'bbox targets', 'angle targets',
+                              'positives')):
+        if not torch.equal(card[i], plain[i]):
+            n = int((card[i] != plain[i]).sum())
+            raise AssertionError(f'{label}: {what} differ between the '
+                                 f'kernel and the plain matrix at {n} '
+                                 f'places')
+    for k, v in plain_losses.items():
+        if abs(card_losses[k] - v) > LOSS_RTOL * abs(v):
+            raise AssertionError(f'{label}: {k} {card_losses[k]} with the '
+                                 f'kernel vs {v} with the plain matrix')
+    state, metrics = step(state, batch)
+    sync(device)
+    check_metrics(metrics)
+    extra = ''
+    if live:
+        _, live_state, live_step = build_trainer(device, torch.float32,
+                                                 config=config,
+                                                 norm_eval=False)
+        extra = '; ' + check_live_bn(live_state.model, live_step,
+                                     live_state, batch, device)
+    log(f'[{label}-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid): {int(card[3].sum())} positives; labels, targets and '
+        f'positives equal with the kernel and the plain matrix; losses '
+        f'{card_losses} within {LOSS_RTOL}; the step finite{extra}')
+    return [args for args, _ in calls]
+
+
+def phase_yolo_slice(device, bsz=2, size=1024, g=32, valid=8,
+                     max_candidates=2000) -> dict:
+    """Phase 43: prototype4 and the 1x1 objectness model in float32, each
+    decoded with the pair-mask kernel and its plain version and assigned
+    with the IoU-matrix kernel and its plain version; prototype4 also one
+    live-BN step. Returns the kernels' inputs."""
+    captured = {}
+    for label in YOLO_SLICE:
+        config = YOLO_CONFIGS[label]
+        captured[f'{label}_slice_nms'] = phase_yolo_serving_slice(
+            config, label, device, bsz, size, max_candidates)
+        captured[f'{label}_slice_assign'] = phase_yolo_train_slice(
+            config, label, device, bsz, size, g, valid,
+            live=label == 'prototype4')
+    return captured
+
+
+def yolo_profile_split(prof, label) -> None:
+    """One line of a profiled request's or step's device time by
+    ``module.*`` and ``yolov8.*`` range."""
+    if not prof['busy_us']:
+        return
+    spans = prof['spans']
+    parts = ', '.join(f'{k} {spans[k] / 1e3:.2f}'
+                      for k in YOLO_RANGES + YOLO_TRAIN_RANGES if k in spans)
+    b1_us = sum(us for name, us in prof['kernels'].items()
+                if 'pair_mask' in name)
+    b2_us = sum(us for name, us in prof['kernels'].items()
+                if 'iou_matrix' in name or 'box_iou' in name)
+    log(f'[profile] {label} device ms by range: {parts}; nms_pair_mask '
+        f'{b1_us / 1e3:.3f}, box_iou_rotated {b2_us / 1e3:.3f}')
+
+
+def phase_yolo_serving(device, card='', bsz=8, size=1024, warm=3,
+                       timed=None, dtype=torch.bfloat16,
+                       max_candidates=2000) -> tuple:
+    """Phase 44: requests of ``bsz`` raw images through prototype4 (CSPNeXt-M
+    0.67 / 0.75, 15 classes), prototype3 (CSPNeXt-L 1.0 / 1.25 with MSARC)
+    and the CSPDarknet / PAFPN_E / MSDCN model: imgs/s, forward / decode +
+    NMS, peak memory, one pair-mask launch a request and no other; one more
+    request's NMS inputs recorded and one profiled by module and
+    ``yolov8.*`` range. ``timed``: label -> timed requests
+    (``YOLO_SERVED``). Returns the launch counts and the NMS inputs."""
+    from torch.profiler import record_function
+    from orientedobjectdetection_torch.ops import nms
+    on_card = torch.device(device).type == 'cuda'
+    runs, captured = [], {}
+    for label, n_timed in (timed or YOLO_SERVED).items():
+        bundle = build_yolo_bundle(YOLO_CONFIGS[label], device, dtype,
+                                   max_candidates)
+        images = raw_images(bsz, size, 240)
+        if on_card:
+            images = images.pin_memory()
+        fwd, dec, _, (dets, labels, valid), counts = timed_requests(
+            bundle, images, warm, n_timed, device)
+        n = warm + n_timed if on_card else 0
+        expected = {'nms_pair_mask': n, 'box_iou_rotated': 0,
+                    'roi_align_rotated': 0}
+        if counts != expected:
+            raise AssertionError(f'{label}: launches in {warm + n_timed} '
+                                 f'requests {counts}, expected {expected}')
+        check_dets(dets, labels, valid, bsz, bundle.num_classes)
+        mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
+            else float('nan')
+        log(f'[{label}-serving] {card} | {str(dtype).split(".")[-1]} '
+            f'B={bsz} {size}^2, {n_timed} timed requests after {warm} warm: '
+            f'{bsz * n_timed / (fwd + dec):.2f} imgs/s; per request forward '
+            f'{1e3 * fwd / n_timed:.2f} ms, decode+NMS '
+            f'{1e3 * dec / n_timed:.2f} ms; peak memory {mem:.2f} GiB; '
+            f'nms_pair_mask launches {counts["nms_pair_mask"]}; valid dets '
+            f'per image {valid.sum(1).tolist()}')
+        with recording(nms, 'nms_pair_mask') as calls:
+            bundle(images)
+        boxes, _, cls = calls[0][0]
+        captured[label] = (boxes, cls)
+
+        def request():
+            outputs = bundle.forward(images)
+            with record_function('yolov8.request_decode'):
+                bundle.decode(outputs)
+
+        with module_ranges(bundle.detector):
+            prof = profile_run(request, device, f'{label} request',
+                               ('module.', 'yolov8.'))
+        yolo_profile_split(prof, f'{label} request')
+        runs.append(counts)
+        del bundle
+    return runs, captured
+
+
+def phase_yolo_training(device, card='', bsz=8, size=1024, g=32, valid=8,
+                        warm=2, timed=5, dtype=torch.bfloat16, padded_g=512,
+                        padded_valid=64) -> tuple:
+    """Phase 45: prototype4 trained on one fixed batch with its config's SGD
+    (:func:`phase_family_training`: imgs/s, peak memory, one IoU-matrix
+    launch a step, a falling loss), with frozen BatchNorm (and one step at
+    the loader's padding, G=``padded_g``) and with live BatchNorm; the
+    frozen run's step profiled by the ``train.*`` and ``yolov8.*`` ranges
+    with no host sync inside ``yolov8.targets``. Returns the launch counts
+    and the assigner's inputs at G=``g`` and G=``padded_g``."""
+    runs, captured = [], {}
+    config = YOLO_CONFIGS['prototype4']
+    for norm_eval, label in ((True, 'prototype4'),
+                             (False, 'prototype4-live-bn')):
+        run = phase_family_training(
+            config, label, device, card, bsz, size, g, valid, warm, timed,
+            dtype, padded_g=padded_g if norm_eval else 0,
+            padded_valid=padded_valid, falling=True, norm_eval=norm_eval)
+        runs.append(run['counts'])
+        if not norm_eval:
+            continue
+        captured['yolov8_train'] = run['inputs']
+        captured['yolov8_train_padded'] = run['padded_inputs']
+        prof = profile_run(run['step_once'], device, f'{label} train step',
+                           ('train.', 'yolov8.'))
+        yolo_profile_split(prof, f'{label} train step')
+        found = syncs_inside(prof['prof'], YOLO_TRAIN_RANGES[:1])
+        if any(found.values()):
+            raise AssertionError(f'{label}: host synchronisation inside the '
+                                 f'targets: {found}')
+        log(f'[profile] {label}: no host synchronisation inside '
+            f'yolov8.targets')
+        del run
+    return runs, captured
+
+
+def phase_yolo_loop(root, work_root, card='', configs=None, steps=20,
+                    dtype=torch.bfloat16, device='cuda',
+                    log_interval=5) -> tuple:
+    """Phase 46: the RotatedYOLOv8 tiny-synth config through
+    ``train_detector`` on phase 18's set as phase 26 runs its families (one
+    IoU-matrix launch a step, the assigner's; the evaluation's NMS and
+    IoUs), every kernel input recorded."""
+    configs = configs or YOLO_TINY_CONFIGS
+    return phase_family_loops(root, work_root, card, configs, steps, dtype,
+                              device, log_interval,
+                              per_step={k: 1 for k in configs})
+
+
+def held_yolo(device, captured, by_name, card, reps, plain_reps) -> None:
+    """Phases 43-46's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on the slice's
+    and the served models' candidates and the tiny loop's evaluation; B2 on
+    the slice's and the trained steps' assigner inputs (decoded predictions
+    x gts, both batched) at G=32 and at G=512, the tiny loop's steps and its
+    evaluation."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    held_pair_masks(
+        [m for label in YOLO_SLICE for m in captured[f'{label}_slice_nms']],
+        'YOLOv8 float32 slice', 'yolov8_slice', pair, device, card, reps,
+        plain_reps)
+    for label in YOLO_SERVED:
+        held_pair_masks([captured[label]], f'{label} request',
+                        f'yolov8_{label}', pair, device, card, reps,
+                        plain_reps)
+    held_iou_matrices(
+        [a for label in YOLO_SLICE for a in captured[f'{label}_slice_assign']],
+        'YOLOv8 float32 slice\'s assigner', 'yolov8_slice_assign', iou,
+        device, card, reps, plain_reps)
+    for key, stage in (('yolov8_train', 'G=32'),
+                       ('yolov8_train_padded', 'G=512')):
+        held_iou_matrices(captured[key], f'prototype4 assigner ({stage})',
+                          key, iou, device, card, reps, plain_reps)
+    for label in YOLO_TINY_CONFIGS:
+        held_iou_matrices(captured[f'{label}_loop_assign'],
+                          f'tiny {label} loop\'s assigner',
+                          f'{label}_loop_assign', iou, device, card, reps,
+                          plain_reps)
+        held_iou_matrices(captured[f'{label}_loop_eval_iou'],
+                          f'tiny {label} loop\'s evaluation',
+                          f'{label}_loop_eval_iou', iou, device, card, reps,
+                          plain_reps)
+        held_pair_masks(captured[f'{label}_loop_nms'], f'tiny {label} '
+                        f'loop\'s evaluation', f'{label}_loop_nms', pair,
+                        device, card, reps, plain_reps)
+
+
 # ---- 12. kernels on the main paths' inputs ---------------------------------
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
-    17-42: each kernel against its plain version with the same
+    17-46: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
@@ -4863,6 +5290,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_backbones(device, captured, by_name, card, reps, roi_reps,
                    plain_reps)
     held_reppoints(device, captured, by_name, card, reps, plain_reps)
+    held_yolo(device, captured, by_name, card, reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -5169,6 +5597,18 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_reppoints'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 39-42] {time.perf_counter() - t39:.1f} s')
+    t43 = time.perf_counter()
+    captured.update(phase_yolo_slice('cuda'))
+    yolo_serving, yolo_inputs = phase_yolo_serving('cuda', card=info['card'])
+    captured.update(yolo_inputs)
+    yolo_training, yolo_inputs = phase_yolo_training('cuda',
+                                                     card=info['card'])
+    captured.update(yolo_inputs)
+    yolo_loop, loop_inputs = phase_yolo_loop(
+        os.path.join(DATA_DIR, 'synth_tiny'),
+        os.path.join(DATA_DIR, 'work_yolov8'), card=info['card'])
+    captured.update(loop_inputs)
+    log(f'[phases 43-46] {time.perf_counter() - t43:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -5181,15 +5621,18 @@ def main() -> int:
         # their evaluations, S2ANet's and R3Det's requests and steps, and
         # their tiny runs with their evaluations, and the same for Rotated
         # Faster R-CNN, Gliding Vertex and RoI Transformer, and for the
-        # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run), and the
-        # point-set families' requests, steps and tiny runs
+        # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run), the
+        # point-set families' requests, steps and tiny runs, and the YOLOv8
+        # models' requests, prototype4's steps (frozen and live BN) and the
+        # tiny YOLOv8 run
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
             *fcos, *families, *loops, *refine_serving, *refine_training,
             *refine_loops, *hbb_serving, *hbb_training, *hbb_loops,
             *backbone_serving, *backbone_training, *redet_loop,
-            *reppoints_serving, *reppoints_training, *reppoints_loops))
+            *reppoints_serving, *reppoints_training, *reppoints_loops,
+            *yolo_serving, *yolo_training, *yolo_loop))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

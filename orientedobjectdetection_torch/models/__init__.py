@@ -1,7 +1,8 @@
 from .. import core  # noqa: F401  (registers anchors, coders and assigners)
 from ..utils.registry import (BACKBONES, DETECTORS, HEADS, LOSSES, MODELS,
                               NECKS)
-from .backbones import ConvNeXt, ReResNet, ResNet, Swin, SwinTransformer
+from .backbones import (ConvNeXt, CSPNeXt, CSPNeXtLarge, ReResNet, ResNet,
+                        Swin, SwinTransformer, YOLOv8CSPDarknet)
 from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
                           KFIoURRetinaHead, KFIoURRetinaRefineHead,
                           KLDRepPointsHead, ODMRefineHead,
@@ -9,17 +10,21 @@ from .dense_heads import (CSLRFCOSHead, CSLRRetinaHead, KFIoUODMRefineHead,
                           RotatedATSSHead, RotatedFCOSHead,
                           RotatedRepPointsHead, RotatedRetinaHead,
                           RotatedRetinaRefineHead, RotatedRPNHead,
-                          SAMRepPointsHead)
+                          SAMRepPointsHead, OBBLabelAssigner,
+                          RotatedDecoupled1x1ObjHead, RotatedDecoupledBGHead,
+                          RotatedDecoupledObjHead, RotatedMSDCNHead,
+                          RotatedYOLOv8AngleHead, RotatedYOLOv8Head)
 from .detectors import (GlidingVertex, OrientedRCNN, R3Det, ReDet,
                         RoITransformer, RotatedFasterRCNN, RotatedFCOS,
                         RotatedRepPoints, RotatedRetinaNet,
                         RotatedSingleStageDetector, RotatedTwoStageDetector,
-                        S2ANet)
+                        RotatedYOLOv8, S2ANet)
 from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
                      GIoULoss, IoULoss, KFLoss, KLDRepPointsLoss, L1Loss,
+                     ObjectnessLoss, ObjectnessLoss2, ObjectnessLoss3,
                      RotatedIoULoss, SmoothFocalLoss, SmoothL1Loss,
-                     SpatialBorderLoss)
-from .necks import FPN, ReFPN
+                     SpatialBorderLoss, VarifocalLoss)
+from .necks import FPN, ReFPN, YOLOv8PAFPN, YOLOv8PAFPN_E
 from .roi_heads import (GVBBoxHead, GVRatioRoIHead, OrientedStandardRoIHead,
                         RoITransRoIHead, RotatedKFIoUShared2FCBBoxHead,
                         RotatedShared2FCBBoxHead, RotatedStandardRoIHead)
@@ -53,6 +58,11 @@ __all__ = [
     'KLDRepPointsLoss', 'SpatialBorderLoss', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
+    'CSPNeXt', 'CSPNeXtLarge', 'YOLOv8CSPDarknet', 'YOLOv8PAFPN',
+    'YOLOv8PAFPN_E', 'RotatedYOLOv8Head', 'RotatedYOLOv8AngleHead',
+    'OBBLabelAssigner', 'RotatedMSDCNHead', 'RotatedDecoupledObjHead',
+    'RotatedDecoupledBGHead', 'RotatedDecoupled1x1ObjHead', 'RotatedYOLOv8',
+    'VarifocalLoss', 'ObjectnessLoss', 'ObjectnessLoss2', 'ObjectnessLoss3',
     'build_detector', 'MODELS', 'BACKBONES', 'NECKS',
     'HEADS', 'DETECTORS', 'LOSSES',
 ]

@@ -99,7 +99,8 @@ class ReResNet(nn.Module):
     ``stem_bn``) are not among the names its optimizer freezes, where the
     reference mmrotate freezes the stem too. ``norm_cfg``, ``style``,
     ``zero_init_residual`` and ``init_cfg`` are accepted and unused;
-    ``norm_eval=False`` (live BN) is not ported and raises."""
+    ``norm_eval`` is accepted and not read (the train step sets the BN
+    mode, as for ``ResNet``)."""
     freeze_stem = False
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
@@ -111,9 +112,6 @@ class ReResNet(nn.Module):
                  conv_basis: str = 'permutation',
                  init_cfg: Optional[dict] = None, in_channels: int = 3):
         super().__init__()
-        if not norm_eval:
-            raise NotImplementedError('norm_eval=False (live BatchNorm) is '
-                                      'not ported')
         if conv_basis not in ('permutation', 'steerable'):
             raise ValueError(f'conv_basis={conv_basis!r}')
         steerable = conv_basis == 'steerable'

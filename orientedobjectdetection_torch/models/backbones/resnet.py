@@ -5,7 +5,9 @@ Module and parameter names are mmdet's (``conv1``, ``bn1``,
 ``layer1.0.conv1``, ``layer1.0.downsample.0``...), so an mmrotate
 checkpoint's ``backbone.*`` entries load unchanged. The stem is a plain
 7x7/2 convolution: the JAX package's ``TiledStemConv`` computes the same
-function and exists only for the TPU's matrix unit.
+function and exists only for the TPU's matrix unit. Its BatchNorm,
+:class:`FrozenBatchNorm`, and :func:`live_batch_norm` live in
+``models/blocks.py`` and are re-exported here.
 """
 
 from __future__ import annotations
@@ -17,33 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...utils.registry import BACKBONES
-
-
-class FrozenBatchNorm(nn.Module):
-    """BatchNorm with frozen statistics: a per-channel affine computed in
-    float32 and applied in the input's dtype (the reference's
-    ``norm_eval=True`` BN). The statistics are buffers and never change;
-    ``weight`` and ``bias`` are parameters and train outside the frozen
-    stages, as the JAX package's ``scale`` / ``bias`` do.
-    ``num_batches_tracked`` in a checkpoint is accepted and ignored."""
-
-    def __init__(self, num_features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(num_features))
-        self.bias = nn.Parameter(torch.zeros(num_features))
-        self.register_buffer('running_mean', torch.zeros(num_features))
-        self.register_buffer('running_var', torch.ones(num_features))
-
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        state_dict.pop(prefix + 'num_batches_tracked', None)
-        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = self.weight / torch.sqrt(self.running_var + self.eps)
-        bias = self.bias - self.running_mean * scale
-        return (x * scale.to(x.dtype)[:, None, None]
-                + bias.to(x.dtype)[:, None, None])
+from ..blocks import FrozenBatchNorm, live_batch_norm  # noqa: F401
 
 
 def _conv(cin, cout, k, stride=1, padding=0, dilation=1):
@@ -109,15 +85,16 @@ ARCH_SETTINGS = {
 
 @BACKBONES.register_module()
 class ResNet(nn.Module):
-    """mmdet-config-compatible ResNet with frozen BN statistics
-    (``norm_eval=True``, the setting of every ResNet detection config).
+    """mmdet-config-compatible ResNet with :class:`FrozenBatchNorm`.
 
     ``frozen_stages`` is kept for the optimizer
     (``parallel/train_state.py:frozen_mask`` freezes the stem and that many
-    stages); ``norm_eval=False`` (live BN) is not ported and raises.
-    ``norm_cfg``, ``style``, ``zero_init_residual`` and ``init_cfg`` are
-    accepted for the reference configs and unused. Input NCHW; returns the
-    ``out_indices`` stage outputs, NCHW."""
+    stages). ``norm_eval`` is accepted and not read, as in the JAX package: the
+    BN mode is the train step's (``make_train_step(norm_eval=...)``, which
+    ``apis/train.py`` takes from this config key). ``norm_cfg``, ``style``,
+    ``zero_init_residual`` and ``init_cfg`` are accepted for the reference
+    configs and unused. Input NCHW; returns the ``out_indices`` stage
+    outputs, NCHW."""
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
@@ -128,9 +105,6 @@ class ResNet(nn.Module):
                  zero_init_residual: bool = False,
                  init_cfg: Optional[dict] = None, in_channels: int = 3):
         super().__init__()
-        if not norm_eval:
-            raise NotImplementedError('norm_eval=False (live BatchNorm) is '
-                                      'not ported')
         block, stage_blocks = ARCH_SETTINGS[depth]
         self.frozen_stages = frozen_stages
         self.out_indices = tuple(out_indices)

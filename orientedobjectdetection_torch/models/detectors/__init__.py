@@ -1,5 +1,5 @@
 from .single_stage import (RotatedFCOS, RotatedRepPoints, RotatedRetinaNet,
-                           RotatedSingleStageDetector)
+                           RotatedSingleStageDetector, RotatedYOLOv8)
 from .refine_detectors import R3Det, S2ANet
 from .two_stage import (GlidingVertex, OrientedRCNN, ReDet, RoITransformer,
                         RotatedFasterRCNN, RotatedTwoStageDetector)
@@ -7,4 +7,4 @@ from .two_stage import (GlidingVertex, OrientedRCNN, ReDet, RoITransformer,
 __all__ = ['RotatedRetinaNet', 'RotatedFCOS', 'RotatedSingleStageDetector',
            'OrientedRCNN', 'RotatedTwoStageDetector', 'S2ANet', 'R3Det',
            'RotatedFasterRCNN', 'GlidingVertex', 'RoITransformer', 'ReDet',
-           'RotatedRepPoints']
+           'RotatedRepPoints', 'RotatedYOLOv8']

@@ -38,7 +38,9 @@ def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
     weights of the ``WEIGHTED_LAYERS`` (convolutions, linear layers and
     ORConv2d's 5-D filters), zero biases; frozen BN keeps its identity
     statistics. A steerable ORConv2d's free parameter is its basis
-    coefficients, seeded in the same way. The same seed gives the same
+    coefficients, seeded in the same way; a module with other parameters
+    (the adaptive rotated convolution's experts) seeds them with its
+    ``init_seeded(generator)``. The same seed gives the same
     weights on any device as long as the module is still on the CPU."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
@@ -48,6 +50,21 @@ def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
                     / math.sqrt(w[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
+        elif hasattr(m, 'init_seeded'):
+            m.init_seeded(gen)
+
+
+def build_fed(registry, cfg: dict, source: nn.Module) -> nn.Module:
+    """Build ``cfg`` from ``registry``; a module that needs its input
+    widths (``takes_widths``, the YOLO necks and heads: flax infers them,
+    PyTorch cannot) gets the widths ``source`` really produces
+    (``source.out_widths``) as ``feat_widths``."""
+    cfg = dict(cfg)
+    widths = getattr(source, 'out_widths', None)
+    if getattr(registry.get(cfg['type']), 'takes_widths', False) and \
+            widths is not None:
+        cfg['feat_widths'] = list(widths)
+    return registry.build(cfg)
 
 
 @DETECTORS.register_module()
@@ -55,7 +72,8 @@ class RotatedSingleStageDetector(nn.Module):
     """Input NCHW images; ``forward`` returns the head's per-level NCHW
     maps: (cls_scores, bbox_preds), with angle_clses after them for a CSL
     head, or (cls_scores, bbox_preds, angle_preds, centernesses) for
-    FCOS."""
+    FCOS. A neck or head is built with its input widths where it needs
+    them (:func:`build_fed`)."""
 
     def __init__(self, backbone: dict, neck: Optional[dict] = None,
                  bbox_head: Optional[dict] = None,
@@ -65,13 +83,14 @@ class RotatedSingleStageDetector(nn.Module):
                  init_cfg: Optional[dict] = None):
         super().__init__()
         self.backbone = BACKBONES.build(dict(backbone))
-        self.neck = NECKS.build(dict(neck)) if neck is not None else None
+        self.neck = build_fed(NECKS, neck, self.backbone) \
+            if neck is not None else None
         head = dict(bbox_head)
         if head.get('train_cfg') is None:
             head['train_cfg'] = train_cfg
         if head.get('test_cfg') is None:
             head['test_cfg'] = test_cfg
-        self.bbox_head = HEADS.build(head)
+        self.bbox_head = build_fed(HEADS, head, self.neck or self.backbone)
 
     def init_weights(self, seed: int = 0):
         """Seeded random weights (:func:`init_seeded_weights`) and the
@@ -118,6 +137,14 @@ class RotatedRetinaNet(RotatedSingleStageDetector):
 @DETECTORS.register_module()
 class RotatedFCOS(RotatedSingleStageDetector):
     """Thin alias (reference ``detectors/rotated_fcos.py``)."""
+
+
+@DETECTORS.register_module()
+class RotatedYOLOv8(RotatedSingleStageDetector):
+    """Thin alias (reference ``detectors/rotated_yolov8.py:7-17``): the jy
+    heads, whose ``forward`` returns (cls_scores, bbox_preds,
+    angle_preds), with the objectness maps after them for the decoupled
+    heads; the loss and the decode take the outputs as they are."""
 
 
 @DETECTORS.register_module()

@@ -252,3 +252,78 @@ class GIoULoss:
         giou = inter / union - (enclose - union) / enclose
         return self.loss_weight * reduce_loss(
             1 - giou, _box_weight(weight, pred), self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class VarifocalLoss:
+    """Varifocal loss (IoU-aware classification): ``target`` (..., C) is
+    the soft IoU-quality one-hot, zero for background. Positives weigh
+    by their target (``iou_weighted``) or 1, negatives by ``alpha *
+    p^gamma``; the loss sums over C."""
+
+    def __init__(self, use_sigmoid: bool = True, alpha: float = 0.75,
+                 gamma: float = 2.0, iou_weighted: bool = True,
+                 reduction: str = 'mean', loss_weight: float = 1.0):
+        self.alpha = alpha
+        self.gamma = gamma
+        self.iou_weighted = iou_weighted
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, pred, target, weight=None, avg_factor=None):
+        p = torch.sigmoid(pred)
+        ce = sigmoid_ce(pred, target)
+        fg = (target > 0).to(pred.dtype)
+        neg = self.alpha * p ** self.gamma * (target <= 0)
+        focal = (target * fg if self.iou_weighted else fg) + neg
+        loss = (ce * focal).sum(-1)
+        return self.loss_weight * reduce_loss(loss, weight, self.reduction,
+                                              avg_factor)
+
+
+@LOSSES.register_module()
+class ObjectnessLoss2:
+    """The jy coupled objectness and class loss: sigmoid cross entropy of
+    the objectness ``obj_pred (..., 1)`` against foreground, plus the
+    focal loss of the class logits gated by ``log_sigmoid(obj)``. The gate
+    is detached for any ``ver`` but 0."""
+
+    def __init__(self, ver: int = 0, gamma: float = 2.0, alpha: float = 0.25,
+                 obj_loss_weight: float = 1.0, reduction: str = 'mean',
+                 loss_weight: float = 1.0):
+        self.ver = ver
+        self.gamma = gamma
+        self.alpha = alpha
+        self.obj_loss_weight = obj_loss_weight
+        self.reduction = reduction
+        self.loss_weight = loss_weight
+
+    def __call__(self, obj_pred, cls_pred, labels, num_classes: int,
+                 weight=None, avg_factor=None):
+        """obj_pred (..., 1), cls_pred (..., C), labels (...) int with
+        ``num_classes`` for background."""
+        fg = (labels < num_classes).to(obj_pred.dtype)
+        loss_obj = self.obj_loss_weight * sigmoid_ce(obj_pred[..., 0], fg)
+        gate = obj_pred if self.ver == 0 else obj_pred.detach()
+        gated = cls_pred + torch.nn.functional.logsigmoid(gate)
+        onehot = _one_hot(labels, num_classes, cls_pred.dtype)
+        loss_cls = sigmoid_focal_loss(gated, onehot, self.gamma,
+                                      self.alpha).sum(-1)
+        return self.loss_weight * reduce_loss(loss_obj + loss_cls, weight,
+                                              self.reduction, avg_factor)
+
+
+@LOSSES.register_module()
+class ObjectnessLoss3(ObjectnessLoss2):
+    """The decoupled variant: ``ver`` 1 by default, the gate detached."""
+
+    def __init__(self, **kw):
+        kw.setdefault('ver', 1)
+        super().__init__(**kw)
+
+
+@LOSSES.register_module()
+class ObjectnessLoss(ObjectnessLoss2):
+    """The name ``configs/jy/objectness-loss.py`` uses (the reference tree
+    defines no such class); :class:`ObjectnessLoss2`'s semantics, as in the
+    JAX package."""

@@ -16,6 +16,7 @@ model and the optimizer in place and returns the same :class:`TrainState`.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Union
@@ -25,6 +26,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ..core.assigners import SampleKey
+from ..models.blocks import live_batch_norm
 
 
 @dataclass
@@ -218,7 +220,11 @@ def make_train_step(detector: nn.Module, tx: Transform,
     ``dtype=torch.bfloat16`` runs the network under ``torch.autocast`` on
     float32 master weights; targets and losses stay float32.
     ``loss_weights`` is accepted and unused, as in the JAX package.
-    ``norm_eval=False`` (live BatchNorm) is not ported.
+    ``norm_eval=False`` puts every BatchNorm of the detector in live mode
+    for the step's forward (``models/blocks.py:live_batch_norm``):
+    batch statistics, the gradient through them, and the running
+    statistics updated in place, which serving and evaluation read
+    afterwards and a checkpoint keeps (the JAX package's ``batch_stats``).
 
     ``rng``: the :class:`SampleKey` of the step's random sampling (a
     two-stage detector's RoI sampler; a single-stage detector takes none);
@@ -237,9 +243,6 @@ def make_train_step(detector: nn.Module, tx: Transform,
     before the clip. The step's four parts carry ``torch.profiler`` ranges
     (``train.forward``, ``train.loss``, ``train.backward``,
     ``train.update``)."""
-    if not norm_eval:
-        raise NotImplementedError('norm_eval=False (live BatchNorm) is not '
-                                  'ported')
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
 
@@ -258,7 +261,9 @@ def make_train_step(detector: nn.Module, tx: Transform,
                 images = normalize_images(images, device_norm)
             images = images.float().permute(0, 3, 1, 2)
             with torch.autocast(device.type, dtype=torch.bfloat16,
-                                enabled=dtype == torch.bfloat16):
+                                enabled=dtype == torch.bfloat16), \
+                    (contextlib.nullcontext() if norm_eval
+                     else live_batch_norm(detector)):
                 outputs = detector(images, batch=batch, train=True,
                                    rng=rng)
         with record_function('train.loss'):

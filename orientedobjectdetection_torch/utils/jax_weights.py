@@ -82,7 +82,15 @@ state dict with mmrotate names, the same mapping as
   on ``fpn_{i}``) <-> ``lateral_convs.{i}.conv``, ``fpn_convs.{i}.conv``: the
   tied tensors, a group convolution's taps ``(k*k, in, in_or, out)`` <->
   ``(out, in, in_or, k, k)`` and steerable coefficients ``(17, in, in_or,
-  out)`` <-> ``coeff`` ``(out, in, in_or, 17)``.
+  out)`` <-> ``coeff`` ``(out, in, in_or, 17)``;
+- the YOLO detectors (a CSPNeXt or YOLOv8 CSPDarknet backbone, a YOLOv8
+  PAFPN, the jy heads), whose port modules keep the flax names: the path
+  joined by dots, each leaf renamed (``kernel`` -> ``weight``, a BN's
+  ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var`` of every BN of the detector, a ``Scale``'s ``scale`` and
+  the adaptive rotated convolution's raw ``kernel`` kept), convolution
+  kernels HWIO -> OIHW and dense kernels transposed (:func:`mirror_from_jax`,
+  :func:`mirror_to_jax`).
 """
 
 from __future__ import annotations
@@ -362,12 +370,67 @@ def _to_flax(v: np.ndarray, mod_kind: str, leaf: str, rows=None):
     return v
 
 
+# ---- the YOLO detectors: the port keeps the flax names --------------------
+def _is_yolo(backbone_names) -> bool:
+    return 'stage1_csp' in set(backbone_names)
+
+
+def _raw_kernel(mods) -> bool:
+    """The adaptive rotated convolution's experts ``(n, 9, in, out)`` (an
+    ``arc_d{d}`` module's, or a lone one's at the root): a parameter named
+    ``kernel`` in both packages, its layout unchanged."""
+    return not mods or re.fullmatch(r'arc_d\d+', mods[-1]) is not None
+
+
+def mirror_from_jax(variables) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ('params', 'batch_stats'):
+        for path, v in _walk(variables.get(collection, {})):
+            *mods, leaf = path
+            if leaf == 'kernel' and not _raw_kernel(mods):
+                field = 'weight'
+                v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
+            elif leaf == 'scale' and not (mods and
+                                          mods[-1].startswith('scale_')):
+                field = 'weight'
+            else:
+                field = {'mean': 'running_mean',
+                         'var': 'running_var'}.get(leaf, leaf)
+            out['.'.join(mods + [field])] = torch.from_numpy(
+                np.array(v, dtype=np.float32).reshape(v.shape))
+    return out
+
+
+def mirror_to_jax(state_dict) -> Dict[str, dict]:
+    out: Dict[str, dict] = {}
+    for name, v in state_dict.items():
+        v = torch.as_tensor(v).detach().cpu().numpy()
+        *mods, field = name.split('.')
+        collection = 'params'
+        if field in ('running_mean', 'running_var'):
+            collection, leaf = 'batch_stats', field[len('running_'):]
+        elif field == 'weight' and v.ndim == 1:
+            leaf = 'scale'                       # a BatchNorm
+        elif field == 'weight':
+            leaf = 'kernel'
+            v = np.transpose(v, (2, 3, 1, 0)) if v.ndim == 4 else v.T
+        else:
+            leaf = field                         # bias, scale, raw kernel
+        node = out
+        for key in [collection, *mods]:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(v).reshape(v.shape)
+    return out
+
+
 def from_jax_variables(variables,
                        window_size: int = 7) -> Dict[str, torch.Tensor]:
     """flax variables of a single-stage detector, a two-stage detector, an
     S2ANet or an R3Det -> the port's state dict. ``window_size``: the Swin
     window the port's bias tables are built for (7 in every config)."""
     params = variables['params']
+    if _is_yolo(params.get('backbone', {})):
+        return mirror_from_jax(variables)
     n_lateral = sum(1 for k in params.get('neck', {})
                     if k.startswith('lateral_'))
     kinds = {'backbone': backbone_kind(params.get('backbone', {})),
@@ -480,6 +543,9 @@ def to_jax_layout(state_dict, template=None) -> Dict[str, dict]:
     ``template``: flax variables (or their shapes) of the same detector;
     a Swin bias table is cut to the template's rows, where the JAX
     package's window shrank with its map."""
+    if _is_yolo(k.split('.')[1] for k in state_dict
+                if k.startswith('backbone.')):
+        return mirror_to_jax(state_dict)
     n_lateral = len({k.split('.')[2] for k in state_dict
                      if k.startswith('neck.lateral_convs.')})
     # a group convolution's tensors are 5-D (or steerable coefficients)

@@ -323,6 +323,21 @@ def test_phase_main_path_kernels_rehearsal():
     for label in chip_smoke.REPPOINTS_TINY_CONFIGS:
         captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
         captured[f'{label}_loop_nms'] = [captured['orcnn']] * 2
+    # phases 43-46: the YOLOv8 models' slice and request candidates, the
+    # assigner's decoded predictions x gts (both batched) of the slice's
+    # and prototype4's steps and the tiny loop's, its evaluation's
+    yolo_assign = (props.clamp(min=1e-3), gts.clamp(min=1e-3), 'iou')
+    for label in chip_smoke.YOLO_SLICE:
+        captured[f'{label}_slice_nms'] = [captured['orcnn']]
+        captured[f'{label}_slice_assign'] = [yolo_assign]
+    for label in chip_smoke.YOLO_SERVED:
+        captured[label] = captured['retinanet']
+    captured['yolov8_train'] = [yolo_assign]
+    captured['yolov8_train_padded'] = [yolo_assign]
+    for label in chip_smoke.YOLO_TINY_CONFIGS:
+        captured[f'{label}_loop_assign'] = [yolo_assign] * 2
+        captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
+        captured[f'{label}_loop_nms'] = [captured['orcnn']]
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -347,12 +362,16 @@ def test_phase_main_path_kernels_rehearsal():
         'convnext_train_padded']
     reppoints = [f'reppoints_{label}_loop_eval_iou'
                  for label in chip_smoke.REPPOINTS_TINY_CONFIGS]
+    yolo = ['yolov8_slice_assign', 'yolov8_train', 'yolov8_train_padded'] + [
+        f'{label}_{key}' for label in chip_smoke.YOLO_TINY_CONFIGS
+        for key in ('loop_assign', 'loop_eval_iou')]
     assert sorted(iou['main_path_inputs']) == sorted([
         'atss_train', 'csl_loop_assign', 'csl_loop_eval_iou', 'eval_iou',
         'fcos_loop_eval_iou', 'hrsc_assign', 'hrsc_eval_iou', 'kfiou_train',
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
-        'r3det_refine_slice'] + refine + hbb + backbones + reppoints)
+        'r3det_refine_slice'] + refine + hbb + backbones + reppoints +
+        yolo)
     assert sorted(roi['main_path_inputs']) == sorted(
         ['orcnn', 'orcnn_loop_eval'] +
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
@@ -374,6 +393,11 @@ def test_phase_main_path_kernels_rehearsal():
         == iou['main_path_inputs']['orcnn_train_roi']['pairs_in_reach']
     assert iou['main_path_inputs']['csl_loop_assign']['inputs_held'] == 2
     assert iou['main_path_inputs']['hrsc_assign']['inputs_held'] == 3
+    assert iou['main_path_inputs']['yolov8_slice_assign'][
+        'inputs_held'] == len(chip_smoke.YOLO_SLICE)
+    assert iou['main_path_inputs']['yolov8_loop_assign']['inputs_held'] == 2
+    for label in chip_smoke.YOLO_SERVED:
+        assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
     for got in iou['main_path_inputs'].values():
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert got['pairs_in_reach'] > 0

@@ -1180,3 +1180,82 @@ def test_reppoints_targets_on_the_card_equal_the_cpu(cuda, config):
         on_cpu = head.losses(head.flat_outputs(cpu(outputs)), host)
     for k, v in on_cpu.items():
         assert abs(float(on_card[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+
+
+YOLO_TINY = 'configs/jy/rotated_yolov8_tiny_synth.py'
+
+
+def test_yolov8_bundle_kernel_equals_plain(cuda):
+    """prototype4 (its DOTA config, CSPNeXt-M) served on the card at 256²,
+    the class bias zeroed: one pair-mask launch a request, the same
+    detections with the plain pair mask."""
+    bundle = init_detector('configs/jy/prototype4.py', device=cuda, seed=0)
+    head = bundle.detector.bbox_head
+    with torch.no_grad():
+        for i in range(3):
+            getattr(head, f'cls_pred_{i}').bias.zero_()
+    plain = DetectorBundle(bundle.cfg, bundle.detector, plain_pair_mask=True)
+    images = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1, (2, 256, 256, 3)).astype(np.float32))
+    before = nms_pair_mask.launches
+    dets, labels, valid = bundle(images)
+    torch.cuda.synchronize()
+    assert nms_pair_mask.launches == before + 1
+    p_dets, p_labels, p_valid = plain(images)
+    assert valid.sum() > 100
+    assert torch.equal(valid, p_valid) and torch.equal(labels, p_labels)
+    assert (dets - p_dets).abs().max() <= 1e-3
+
+
+@pytest.mark.parametrize('norm_eval', [True, False])
+def test_yolov8_targets_on_the_card_equal_the_cpu(cuda, norm_eval):
+    """The tiny-synth RotatedYOLOv8's targets of one batch (256², G=16
+    with 6 valid) from the same outputs on the card (the IoU-matrix kernel,
+    one launch) and on the CPU: labels, positives and angle targets equal,
+    the box targets within 1e-5 strides, the losses within 1e-4; then a
+    train step on the card (live BN with ``norm_eval=False``) is finite."""
+    from orientedobjectdetection_torch.models import build_detector
+    from orientedobjectdetection_torch.parallel import (build_optimizer,
+                                                        create_train_state,
+                                                        make_train_step)
+    cfg = Config.fromfile(YOLO_TINY)
+    detector = build_detector(dict(cfg.model))
+    tx = build_optimizer(dict(type='sgd', momentum=0.9), 1e-3)
+    state = create_train_state(detector, tx, device=cuda)
+    head = detector.bbox_head
+    rng = np.random.default_rng(7)
+    images = rng.normal(0, 1, (2, 256, 256, 3)).astype(np.float32)
+    obb = np.stack([rng.uniform(30, 226, (2, 16)),
+                    rng.uniform(30, 226, (2, 16)),
+                    rng.uniform(12, 70, (2, 16)),
+                    rng.uniform(12, 70, (2, 16)),
+                    rng.uniform(-1.2, 1.2, (2, 16))], -1).astype(np.float32)
+    gts = [torch.from_numpy(obb),
+           torch.from_numpy(rng.integers(0, 2, (2, 16))),
+           torch.arange(16)[None].expand(2, 16) < 6]
+    with torch.no_grad():
+        outputs = detector(torch.from_numpy(images).permute(0, 3, 1, 2).to(
+            cuda))
+    cpu_outputs = tuple(tuple(m.cpu() for m in level) for level in outputs)
+    before = box_iou_rotated_matrix.launches
+    card = head.targets(outputs, *[t.to(cuda) for t in gts])
+    torch.cuda.synchronize()
+    assert box_iou_rotated_matrix.launches == before + 1
+    host = head.targets(cpu_outputs, *gts)
+    for i in (0, 2, 3):
+        assert torch.equal(card[i].cpu(), host[i]), i
+    assert (card[1].cpu() - host[1]).abs().max() <= 1e-5
+    assert host[3].sum() > 0
+    with torch.no_grad():
+        on_card = head.losses(outputs, *card)
+        on_cpu = head.losses(cpu_outputs, *host)
+    for k, v in on_cpu.items():
+        assert abs(float(on_card[k]) - float(v)) <= 1e-4 * abs(float(v)), k
+    step = make_train_step(detector, tx, norm_eval=norm_eval)
+    batch = dict(images=torch.from_numpy(images), gt_bboxes=gts[0],
+                 gt_labels=gts[1], gt_mask=gts[2])
+    stats = head.cls_conv_0_0.bn.running_var.clone()
+    state, metrics = step(state, batch)
+    assert all(torch.isfinite(v) for v in metrics.values())
+    moved = not torch.equal(head.cls_conv_0_0.bn.running_var, stats)
+    assert moved == (not norm_eval)

@@ -40,7 +40,9 @@ def test_scan_covers_the_package():
             'gv_trans_heads.py', 'boxes.py', 'swin.py', 'convnext.py',
             're_resnet.py', 'blocks.py', 'points.py', 'gmm.py',
             'rotated_reppoints_head.py', 'kld_reppoints_loss.py',
-            'spatial_border_loss.py'} <= names
+            'spatial_border_loss.py', 'cspnext.py', 'csp_darknet.py',
+            'jy_modules.py', 'pafpn.py', 'rotated_yolov8_head.py',
+            'jy_heads.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py',
             'img_split.py'} <= tools

@@ -405,16 +405,18 @@ def test_head_without_training_config_refuses_loss():
 
 
 def test_train_entry_points_refuse_a_missing_card_and_live_bn():
+    """A missing card is refused; live BN builds: ``make_train_step(
+    norm_eval=False)`` and a ``ResNet(norm_eval=False)`` detector (the BN
+    mode is the step's, ``tests/test_torch_live_bn.py``)."""
     detector = build_detector(model_cfg(18))
     tx = build_optimizer(OPT_CONFIG, 0.01)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             create_train_state(detector, tx)
-    with pytest.raises(NotImplementedError):
-        make_train_step(detector, tx, norm_eval=False)
-    with pytest.raises(NotImplementedError):
-        build_detector(dict(model_cfg(18), backbone=dict(
-            type='ResNet', depth=18, norm_eval=False)))
+    assert callable(make_train_step(detector, tx, norm_eval=False))
+    live = build_detector(dict(model_cfg(18), backbone=dict(
+        type='ResNet', depth=18, norm_eval=False)))
+    assert type(live.backbone).__name__ == 'ResNet'
 
 
 def test_checkpoint_round_trip_and_rotation(tmp_path):
