@@ -263,6 +263,34 @@ plain PyTorch version:
 46. yolov8   the RotatedYOLOv8 tiny-synth config through ``train_detector``
     loop     on phase 18's set: 20 bfloat16 steps and the evaluation, every
              input recorded
+47. data     Rotated RetinaNet R50-FPN and prototype4 with live BN, one
+    parallel float32 step (TF32 off) on a global batch of 8 of 1024^2, G=32,
+    training the halves with 8 and 3 valid gts: (i) in a NCCL group of
+             ``torch.cuda.device_count()`` ranks (a group of one process on
+             one card) against the plain step; (ii) over two gloo
+             processes sharing the card, 4 images each, each rank's step
+             against one process's on all 8 (losses and grad_norm within
+             1e-4, each change within 2e-3 of its largest plus 2 ulps);
+             (iii) the same for prototype4 with frozen BN, and with live
+             BN: the losses, and every running statistic within 1e-5 of
+             its largest; grad_norm and the changes (L2) within 3 times
+             what the one-process step moves when its batch is reordered
+             (the float32 live-BN gradient is not determined further), and
+             the same comparison refuses the live step with a fault of the
+             gradient alone planted (live BN's sum across ranks without
+             its backward); then RetinaNet bfloat16 steps timed a rank;
+             B2's launches a rank
+48. data     phases 16's and 18's models (synth1024 RetinaNet, tiny
+    parallel Oriented R-CNN) evaluated over the two gloo ranks through a
+    eval     ``collect_dir``: the same lists and mAP as one process;
+             ``DetectorBundle(devices=[every local card])`` the one-device
+             detections
+49. host     ``tools.serve`` on an ephemeral localhost port answers 10 PNG
+             requests (the JSON ``inference_detector``'s, ms a request); the
+             native host NMS on phase 21's largest merge class keeps what
+             the pair-mask kernel keeps (both timed); one request drawn by
+             ``imshow_det_rbboxes``; ``confusion_matrix`` on phase 17's
+             evaluation; ``get_flops`` of RetinaNet R50
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -316,7 +344,9 @@ requests and 29's steps of each refine detector, 30's runs, 32's
 requests and 33's steps of each two-stage family, 34's runs, 36's
 requests and 37's steps of each detector, 38's run, 40's requests and
 41's steps of each point-set family, 42's runs, 44's requests of each
-YOLOv8 model, 45's frozen and live steps, 46's run) and read just after;
+YOLOv8 model, 45's frozen and live steps, 46's run, 47's steps and 48's
+evaluations in each rank, 49's requests, kernel NMS calls and confusion
+matrix) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
 26's, 30's, 34's, 38's, 42's and 46's runs. Phases 15-22, 26, 30, 34, 38,
@@ -5224,6 +5254,640 @@ def held_yolo(device, captured, by_name, card, reps, plain_reps) -> None:
 
 
 # ---- 12. kernels on the main paths' inputs ---------------------------------
+# ---- 47.-49. data parallelism and the host side ----------------------------
+DP_WORLD = 2             # gloo ranks that share the card (NCCL refuses two
+#                          ranks on one device)
+DP_JOIN_S = 600          # each rank's time limit
+DP_VALID = (8, 3)        # valid gts in the first and in the second half
+DP_LOSS_RTOL = 1e-4      # ranks vs one process: losses and grad_norm
+DP_CHANGE_RTOL = 2e-3    # each parameter's change, of its largest change
+DP_STAT_RTOL = 1e-5      # live BN running statistics, of their largest
+DP_SPREAD = 3            # live BN gradient: times the reordered steps' spread
+DP_CONFIGS = {'retinanet': CONFIG,
+              'prototype4': os.path.join(ROOT, 'configs', 'jy',
+                                         'prototype4.py')}
+SERVE_THR = 0.05
+
+
+def dp_batch(bsz, size, g, valid, seed, device) -> dict:
+    """Phase 8's train batch with ``valid[0]`` gts in each image of the
+    first half and ``valid[1]`` in the second: the halves have different
+    numbers of positives, so a rank's local normalizer is not the batch's.
+    """
+    batch = train_batch(bsz, size, g, valid[0], seed, 'cpu')
+    half = bsz // 2
+    batch['gt_mask'][half:, valid[1]:] = False
+    batch['gt_bboxes'][half:, valid[1]:] = 0
+    if torch.device(device).type == 'cuda':
+        batch = {k: v.pin_memory() for k, v in batch.items()}
+    return batch
+
+
+def dp_step(config, norm_eval, batch, device, dtype=torch.float32,
+            rows=None, steps=1) -> dict:
+    """A fresh seeded trainer of ``config`` (:func:`build_trainer`; its
+    step is data-parallel inside a process group) takes ``steps`` steps on
+    ``rows`` of ``batch`` (all of it by default). Returns the first step's
+    metrics, the parameters and BN statistics before it and after it (on
+    the host) and its launches, and every step's milliseconds."""
+    detector, state, step = build_trainer(device, dtype, config=config,
+                                          norm_eval=norm_eval)
+    if rows is not None:
+        batch = {k: v[rows] for k, v in batch.items()}
+    before = {k: v.detach().cpu().clone()
+              for k, v in detector.state_dict().items()}
+    out = dict(ms=[], trainable={n for n, p in detector.named_parameters()
+                                 if p.requires_grad}, before=before)
+    for i in range(steps):
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        sync(device)
+        out['ms'].append(1e3 * (time.perf_counter() - t0))
+        check_metrics(metrics)
+        if i == 0:
+            out.update(metrics={k: float(v) for k, v in metrics.items()},
+                       counts=read_launches(),
+                       after={k: v.detach().cpu().clone()
+                              for k, v in detector.state_dict().items()})
+    return out
+
+
+def same_dp_step(got, ref, label, stats=False, spread=()) -> tuple:
+    """A data-parallel step against one process's on the whole batch:
+    losses and ``grad_norm`` within DP_LOSS_RTOL, each trainable tensor's
+    change within DP_CHANGE_RTOL of that tensor's largest change plus two
+    float32 ulps of its largest value, frozen tensors unchanged, and
+    (``stats``) every running statistic within DP_STAT_RTOL of its
+    tensor's largest magnitude.
+
+    ``spread``: one-process steps on the same batch in other orders (the
+    same step in exact arithmetic), given where the float32 gradient is not
+    determined to those tolerances (prototype4 with live BN). Then
+    ``grad_norm`` is held to DP_SPREAD times the most those steps differ
+    from ``ref``, and the changes of all trainable tensors together (their
+    difference's L2 norm) to DP_SPREAD times the most theirs differ; the
+    losses and statistics as above. Returns (the largest loss difference,
+    the largest change difference over its tolerance, the largest
+    statistic difference over its tolerance)."""
+    loss_err = 0.0
+    for k, v in ref['metrics'].items():
+        err = abs(got['metrics'][k] - v)
+        tol = DP_LOSS_RTOL * abs(v)
+        if k == 'grad_norm':
+            tol = max([tol] + [DP_SPREAD * abs(r['metrics'][k] - v)
+                               for r in spread])
+        else:
+            loss_err = max(loss_err, err / max(abs(v), 1e-12))
+        if err > tol:
+            raise AssertionError(f'{label}: {k} {got["metrics"][k]} vs {v}')
+    worst = stat_worst = 0.0
+    sq = np.zeros(1 + len(spread))
+    for k, before in ref['before'].items():
+        ref_after, got_after = ref['after'][k], got['after'][k]
+        if k.endswith(('running_mean', 'running_var')):
+            if not stats:
+                continue
+            tol = DP_STAT_RTOL * float(ref_after.abs().max())
+            err = float((got_after - ref_after).abs().max())
+            stat_worst = max(stat_worst, err / tol if tol else err)
+            if err > tol:
+                raise AssertionError(f'{label}: {k} differs by {err} > '
+                                     f'{tol}')
+            continue
+        if not before.is_floating_point():
+            continue
+        change = ref_after - before
+        if k not in ref['trainable']:
+            if change.any() or not torch.equal(got_after, ref_after):
+                raise AssertionError(f'{label}: {k}: frozen tensor changed')
+            continue
+        if spread:
+            sq += [float(((a['after'][k] - ref_after).double() ** 2).sum())
+                   for a in (got, *spread)]
+            continue
+        top = float(before.abs().max())
+        tol = DP_CHANGE_RTOL * float(change.abs().max()) + 2 * float(
+            np.spacing(np.float32(top)))
+        err = float(((got_after - before) - change).abs().max())
+        worst = max(worst, err / tol)
+        if err > tol:
+            raise AssertionError(f'{label}: {k}: change differs by {err} > '
+                                 f'{tol}')
+    if spread:
+        dev, others = np.sqrt(sq[0]), np.sqrt(sq[1:]).max()
+        worst = dev / (DP_SPREAD * others)
+        if worst > 1:
+            raise AssertionError(f'{label}: the changes differ by {dev} '
+                                 f'(L2), the reordered steps\' by at most '
+                                 f'{others}')
+    return loss_err, worst, stat_worst
+
+
+def spread_of(runs, ref) -> tuple:
+    """How far one-process steps in other batch orders land from ``ref``:
+    (the largest ``grad_norm`` difference relative to ``ref``'s, the
+    largest change difference relative to that tensor's largest change)."""
+    norm = max(abs(r['metrics']['grad_norm'] - ref['metrics']['grad_norm'])
+               for r in runs) / ref['metrics']['grad_norm']
+    change = 0.0
+    for k in ref['trainable']:
+        moved = float((ref['after'][k] - ref['before'][k]).abs().max())
+        if moved:
+            change = max(change, max(float((r['after'][k] - ref['after'][k])
+                                           .abs().max()) for r in runs)
+                         / moved)
+    return norm, change
+
+
+def free_card(device) -> None:
+    """Hand the memory this process's allocator caches back to the card
+    (other processes are about to use it)."""
+    import gc
+    gc.collect()
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(workdir, spec, world, timeout=DP_JOIN_S) -> list:
+    """``dp_rank_main`` in ``world`` fresh processes on ``spec`` (written
+    to ``workdir/spec.json``), a ``file://`` rendezvous in ``workdir``;
+    each rank's output is logged with its rank. Waits for each within the
+    time limit and kills them all when one fails or overruns. Returns the
+    ranks' results."""
+    with open(os.path.join(workdir, 'spec.json'), 'w') as f:
+        json.dump(spec, f)
+    init = 'file://' + os.path.join(workdir, 'rendezvous')
+    code = (f'import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; '
+            f'chip_smoke.dp_rank_main(int(sys.argv[1]), {world}, {init!r}, '
+            f'{workdir!r})')
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, '-c', code, str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    failure = None
+    try:
+        for r, p in enumerate(procs):
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                out, _ = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                failure = f'rank {r} ran past {timeout} s'
+                break
+            for line in out.splitlines():
+                if line.startswith('[rank'):
+                    log(line)
+            if p.returncode != 0:
+                failure = f'rank {r} exited {p.returncode}:\n{out[-6000:]}'
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failure:
+        raise AssertionError(failure)
+    return [torch.load(os.path.join(workdir, f'rank{r}.pt'),
+                       weights_only=False) for r in range(world)]
+
+
+def sum_without_backward(reduce):
+    """``reduce`` (a differentiable sum across ranks) with the identity in
+    place of its backward: the global sum forward, while each rank's
+    gradient misses the other ranks' part. Phase 47 (iii) plants it in live
+    BatchNorm, a fault of the gradient alone, which its comparison must
+    refuse."""
+    def faulty(tensor):
+        return tensor + (reduce(tensor.detach()) - tensor.detach())
+    return faulty
+
+
+def dp_rank_main(rank, world, init, workdir):
+    """A rank of phases 47-48: joins the group ``spec.json`` names and runs
+    its tasks on this rank's rows (a task with ``fault`` set runs with
+    :func:`sum_without_backward` as the group's sum); writes
+    ``rank<r>.pt``."""
+    from orientedobjectdetection_torch.parallel import mesh
+    with open(os.path.join(workdir, 'spec.json')) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = spec['device']
+    mesh.init_distributed(device, backend=spec['backend'], init_method=init,
+                          rank=rank, world_size=world)
+    batch = mesh.shard_batch(torch.load(os.path.join(workdir, 'batch.pt')))
+    per = batch['images'].shape[0]
+    out = {}
+    for task in spec['tasks']:
+        name = task['name']
+        if task['kind'] == 'step':
+            reduce = mesh.all_reduce_sum
+            if task.get('fault'):
+                mesh.all_reduce_sum = sum_without_backward(reduce)
+            try:
+                out[name] = run = dp_step(
+                    task['config'], task['norm_eval'], batch, device,
+                    getattr(torch, task['dtype']),
+                    steps=task.get('steps', 1))
+            finally:
+                mesh.all_reduce_sum = reduce
+            log(f'[rank {rank}] {name}: {per} images of the global '
+                f'{per * world}, {task["dtype"]} steps '
+                f'{", ".join(f"{m:.1f}" for m in run["ms"])} ms; launches '
+                f'of the first {run["counts"]}')
+        else:
+            out[name] = dp_eval_task(task, device, rank)
+        free_card(device)
+    torch.save(out, os.path.join(workdir, f'rank{rank}.pt'))
+    mesh.destroy()
+
+
+def dp_eval_task(task, device, rank) -> dict:
+    """``batched_eval`` through ``collect_dir`` and the dataset's mAP on
+    every rank's gathered results."""
+    from orientedobjectdetection_torch.apis.eval import (_default_norm,
+                                                         batched_eval)
+    from orientedobjectdetection_torch.apis.inference import init_detector
+    from orientedobjectdetection_torch.datasets import build_dataset
+    cfg = synth_config(task['config'], task['root'])
+    bundle = init_detector(cfg, task['weights'], device=device,
+                           device_norm=_default_norm(cfg))
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    reset_launches()
+    t0 = time.perf_counter()
+    results = batched_eval(bundle, val, batch_size=task['batch_size'],
+                           progress=False, collect_dir=task['collect_dir'])
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    mean_ap = val.evaluate(results, device=device, logger='silent')['mAP']
+    from orientedobjectdetection_torch.parallel import mesh
+    mine = len(range(rank, len(val), mesh.world_size()))
+    log(f'[rank {rank}] {task["name"]}: {mine} of {len(val)} images, '
+        f'gathered in {seconds:.2f} s; launches {counts}; mAP {mean_ap:.6f}')
+    return dict(results=results, map=mean_ap, counts=counts)
+
+
+def phase_data_parallel(device, card='', bsz=8, size=1024, g=32,
+                        valid=DP_VALID, timed=3, eval_sets=None,
+                        world=DP_WORLD, single_backend='nccl') -> list:
+    """Phases 47 and 48. 47: one float32 step (TF32 off) of Rotated
+    RetinaNet R50-FPN and of prototype4 with live BatchNorm, on a global
+    batch of ``bsz`` images whose halves hold different numbers of gts: (i)
+    over ``torch.cuda.device_count()`` ranks on NCCL (one process of a
+    group of one on a single card, else one process a card), equal to the
+    plain ``make_train_step`` on the whole batch; (ii) over ``world`` gloo
+    processes that share the card (NCCL refuses two ranks on one device),
+    each on its rows, equal to one process on the whole batch
+    (:func:`same_dp_step`), and (iii) the same for prototype4 with frozen
+    BN, and with live BN, every running statistic included: its float32
+    gradient is not determined to those tolerances (the one-process step
+    on the batch in another order moves ``grad_norm`` by ~2%), so its
+    ``grad_norm`` and its changes together are held to DP_SPREAD times
+    the spread of two such reordered steps, and the same comparison must
+    refuse the ranks' step with a fault of the gradient alone planted in
+    live BN (:func:`sum_without_backward`); then ``timed`` bfloat16
+    data-parallel steps a rank. 48: ``batched_eval`` over the same ranks
+    through a ``collect_dir`` on ``eval_sets`` (label -> (config, data
+    root, weights path)): the gathered lists equal one process's and so
+    does the mAP;
+    ``DetectorBundle(devices=[every local card])`` gives the one-device
+    detections. Returns the ranks' and the group's launch counts."""
+    import shutil
+    from orientedobjectdetection_torch.apis.eval import (_default_norm,
+                                                         batched_eval)
+    from orientedobjectdetection_torch.apis.inference import init_detector
+    from orientedobjectdetection_torch.datasets import build_dataset
+    from orientedobjectdetection_torch.parallel import mesh
+    on_card = torch.device(device).type == 'cuda'
+    workdir = os.path.join(DATA_DIR, 'data_parallel')
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    batch = dp_batch(bsz, size, g, valid, 120, device)
+    torch.save({k: v.clone() for k, v in batch.items()},
+               os.path.join(workdir, 'batch.pt'))
+    runs = []
+    refs = {}
+    for label, config, norm_eval in (
+            ('retinanet', 'retinanet', True), ('prototype4', 'prototype4',
+                                               False),
+            ('prototype4_frozen', 'prototype4', True)):
+        refs[label] = dp_step(DP_CONFIGS[config], norm_eval, batch, device)
+    # prototype4's live step in two other orders of the batch: the same
+    # step in exact arithmetic, whose float32 spread phase 47 (iii) reads
+    half = bsz // 2
+    orders = (list(range(half, bsz)) + list(range(half)),
+              list(range(bsz - 1, -1, -1)))
+    reordered = [dp_step(DP_CONFIGS['prototype4'], False,
+                         {k: v[order] for k, v in batch.items()}, device)
+                 for order in orders]
+    # (i) the group of every local card over NCCL
+    cards = torch.cuda.device_count() if on_card else 1
+    if cards == 1:
+        mesh.init_distributed(device, backend=single_backend,
+                              init_method=f'tcp://127.0.0.1:{free_port()}',
+                              rank=0, world_size=1)
+        try:
+            group = dp_step(DP_CONFIGS['retinanet'], True, batch, device)
+        finally:
+            mesh.destroy()
+        groups = [group]
+    else:
+        free_card(device)
+        spec = dict(device=device, backend=single_backend, tasks=[dict(
+            name='retinanet', kind='step', config=DP_CONFIGS['retinanet'],
+            norm_eval=True, dtype='float32')])
+        groups = [r['retinanet'] for r in run_ranks(workdir, spec, cards)]
+    for group in groups:
+        err = same_dp_step(group, refs['retinanet'], 'NCCL group')
+        runs.append(group['counts'])
+    exact = all(torch.equal(groups[0]['after'][k], v)
+                for k, v in refs['retinanet']['after'].items())
+    retina = os.path.basename(DP_CONFIGS['retinanet'])
+    log(f'[dp-training] {card} | (i) {cards} rank(s) on '
+        f'{single_backend}, {retina} float32, global batch {bsz} of '
+        f'{size}^2 (G={g}, {valid[0]} / {valid[1]} valid in the halves): '
+        f'equal to the plain step (loss rel {err[0]:.3g}, worst change '
+        f'{err[1]:.3g} of its tolerance; bit for bit: {exact}); launches '
+        f'{groups[0]["counts"]}')
+    # (ii) and (iii): gloo ranks sharing the card, and phase 48's sets;
+    # the ranks need the card's memory that this process's cache holds
+    free_card(device)
+    tasks = [dict(name='retinanet', kind='step',
+                  config=DP_CONFIGS['retinanet'], norm_eval=True,
+                  dtype='float32'),
+             dict(name='prototype4', kind='step',
+                  config=DP_CONFIGS['prototype4'], norm_eval=False,
+                  dtype='float32'),
+             dict(name='prototype4_frozen', kind='step',
+                  config=DP_CONFIGS['prototype4'], norm_eval=True,
+                  dtype='float32'),
+             dict(name='prototype4_fault', kind='step',
+                  config=DP_CONFIGS['prototype4'], norm_eval=False,
+                  dtype='float32', fault=True),
+             dict(name='retinanet_bf16', kind='step',
+                  config=DP_CONFIGS['retinanet'], norm_eval=True,
+                  dtype='bfloat16', steps=timed + 1)]
+    for label, (config, root, weights) in (eval_sets or {}).items():
+        tasks.append(dict(name=f'eval_{label}', kind='eval', config=config,
+                          root=root, weights=weights, batch_size=8,
+                          collect_dir=os.path.join(workdir, 'collect')))
+    ranks = run_ranks(workdir, dict(device=device, backend='gloo',
+                                    tasks=tasks), world)
+    spread = spread_of(reordered, refs['prototype4'])
+    log(f'[dp-training] {card} | prototype4 live BN, one process, the batch '
+        f'in two other orders: grad_norm moves by {spread[0]:.3g} of '
+        f'itself, a parameter\'s change by up to {spread[1]:.3g} of its '
+        f'tensor\'s largest (float32 does not determine this step further; '
+        f'frozen, no order moves it)')
+    for label, stats, part, others in (
+            ('retinanet', False, 'ii', ()),
+            ('prototype4_frozen', False, 'iii', ()),
+            ('prototype4', True, 'iii', reordered)):
+        errs = [same_dp_step(r[label], refs[label], f'{label} rank {i}',
+                             stats, others) for i, r in enumerate(ranks)]
+        launches = [r[label]['counts']['box_iou_rotated'] for r in ranks]
+        runs.extend(r[label]['counts'] for r in ranks)
+        gap = max(abs(r[label]['metrics']['grad_norm']
+                      - refs[label]['metrics']['grad_norm'])
+                  for r in ranks) / refs[label]['metrics']['grad_norm']
+        log(f'[dp-training] {card} | ({part}) {world} gloo ranks sharing '
+            f'the card, {label} float32, {bsz // world} images a rank: '
+            f'equal to one process on all {bsz} (losses rel <= '
+            f'{max(e[0] for e in errs):.3g}, grad_norm rel {gap:.3g}, worst '
+            f'change {max(e[1] for e in errs):.3g} of its tolerance'
+            + (f' (L2 of all changes against {DP_SPREAD} times the '
+               f'reordered steps\')' if others else '')
+            + (f', worst running statistic '
+               f'{max(e[2] for e in errs):.3g} of its tolerance'
+               if stats else '') + f'); step ms a rank '
+            f'{[round(r[label]["ms"][0], 1) for r in ranks]} (one step, '
+            f'first call); box_iou_rotated launches a rank {launches}')
+    # the planted fault: live BN's sum without its backward changes the
+    # gradient alone, and the comparison of (iii) must refuse it
+    for i, r in enumerate(ranks):
+        fault = r['prototype4_fault']
+        gap = abs(fault['metrics']['grad_norm']
+                  - refs['prototype4']['metrics']['grad_norm']) \
+            / refs['prototype4']['metrics']['grad_norm']
+        try:
+            same_dp_step(fault, refs['prototype4'], f'fault rank {i}', True,
+                         reordered)
+        except AssertionError as e:
+            refused = str(e)
+        else:
+            raise AssertionError('phase 47 (iii) takes a live-BN step '
+                                 'whose sum has no backward for the right '
+                                 'one: its comparison cannot see a wrong '
+                                 'gradient')
+        log(f'[dp-training] {card} | (iii) planted fault, rank {i}: live '
+            f'BN\'s sum across ranks with the identity for its backward '
+            f'(grad_norm rel {gap:.3g}) is refused: {refused}')
+    runs.extend(r['retinanet_bf16']['counts'] for r in ranks)
+    log(f'[dp-training] {card} | {retina} bfloat16, {world} gloo ranks '
+        f'x {bsz // world} images: step ms a rank after the first '
+        f'{[[round(m, 1) for m in r["retinanet_bf16"]["ms"][1:]]
+            for r in ranks]}'
+        f'; box_iou_rotated launches of a step a rank '
+        f'{[r["retinanet_bf16"]["counts"]["box_iou_rotated"] for r in ranks]}')
+    for label, (config, root, weights) in (eval_sets or {}).items():
+        cfg = synth_config(config, root)
+        state = weights
+        val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                                 filter_empty_gt=False))
+        bundle = init_detector(cfg, state, device=device,
+                               device_norm=_default_norm(cfg))
+        single = batched_eval(bundle, val, batch_size=8, progress=False)
+        single_map = val.evaluate(single, device=device,
+                                  logger='silent')['mAP']
+        exact = True
+        for i, r in enumerate(ranks):
+            got = r[f'eval_{label}']
+            runs.append(got['counts'])
+            if len(got['results']) != len(single):
+                raise AssertionError(f'{label}: rank {i} gathered '
+                                     f'{len(got["results"])} images')
+            for a, b in zip(got['results'], single):
+                exact &= all(np.array_equal(x, y) for x, y in zip(a, b))
+            err, moved, aside = same_detections(
+                stack_results(got['results'], bundle.num_classes),
+                stack_results(single, bundle.num_classes),
+                [-1.0] * len(single))
+            if abs(got['map'] - single_map) > (0 if exact else AP_ATOL):
+                raise AssertionError(f'{label}: rank {i} mAP {got["map"]} '
+                                     f'vs one process {single_map}')
+        devices = [f'cuda:{i}' for i in range(cards)] if on_card \
+            else ['cpu', 'cpu']
+        split = init_detector(cfg, state, devices=devices,
+                              device_norm=_default_norm(cfg))
+        multi = batched_eval(split, val, batch_size=8, progress=False)
+        m_err, m_moved, _ = same_detections(
+            stack_results(multi, bundle.num_classes),
+            stack_results(single, bundle.num_classes), [-1.0] * len(single))
+        log(f'[dp-eval] {card} | {label}: {world} gloo ranks, '
+            f'{len(single)} val images through collect_dir: the same lists '
+            f'as one process (bit for bit: {exact}; max |diff| {err:.3g}, '
+            f'{moved} rows moved), mAP {single_map:.6f} on every rank; '
+            f'DetectorBundle(devices={devices}): the one-device detections '
+            f'(max |diff| {m_err:.3g}, {m_moved} rows moved)')
+    shutil.rmtree(os.path.join(workdir, 'collect'), ignore_errors=True)
+    return runs
+
+
+def phase_host(root, trained, captured, card='', device='cuda',
+               n_requests=10, config=SYNTH1024_CONFIG, flops_config=CONFIG,
+               flops_shape=(1024, 1024)) -> list:
+    """Phase 49. ``tools.serve`` on an ephemeral localhost port over
+    phase 16's trained synth1024 RetinaNet (class bias zeroed) answers
+    ``n_requests`` PNG requests of the val images with
+    ``inference_detector``'s detections above SERVE_THR; the native host NMS
+    (``csrc/rnms.cpp``) on the largest class of phase 21's largest merge
+    keeps what the pair-mask kernel's ``nms_rotated_np`` keeps, both timed;
+    ``imshow_det_rbboxes`` writes one request's PNG; ``confusion_matrix``
+    on phase 17's evaluation (the same weights and images); ``get_flops``
+    of RetinaNet R50. Returns the launch counts of the requests, the
+    kernel NMS and the confusion matrix."""
+    import http.client
+    import threading
+    from orientedobjectdetection_torch import native
+    from orientedobjectdetection_torch.apis.eval import batched_eval
+    from orientedobjectdetection_torch.apis.inference import \
+        inference_detector
+    from orientedobjectdetection_torch.core.visualization import \
+        imshow_det_rbboxes
+    from orientedobjectdetection_torch.datasets import build_dataset
+    from orientedobjectdetection_torch.ops.nms import nms_rotated_np
+    from orientedobjectdetection_torch.tools import (confusion_matrix,
+                                                     get_flops, serve)
+    from orientedobjectdetection_torch.utils.image_io import imdecode
+    runs = []
+    weights = zero_class_bias(trained)
+    ckpt = os.path.join(DATA_DIR, 'serve_ckpt.pth')
+    torch.save(weights, ckpt)
+    server = serve.build_server(serve.parse_args([
+        config, ckpt, '--host', '127.0.0.1', '--port', '0', '--score-thr',
+        str(SERVE_THR), '--device', device]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    cfg = synth_config(config, root)
+    val = build_dataset(dict(cfg.data['val'], test_mode=True,
+                             filter_empty_gt=False))
+    images = [os.path.join(val.img_prefix, info['filename'])
+              for info in val.data_infos]
+    paths = [images[i % len(images)] for i in range(n_requests)]
+    bundle = server.RequestHandlerClass.served
+    host, port = server.server_address[:2]
+    try:
+        answers, seconds = [], []
+        reset_launches()
+        for path in paths:
+            with open(path, 'rb') as f:
+                body = f.read()
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection(host, port, timeout=120)
+            conn.request('POST', '/predict', body=body)
+            reply = conn.getresponse()
+            data = reply.read()
+            seconds.append(time.perf_counter() - t0)
+            conn.close()
+            if reply.status != 200:
+                raise AssertionError(f'serve answered {reply.status}: {data}')
+            answers.append((json.loads(data), imdecode(body)))
+        runs.append(read_launches())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    n_dets, worst = 0, 0.0
+    for got, img in answers:
+        ref = serve.detections_json(inference_detector(bundle, img),
+                                    SERVE_THR)
+        if [d['class_id'] for d in got] != [d['class_id'] for d in ref]:
+            raise AssertionError('serve\'s classes differ from '
+                                 'inference_detector\'s')
+        for a, b in zip(got, ref):
+            worst = max(worst, max(abs(x - y) for x, y in
+                                   zip(a['bbox'] + [a['score']],
+                                       b['bbox'] + [b['score']])))
+        n_dets += len(got)
+    if worst > DETS_ATOL:
+        raise AssertionError(f'serve vs inference_detector: {worst}')
+    ms = [1e3 * s for s in seconds]
+    log(f'[serve] {card} | {len(answers)} PNG requests of '
+        f'{cfg.get("pad_size")} over localhost: {n_dets} detections above '
+        f'{SERVE_THR}, the JSON inference_detector\'s (max |diff| '
+        f'{worst:.3g}); ms a request {[round(m, 1) for m in ms]} (median '
+        f'{float(np.median(ms)):.1f}); launches {runs[-1]}')
+    # the native host NMS against the kernel's on a merge class
+    merges = captured.get('submission_merge') or []
+    if merges:
+        boxes, cls = max(merges, key=lambda m: m[0].shape[1])
+        boxes, cls = boxes[0].cpu(), cls[0].cpu()
+        top = int(torch.mode(cls).values)
+        sel = boxes[cls == top].numpy()
+        scores = np.arange(len(sel), 0, -1, dtype=np.float32)
+        reps = 3
+        native.load()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            keep_native = nms_rotated_np(sel, scores, 0.1, device='cpu')
+        native_ms = 1e3 * (time.perf_counter() - t0) / reps
+        nms_rotated_np(sel, scores, 0.1, device=device)
+        sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            keep_kernel = nms_rotated_np(sel, scores, 0.1, device=device)
+        sync(device)
+        kernel_ms = 1e3 * (time.perf_counter() - t0) / reps
+        runs.append(read_launches())
+        if not np.array_equal(keep_native, keep_kernel):
+            raise AssertionError(f'native NMS keeps {len(keep_native)}, the '
+                                 f'kernel {len(keep_kernel)}')
+        log(f'[host-nms] {card} | class {top} of phase 21\'s largest merge '
+            f'(N={len(sel)} of {boxes.shape[0]}): the native NMS keeps the '
+            f'{len(keep_native)} the pair-mask kernel keeps; native '
+            f'{native_ms:.2f} ms, nms_rotated_np on {device} '
+            f'{kernel_ms:.2f} ms a call')
+    else:
+        log('[host-nms] no merge recorded: not run')
+    out_file = os.path.join(DATA_DIR, 'serve_request.png')
+    result = inference_detector(bundle, paths[0])
+    drawn = imshow_det_rbboxes(paths[0], result, class_names=val.CLASSES,
+                               score_thr=SERVE_THR, out_file=out_file)
+    if drawn.shape[2] != 3 or not os.path.exists(out_file):
+        raise AssertionError('imshow_det_rbboxes wrote nothing')
+    results = batched_eval(bundle, val, batch_size=8, progress=False)
+    reset_launches()
+    cm = confusion_matrix.calculate_confusion_matrix(val, results, 0.3, 0.5,
+                                                     device=device)
+    runs.append(read_launches())
+    n = len(val.CLASSES)
+    log(f'[confusion] {card} | {len(results)} val images of phase 17: '
+        f'{int(cm.sum())} entries, {int(np.trace(cm[:n, :n]))} on the '
+        f'diagonal, {int(cm[n].sum())} background, {int(cm[:, n].sum())} '
+        f'missed; launches {runs[-1]}; drawn {os.path.basename(out_file)} '
+        f'{drawn.shape}')
+    from orientedobjectdetection_torch.utils import Config
+    params, flops = get_flops.count(Config.fromfile(flops_config),
+                                    flops_shape, device)
+    log(f'[get-flops] {os.path.basename(flops_config)} at {flops_shape}: '
+        f'{params} parameters (the JAX package\'s params count), '
+        f'{flops / 1e9:.2f} GFLOPs by {get_flops.DEFINITION}')
+    return runs
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -5609,6 +6273,16 @@ def main() -> int:
         os.path.join(DATA_DIR, 'work_yolov8'), card=info['card'])
     captured.update(loop_inputs)
     log(f'[phases 43-46] {time.perf_counter() - t43:.1f} s')
+    t47 = time.perf_counter()
+    served = os.path.join(DATA_DIR, 'synth1024_trained.pth')
+    torch.save(zero_class_bias(trained), served)
+    dp_runs = phase_data_parallel('cuda', card=info['card'], eval_sets={
+        'retinanet': (SYNTH1024_CONFIG, hard, served),
+        'orcnn': (ORCNN_TINY_CONFIG, os.path.join(DATA_DIR, 'synth_tiny'),
+                  os.path.join(DATA_DIR, 'work_orcnn_tiny',
+                               'ckpt_00000020.pth'))})
+    host_runs = phase_host(hard, trained, captured, card=info['card'])
+    log(f'[phases 47-49] {time.perf_counter() - t47:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -5624,7 +6298,9 @@ def main() -> int:
         # Swin, ConvNeXt and ReDet detectors (ReDet's tiny run), the
         # point-set families' requests, steps and tiny runs, and the YOLOv8
         # models' requests, prototype4's steps (frozen and live BN) and the
-        # tiny YOLOv8 run
+        # tiny YOLOv8 run, the data-parallel steps and evaluations of each
+        # rank, the served requests, the host NMS check's kernel calls and
+        # the confusion matrix
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -5632,7 +6308,8 @@ def main() -> int:
             *refine_loops, *hbb_serving, *hbb_training, *hbb_loops,
             *backbone_serving, *backbone_training, *redet_loop,
             *reppoints_serving, *reppoints_training, *reppoints_loops,
-            *yolo_serving, *yolo_training, *yolo_loop))
+            *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
+            *host_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -18,6 +18,8 @@ the JAX package; the network runs NCHW inside.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -53,12 +55,21 @@ class DetectorBundle:
     Serving runs in inference mode. The heads keep the anchors and coder
     constants they make in it apart from those they make outside it
     (:func:`..core.anchors.cached`), so a later train step on the same
-    module can save its own for the backward."""
+    module can save its own for the backward.
+
+    ``devices``: data-parallel inference inside one process (the JAX
+    package's ``mesh=``): one replica of ``detector`` on each device (the
+    first is ``detector`` itself, which must lie on ``devices[0]``), and a
+    call splits the batch's leading axis into ``len(devices)`` contiguous
+    shards (``torch.tensor_split``), runs each on its own device and
+    concatenates the padded detections in order on ``devices[0]``, with no
+    collective. :meth:`load_state_dict` loads every replica."""
 
     def __init__(self, cfg, detector: nn.Module, dtype=torch.float32,
                  device_norm: Optional[dict] = None,
                  plain_pair_mask: bool = False,
-                 plain_roi_align: bool = False):
+                 plain_roi_align: bool = False,
+                 devices: Optional[Sequence] = None):
         self.cfg = cfg
         self.detector = detector
         self.dtype = dtype
@@ -82,36 +93,65 @@ class DetectorBundle:
                              'or fam_head')
         self.num_classes = int(head['num_classes'])
         self.device = next(detector.parameters()).device
+        self.replicas = [detector]
+        if devices:
+            devices = [torch.device(d) for d in devices]
+            if devices[0] != self.device:
+                raise ValueError(f'the detector lies on {self.device}, not '
+                                 f'on devices[0] = {devices[0]}')
+            self.replicas += [copy.deepcopy(detector).to(d)
+                              for d in devices[1:]]
 
-    def prepare(self, images: torch.Tensor) -> torch.Tensor:
+    @property
+    def devices(self) -> List[torch.device]:
+        return [next(r.parameters()).device for r in self.replicas]
+
+    def load_state_dict(self, state_dict) -> None:
+        """Load ``state_dict`` into every replica."""
+        for r in self.replicas:
+            r.load_state_dict(state_dict)
+
+    def prepare(self, images: torch.Tensor,
+                device: Optional[torch.device] = None) -> torch.Tensor:
         """(B, H, W, 3) images -> the network's NCHW input on the device, in
         the serving dtype, normalized there when ``device_norm`` is set."""
-        images = images.to(self.device)
+        images = images.to(device or self.device)
         if self.device_norm is not None:
             from ..parallel.train_state import normalize_images
             images = normalize_images(images, self.device_norm)
         return images.permute(0, 3, 1, 2).to(self.dtype)
 
     @torch.inference_mode()
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor, replica: int = 0):
         """(B, H, W, 3) images -> the detector's outputs with every
         floating-point tensor in float32: the head's per-level maps, a
         two-stage detector's dict of proposals and RoI-head outputs, or a
         refine detector's dict of its stages' maps and rois."""
-        x = self.prepare(images)
+        detector = self.replicas[replica]
+        x = self.prepare(images, next(detector.parameters()).device)
         if self.two_stage:
-            return _float32(self.detector(
+            return _float32(detector(
                 x, plain_roi_align=self.plain_roi_align))
-        return _float32(self.detector(x))
+        return _float32(detector(x))
 
     @torch.inference_mode()
-    def decode(self, outputs):
+    def decode(self, outputs, replica: int = 0):
         """Detector outputs -> (dets (B, max_per_img, 6), labels, valid)."""
-        return self.detector.bboxes_from_outputs(
+        return self.replicas[replica].bboxes_from_outputs(
             outputs, plain_pair_mask=self.plain_pair_mask)
 
     def __call__(self, images: torch.Tensor):
-        return self.decode(self.forward(images))
+        if len(self.replicas) == 1:
+            return self.decode(self.forward(images))
+        parts = []
+        for i, shard in enumerate(torch.tensor_split(images,
+                                                     len(self.replicas))):
+            device = self.devices[i]
+            with (torch.cuda.device(device) if device.type == 'cuda'
+                  else contextlib.nullcontext()):
+                parts.append(self.decode(self.forward(shard, i), i))
+        return tuple(torch.cat([p[k].to(self.device) for p in parts])
+                     for k in range(3))
 
 
 def _float32(outputs):
@@ -127,16 +167,21 @@ def _float32(outputs):
 def init_detector(config: Union[str, Config], checkpoint=None,
                   device: Union[str, torch.device] = 'cuda',
                   dtype=torch.float32, seed: int = 0,
-                  device_norm: Optional[dict] = None) -> DetectorBundle:
+                  device_norm: Optional[dict] = None,
+                  devices: Optional[Sequence] = None) -> DetectorBundle:
     """Build the configured detector with seeded weights, load
     ``checkpoint`` (a state dict with mmrotate names, or the path of a
     ``.pth`` holding one, such as a training checkpoint) over them, and
     move it
     to ``device`` in ``dtype`` (convolutions, linear layers and ORConv2d;
-    frozen BN stays float32).
+    frozen BN stays float32). ``devices``: a replica on each, the batch
+    split over them (:class:`DetectorBundle`); ``device`` is then
+    ``devices[0]``.
 
     Raises RuntimeError when ``device`` is a CUDA device and none is
     present: it never falls back to the CPU."""
+    if devices:
+        device = devices[0]
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('init_detector: no CUDA device is available; '
@@ -159,7 +204,8 @@ def init_detector(config: Union[str, Config], checkpoint=None,
     for m in detector.modules():
         if isinstance(m, WEIGHTED_LAYERS):
             m.to(dtype)
-    return DetectorBundle(config, detector, dtype, device_norm=device_norm)
+    return DetectorBundle(config, detector, dtype, device_norm=device_norm,
+                          devices=devices)
 
 
 def results_to_per_class(dets, labels, valid, num_classes: int

@@ -2,14 +2,24 @@
 ``orientedobjectdetection_tpu/apis/train.py``; the reference's mmcv runner
 stack, ``apis/train.py:16-144``).
 
-One process on one device: the DOTA-layout dataset and its pipeline feed
+One process a device: the DOTA-layout dataset and its pipeline feed
 the prefetching :class:`DataLoader`, each batch goes through
 ``make_train_step``, a JSONL line is logged every ``log_interval`` steps
 (``train_log.jsonl``), a checkpoint is written every
 ``checkpoint_config.interval`` epochs and at the end, and every
 ``evaluation.interval`` epochs the val split's mAP is measured through one
 persistent :class:`DetectorBundle`, with a ``best`` checkpoint on a new
-best mAP. Several processes (``WORLD_SIZE > 1``) are ROADMAP A.13.
+best mAP.
+
+Several processes (``WORLD_SIZE > 1``, launched by
+``python -m torch.distributed.run --nproc_per_node N -m
+orientedobjectdetection_torch.tools.train <config>``) train one model on
+a global batch of ``samples_per_gpu x WORLD_SIZE``: each rank loads its
+shard of every epoch, the step is data-parallel (``make_train_step`` inside
+the process group that :func:`..parallel.mesh.init_distributed` joins), the
+evaluation splits the images over the ranks
+(``batched_eval(collect_dir=...)``), and only rank 0 writes the log and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -26,9 +36,10 @@ import torch
 from ..datasets import build_dataset
 from ..datasets.loader import DataLoader, strip_host_normalize
 from ..models import build_detector
+from ..parallel import mesh
 from ..parallel.train_state import (TrainState, build_lr_schedule,
                                     build_optimizer, create_train_state,
-                                    make_train_step)
+                                    make_train_step, sync_state)
 from ..utils.checkpoint import (find_latest_checkpoint, load_checkpoint,
                                 save_checkpoint)
 from .eval import _default_norm, eval_from_state
@@ -52,9 +63,11 @@ def setup_training(cfg, max_steps: Optional[int] = None,
                    dtype=torch.float32, seed: int = 0,
                    device='cuda') -> TrainingSetup:
     """Build ``cfg``'s training: the device-normalization strip, the
-    dataset and loader, the detector, the LR schedule from
-    ``steps_per_epoch``, the optimizer with grad clip and frozen stages, a
-    fresh train state on ``device`` and the train step."""
+    dataset and loader (this rank's shard in a process group), the
+    detector, the LR schedule from ``steps_per_epoch``, the optimizer with
+    grad clip and frozen stages, a fresh train state on ``device`` (rank
+    0's weights on every rank) and the train step, data-parallel in a
+    process group. ``batch_size`` is the rank's, ``samples_per_gpu``."""
     # the pipeline's Normalize moves into the step: uint8 host batches
     train_cfg = dict(cfg.data['train'])
     device_norm = None
@@ -67,7 +80,8 @@ def setup_training(cfg, max_steps: Optional[int] = None,
         max_gt=int(cfg.data.get('max_gt', 512)),
         pad_size=cfg.data.get('pad_size'),
         num_workers=int(cfg.data.get('workers_per_gpu', 2)) * 4,
-        worker_type=cfg.data.get('worker_type', 'thread'), seed=seed)
+        worker_type=cfg.data.get('worker_type', 'thread'), seed=seed,
+        shard_id=mesh.rank(), num_shards=mesh.world_size())
     steps_per_epoch = len(loader)
     if steps_per_epoch == 0:
         raise ValueError(f'{len(dataset)} training images make no batch of '
@@ -104,28 +118,37 @@ def train_detector(cfg, work_dir: str, resume: bool = False,
     ``resume_from`` from that file; ``dtype=torch.bfloat16`` trains under
     autocast on float32 master weights and evaluates in bf16. ``device``
     defaults to the card and raises without one, unless ``'cpu'`` is asked
-    for."""
-    if int(os.environ.get('WORLD_SIZE', '1')) > 1:
-        raise NotImplementedError('training over several processes '
-                                  '(WORLD_SIZE > 1) is ROADMAP A.13')
+    for.
+
+    Under ``torch.distributed.run`` (``WORLD_SIZE > 1``) the process joins
+    the group (``parallel/mesh.py:init_distributed``: NCCL on the cards,
+    gloo for ``device='cpu'``) and trains on ``cuda:<LOCAL_RANK>``. Each
+    rank takes ``samples_per_gpu`` images a step, so the global batch is
+    ``samples_per_gpu x WORLD_SIZE``: the JAX package's is
+    ``samples_per_gpu x local_device_count`` a process, one program over
+    all of them; here a process drives one card, and the step's losses,
+    gradient and update are the same global batch's. Only rank 0 writes
+    the JSONL log, the checkpoints and the ``best`` checkpoint (the JAX
+    package's ``process_index() == 0``)."""
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('train_detector: no CUDA device is available; '
                            'pass device="cpu" to run on the CPU')
+    mesh.init_distributed(device)
+    device = mesh.rank_device(device) if mesh.is_distributed() else device
+    lead = mesh.rank() == 0
     os.makedirs(work_dir, exist_ok=True)
     log_path = osp.join(work_dir, 'train_log.jsonl')
     setup = setup_training(cfg, max_steps, dtype, seed, device)
     loader, batch_size, sched = setup.loader, setup.batch_size, setup.sched
     steps_per_epoch, total_steps = setup.steps_per_epoch, setup.total_steps
     state, step_fn = setup.state, setup.step_fn
-    if resume_from:
-        state = load_checkpoint(resume_from, state)
-        print(f'resumed from {resume_from} (step {state.step})')
-    elif resume:
-        latest = find_latest_checkpoint(work_dir)
-        if latest:
-            state = load_checkpoint(latest, state)
-            print(f'resumed from {latest} (step {state.step})')
+    global_batch = batch_size * mesh.world_size()
+    resumed = resume_from or (find_latest_checkpoint(work_dir) if resume
+                              else None)
+    if resumed:
+        state = sync_state(load_checkpoint(resumed, state))
+        print(f'resumed from {resumed} (step {state.step})')
 
     # in-training evaluation (the reference's EvalHook)
     eval_cfg = dict(cfg.get('evaluation') or {})
@@ -151,14 +174,16 @@ def train_detector(cfg, work_dir: str, resume: bool = False,
         return eval_from_state(
             eval_bundle, state.model.state_dict(), eval_dataset,
             batch_size=int(eval_cfg.get('samples_per_gpu', 8)),
-            max_images=eval_cfg.get('max_images'))
+            max_images=eval_cfg.get('max_images'),
+            collect_dir=osp.join(work_dir, 'eval_collect')
+            if mesh.is_distributed() else None)
 
     ckpt_interval = int(dict(cfg.get('checkpoint_config')
                              or {}).get('interval', 1))     # in epochs
     best_map = -1.0
     step = state.step
     t0 = time.time()
-    with open(log_path, 'a') as logf:
+    with (open(log_path, 'a') if lead else open(os.devnull, 'w')) as logf:
         def log(record):
             logf.write(json.dumps(record) + '\n')
             logf.flush()
@@ -172,29 +197,35 @@ def train_detector(cfg, work_dir: str, resume: bool = False,
                     m = {k: float(v) for k, v in metrics.items()}
                     m.update(step=step, epoch=step // steps_per_epoch,
                              lr=float(sched(step)),
-                             imgs_per_sec=batch_size * log_interval /
+                             imgs_per_sec=global_batch * log_interval /
                              (time.time() - t0))
                     t0 = time.time()
                     log(m)
-                    print(f'step {step}/{total_steps} ' +
-                          ' '.join(f'{k}={v:.4f}' for k, v in m.items()
-                                   if isinstance(v, float)), flush=True)
+                    if lead:
+                        print(f'step {step}/{total_steps} ' +
+                              ' '.join(f'{k}={v:.4f}' for k, v in m.items()
+                                       if isinstance(v, float)), flush=True)
                 if step % steps_per_epoch == 0:
                     epoch = step // steps_per_epoch
-                    if epoch % ckpt_interval == 0:
+                    if lead and epoch % ckpt_interval == 0:
                         save_checkpoint(work_dir, state, step)
                     if eval_dataset is not None and \
                             epoch % eval_interval == 0:
                         ev = run_eval()
                         log(dict(step=step, epoch=epoch, mode='val',
                                  **{k: float(v) for k, v in ev.items()}))
-                        print(f'epoch {epoch} val: {ev}', flush=True)
+                        if lead:
+                            print(f'epoch {epoch} val: {ev}', flush=True)
                         if float(ev.get('mAP', -1)) > best_map:
                             best_map = float(ev['mAP'])
-                            save_checkpoint(work_dir, state, step,
-                                            prefix='best')
+                            if lead:
+                                save_checkpoint(work_dir, state, step,
+                                                prefix='best')
                         t0 = time.time()
                 if step >= total_steps:
                     break
-    save_checkpoint(work_dir, state, step)
+    loader.close()
+    if lead:
+        save_checkpoint(work_dir, state, step)
+    mesh.barrier()
     return state

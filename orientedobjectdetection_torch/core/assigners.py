@@ -353,10 +353,19 @@ class SampleKey(NamedTuple):
     (B, G, 5) is set, else ``fold_in(PRNGKey(0), step)``, shared by the
     batch. Then each ``(n, i)`` of ``path`` takes ``split(key, n)[i]``; an
     ``i`` of None takes ``split(key, n)[b]`` for image b (``n`` is then the
-    batch size)."""
+    batch size).
+
+    Data parallelism: a rank that holds images ``offset ..`` of a global
+    batch of ``total`` sets both, and its image b then takes
+    ``split(key, total)[offset + b]``, what image ``offset + b`` of the
+    whole batch takes in one process (the JAX package's split under SPMD,
+    whose batch is the global one). A key rooted in ``gt_bboxes`` is per
+    image already and needs neither."""
     step: int = 0
     gt_bboxes: Optional[torch.Tensor] = None
     path: Tuple[Tuple[int, Optional[int]], ...] = ()
+    offset: int = 0
+    total: Optional[int] = None
 
     def split(self, n: int = 2, i: Optional[int] = None) -> 'SampleKey':
         return self._replace(path=self.path + ((n, i),))
@@ -409,7 +418,11 @@ def _key_words(key: SampleKey, device) -> torch.Tensor:
         words = torch.full((batch,), _mix32((key.step & _M32) ^ 0x9E3779B9),
                            dtype=torch.int64, device=device)
     for n, i in key.path:
-        index = torch.arange(batch, device=device) if i is None else i
+        if i is None:                      # the rank's rows of the batch
+            n = key.total or n
+            index = torch.arange(batch, device=device) + key.offset
+        else:
+            index = i
         words = _mix32(words ^ _mix32((n << 16 ^ index) & _M32))
     return words
 

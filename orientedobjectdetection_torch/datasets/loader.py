@@ -4,13 +4,17 @@
 Every batch has fixed shapes: images padded to a static size, gts padded to
 ``max_gt`` with a mask, in the layout ``make_train_step`` takes. Samples
 are decoded on a pool of threads (the PNG decode is zlib and numpy, which
-release the interpreter lock for their large calls) while a producer thread
-keeps ``prefetch`` batches ready; each batch's arrays become pinned host
-tensors when a card is present, so their copies to it are asynchronous.
+release the interpreter lock for their large calls), or on a persistent
+pool of processes, while a producer thread keeps ``prefetch`` batches
+ready; each batch's arrays become pinned host tensors when a card is
+present, so their copies to it are asynchronous. ``shard_id`` /
+``num_shards`` give each rank of a data-parallel run its share of every
+epoch.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import queue
 import threading
 import warnings
@@ -19,6 +23,25 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+# The dataset of a worker process of the process pool: each worker gets it
+# once, at the pool's start, and no task pickles it again.
+_WORKER_DATASET = None
+
+
+def _pool_init(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+    torch.set_num_threads(1)
+
+
+def _pool_get(i):
+    return _WORKER_DATASET[i]
+
+
+def _pool_fetch(task):
+    idx, rng = task
+    return _WORKER_DATASET.fetch(idx, rng)
 
 
 def strip_host_normalize(dataset_cfg):
@@ -116,18 +139,35 @@ def to_tensors(batch: Dict) -> Dict:
 class DataLoader:
     """Shuffling, prefetching loader over a map-style dataset: epoch ``e``
     shuffles with ``np.random.default_rng(seed + e)``; ``drop_last`` drops
-    the last partial batch. Yields :func:`to_tensors` batches."""
+    the last partial batch. Yields :func:`to_tensors` batches.
+
+    ``shard_id`` / ``num_shards``: this rank's share of each epoch, the
+    samples ``shard_id::num_shards`` of the shuffled order (every rank
+    shuffles alike), ``len(dataset) // num_shards`` of them (the JAX
+    package's host sharding, mmcv's ``DistributedSampler``).
+
+    ``worker_type``: ``'thread'`` decodes on a thread pool; ``'process'``
+    on a persistent pool of ``num_workers`` processes (mmcv's
+    ``workers_per_gpu`` with ``persistent_workers``), started at the first
+    epoch and reused, each forked holding the dataset. A sample's
+    augmentation draws from its index and how often it was fetched
+    (:meth:`..dota.DOTADataset.sample_rng`): the parent draws each fetch's
+    generator and sends it with the index, so both give the same batches.
+    A wrapper dataset (``ConcatDataset``, ...) is fetched whole in the
+    worker, whose copies count their own fetches: its first epoch is the
+    threads', later ones may differ. :meth:`close` ends the processes."""
 
     def __init__(self, dataset, batch_size: int, max_gt: int = 512,
                  pad_size=None, shuffle: bool = True, seed: int = 0,
                  num_workers: int = 8, prefetch: int = 4,
-                 drop_last: bool = True, worker_type: str = 'thread'):
-        if worker_type == 'process':
-            raise NotImplementedError('worker_type="process" (a process '
-                                      'pool of decoders) is ROADMAP A.13')
-        if worker_type != 'thread':
+                 drop_last: bool = True, worker_type: str = 'thread',
+                 shard_id: int = 0, num_shards: int = 1):
+        if worker_type not in ('thread', 'process'):
             raise ValueError(f'worker_type must be thread or process, '
                              f'got {worker_type!r}')
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f'shard_id {shard_id} is not in [0, '
+                             f'{num_shards})')
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_gt = max_gt
@@ -137,25 +177,66 @@ class DataLoader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.worker_type = worker_type
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
+        self._proc_pool = None
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
     def indices(self) -> np.ndarray:
-        """This epoch's sample order."""
+        """This epoch's sample order, this shard's share of it."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return idx
+        per = len(idx) // self.num_shards
+        return idx[self.shard_id::self.num_shards][:per]
+
+    def _process_pool(self):
+        if self._proc_pool is None:
+            ctx = multiprocessing.get_context('fork')
+            self._proc_pool = ctx.Pool(self.num_workers,
+                                       initializer=_pool_init,
+                                       initargs=(self.dataset,))
+        return self._proc_pool
+
+    def close(self):
+        """End the worker processes (a thread loader has none)."""
+        if self._proc_pool is not None:
+            self._proc_pool.terminate()
+            self._proc_pool.join()
+            self._proc_pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def __iter__(self) -> Iterator[Dict]:
         idx = self.indices()
         nb = len(self)
-        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        if self.worker_type == 'process':
+            procs, pool = self._process_pool(), None
+            ds = self.dataset
+
+            def fetch(chunk):
+                chunk = [int(i) for i in chunk]
+                if hasattr(ds, 'sample_rng') and hasattr(ds, 'fetch'):
+                    # the parent counts the fetches, as the threads do
+                    return procs.map(_pool_fetch,
+                                     [(i, ds.sample_rng(i)) for i in chunk])
+                return procs.map(_pool_get, chunk)
+        else:
+            pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+            def fetch(chunk):
+                return list(pool.map(self.dataset.__getitem__, chunk))
         q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         failure = []
@@ -166,7 +247,7 @@ class DataLoader:
                     if stop.is_set():
                         return
                     chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                    samples = list(pool.map(self.dataset.__getitem__, chunk))
+                    samples = fetch(chunk)
                     q.put(to_tensors(pad_collate(samples, self.max_gt,
                                                  self.pad_size)))
             except BaseException as e:        # re-raised in the consumer
@@ -191,5 +272,6 @@ class DataLoader:
                     q.get_nowait()
                 except queue.Empty:
                     producer.join(timeout=0.01)
-            pool.shutdown(wait=True)
+            if pool is not None:
+                pool.shutdown(wait=True)
         self.epoch += 1

@@ -108,9 +108,20 @@ class FrozenBatchNorm(nn.Module):
     through both, and updates its running statistics as ``(1 - momentum) *
     old + momentum * batch`` with that same biased variance (not
     ``F.batch_norm``'s unbiased one). A layer in a frozen stage updates
-    its statistics too; its parameters stay fixed."""
+    its statistics too; its parameters stay fixed.
+
+    ``reduce`` (set with ``live``, :func:`live_batch_norm`): a
+    differentiable sum across the ranks of a data-parallel step
+    (``parallel/mesh.py:all_reduce_sum``). The mean and biased variance are
+    then those of the global batch, as under the JAX package's sharded
+    program: each rank's count and mean are summed into the global mean,
+    then each rank's ``count * (var + (mean - global mean)^2)`` into the
+    global variance, both in float32 and carrying the gradient. What
+    ``torch.nn.SyncBatchNorm`` would give instead is the unbiased variance
+    in the running statistics."""
 
     momentum = 0.1
+    reduce = None
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -131,6 +142,8 @@ class FrozenBatchNorm(nn.Module):
             xf = x.float()
             mean = xf.mean((0, 2, 3))
             var = xf.var((0, 2, 3), unbiased=False)
+            if self.reduce is not None:
+                mean, var = self._global_stats(xf, mean, var)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean.detach())
@@ -140,19 +153,32 @@ class FrozenBatchNorm(nn.Module):
         return (x * scale.to(x.dtype)[:, None, None]
                 + bias.to(x.dtype)[:, None, None])
 
+    def _global_stats(self, xf, mean, var):
+        """The global batch's mean and biased variance from this rank's."""
+        count = xf.new_full((1,), float(xf.numel() // xf.shape[1]))
+        sums = self.reduce(torch.cat([count * mean, count]))
+        total = sums[-1]
+        g_mean = sums[:-1] / total
+        g_var = self.reduce(count * (var + (mean - g_mean) ** 2)) / total
+        return g_mean, g_var
+
 
 @contextlib.contextmanager
-def live_batch_norm(model: nn.Module):
+def live_batch_norm(model: nn.Module, reduce=None):
     """Every :class:`FrozenBatchNorm` of ``model`` in live mode (batch
-    statistics, running-statistics update) while the context is open."""
+    statistics, running-statistics update) while the context is open;
+    ``reduce``, a differentiable sum across ranks, makes the statistics
+    those of the global batch (:attr:`FrozenBatchNorm.reduce`)."""
     norms = [m for m in model.modules() if isinstance(m, FrozenBatchNorm)]
     for m in norms:
         m.live = True
+        m.reduce = reduce
     try:
         yield
     finally:
         for m in norms:
             m.live = False
+            m.reduce = None
 
 
 # ---- the YOLO block set -----------------------------------------------------

@@ -143,14 +143,16 @@ class RotatedTwoStageDetector(nn.Module):
     def loss_from_outputs(self, outputs, batch):
         """The RPN's losses (``loss_rpn_cls``, ``loss_rpn_bbox``) and the RoI
         head's (``loss_cls``, ``loss_bbox``) for ``forward(train=True)``'s
-        outputs on a padded batch."""
+        outputs on a padded batch. The box loss's count of positives is
+        taken from the box weights, not from ``num_pos``, so that it is the
+        whole batch's when a data-parallel step gathers the outputs."""
         losses = self.rpn_losses(outputs, batch)
         with record_function('two_stage.roi_loss'):
             losses.update(self.roi_head.bbox_head.loss(
                 outputs['cls_score'], outputs['bbox_pred'], outputs['rois'],
                 outputs['labels'], outputs['label_weights'],
                 outputs['bbox_targets'], outputs['bbox_weights'],
-                outputs['num_pos']))
+                outputs['bbox_weights'].sum().clamp(min=1.0)))
         return losses
 
     def bboxes_from_outputs(self, outputs, img_shape=None, scale_factor=None,

@@ -189,7 +189,8 @@ class GVRatioRoIHead(nn.Module):
         16) over the positives. The config's loss dicts are not read, as
         in the JAX package."""
         cls_score, bbox_pred, fix_pred, ratio_pred = head_outputs
-        _, labels, lw, bt, fix_t, ratio_t, bw, num_pos = targets
+        _, labels, lw, bt, fix_t, ratio_t, bw, _ = targets
+        num_pos = bw.sum().clamp(min=1.0)          # the gathered batch's
         loss_cls = self.cls_loss(cls_score.float(), labels, weight=lw,
                                  avg_factor=lw.sum().clamp(min=1.0))
         return dict(
@@ -341,12 +342,14 @@ class RoITransRoIHead(nn.Module):
 
     def loss(self, stage_data) -> dict:
         """Each stage's head losses, ``s{i}_loss_cls`` and
-        ``s{i}_loss_bbox``, times its ``stage_loss_weights``."""
+        ``s{i}_loss_bbox``, times its ``stage_loss_weights``; each stage's
+        count of positives from its box weights (the whole batch's when a
+        data-parallel step gathers them)."""
         losses = {}
         for i, (head, d) in enumerate(zip(self.bbox_head, stage_data)):
             parts = head.loss(d['cls_score'], d['bbox_pred'], d['rois'],
                               d['labels'], d['lw'], d['bt'], d['bw'],
-                              d['num_pos'])
+                              d['bw'].sum().clamp(min=1.0))
             w = float(self.stage_loss_weights[i]) \
                 if i < len(self.stage_loss_weights) else 1.0
             losses.update({f's{i}_{k}': v * w for k, v in parts.items()})

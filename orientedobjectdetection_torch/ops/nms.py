@@ -270,9 +270,12 @@ def host_device(device, caller: str) -> torch.device:
 
 def nms_rotated_np(boxes, scores, iou_thr: float, device='cuda',
                    plain_pair_mask: bool = False) -> np.ndarray:
-    """Rotated NMS of numpy ``(N, 5)`` boxes and ``(N,)`` scores: one
-    :func:`nms_rotated` at ``B=1`` on ``device`` (on the card, one launch of
-    the pair-mask kernel). Returns the survivors' indices in descending
+    """Rotated NMS of numpy ``(N, 5)`` boxes and ``(N,)`` scores. On the
+    card, one :func:`nms_rotated` at ``B=1`` (one launch of the pair-mask
+    kernel); on ``device='cpu'`` the native greedy NMS of
+    ``csrc/rnms.cpp`` (``..native.nms_rotated``, JAX
+    ``ops/nms.py:368-374``), or the plain PyTorch NMS with
+    ``plain_pair_mask``. Returns the survivors' indices in descending
     score order, the lowest index first on a tie (JAX
     ``ops/nms.py:nms_rotated_np``)."""
     boxes = np.asarray(boxes, np.float32).reshape(-1, 5)
@@ -280,6 +283,9 @@ def nms_rotated_np(boxes, scores, iou_thr: float, device='cuda',
     if boxes.shape[0] == 0:
         return np.zeros((0,), np.int64)
     device = host_device(device, 'nms_rotated_np')
+    if device.type == 'cpu' and not plain_pair_mask:
+        from .. import native
+        return native.nms_rotated(boxes, scores, iou_thr)
     keep, order = nms_rotated(torch.from_numpy(boxes).to(device)[None],
                               torch.from_numpy(scores).to(device)[None],
                               iou_thr, plain_pair_mask=plain_pair_mask)

@@ -27,6 +27,7 @@ from torch.profiler import record_function
 
 from ..core.assigners import SampleKey
 from ..models.blocks import live_batch_norm
+from . import mesh
 
 
 @dataclass
@@ -132,14 +133,18 @@ class Transform:
                                  betas=(float(betas[0]), float(betas[1])))
 
     @torch.no_grad()
-    def update(self, state: TrainState) -> torch.Tensor:
+    def update(self, state: TrainState, reduce_grads=None) -> torch.Tensor:
         """One update from the gradients that ``backward`` left on the
         trainable parameters. Returns their global norm before the clip, a
         0-d tensor on the device. optax's clip: scale by
         ``max_norm / norm`` where ``norm >= max_norm`` (no epsilon). A
         trainable parameter that the loss does not reach (a backbone
         out-norm whose level the FPN skips) takes a zero gradient, so that
-        it is decayed and carries its momentum as optax's update does."""
+        it is decayed and carries its momentum as optax's update does.
+        ``reduce_grads`` (a data-parallel step's
+        ``parallel/mesh.py:all_reduce_grads``) sums the gradients across
+        ranks after that, over the same tensors on every rank, so the norm,
+        the clip and the update see the global batch's gradient."""
         optimizer = state.optimizer
         grads: List[torch.Tensor] = []
         for group in optimizer.param_groups:
@@ -147,6 +152,8 @@ class Transform:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
+        if reduce_grads is not None:
+            reduce_grads(grads)
         norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads)))
         if self.max_norm is not None:
@@ -176,7 +183,9 @@ def create_train_state(detector: nn.Module, tx: Transform,
                        seed: int = 0, state_dict=None) -> TrainState:
     """Seeded weights (``detector.init_weights(seed)``), ``state_dict``
     loaded over them when given, the detector moved to ``device`` with
-    float32 master weights, and a fresh optimizer at step 0.
+    float32 master weights, and a fresh optimizer at step 0. In a process
+    group (``parallel/mesh.py``) every rank then takes rank 0's
+    parameters and buffers.
 
     Raises RuntimeError when ``device`` is a CUDA device and none is
     present: it never falls back to the CPU."""
@@ -189,7 +198,17 @@ def create_train_state(detector: nn.Module, tx: Transform,
         detector.load_state_dict(
             {k: torch.as_tensor(v) for k, v in state_dict.items()})
     detector.float().to(device)
+    mesh.broadcast_module(detector)
     return TrainState(step=0, model=detector, optimizer=tx.init(detector))
+
+
+def sync_state(state: TrainState) -> TrainState:
+    """Rank 0's parameters, buffers and optimizer state on every rank (after
+    a resume, whose checkpoint every rank read); the identity in one
+    process."""
+    mesh.broadcast_module(state.model)
+    mesh.broadcast_optimizer(state.optimizer)
+    return state
 
 
 def normalize_images(images: torch.Tensor, norm: dict) -> torch.Tensor:
@@ -242,7 +261,21 @@ def make_train_step(detector: nn.Module, tx: Transform,
     ``grad_norm`` is the global norm of the trainable parameters' gradients
     before the clip. The step's four parts carry ``torch.profiler`` ranges
     (``train.forward``, ``train.loss``, ``train.backward``,
-    ``train.update``)."""
+    ``train.update``).
+
+    Inside a process group (``parallel/mesh.py``; a group of one rank
+    included) the step is data-parallel: each rank passes its own rows of
+    the global batch, and the step's losses, metrics, gradient,
+    ``grad_norm`` and update on every rank are those of one process on the
+    whole global batch, as under the JAX package's SPMD program. The rank
+    runs the network on its rows, with live BatchNorm's statistics summed
+    across ranks (:attr:`..models.blocks.FrozenBatchNorm.reduce`) and the
+    sampling keys of its images' places in the global batch
+    (:class:`SampleKey` ``offset`` / ``total``); the outputs and the gts of
+    every rank are gathered (``mesh.gather_batch``, whose backward hands
+    each rank its rows of the gradient), every rank computes the losses of
+    the whole batch with its normalizers, and the gradients are summed
+    across ranks (``mesh.all_reduce_grads``) before the clip."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'dtype must be float32 or bfloat16, got {dtype}')
 
@@ -255,6 +288,11 @@ def make_train_step(detector: nn.Module, tx: Transform,
         device = next(detector.parameters()).device
         batch = {k: v.to(device, non_blocking=True)
                  for k, v in batch.items()}
+        local = batch['images'].shape[0]
+        data_parallel = mesh.is_distributed()
+        if data_parallel and rng.gt_bboxes is None:
+            offset, total = mesh.batch_offset(local)
+            rng = rng._replace(offset=offset, total=total)
         with record_function('train.forward'):
             images = batch['images']
             if device_norm is not None:
@@ -263,17 +301,25 @@ def make_train_step(detector: nn.Module, tx: Transform,
             with torch.autocast(device.type, dtype=torch.bfloat16,
                                 enabled=dtype == torch.bfloat16), \
                     (contextlib.nullcontext() if norm_eval
-                     else live_batch_norm(detector)):
+                     else live_batch_norm(
+                         detector,
+                         mesh.all_reduce_sum if data_parallel else None)):
                 outputs = detector(images, batch=batch, train=True,
                                    rng=rng)
         with record_function('train.loss'):
+            if data_parallel:
+                outputs = mesh.gather_batch(outputs, local)
+                batch = mesh.gather_batch(
+                    {k: v for k, v in batch.items() if k != 'images'},
+                    local)
             losses = detector.loss_from_outputs(outputs, batch)
             total = sum(losses.values())
         with record_function('train.backward'):
             state.optimizer.zero_grad(set_to_none=True)
             total.backward()
         with record_function('train.update'):
-            grad_norm = tx.update(state)
+            grad_norm = tx.update(
+                state, mesh.all_reduce_grads if data_parallel else None)
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics.update(loss=total.detach(), grad_norm=grad_norm)

@@ -116,7 +116,13 @@ def imread(path: str) -> np.ndarray:
     """Read an 8-bit PNG or a 24- or 32-bit BMP as ``(H, W, 3)`` uint8
     BGR."""
     with open(path, 'rb') as f:
-        data = f.read()
+        return imdecode(f.read(), path)
+
+
+def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
+    """Decode the bytes of an 8-bit PNG or a 24- or 32-bit BMP as ``(H, W,
+    3)`` uint8 BGR; ``path`` names the source in errors. Raises ValueError
+    for anything else (a JPEG names ROADMAP A.4b)."""
     if data.startswith(_BMP_SIGNATURE):
         return _read_bmp(path, data)
     if data.startswith(b'\xff\xd8\xff'):
@@ -412,50 +418,192 @@ def _line_points(p0, p1):
     return pts
 
 
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division, truncating toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _clip_line(size, p1, p2):
+    """OpenCV's ``clipLine`` on a (width, height) in the points' units:
+    the segment clipped to the rectangle, or None outside it."""
+    right, bottom = size[0] - 1, size[1] - 1
+    (x1, y1), (x2, y2) = p1, p2
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    if c1 | c2:
+        return None
+    return (x1, y1), (x2, y2)
+
+
+def _line_fixed(img, p1, p2, color) -> None:
+    """OpenCV's ``Line2``: an 8-connected line between points in 16-bit
+    fixed point, clipped to the image."""
+    h, w = img.shape[:2]
+    one = 1 << _XY_SHIFT
+    clipped = _clip_line((w << _XY_SHIFT, h << _XY_SHIFT), p1, p2)
+    if clipped is None:
+        return
+    (x1, y1), (x2, y2) = clipped
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:
+            dy = -dy
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = one, _cdiv(dy << _XY_SHIFT, ax | 1)
+        count = (x2 - x1) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            x1, y1, x2, y2 = x2, y2, x1, y1
+        x_step, y_step = _cdiv(dx << _XY_SHIFT, ay | 1), one
+        count = (y2 - y1) >> _XY_SHIFT
+    x1 += one >> 1
+    y1 += one >> 1
+
+    def put(x, y):
+        if 0 <= x < w and 0 <= y < h:
+            img[y, x] = color
+
+    put((x2 + (one >> 1)) >> _XY_SHIFT, (y2 + (one >> 1)) >> _XY_SHIFT)
+    if ax > ay:
+        x1 >>= _XY_SHIFT
+        for _ in range(count + 1):
+            put(x1, y1 >> _XY_SHIFT)
+            x1 += 1
+            y1 += y_step
+    else:
+        y1 >>= _XY_SHIFT
+        for _ in range(count + 1):
+            put(x1 >> _XY_SHIFT, y1)
+            x1 += x_step
+            y1 += 1
+
+
 def _fill_convex(img, pts, color) -> None:
-    """OpenCV's ``FillConvexPoly`` of vertices in 16-bit fixed point: each
-    scan line from its rounded left crossing to its rounded right one."""
-    ys = [int((p[1] + (1 << (_XY_SHIFT - 1))) >> _XY_SHIFT) for p in pts]
+    """OpenCV's ``FillConvexPoly`` (8-connected) of vertices in 16-bit
+    fixed point: the outline with :func:`_line_fixed`, then each scan line
+    between the two edges that OpenCV walks down from the top vertex, in
+    its integer steps."""
+    h, w = img.shape[:2]
+    n = len(pts)
     half = 1 << (_XY_SHIFT - 1)
-    for y in range(max(min(ys), 0), min(max(ys), img.shape[0] - 1) + 1):
-        yc = (y << _XY_SHIFT)
-        xs = []
-        for (xa, ya), (xb, yb) in zip(pts, pts[1:] + pts[:1]):
-            if ya == yb or not min(ya, yb) <= yc <= max(ya, yb):
-                continue
-            xs.append(xa + (xb - xa) * (yc - ya) // (yb - ya))
-        if xs:
-            _hline(img, y, (min(xs) + half) >> _XY_SHIFT,
-                   (max(xs) + half) >> _XY_SHIFT, color)
+    p0 = pts[-1]
+    for p in pts:
+        _line_fixed(img, p0, p, color)
+        p0 = p
+    xs = [p[0] for p in pts]
+    ys = [p[1] for p in pts]
+    imin = min(range(n), key=lambda i: (ys[i], i))
+    xmin, xmax = (min(xs) + half) >> _XY_SHIFT, (max(xs) + half) >> _XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> _XY_SHIFT, (max(ys) + half) >> _XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edges = n
+    idx = [imin, imin]
+    di = [1, n - 1]
+    ye = [ymin, ymin]
+    ex = [-(1 << _XY_SHIFT), -(1 << _XY_SHIFT)]
+    edx = [0, 0]
+    y = ymin
+    while True:
+        for i in range(2):
+            if y >= ye[i]:
+                idx0 = idx[i]
+                j = (idx0 + di[i]) % n
+                while edges > 0:
+                    edges -= 1
+                    ty = (ys[j] + half) >> _XY_SHIFT
+                    if ty > y:
+                        ye[i] = ty
+                        edx[i] = _cdiv((xs[j] - xs[idx0]) * 2 + (ty - y),
+                                       2 * (ty - y))
+                        ex[i] = xs[idx0]
+                        idx[i] = j
+                        break
+                    idx0 = j
+                    j = (j + di[i]) % n
+                else:
+                    edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if ex[0] > ex[1] else (0, 1)
+            _hline(img, y, (ex[left] + half) >> _XY_SHIFT,
+                   (ex[right] + half) >> _XY_SHIFT, color)
+        ex[0] += edx[0]
+        ex[1] += edx[1]
+        y += 1
+        if y > ymax:
+            break
 
 
 def line(img: np.ndarray, p0, p1, color, thickness: int = 1) -> None:
-    """``cv2.line`` with the default 8-connected type: thickness 1 is
-    OpenCV's line iterator; a thicker line is OpenCV's ``ThickLine``, a
-    convex quad offset by half the thickness across the segment, with
-    filled round caps."""
+    """``cv2.line`` with the default 8-connected type, pixel for pixel:
+    thickness 1 is OpenCV's line iterator; a thicker line is OpenCV's
+    ``ThickLine``, a convex quad offset by half the thickness across the
+    segment (its vertices in OpenCV's order, which ``FillConvexPoly``'s
+    edge walk depends on), then filled round caps; both after OpenCV 5's
+    clip of the segment to the image (grown by the thickness for a thick
+    line)."""
     h, w = img.shape[:2]
     p0 = (int(p0[0]), int(p0[1]))
     p1 = (int(p1[0]), int(p1[1]))
+    # OpenCV 5 first clips the segment (integer clipLine): a thin line to
+    # the image, a thick one to the image grown by the thickness
+    t = thickness if thickness > 1 else 0
+    clipped = _clip_line((w + 2 * t, h + 2 * t), (p0[0] + t, p0[1] + t),
+                         (p1[0] + t, p1[1] + t))
+    if clipped is None:
+        return
+    p0, p1 = ((x - t, y - t) for x, y in clipped)
     if thickness <= 1:
         for x, y in _line_points(p0, p1):
             if 0 <= x < w and 0 <= y < h:
                 img[y, x] = color
         return
     one = 1 << _XY_SHIFT
-    dx, dy = (p1[0] - p0[0]) * one, (p1[1] - p0[1]) * one
-    length = float(np.hypot(dx, dy))
+    dx, dy = p0[0] - p1[0], p1[1] - p0[1]          # OpenCV's signs
+    r2 = dx * dx + dy * dy
     half = (thickness << (_XY_SHIFT - 1)) + (thickness & 1) * one * 0.5
-    ox = int(np.rint(dy * half / length)) if length else 0
-    oy = int(np.rint(dx * half / length)) if length else 0
     radius = ((thickness << (_XY_SHIFT - 1)) + (one >> 1)) >> _XY_SHIFT
+    if r2:
+        r = half / np.sqrt(r2)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        a = (p0[0] * one, p0[1] * one)
+        b = (p1[0] * one, p1[1] * one)
+        _fill_convex(img, [(a[0] + ox, a[1] + oy), (a[0] - ox, a[1] - oy),
+                           (b[0] - ox, b[1] - oy), (b[0] + ox, b[1] + oy)],
+                     color)
     for c in (p0, p1):
         circle(img, c, radius, color)
-    a = (p0[0] * one, p0[1] * one)
-    b = (p1[0] * one, p1[1] * one)
-    _fill_convex(img, [(a[0] + ox, a[1] - oy), (b[0] + ox, b[1] - oy),
-                       (b[0] - ox, b[1] + oy), (a[0] - ox, a[1] + oy)],
-                 color)
 
 
 def circle(img: np.ndarray, center, radius: int, color) -> None:
@@ -540,3 +688,56 @@ def hsv2bgr(hsv: np.ndarray) -> np.ndarray:
     bgr = np.where((s == 0)[..., None], v[..., None], bgr)
     return np.clip(np.rint(bgr * np.float32(255)), 0, 255).astype(np.uint8)
 
+
+
+# ---- colour maps and blending (the feature heatmaps) -----------------------
+# OpenCV's COLORMAP_JET, the 256 BGR entries of ``cv2.applyColorMap``'s
+# table (``tests/test_torch_image_io.py`` holds it against OpenCV).
+_JET = np.frombuffer(bytes.fromhex(
+    '8000008400008800008c00009000009400009800009c0000a00000a40000a80000ac0000'
+    'b00000b40000b80000bc0000c00000c40000c80000cc0000d00000d40000d80000dc0000'
+    'e00000e40000e80000ec0000f00000f40000f80000fc0000ff0000ff0400ff0800ff0c00'
+    'ff1000ff1400ff1800ff1c00ff2000ff2400ff2800ff2c00ff3000ff3400ff3800ff3c00'
+    'ff4000ff4400ff4800ff4c00ff5000ff5400ff5800ff5c00ff6000ff6400ff6800ff6c00'
+    'ff7000ff7400ff7800ff7c00ff8000ff8400ff8800ff8c00ff9000ff9400ff9800ff9c00'
+    'ffa000ffa400ffa800ffac00ffb000ffb400ffb800ffbc00ffc000ffc400ffc800ffcc00'
+    'ffd000ffd400ffd800ffdc00ffe000ffe400ffe800ffec00fff000fff400fff800fffc00'
+    'feff02faff06f6ff0af2ff0eeeff12eaff16e6ff1ae2ff1edeff22daff26d6ff2ad2ff2e'
+    'ceff32caff36c6ff3ac2ff3ebeff42baff46b6ff4ab2ff4eaeff52aaff56a6ff5aa2ff5e'
+    '9eff629aff6696ff6a92ff6e8eff728aff7686ff7a82ff7e7eff827aff8676ff8a72ff8e'
+    '6eff926aff9666ff9a62ff9e5effa25affa656ffaa52ffae4effb24affb646ffba42ffbe'
+    '3effc23affc636ffca32ffce2effd22affd626ffda22ffde1effe21affe616ffea12ffee'
+    '0efff20afff606fffa01fffe00fcff00f8ff00f4ff00f0ff00ecff00e8ff00e4ff00e0ff'
+    '00dcff00d8ff00d4ff00d0ff00ccff00c8ff00c4ff00c0ff00bcff00b8ff00b4ff00b0ff'
+    '00acff00a8ff00a4ff00a0ff009cff0098ff0094ff0090ff008cff0088ff0084ff0080ff'
+    '007cff0078ff0074ff0070ff006cff0068ff0064ff0060ff005cff0058ff0054ff0050ff'
+    '004cff0048ff0044ff0040ff003cff0038ff0034ff0030ff002cff0028ff0024ff0020ff'
+    '001cff0018ff0014ff0010ff000cff0008ff0004ff0000ff0000fc0000f80000f40000f0'
+    '0000ec0000e80000e40000e00000dc0000d80000d40000d00000cc0000c80000c40000c0'
+    '0000bc0000b80000b40000b00000ac0000a80000a40000a000009c000098000094000090'
+    '00008c000088000084000080'), np.uint8).reshape(256, 3)
+
+
+def apply_colormap_jet(gray: np.ndarray) -> np.ndarray:
+    """``cv2.applyColorMap(gray, cv2.COLORMAP_JET)``: ``(H, W)`` uint8 ->
+    ``(H, W, 3)`` uint8 BGR."""
+    gray = np.asarray(gray)
+    if gray.dtype != np.uint8 or gray.ndim != 2:
+        raise ValueError(f'apply_colormap_jet takes (H, W) uint8, got '
+                         f'{gray.dtype} {gray.shape}')
+    return _JET[gray]
+
+
+def add_weighted(a: np.ndarray, alpha: float, b: np.ndarray, beta: float,
+                 gamma: float = 0.0) -> np.ndarray:
+    """``cv2.addWeighted(a, alpha, b, beta, gamma)`` for uint8 images:
+    OpenCV's float32 ``fma(a, alpha, fma(b, beta, gamma))`` (each fused
+    multiply-add exact in float64, then rounded to float32), rounded to
+    the nearest (ties to even) and saturated to [0, 255]."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != np.uint8 or b.dtype != np.uint8:
+        raise ValueError('add_weighted takes two uint8 images of one shape')
+    f32 = np.float32
+    inner = (b.astype(np.float64) * f32(beta) + f32(gamma)).astype(f32)
+    out = (a.astype(np.float64) * f32(alpha) + inner).astype(f32)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)

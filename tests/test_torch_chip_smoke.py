@@ -750,13 +750,22 @@ def test_phase_tta_rehearsal():
     assert counts == NO_LAUNCHES
 
 
-def test_phase_submission_rehearsal(tiny_loop, tmp_path):
+def test_phase_submission_rehearsal(tiny_loop, tmp_path, monkeypatch):
+    """On the CPU the merge's per-class NMS is the native host NMS
+    (``nms_rotated_np(device='cpu')``), so no pair-mask input is recorded
+    here; on the card each merge class is one pair-mask launch, recorded
+    for phase 12 (``test_phase_patches_rehearsal`` covers the recording)."""
+    from orientedobjectdetection_torch import native
+    calls = []
+    inner = native.nms_rotated
+    monkeypatch.setattr(native, 'nms_rotated',
+                        lambda *a: calls.append(len(a[0])) or inner(*a))
     counts, inputs = chip_smoke.phase_submission(
         str(tmp_path / 'sub'), tiny_loop['trained'],
         config=tiny_loop['config'], n_images=2, size=256, tile=128, gap=32,
         device='cpu', batch_size=4, max_objs=8)
     assert counts == NO_LAUNCHES
-    assert inputs['submission_merge']
+    assert inputs['submission_merge'] == [] and calls
     names = sorted(os.listdir(tmp_path / 'sub' / 'submission_multi-scale'))
     assert len(names) == 16 and 'submission.zip' in names
 

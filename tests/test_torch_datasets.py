@@ -142,9 +142,31 @@ def test_pad_collate_keeps_the_largest_and_ignores_the_next():
 
 
 def test_loader_refuses_the_process_pool(root):
-    with pytest.raises(NotImplementedError, match='A.13'):
+    """An unknown worker type is refused; ``worker_type='process'`` (the
+    persistent pool of JAX ``loader.py:177-191``) yields the thread
+    loader's batches, random flips included, over two epochs of one pool,
+    which ``close`` ends."""
+    with pytest.raises(ValueError, match='worker_type'):
         DataLoader(build_dataset(dataset_cfg(root, 'le90', 0.0)), 2,
-                   worker_type='process')
+                   worker_type='fiber')
+    cfg = dataset_cfg(root, 'le90', 0.5)
+    kw = dict(batch_size=2, max_gt=8, pad_size=(SIZE, SIZE), seed=3,
+              num_workers=2, drop_last=False)
+    threads = DataLoader(build_dataset(cfg, seed=7), worker_type='thread',
+                         **kw)
+    procs = DataLoader(build_dataset(cfg, seed=7), worker_type='process',
+                       **kw)
+    try:
+        for _ in range(2):
+            for a, b in zip(threads, procs, strict=True):
+                assert [m['flip'] for m in a['img_metas']] == \
+                    [m['flip'] for m in b['img_metas']]
+                for k in ('images', 'gt_bboxes', 'gt_labels', 'gt_mask'):
+                    assert np.array_equal(a[k].numpy(), b[k].numpy()), k
+        assert procs._proc_pool is not None
+    finally:
+        procs.close()
+    assert procs._proc_pool is None
 
 
 def test_random_flips_follow_the_seed_not_the_threads(root):

@@ -1259,3 +1259,39 @@ def test_yolov8_targets_on_the_card_equal_the_cpu(cuda, norm_eval):
     assert all(torch.isfinite(v) for v in metrics.values())
     moved = not torch.equal(head.cls_conv_0_0.bn.running_var, stats)
     assert moved == (not norm_eval)
+
+
+def test_native_host_nms_keeps_what_the_pair_mask_keeps(cuda):
+    """``nms_rotated_np`` on the CPU (the native C++ NMS) and on the card
+    (one pair-mask launch and the scan): the same keep list on a dense
+    class with duplicates and score ties."""
+    from orientedobjectdetection_torch.ops.nms import nms_rotated_np
+    rng = np.random.default_rng(3)
+    n = 2500
+    boxes = np.stack([rng.uniform(0, 400, n), rng.uniform(0, 400, n),
+                      rng.uniform(4, 60, n), rng.uniform(4, 60, n),
+                      rng.uniform(-np.pi / 2, np.pi / 2, n)],
+                     -1).astype(np.float32)
+    boxes[1::5] = boxes[0::5][:len(boxes[1::5])]
+    scores = (rng.integers(0, 200, n) / 200).astype(np.float32)
+    before = nms_pair_mask.launches
+    on_card = nms_rotated_np(boxes, scores, 0.1, device=cuda)
+    assert nms_pair_mask.launches == before + 1
+    np.testing.assert_array_equal(
+        nms_rotated_np(boxes, scores, 0.1, device='cpu'), on_card)
+
+
+def test_bundle_over_every_card_equals_one_card(cuda):
+    """``DetectorBundle(devices=[every local card])``: each card runs its
+    shard's kernels on its own device; the padded detections equal one
+    card's on the same shards."""
+    devices = [f'cuda:{i}' for i in range(torch.cuda.device_count())]
+    one = init_detector(small_cfg(), device=cuda, seed=1)
+    split = init_detector(small_cfg(), devices=devices, seed=1)
+    images = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (2 * len(devices), 128, 128, 3)).astype(np.float32))
+    got = split(images)
+    shards = [one(s) for s in torch.tensor_split(images, len(devices))]
+    for k in range(3):
+        assert torch.equal(got[k].cpu(),
+                           torch.cat([s[k].cpu() for s in shards]))

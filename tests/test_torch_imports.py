@@ -42,10 +42,13 @@ def test_scan_covers_the_package():
             'rotated_reppoints_head.py', 'kld_reppoints_loss.py',
             'spatial_border_loss.py', 'cspnext.py', 'csp_darknet.py',
             'jy_modules.py', 'pafpn.py', 'rotated_yolov8_head.py',
-            'jy_heads.py'} <= names
+            'jy_heads.py', 'mesh.py', 'native.py', 'visualization.py',
+            'font.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
-    assert {'train.py', 'test.py', 'generate_synth.py',
-            'img_split.py'} <= tools
+    assert {'train.py', 'test.py', 'generate_synth.py', 'img_split.py',
+            'serve.py', 'confusion_matrix.py', 'get_flops.py',
+            'browse_dataset.py', 'heatmap.py', 'image_demo.py',
+            'huge_image_demo.py', 'image_demo_timed.py'} <= tools
 
 
 @pytest.mark.parametrize('path', SOURCES,

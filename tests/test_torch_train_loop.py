@@ -123,15 +123,32 @@ def test_train_detector_logs_checkpoints_and_resumes(data_root, tmp_path):
         assert torch.equal(v, trained[k]), k
 
 
-def test_train_detector_refuses_what_it_cannot_do(data_root, tmp_path,
-                                                  monkeypatch):
+def test_train_detector_refuses_what_it_cannot_do(data_root, tmp_path):
+    """No card: refused. In a process group (here of one rank, joined by
+    name over gloo; two ranks run in ``tests/test_torch_dist_eval.py``)
+    the trainer takes the data-parallel path: it steps, rank 0 writes the
+    log and the checkpoints, and the evaluation gathers through the work
+    directory's ``eval_collect``, which it leaves empty."""
+    from orientedobjectdetection_torch.parallel import mesh
     cfg = tiny_cfg(Config, data_root)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
             train_detector(cfg, str(tmp_path))
-    monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(NotImplementedError, match='A.13'):
-        train_detector(cfg, str(tmp_path), device='cpu')
+    assert mesh.init_distributed(
+        'cpu', init_method=f'file://{tmp_path}/rendezvous', rank=0,
+        world_size=1)
+    try:
+        work_dir = str(tmp_path / 'work')
+        state = train_detector(cfg, work_dir, max_steps=2, log_interval=1,
+                               device='cpu')
+    finally:
+        mesh.destroy()
+    assert state.step == 2 and not mesh.is_distributed()
+    log = read_log(work_dir)
+    assert [r['step'] for r in log if 'mode' not in r] == [1, 2]
+    assert [r['mode'] for r in log if 'mode' in r] == ['val']
+    assert 'ckpt_00000002.pth' in os.listdir(work_dir)
+    assert os.listdir(os.path.join(work_dir, 'eval_collect')) == []
 
 
 def carried_variables(det, seed):
@@ -249,10 +266,18 @@ def test_command_lines_train_and_test(data_root, tmp_path):
     # data_root moves the paths the config built from it
     cfg = train_cli.load_config(str(config), [f'data_root={data_root}'])
     assert cfg.data['val']['img_prefix'] == data_root + 'trainval/images/'
-    for flag in (['--data-parallel'], ['--show'], ['--show-dir', 'x'],
-                 ['--collect-dir', 'y']):
-        with pytest.raises(NotImplementedError, match='ROADMAP A'):
-            test_cli.main([str(config)] + flag)
+    # the flags that were refused: two CPU replicas, a gather directory
+    # (one process reads none), the drawings
+    show = str(tmp_path / 'show')
+    again = test_cli.main([str(config), os.path.join(
+        work_dir, 'ckpt_00000002.pth'), '--eval', 'mAP', '--device', 'cpu',
+        '--batch-size', '2', '--data-parallel', '--collect-dir',
+        str(tmp_path / 'collect'), '--show-dir', show,
+        '--cfg-options', f'data_root={data_root}'])
+    assert 0 <= again['mAP'] <= 1
+    assert sorted(os.listdir(show)) == sorted(
+        os.listdir(data_root + 'trainval/images'))
+    assert not os.path.exists(tmp_path / 'collect')
     # a profiled run leaves a trace
     train_cli.main([str(config), '--work-dir', str(tmp_path / 'prof'),
                     '--device', 'cpu', '--max-steps', '1', '--profile-dir',
