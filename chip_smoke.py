@@ -18,7 +18,10 @@ RepPoints oc, Oriented RepPoints le135, G-RepPoints le135, SASM oc and CFA
 le135, each R50-FPN) and of the RotatedYOLOv8 models (configs/jy/:
 prototype4, CSPNeXt-M with the YOLOv8 PAFPN and head, trained with frozen
 and with live BatchNorm; prototype3, CSPNeXt-L with MSARC; the CSPDarknet /
-PAFPN_E / MSDCN-head model; the 1x1 objectness head), through
+PAFPN_E / MSDCN-head model; the 1x1 objectness head; prototype4 with the
+YOLOv6 Rep-PAFPN neck, served and trained), the YOLO block library, and
+seeded prototype4 and ReDet checkpoints under the reference's names
+converted back, through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -291,6 +294,32 @@ plain PyTorch version:
              the pair-mask kernel keeps (both timed); one request drawn by
              ``imshow_det_rbboxes``; ``confusion_matrix`` on phase 17's
              evaluation; ``get_flops`` of RetinaNet R50
+50. yolov6   prototype4 with its neck replaced by the YOLOv6 Rep-PAFPN
+    neck     (``YOLOV6_NECK``: 12 CSP blocks, 8 RepVGG blocks a stage):
+             (i) float32, 2 images of 1024^2, detections with the pair-mask
+             kernel equal those with its plain version; on gts whose
+             assignment is decided, a step's targets with the IoU-matrix
+             kernel equal those with the plain matrix, and a step with each
+             from one seeded state the same losses and parameters; (ii)
+             bfloat16 requests of 8 raw 1024^2 images, 10 timed after 3
+             warm: imgs/s, forward / decode+NMS, peak memory, one pair-mask
+             launch a request, one request profiled by module; (iii)
+             bfloat16 autocast training at batch 8, G=32 with 8 valid, the
+             config's SGD, frozen BN: 3 warm + 5 timed steps, imgs/s, peak
+             memory, one IoU-matrix launch a step, a falling loss
+51. blocks   each of the 38 classes of ``models/yolo_blocks.py`` (ASFF at
+             each level) with seeded weights at batch 8, where a
+             prototype4-width neck at 1024^2 runs it (192 channels on 128^2,
+             ASFF over 128^2 / 64^2 / 32^2 at 192 / 384 / 576, PSA and the
+             deformable fusions at 576 on 32^2, the text-guided blocks with
+             a (8, 15, 512) guide): float32 on the card against the CPU
+             within BLOCK_RTOL, then bfloat16 forward ms and peak memory
+52. refer-   seeded prototype4 and ReDet written under the reference's
+    ence     names (mmyolo's; e2cnn's filters and per-field BatchNorms),
+    weights  converted by ``tools.convert_reference_weights`` in a
+             subprocess and served by ``init_detector``: every tensor equal
+             to the seeded model's, the float32 detections of 2 images of
+             1024^2 equal (B1 in both, B3 in ReDet)
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -331,8 +360,11 @@ plain PyTorch version:
              43-46: the YOLOv8 models' candidates, the assigner's decoded
              predictions x gts (both batched) of the float32 steps, of
              prototype4's steps at G=32 and G=512 and of the tiny loop, and
-             its evaluation's; each held against its plain version, the
-             largest of each kind timed beside its bound
+             its evaluation's; and those of phases 50-52: the YOLOv6-neck
+             model's candidates and assigner inputs of its float32 slice
+             and its steps, the converted models' candidates and the
+             converted ReDet's RoIAlign inputs; each held against its plain
+             version, the largest of each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -346,12 +378,13 @@ requests and 37's steps of each detector, 38's run, 40's requests and
 41's steps of each point-set family, 42's runs, 44's requests of each
 YOLOv8 model, 45's frozen and live steps, 46's run, 47's steps and 48's
 evaluations in each rank, 49's requests, kernel NMS calls and confusion
-matrix) and read just after;
+matrix, 50's requests and steps, 52's requests of each model) and read
+just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's, 30's, 34's, 38's, 42's and 46's runs. Phases 15-22, 26, 30, 34, 38,
-42 and 46 write
-their data and work directories under
+26's, 30's, 34's, 38's, 42's and 46's runs and 52's requests. Phases
+15-22, 26, 30, 34, 38, 42, 46, 50 and 52 write
+their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
 with the device: ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -5024,11 +5057,12 @@ def check_live_bn(detector, step, state, batch, device) -> str:
 
 
 def phase_yolo_train_slice(config, label, device, bsz=2, size=1024, g=32,
-                           valid=8, live=False) -> list:
+                           valid=8, live=False, batch=None) -> list:
     """float32: one step's assignments (labels, positives, targets) with
     the IoU-matrix kernel equal those with the plain matrix from the same
     outputs, the loss terms within LOSS_RTOL, the train step finite;
     ``live``: one more step with live BatchNorm (:func:`check_live_bn`).
+    ``batch``: the step's batch (by default :func:`train_batch`'s).
     Returns the assigner's IoU-matrix inputs."""
     from orientedobjectdetection_torch.ops import iou_kernels
     from orientedobjectdetection_torch.parallel.train_state import \
@@ -5037,7 +5071,8 @@ def phase_yolo_train_slice(config, label, device, bsz=2, size=1024, g=32,
     detector, state, step = build_trainer(device, torch.float32,
                                           config=config)
     head = detector.bbox_head
-    batch = train_batch(bsz, size, g, valid, 170, device)
+    if batch is None:
+        batch = train_batch(bsz, size, g, valid, 170, device)
     norm = Config.fromfile(config).img_norm_cfg
     images = normalize_images(batch['images'].to(device), norm)
     with torch.no_grad():
@@ -5111,21 +5146,22 @@ def yolo_profile_split(prof, label) -> None:
 
 def phase_yolo_serving(device, card='', bsz=8, size=1024, warm=3,
                        timed=None, dtype=torch.bfloat16,
-                       max_candidates=2000) -> tuple:
+                       max_candidates=2000, configs=None) -> tuple:
     """Phase 44: requests of ``bsz`` raw images through prototype4 (CSPNeXt-M
     0.67 / 0.75, 15 classes), prototype3 (CSPNeXt-L 1.0 / 1.25 with MSARC)
     and the CSPDarknet / PAFPN_E / MSDCN model: imgs/s, forward / decode +
     NMS, peak memory, one pair-mask launch a request and no other; one more
     request's NMS inputs recorded and one profiled by module and
     ``yolov8.*`` range. ``timed``: label -> timed requests
-    (``YOLO_SERVED``). Returns the launch counts and the NMS inputs."""
+    (``YOLO_SERVED``); ``configs``: label -> config (``YOLO_CONFIGS``).
+    Returns the launch counts and the NMS inputs."""
     from torch.profiler import record_function
     from orientedobjectdetection_torch.ops import nms
     on_card = torch.device(device).type == 'cuda'
     runs, captured = [], {}
     for label, n_timed in (timed or YOLO_SERVED).items():
-        bundle = build_yolo_bundle(YOLO_CONFIGS[label], device, dtype,
-                                   max_candidates)
+        bundle = build_yolo_bundle((configs or YOLO_CONFIGS)[label], device,
+                                   dtype, max_candidates)
         images = raw_images(bsz, size, 240)
         if on_card:
             images = images.pin_memory()
@@ -5888,6 +5924,452 @@ def phase_host(root, trained, captured, card='', device='cuda',
     return runs
 
 
+# ---- 50.-52. the YOLOv6 neck, the YOLO block library, reference weights ----
+# phase 50's neck, put in prototype4's place as both packages' registries
+# build it: mmyolo's YOLOv6 setting of 12 CSP blocks, make_round(12, 0.67)
+# = 8 RepVGG blocks a stage, outputs 192 / 384 / 576 wide (the head's)
+YOLOV6_NECK = dict(type='YOLOv6RepPAFPN', in_channels=[256, 512, 768],
+                   out_channels=[256, 512, 768], deepen_factor=0.67,
+                   widen_factor=0.75, num_csp_blocks=12)
+DECIDED_MARGIN = 1e-4    # a decided YOLOv8 assignment's least gap
+DECIDED_TRIES = 40       # gt draws tried for a decided one
+# phase 51: each block's float32 output on the card against the CPU's, of
+# the output's largest magnitude (TF32 off; the sums in other orders)
+BLOCK_RTOL = 1e-4
+BLOCK_SIZES = (128, 64, 32)      # the neck's levels of a 1024^2 image
+BLOCK_WIDTHS = (192, 384, 576)   # prototype4's widths there
+GUIDE = (15, 512)                # one text token a DOTA class
+REDET_CONFIG = BACKBONE_CONFIGS['redet']
+
+
+def yolov6_config(root=DATA_DIR) -> str:
+    """Phase 50's config: a file under ``root`` whose base is prototype4's
+    config and whose neck is ``YOLOV6_NECK``."""
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, 'prototype4_yolov6_neck.py')
+    with open(path, 'w') as f:
+        f.write(f'_base_ = [{YOLO_CONFIGS["prototype4"]!r}]\n'
+                f'model = dict(neck=dict(_delete_=True, '
+                f'**{YOLOV6_NECK!r}))\n')
+    return path
+
+
+def yolo_decided(head, outputs, gts, margin=DECIDED_MARGIN) -> bool:
+    """Whether the assignment of ``gts`` (boxes, labels, mask) on a YOLOv8
+    head's ``outputs`` is decided by more than ``margin``, the CPU tests'
+    rule: each valid gt's k-th and (k+1)-th positive costs, and its best
+    and second-best centerness, differ by more; the valid gts' best points
+    are distinct and not point 0 (the padded gts' best); no gate (inside,
+    centre radius, regress range) within 1e-3 px of its edge, in float64.
+    Undecided, rounding (the kernel's or the plain matrix's) picks the
+    positives."""
+    gt_bboxes, gt_labels, gt_mask = gts
+    with torch.no_grad():
+        cls, box, ang = head._flat(outputs)
+        points, strides, ranges = head.flat_points(
+            [tuple(s.shape[-2:]) for s in outputs[0]], gt_bboxes.device)
+        t = head.assigner.cost(points, strides, ranges, gt_bboxes, gt_labels,
+                               gt_mask, box, ang, cls)
+    k = head.assigner.topk
+    cost = t['cost'].transpose(1, 2).sort(-1, descending=True)[0]
+    kth, nxt = cost[..., k - 1], cost[..., k]
+    if ((kth > 0) & (nxt > 0) & (kth - nxt <= margin))[gt_mask].any():
+        return False
+    top2, best = t['centerness'].transpose(1, 2).topk(2, -1)
+    if ((top2[..., 0] - top2[..., 1]) <= margin)[gt_mask].any():
+        return False
+    for b in range(gt_mask.shape[0]):
+        pts = best[b, :, 0][gt_mask[b]]
+        if len(set(pts.tolist())) < len(pts) or (pts == 0).any():
+            return False
+    g = gt_bboxes.double()[:, None]
+    p = points.double()
+    dx = p[None, :, 0, None] - g[..., 0]
+    dy = p[None, :, 1, None] - g[..., 1]
+    ox = dx * torch.cos(g[..., 4]) + dy * torch.sin(g[..., 4])
+    oy = -dx * torch.sin(g[..., 4]) + dy * torch.cos(g[..., 4])
+    sides = torch.stack([g[..., 2] / 2 + ox, g[..., 3] / 2 + oy,
+                         g[..., 2] / 2 - ox, g[..., 3] / 2 - oy], -1)
+    radius = head.assigner.center_radius * strides.double()[None, :, None]
+    max_reg = sides.amax(-1)
+    edges = torch.stack([sides.amin(-1), ox.abs() - radius,
+                         oy.abs() - radius,
+                         max_reg - ranges.double()[None, :, 0, None],
+                         max_reg - ranges.double()[None, :, 1, None]], -1)
+    near = (edges.abs() <= 1e-3).any(-1)
+    return not near[gt_mask[:, None, :].expand(-1, near.shape[1],
+                                               -1)].any()
+
+
+def decided_yolo_batch(config, bsz, size, g, valid, seed, device) -> tuple:
+    """Raw images and the first of ``DECIDED_TRIES`` seeded gt draws whose
+    assignment on the seeded float32 model's outputs is decided
+    (:func:`yolo_decided`). Returns (batch, draws tried)."""
+    from orientedobjectdetection_torch.parallel.train_state import \
+        normalize_images
+    from orientedobjectdetection_torch.utils import Config
+    detector, _, _ = build_trainer(device, torch.float32, config=config)
+    images = raw_images(bsz, size, seed)
+    norm = Config.fromfile(config).img_norm_cfg
+    with torch.no_grad():
+        outputs = detector(normalize_images(images.to(device), norm)
+                           .permute(0, 3, 1, 2))
+    anchors = config_anchors(size, 'cpu')
+    for k in range(DECIDED_TRIES):
+        gts = seeded_gts(anchors, bsz, g, valid, seed + 1 + k)
+        if yolo_decided(detector.bbox_head, outputs,
+                        [t.to(device) for t in gts]):
+            batch = dict(images=images, gt_bboxes=gts[0], gt_labels=gts[1],
+                         gt_mask=gts[2])
+            if torch.device(device).type == 'cuda':
+                batch = {k: v.pin_memory() for k, v in batch.items()}
+            return batch, k + 1
+    raise AssertionError(f'no decided draw of gts in {DECIDED_TRIES}')
+
+
+def phase_yolov6_slice(device, config=None, bsz=2, size=1024, g=32,
+                       valid=8, max_candidates=2000) -> dict:
+    """Phase 50 in float32: prototype4 with the YOLOv6 Rep-PAFPN neck
+    (``config``, by default :func:`yolov6_config`'s), its detections with
+    the pair-mask kernel equal to those with the plain mask
+    (:func:`phase_yolo_serving_slice`); on gts whose assignment is decided
+    (:func:`decided_yolo_batch`), one step's targets with the IoU-matrix
+    kernel equal to those with the plain matrix from the same outputs
+    (:func:`phase_yolo_train_slice`), and one step with the kernel and one
+    with the plain matrix from one seeded state with the same losses and
+    parameters (:func:`same_params`). Returns the kernels' inputs."""
+    config = config or yolov6_config()
+    captured = {'yolov6_slice_nms': phase_yolo_serving_slice(
+        config, 'yolov6', device, bsz, size, max_candidates)}
+    batch, tries = decided_yolo_batch(config, bsz, size, g, valid, 300,
+                                      device)
+    captured['yolov6_slice_assign'] = phase_yolo_train_slice(
+        config, 'yolov6', device, bsz, size, g, valid, batch=batch)
+    kernel = family_step(config, device, batch, False)
+    plain = family_step(config, device, batch, True)
+    worst = same_params(kernel, plain, 'yolov6')
+    log(f'[yolov6-train-slice] float32 B={bsz} {size}^2, G={g} ({valid} '
+        f'valid, decided at draw {tries}): a step with the IoU-matrix kernel '
+        f'and one with the plain matrix from one seeded state: losses '
+        f'{kernel["metrics"]} within {LOSS_RTOL}; parameters within '
+        f'{worst:.3g} of each tensor\'s change (<= {PARAM_RTOL}, or a '
+        f'float32 step of the value)')
+    return captured
+
+
+def phase_yolov6(device, card='', config=None, bsz=8, size=1024, warm=3,
+                 timed=10, train_timed=5, g=32, valid=8,
+                 dtype=torch.bfloat16, max_candidates=2000) -> tuple:
+    """Phase 50 in bfloat16: requests of ``bsz`` raw images through the
+    YOLOv6-neck model (:func:`phase_yolo_serving`: imgs/s, forward /
+    decode + NMS, peak memory, one pair-mask launch a request, one request
+    profiled by module), then ``warm + train_timed`` steps of its config's
+    SGD with frozen BatchNorm (:func:`phase_family_training`: imgs/s, peak
+    memory, one IoU-matrix launch a step, a falling loss). Returns the
+    launch counts and the kernels' inputs."""
+    config = config or yolov6_config()
+    runs, captured = phase_yolo_serving(
+        device, card, bsz, size, warm, {'yolov6': timed}, dtype,
+        max_candidates, configs={'yolov6': config})
+    run = phase_family_training(config, 'yolov6', device, card, bsz, size,
+                                g, valid, warm, train_timed, dtype,
+                                falling=True)
+    runs.append(run['counts'])
+    captured['yolov6_train'] = run['inputs']
+    return runs, captured
+
+
+def block_cases(widths=BLOCK_WIDTHS, sizes=BLOCK_SIZES, guide=GUIDE) -> dict:
+    """Phase 51's cases, name -> (module factory, inputs), where a
+    prototype4-width neck at 1024^2 runs them: the single-input blocks at
+    the stride-8 level, the two-input fusions there (BiFusion at stride 16
+    with its finer partner at stride 8), ASFF at each level over all three,
+    the PSA and deformable blocks at stride 32, the text-guided blocks with
+    one text token of ``guide[1]`` channels a DOTA class. An input is
+    ``(channels, side)``, ``('tokens', n, channels)`` or a list of maps."""
+    from orientedobjectdetection_torch.models import yolo_blocks as Y
+    c, c1, c2 = widths
+    m, m1, m2 = (c, sizes[0]), (c1, sizes[1]), (c2, sizes[2])
+    text = ('tokens',) + tuple(guide)
+    embed, heads = c // 3 * 2, 4
+    pyramid = [m, m1, m2]
+    cases = {
+        'RepVGGBlock': (lambda: Y.RepVGGBlock(c, c), [m]),
+        'RepStageBlock': (lambda: Y.RepStageBlock(c, c, 2), [m]),
+        'BottleRep': (lambda: Y.BottleRep(c, c, True), [m]),
+        'ConvWrapper': (lambda: Y.ConvWrapper(c, c), [m]),
+        'BepC3StageBlock': (lambda: Y.BepC3StageBlock(c, c, 4), [m]),
+        'SPPBottleneck': (lambda: Y.SPPBottleneck(c, c), [m]),
+        'CSPSPPFBottleneck': (lambda: Y.CSPSPPFBottleneck(c, c), [m]),
+        'C3': (lambda: Y.C3(c, c, 2), [m]),
+        'C3k': (lambda: Y.C3k(c, c, 2), [m]),
+        'C3K2': (lambda: Y.C3K2(c, c, 2), [m]),
+        'CBAM': (lambda: Y.CBAM(c), [m]),
+        'ESEAttn': (lambda: Y.ESEAttn(c), [m]),
+        'ESE': (lambda: Y.ESE(c), [m]),
+        'SpatialAttention': (lambda: Y.SpatialAttention(c), [m]),
+        'C2fCBAM': (lambda: Y.C2fCBAM(c, c, 2), [m]),
+        'LSKBlock': (lambda: Y.LSKBlock(c), [m]),
+        'LSKAttention': (lambda: Y.LSKAttention(c), [m]),
+        'ConvMlp': (lambda: Y.ConvMlp(c), [m]),
+        'LSKA': (lambda: Y.LSKA(c), [m]),
+        'ESELSKA': (lambda: Y.ESELSKA(c), [m]),
+        'AFF': (lambda: Y.AFF(c), [m, m]),
+        'iAFF': (lambda: Y.iAFF(c), [m, m]),
+        'AFF_CSP': (lambda: Y.AFF_CSP(c), [m, (c // 2, sizes[0])]),
+        'iAFF_CSP': (lambda: Y.iAFF_CSP(c), [m, (c // 2, sizes[0])]),
+        'ASFFDown': (lambda: Y.ASFFDown(c, c), [m, m]),
+        'BiFusion': (lambda: Y.BiFusion(c, c), [(c, sizes[1]),
+                                                (c, sizes[1]), m]),
+        'PSAAttention': (lambda: Y.PSAAttention(c2), [m2]),
+        'PSABlock': (lambda: Y.PSABlock(c2), [m2]),
+        'C2PSA': (lambda: Y.C2PSA(c2, c2), [m2]),
+        'DCAttention': (lambda: Y.DCAttention(c2), [m2, m2]),
+        'DASFF': (lambda: Y.DASFF(c2, c2), [m2, m2]),
+        'DCASFF': (lambda: Y.DCASFF(c2, c2), [m2, m2]),
+        'MaxSigmoidAttnBlock': (lambda: Y.MaxSigmoidAttnBlock(
+            c, c, guide[1], embed, heads, with_scale=True), [m, text]),
+        'RepConvMaxSigmoidAttnBlock': (lambda: Y.RepConvMaxSigmoidAttnBlock(
+            c, c, guide[1], embed, heads, with_scale=True), [m, text]),
+        'MaxSigmoidCSPLayerWithTwoConv': (
+            lambda: Y.MaxSigmoidCSPLayerWithTwoConv(
+                c, c, guide[1], embed, 2, heads, with_scale=True),
+            [m, text]),
+        'RepConvMaxSigmoidCSPLayerWithTwoConv': (
+            lambda: Y.RepConvMaxSigmoidCSPLayerWithTwoConv(
+                c, c, guide[1], embed, 2, heads, with_scale=True),
+            [m, text]),
+        'ImagePoolingAttentionModule': (
+            lambda: Y.ImagePoolingAttentionModule(
+                list(widths), guide[1], 4 * c // 3, 8, with_scale=True),
+            [text, pyramid]),
+    }
+    for level in range(3):
+        cases[f'ASFF_level{level}'] = (
+            lambda level=level: Y.ASFF(list(widths), level, widths[level]),
+            [pyramid])
+    return cases
+
+
+def block_inputs(specs, bsz, gen) -> list:
+    """Seeded float32 inputs on the host for :func:`block_cases`' specs."""
+    out = []
+    for spec in specs:
+        if isinstance(spec, list):
+            out.append(block_inputs(spec, bsz, gen))
+        elif spec[0] == 'tokens':
+            out.append(torch.randn((bsz,) + spec[1:], generator=gen))
+        else:
+            out.append(torch.randn(bsz, spec[0], spec[1], spec[1],
+                                   generator=gen))
+    return out
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, t) for t in tree]
+    return fn(tree)
+
+
+def flat_outputs(out) -> list:
+    return [o for x in out for o in flat_outputs(x)] \
+        if isinstance(out, (list, tuple)) else [out]
+
+
+def phase_blocks(device, card='', bsz=8, reps=20, cases=None) -> list:
+    """Phase 51: each of the 38 classes of ``models/yolo_blocks.py``
+    (:func:`block_cases`, ASFF at each level) built with seeded weights
+    and fed seeded inputs of ``bsz`` images: its float32 output on the
+    device (TF32 off) against the same module's on the host for the first
+    image, within BLOCK_RTOL of the output's largest magnitude (the blocks
+    see each image alone: the BatchNorms are frozen); then the module in
+    bfloat16 (its convolutions and linear layers, as ``init_detector``
+    casts them) on the device: the forward's ms by CUDA events over
+    ``reps`` runs, peak memory, a finite output. No speed limits. Returns
+    one record a case."""
+    import copy
+    from orientedobjectdetection_torch.models.detectors.single_stage import (
+        WEIGHTED_LAYERS, init_seeded_weights)
+    on_card = torch.device(device).type == 'cuda'
+    records = []
+    t0 = time.perf_counter()
+    for i, (name, (make, specs)) in enumerate(
+            (cases or block_cases()).items()):
+        module = make().eval()
+        init_seeded_weights(module, 510 + i)
+        args = block_inputs(specs, bsz, torch.Generator().manual_seed(i))
+        with torch.no_grad():
+            ref = flat_outputs(module(*tree_map(lambda t: t[:1], args)))
+            card_mod = copy.deepcopy(module).to(device)
+            got = flat_outputs(card_mod(*tree_map(lambda t: t.to(device),
+                                                  args)))
+        err = 0.0
+        for r, o in zip(ref, got):
+            scale = float(r.abs().max())
+            if scale == 0 or not torch.isfinite(o).all():
+                raise AssertionError(f'{name}: a zero or non-finite output')
+            err = max(err, float((o[:1].cpu() - r).abs().max()) / scale)
+        if len(ref) != len(got) or err > BLOCK_RTOL:
+            raise AssertionError(f'{name}: the device\'s float32 output is '
+                                 f'{err:.3g} of its largest magnitude off '
+                                 f'the host\'s (> {BLOCK_RTOL})')
+        for m in card_mod.modules():
+            if isinstance(m, WEIGHTED_LAYERS):
+                m.to(torch.bfloat16)
+        half = tree_map(lambda t: t.to(device, torch.bfloat16), args)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = flat_outputs(card_mod(*half))
+            if not all(torch.isfinite(o).all() for o in out):
+                raise AssertionError(f'{name}: non-finite bfloat16 output')
+            ms = time_ms(lambda: card_mod(*half), reps, device)
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card \
+            else float('nan')
+        shapes = tree_map(lambda t: tuple(t.shape), args)
+        log(f'[blocks] {card} | {name} {shapes}: float32 device vs host '
+            f'{err:.3g} of the largest output (<= {BLOCK_RTOL}); bfloat16 '
+            f'forward {ms:.3f} ms (CUDA events, {reps} runs), peak memory '
+            f'{peak:.0f} MiB')
+        records.append(dict(name=name, err=err, ms=ms, peak_mib=peak))
+        del card_mod, half, out
+    log(f'[blocks] {len(records)} cases in {time.perf_counter() - t0:.1f} '
+        f's; worst float32 difference {max(r["err"] for r in records):.3g}')
+    return records
+
+
+def same_test_cfgs(converted, seeded) -> None:
+    """The seeded detector's test-time settings (``max_candidates``, the
+    proposals an image) on the converted one's modules."""
+    import copy
+    for name, module in seeded.named_modules():
+        cfg = getattr(module, 'test_cfg', None)
+        if isinstance(cfg, dict):
+            converted.get_submodule(name).test_cfg = copy.deepcopy(cfg)
+
+
+def phase_reference_weights(device, card='', root=None, bsz=2, size=1024,
+                            configs=None, max_num=2000,
+                            max_candidates=2000) -> tuple:
+    """Phase 52: seeded prototype4 (:func:`build_yolo_bundle`) and ReDet
+    (:func:`build_hbb_bundle`) in float32, each state written under the
+    reference's names (``utils/reference_weights.py:
+    synthesize_reference_state``: the YOLO stack's mmyolo names, ReDet's
+    e2cnn filters and per-field BatchNorms) into a ``.pth``, converted by
+    ``python -m orientedobjectdetection_torch.tools.convert_reference_
+    weights`` in a subprocess (no leftover key) and served by
+    ``init_detector(config, converted)``: every tensor equal to the seeded
+    model's bit for bit, the detections of ``bsz`` images equal too. The
+    launch counts cover both models' requests (B1 in each, B3 in ReDet's).
+    ``configs``: label -> config. Returns the counts and the kernels'
+    inputs."""
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.utils.reference_weights import \
+        synthesize_reference_state
+    root = root or os.path.join(DATA_DIR, 'reference')
+    os.makedirs(root, exist_ok=True)
+    configs = configs or {'prototype4': YOLO_CONFIGS['prototype4'],
+                          'redet': REDET_CONFIG}
+    builders = {
+        'prototype4': ('RotatedYOLOv8', lambda cfg: build_yolo_bundle(
+            cfg, device, torch.float32, max_candidates)),
+        'redet': ('ReDet', lambda cfg: build_hbb_bundle(
+            cfg, device, torch.float32, max_num, max_candidates))}
+    images = raw_images(bsz, size, 520)
+    runs, captured = [], {}
+    for label, config in configs.items():
+        kind, build = builders[label]
+        seeded = build(config)
+        state = {k: v.detach().cpu() for k, v in
+                 seeded.detector.state_dict().items()}
+        reference = synthesize_reference_state(state, kind)
+        src = os.path.join(root, f'{label}_reference.pth')
+        out = os.path.join(root, f'{label}_converted.pth')
+        torch.save(dict(state_dict={k: torch.from_numpy(v)
+                                    for k, v in reference.items()},
+                        meta=dict(seed=0)), src)
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, '-m',
+             'orientedobjectdetection_torch.tools.convert_reference_weights',
+             src, out, '--type', kind], capture_output=True, text=True,
+            cwd=ROOT, timeout=600)
+        tool_s = time.perf_counter() - t0
+        if done.returncode or 'unmapped' in done.stdout:
+            raise AssertionError(f'{label}: the converter failed or left '
+                                 f'keys: {done.stdout[-2000:]} '
+                                 f'{done.stderr[-2000:]}')
+        converted = init_detector(seeded.cfg, out, device=device,
+                                  dtype=torch.float32,
+                                  device_norm=seeded.device_norm)
+        same_test_cfgs(converted.detector, seeded.detector)
+        got = converted.detector.state_dict()
+        if sorted(got) != sorted(state):
+            raise AssertionError(f'{label}: the converted model has other '
+                                 f'tensors')
+        differ = [k for k, v in state.items()
+                  if not torch.equal(got[k].cpu(), v)]
+        if differ:
+            raise AssertionError(f'{label}: {len(differ)} tensors differ '
+                                 f'from the seeded model\'s: {differ[:4]}')
+        reset_launches()
+        with recording(nms, 'nms_pair_mask') as masks, \
+                recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                          keep_results=False) as pools:
+            ref = seeded(images)
+            dets = converted(images)
+        sync(device)
+        counts = read_launches()
+        check_dets(*dets, bsz, converted.num_classes)
+        if not all(torch.equal(a, b) for a, b in zip(dets, ref)):
+            raise AssertionError(f'{label}: the converted model\'s '
+                                 f'detections differ from the seeded '
+                                 f'model\'s')
+        captured[f'{label}_converted_nms'] = [(args[0], args[2])
+                                              for args, _ in masks]
+        if pools:
+            captured[f'{label}_converted_roi'] = pooled_inputs(pools)
+        log(f'[reference-weights] {label}: {len(reference)} reference '
+            f'tensors ({os.path.getsize(src) / 2**20:.1f} MiB) converted by '
+            f'the tool in {tool_s:.1f} s, no leftover key; all {len(state)} '
+            f'tensors of the served model equal the seeded model\'s bit for '
+            f'bit; float32 B={bsz} {size}^2 detections equal (valid per '
+            f'image {dets[2].sum(1).tolist()}); launches {counts}')
+        runs.append(counts)
+        del seeded, converted
+    return runs, captured
+
+
+def held_yolov6(device, captured, by_name, card, reps, roi_reps,
+                plain_reps) -> None:
+    """Phases 50-52's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on the
+    YOLOv6-neck model's slice and request candidates and on the converted
+    models' requests, B2 on its slice's and its trained steps' assigner
+    inputs, B3 on the converted ReDet's levels and proposals."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    held_pair_masks(captured['yolov6_slice_nms'], 'YOLOv6-neck float32 '
+                    'slice', 'yolov6_slice', pair, device, card, reps,
+                    plain_reps)
+    held_pair_masks([captured['yolov6']], 'YOLOv6-neck request', 'yolov6',
+                    pair, device, card, reps, plain_reps)
+    held_iou_matrices(captured['yolov6_slice_assign'], 'YOLOv6-neck float32 '
+                      'slice\'s assigner', 'yolov6_slice_assign', iou, device,
+                      card, reps, plain_reps)
+    held_iou_matrices(captured['yolov6_train'], 'YOLOv6-neck assigner (G=32)',
+                      'yolov6_train', iou, device, card, reps, plain_reps)
+    held_pair_masks(captured['prototype4_converted_nms'] +
+                    captured['redet_converted_nms'], 'converted '
+                    'checkpoints\' requests', 'converted', pair, device,
+                    card, reps, plain_reps)
+    held_roi_inputs(captured['redet_converted_roi'], 'converted ReDet '
+                    'request', 'redet_converted', by_name['roi_align_rotated'],
+                    device, card, roi_reps, plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -5955,6 +6437,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
                    plain_reps)
     held_reppoints(device, captured, by_name, card, reps, plain_reps)
     held_yolo(device, captured, by_name, card, reps, plain_reps)
+    held_yolov6(device, captured, by_name, card, reps, roi_reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -6283,6 +6766,21 @@ def main() -> int:
                                'ckpt_00000020.pth'))})
     host_runs = phase_host(hard, trained, captured, card=info['card'])
     log(f'[phases 47-49] {time.perf_counter() - t47:.1f} s')
+    t50 = time.perf_counter()
+    v6_config = yolov6_config()
+    captured.update(phase_yolov6_slice('cuda', v6_config))
+    yolov6_runs, yolov6_inputs = phase_yolov6('cuda', card=info['card'],
+                                              config=v6_config)
+    captured.update(yolov6_inputs)
+    log(f'[phase 50] {time.perf_counter() - t50:.1f} s')
+    t51 = time.perf_counter()
+    phase_blocks('cuda', card=info['card'])
+    log(f'[phase 51] {time.perf_counter() - t51:.1f} s')
+    t52 = time.perf_counter()
+    reference_runs, reference_inputs = phase_reference_weights(
+        'cuda', card=info['card'])
+    captured.update(reference_inputs)
+    log(f'[phase 52] {time.perf_counter() - t52:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -6300,7 +6798,8 @@ def main() -> int:
         # models' requests, prototype4's steps (frozen and live BN) and the
         # tiny YOLOv8 run, the data-parallel steps and evaluations of each
         # rank, the served requests, the host NMS check's kernel calls and
-        # the confusion matrix
+        # the confusion matrix, the YOLOv6-neck model's requests and steps,
+        # and the seeded and converted models' requests of phase 52
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -6309,7 +6808,7 @@ def main() -> int:
             *backbone_serving, *backbone_training, *redet_loop,
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
-            *host_runs))
+            *host_runs, *yolov6_runs, *reference_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

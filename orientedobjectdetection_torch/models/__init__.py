@@ -24,7 +24,7 @@ from .losses import (CrossEntropyLoss, FocalLoss, GDLoss, GDLoss_v1,
                      ObjectnessLoss, ObjectnessLoss2, ObjectnessLoss3,
                      RotatedIoULoss, SmoothFocalLoss, SmoothL1Loss,
                      SpatialBorderLoss, VarifocalLoss)
-from .necks import FPN, ReFPN, YOLOv8PAFPN, YOLOv8PAFPN_E
+from .necks import FPN, ReFPN, YOLOv6RepPAFPN, YOLOv8PAFPN, YOLOv8PAFPN_E
 from .roi_heads import (GVBBoxHead, GVRatioRoIHead, OrientedStandardRoIHead,
                         RoITransRoIHead, RotatedKFIoUShared2FCBBoxHead,
                         RotatedShared2FCBBoxHead, RotatedStandardRoIHead)
@@ -58,7 +58,8 @@ __all__ = [
     'KLDRepPointsLoss', 'SpatialBorderLoss', 'CrossEntropyLoss',
     'FocalLoss', 'GDLoss', 'GDLoss_v1', 'GIoULoss', 'IoULoss', 'KFLoss',
     'L1Loss', 'RotatedIoULoss', 'SmoothFocalLoss', 'SmoothL1Loss',
-    'CSPNeXt', 'CSPNeXtLarge', 'YOLOv8CSPDarknet', 'YOLOv8PAFPN',
+    'CSPNeXt', 'CSPNeXtLarge', 'YOLOv8CSPDarknet', 'YOLOv6RepPAFPN',
+    'YOLOv8PAFPN',
     'YOLOv8PAFPN_E', 'RotatedYOLOv8Head', 'RotatedYOLOv8AngleHead',
     'OBBLabelAssigner', 'RotatedMSDCNHead', 'RotatedDecoupledObjHead',
     'RotatedDecoupledBGHead', 'RotatedDecoupled1x1ObjHead', 'RotatedYOLOv8',

@@ -25,6 +25,7 @@ both names.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -182,18 +183,30 @@ def live_batch_norm(model: nn.Module, reduce=None):
 
 
 # ---- the YOLO block set -----------------------------------------------------
+def _identity(x):
+    return x
+
+
+ACTIVATIONS = {'silu': F.silu, 'relu': F.relu, None: _identity}
+
+
 class YOLOConvModule(nn.Module):
-    """conv (no bias) -> BatchNorm -> SiLU, the JAX package's YOLO
+    """conv (no bias) -> BatchNorm -> activation, the JAX package's YOLO
     ``ConvModule``. Its BatchNorm is always :class:`FrozenBatchNorm` with
-    epsilon 1e-5 and momentum 0.1, and its activation SiLU: the configs'
-    ``norm_cfg`` (eps 1e-3, momentum 0.03) and ``act_cfg`` are not read, as
-    in the JAX package. ``use_depthwise``: a depthwise ``kernel_size``
-    conv (``dw``, ``dw_bn``) then a pointwise one (``pw``, ``pw_bn``), each
-    with its norm and SiLU."""
+    epsilon 1e-5 and momentum 0.1: the configs' ``norm_cfg`` (eps 1e-3,
+    momentum 0.03) and ``act_cfg`` are not read, as in the JAX package.
+    ``act``: ``'silu'`` (the default), ``'relu'`` or ``None`` (none).
+    ``use_depthwise``: a depthwise ``kernel_size`` conv (``dw``, ``dw_bn``)
+    then a pointwise one (``pw``, ``pw_bn``), each with its norm and
+    activation."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 1,
-                 stride: int = 1, use_depthwise: bool = False):
+                 stride: int = 1, use_depthwise: bool = False,
+                 act: Optional[str] = 'silu'):
         super().__init__()
+        if act not in ACTIVATIONS:
+            raise ValueError(f'act={act!r}: one of {list(ACTIVATIONS)}')
+        self.act = ACTIVATIONS[act]
         k, pad = kernel_size, kernel_size // 2
         self.use_depthwise = use_depthwise
         if use_depthwise:
@@ -208,9 +221,9 @@ class YOLOConvModule(nn.Module):
 
     def forward(self, x):
         if self.use_depthwise:
-            x = F.silu(self.dw_bn(self.dw(x)))
-            return F.silu(self.pw_bn(self.pw(x)))
-        return F.silu(self.bn(self.conv(x)))
+            x = self.act(self.dw_bn(self.dw(x)))
+            return self.act(self.pw_bn(self.pw(x)))
+        return self.act(self.bn(self.conv(x)))
 
 
 class DarknetBottleneck(nn.Module):

@@ -39,19 +39,21 @@ def init_seeded_weights(module: nn.Module, seed: int = 0) -> None:
     ORConv2d's 5-D filters), zero biases; frozen BN keeps its identity
     statistics. A steerable ORConv2d's free parameter is its basis
     coefficients, seeded in the same way; a module with other parameters
-    (the adaptive rotated convolution's experts) seeds them with its
-    ``init_seeded(generator)``. The same seed gives the same
+    or another initializer (the adaptive rotated convolution's experts,
+    ESE's ``normal(0.001)`` conv) seeds them with its
+    ``init_seeded(generator)``; parameters with a constant initializer keep
+    the value they were built with. The same seed gives the same
     weights on any device as long as the module is still on the CPU."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, WEIGHTED_LAYERS):
+        if hasattr(m, 'init_seeded'):
+            m.init_seeded(gen)
+        elif isinstance(m, WEIGHTED_LAYERS):
             w = m.coeff if getattr(m, 'steerable', False) else m.weight
             w.copy_(torch.randn(w.shape, generator=gen)
                     / math.sqrt(w[0].numel()))
             if m.bias is not None:
                 m.bias.zero_()
-        elif hasattr(m, 'init_seeded'):
-            m.init_seeded(gen)
 
 
 def build_fed(registry, cfg: dict, source: nn.Module) -> nn.Module:

@@ -5,8 +5,10 @@
         configs/rotated_retinanet/rotated_retinanet_tiny_synth.py \\
         --work-dir work_dirs/exp --bf16 --cfg-options data_root=...
 
-Trains on the card (``--device cpu`` for the CPU). Several processes are
-ROADMAP A.13.
+Trains on the card (``--device cpu`` for the CPU). Several processes train
+one data-parallel model under ``python -m torch.distributed.run
+--nproc_per_node N -m orientedobjectdetection_torch.tools.train <config>``
+(``tools/__init__.py``).
 """
 
 from __future__ import annotations

@@ -84,11 +84,14 @@ state dict with mmrotate names, the same mapping as
   ``(out, in, in_or, k, k)`` and steerable coefficients ``(17, in, in_or,
   out)`` <-> ``coeff`` ``(out, in, in_or, 17)``;
 - the YOLO detectors (a CSPNeXt or YOLOv8 CSPDarknet backbone, a YOLOv8
-  PAFPN, the jy heads), whose port modules keep the flax names: the path
-  joined by dots, each leaf renamed (``kernel`` -> ``weight``, a BN's
-  ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
-  ``running_var`` of every BN of the detector, a ``Scale``'s ``scale`` and
-  the adaptive rotated convolution's raw ``kernel`` kept), convolution
+  PAFPN or YOLOv6 Rep-PAFPN, the jy heads) and the blocks of
+  ``models/yolo_blocks.py``, whose port modules keep the flax names: the
+  path joined by dots, each leaf renamed (``kernel`` -> ``weight``, a
+  norm's ``scale`` -> ``weight``, ``mean`` / ``var`` -> ``running_mean`` /
+  ``running_var`` of every BN of the detector; a ``Scale``'s ``scale``, the
+  free ``scale`` of the MaxSigmoid and image-pooling blocks, the blocks'
+  ``id_scale``, ``id_bias``, ``alpha``, ``beta`` and ``layer_scale_*``,
+  and the adaptive rotated convolution's raw ``kernel`` kept), convolution
   kernels HWIO -> OIHW and dense kernels transposed (:func:`mirror_from_jax`,
   :func:`mirror_to_jax`).
 """
@@ -382,6 +385,19 @@ def _raw_kernel(mods) -> bool:
     return not mods or re.fullmatch(r'arc_d\d+', mods[-1]) is not None
 
 
+# a ``scale`` beside one of these children is a free parameter of its
+# module (``MaxSigmoidAttnBlock``'s per-head scale beside ``guide_fc``,
+# ``ImagePoolingAttentionModule``'s beside ``query``), not a norm's weight
+_FREE_SCALE_SIBLINGS = ('guide_fc', 'query')
+
+
+def _free_scale(params, mods) -> bool:
+    node = params
+    for key in mods:
+        node = node[key]
+    return any(k in node for k in _FREE_SCALE_SIBLINGS)
+
+
 def mirror_from_jax(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in ('params', 'batch_stats'):
@@ -390,8 +406,9 @@ def mirror_from_jax(variables) -> Dict[str, torch.Tensor]:
             if leaf == 'kernel' and not _raw_kernel(mods):
                 field = 'weight'
                 v = np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
-            elif leaf == 'scale' and not (mods and
-                                          mods[-1].startswith('scale_')):
+            elif leaf == 'scale' and not (
+                    mods and mods[-1].startswith('scale_')) and not \
+                    _free_scale(variables[collection], mods):
                 field = 'weight'
             else:
                 field = {'mean': 'running_mean',

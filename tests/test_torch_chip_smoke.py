@@ -338,6 +338,16 @@ def test_phase_main_path_kernels_rehearsal():
         captured[f'{label}_loop_assign'] = [yolo_assign] * 2
         captured[f'{label}_loop_eval_iou'] = captured['eval_iou'][1:]
         captured[f'{label}_loop_nms'] = [captured['orcnn']]
+    # phases 50-52: the YOLOv6-neck model's slice and request candidates
+    # and assigner inputs, the converted models' candidates (a seeded and a
+    # converted request each) and the converted ReDet's RoIAlign inputs
+    captured['yolov6_slice_nms'] = [captured['orcnn']]
+    captured['yolov6'] = captured['retinanet']
+    captured['yolov6_slice_assign'] = [yolo_assign]
+    captured['yolov6_train'] = [yolo_assign]
+    captured['prototype4_converted_nms'] = [captured['orcnn']] * 2
+    captured['redet_converted_nms'] = [captured['orcnn']] * 2
+    captured['redet_converted_roi'] = [pooled] * 2
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -371,13 +381,13 @@ def test_phase_main_path_kernels_rehearsal():
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
         'r3det_refine_slice'] + refine + hbb + backbones + reppoints +
-        yolo)
+        yolo + ['yolov6_slice_assign', 'yolov6_train'])
     assert sorted(roi['main_path_inputs']) == sorted(
         ['orcnn', 'orcnn_loop_eval'] +
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
-         'redet_loop_eval'])
+         'redet_loop_eval', 'redet_converted'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -398,6 +408,10 @@ def test_phase_main_path_kernels_rehearsal():
     assert iou['main_path_inputs']['yolov8_loop_assign']['inputs_held'] == 2
     for label in chip_smoke.YOLO_SERVED:
         assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
+    for key in ('yolov6_slice', 'yolov6'):
+        assert pair['main_path_inputs'][key]['ms'] > 0
+    assert pair['main_path_inputs']['converted']['inputs_held'] == 4
+    assert roi['main_path_inputs']['redet_converted']['inputs_held'] == 2
     for got in iou['main_path_inputs'].values():
         assert got['ms'] > 0 and got['plain_ms'] > 0 and got['bound_ms'] > 0
         assert got['pairs_in_reach'] > 0

@@ -43,12 +43,14 @@ def test_scan_covers_the_package():
             'spatial_border_loss.py', 'cspnext.py', 'csp_darknet.py',
             'jy_modules.py', 'pafpn.py', 'rotated_yolov8_head.py',
             'jy_heads.py', 'mesh.py', 'native.py', 'visualization.py',
-            'font.py'} <= names
+            'font.py', 'yolo_blocks.py', 'reference_weights.py'} <= names
     tools = {p.name for p in SOURCES if p.parent.name == 'tools'}
     assert {'train.py', 'test.py', 'generate_synth.py', 'img_split.py',
             'serve.py', 'confusion_matrix.py', 'get_flops.py',
             'browse_dataset.py', 'heatmap.py', 'image_demo.py',
-            'huge_image_demo.py', 'image_demo_timed.py'} <= tools
+            'huge_image_demo.py', 'image_demo_timed.py',
+            'convert_reference_weights.py', 'print_config.py',
+            'publish_model.py'} <= tools
 
 
 @pytest.mark.parametrize('path', SOURCES,

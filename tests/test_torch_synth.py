@@ -5,11 +5,12 @@ the same seed: 4 tiny-protocol images of 256 px, and 2 synth-hard images of
 
 - The annotation files are byte-identical: both draw the same random
   numbers in the same order and round the same float32 polygons.
-- The images are equal except along drawn edges. The port's thick line (the
-  plane's strut) approximates OpenCV's fixed-point one, and its polygons
-  differ where they leave the image: at most 1% of the pixels differ
-  (0.16-0.36% measured), each within 3 px of an annotated object, by at
-  most 64 grey levels measured.
+- The images: the port's lines, thick ones (the plane's strut) and those
+  that leave the image included, are OpenCV's ``cv2.line`` pixel for pixel
+  (``utils/image_io.py:line``), and on these seeds the images come out
+  equal. The test keeps the bound it had when the thick line was an
+  approximation: at most 1% of the pixels may differ, each within 3 px of
+  an annotated object, by at most 64 grey levels.
 """
 
 import filecmp
