@@ -19,9 +19,11 @@ le135, each R50-FPN) and of the RotatedYOLOv8 models (configs/jy/:
 prototype4, CSPNeXt-M with the YOLOv8 PAFPN and head, trained with frozen
 and with live BatchNorm; prototype3, CSPNeXt-L with MSARC; the CSPDarknet /
 PAFPN_E / MSDCN-head model; the 1x1 objectness head; prototype4 with the
-YOLOv6 Rep-PAFPN neck, served and trained), the YOLO block library, and
+YOLOv6 Rep-PAFPN neck, served and trained), the YOLO block library,
 seeded prototype4 and ReDet checkpoints under the reference's names
-converted back, through
+converted back, and SAR ship detection from JPEGs (the HRSID and SSDD
+Oriented R-CNN R50-FPN and the SSDD RetinaNet, one class) with the port's
+JPEG codec, through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -320,6 +322,40 @@ plain PyTorch version:
              subprocess and served by ``init_detector``: every tensor equal
              to the seeded model's, the float32 detections of 2 images of
              1024^2 equal (B1 in both, B3 in ReDet)
+53. codec    on the card's host: the port's JPEG encoder (csrc/jpeg.cpp,
+             built with g++) writes seeded images of 1 x 1, 7 x 13,
+             97 x 131, 800^2 and 1024^2 in BGR and grey, its decoder reads
+             them back; each file's and each decode's SHA-256 equal to
+             CODEC_DIGESTS (OpenCV's); one encode and one decode at 800^2
+             and 1024^2 on one thread; the loader's imgs/s over 64 seeded
+             1024^2 JPEGs and the same images as PNGs, uint8 batches of 8
+             on 8 threads, twice in turns, and the decoder alone on 8
+             threads
+54. sar      configs/oriented_rcnn/oriented_rcnn_r50_fpn_6x_hrsid_le90.py
+    serving  (R50-FPN, one class, seeded weights, regressions x 0.05) on 8
+             seeded 800^2 JPEGs the encoder writes and the decoder reads:
+             (i) float32 on 2 of them, the detections with B3 and B1 equal
+             those with the plain RoIAlign and the plain pair mask; a .jpg
+             path and its decoded array give inference_detector the same
+             detections; (ii) bfloat16 requests of the 8, 10 timed after 3
+             warm: imgs/s, forward / decode+NMS, peak memory, one B1 and
+             one B3 launch a request, one request profiled by the
+             ``two_stage.*`` ranges, one more request's B1 and B3 inputs
+             recorded; (iii) ``tools.serve`` on localhost: 4 JPEGs as raw
+             and base64 bodies and their pixels as PNG bodies, each 200
+             with inference_detector's JSON on the decoded pixels, a
+             truncated JPEG 400; ms a JPEG and a PNG request
+55. sar      ``tools.test --format-only --show-dir`` of the SSDD Oriented
+    split    R-CNN (seeded, float32) over a test folder of 16 seeded 512^2
+             .jpg images through the loader: one B1 and one B3 launch a
+             batch of 8 and one B1 launch an image in merge_det,
+             Task1_ship.txt names every image, every drawn
+             image a JPEG that reads back, the first byte for byte the
+             encoder's file of imshow_det_rbboxes' drawing; the SSDD
+             RetinaNet in float32 on 2 of the decoded JPEGs, detections
+             with B1 equal those with the plain pair mask; ``img_split``
+             cuts a 4000^2 .jpg scene into 1024 tiles at gap 200, each
+             equal to the decoded scene's crop
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -363,8 +399,10 @@ plain PyTorch version:
              its evaluation's; and those of phases 50-52: the YOLOv6-neck
              model's candidates and assigner inputs of its float32 slice
              and its steps, the converted models' candidates and the
-             converted ReDet's RoIAlign inputs; each held against its plain
-             version, the largest of each kind timed beside its bound
+             converted ReDet's RoIAlign inputs; and phase 54's: one
+             bfloat16 HRSID request's candidates and its levels and
+             proposals; each held against its plain version, the largest of
+             each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -378,12 +416,13 @@ requests and 37's steps of each detector, 38's run, 40's requests and
 41's steps of each point-set family, 42's runs, 44's requests of each
 YOLOv8 model, 45's frozen and live steps, 46's run, 47's steps and 48's
 evaluations in each rank, 49's requests, kernel NMS calls and confusion
-matrix, 50's requests and steps, 52's requests of each model) and read
-just after;
+matrix, 50's requests and steps, 52's requests of each model, 54's
+requests and served JPEG and PNG requests, 55's test run) and read just
+after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
 26's, 30's, 34's, 38's, 42's and 46's runs and 52's requests. Phases
-15-22, 26, 30, 34, 38, 42, 46, 50 and 52 write
+15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-55 write
 their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -770,15 +809,21 @@ def check_dets(dets, labels, valid, bsz, num_classes):
         raise AssertionError('labels out of range')
 
 
-def phase_slice(device, bsz=2, size=1024, max_candidates=2000) -> None:
+def phase_slice(device, bsz=2, size=1024, max_candidates=2000,
+                config=CONFIG, images=None, label='slice') -> None:
     """float32: the slice run with the kernel and run again with the plain
-    pair mask gives the same detections."""
+    pair mask gives the same detections (on ``images``, raw uint8, where
+    given)."""
     from orientedobjectdetection_torch.apis import DetectorBundle
-    bundle = build_bundle(device, torch.float32, max_candidates)
+    bundle = build_bundle(device, torch.float32, max_candidates,
+                          config=config)
     plain = DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
                            device_norm=bundle.device_norm,
                            plain_pair_mask=True)
-    images = raw_images(bsz, size, 10)
+    if images is None:
+        images = raw_images(bsz, size, 10)
+    else:
+        bsz, size = images.shape[0], images.shape[1]
     dets, labels, valid = bundle(images)
     p_dets, p_labels, p_valid = plain(images)
     sync(device)
@@ -789,7 +834,7 @@ def phase_slice(device, bsz=2, size=1024, max_candidates=2000) -> None:
     err = float((dets - p_dets).abs().max())
     if err > DETS_ATOL:
         raise AssertionError(f'dets differ by {err} > {DETS_ATOL}')
-    log(f'[slice] float32 B={bsz} {size}^2: kernel and plain pair mask '
+    log(f'[{label}] float32 B={bsz} {size}^2: kernel and plain pair mask '
         f'agree (labels/valid exact, dets max |diff| {err:.3g}); '
         f'valid dets per image {valid.sum(1).tolist()}; NMS candidates per '
         f'image {nms_inputs_per_image(bundle, bundle.forward(images))}')
@@ -1510,9 +1555,9 @@ def time_roi_align(feats, rois, work, device, card, label, reps,
 
 # ---- 10./11. Oriented R-CNN -------------------------------------------------
 def build_orcnn_bundle(device, dtype, max_num=2000, max_candidates=2000,
-                       seed=0):
-    """The Oriented R-CNN config's detector with seeded weights,
-    normalizing raw uint8 BGR images on the device.
+                       seed=0, config=ORCNN_CONFIG):
+    """``config``'s detector (the Oriented R-CNN DOTA config by default)
+    with seeded weights, normalizing raw uint8 BGR images on the device.
 
     The regression outputs of both stages are scaled down so proposals stay
     near their anchors and detections near their proposals, where they
@@ -1522,7 +1567,7 @@ def build_orcnn_bundle(device, dtype, max_num=2000, max_candidates=2000,
     NMS size (2000); the CPU rehearsal makes them small."""
     from orientedobjectdetection_torch.apis import init_detector
     from orientedobjectdetection_torch.utils import Config
-    cfg = Config.fromfile(ORCNN_CONFIG)
+    cfg = Config.fromfile(config)
     bundle = init_detector(cfg, device=device, dtype=dtype, seed=seed,
                            device_norm=cfg.img_norm_cfg)
     det = bundle.detector
@@ -1600,20 +1645,24 @@ def same_detections(got, ref, cut_scores) -> tuple:
 
 
 def phase_orcnn_slice(device, bsz=2, size=1024, max_num=2000,
-                      max_candidates=2000) -> None:
-    """float32: the Oriented R-CNN slice with the RoIAlign kernel and with
-    its plain version gives the same head outputs within HEAD_ATOL and the
-    same detections up to near-ties in score; the same head outputs decoded
-    with the pair-mask kernel and with its plain version give equal
-    detections."""
+                      max_candidates=2000, config=ORCNN_CONFIG, images=None,
+                      label='orcnn-slice') -> None:
+    """float32: the Oriented R-CNN slice (``config``'s, on ``images``, raw
+    uint8, where given) with the RoIAlign kernel and with its plain version
+    gives the same head outputs within HEAD_ATOL and the same detections up
+    to near-ties in score; the same head outputs decoded with the pair-mask
+    kernel and with its plain version give equal detections."""
     from orientedobjectdetection_torch.apis import DetectorBundle
     bundle = build_orcnn_bundle(device, torch.float32, max_num,
-                                max_candidates)
+                                max_candidates, config=config)
     plain_roi, plain_mask = (
         DetectorBundle(bundle.cfg, bundle.detector, torch.float32,
                        device_norm=bundle.device_norm, **{switch: True})
         for switch in ('plain_roi_align', 'plain_pair_mask'))
-    images = raw_images(bsz, size, 60)
+    if images is None:
+        images = raw_images(bsz, size, 60)
+    else:
+        bsz, size = images.shape[0], images.shape[1]
     outputs = bundle.forward(images)
     per_level, over = check_orcnn_outputs(bundle, outputs, max_num,
                                           max_candidates)
@@ -1642,30 +1691,37 @@ def phase_orcnn_slice(device, bsz=2, size=1024, max_num=2000,
     roi_err, moved, aside = same_detections(
         (dets, labels, valid), plain_roi.decode(p_outputs), cut)
     sync(device)
-    log(f'[orcnn-slice] float32 B={bsz} {size}^2: pair-mask kernel and plain '
+    log(f'[{label}] float32 B={bsz} {size}^2: pair-mask kernel and plain '
         f'mask on the same head outputs agree (labels/valid exact, dets max '
         f'|diff| {mask_err:.3g}); RoIAlign kernel and plain version: head '
         f'outputs max |diff| {head_err:.3g} <= {HEAD_ATOL}, the same '
         f'detections (max |diff| {roi_err:.3g}; {moved} rows within '
         f'{SCORE_BAND} in score in another place, {aside} within that of the '
         f'NMS cut set aside)')
-    log(f'[orcnn-slice] RoIs per level {per_level}; (RoI, class) scores past '
+    log(f'[{label}] RoIs per level {per_level}; (RoI, class) scores past '
         f'score_thr {over}; valid dets per image {valid.sum(1).tolist()}')
 
 
 def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
                         split=3, dtype=torch.bfloat16, max_num=2000,
-                        max_candidates=2000) -> tuple:
-    """Requests of ``bsz`` raw images through the Oriented R-CNN bundle.
-    Returns the kernels' launch counts of the ``warm + timed`` requests,
-    and the inputs of the pair-mask kernel (boxes, class ids) under
-    ``'orcnn'`` and of the RoIAlign kernel (levels, RoIs) under
-    ``'orcnn_roi'``, recorded in one more request after the counts are
-    read. Then ``split`` more requests run under the profiler, which splits
-    them by the detector's ``two_stage.*`` ranges."""
+                        max_candidates=2000, config=ORCNN_CONFIG,
+                        images=None, key='orcnn',
+                        label='orcnn-serving') -> tuple:
+    """Requests of ``bsz`` raw images (``images``, uint8, where given)
+    through ``config``'s Oriented R-CNN bundle. Returns the kernels' launch
+    counts of the ``warm + timed`` requests, and the inputs of the
+    pair-mask kernel (boxes, class ids) under ``key`` and of the RoIAlign
+    kernel (levels, RoIs) under ``key + '_roi'``, recorded in one more
+    request after the counts are read. Then ``split`` more requests run
+    under the profiler, which splits them by the detector's ``two_stage.*``
+    ranges."""
     on_card = torch.device(device).type == 'cuda'
-    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates)
-    images = raw_images(bsz, size, 80)
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates,
+                                config=config)
+    if images is None:
+        images = raw_images(bsz, size, 80)
+    else:
+        bsz, size = images.shape[0], images.shape[1]
     if on_card:
         images = images.pin_memory()
     fwd, dec, outputs, (dets, labels, valid), counts = timed_requests(
@@ -1681,7 +1737,7 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
                                           max_candidates)
     mem = torch.cuda.max_memory_allocated() / 2**30 if on_card \
         else float('nan')
-    log(f'[orcnn-serving] {card} | {str(dtype).split(".")[-1]} B={bsz} '
+    log(f'[{label}] {card} | {str(dtype).split(".")[-1]} B={bsz} '
         f'{size}^2, {timed} timed requests after {warm} warm: '
         f'{bsz * timed / (fwd + dec):.2f} imgs/s; per request forward '
         f'{1e3 * fwd / timed:.2f} ms, decode+NMS '
@@ -1689,7 +1745,7 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
         f'launches in {warm + timed} requests: roi_align_rotated '
         f'{counts["roi_align_rotated"]}, nms_pair_mask '
         f'{counts["nms_pair_mask"]}')
-    log(f'[orcnn-serving] RoIs per level {per_level}; (RoI, class) scores '
+    log(f'[{label}] RoIs per level {per_level}; (RoI, class) scores '
         f'past score_thr {over}; valid dets per image '
         f'{valid.sum(1).tolist()}')
     from orientedobjectdetection_torch.models.roi_heads import (
@@ -1698,8 +1754,8 @@ def phase_orcnn_serving(device, card='', bsz=8, size=1024, warm=3, timed=10,
     with recording(nms, 'nms_pair_mask') as masks, \
             recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
         bundle(images)
-    inputs = {'orcnn': (masks[0][0][0], masks[0][0][2]),
-              'orcnn_roi': tuple(pools[0][0][:2])}
+    inputs = {key: (masks[0][0][0], masks[0][0][2]),
+              key + '_roi': tuple(pools[0][0][:2])}
 
     def requests():
         for _ in range(split):
@@ -6370,6 +6426,519 @@ def held_yolov6(device, captured, by_name, card, reps, roi_reps,
                     device, card, roi_reps, plain_reps)
 
 
+# ---- 53.-55. the JPEG codec, SAR ship detection from JPEGs -----------------
+SAR_CONFIG = os.path.join(ROOT, 'configs', 'oriented_rcnn',
+                          'oriented_rcnn_r50_fpn_6x_hrsid_le90.py')
+SSDD_CONFIG = os.path.join(ROOT, 'configs', 'oriented_rcnn',
+                           'oriented_rcnn_r50_fpn_6x_ssdd_le90.py')
+SSDD_RETINA_CONFIG = os.path.join(
+    ROOT, 'configs', 'sar', 'rotated_retinanet_obb_r50_fpn_1x_ssdd_le90.py')
+# the codec's seeded images, (name, height, width), each in BGR and grey
+CODEC_CASES = (('1x1', 1, 1), ('7x13', 7, 13), ('97x131', 97, 131),
+               ('800', 800, 800), ('1024', 1024, 1024))
+# the SHA-256 of each seeded image's JPEG file and of its decode ((H, W, 3)
+# BGR) as OpenCV 5.0 with libjpeg-turbo 3.1 writes and reads them:
+# tests/test_torch_chip_smoke_sar.py computes them with cv2.imencode and
+# cv2.imdecode, and phase 53 holds the port's codec, built by the card
+# machine's g++, to them
+CODEC_DIGESTS = {
+    '1x1-bgr': (
+        'adab284360b98e9ab7e6806629c428c90e5ea028e35fd499d5e5f5950e4697b1',
+        'f825b08c5858a661d711dd5519743b3dc943332ff17e11281c734ebb65124948'),
+    '1x1-grey': (
+        'dd01cc6bb376f1daf6f3f330b908d28e160bc04a696c38ef8d9e846a56df3d19',
+        '204164d223b35aabb54ea32b1d14d8bb5a8df56f7c81f3304987fa4193426729'),
+    '7x13-bgr': (
+        '1fad24b9d3d4fd8ebd019df5a072fa1a9cbff1ed8ee03e16b59e02d3764a88a6',
+        'ceb70de9f3653d066fc23b9a081be8eda56deaa1eb9d79326fb56667ffd3aa15'),
+    '7x13-grey': (
+        '49e2e95e406431f76faad6e3eb976177361a4e81cc95e43f11bb5a2491dfdcc2',
+        'aaf97c3c9dc991b3d74179424ec04f093804d5bcc08da7fb2ca6bbcb6419dab6'),
+    '97x131-bgr': (
+        '1cb536510e58535011b7bb43ea918c69a74b443be1355bd4334bbc683b249995',
+        '1db30a33acd7abcdcef72b1e611446d5aed61e0ddc500a04b9f387e0e3433d11'),
+    '97x131-grey': (
+        '8138c24cb57b7ff18093bf8e64d0242a4ff0409575be985a869f4288fce1c1ef',
+        '4a21e563dbf0f52ff24d37bd3b30ff02fa82b619ce86177059942c5bf764fb01'),
+    '800-bgr': (
+        '5f8f0eabf90686739ce26f42687fbd1d4bbb010a1187e06ff5ef13c39c11c5eb',
+        'cc7aaa6b506ab1047f2343f17411350ca75e8325643093ec8c8aaa5403b6a7a2'),
+    '800-grey': (
+        'b66de631f196de8a46ded18f3f7b9b3464a0865cf23b05bdf3731e4e3a4bd752',
+        '8aba9b5bd1201023c2ee76cbd1fb0e72ec4e99049e37516b74f4403a61da47e1'),
+    '1024-bgr': (
+        'a0e20020a06683f0f34d06ae4a06e557ee1a01d6328ec2bb0e24ee3dbad21f79',
+        'a6752654d989d78b051bda8dde6fda5f7951d56e2951d1c9faf298e509c1cd32'),
+    '1024-grey': (
+        '01addddcb5c28469f80405885a8381a58241257d808eb1e4988c64665b366c00',
+        '66238c675c12e952a3acb1a8ffeff6bdfa503266b0b9110c7c10c3f2c6769057'),
+}
+CODEC_TIMED = (800, 1024)      # the sides timed, one encode and one decode
+SAR_TILE_PAD = (104, 116, 124)  # img_split's padding value
+
+
+def codec_image(h, w, grey=False, seed=0, speckle=False) -> np.ndarray:
+    """A seeded image made in integer arithmetic alone, so that it is the
+    same bytes on any machine and numpy version: hashed noise averaged over
+    3 x 3 pixels, over a diagonal gradient; with ``speckle``, the hashed
+    noise as SAR speckle.
+    ``(h, w, 3)`` uint8 BGR, or ``(h, w)`` grey."""
+    channels = 1 if grey else 3
+    u64 = np.uint64
+    y = np.arange(h + 2, dtype=u64)[:, None, None]
+    x = np.arange(w + 2, dtype=u64)[None, :, None]
+    c = np.arange(channels, dtype=u64)[None, None, :]
+    z = (y * u64(0x9E3779B97F4A7C15) + x * u64(0xC2B2AE3D27D4EB4F) +
+         c * u64(0x165667B19E3779F9) +
+         u64(seed * 0x27D4EB2F165667C5 % 2 ** 64))
+    z ^= z >> u64(29)
+    z *= u64(0xBF58476D1CE4E5B9)
+    z ^= z >> u64(32)
+    noise = (z >> u64(56)).astype(np.int64)
+    if speckle:
+        # the product of two uniform draws: SAR speckle's skew, near the
+        # SAR configs' mean 21.55 and deviation 24.42
+        other = (z >> u64(48)).astype(np.int64) & 0xFF
+        img = (noise * other * 86 >> 16)[1:h + 1, 1:w + 1].astype(np.uint8)
+        return np.ascontiguousarray(img[..., 0] if grey else img)
+    box = sum(noise[dy:dy + h, dx:dx + w] for dy in range(3)
+              for dx in range(3)) // 9
+    grad = (np.arange(h)[:, None] * 255 // max(h, 1) +
+            np.arange(w)[None, :] * 255 // max(w, 1))[..., None] // 2
+    img = np.clip(box // 2 + grad // 2 + 32, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(img[..., 0] if grey else img)
+
+
+def codec_digests(cases=CODEC_CASES, encode=None, decode=None) -> dict:
+    """``'<name>-bgr'`` and ``'<name>-grey'`` -> the SHA-256 of the seeded
+    image's JPEG file and of that file's decode, by ``encode`` (image ->
+    bytes) and ``decode`` (bytes -> (H, W, 3) uint8 BGR): the port's codec
+    unless given."""
+    import hashlib
+    from orientedobjectdetection_torch import native
+    encode = encode or native.jpeg_encode
+    decode = decode or native.jpeg_decode
+    digests = {}
+    for name, h, w in cases:
+        for grey in (False, True):
+            data = encode(codec_image(h, w, grey, seed=7 * h + w))
+            pixels = np.ascontiguousarray(decode(data))
+            if pixels.shape != (h, w, 3) or pixels.dtype != np.uint8:
+                raise AssertionError(f'{name}: decoded {pixels.dtype} '
+                                     f'{pixels.shape}')
+            digests[f'{name}-{"grey" if grey else "bgr"}'] = (
+                hashlib.sha256(data).hexdigest(),
+                hashlib.sha256(pixels.tobytes()).hexdigest())
+    return digests
+
+
+def sar_loader_config(folder, size) -> dict:
+    """A test split of ``folder``'s images (no annotation files) through
+    the SAR training pipeline without its flip and normalization: uint8
+    batches of ``size``^2."""
+    return dict(
+        type='SARDataset', ann_file=folder + '/', img_prefix=folder + '/',
+        filter_empty_gt=False,
+        pipeline=[dict(type='LoadImageFromFile'),
+                  dict(type='LoadAnnotations', with_bbox=True),
+                  dict(type='RResize', img_scale=(size, size)),
+                  dict(type='Pad', size_divisor=32),
+                  dict(type='DefaultFormatBundle'),
+                  dict(type='Collect', keys=['img', 'gt_bboxes',
+                                             'gt_labels'])])
+
+
+def phase_codec(root, card='', cases=CODEC_CASES, digests=CODEC_DIGESTS,
+                timed=CODEC_TIMED, reps=5, loader_size=1024,
+                loader_images=64, bsz=8, num_workers=8, rounds=2) -> dict:
+    """Phase 53, on the card's host: the port's encoder writes the seeded
+    images of ``cases`` in BGR and grey and its decoder reads them back;
+    each file's and each decode's SHA-256 must equal ``digests`` (OpenCV's).
+    Then one encode and one decode at each side of ``timed`` on one thread
+    (the median of ``reps``), and the loader's imgs/s over
+    ``loader_images`` seeded ``loader_size``^2 images as JPEGs and as PNGs
+    (the port's writers), uint8 batches of ``bsz`` on ``num_workers``
+    threads, ``rounds`` times in turns, beside the decoder alone on as
+    many threads. Returns the times and rates."""
+    import shutil
+    from orientedobjectdetection_torch import native
+    from orientedobjectdetection_torch.utils.image_io import imwrite
+    native.load()
+    got = codec_digests(cases)
+    wrong = sorted(k for k in got if got[k] != digests.get(k))
+    if wrong:
+        raise AssertionError(f'the codec\'s files or decodes differ from '
+                             f'OpenCV\'s for {wrong}')
+    log(f'[codec] {len(got)} seeded images ({", ".join(n for n, *_ in cases)}'
+        f'; BGR and grey): every file and every decode equal to OpenCV\'s '
+        f'by SHA-256')
+    result = dict(encode_ms={}, decode_ms={}, bytes={}, loader={})
+    for side in timed:
+        img = codec_image(side, side, seed=side)
+        enc, dec = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            data = native.jpeg_encode(img)
+            t1 = time.perf_counter()
+            native.jpeg_decode(data)
+            dec.append(time.perf_counter() - t1)
+            enc.append(t1 - t0)
+        result['encode_ms'][side] = 1e3 * float(np.median(enc))
+        result['decode_ms'][side] = 1e3 * float(np.median(dec))
+        result['bytes'][side] = len(data)
+        log(f'[codec] {card} | host, one thread, {side}^2 BGR at quality 95 '
+            f'({len(data)} bytes): encode {result["encode_ms"][side]:.2f} ms, '
+            f'decode {result["decode_ms"][side]:.2f} ms (median of {reps}; '
+            f'encode {min(enc) * 1e3:.2f}-{max(enc) * 1e3:.2f}, decode '
+            f'{min(dec) * 1e3:.2f}-{max(dec) * 1e3:.2f})')
+    from concurrent.futures import ThreadPoolExecutor
+    want = ((bsz, loader_size, loader_size, 3), torch.uint8)
+    for ext in ('.jpg', '.png'):
+        folder = os.path.join(root, ext[1:])
+        shutil.rmtree(folder, ignore_errors=True)
+        os.makedirs(folder)
+        for i in range(loader_images):
+            imwrite(os.path.join(folder, f'{i:04d}{ext}'),
+                    codec_image(loader_size, loader_size, seed=i))
+        result['loader'][ext] = []
+    for _ in range(rounds):
+        for ext in ('.jpg', '.png'):
+            folder = os.path.join(root, ext[1:])
+            rate, _ = loader_rate(sar_loader_config(folder, loader_size),
+                                  bsz, num_workers, loader_images // bsz,
+                                  want=want)
+            result['loader'][ext].append(rate)
+    files = []
+    for i in range(loader_images):
+        with open(os.path.join(root, 'jpg', f'{i:04d}.jpg'), 'rb') as f:
+            files.append(f.read())
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(num_workers) as pool:
+        list(pool.map(native.jpeg_decode, files))
+    result['decoder_imgs_per_s'] = loader_images / (time.perf_counter() - t0)
+    log(f'[codec] {card} | the loader over {loader_images} seeded '
+        f'{loader_size}^2 images, uint8 batches of {bsz}, {num_workers} '
+        f'threads, {rounds} rounds in turns: JPEG '
+        f'{[round(r, 2) for r in result["loader"][".jpg"]]} imgs/s, PNG '
+        f'{[round(r, 2) for r in result["loader"][".png"]]} imgs/s; the '
+        f'decoder alone on {num_workers} threads '
+        f'{result["decoder_imgs_per_s"]:.2f} imgs/s')
+    return result
+
+
+def write_jpegs(folder, n, size, seed) -> list:
+    """``n`` seeded ``size``^2 speckle images written by the port's encoder
+    into ``folder`` (emptied first); their paths."""
+    import shutil
+    from orientedobjectdetection_torch.utils.image_io import imwrite
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    paths = []
+    for i in range(n):
+        paths.append(os.path.join(folder, f'{i:04d}.jpg'))
+        imwrite(paths[-1], codec_image(size, size, seed=seed + i,
+                                       speckle=True))
+    return paths
+
+
+def same_answers(got, ref, label) -> float:
+    """Two detection lists of ``tools.serve`` (``detections_json``): the
+    same classes in the same order, boxes and scores within DETS_ATOL.
+    Returns the largest difference."""
+    if [d['class_id'] for d in got] != [d['class_id'] for d in ref]:
+        raise AssertionError(f'{label}: {len(got)} vs {len(ref)} detections '
+                             f'or other classes')
+    worst = 0.0
+    for a, b in zip(got, ref):
+        worst = max(worst, max(abs(x - y) for x, y in
+                               zip(a['bbox'] + [a['score']],
+                                   b['bbox'] + [b['score']])))
+    if worst > DETS_ATOL:
+        raise AssertionError(f'{label}: detections differ by {worst}')
+    return worst
+
+
+def phase_sar_serve(root, paths, state, device, card, config=SAR_CONFIG,
+                    thr=SERVE_THR) -> dict:
+    """Phase 54 (iii): ``tools.serve`` over ``config`` with the weights
+    ``state`` on an ephemeral localhost port answers each JPEG of ``paths``
+    as a raw and as a base64 body, and the same pixels as a PNG body, each
+    with 200 and ``inference_detector``'s JSON on the decoded pixels; a
+    truncated JPEG gets a 400. Returns the launch counts of the JPEG and PNG
+    requests and their ms."""
+    import base64
+    import http.client
+    import threading
+    from orientedobjectdetection_torch.apis.inference import \
+        inference_detector
+    from orientedobjectdetection_torch.tools import serve
+    from orientedobjectdetection_torch.utils.image_io import imread, imwrite
+    ckpt = os.path.join(root, 'sar_serve.pth')
+    torch.save(state, ckpt)
+    server = serve.build_server(serve.parse_args([
+        config, ckpt, '--host', '127.0.0.1', '--port', '0', '--score-thr',
+        str(thr), '--device', device]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    bundle = server.RequestHandlerClass.served
+    host, port = server.server_address[:2]
+
+    def post(body):
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        conn.request('POST', '/predict', body=body)
+        reply = conn.getresponse()
+        data = reply.read()
+        seconds = time.perf_counter() - t0
+        conn.close()
+        return reply.status, data, seconds
+
+    jpegs, pngs = [], []
+    for path in paths:
+        with open(path, 'rb') as f:
+            jpegs.append(f.read())
+        png = os.path.splitext(path)[0] + '.png'
+        imwrite(png, imread(path))
+        with open(png, 'rb') as f:
+            pngs.append(f.read())
+    try:
+        post(jpegs[0])                                      # warm
+        answers, ms = {'jpeg': [], 'base64': [], 'png': []}, \
+            {'jpeg': [], 'base64': [], 'png': []}
+        reset_launches()
+        for i in range(len(paths)):
+            for kind, body in (('jpeg', jpegs[i]),
+                               ('base64', base64.b64encode(jpegs[i])),
+                               ('png', pngs[i])):
+                status, data, seconds = post(body)
+                if status != 200:
+                    raise AssertionError(f'serve answered a {kind} body with '
+                                         f'{status}: {data[:200]}')
+                answers[kind].append(json.loads(data))
+                ms[kind].append(1e3 * seconds)
+        counts = read_launches()
+        status, data, _ = post(jpegs[0][:len(jpegs[0]) // 2])
+        if status != 400 or b'truncated' not in data:
+            raise AssertionError(f'a truncated JPEG got {status}: {data}')
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    worst, n_dets = 0.0, 0
+    for i, path in enumerate(paths):
+        ref = serve.detections_json(inference_detector(bundle, imread(path)),
+                                    thr)
+        for kind in answers:
+            worst = max(worst, same_answers(answers[kind][i], ref,
+                                            f'{kind} body {i}'))
+        n_dets += len(ref)
+    log(f'[sar-serve] {card} | {len(paths)} JPEGs of '
+        f'{imread(paths[0]).shape[0]}^2 as raw and base64 bodies and the '
+        f'same pixels as PNG bodies over localhost: each 200 with '
+        f'inference_detector\'s JSON on the decoded pixels ({n_dets} '
+        f'detections above {thr}, max |diff| {worst:.3g}); a truncated JPEG '
+        f'400; ms a request: JPEG median {float(np.median(ms["jpeg"])):.1f} '
+        f'{[round(m, 1) for m in ms["jpeg"]]}, base64 '
+        f'{float(np.median(ms["base64"])):.1f}, PNG '
+        f'{float(np.median(ms["png"])):.1f} {[round(m, 1) for m in ms["png"]]}'
+        f'; launches {counts}')
+    return dict(counts=counts, ms=ms)
+
+
+def phase_sar_serving(root, device, card='', bsz=8, size=800, warm=3,
+                      timed=10, slice_bsz=2, served=4, dtype=torch.bfloat16,
+                      max_num=2000, max_candidates=2000,
+                      config=SAR_CONFIG) -> tuple:
+    """Phase 54: the HRSID Oriented R-CNN (R50-FPN, one class) at full
+    width with seeded weights, on ``bsz`` seeded ``size``^2 images written
+    as JPEGs by the port's encoder and read by its decoder. (i) float32 on
+    ``slice_bsz`` of them: the detections with B3 and B1 equal those with
+    the plain RoIAlign and the plain pair mask (phase 10's check); a
+    ``.jpg`` path and its decoded array give ``inference_detector`` the
+    same detections. (ii) ``dtype`` requests of all ``bsz``, ``timed`` after
+    ``warm`` (phase 11's run: imgs/s, forward and decode + NMS ms, peak
+    memory, one B1 and one B3 launch a request, one request profiled by the
+    ``two_stage.*`` ranges), one more request's B1 and B3 inputs recorded
+    under ``'sar'`` / ``'sar_roi'`` for phase 12. (iii) ``tools.serve`` on
+    ``served`` of the JPEGs (:func:`phase_sar_serve`). Returns the launch
+    counts of (ii) and (iii), and the recorded inputs."""
+    from orientedobjectdetection_torch.apis.inference import \
+        inference_detector
+    from orientedobjectdetection_torch.utils.image_io import imread
+    paths = write_jpegs(os.path.join(root, 'images'), bsz, size, seed=100)
+    t0 = time.perf_counter()
+    decoded = [imread(path) for path in paths]
+    decode_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+    images = torch.from_numpy(np.stack(decoded))
+    log(f'[sar] {len(paths)} seeded {size}^2 JPEGs written and read back '
+        f'({decode_ms:.2f} ms a decode, {os.path.getsize(paths[0])} bytes '
+        f'the first)')
+    phase_orcnn_slice(device, max_num=max_num, max_candidates=max_candidates,
+                      config=config, images=images[:slice_bsz],
+                      label='sar-slice')
+    bundle = build_orcnn_bundle(device, torch.float32, max_num,
+                                max_candidates, config=config)
+    by_path = inference_detector(bundle, paths[0])
+    by_array = inference_detector(bundle, decoded[0])
+    if [len(a) for a in by_path] != [len(a) for a in by_array] or any(
+            np.abs(a - b).max(initial=0) > DETS_ATOL
+            for a, b in zip(by_path, by_array)):
+        raise AssertionError('a .jpg path and its decoded array give '
+                             'inference_detector other detections')
+    state = {k: v.cpu() for k, v in bundle.detector.state_dict().items()}
+    log(f'[sar] inference_detector on a .jpg path and on its decoded array: '
+        f'the same {sum(map(len, by_path))} detections')
+    del bundle
+    free_card(device)
+    counts, inputs = phase_orcnn_serving(
+        device, card, warm=warm, timed=timed, split=1, dtype=dtype,
+        max_num=max_num, max_candidates=max_candidates, config=config,
+        images=images, key='sar', label='sar-serving')
+    free_card(device)
+    serve_run = phase_sar_serve(root, paths[:served], state, device, card,
+                                config)
+    free_card(device)
+    return [counts, serve_run['counts']], inputs
+
+
+def phase_sar_split(root, device, card='', n_images=16, size=512,
+                    batch_size=8, slice_bsz=2, scene=4000, window=1024,
+                    gap=200, max_candidates=2000, config=SSDD_CONFIG,
+                    retina_config=SSDD_RETINA_CONFIG) -> list:
+    """Phase 55: ``tools.test --format-only`` of the SSDD Oriented R-CNN
+    (``config``: R50-FPN, one class, seeded weights) over a test folder of
+    ``n_images`` seeded ``size``^2 ``.jpg`` images (the DOTA glob), through
+    the loader, with ``--show-dir``: B1 and B3 launched once a batch (and
+    B1 once an image in ``merge_det``), the Task1 file written, and every
+    drawn image a JPEG (its ``.jpg`` name) whose bytes are the encoder's of
+    ``imshow_det_rbboxes``' drawing. The
+    SSDD RetinaNet in float32 on ``slice_bsz`` of the decoded JPEGs: B1 and
+    the plain pair mask give the same detections (phase 4's check).
+    ``img_split`` cuts a ``scene``^2 ``.jpg`` into ``window`` tiles at
+    ``gap``: every tile's pixels equal the decoded scene's crop (padded with
+    ``SAR_TILE_PAD``). Returns the launch counts of the test run."""
+    import pickle
+    import re
+    import shutil
+    from orientedobjectdetection_torch import native
+    from orientedobjectdetection_torch.core.visualization import \
+        imshow_det_rbboxes
+    from orientedobjectdetection_torch.tools import img_split
+    from orientedobjectdetection_torch.tools import test as test_tool
+    from orientedobjectdetection_torch.utils.image_io import imread, imwrite
+    folder = os.path.join(root, 'test', 'images')
+    paths = write_jpegs(folder, n_images, size, seed=200)
+    bundle = build_orcnn_bundle(device, torch.float32, config=config)
+    ckpt = os.path.join(root, 'ssdd_orcnn.pth')
+    torch.save(bundle.detector.state_dict(), ckpt)
+    del bundle
+    free_card(device)
+    show, sub = os.path.join(root, 'show'), os.path.join(root, 'submission')
+    pkl = os.path.join(root, 'results.pkl')
+    for d in (show, sub):
+        shutil.rmtree(d, ignore_errors=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    test_tool.main([config, ckpt, '--device', device, '--format-only',
+                    '--batch-size', str(batch_size), '--submission-dir', sub,
+                    '--out', pkl, '--show-dir', show, '--show-score-thr',
+                    '0.3', '--cfg-options',
+                    f'data.test.ann_file={folder}/',
+                    f'data.test.img_prefix={folder}/'])
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    # one B3 and one B1 launch a batch, and one B1 launch an image in
+    # merge_det (one class)
+    batches = -(-n_images // batch_size)
+    on_card = torch.device(device).type == 'cuda'
+    for name, expected in (('roi_align_rotated', batches),
+                           ('nms_pair_mask', batches + n_images)):
+        if counts[name] != (expected if on_card else 0):
+            raise AssertionError(f'{name} launched {counts[name]} times in '
+                                 f'{batches} batches of {n_images} images '
+                                 f'(expected {expected})')
+    with open(os.path.join(sub, 'Task1_ship.txt')) as f:
+        lines = f.read().splitlines()
+    ids = {line.split()[0] for line in lines}
+    if ids != {f'{i:04d}' for i in range(n_images)}:
+        raise AssertionError(f'Task1_ship.txt names {len(ids)} of '
+                             f'{n_images} images')
+    with open(pkl, 'rb') as f:
+        results = pickle.load(f)
+    drawn = sorted(os.listdir(show))
+    if drawn != [os.path.basename(p) for p in paths]:
+        raise AssertionError(f'--show-dir holds {drawn}')
+    for name in drawn:
+        with open(os.path.join(show, name), 'rb') as f:
+            if not f.read(3) == b'\xff\xd8\xff':
+                raise AssertionError(f'{name} in --show-dir is not a JPEG')
+        if imread(os.path.join(show, name)).shape != (size, size, 3):
+            raise AssertionError(f'{name} does not read back')
+    again = imshow_det_rbboxes(paths[0], results[0], class_names=('ship',),
+                               score_thr=0.3)
+    with open(os.path.join(show, drawn[0]), 'rb') as f:
+        if f.read() != native.jpeg_encode(again):
+            raise AssertionError('the drawn JPEG is not the encoder\'s file '
+                                 'of imshow_det_rbboxes\' drawing')
+    log(f'[sar-split] {card} | tools.test --format-only over {n_images} '
+        f'{size}^2 .jpg test images of the SSDD Oriented R-CNN (float32, '
+        f'batches of {batch_size}): {seconds:.2f} s, {len(lines)} lines in '
+        f'Task1_ship.txt, launches {counts}; --show-dir wrote {len(drawn)} '
+        f'JPEGs, the first byte for byte the encoder\'s of its drawing')
+    images = torch.from_numpy(np.stack([imread(p)
+                                        for p in paths[:slice_bsz]]))
+    phase_slice(device, max_candidates=max_candidates,
+                config=retina_config, images=images,
+                label='ssdd-retinanet')
+    free_card(device)
+    scene_dir, tiles = os.path.join(root, 'scene'), os.path.join(root,
+                                                                 'tiles')
+    for d in (scene_dir, tiles):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(scene_dir)
+    scene_path = os.path.join(scene_dir, 'P0001.jpg')
+    imwrite(scene_path, codec_image(scene, scene, seed=scene))
+    pixels = imread(scene_path)
+    t0 = time.perf_counter()
+    n_tiles = img_split.main(['--img-dirs', scene_dir, '--save-dir', tiles,
+                              '--sizes', str(window), '--gaps', str(gap)])
+    split_s = time.perf_counter() - t0
+    pattern = re.compile(r'P0001__(\d+)__(\d+)___(\d+)\.png')
+    names = sorted(os.listdir(os.path.join(tiles, 'images')))
+    if len(names) != n_tiles or not n_tiles:
+        raise AssertionError(f'img_split wrote {len(names)} tiles, said '
+                             f'{n_tiles}')
+    for name in names:
+        side, x, y = (int(v) for v in pattern.fullmatch(name).groups())
+        want = np.empty((side, side, 3), np.uint8)
+        want[...] = SAR_TILE_PAD
+        crop = pixels[y:y + side, x:x + side]
+        want[:crop.shape[0], :crop.shape[1]] = crop
+        if not np.array_equal(imread(os.path.join(tiles, 'images', name)),
+                              want):
+            raise AssertionError(f'tile {name} differs from the scene\'s '
+                                 f'crop')
+    log(f'[sar-split] img_split cut a {scene}^2 .jpg scene into {n_tiles} '
+        f'tiles of {window} at gap {gap} in {split_s:.2f} s: each equal to '
+        f'the decoded scene\'s crop')
+    return [counts]
+
+
+def held_sar(device, captured, by_name, card, reps, roi_reps,
+             plain_reps) -> None:
+    """Phase 54's recorded inputs against their plain versions, each timed
+    into ``main_path_inputs``: B1 on one bfloat16 HRSID request's
+    candidates, B3 on its levels and proposals."""
+    held_pair_masks([captured['sar']], 'HRSID Oriented R-CNN request (800^2 '
+                    'JPEGs)', 'sar', by_name['nms_pair_mask'], device, card,
+                    reps, plain_reps)
+    levels, rois = captured['sar_roi']
+    held_roi_inputs([(levels, rois, 2)], 'HRSID Oriented R-CNN request '
+                    '(800^2 JPEGs)', 'sar', by_name['roi_align_rotated'],
+                    device, card, roi_reps, plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -6438,6 +7007,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_reppoints(device, captured, by_name, card, reps, plain_reps)
     held_yolo(device, captured, by_name, card, reps, plain_reps)
     held_yolov6(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_sar(device, captured, by_name, card, reps, roi_reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -6781,6 +7351,18 @@ def main() -> int:
         'cuda', card=info['card'])
     captured.update(reference_inputs)
     log(f'[phase 52] {time.perf_counter() - t52:.1f} s')
+    t53 = time.perf_counter()
+    phase_codec(os.path.join(DATA_DIR, 'codec'), card=info['card'])
+    log(f'[phase 53] {time.perf_counter() - t53:.1f} s')
+    t54 = time.perf_counter()
+    sar_runs, sar_inputs = phase_sar_serving(os.path.join(DATA_DIR, 'sar'),
+                                             'cuda', card=info['card'])
+    captured.update(sar_inputs)
+    log(f'[phase 54] {time.perf_counter() - t54:.1f} s')
+    t55 = time.perf_counter()
+    split_runs = phase_sar_split(os.path.join(DATA_DIR, 'sar_split'), 'cuda',
+                                 card=info['card'])
+    log(f'[phase 55] {time.perf_counter() - t55:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -6799,7 +7381,8 @@ def main() -> int:
         # tiny YOLOv8 run, the data-parallel steps and evaluations of each
         # rank, the served requests, the host NMS check's kernel calls and
         # the confusion matrix, the YOLOv6-neck model's requests and steps,
-        # and the seeded and converted models' requests of phase 52
+        # the seeded and converted models' requests of phase 52, the HRSID
+        # requests and served JPEGs of phase 54 and phase 55's test run
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -6808,7 +7391,8 @@ def main() -> int:
             *backbone_serving, *backbone_training, *redet_loop,
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
-            *host_runs, *yolov6_runs, *reference_runs))
+            *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
+            *split_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

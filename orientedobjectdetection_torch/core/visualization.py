@@ -6,7 +6,8 @@ Draws without OpenCV: each box's polygon with ``utils/image_io.py:line``
 (``cv2.polylines`` of a closed polygon is ``cv2.line`` on each edge, pixel
 for pixel), the label with ``utils/font.py:put_text`` (OpenCV's Hershey
 simplex glyphs, drawn without antialiasing), and the file with
-``utils/image_io.py:imwrite``.
+``utils/image_io.py:imwrite``: a ``.jpg`` out file is a JPEG as
+``cv2.imwrite`` writes it, a ``.bmp`` a BMP, any other a PNG.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def imshow_det_rbboxes(img, result: List[np.ndarray],
                        version: str = 'le90',
                        palette=None,
                        out_file: Optional[str] = None) -> np.ndarray:
-    """Draw per-class ``(n, 6)`` detections on a copy of ``img`` (a PNG or
-    BMP path, or an ``(H, W, 3)`` uint8 BGR array): each box scoring at
+    """Draw per-class ``(n, 6)`` detections on a copy of ``img`` (a PNG,
+    JPEG or BMP path, or an ``(H, W, 3)`` uint8 BGR array): each box scoring at
     least ``score_thr`` as a closed polygon in its class's color, labelled
     ``name|score`` 3 pixels above its first corner. ``palette``: a color
     list or a name of :data:`PALETTES`. Writes ``out_file`` when given and

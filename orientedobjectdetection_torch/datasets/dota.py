@@ -3,7 +3,10 @@
 ``datasets/dota.py:24-382`` and ``sar.py``).
 
 ``{split}/annfiles/*.txt`` lines ``x1 y1 ... x4 y4 class difficulty`` ->
-rotated boxes through :func:`poly2obb_np`; ``{split}/images/*.png``;
+rotated boxes through :func:`poly2obb_np`; ``{split}/images/*.png``
+(a split without annotation files is a test split of ``*.png`` and
+``*.jpg`` images; an annotated one reads ``<stem>.png``, as the JAX
+package does);
 ``evaluate`` -> rotated VOC mAP; ``merge_det`` puts the detections of
 tiles (``<id>__<size>__<x>___<y>``) back into their image's frame and
 ``format_results`` writes the DOTA Task1 submission files and their zip.

@@ -4,7 +4,8 @@
 Every batch has fixed shapes: images padded to a static size, gts padded to
 ``max_gt`` with a mask, in the layout ``make_train_step`` takes. Samples
 are decoded on a pool of threads (the PNG decode is zlib and numpy, which
-release the interpreter lock for their large calls), or on a persistent
+release the interpreter lock for their large calls; the JPEG decode is host
+C++ called through ctypes, which releases it), or on a persistent
 pool of processes, while a producer thread keeps ``prefetch`` batches
 ready; each batch's arrays become pinned host tensors when a card is
 present, so their copies to it are asynchronous. ``shard_id`` /

@@ -30,9 +30,10 @@ from ..utils.registry import PIPELINES
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """Reads the image with :func:`imread`. ``cache='ram'`` keeps every
-    decoded uint8 image of this transform in memory, keyed by path: the
-    first epoch decodes, later epochs do not."""
+    """Reads the image (PNG, JPEG or BMP) with :func:`imread`, as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it. ``cache='ram'`` keeps
+    every decoded uint8 image of this transform in memory, keyed by path:
+    the first epoch decodes, later epochs do not."""
 
     def __init__(self, to_float32: bool = False, color_type: str = 'color',
                  cache: str = 'none'):

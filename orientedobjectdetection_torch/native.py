@@ -1,14 +1,18 @@
-"""Native (C++) host geometry, loaded with ``ctypes`` (counterpart of
-``orientedobjectdetection_tpu/native/__init__.py``).
+"""Native (C++) host code, loaded with ``ctypes``: the rotated-box geometry
+(counterpart of ``orientedobjectdetection_tpu/native/__init__.py``) and the
+JPEG codec (what OpenCV's libjpeg-turbo does for the JAX package).
 
-``csrc/rnms.cpp`` (the port's own copy of the JAX package's source) is
-built with ``g++`` at first use into ``_build/rnms-<hash>.so`` inside the
-package, named by a hash of the source and the flags as
-``utils/cuda_build.py`` names the CUDA kernels, and loaded once a process.
-It serves the host call sites, ``ops/nms.py:nms_rotated_np(device='cpu')``
-above all: ``rbox_iou``, ``nms_rotated`` and ``nms_hbb``. Where the JAX
-package falls back to its jnp path without a compiler, the port raises
-RuntimeError: it never falls back quietly.
+``csrc/rnms.cpp`` (the port's own copy of the JAX package's source) and
+``csrc/jpeg.cpp`` are built with ``g++`` at first use into one library,
+``_build/native-<hash>.so`` inside the package, named by a hash of both
+sources and the flags as ``utils/cuda_build.py`` names the CUDA kernels,
+and loaded once a process. The geometry serves the host call sites,
+``ops/nms.py:nms_rotated_np(device='cpu')`` above all: ``rbox_iou``,
+``nms_rotated`` and ``nms_hbb``; the codec serves ``utils/image_io.py``:
+``jpeg_decode`` and ``jpeg_encode``. Where the JAX package falls back to
+its jnp path without a compiler, the port raises RuntimeError: it never
+falls back quietly. ctypes releases the GIL during a call, so threads
+decode in parallel.
 """
 
 from __future__ import annotations
@@ -24,29 +28,38 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / 'csrc' / 'rnms.cpp'
+JPEG_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'jpeg.cpp'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 _LOCK = threading.Lock()
 _LIB = None
 
 
+def sources() -> tuple:
+    return SOURCE, JPEG_SOURCE
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest = hashlib.sha256()
+    for source in sources():
+        digest.update(source.read_bytes())
     digest.update(' '.join(FLAGS).encode())
-    return BUILD_DIR / f'rnms-{digest.hexdigest()[:16]}.so'
+    return BUILD_DIR / f'native-{digest.hexdigest()[:16]}.so'
 
 
 def _build(target: Path) -> None:
+    names = ' '.join(source.name for source in sources())
     compiler = shutil.which(os.environ.get('CXX', 'g++'))
     if compiler is None:
-        raise RuntimeError('the native host NMS needs a C++ compiler (g++, '
-                           'or $CXX) to build csrc/rnms.cpp')
+        raise RuntimeError(f'the native host code needs a C++ compiler (g++, '
+                           f'or $CXX) to build {names}')
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f'.{os.getpid()}.tmp')
-    proc = subprocess.run([compiler, *FLAGS, '-o', str(tmp), str(SOURCE)],
+    proc = subprocess.run([compiler, *FLAGS, '-o', str(tmp),
+                           *(str(source) for source in sources())],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        raise RuntimeError(f'{compiler} failed on rnms.cpp (exit '
+        raise RuntimeError(f'{compiler} failed on {names} (exit '
                            f'{proc.returncode}):\n{proc.stderr}')
     os.replace(tmp, target)        # atomic when processes build at once
 
@@ -74,6 +87,16 @@ def load() -> ctypes.CDLL:
             lib.oodt_nms_hbb.argtypes = [f32p, f32p, i64, ctypes.c_float,
                                          i64p]
             lib.oodt_nms_hbb.restype = i64
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags='C_CONTIGUOUS')
+            buf = ctypes.c_char_p
+            lib.oodt_jpeg_size.argtypes = [buf, i64, i64p, buf, i64]
+            lib.oodt_jpeg_size.restype = ctypes.c_int
+            lib.oodt_jpeg_decode.argtypes = [buf, i64, u8p, i64, i64, buf,
+                                             i64]
+            lib.oodt_jpeg_decode.restype = ctypes.c_int
+            lib.oodt_jpeg_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
+                                             buf, i64]
+            lib.oodt_jpeg_encode.restype = i64
             _LIB = lib
     return _LIB
 
@@ -110,3 +133,45 @@ def nms_hbb(boxes, scores, iou_thr: float) -> np.ndarray:
     keep = np.empty((b.shape[0],), np.int64)
     k = lib.oodt_nms_hbb(b, s, b.shape[0], float(iou_thr), keep)
     return keep[:k]
+
+
+_ERROR_BYTES = 256
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """A JPEG file's bytes -> ``(H, W, 3)`` uint8 BGR, bit for bit what
+    ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives before it applies an
+    EXIF orientation. Raises ValueError for a corrupt or truncated file and
+    for the forms ``csrc/jpeg.cpp`` does not read (each named, ROADMAP
+    A.4c)."""
+    lib = load()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    dims = np.zeros(3, np.int64)
+    if lib.oodt_jpeg_size(data, len(data), dims, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    out = np.empty((int(dims[0]), int(dims[1]), 3), np.uint8)
+    if lib.oodt_jpeg_decode(data, len(data), out.reshape(-1), dims[0],
+                            dims[1], err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def jpeg_encode(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` uint8 BGR or ``(H, W)`` grey -> the bytes
+    ``cv2.imencode('.jpg', img)`` gives with OpenCV's defaults (quality 95,
+    4:2:0, baseline, JFIF)."""
+    lib = load()
+    img = np.ascontiguousarray(img, np.uint8)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    cap = img.size + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.oodt_jpeg_encode(img.reshape(-1), img.shape[0], img.shape[1],
+                                 channels, out, cap, err, _ERROR_BYTES)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n

@@ -9,8 +9,8 @@ image, writes each window as ``<id>__<size>__<x>___<y>.png`` (padded with
 annotations: an object whose area lies in the window by ``--iof-thr``
 (0.7) or more keeps its difficulty, a smaller part of one is written with
 difficulty 2; an annotated window with no object is skipped.
-``DOTADataset.merge_det`` parses the offsets back. Images are read and
-written with :mod:`..utils.image_io` (PNG or BMP).
+``DOTADataset.merge_det`` parses the offsets back. Images are read
+(PNG, JPEG or BMP scenes) and written with :mod:`..utils.image_io`.
 
     python -m orientedobjectdetection_torch.tools.img_split \\
         --img-dirs data/DOTA/train/images \\

@@ -1,22 +1,40 @@
-"""Image reading, writing, resizing and drawing in numpy and the standard
-library (a port-only module: the JAX package's data path uses OpenCV, and
-the port depends on neither OpenCV nor PIL).
+"""Image reading, writing, resizing and drawing in numpy, the standard
+library and the port's host C++ (a port-only module: the JAX package's data
+path uses OpenCV, and the port depends on neither OpenCV nor PIL).
 
-- :func:`imread` / :func:`imwrite`: 8-bit PNG and BMP, ``(H, W, 3)``
-  uint8 BGR as ``cv2.imread(path, cv2.IMREAD_COLOR)`` returns it (JPEG is
-  ROADMAP A.4b). The PNG reader takes grey,
-  grey + alpha, RGB and RGBA images with any of the five row filters (alpha
-  is dropped, grey is repeated). It raises ``ValueError`` for interlaced,
-  16-bit, low-bit and palette images, and for anything that is not a PNG.
-  OpenCV writes every row with the Sub filter, and so does :func:`imwrite`:
-  rows of None, Sub and Up decode as whole-row numpy operations; a file
-  with any Average or Paeth row decodes along the image's anti-diagonals,
-  each pixel after its left, upper and upper-left neighbours, an order of
-  magnitude slower. The BMP reader takes 24- and 32-bit uncompressed files
-  (bottom-up or top-down rows, 32-bit with an alpha or unused byte, which is
-  dropped) and refuses palette, RLE and other bit depths by name; the
-  writer writes what ``cv2.imwrite(path.bmp)`` writes: 24-bit ``BI_RGB``,
-  bottom-up rows padded to 4 bytes, the same 54-byte header.
+- :func:`imread` / :func:`imdecode`: PNG, JPEG and BMP as ``(H, W, 3)``
+  uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` and ``cv2.imdecode``
+  return them, an EXIF orientation applied (a JPEG's first APP1 segment, a
+  PNG's ``eXIf`` chunk; values 1-8, as OpenCV 5 applies them).
+
+  - PNG: grey (1, 2, 4, 8 and 16 bits; low depths scaled to 8 bits as
+    libpng expands them), grey + alpha, RGB and RGBA (8 or 16 bits) and
+    palette images (1, 2, 4 and 8 bits), alpha and ``tRNS`` dropped, 16-bit
+    samples cut to their high byte as OpenCV's ``png_set_strip_16`` does,
+    plain or Adam7-interlaced, any of the five row filters. OpenCV writes
+    every row with the Sub filter: rows of None, Sub and Up decode as
+    whole-row numpy operations; a pass with any Average or Paeth row decodes
+    along the image's anti-diagonals, an order of magnitude slower.
+  - JPEG: ``native.jpeg_decode`` (``csrc/jpeg.cpp``, host C++ built with
+    g++ at first use): baseline, extended and progressive Huffman files
+    with 8-bit samples, 1 or 3 components, bit for bit what libjpeg-turbo's
+    default path gives (islow IDCT, fancy upsampling).
+  - BMP: 24- and 32-bit (bottom-up or top-down rows, the fourth byte
+    dropped), 1-, 4- and 8-bit palette images, RLE8 and RLE4 (runs,
+    absolute runs, end of line, delta and end of bitmap; pixels a file
+    skips take palette entry 0, as OpenCV's reader fills them), and 16-bit
+    as 555 ``BI_RGB`` or 555 / 565 ``BI_BITFIELDS`` (OpenCV's 5- and 6-bit
+    expansions, no bit replication).
+
+  TIFF, CMYK / YCCK, arithmetic-coded, 12-bit, lossless and hierarchical
+  JPEGs raise ``ValueError`` naming the form and ROADMAP A.4c; so does
+  anything else that does not decode (truncated or corrupt data).
+- :func:`imwrite`: a ``.jpg``, ``.jpeg`` or ``.jpe`` path gets what
+  ``cv2.imwrite`` writes there with OpenCV's defaults (``native.jpeg_encode``:
+  quality 95, 4:2:0, baseline; ``(H, W)`` grey images as one component), a
+  ``.bmp`` what it writes for a BMP (24-bit ``BI_RGB``, bottom-up rows
+  padded to 4 bytes, the same 54-byte header), any other path an 8-bit RGB
+  PNG with every row Sub-filtered (as OpenCV filters them).
 - :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
   arithmetic (11-bit weights, a horizontal pass into integers, a vertical
@@ -52,8 +70,18 @@ from typing import Tuple
 import numpy as np
 
 _SIGNATURE = b'\x89PNG\r\n\x1a\n'
-# PNG colour type -> channels (grey, RGB, grey + alpha, RGBA); 3 is palette
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_JPEG_SIGNATURE = b'\xff\xd8'
+_TIFF_SIGNATURES = (b'II*\x00', b'MM\x00*')
+_JPEG_SUFFIXES = ('.jpg', '.jpeg', '.jpe')
+_MAX_PIXELS = 1 << 30           # OpenCV's limit (CV_IO_MAX_IMAGE_PIXELS)
+# PNG colour type -> channels (grey, RGB, palette, grey + alpha, RGBA), and
+# the bit depths each allows
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+# Adam7 passes: first column and row, column and row steps
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -113,30 +141,120 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read an 8-bit PNG or a 24- or 32-bit BMP as ``(H, W, 3)`` uint8
-    BGR."""
+    """Read a PNG, JPEG or BMP as ``(H, W, 3)`` uint8 BGR, as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it."""
     with open(path, 'rb') as f:
         return imdecode(f.read(), path)
 
 
 def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
-    """Decode the bytes of an 8-bit PNG or a 24- or 32-bit BMP as ``(H, W,
-    3)`` uint8 BGR; ``path`` names the source in errors. Raises ValueError
-    for anything else (a JPEG names ROADMAP A.4b)."""
+    """Decode the bytes of a PNG, JPEG or BMP as ``(H, W, 3)`` uint8 BGR,
+    with its EXIF orientation applied; ``path`` names the source in errors.
+    Raises ValueError for anything else (the forms ROADMAP A.4c lists by
+    name)."""
+    data = bytes(data)
     if data.startswith(_BMP_SIGNATURE):
         return _read_bmp(path, data)
-    if data.startswith(b'\xff\xd8\xff'):
-        raise ValueError(f'{path}: JPEG is not read yet (ROADMAP A.4b)')
+    if data.startswith(_JPEG_SIGNATURE):
+        from .. import native
+        try:
+            img = native.jpeg_decode(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: JPEG: {e}') from None
+        return _orient(img, _exif_orientation(_jpeg_exif(data)))
+    if data.startswith(_TIFF_SIGNATURES):
+        raise ValueError(f'{path}: TIFF is not read (ROADMAP A.4c)')
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f'{path}: neither a PNG nor a BMP file')
+        raise ValueError(f'{path}: not a PNG, JPEG or BMP file')
     return _read_png(path, data)
 
 
+# ---- EXIF orientation ----------------------------------------------------
+def _jpeg_exif(data: bytes) -> bytes:
+    """The TIFF block of a JPEG's first APP1 segment (the one OpenCV
+    reads, whatever it holds), or b''."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker = data[pos + 1]
+        if marker == 0xFF:                                 # a fill byte
+            pos += 1
+            continue
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            pos += 2
+            continue
+        if marker in (0xDA, 0xD9):                         # SOS, EOI
+            break
+        length = struct.unpack('>H', data[pos + 2:pos + 4])[0]
+        if marker == 0xE1:
+            return data[pos + 4 + 6:pos + 2 + length]
+        pos += 2 + length
+    return b''
+
+
+def _exif_orientation(tiff: bytes) -> int:
+    """The orientation tag (0x0112) of IFD0 in a TIFF-structured EXIF
+    block: 1-8, or 1 where there is none or the block does not parse."""
+    if len(tiff) < 8 or tiff[:2] not in (b'II', b'MM'):
+        return 1
+    order = '<' if tiff[:2] == b'II' else '>'
+    try:
+        if struct.unpack_from(order + 'H', tiff, 2)[0] != 42:
+            return 1
+        ifd = struct.unpack_from(order + 'I', tiff, 4)[0]
+        count = struct.unpack_from(order + 'H', tiff, ifd)[0]
+        for i in range(count):
+            tag = struct.unpack_from(order + 'H', tiff, ifd + 2 + 12 * i)[0]
+            if tag == 0x0112:
+                value = struct.unpack_from(order + 'H', tiff,
+                                           ifd + 2 + 12 * i + 8)[0]
+                return value if 1 <= value <= 8 else 1
+    except struct.error:
+        return 1
+    return 1
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ``ApplyExifOrientation``: 2-4 flip, 5-8 transpose and
+    then flip."""
+    if orientation == 1:
+        return img
+    if orientation >= 5:
+        img = img.transpose(1, 0, 2)
+    flips = {2: (1,), 3: (0, 1), 4: (0,), 5: (), 6: (1,), 7: (0, 1),
+             8: (0,)}[orientation]
+    for axis in flips:
+        img = np.flip(img, axis)
+    return np.ascontiguousarray(img)
+
+
+# ---- PNG ------------------------------------------------------------------
+def _png_samples(raw: np.ndarray, h: int, w: int, depth: int,
+                 channels: int) -> np.ndarray:
+    """One (sub)image's filtered bytes -> (h, w, channels) samples, 8-bit
+    (16-bit cut to the high byte; low depths as indices, unscaled)."""
+    bits = depth * channels
+    stride = (w * bits + 7) // 8
+    rows = raw.reshape(h, stride + 1)
+    data = _unfilter(rows[:, 1:], rows[:, 0], max(1, bits // 8))
+    if depth == 16:
+        return data.reshape(h, w, channels, 2)[..., 0]
+    if depth == 8:
+        return data.reshape(h, w, channels)
+    unpacked = np.unpackbits(data, axis=1)[:, :w * depth].reshape(h, w,
+                                                                   depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (unpacked * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
 def _read_png(path: str, data: bytes) -> np.ndarray:
-    header, idat = None, []
+    header, idat, palette, exif = None, [], None, b''
     for kind, body in _chunks(data):
         if kind == b'IHDR':
             header = struct.unpack('>IIBBBBB', body)
+        elif kind == b'PLTE':
+            palette = body
+        elif kind == b'eXIf' and not idat:
+            exif = body
         elif kind == b'IDAT':
             idat.append(body)
         elif kind == b'IEND':
@@ -144,68 +262,210 @@ def _read_png(path: str, data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f'{path}: PNG without IHDR or IDAT')
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8:
-        raise ValueError(f'{path}: {depth}-bit PNG (only 8-bit is read)')
-    if colour not in _CHANNELS:
-        raise ValueError(f'{path}: palette PNG (colour type {colour}) is '
-                         'not read')
-    if interlace:
-        raise ValueError(f'{path}: interlaced PNG is not read')
-    bpp = _CHANNELS[colour]
-    stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    if raw.size != height * (stride + 1):
+    if not width or not height or width * height > _MAX_PIXELS:
+        raise ValueError(f'{path}: PNG of {width} x {height} pixels')
+    if colour not in _CHANNELS or depth not in _DEPTHS[colour]:
+        raise ValueError(f'{path}: PNG of colour type {colour} and bit depth '
+                         f'{depth} is not valid')
+    if interlace > 1:
+        raise ValueError(f'{path}: unknown PNG interlace method {interlace}')
+    if colour == 3 and palette is None:
+        raise ValueError(f'{path}: palette PNG without PLTE')
+    channels = _CHANNELS[colour]
+    try:
+        raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f'{path}: PNG image data does not inflate: {e}') \
+            from None
+    passes = (_ADAM7 if interlace else ((0, 0, 1, 1),))
+    sizes = [((height - y0 + dy - 1) // dy, (width - x0 + dx - 1) // dx)
+             for x0, y0, dx, dy in passes]
+    need = sum(ph * ((pw * depth * channels + 7) // 8 + 1)
+               for ph, pw in sizes if ph and pw)
+    if raw.size != need:
         raise ValueError(f'{path}: image data of {raw.size} bytes, '
-                         f'expected {height * (stride + 1)}')
-    raw = raw.reshape(height, stride + 1)
-    img = _unfilter(raw[:, 1:], raw[:, 0], bpp).reshape(height, width, bpp)
-    if bpp <= 2:                                          # grey (+ alpha)
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., 2::-1])           # RGB(A) -> BGR
+                         f'expected {need}')
+    img = np.empty((height, width, channels), np.uint8)
+    at = 0
+    for (x0, y0, dx, dy), (ph, pw) in zip(passes, sizes):
+        if not ph or not pw:
+            continue
+        n = ph * ((pw * depth * channels + 7) // 8 + 1)
+        img[y0::dy, x0::dx] = _png_samples(raw[at:at + n], ph, pw, depth,
+                                           channels)
+        at += n
+    if colour == 3:
+        lut = np.zeros((256, 3), np.uint8)        # indices past PLTE: black
+        entries = np.frombuffer(palette, np.uint8)[:len(palette) // 3 * 3]
+        lut[:len(entries) // 3] = entries.reshape(-1, 3)[:256]
+        out = lut[img[..., 0]][..., ::-1]
+    elif colour in (0, 4):
+        grey = img[..., 0]
+        if depth < 8:                     # libpng's 1/2/4 -> 8-bit expansion
+            grey = grey * np.uint8(255 // ((1 << depth) - 1))
+        out = np.repeat(grey[..., None], 3, axis=-1)
+    else:
+        out = img[..., 2::-1]                              # RGB(A) -> BGR
+    return _orient(np.ascontiguousarray(out), _exif_orientation(exif))
 
 
-# BMP: compression types, and the channel masks of a 32-bit BI_BITFIELDS
-# file that is plain BGRX
+# ---- BMP ------------------------------------------------------------------
+# compression types, and the channel masks of the BI_BITFIELDS forms read
 _BMP_SIGNATURE = b'BM'
 _BI_RGB, _BI_RLE8, _BI_RLE4, _BI_BITFIELDS = 0, 1, 2, 3
 _BGRX_MASKS = (0x00FF0000, 0x0000FF00, 0x000000FF)
+_MASKS_555 = (0x7C00, 0x03E0, 0x001F)
+_MASKS_565 = (0xF800, 0x07E0, 0x001F)
+
+
+def _bmp_palette(path, data, header_size, bits, colours) -> np.ndarray:
+    """The palette as a (256, 3) BGR table, entries past it black."""
+    entry = 3 if header_size == 12 else 4
+    count = min(colours or (1 << bits), 256)
+    start = 14 + header_size
+    if start + count * entry > len(data):
+        raise ValueError(f'{path}: BMP palette is truncated')
+    table = np.frombuffer(data, np.uint8, count=count * entry, offset=start)
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:len(table) // entry] = table.reshape(-1, entry)[:, :3]
+    return lut
+
+
+def _bmp_rle(path, data, offset, width, height, bits) -> np.ndarray:
+    """RLE8 / RLE4 data -> (height, width) palette indices in file row
+    order, as OpenCV's reader walks it: an RLE8 run that fills its line
+    moves to the next one (and an end of line just after it does nothing);
+    end of line, delta and end of bitmap skip pixels in raster order,
+    leaving them index 0 (OpenCV 5's RLE4 delta moves along the line
+    alone, its rows ignored)."""
+    out = np.zeros((height, width), np.uint8)
+    pos, y, x, wrapped = offset, 0, 0, False
+
+    def take(n):
+        nonlocal pos
+        if pos + n > len(data):
+            raise ValueError(f'{path}: RLE data is truncated')
+        chunk = data[pos:pos + n]
+        pos += n
+        return chunk
+
+    def skip(n):                    # OpenCV's FillUniColor with entry 0
+        nonlocal y, x
+        while True:
+            step = min(n, width - x)
+            x += step
+            n -= step
+            if x >= width:
+                x, y = 0, y + 1
+                if y >= height:
+                    return
+            if n <= 0:
+                return
+
+    while y < height:
+        count, code = take(2)
+        if count:                                          # encoded run
+            if x + count > width:
+                raise ValueError(f'{path}: RLE run past the end of a line')
+            pair = [code] if bits == 8 else [code >> 4, code & 15]
+            out[y, x:x + count] = np.resize(np.array(pair, np.uint8), count)
+            x += count
+            wrapped = bits == 8 and x == width
+            if wrapped:
+                x, y = 0, y + 1
+        elif code > 2:                                     # absolute run
+            if x + code > width:
+                raise ValueError(f'{path}: RLE run past the end of a line')
+            if bits == 8:
+                run = np.frombuffer(take((code + 1) & ~1), np.uint8)
+            else:
+                packed = np.frombuffer(take((((code + 1) >> 1) + 1) & ~1),
+                                       np.uint8)
+                run = np.stack([packed >> 4, packed & 15], -1).reshape(-1)
+            out[y, x:x + code] = run[:code]
+            x += code
+            wrapped = False
+        else:                       # end of line (0), of bitmap (1), delta
+            if code == 0 and wrapped:
+                wrapped = False
+                continue
+            if code == 2:
+                dx, dy = take(2)
+                n = dx + dy * width if bits == 8 else dx
+            else:
+                n = width - x + (0 if code == 0 else (height - y) * width)
+            skip(n)
+            wrapped = False
+    return out
 
 
 def _read_bmp(path: str, data: bytes) -> np.ndarray:
     if len(data) < 26:
         raise ValueError(f'{path}: truncated BMP header')
     offset, header_size = struct.unpack_from('<II', data, 10)
+    colours = 0
     if header_size == 12:                              # BITMAPCOREHEADER
         width, height, _, bits = struct.unpack_from('<HHHH', data, 18)
         compression = _BI_RGB
-    elif header_size >= 40:
+    elif header_size >= 40 and len(data) >= 14 + 40:
         width, height, _, bits, compression = struct.unpack_from(
             '<iiHHI', data, 18)
+        colours = struct.unpack_from('<I', data, 46)[0]
     else:
         raise ValueError(f'{path}: BMP header of {header_size} bytes')
+    top_down = height < 0
+    height = abs(height)
+    if width <= 0 or height == 0 or width * height > _MAX_PIXELS:
+        raise ValueError(f'{path}: BMP of {width} x {height} pixels')
     if compression in (_BI_RLE8, _BI_RLE4):
-        raise ValueError(f'{path}: RLE-compressed BMP is not read')
-    if bits <= 8:
-        raise ValueError(f'{path}: palette BMP ({bits}-bit) is not read')
-    if bits not in (24, 32):
-        raise ValueError(f'{path}: {bits}-bit BMP is not read')
-    if compression == _BI_BITFIELDS and bits == 32:
+        if (compression, bits) not in ((_BI_RLE8, 8), (_BI_RLE4, 4)):
+            raise ValueError(f'{path}: RLE{bits} is not a valid BMP form')
+        lut = _bmp_palette(path, data, header_size, bits, colours)
+        idx = _bmp_rle(path, data, offset, width, height, bits)
+        img = lut[idx]
+        return np.ascontiguousarray(img if top_down else img[::-1])
+    masks = None
+    if compression == _BI_BITFIELDS:
+        if len(data) < 14 + 40 + 12:
+            raise ValueError(f'{path}: truncated BMP header')
         masks = struct.unpack_from('<III', data, 14 + 40)
-        if masks != _BGRX_MASKS:
-            raise ValueError(f'{path}: BMP channel masks '
-                             f'{[hex(m) for m in masks]} are not read')
     elif compression != _BI_RGB:
         raise ValueError(f'{path}: BMP compression {compression} is not '
                          'read')
-    top_down = height < 0
-    height = abs(height)
-    pixel = bits // 8
-    stride = (width * pixel + 3) & ~3
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f'{path}: {bits}-bit BMP is not read')
+    if bits == 16 and masks not in (None, _MASKS_555, _MASKS_565):
+        raise ValueError(f'{path}: 16-bit BMP channel masks '
+                         f'{[hex(m) for m in masks]} are not read')
+    if bits == 32 and masks not in (None, _BGRX_MASKS):
+        raise ValueError(f'{path}: BMP channel masks '
+                         f'{[hex(m) for m in masks]} are not read')
+    if bits in (1, 4, 8) and masks is not None:
+        raise ValueError(f'{path}: {bits}-bit BMP with channel masks')
+    stride = ((width * bits + 31) // 32) * 4
     if offset + stride * height > len(data):
         raise ValueError(f'{path}: BMP pixel data is truncated')
     rows = np.frombuffer(data, np.uint8, count=stride * height,
                          offset=offset).reshape(height, stride)
-    img = rows[:, :width * pixel].reshape(height, width, pixel)[..., :3]
+    if bits <= 8:
+        lut = _bmp_palette(path, data, header_size, bits, colours)
+        if bits == 8:
+            idx = rows[:, :width]
+        else:
+            unpacked = np.unpackbits(rows, axis=1).reshape(height, -1, bits)
+            weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+            idx = (unpacked * weights).sum(-1, dtype=np.uint8)[:, :width]
+        img = lut[idx]
+    elif bits == 16:
+        v = rows[:, :width * 2].view('<u2').astype(np.uint16)
+        if masks == _MASKS_565:
+            img = np.stack([v << 3, (v >> 3) & 0xFC, (v >> 8) & 0xF8], -1)
+        else:
+            img = np.stack([v << 3, (v >> 2) & 0xF8, (v >> 7) & 0xF8], -1)
+        img = (img & 0xFF).astype(np.uint8)
+    else:
+        pixel = bits // 8
+        img = rows[:, :width * pixel].reshape(height, width, pixel)[..., :3]
     return np.ascontiguousarray(img if top_down else img[::-1])
 
 
@@ -223,13 +483,21 @@ def _bmp_bytes(img: np.ndarray) -> bytes:
 
 
 def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
-    """Write ``(H, W, 3)`` uint8 BGR: a ``.bmp`` path as OpenCV writes a
-    BMP, any other as an 8-bit RGB PNG, every row with the Sub filter (as
-    OpenCV writes them), compressed at zlib ``level``."""
+    """Write ``(H, W, 3)`` uint8 BGR: a ``.jpg`` / ``.jpeg`` / ``.jpe``
+    path as OpenCV writes a JPEG (there ``(H, W)`` grey too), a ``.bmp``
+    path as OpenCV writes a BMP, any other as an 8-bit RGB PNG, every row
+    with the Sub filter (as OpenCV writes them), compressed at zlib
+    ``level``."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+    jpeg = path.lower().endswith(_JPEG_SUFFIXES)
+    if img.dtype != np.uint8 or not (
+            img.ndim == 3 and img.shape[2] == 3 or jpeg and img.ndim == 2):
         raise ValueError(f'imwrite takes (H, W, 3) uint8, got {img.dtype} '
                          f'{img.shape}')
+    if jpeg:
+        from .. import native
+        _write_atomic(path, native.jpeg_encode(img))
+        return
     if path.lower().endswith('.bmp'):
         _write_atomic(path, _bmp_bytes(img))
         return

@@ -348,6 +348,9 @@ def test_phase_main_path_kernels_rehearsal():
     captured['prototype4_converted_nms'] = [captured['orcnn']] * 2
     captured['redet_converted_nms'] = [captured['orcnn']] * 2
     captured['redet_converted_roi'] = [pooled] * 2
+    # phase 54: one HRSID request's candidates and RoIAlign inputs
+    captured['sar'] = captured['orcnn']
+    captured['sar_roi'] = captured['orcnn_roi']
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -387,7 +390,7 @@ def test_phase_main_path_kernels_rehearsal():
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
-         'redet_loop_eval', 'redet_converted'])
+         'redet_loop_eval', 'redet_converted', 'sar'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -408,7 +411,7 @@ def test_phase_main_path_kernels_rehearsal():
     assert iou['main_path_inputs']['yolov8_loop_assign']['inputs_held'] == 2
     for label in chip_smoke.YOLO_SERVED:
         assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
-    for key in ('yolov6_slice', 'yolov6'):
+    for key in ('yolov6_slice', 'yolov6', 'sar'):
         assert pair['main_path_inputs'][key]['ms'] > 0
     assert pair['main_path_inputs']['converted']['inputs_held'] == 4
     assert roi['main_path_inputs']['redet_converted']['inputs_held'] == 2

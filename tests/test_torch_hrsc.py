@@ -1,5 +1,6 @@
 """Port parity, the HRSC2016 path: BMP reading and writing
-(``utils/image_io.py``) against OpenCV, ``HRSCDataset`` against the JAX
+(``utils/image_io.py``: 24- and 32-bit, palette, RLE8 / RLE4 and 16-bit
+files) against OpenCV, ``HRSCDataset`` against the JAX
 package's (the XML parse, the long-edge boxes in each angle version,
 ``classwise``, AP50 / AP75), and ``generate_synth --hrsc`` against
 ``tools/data/synth/generate_synth.py``'s: byte-identical XML and image-set
@@ -76,17 +77,108 @@ def test_bmp_layouts_read_as_cv2_reads_them(tmp_path, bits, top_down,
     np.testing.assert_array_equal(image_io.imread(path), ref)
 
 
+def bmp_indexed(path, idx, palette, bits, compression=0, core=False):
+    """A palette BMP of indices ``idx`` ((H, W), rows top first): plain
+    rows of ``bits`` bits, or, with RLE compression, the runs ``idx`` is
+    taken as (bytes). A 12-byte core header takes 3-byte palette entries.
+    16 bytes follow the pixels: OpenCV's reader reads ahead."""
+    h, w = (idx.shape if compression == 0 else idx[1])
+    if compression == 0:
+        stride = ((w * bits + 31) // 32) * 4
+        rows = []
+        for row in idx[::-1]:
+            bit = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)
+            packed = np.packbits(bit[:, 8 - bits:].reshape(-1)).tobytes()
+            rows.append(packed + bytes(stride - len(packed)))
+        pixels = b''.join(rows)
+    else:
+        pixels = idx[0] + bytes(16)
+    pal = b''.join(bytes(entry[:3]) + (b'' if core else b'\0')
+                   for entry in palette.tolist())
+    if core:
+        info = struct.pack('<IHHHH', 12, w, h, 1, bits)
+    else:
+        info = struct.pack('<IiiHHIIiiII', 40, w, h, 1, bits, compression,
+                           len(pixels), 2835, 2835, len(palette), 0)
+    offset = 14 + len(info) + len(pal)
+    with open(path, 'wb') as f:
+        f.write(struct.pack('<2sIHHI', b'BM', offset + len(pixels), 0, 0,
+                            offset) + info + pal + pixels)
+
+
+# RLE8 lines, file order: a run, an absolute run of 4 and a run (13 pixels),
+# end of line; an absolute run of 3 (padded) and a run that fills the line
+# (the end of line after it does nothing); a run of 2 and end of line
+# (the rest is palette entry 0); a delta of (3, 1) then a run; a line of
+# one absolute run of 13; end of bitmap
+RLE8 = bytes([5, 3, 0, 4, 9, 8, 7, 6, 4, 11, 0, 0,
+              0, 3, 1, 2, 250, 0, 10, 200, 0, 0,
+              2, 77, 0, 0,
+              0, 2, 3, 1, 4, 5, 0, 0,
+              0, 13]) + bytes(range(100, 113)) + bytes([0, 0, 0, 0, 1])
+# RLE4: a run of two alternating colours, an absolute run of 5 (4 bytes),
+# end of line; a run over the whole line and end of line; a delta of
+# (4, 2), which OpenCV 5 takes along the line alone, a run of 3; end of
+# bitmap
+RLE4 = bytes([5, 0x3C, 0, 5, 0x12, 0x34, 0x50, 0, 0, 0,
+              13, 0x9A, 0, 0,
+              0, 2, 4, 2, 3, 0x77, 0, 0, 0, 1])
+
+
 @pytest.mark.parametrize('bits,compression,match', [
     (8, 1, 'RLE'), (4, 2, 'RLE'), (8, 0, 'palette'), (1, 0, 'palette'),
     (16, 0, '16-bit')])
 def test_bmp_refuses_by_name(tmp_path, bits, compression, match):
+    """The forms the reader refused by name (``match``) before it read
+    them: RLE8, RLE4, 8- and 1-bit palette and 16-bit (555) BMPs read as
+    ``cv2.imread`` reads them."""
+    path = str(tmp_path / 'x.bmp')
+    rng = np.random.default_rng(bits + compression)
+    h, w = 7, 13
+    palette = rng.integers(0, 256, (1 << min(bits, 8), 3))
+    if compression:
+        bmp_indexed(path, (RLE8 if bits == 8 else RLE4, (h, w)), palette,
+                    bits, compression)
+    elif bits <= 8:
+        bmp_indexed(path, rng.integers(0, 1 << bits, (h, w)), palette, bits)
+    else:
+        v = rng.integers(0, 1 << 16, (h, w)).astype('<u2')
+        stride = (w * 2 + 3) & ~3
+        rows = b''.join(r.tobytes() + bytes(stride - 2 * w) for r in v[::-1])
+        with open(path, 'wb') as f:
+            f.write(struct.pack('<2sIHHI', b'BM', 54 + len(rows), 0, 0, 54) +
+                    struct.pack('<IiiHHIIiiII', 40, w, h, 1, 16, 0,
+                                len(rows), 0, 0, 0, 0) + rows)
+    ref = cv2.imread(path, cv2.IMREAD_COLOR)
+    assert ref is not None and ref.shape == (h, w, 3), match
+    np.testing.assert_array_equal(image_io.imread(path), ref)
+
+
+@pytest.mark.parametrize('bits,core', [(1, True), (4, False), (4, True),
+                                       (8, True)])
+def test_palette_bmps_read_as_cv2_reads_them(tmp_path, bits, core):
+    path = str(tmp_path / 'x.bmp')
+    rng = np.random.default_rng(bits)
+    bmp_indexed(path, rng.integers(0, 1 << bits, (9, 17)),
+                rng.integers(0, 256, (1 << bits, 3)), bits, core=core)
+    np.testing.assert_array_equal(image_io.imread(path),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize('masks', [(0xF800, 0x07E0, 0x1F),
+                                   (0x7C00, 0x03E0, 0x1F)])
+def test_16_bit_bitfields_read_as_cv2_reads_them(tmp_path, masks):
+    h, w = 5, 9
+    v = np.random.default_rng(3).integers(0, 1 << 16, (h, w)).astype('<u2')
+    stride = (w * 2 + 3) & ~3
+    rows = b''.join(r.tobytes() + bytes(stride - 2 * w) for r in v)
     path = str(tmp_path / 'x.bmp')
     with open(path, 'wb') as f:
-        f.write(struct.pack('<2sIHHI', b'BM', 200, 0, 0, 54) +
-                struct.pack('<IiiHHIIiiII', 40, 4, 4, 1, bits, compression,
-                            0, 0, 0, 0, 0) + b'\0' * 146)
-    with pytest.raises(ValueError, match=match):
-        image_io.imread(path)
+        f.write(struct.pack('<2sIHHI', b'BM', 66 + len(rows), 0, 0, 66) +
+                struct.pack('<IiiHHIIiiII', 40, w, h, 1, 16, 3, len(rows),
+                            0, 0, 0, 0) + struct.pack('<III', *masks) + rows)
+    np.testing.assert_array_equal(image_io.imread(path),
+                                  cv2.imread(path, cv2.IMREAD_COLOR))
 
 
 def test_imread_names_what_it_does_not_read(tmp_path):
@@ -95,7 +187,7 @@ def test_imread_names_what_it_does_not_read(tmp_path):
     open(other, 'wb').write(b'II*\0' + b'\0' * 20)
     with pytest.raises(ValueError, match='JPEG'):
         image_io.imread(jpeg)
-    with pytest.raises(ValueError, match='neither a PNG nor a BMP'):
+    with pytest.raises(ValueError, match='TIFF.*ROADMAP A.4c'):
         image_io.imread(other)
 
 

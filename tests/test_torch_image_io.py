@@ -2,6 +2,8 @@
 PNGs that ``cv2.imwrite`` writes decode equal to ``cv2.imread``; PNGs the
 port writes read back equal through OpenCV; PNGs with the Average and Paeth
 row filters (written by PIL, which chooses a filter per row) decode equal;
+so do palette, 1/2/4-bit, 16-bit, Adam7-interlaced and eXIf-oriented PNGs
+and a JPEG, while TIFF and a CMYK JPEG name ROADMAP A.4c;
 ``resize_bilinear`` within 1 of ``cv2.resize(INTER_LINEAR)`` per element;
 the drawing helpers as ``tests/test_torch_synth.py`` needs them."""
 
@@ -67,19 +69,143 @@ def with_header(path, interlace):
     open(path, 'wb').write(bytes(data))
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_file(path, samples, colour, depth, interlace=0, plte=None):
+    """A PNG of ``samples`` ((H, W[, C]) integers), as other writers lay it
+    out: any depth, palette or Adam7 passes (PIL writes no interlaced
+    PNG); every row unfiltered."""
+    h, w = samples.shape[:2]
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body)))
+
+    raw = b''
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:                    # an empty pass has no rows
+            continue
+        for row in sub.reshape(sub.shape[0], sub.shape[1], -1):
+            row = row.reshape(-1)
+            if depth == 16:
+                data = row.astype('>u2').tobytes()
+            elif depth < 8:
+                bits = np.unpackbits(row.astype(np.uint8)[:, None], axis=1)
+                data = np.packbits(bits[:, 8 - depth:].reshape(-1)).tobytes()
+            else:
+                data = row.astype(np.uint8).tobytes()
+            raw += b'\0' + data
+    out = b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
+        '>IIBBBBB', w, h, depth, colour, 0, 0, interlace))
+    if plte is not None:
+        out += chunk(b'PLTE', plte)
+    out += chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b'')
+    with open(path, 'wb') as f:
+        f.write(out)
+
+
+def used_to_refuse(name, path):
+    """Write the form ``name`` at ``path``: those the reader refused before
+    it read them."""
+    img = smooth_image(4, 37, 53)
+    rng = np.random.default_rng(len(name))
+    if name.startswith('palette'):
+        bits = int(name.split('-')[1])
+        quant = Image.fromarray(img[..., ::-1]).quantize(1 << bits)
+        extra = dict(transparency=0) if name.endswith('tRNS') else {}
+        quant.save(path, bits=bits, **extra)
+    elif name == '16-bit':
+        cv2.imwrite(path, img.astype(np.uint16) * 251 + 7)
+    elif name == '16-bit grey':
+        cv2.imwrite(path, img[..., 0].astype(np.uint16) * 257)
+    elif name == '16-bit grey+alpha':
+        png_file(path, rng.integers(0, 65536, (9, 10, 2)), 4, 16)
+    elif name == '16-bit RGBA':
+        cv2.imwrite(path, np.dstack([img, img[..., :1]]).astype(np.uint16) *
+                    257)
+    elif name.startswith('grey-'):
+        depth = int(name.split('-')[1])
+        png_file(path, rng.integers(0, 1 << depth, (13, 11)), 0, depth)
+    elif name == 'interlaced':
+        png_file(path, img[..., ::-1], 2, 8, interlace=1)
+    elif name == 'interlaced 1 x 1':
+        png_file(path, img[:1, :1, ::-1], 2, 8, interlace=1)
+    elif name == 'interlaced 16-bit RGBA':
+        png_file(path, rng.integers(0, 65536, (5, 3, 4)), 6, 16, interlace=1)
+    elif name == 'interlaced palette-4':
+        png_file(path, rng.integers(0, 16, (21, 19)), 3, 4, interlace=1,
+                 plte=rng.integers(0, 256, 48).astype(np.uint8).tobytes())
+    elif name == 'interlaced grey-2':
+        png_file(path, rng.integers(0, 4, (13, 11)), 0, 2, interlace=1)
+    elif name.startswith('eXIf'):
+        exif = Image.Exif()
+        exif[0x0112] = int(name.split('-')[1])
+        Image.fromarray(img[..., ::-1]).save(path, exif=exif.tobytes())
+    elif name == 'jpeg':
+        cv2.imwrite(str(path) + '.jpg', img)
+        os.replace(str(path) + '.jpg', path)
+    else:
+        raise KeyError(name)
+
+
+@pytest.mark.parametrize('name', [
+    'palette-1', 'palette-2', 'palette-4', 'palette-8', 'palette-8-tRNS',
+    'palette-2-tRNS', '16-bit', '16-bit grey', '16-bit grey+alpha',
+    '16-bit RGBA', 'grey-1', 'grey-2', 'grey-4', 'interlaced',
+    'interlaced 1 x 1', 'interlaced 16-bit RGBA', 'interlaced palette-4',
+    'interlaced grey-2', 'eXIf-3', 'eXIf-6', 'jpeg'])
+def test_reads_what_it_used_to_refuse(tmp_path, name):
+    """Palette, low-depth and 16-bit PNGs (16 bits cut to the high byte),
+    Adam7-interlaced ones, a PNG's eXIf orientation and a JPEG (under a
+    ``.png`` name: the bytes decide) read as ``cv2.imread`` reads them."""
+    path = str(tmp_path / 'x.png')
+    used_to_refuse(name, path)
+    want = cv2.imread(path, cv2.IMREAD_COLOR)
+    got = image_io.imread(path)
+    assert want is not None and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
 def test_refuses_what_it_does_not_read(tmp_path):
+    """TIFF and a CMYK JPEG name ROADMAP A.4c; a truncated PNG, a PNG whose
+    data does not inflate and bytes of no image format raise too."""
     img = smooth_image(4, 16, 16)
-    paths = {name: str(tmp_path / f'{name}.png')
-             for name in ('palette', '16-bit', 'interlaced', 'jpeg')}
-    Image.fromarray(img[..., 0]).convert('P').save(paths['palette'])
-    cv2.imwrite(paths['16-bit'], img.astype(np.uint16) * 257)
-    image_io.imwrite(paths['interlaced'], img)
-    with_header(paths['interlaced'], 1)
-    cv2.imwrite(str(tmp_path / 'a.jpg'), img)
-    os.replace(str(tmp_path / 'a.jpg'), paths['jpeg'])
-    for name, path in paths.items():
+    tiff, cmyk = tmp_path / 'x.tif', tmp_path / 'x.jpg'
+    Image.fromarray(img).save(tiff)
+    Image.fromarray(img).convert('CMYK').save(cmyk)
+    for path, match in ((tiff, 'TIFF.*A.4c'), (cmyk, 'CMYK.*A.4c')):
+        with pytest.raises(ValueError, match=match):
+            image_io.imread(str(path))
+    png = str(tmp_path / 'x.png')
+    image_io.imwrite(png, img)
+    data = open(png, 'rb').read()
+    at = data.index(b'IDAT') + 4
+    broken = data[:at] + bytes(len(data) - at - 16) + data[-16:]
+    for bad in (data[:len(data) // 2], broken, b'GIF89a' + bytes(20)):
         with pytest.raises(ValueError):
-            image_io.imread(path)
+            image_io.imdecode(bad)
+
+
+def test_images_past_opencvs_pixel_limit_raise():
+    """A header past 2^30 pixels (OpenCV's limit) raises before any pixel
+    is allocated: a 4-byte RLE8 BMP and an empty PNG."""
+    bmp = (struct.pack('<2sIHHI', b'BM', 1082, 0, 0, 1078) +
+           struct.pack('<IiiHHIIiiII', 40, 65536, 65536, 1, 8, 1, 4, 0, 0,
+                       256, 0) + bytes(1024) + b'\0\1\0\1')
+    with pytest.raises(ValueError, match='65536 x 65536'):
+        image_io.imdecode(bmp)
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body +
+                struct.pack('>I', zlib.crc32(kind + body)))
+
+    png = (b'\x89PNG\r\n\x1a\n' + chunk(b'IHDR', struct.pack(
+        '>IIBBBBB', 40000, 40000, 8, 2, 0, 0, 0)) +
+        chunk(b'IDAT', zlib.compress(b'')) + chunk(b'IEND', b''))
+    with pytest.raises(ValueError, match='40000 x 40000'):
+        image_io.imdecode(png)
 
 
 @pytest.mark.parametrize('src,dst', [((97, 131), (200, 150)),

@@ -3,8 +3,9 @@ over its own copy of ``csrc/rnms.cpp``) against the JAX package's
 ``native`` module (built with g++ here too): the rotated IoU and IoF
 matrices, the rotated and the axis-aligned greedy NMS on seeded sets,
 exactly; ``nms_rotated_np(device='cpu')`` takes the native path; and the
-library builds under ``_build/`` by the hash of its source, and raises
-without a compiler instead of falling back."""
+library (the geometry and ``csrc/jpeg.cpp`` in one) builds under
+``_build/`` by the hash of both sources, and raises without a compiler
+instead of falling back."""
 
 import numpy as np
 import pytest
@@ -98,9 +99,14 @@ def test_builds_by_hash_and_raises_without_a_compiler(tmp_path,
                                                       monkeypatch):
     path = native.library_path()
     assert path.parent == native.BUILD_DIR
-    assert path.name.startswith('rnms-') and path.suffix == '.so'
+    assert path.name.startswith('native-') and path.suffix == '.so'
+    assert native.sources() == (native.SOURCE, native.JPEG_SOURCE)
     native.load()
     assert path.exists()
+    monkeypatch.setattr(native, 'JPEG_SOURCE', tmp_path / 'jpeg.cpp')
+    (tmp_path / 'jpeg.cpp').write_text('// another codec\n')
+    assert native.library_path() != path            # either source counts
+    monkeypatch.undo()
     monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / '_build')
     monkeypatch.setattr(native, '_LIB', None)
     monkeypatch.setenv('CXX', 'no-such-compiler-here')
@@ -109,5 +115,5 @@ def test_builds_by_hash_and_raises_without_a_compiler(tmp_path,
     monkeypatch.setattr(native, 'SOURCE', tmp_path / 'broken.cpp')
     (tmp_path / 'broken.cpp').write_text('this is not C++\n')
     monkeypatch.setenv('CXX', 'g++')
-    with pytest.raises(RuntimeError, match='failed on rnms.cpp'):
+    with pytest.raises(RuntimeError, match='failed on broken.cpp jpeg.cpp'):
         native.load()

@@ -3,9 +3,10 @@ DOTA-layout set of 3 images of 128 px and ``rotated_retinanet_tiny_synth.py``
 cut as ``tests/test_torch_train_loop.py`` cuts it, with seeded weights
 whose class bias is zeroed (so that scores pass the thresholds):
 
-- ``tools.serve``: the handler answers PNG requests, raw and base64, with
-  ``inference_detector``'s detections above ``--score-thr``, over a real
-  localhost socket; a JPEG gets a 400 that names ROADMAP A.4b;
+- ``tools.serve``: the handler answers PNG and JPEG requests, raw and
+  base64, with ``inference_detector``'s detections above ``--score-thr``,
+  over a real localhost socket; a truncated JPEG and bytes of no image get
+  a 400 with the decoder's reason;
 - ``tools.confusion_matrix`` equals the JAX tool's
   ``calculate_confusion_matrix`` on the same detections;
 - ``tools.get_flops``: the parameter count equals the JAX package's
@@ -102,7 +103,18 @@ def test_serve_answers_png_requests(env):
             assert json.loads(reply.read()) == ref
             conn.close()
         jpeg = cv2.imencode('.jpg', env['img'])[1].tobytes()
-        for body, reason in ((jpeg, 'A.4b'), (b'not an image', 'PNG')):
+        decoded = cv2.imdecode(np.frombuffer(jpeg, np.uint8), cv2.IMREAD_COLOR)
+        ref = serve.detections_json(inference_detector(bundle, decoded), 0.3)
+        assert ref
+        for body in (jpeg, base64.b64encode(jpeg)):
+            conn = http.client.HTTPConnection(host, port, timeout=60)
+            conn.request('POST', '/predict', body=body)
+            reply = conn.getresponse()
+            assert reply.status == 200
+            assert json.loads(reply.read()) == ref
+            conn.close()
+        for body, reason in ((jpeg[:len(jpeg) // 2], 'truncated'),
+                             (b'not an image', 'PNG, JPEG or BMP')):
             conn = http.client.HTTPConnection(host, port, timeout=60)
             conn.request('POST', '/predict', body=body)
             reply = conn.getresponse()
