@@ -23,7 +23,8 @@ YOLOv6 Rep-PAFPN neck, served and trained), the YOLO block library,
 seeded prototype4 and ReDet checkpoints under the reference's names
 converted back, and SAR ship detection from JPEGs (the HRSID and SSDD
 Oriented R-CNN R50-FPN and the SSDD RetinaNet, one class) with the port's
-JPEG codec, through
+JPEG codec, and the synth-hard protocol's runner over four of its families,
+through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -356,6 +357,23 @@ plain PyTorch version:
              with B1 equal those with the plain pair mask; ``img_split``
              cuts a 4000^2 .jpg scene into 1024 tiles at gap 200, each
              equal to the decoded scene's crop
+56. hard     the synth-hard protocol through the port's runner
+             (``tools/hard_protocol.py:run_protocol``) on 16 trainval and 8
+             val crowded 15-class 512^2 scenes (100-600 objects each, over
+             the loader's max_gt=256: the overflow goes to gt_ignore):
+             Rotated RetinaNet, Oriented R-CNN, Rotated RepPoints and
+             RotatedYOLOv8 (their ``*_hard_synth.py``, R18 / CSPNeXt at the
+             configs' widths), one bf16 epoch and one evaluation each; the
+             logs, the val records and summary.json; B2 on each family's
+             assigner inputs at G=256 (none for RepPoints' convex IoU) and
+             the 15-class evaluation IoUs, B1 on the crowded evaluation
+             candidates (iou_thr 0.1, RepPoints 0.4), B3 on Oriented
+             R-CNN's evaluation proposals at C=64, all recorded; a second
+             call skips all four families and takes no step; then each
+             two-stage hard family (Faster R-CNN, Oriented R-CNN, GV, RoI
+             Transformer, ReDet) on those scenes: one bf16 train step
+             profiled (the gather RoI pooling's share) and one evaluation
+             request of the 8 val scenes (B3's and B1's device time)
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -401,8 +419,11 @@ plain PyTorch version:
              and its steps, the converted models' candidates and the
              converted ReDet's RoIAlign inputs; and phase 54's: one
              bfloat16 HRSID request's candidates and its levels and
-             proposals; each held against its plain version, the largest of
-             each kind timed beside its bound
+             proposals; and phase 56's: the crowded candidates of each
+             hard family's evaluation, the assigners' inputs at G=256 and
+             the 15-class evaluation IoUs, Oriented R-CNN's evaluation
+             RoIs at C=64; each held against its plain version, the largest
+             of each kind timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -417,12 +438,12 @@ requests and 37's steps of each detector, 38's run, 40's requests and
 YOLOv8 model, 45's frozen and live steps, 46's run, 47's steps and 48's
 evaluations in each rank, 49's requests, kernel NMS calls and confusion
 matrix, 50's requests and steps, 52's requests of each model, 54's
-requests and served JPEG and PNG requests, 55's test run) and read just
-after;
+requests and served JPEG and PNG requests, 55's test run, 56's protocol
+run) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
-26's, 30's, 34's, 38's, 42's and 46's runs and 52's requests. Phases
-15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-55 write
+26's, 30's, 34's, 38's, 42's and 46's runs, 52's requests and 56's
+protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-56 write
 their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -643,14 +664,15 @@ def dota_candidates(bsz, n, seed, num_classes=15, duplicates=False):
     return boxes, cls.astype(np.int32)
 
 
-def check_pair_mask(boxes, cls) -> tuple:
-    """Kernel (wrapper) vs plain version on the same device tensors.
-    Returns (max |kernel - plain| outside the band, in-band mismatches)."""
+def check_pair_mask(boxes, cls, thr=IOU_THR) -> tuple:
+    """Kernel (wrapper) vs plain version on the same device tensors at the
+    IoU threshold ``thr``. Returns (max |kernel - plain| outside the band,
+    in-band mismatches)."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
         nms_pair_mask, nms_pair_mask_plain, pair_iou)
-    got = nms_pair_mask(boxes, IOU_THR, cls)
-    ref = nms_pair_mask_plain(boxes, IOU_THR, cls)
-    band = (pair_iou(boxes) - IOU_THR).abs() < BAND
+    got = nms_pair_mask(boxes, thr, cls)
+    ref = nms_pair_mask_plain(boxes, thr, cls)
+    band = (pair_iou(boxes) - thr).abs() < BAND
     diff = (got.int() - ref.int()).abs()
     err = int(diff[~band].max()) if (~band).any() else 0
     if err:
@@ -724,13 +746,14 @@ def phase_kernel(device, card='', bsz=8, n=2000, small_n=300, reps=50,
                 max_abs_err=max_err, library_ms=None, **timing)
 
 
-def time_pair_mask(boxes, cls, device, card, label, reps, plain_reps) -> dict:
+def time_pair_mask(boxes, cls, device, card, label, reps, plain_reps,
+                   thr=IOU_THR) -> dict:
     """Kernel (``reps`` launches) and plain version on one input, beside
     the bound and the pair counts it rests on."""
     from orientedobjectdetection_torch.ops.iou_kernels import (
         nms_pair_mask, nms_pair_mask_plain)
-    ms = time_ms(lambda: nms_pair_mask(boxes, IOU_THR, cls), reps, device)
-    plain_ms = time_ms(lambda: nms_pair_mask_plain(boxes, IOU_THR, cls),
+    ms = time_ms(lambda: nms_pair_mask(boxes, thr, cls), reps, device)
+    plain_ms = time_ms(lambda: nms_pair_mask_plain(boxes, thr, cls),
                        plain_reps, device, warmup=1)
     bound_ms, bound_by, same, in_reach = pair_mask_bound_ms(boxes, cls)
     log(f'[kernel] {card} | nms_pair_mask {label}: kernel {ms:.4f} ms, '
@@ -1014,8 +1037,15 @@ def seeded_gts(anchors, bsz, g, valid, seed, duplicates=False):
 
 def check_iou_matrix(boxes1, boxes2, mode) -> tuple:
     """Kernel (wrapper) vs plain version on the same device tensors.
-    Returns (max |kernel - plain|, pairs in reach): every pair that
-    ``pairs_in_reach`` rejects must be exactly 0."""
+    Returns (max |kernel - reference|, pairs in reach): every pair that
+    ``pairs_in_reach`` rejects must be exactly 0.
+
+    A pair where the two differ by more than ``IOU_ATOL`` is held to the
+    plain formulation evaluated in float64 instead, within the same
+    ``IOU_ATOL``: a needle box (a proposal 1e-3 wide across a gt, the
+    width ``rbbox_overlaps`` clamps to) makes the float32 IoU
+    ill-conditioned, the plain version's as much as the kernel's."""
+    from orientedobjectdetection_torch.ops.iou import box_iou_rotated
     from orientedobjectdetection_torch.ops.iou_kernels import (
         box_iou_rotated_matrix, box_iou_rotated_matrix_plain, pairs_in_reach)
     got = box_iou_rotated_matrix(boxes1, boxes2, mode)
@@ -1025,10 +1055,30 @@ def check_iou_matrix(boxes1, boxes2, mode) -> tuple:
                              f'{tuple(ref.shape)}')
     if not torch.isfinite(got).all():
         raise AssertionError('non-finite IoU')
-    err = float((got - ref).abs().max())
+    diff = (got - ref).abs()
+    err = float(diff.max())
     if err > IOU_ATOL:
-        raise AssertionError(f'IoU matrix differs from the plain version by '
-                             f'{err} > {IOU_ATOL}')
+        at = torch.nonzero(diff > IOU_ATOL, as_tuple=True)
+        rows, cols = (at[1], at[2]) if got.dim() == 3 else at
+        one = boxes1[at[0], rows] if boxes1.dim() == 3 else boxes1[rows]
+        two = boxes2[at[0], cols] if boxes2.dim() == 3 else boxes2[cols]
+        exact = box_iou_rotated(one.double(), two.double(), mode,
+                                aligned=True)
+        kernel_off = (got[at].double() - exact).abs()
+        plain_off = (ref[at].double() - exact).abs()
+        if float(kernel_off.max()) > IOU_ATOL:
+            raise AssertionError(
+                f'IoU matrix differs from the plain version by {err} > '
+                f'{IOU_ATOL}, and from its float64 evaluation by '
+                f'{float(kernel_off.max())} > {IOU_ATOL}')
+        log(f'[iou-check] {len(exact)} pairs differ from the float32 plain '
+            f'version by more than {IOU_ATOL} (at most {err:.3g}); against '
+            f'the plain formulation in float64 the kernel is off by at most '
+            f'{float(kernel_off.max()):.3g}, the float32 plain version by '
+            f'{float(plain_off.max()):.3g}')
+        # the largest difference from the reference each pair is held to
+        err = max(float(diff.masked_fill(diff > IOU_ATOL, 0).max()),
+                  float(kernel_off.max()))
     live = pairs_in_reach(boxes1, boxes2)
     if live.dim() < got.dim():
         live = live.expand_as(got)
@@ -6939,6 +6989,280 @@ def held_sar(device, captured, by_name, card, reps, roi_reps,
                     device, card, roi_reps, plain_reps)
 
 
+# ---- 56. the synth-hard protocol ------------------------------------------
+HARD_CONFIGS = {
+    'retinanet': os.path.join(ROOT, 'configs', 'rotated_retinanet',
+                              'rotated_retinanet_hard_synth.py'),
+    'orcnn': os.path.join(ROOT, 'configs', 'oriented_rcnn',
+                          'oriented_rcnn_hard_synth.py'),
+    'reppoints': os.path.join(ROOT, 'configs', 'rotated_reppoints',
+                              'rotated_reppoints_hard_synth.py'),
+    'yolov8': os.path.join(ROOT, 'configs', 'jy',
+                           'rotated_yolov8_hard_synth.py'),
+}
+# IoU-matrix launches of a train step: MaxIoU's IoU and its IoF against
+# the ignore regions, the RPN's and the RoI head's, none for RepPoints'
+# convex IoU, OBBLabelAssigner's
+HARD_ASSIGNS = {'retinanet': 2, 'orcnn': 2, 'reppoints': 0, 'yolov8': 1}
+
+
+@contextlib.contextmanager
+def per_family_marks(lists):
+    """Record, at the start of each ``train_detector`` call, at each of its
+    evaluations and at its end, the lengths of the recorded ``lists`` and
+    the launch counts. Yields the list of each call's marks
+    (``start``, ``evals``, ``end``)."""
+    from orientedobjectdetection_torch.apis import train as train_api
+    train, evaluate, marks = (train_api.train_detector,
+                              train_api.eval_from_state, [])
+
+    def mark():
+        return [len(x) for x in lists], read_launches()
+
+    def traced_train(*args, **kwargs):
+        marks.append(dict(start=mark(), evals=[]))
+        try:
+            return train(*args, **kwargs)
+        finally:
+            marks[-1]['end'] = mark()
+
+    def traced_eval(*args, **kwargs):
+        marks[-1]['evals'].append(mark())
+        return evaluate(*args, **kwargs)
+
+    train_api.train_detector = traced_train
+    train_api.eval_from_state = traced_eval
+    try:
+        yield marks
+    finally:
+        train_api.train_detector = train
+        train_api.eval_from_state = evaluate
+
+
+def phase_hard(root, work_root, card='', configs=None, n_train=16, n_val=8,
+               size=512, epochs=1, dtype=torch.bfloat16, device='cuda',
+               log_interval=2, per_step=None) -> tuple:
+    """Phase 56: ``run_protocol`` over ``configs`` (label -> hard config;
+    the four of ``HARD_CONFIGS`` by default) for ``epochs`` epochs with one
+    evaluation each, on ``n_train`` / ``n_val`` scenes of ``size``^2 that
+    it writes under ``root``: every family trained and evaluated, its
+    val record in the log and in summary.json, its training's IoU-matrix
+    launches ``per_step`` (label -> launches a step; ``HARD_ASSIGNS``) a
+    step; then a second call that skips all four and takes no step.
+    Returns the run's launch counts and the inputs it gave the kernels:
+    each family's assigner matrices (at the configs' G=256, the overflow
+    in gt_ignore) and evaluation IoUs, its evaluation's NMS candidates with
+    their IoU threshold and, for the two-stage family, its evaluation's
+    RoIAlign inputs."""
+    import shutil
+    from orientedobjectdetection_torch.models.roi_heads import (
+        oriented_roi_head)
+    from orientedobjectdetection_torch.ops import iou_kernels, nms
+    from orientedobjectdetection_torch.tools import hard_protocol
+    from orientedobjectdetection_torch.utils import Config
+    configs = configs or HARD_CONFIGS
+    per_step = per_step or HARD_ASSIGNS
+    on_card = torch.device(device).type == 'cuda'
+    splits = (('trainval', n_train, 0), ('val', n_val, 7))
+    shutil.rmtree(work_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    hard_protocol.ensure_data(root, splits, size)
+    data_s = time.perf_counter() - t0
+
+    def run():
+        return hard_protocol.run_protocol(
+            list(configs.values()), work_root, root, epochs=epochs,
+            device=device, dtype=dtype, splits=splits, image_size=size,
+            log_interval=log_interval)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with recording(iou_kernels, 'box_iou_rotated_matrix') as matrices, \
+            recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid',
+                      keep_results=False) as pools, \
+            per_family_marks((matrices, masks, pools)) as marks:
+        summary = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    if summary['trained'] != [os.path.splitext(os.path.basename(c))[0]
+                              for c in configs.values()] or \
+            len(marks) != len(configs):
+        raise AssertionError(f'trained {summary["trained"]}, '
+                             f'{len(marks)} train_detector calls')
+    rows = {r['name']: r for r in summary['families']}
+    inputs, steps = {}, None
+    for (label, config), mark in zip(configs.items(), marks):
+        name = os.path.splitext(os.path.basename(config))[0]
+        row = rows[name]
+        if len(mark['evals']) != 1 or row['final_epoch'] != epochs or \
+                not 0 <= row['final'] <= 1:
+            raise AssertionError(f'{label}: {len(mark["evals"])} '
+                                 f'evaluations, summary row {row}')
+        log_lines = read_train_log(os.path.join(work_root, name))
+        losses = [r['loss'] for r in log_lines if 'loss' in r]
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError(f'{label}: logged losses {losses}')
+        (m0, p0, r0), start = mark['start']
+        (m1, p1, r1), at_eval = mark['evals'][0]
+        (m2, p2, r2), end = mark['end']
+        cfg = Config.fromfile(config)
+        steps = n_train // int(cfg.data['samples_per_gpu']) * epochs
+        trained = at_eval['box_iou_rotated'] - start['box_iou_rotated']
+        if trained != (per_step[label] * steps if on_card else 0) or \
+                m1 - m0 != per_step[label] * steps:
+            raise AssertionError(f'{label}: {trained} IoU-matrix launches, '
+                                 f'{m1 - m0} recorded in {steps} steps')
+        if p1 != p0 or p2 == p1 or (label == 'orcnn') != (r2 > r1) or \
+                r1 != r0:
+            raise AssertionError(f'{label}: {p2 - p1} pair masks and '
+                                 f'{r2 - r1} RoIAligns in the evaluation, '
+                                 f'{p1 - p0} / {r1 - r0} in training')
+        test_cfg = cfg.model.get('bbox_head', {}).get('test_cfg') or \
+            cfg.model['test_cfg']
+        thr = float(test_cfg.get('rcnn', test_cfg)['nms']['iou_thr'])
+        inputs[f'hard_{label}_assign'] = [args for args, _ in
+                                          matrices[m0:m1]]
+        inputs[f'hard_{label}_eval_iou'] = [args for args, _ in
+                                            matrices[m1:m2]]
+        inputs[f'hard_{label}_nms'] = [(args[0], args[2], thr)
+                                       for args, _ in masks[p1:p2]]
+        if label == 'orcnn':
+            inputs['hard_orcnn_roi_align'] = [(args[0], args[1], args[4])
+                                              for args, _ in pools[r1:r2]]
+        delta = {k: end[k] - start[k] for k in end}
+        log(f'[hard-{label}] {card} | {name}: {steps} steps + eval, '
+            f'{row["wall_s"]:.1f} s; loss {losses[0]:.4f} -> '
+            f'{losses[-1]:.4f}; val mAP {row["final"]:.4f}; max_gt '
+            f'{cfg.data["max_gt"]}; launches {delta}')
+    summary_path = os.path.join(work_root, 'summary.json')
+    with open(summary_path) as f:
+        if json.load(f)['families'] != summary['families']:
+            raise AssertionError('summary.json is not the returned summary')
+    reset_launches()
+    t1 = time.perf_counter()
+    with per_family_marks(()) as again_marks:
+        again = run()
+    again_s = time.perf_counter() - t1
+    if again['trained'] or again_marks or \
+            any(r['status'] != 'done' for r in again['families']) or \
+            any(read_launches().values()):
+        raise AssertionError(f'the second call trained {again["trained"]}, '
+                             f'{len(again_marks)} train_detector calls')
+    log(f'[hard] {card} | {len(configs)} families, {n_train} + {n_val} '
+        f'scenes of {size}^2 written in {data_s:.1f} s, the protocol '
+        f'{seconds:.1f} s, its second call {again_s:.2f} s (all skipped); '
+        f'launches {counts}')
+    return [counts], inputs
+
+
+HARD_TWO_STAGE = tuple(os.path.join(ROOT, 'configs', family,
+                                    f'{family}_hard_synth.py')
+                       for family in ('rotated_faster_rcnn', 'oriented_rcnn',
+                                      'gliding_vertex', 'roi_trans', 'redet'))
+
+
+def profile_hard_two_stage(root, card='', configs=HARD_TWO_STAGE,
+                           dtype=torch.bfloat16, device='cuda', warm=2,
+                           eval_images=8) -> dict:
+    """Phase 56's profiles of the two-stage hard families on its scenes:
+    for each config, one train step (the config's batch and max_gt, after
+    ``warm`` steps) profiled by the ``train.*`` and ``two_stage.*`` ranges,
+    the gather RoI pooling's device time in it (its ``two_stage.roi_pool*``
+    ranges and ``GatherBackward0``); then one evaluation request of
+    ``eval_images`` val scenes on the trained weights, B3's and B1's device
+    time in it. Returns milliseconds by config stem."""
+    import glob
+    from orientedobjectdetection_torch.apis import init_detector
+    from orientedobjectdetection_torch.apis.train import setup_training
+    from orientedobjectdetection_torch.utils import image_io
+    vals = sorted(glob.glob(os.path.join(root, 'val', 'images', '*.png')))
+    images = torch.from_numpy(np.stack([
+        image_io.imread(p) for p in vals[:eval_images]])).to(device)
+    out = {}
+    for config in configs:
+        stem = os.path.splitext(os.path.basename(config))[0]
+        cfg = synth_config(config, root)
+        setup = setup_training(cfg, dtype=dtype, device=device)
+        batches = iter(setup.loader)
+        state = setup.state
+        for _ in range(warm):
+            batch = {k: v for k, v in next(batches).items()
+                     if k != 'img_metas'}
+            state = setup.step_fn(state, batch)[0]
+        batch = {k: v for k, v in next(batches).items() if k != 'img_metas'}
+        setup.loader.close()
+
+        def step():
+            nonlocal state
+            state = setup.step_fn(state, batch)[0]
+
+        prof = profile_run(step, device, f'hard {stem} train step',
+                           ('train.', 'two_stage.'))
+        pool_us = sum(us for name, us in prof['spans'].items()
+                      if name.startswith('two_stage.roi_pool'))
+        bundle = init_detector(cfg, state.model.state_dict(), device=device,
+                               dtype=dtype, device_norm=cfg.img_norm_cfg)
+        bundle(images)
+        sync(device)
+        served = profile_run(lambda: bundle(images), device,
+                             f'hard {stem} evaluation request',
+                             ('request.', 'two_stage.'))
+        rec = dict(
+            step_busy_ms=prof['busy_us'] / 1e3,
+            step_wall_ms=prof['wall_us'] / 1e3,
+            pooling_ms=(pool_us + prof['ops'].get('GatherBackward0', 0.0))
+            / 1e3,
+            request_busy_ms=served['busy_us'] / 1e3,
+            request_wall_ms=served['wall_us'] / 1e3,
+            request_b3_ms=sum(us for name, us in served['kernels'].items()
+                              if 'roi_align' in name) / 1e3,
+            request_b1_ms=sum(us for name, us in served['kernels'].items()
+                              if 'pair_mask' in name) / 1e3)
+        share = rec['pooling_ms'] / rec['step_busy_ms'] \
+            if rec['step_busy_ms'] else float('nan')
+        log(f'[hard-profile] {card} | {stem}: a {str(dtype).split(".")[-1]} '
+            f'train step {rec["step_busy_ms"]:.2f} ms busy in '
+            f'{rec["step_wall_ms"]:.2f} ms, the gather RoI pooling '
+            f'{rec["pooling_ms"]:.3f} ms ({100 * share:.1f}%); an evaluation '
+            f'request of {len(images)} scenes {rec["request_busy_ms"]:.2f} ms '
+            f'busy in {rec["request_wall_ms"]:.2f} ms, B3 '
+            f'{rec["request_b3_ms"]:.3f} ms, B1 {rec["request_b1_ms"]:.3f} ms')
+        out[stem] = rec
+        del bundle, state, setup
+        if torch.device(device).type == 'cuda':
+            torch.cuda.empty_cache()
+    return out
+
+
+def held_hard(device, captured, by_name, card, reps, roi_reps,
+              plain_reps) -> None:
+    """Phase 56's recorded inputs against their plain versions, the
+    largest of each kind timed into ``main_path_inputs``: B1 on each
+    family's crowded evaluation candidates at its threshold, B2 on its
+    assigner's inputs at G=256 and its 15-class evaluation IoUs, B3 on
+    Oriented R-CNN's evaluation RoIs at C=64."""
+    pair, iou = by_name['nms_pair_mask'], by_name['box_iou_rotated']
+    for label in HARD_CONFIGS:
+        held_pair_masks(captured[f'hard_{label}_nms'],
+                        f'hard {label} evaluation', f'hard_{label}_eval',
+                        pair, device, card, reps, plain_reps)
+        if captured[f'hard_{label}_assign']:
+            held_iou_matrices(captured[f'hard_{label}_assign'],
+                              f'hard {label} assigner',
+                              f'hard_{label}_assign', iou, device, card,
+                              reps, plain_reps)
+        held_iou_matrices(captured[f'hard_{label}_eval_iou'],
+                          f'hard {label} evaluation',
+                          f'hard_{label}_eval_iou', iou, device, card, reps,
+                          plain_reps)
+    held_roi_inputs(captured['hard_orcnn_roi_align'],
+                    'hard Oriented R-CNN evaluation', 'hard_orcnn_eval',
+                    by_name['roi_align_rotated'], device, card, roi_reps,
+                    plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -7008,6 +7332,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_yolo(device, captured, by_name, card, reps, plain_reps)
     held_yolov6(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_sar(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_hard(device, captured, by_name, card, reps, roi_reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -7110,7 +7435,8 @@ def held_iou_matrices(calls, label, key, iou, device, card, reps,
                                         inputs_held=len(calls))
 
 
-def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS) -> tuple:
+def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS,
+                   thr=IOU_THR) -> tuple:
     """:func:`check_pair_mask` for an input too large for ``(B, N, N)``
     float arrays: the kernel's mask, then ``rows`` rows of it at a time
     against the plain IoU of those rows and the columns from the first on
@@ -7120,7 +7446,7 @@ def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS) -> tuple:
     from orientedobjectdetection_torch.ops.iou import box_iou_rotated
     from orientedobjectdetection_torch.ops.iou_kernels import (
         nms_pair_mask, pairs_in_reach)
-    got = nms_pair_mask(boxes, IOU_THR, cls)
+    got = nms_pair_mask(boxes, thr, cls)
     n = boxes.shape[1]
     idx = torch.arange(n, device=boxes.device)
     in_band = same_pairs = in_reach = 0
@@ -7132,12 +7458,12 @@ def pair_mask_rows(boxes, cls, device, rows=MERGE_ROWS) -> tuple:
         iou = box_iou_rotated(block, cols)
         same = cls[:, r:r + rows, None] == cls[:, None, r:]
         upper = idx[r:r + rows, None] < idx[None, r:]
-        ref = (iou > IOU_THR) & same & upper
+        ref = (iou > thr) & same & upper
         sync(device)
         plain_s += time.perf_counter() - t0
         mine = got[:, r:r + rows, r:].bool()
         differ = mine != ref
-        band = (iou - IOU_THR).abs() < BAND
+        band = (iou - thr).abs() < BAND
         if (differ & ~band).any() or (mine & ~upper).any() or \
                 got[:, r:r + rows, :r].any():
             raise AssertionError(f'pair mask rows {r}-{r + rows} differ '
@@ -7155,37 +7481,42 @@ def held_pair_masks(calls, label, key, pair, device, card, reps,
     in row blocks from ``BIG_N`` on (and the largest in any case with
     ``rows_for_largest``: a merge's); the largest timed into
     ``pair['main_path_inputs'][key]`` (held in row blocks: the kernel over
-    3 launches, the plain version as the sum of its row blocks)."""
+    3 launches, the plain version as the sum of its row blocks). A call
+    may carry its IoU threshold third (``IOU_THR`` where it does not)."""
     if not calls:
         raise AssertionError(f'the {label} gave no pair-mask input')
+    calls = [(c[0], c[1], c[2] if len(c) > 2 else IOU_THR) for c in calls]
     largest = max(range(len(calls)), key=lambda k: calls[k][0].shape[1])
     by_rows = [k == largest and rows_for_largest or
                calls[k][0].shape[1] >= BIG_N for k in range(len(calls))]
     small = [c for c, rows in zip(calls, by_rows) if not rows]
     big = [c for c, rows in zip(calls, by_rows) if rows]
-    held = [check_pair_mask(boxes, cls) for boxes, cls in small]
+    held = [check_pair_mask(boxes, cls, thr) for boxes, cls, thr in small]
     pair['max_abs_err'] = max([pair['max_abs_err']] +
                               [err for err, _ in held])
-    rows = [pair_mask_rows(boxes, cls, device) for boxes, cls in big]
+    rows = [pair_mask_rows(boxes, cls, device, thr=thr)
+            for boxes, cls, thr in big]
     in_band = sum(n for _, n in held) + sum(r[0] for r in rows)
-    ns = sorted(boxes.shape[1] for boxes, _ in calls)
+    ns = sorted(c[0].shape[1] for c in calls)
+    thrs = sorted({c[2] for c in calls})
     log(f'[main-path] nms_pair_mask on the {len(calls)} inputs of the '
         f'{label}, N {ns[0]}-{ns[-1]} ({len(big)} of them, the largest '
         f'{"among them" if by_rows[largest] else "not"}, held in blocks of '
         f'{MERGE_ROWS} rows): equal to plain outside +-{BAND} of '
-        f'thr={IOU_THR} ({in_band} in-band differences)')
+        f'thr={"/".join(map(str, thrs))} ({in_band} in-band differences)')
     if not big:
-        boxes, cls = max(calls, key=lambda c: c[0].shape[0] * c[0].shape[1])
+        boxes, cls, thr = max(calls,
+                              key=lambda c: c[0].shape[0] * c[0].shape[1])
         timing = time_pair_mask(boxes, cls, device, card,
                                 f'{label}\'s largest input', reps,
-                                plain_reps)
+                                plain_reps, thr)
     else:
         from orientedobjectdetection_torch.ops.iou_kernels import \
             nms_pair_mask
         i = max(range(len(big)), key=lambda k: big[k][0].shape[1])
-        (boxes, cls), (_, same, reach, plain_ms) = big[i], rows[i]
+        (boxes, cls, thr), (_, same, reach, plain_ms) = big[i], rows[i]
         n = boxes.shape[1]
-        ms = time_ms(lambda: nms_pair_mask(boxes, IOU_THR, cls), 3, device,
+        ms = time_ms(lambda: nms_pair_mask(boxes, thr, cls), 3, device,
                      warmup=1)
         t_bytes = (boxes.numel() * 4 + cls.numel() * 4 +
                    boxes.shape[0] * n * n) / PEAK_BYTES * 1e3
@@ -7363,6 +7694,14 @@ def main() -> int:
     split_runs = phase_sar_split(os.path.join(DATA_DIR, 'sar_split'), 'cuda',
                                  card=info['card'])
     log(f'[phase 55] {time.perf_counter() - t55:.1f} s')
+    t56 = time.perf_counter()
+    hard_runs, hard_inputs = phase_hard(
+        os.path.join(DATA_DIR, 'synth_hard512'),
+        os.path.join(DATA_DIR, 'work_hard'), card=info['card'])
+    captured.update(hard_inputs)
+    profile_hard_two_stage(os.path.join(DATA_DIR, 'synth_hard512'),
+                           card=info['card'])
+    log(f'[phase 56] {time.perf_counter() - t56:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -7382,7 +7721,8 @@ def main() -> int:
         # rank, the served requests, the host NMS check's kernel calls and
         # the confusion matrix, the YOLOv6-neck model's requests and steps,
         # the seeded and converted models' requests of phase 52, the HRSID
-        # requests and served JPEGs of phase 54 and phase 55's test run
+        # requests and served JPEGs of phase 54, phase 55's test run and
+        # phase 56's protocol run
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -7392,7 +7732,7 @@ def main() -> int:
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
             *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
-            *split_runs))
+            *split_runs, *hard_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -29,8 +29,13 @@ class SpatialBorderLoss:
         ctr_x = _sum(gt_polys[:, 0::2]) / 4
         ctr_y = _sum(gt_polys[:, 1::2]) / 4
         inside = points_in_own_polygon(p, gt_polys[:, None, :])  # (N, P)
-        d = torch.sqrt((p[..., 0] - ctr_x[:, None]) ** 2 +
-                       (p[..., 1] - ctr_y[:, None]) ** 2)
+        d2 = (p[..., 0] - ctr_x[:, None]) ** 2 + \
+            (p[..., 1] - ctr_y[:, None]) ** 2
+        # a point exactly at the centre: distance 0 with gradient 0 (the
+        # square root's is infinite there, and times a zero weight or the
+        # inside mask it made the whole step's gradient NaN)
+        away = d2 > 0
+        d = torch.where(away, torch.sqrt(torch.where(away, d2, 1.0)), 0.0)
         loss = torch.where(inside, 0.0, d).sum(-1)
         return self.loss_weight * reduce_loss(loss, weight, self.reduction,
                                               avg_factor)

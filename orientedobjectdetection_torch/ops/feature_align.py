@@ -23,7 +23,9 @@ import torch
 def bilinear_sample(feat: torch.Tensor, px: torch.Tensor,
                     py: torch.Tensor) -> torch.Tensor:
     """Sample ``feat`` (B, C, H, W) at fractional cell coordinates ``px``,
-    ``py`` (B, N) -> float32 (B, C, N)."""
+    ``py`` (B, N) -> float32 (B, C, N). A corner outside the map, or at a
+    coordinate that is not finite, adds 0 (as the JAX package's gather,
+    which clamps its indices: a NaN point must not index the map)."""
     b, c, h, w = feat.shape
     flat = feat.reshape(b, c, h * w)
     x0 = torch.floor(px)
@@ -37,10 +39,10 @@ def bilinear_sample(feat: torch.Tensor, px: torch.Tensor,
                         (1, 1, wx1 * wy1)):
         xi = x0 + dx
         yi = y0 + dy
-        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+        inb = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)    # False for NaN
+        idx = torch.where(inb, yi * w + xi, 0).long()
         vals = flat.gather(2, idx[:, None, :].expand(b, c, -1))
-        term = vals * (wgt * inb)[:, None, :]
+        term = vals * torch.where(inb, wgt, 0)[:, None, :]
         out = term if out is None else out + term
     return out
 

@@ -351,6 +351,16 @@ def test_phase_main_path_kernels_rehearsal():
     # phase 54: one HRSID request's candidates and RoIAlign inputs
     captured['sar'] = captured['orcnn']
     captured['sar_roi'] = captured['orcnn_roi']
+    # phase 56: each hard family's evaluation candidates with their IoU
+    # threshold, its assigner's (none for RepPoints) and evaluation's IoU
+    # inputs, the two-stage evaluation's RoIAlign inputs
+    for label in chip_smoke.HARD_CONFIGS:
+        captured[f'hard_{label}_nms'] = [
+            captured['orcnn'] + (0.4 if label == 'reppoints' else 0.1,)]
+        captured[f'hard_{label}_assign'] = [] if label == 'reppoints' \
+            else [captured['train_step']]
+        captured[f'hard_{label}_eval_iou'] = captured['eval_iou'][1:]
+    captured['hard_orcnn_roi_align'] = [captured['orcnn_roi'] + (2,)]
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -384,13 +394,16 @@ def test_phase_main_path_kernels_rehearsal():
         'orcnn_loop_eval_iou', 'orcnn_loop_roi', 'orcnn_loop_rpn',
         'orcnn_train_roi', 'orcnn_train_rpn', 'train_step',
         'r3det_refine_slice'] + refine + hbb + backbones + reppoints +
-        yolo + ['yolov6_slice_assign', 'yolov6_train'])
+        yolo + ['yolov6_slice_assign', 'yolov6_train'] + [
+            f'hard_{label}_{key}' for label in chip_smoke.HARD_CONFIGS
+            for key in ('assign', 'eval_iou')
+            if (label, key) != ('reppoints', 'assign')])
     assert sorted(roi['main_path_inputs']) == sorted(
         ['orcnn', 'orcnn_loop_eval'] +
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
-         'redet_loop_eval', 'redet_converted', 'sar'])
+         'redet_loop_eval', 'redet_converted', 'sar', 'hard_orcnn_eval'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -411,7 +424,8 @@ def test_phase_main_path_kernels_rehearsal():
     assert iou['main_path_inputs']['yolov8_loop_assign']['inputs_held'] == 2
     for label in chip_smoke.YOLO_SERVED:
         assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
-    for key in ('yolov6_slice', 'yolov6', 'sar'):
+    for key in ('yolov6_slice', 'yolov6', 'sar') + tuple(
+            f'hard_{label}_eval' for label in chip_smoke.HARD_CONFIGS):
         assert pair['main_path_inputs'][key]['ms'] > 0
     assert pair['main_path_inputs']['converted']['inputs_held'] == 4
     assert roi['main_path_inputs']['redet_converted']['inputs_held'] == 2
