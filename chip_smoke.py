@@ -7263,6 +7263,448 @@ def held_hard(device, captured, by_name, card, reps, roi_reps,
                     plain_reps)
 
 
+# ---- 57. TIFF: the codec, a DOTA scene split and served from TIFFs ---------
+IMAGE_CORPUS = os.path.join(ROOT, 'tests', 'image_corpus')
+# the SHA-256 of each seeded image's TIFF file and of its decode, as
+# OpenCV 5.0 with libtiff 4.7 writes (cv2.imencode('.tif')) and reads them:
+# tests/test_torch_chip_smoke_tiff.py computes them with OpenCV, and phase
+# 57 holds the port's codec, built by the card machine's g++, to them
+TIFF_DIGESTS = {
+    '1x1-bgr': (
+        '99e0aa460e7b5c1c93c51bb43f8142bacdb8012ea64fcae865eedb2324a8c4da',
+        'c63e4e3db7bf75831e0d02ab1b42871a6ce661b568eca12728bf3f5c738f58ee'),
+    '1x1-grey': (
+        '6ae81e857a53f8573e25b10f35f915e37fb1e0a88e545a454966cdd47103978d',
+        '204164d223b35aabb54ea32b1d14d8bb5a8df56f7c81f3304987fa4193426729'),
+    '7x13-bgr': (
+        '5e3051ef961055f0c0232f65955bb4d5b4fe818715cf5735061e1d465abe2f11',
+        '0db06ed82369ca73bae27e5beb8e8639f20061ca7507e277e239ebf0aa7bd35c'),
+    '7x13-grey': (
+        '87a518c0a9ccbc3d04a2ed6e9fa54ba216055fa1ee72c80273d22ee9d0b3827d',
+        '3fde06f1c68e41646ae4ead11de6b45efdf6297d722293eff888ef830b779507'),
+    '97x131-bgr': (
+        '631cccf82516e81e4d51dc395ab63c21946cd2c456b2261ca8b54fba89818b56',
+        '85146d6781206940ec8f10b8ffd4ab4e8600dc0e667dec54bce49c2458a6a765'),
+    '97x131-grey': (
+        'bc16dc67455d03a91435e94b3f6c76cbcd45db274440c180e9b0a213f593e47a',
+        '748fd26ed969fbe8fc13ca267cea7a0821d992d87b4b444a51a8a5876e909b3c'),
+    '800-bgr': (
+        '5f2123dfd8220778c4f4d06d2623438212aca9824e41396d3b620628ea787f04',
+        '237d30f7268e75af0b525b212a5affa06c1178a25f53dacf9d7802890c279dac'),
+    '800-grey': (
+        '2876a9a11b2eaa7f1aa0cf96507c241aec7c264bb5a5bf2d2fee813314ee0178',
+        '097e469cc2a63d5408ab20ab2683cd50c0bdd5c2d2733e6b35eb9b8bbc111dd7'),
+    '1024-bgr': (
+        '4ee4132d85ae996cef0f4dc0386e6a649ac6b1be3c520989dc5117c5964a3cc5',
+        '50b46731b8f3c052ab15ceca5bce83d08cd6e76f23e515279b43ac376d6363b8'),
+    '1024-grey': (
+        'cc559a50c5a2a56485c32bed85648d4897d31ab4b1df5282b41e6c53d0f7906d',
+        '1ac1e1d99b7eb965b9ec81ff73dc80087286024fd76eb5af335e7882fbb242fd'),
+}
+# IMAGE_CORPUS's files (tests/make_image_corpus.py) -> the SHA-256 of
+# cv2.imdecode(IMREAD_COLOR)'s array, None where OpenCV returns no image
+# (the port must then raise): cv2.imdecode, since OpenCV 5.0's cv2.imread
+# returns no image for a TIFF whose orientation transposes it ('Internal
+# imread issue'), which cv2.imdecode and the port read
+CORPUS_DIGESTS = {
+    '12-bit.jpg': None,
+    'arithmetic-progressive.jpg':
+        '5228c93f406d02891beb56f2579c67e3fa77fd0fde23e95c89d9ec76aa304592',
+    'bigtiff-be-16bit-predictor.tif':
+        '31246350658abcda054f7b1c4f4609a79503f749e0de1578ccbbcc046c708550',
+    'cmyk.jpg':
+        '25899622d19da21c07a3a309d1c4aef041c897fe389d638cf6307d2e83fe51da',
+    'cmyk.tif':
+        '011c9ebe927622336e022a75281ec59f9b3cf0ab493f038bc517ade54d42b9fe',
+    'cv2-16bit.tif':
+        '85a07c660db8626c0ed2343fa22df70a4b38c65e275d4fe94eb86e6d4b1035ad',
+    'cv2-deflate.tif':
+        'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'cv2-none.tif':
+        'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'cv2-packbits.tif':
+        'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'grey-16bit.tif':
+        '2a42108cd2b325f3bf6af3ada98ef712e18939fd638c59f31e0cc6b129aa5ebf',
+    'lossless.jpg':
+        '59777ff185183b036557d4fe6cc73005b5398f09b830555a68310b13b8c67af1',
+    'minwhite-1bit.tif':
+        '3dc61453ee30323224f06f8848e3f1f78e354a9b4eda45061b9d1194edd0b101',
+    'multipage.tif':
+        'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'orientation-3-grey.tif':
+        '2c5ee9174acc8460d41680cfcb74246daf912c003857bfe40262d648e03883e2',
+    'orientation-6.tif':
+        '5cc9335d4086f64ea61a2c4bd63159d31eade9d40e7e1cb55ff9ac2ae2ae29af',
+    'palette-4bit.tif':
+        '9b94645530c6aba00a749c08b2df4fbcb4189c5111a060d0a4c5b261302aa7f2',
+    'pil-jpeg.tif':
+        '83533531b813f08f4a6cc25a2dd64d5c6fa24319c0118fd3599cf4648dac67a5',
+    'pil-palette.tif':
+        'cb4e4448a10bdcdcfbd1fbf9edb5b1eebccfd014b712c03d2c70df769a5e54f9',
+    'pil-rgba.tif':
+        'fdba12fc58186bc3dab4b7e9371abc433c4d6b54e522b5d4c22650ba4889b404',
+    'planar-lzw.tif':
+        'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'rgba-unassociated-16bit.tif':
+        'ea008961c2f3b7e11fce93afaa1fec95b51295471952214309c6468515b0646a',
+    'tiles-deflate-predictor.tif':
+        'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'tiles-planar-bigtiff-be.tif':
+        'f5bf99d466c0c6a3a7cf8786aefe02008c16d26ec7ee1bb26d3a3d115e804463',
+    'ycbcr-22-refbw.tif':
+        '625ee3236620151a2bb035086950b8656f20785706df5e375d212e339370b562',
+    'ycck.jpg':
+        'aa71dac3a3eef38fb515e7d36453d3edd70f65e19a5e47f7d3b6a1fc20491169',
+}
+TIFF_TIMED = (1024, 4000)           # the sides whose decodes are timed
+
+
+def tiff_digests(cases=CODEC_CASES) -> dict:
+    """The port's TIFF writer and reader over the seeded images of
+    ``cases``: :func:`codec_digests` with ``native.tiff_encode`` and
+    ``native.tiff_decode``."""
+    from orientedobjectdetection_torch import native
+    return codec_digests(cases, encode=native.tiff_encode,
+                         decode=lambda data: native.tiff_decode(data)[0])
+
+
+def corpus_digests(decode=None) -> dict:
+    """IMAGE_CORPUS's file -> the SHA-256 of ``decode(bytes)`` ((H, W, 3)
+    uint8; the port's ``imdecode`` unless given), None where it raises
+    ValueError or returns None."""
+    import hashlib
+    from orientedobjectdetection_torch.utils.image_io import imdecode
+    decode = decode or imdecode
+    out = {}
+    for name in sorted(os.listdir(IMAGE_CORPUS)):
+        with open(os.path.join(IMAGE_CORPUS, name), 'rb') as f:
+            data = f.read()
+        try:
+            pixels = decode(data)
+        except ValueError:
+            pixels = None
+        out[name] = None if pixels is None else hashlib.sha256(
+            np.ascontiguousarray(pixels).tobytes()).hexdigest()
+    return out
+
+
+def scene_objects(size, step=300, side=(60, 24)) -> list:
+    """DOTA annotation lines of a grid of rotated rectangles every ``step``
+    pixels over a ``size``^2 scene, planes and ships in turn, so that every
+    window of an annotated split holds some."""
+    lines = []
+    w, h = side
+    for k, (cy, cx) in enumerate((y, x) for y in range(step // 2, size, step)
+                                 for x in range(step // 2, size, step)):
+        t = 0.3 * (k % 5)
+        c, s = float(np.cos(t)), float(np.sin(t))
+        pts = [(cx + c * dx - s * dy, cy + s * dx + c * dy)
+               for dx, dy in ((-w / 2, -h / 2), (w / 2, -h / 2),
+                              (w / 2, h / 2), (-w / 2, h / 2))]
+        coords = ' '.join(f'{v:.1f}' for p in pts for v in p)
+        lines.append(f'{coords} {("plane", "ship")[k % 2]} 0')
+    return lines
+
+
+def median_ms(fn, reps) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def phase_tiff(root, device, card='', scene=4000, window=1024, gap=200,
+               bsz=8, dtype=torch.bfloat16, max_num=2000, max_candidates=2000,
+               reps=3, workers=8, rounds=2, thr=SERVE_THR, cases=CODEC_CASES,
+               digests=TIFF_DIGESTS, corpus=CORPUS_DIGESTS, timed=TIFF_TIMED,
+               objects_step=300, config=ORCNN_CONFIG) -> tuple:
+    """Phase 57. (i) On the card's host: the port's TIFF writer and reader
+    over the seeded images of ``cases`` (BGR and grey, across strip
+    boundaries) give OpenCV's files and decodes (``digests``, SHA-256), and
+    its readers decode every file of IMAGE_CORPUS (TIFF forms, and CMYK,
+    YCCK, arithmetic-coded, lossless and 12-bit JPEGs) to OpenCV's arrays
+    (``corpus``; where OpenCV gives none, the port raises). (ii) A
+    ``scene``^2 scene written as a TIFF by the port's writer, with DOTA
+    annotations, and the same pixels as a PNG:
+    ``tools/img_split.py`` cuts each into ``window`` windows at ``gap``
+    (``--img-ext .tif`` and ``.png``), the same windows and annotation
+    files; Oriented R-CNN (``config``, seeded weights, ``dtype``) serves the
+    windows in batches of ``bsz`` (one B3 and one B1 launch a batch) from
+    the TIFFs and from the PNGs, the same detections;
+    ``inference_detector_by_patches`` on the TIFF and on the PNG path (B1
+    on the batches and the merge), the same detections; ``tools.serve``
+    answers a TIFF window's body (raw and base64) as the PNG's, and a
+    corrupt TIFF with a 400. One batch's B1 and B3 inputs and the merge's
+    B1 inputs are recorded for phase 12. (iii) One host thread: the TIFF
+    decode at each side of ``timed`` against the PNG and the JPEG of the
+    same pixels, and ``workers`` threads reading the split's windows, TIFF
+    against PNG, ``rounds`` times in turns. Returns the launch counts of
+    (ii) and the recorded inputs."""
+    import base64
+    import http.client
+    import re
+    import shutil
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from orientedobjectdetection_torch import native
+    from orientedobjectdetection_torch.apis import inference as api
+    from orientedobjectdetection_torch.models.roi_heads import \
+        oriented_roi_head
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.tools import img_split, serve
+    from orientedobjectdetection_torch.utils.image_io import (imdecode,
+                                                              imread, imwrite)
+    on_card = torch.device(device).type == 'cuda'
+    native.load()
+    got = tiff_digests(cases)
+    wrong = sorted(k for k in got if got[k] != digests.get(k))
+    if wrong:
+        raise AssertionError(f'the TIFF writer\'s files or decodes differ '
+                             f'from OpenCV\'s for {wrong}')
+    read = corpus_digests()
+    wrong = sorted(k for k in corpus if read.get(k, 'missing') != corpus[k])
+    if wrong:
+        raise AssertionError(f'the readers\' decodes of {wrong} differ from '
+                             f'OpenCV\'s')
+    log(f'[tiff] {len(got)} seeded TIFFs ({", ".join(n for n, *_ in cases)}'
+        f'; BGR and grey) written and read: every file and decode equal to '
+        f'OpenCV\'s by SHA-256; {len(corpus)} corpus files (TIFF: tiles, '
+        f'planar, BigTIFF, big-endian, 16-bit predictor, multi-page, '
+        f'orientation, YCbCr, palette, CMYK, JPEG, PackBits, deflate; JPEG: '
+        f'CMYK, YCCK, arithmetic, lossless, 12-bit) decoded to OpenCV\'s '
+        f'arrays ({sum(v is None for v in corpus.values())} refused as '
+        f'OpenCV refuses them)')
+
+    # (ii) the scene, split from a TIFF and from a PNG
+    for sub in ('scene_tif', 'scene_png', 'ann', 'split_tif', 'split_png'):
+        shutil.rmtree(os.path.join(root, sub), ignore_errors=True)
+        os.makedirs(os.path.join(root, sub))
+    pixels = codec_image(scene, scene, seed=57)
+    tif_scene = os.path.join(root, 'scene_tif', 'P0057.tif')
+    png_scene = os.path.join(root, 'scene_png', 'P0057.png')
+    t0 = time.perf_counter()
+    imwrite(tif_scene, pixels)
+    write_s = time.perf_counter() - t0
+    imwrite(png_scene, pixels)
+    with open(os.path.join(root, 'ann', 'P0057.txt'), 'w') as f:
+        f.write('\n'.join(scene_objects(scene, objects_step)))
+    if not np.array_equal(imread(tif_scene), pixels):
+        raise AssertionError('the scene does not read back from its TIFF')
+    split_s = {}
+    for ext, scene_dir in (('.tif', 'scene_tif'), ('.png', 'scene_png')):
+        t0 = time.perf_counter()
+        img_split.main(['--img-dirs', os.path.join(root, scene_dir),
+                        '--ann-dirs', os.path.join(root, 'ann'),
+                        '--save-dir', os.path.join(root, 'split_' + ext[1:]),
+                        '--sizes', str(window), '--gaps', str(gap),
+                        '--img-ext', ext, '--nproc', str(workers)])
+        split_s[ext] = time.perf_counter() - t0
+    tif_dir, png_dir = (os.path.join(root, d) for d in ('split_tif',
+                                                        'split_png'))
+    tif_names = sorted(os.listdir(os.path.join(tif_dir, 'images')))
+    stems = [os.path.splitext(n)[0] for n in tif_names]
+    pattern = re.compile(r'P0057__(\d+)__(\d+)___(\d+)\.tif')
+    if not tif_names or not all(pattern.fullmatch(n) for n in tif_names) or \
+            stems != [os.path.splitext(n)[0] for n in sorted(os.listdir(
+                os.path.join(png_dir, 'images')))]:
+        raise AssertionError(f'the TIFF split wrote {tif_names}')
+    tif_paths = [os.path.join(tif_dir, 'images', n) for n in tif_names]
+    png_paths = [os.path.join(png_dir, 'images', s + '.png') for s in stems]
+    for tif, png, stem in zip(tif_paths, png_paths, stems):
+        with open(tif, 'rb') as f:
+            if f.read(4) != b'II*\x00':
+                raise AssertionError(f'{tif} is not a TIFF')
+        if not np.array_equal(imread(tif), imread(png)):
+            raise AssertionError(f'window {stem}: TIFF and PNG differ')
+        with open(os.path.join(tif_dir, 'annfiles', stem + '.txt')) as f, \
+                open(os.path.join(png_dir, 'annfiles', stem + '.txt')) as g:
+            if f.read() != g.read():
+                raise AssertionError(f'window {stem}: annotations differ')
+    log(f'[tiff] {scene}^2 scene written as a TIFF by the port\'s writer '
+        f'({os.path.getsize(tif_scene)} bytes in {write_s:.2f} s; PNG '
+        f'{os.path.getsize(png_scene)} bytes), '
+        f'{len(scene_objects(scene, objects_step))} objects; img_split cut '
+        f'it into {len(tif_names)} windows of '
+        f'{window} at gap {gap}: TIFF windows in {split_s[".tif"]:.2f} s, '
+        f'PNG windows in {split_s[".png"]:.2f} s, the same pixels and '
+        f'annotation files')
+
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates,
+                                config=config)
+    num_classes = bundle.num_classes
+
+    def serve_windows(paths):
+        out = []
+        for i in range(0, len(paths), bsz):
+            batch = torch.from_numpy(np.stack([imread(p)
+                                               for p in paths[i:i + bsz]]))
+            out.append(bundle(batch))
+        sync(device)
+        return out
+
+    batches = -(-len(tif_paths) // bsz)
+    serve_windows(tif_paths[:bsz])                          # warm
+    runs, results, serve_s = [], {}, {}
+    for ext, paths in (('.tif', tif_paths), ('.png', png_paths)):
+        reset_launches()
+        t0 = time.perf_counter()
+        results[ext] = serve_windows(paths)
+        serve_s[ext] = time.perf_counter() - t0
+        runs.append(read_launches())
+        for name in ('roi_align_rotated', 'nms_pair_mask'):
+            if runs[-1][name] != (batches if on_card else 0):
+                raise AssertionError(f'{name} launched {runs[-1][name]} '
+                                     f'times for {batches} batches')
+    n_dets, worst = 0, 0.0
+    for got, ref in zip(results['.tif'], results['.png']):
+        err, _, _ = same_detections(got, ref, [-1.0] * got[0].shape[0])
+        worst = max(worst, err)
+        n_dets += int(got[2].sum())
+    if not n_dets:
+        raise AssertionError('the windows gave no detections')
+    with recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
+        serve_windows(tif_paths[:bsz])
+    inputs = {'tiff': (masks[0][0][0], masks[0][0][2]),
+              'tiff_roi': tuple(pools[0][0][:2])}
+    log(f'[tiff] {card} | Oriented R-CNN {str(dtype).split(".")[-1]} over '
+        f'the {len(tif_paths)} windows in {batches} batches of up to {bsz}: '
+        f'from the TIFFs {serve_s[".tif"]:.2f} s, from the PNGs '
+        f'{serve_s[".png"]:.2f} s (reads included); {n_dets} detections, '
+        f'the same from both (max |diff| {worst:.3g}); launches {runs[0]}')
+
+    kwargs = dict(sizes=(window,), steps=(window - gap,), bs=bsz)
+    by = {}
+    for ext, path in (('.tif', tif_scene), ('.png', png_scene)):
+        with recording(nms, 'nms_pair_mask', keep_results=False) as calls:
+            reset_launches()
+            t0 = time.perf_counter()
+            by[ext] = api.inference_detector_by_patches(bundle, path,
+                                                        **kwargs)
+            sync(device)
+            seconds = time.perf_counter() - t0
+            runs.append(read_launches())
+        merge = pair_mask_inputs(calls[batches:])
+        if ext == '.tif':
+            inputs['tiff_merge'] = merge
+            patch_s, patch_counts = seconds, runs[-1]
+        if runs[-1]['nms_pair_mask'] != ((batches + len(merge)) if on_card
+                                         else 0) or not merge:
+            raise AssertionError(f'launches {runs[-1]} for {batches} '
+                                 f'batches and {len(merge)} merge NMS calls')
+    err, moved, _ = same_detections(stack_results([by['.tif']], num_classes),
+                                    stack_results([by['.png']], num_classes),
+                                    [-1.0])
+    merged = per_class_dets(by['.tif'], num_classes, scene)
+    log(f'[tiff] {card} | inference_detector_by_patches on the {scene}^2 '
+        f'TIFF path: {patch_s:.2f} s, {merged} merged detections, the same '
+        f'as from the PNG path (max |diff| {err:.3g}, {moved} rows moved); '
+        f'launches {patch_counts}')
+
+    ckpt = os.path.join(root, 'served.pth')
+    torch.save({k: v.cpu() for k, v in bundle.detector.state_dict().items()},
+               ckpt)
+    del bundle
+    free_card(device)
+    server = serve.build_server(serve.parse_args([
+        config, ckpt, '--host', '127.0.0.1', '--port', '0', '--score-thr',
+        str(thr), '--device', device]))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+
+    def post(body):
+        conn = http.client.HTTPConnection(host, port, timeout=300)
+        conn.request('POST', '/predict', body=body)
+        reply = conn.getresponse()
+        data = reply.read()
+        conn.close()
+        return reply.status, data
+
+    with open(tif_paths[0], 'rb') as f:
+        tif_body = f.read()
+    with open(png_paths[0], 'rb') as f:
+        png_body = f.read()
+    try:
+        post(png_body)                                      # warm
+        reset_launches()
+        answers = {}
+        for kind, body in (('tiff', tif_body),
+                           ('base64', base64.b64encode(tif_body)),
+                           ('png', png_body)):
+            status, data = post(body)
+            if status != 200:
+                raise AssertionError(f'serve answered a {kind} body with '
+                                     f'{status}: {data[:200]}')
+            answers[kind] = json.loads(data)
+        runs.append(read_launches())
+        status, data = post(tif_body[:len(tif_body) // 2])
+        if status != 400 or b'TIFF' not in data:
+            raise AssertionError(f'a truncated TIFF got {status}: {data}')
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    for kind in ('tiff', 'base64'):
+        same_answers(answers[kind], answers['png'], f'{kind} body')
+    if not answers['png']:
+        raise AssertionError('serve answered the window with no detections')
+    log(f'[tiff] tools.serve: a TIFF window as a raw and a base64 body, the '
+        f'same JSON as its PNG ({len(answers["png"])} detections above '
+        f'{thr}); a truncated TIFF 400; launches {runs[-1]}')
+
+    # (iii) one host thread; then the split's windows on `workers` threads
+    times = {}
+    for side in timed:
+        img = pixels if side == scene else codec_image(side, side, seed=side)
+        files = {'tiff': native.tiff_encode(img), 'png': None,
+                 'jpeg': native.jpeg_encode(img)}
+        png = os.path.join(root, f'timed_{side}.png')
+        imwrite(png, img)
+        with open(png, 'rb') as f:
+            files['png'] = f.read()
+        times[side] = {k: median_ms(lambda d=d: imdecode(d), reps)
+                       for k, d in files.items()}
+        log(f'[tiff] {card} | host, one thread, {side}^2 BGR decode (median '
+            f'of {reps}): TIFF (LZW, predictor 2, {len(files["tiff"])} '
+            f'bytes) {times[side]["tiff"]:.2f} ms, PNG '
+            f'({len(files["png"])} bytes) {times[side]["png"]:.2f} ms, JPEG '
+            f'(quality 95, {len(files["jpeg"])} bytes) '
+            f'{times[side]["jpeg"]:.2f} ms')
+    rates = {'.tif': [], '.png': []}
+    with ThreadPoolExecutor(workers) as pool:
+        for _ in range(rounds):
+            for ext, paths in (('.tif', tif_paths), ('.png', png_paths)):
+                t0 = time.perf_counter()
+                list(pool.map(imread, paths))
+                rates[ext].append(len(paths) / (time.perf_counter() - t0))
+    log(f'[tiff] {card} | {workers} threads reading the split\'s '
+        f'{len(tif_paths)} windows, {rounds} rounds in turns: TIFF '
+        f'{[round(r, 2) for r in rates[".tif"]]} imgs/s, PNG '
+        f'{[round(r, 2) for r in rates[".png"]]} imgs/s')
+    return runs, inputs
+
+
+def held_tiff(device, captured, by_name, card, reps, roi_reps,
+              plain_reps) -> None:
+    """Phase 57's recorded inputs against their plain versions, each timed
+    into ``main_path_inputs``: B1 on one window batch's candidates and on
+    the scene's merge, B3 on the batch's levels and proposals."""
+    pair = by_name['nms_pair_mask']
+    held_pair_masks([captured['tiff']], 'TIFF window batch', 'tiff', pair,
+                    device, card, reps, plain_reps)
+    held_pair_masks(captured['tiff_merge'], 'TIFF scene\'s merge',
+                    'tiff_merge', pair, device, card, reps, plain_reps,
+                    rows_for_largest=True)
+    levels, rois = captured['tiff_roi']
+    held_roi_inputs([(levels, rois, 2)], 'TIFF window batch', 'tiff',
+                    by_name['roi_align_rotated'], device, card, roi_reps,
+                    plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -7333,6 +7775,7 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_yolov6(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_sar(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_hard(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_tiff(device, captured, by_name, card, reps, roi_reps, plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -7702,6 +8145,11 @@ def main() -> int:
     profile_hard_two_stage(os.path.join(DATA_DIR, 'synth_hard512'),
                            card=info['card'])
     log(f'[phase 56] {time.perf_counter() - t56:.1f} s')
+    t57 = time.perf_counter()
+    tiff_runs, tiff_inputs = phase_tiff(os.path.join(DATA_DIR, 'tiff'),
+                                        'cuda', card=info['card'])
+    captured.update(tiff_inputs)
+    log(f'[phase 57] {time.perf_counter() - t57:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -7721,8 +8169,9 @@ def main() -> int:
         # rank, the served requests, the host NMS check's kernel calls and
         # the confusion matrix, the YOLOv6-neck model's requests and steps,
         # the seeded and converted models' requests of phase 52, the HRSID
-        # requests and served JPEGs of phase 54, phase 55's test run and
-        # phase 56's protocol run
+        # requests and served JPEGs of phase 54, phase 55's test run,
+        # phase 56's protocol run and phase 57's TIFF and PNG window
+        # batches, patch runs and served bodies
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -7732,7 +8181,7 @@ def main() -> int:
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
             *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
-            *split_runs, *hard_runs))
+            *split_runs, *hard_runs, *tiff_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

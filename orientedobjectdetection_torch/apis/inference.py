@@ -219,7 +219,7 @@ def results_to_per_class(dets, labels, valid, num_classes: int
 
 
 def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
-    """Load (a PNG, JPEG or BMP path, :func:`..utils.image_io.imread`) +
+    """Load (a PNG, JPEG, BMP or TIFF path, :func:`..utils.image_io.imread`) +
     host-normalize.
     ``img_norm_cfg=None`` returns the RAW uint8 BGR image (for
     device-normalizing bundles)."""
@@ -237,8 +237,8 @@ def _prep_image(img, img_norm_cfg=None) -> np.ndarray:
 
 def inference_detector(bundle: DetectorBundle, img,
                        img_norm_cfg=None) -> List[np.ndarray]:
-    """Single-image inference (PNG, JPEG or BMP path, or HWC BGR ndarray);
-    pads to the config's ``pad_size`` (default 1024 x 1024)."""
+    """Single-image inference (PNG, JPEG, BMP or TIFF path, or HWC BGR
+    ndarray); pads to the config's ``pad_size`` (default 1024 x 1024)."""
     if bundle.device_norm is not None:
         img_norm_cfg = None                # the bundle normalizes on device
     elif img_norm_cfg is None:

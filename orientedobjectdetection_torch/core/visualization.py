@@ -66,11 +66,13 @@ def imshow_det_rbboxes(img, result: List[np.ndarray],
                        palette=None,
                        out_file: Optional[str] = None) -> np.ndarray:
     """Draw per-class ``(n, 6)`` detections on a copy of ``img`` (a PNG,
-    JPEG or BMP path, or an ``(H, W, 3)`` uint8 BGR array): each box scoring at
+    JPEG, BMP or TIFF path, or an ``(H, W, 3)`` uint8 BGR array): each box
+    scoring at
     least ``score_thr`` as a closed polygon in its class's color, labelled
     ``name|score`` 3 pixels above its first corner. ``palette``: a color
-    list or a name of :data:`PALETTES`. Writes ``out_file`` when given and
-    returns the drawn image."""
+    list or a name of :data:`PALETTES`. Writes ``out_file`` when given (in
+    the format its extension names, as ``cv2.imwrite`` does) and returns
+    the drawn image."""
     img = _load(img).copy()
     palette = palette_colors(palette, len(result))
     for cls, dets in enumerate(result):

@@ -2,23 +2,35 @@
 // with libjpeg-turbo's default paths, which OpenCV's imread / imdecode /
 // imwrite run for the JAX package.
 //
-// Decoder: SOF0 / SOF1 (baseline and extended Huffman) and SOF2
-// (progressive: spectral selection, successive approximation, EOB runs)
-// with 8-bit samples, 1 or 3 components, sampling factors 1-4 whose ratios
-// to the largest are integral, DRI / RSTn restart intervals, byte stuffing
-// and fill bytes. Reconstruction as libjpeg-turbo's defaults do it:
+// Decoder: SOF0 / SOF1 (baseline and extended Huffman), SOF2 (progressive:
+// spectral selection, successive approximation, EOB runs), SOF9 / SOF10
+// (arithmetic-coded sequential and progressive, jdarith.c's decoder and
+// its DAC conditioning) with 8-bit samples, and SOF3 (lossless, Huffman:
+// predictors 1-7 and the point transform, jdlossls.c's undifferencing) with
+// samples of 2-8 bits; 1, 3 or 4 components, sampling factors 1-4 whose
+// ratios to the largest are integral, DRI / RSTn restart intervals, byte
+// stuffing and fill bytes. Reconstruction as libjpeg-turbo's defaults do it:
 //   - jidctint.c's "islow" IDCT (CONST_BITS 13, PASS1_BITS 2) and its
 //     range-limit table (0x3FF mask);
 //   - jdsample.c's fancy upsampling: h2v1 (biases 1, 2) and h2v2 (biases
 //     8, 7, the context rows replicated at the top and bottom) where the
 //     downsampled width exceeds 2, libjpeg-turbo's h1v2 (biases 1, 2),
 //     and plain replication otherwise;
-//   - jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16, ONE_HALF rounding);
-//   - libjpeg's colour-space guess: JFIF means YCbCr, Adobe APP14
-//     transform 0 means RGB, component ids 'R', 'G', 'B' mean RGB.
+//   - jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16, ONE_HALF rounding) and
+//     its YCCK -> CMYK conversion;
+//   - libjpeg-turbo's colour-space guess: JFIF means YCbCr; an Adobe APP14
+//     transform 0 means RGB (3 components) or CMYK (4), 1 YCbCr, 2 YCCK;
+//     component ids 'R', 'G', 'B' mean RGB; other files YCbCr, CMYK with 4
+//     components, and RGB when lossless (where libjpeg-turbo 3 converts no
+//     colour space, so OpenCV reads neither grey, YCbCr nor YCCK lossless
+//     files: they are refused as it refuses them).
 // The output is (H, W, 3) BGR; grey is repeated to 3 channels, as OpenCV's
-// IMREAD_COLOR does. Missing Huffman tables default to the standard ones,
-// as libjpeg-turbo's decoder does for Motion-JPEG frames.
+// IMREAD_COLOR does, and CMYK (the values as stored: Adobe's inverted CMYK)
+// becomes BGR as OpenCV's icvCvt_CMYK2BGR_8u_C4C3R computes it. Missing
+// Huffman tables default to the standard ones, as libjpeg-turbo's decoder
+// does for Motion-JPEG frames. oodt_jpeg_decode_segment decodes a
+// tables-only stream and then an abbreviated one (a TIFF file's JPEGTables
+// and one strip or tile), converting YCbCr to RGB or no colour at all.
 //
 // Encoder: what cv2.imwrite(".jpg") writes with OpenCV's defaults, and
 // nothing else: JFIF 1.01 APP0 (density 1:1, no thumbnail); quality 95
@@ -30,13 +42,15 @@
 // makes them; EOI. Grey images are written as one component.
 //
 // Every read is checked against the buffer's length; a corrupt or
-// truncated file gives an error message, never a crash. Arithmetic coding
-// (SOF9-11, SOF13-15, DAC), lossless (SOF3), hierarchical (SOF5-7, DHP,
-// EXP), 12-bit and CMYK / YCCK files are refused by name (ROADMAP A.4c).
+// truncated file gives an error message, never a crash. Hierarchical files
+// (SOF5-7, SOF13-15, DHP, EXP), 12-bit DCT files, lossless files of more
+// than 8 bits and lossless arithmetic-coded ones (SOF11) are refused as
+// OpenCV refuses them (libjpeg-turbo has no hierarchical or lossless
+// arithmetic decoder, and OpenCV reads 8-bit samples alone).
 //
-// A plain C ABI, loaded with ctypes (native.py builds it with rnms.cpp into
-// one library). No global state is written: calls from several threads run
-// in parallel.
+// A plain C ABI, loaded with ctypes (native.py builds it with rnms.cpp and
+// tiff.cpp into one library). No global state is written: calls from
+// several threads run in parallel.
 
 #include <algorithm>
 #include <cstdint>
@@ -54,7 +68,8 @@ struct JpegError {
 
 [[noreturn]] void fail(const std::string& msg) { throw JpegError{msg}; }
 
-const char* const kRefused = " (ROADMAP A.4c)";
+// a form OpenCV returns no image for either
+const char* const kNotRead = ": OpenCV does not read it either";
 
 // jpeg_natural_order, padded with 63s for corrupt run lengths
 const int kNatural[80] = {
@@ -63,6 +78,29 @@ const int kNatural[80] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; state 113 is the fixed probability 0.5
+const int32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
 
 // Annex K.3 (jstdhuff.c): code counts of lengths 1-16, then the symbols
 const uint8_t kDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1,
@@ -205,14 +243,16 @@ struct HuffDecoder {
   int32_t maxcode[18];
   int32_t valoffset[18];
   uint8_t vals[256];
+  int max_val = 0;                 // a DC table's largest symbol
 };
 
 void build_decoder(HuffDecoder& h, const uint8_t* bits, const uint8_t* vals,
                    int n, bool dc) {
   if (n > 256) fail("bad Huffman table (more than 256 codes)");
-  if (dc)
-    for (int i = 0; i < n; i++)
-      if (vals[i] > 15) fail("bad Huffman table (DC symbol over 15)");
+  // a DC symbol over 15 (16 in a lossless scan) is refused where a scan
+  // uses the table, as libjpeg checks it
+  h.max_val = 0;
+  for (int i = 0; i < n; i++) h.max_val = std::max(h.max_val, int(vals[i]));
   std::memcpy(h.vals, vals, size_t(n));
   std::memset(h.fast_len, 0, sizeof(h.fast_len));
   int32_t code = 0;
@@ -347,6 +387,96 @@ struct BitReader {
   }
 };
 
+// jdarith.c's decoder: the C and A registers and T.81's statistics bins.
+// At a marker it feeds zero bytes, as the standard has it; running past the
+// end of the data is truncation.
+struct ArithReader {
+  const uint8_t* data;
+  size_t len;
+  size_t pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false;
+
+  void start() {
+    c = 0;
+    a = 0;
+    ct = -16;                      // two bytes are read first
+  }
+
+  int byte() {
+    if (pos >= len) fail("truncated arithmetic-coded data");
+    return data[pos++];
+  }
+
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int d = 0;
+        if (!at_marker) {
+          size_t ff = pos;
+          d = byte();
+          if (d == 0xFF) {
+            do d = byte();
+            while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;                               // a stuffed zero
+            } else {
+              at_marker = true;                       // stay on the 0xFF
+              pos = ff;
+              d = 0;
+            }
+          }
+        }
+        c = (c << 8) | d;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    int nl = int(qe & 0xFF);
+    qe >>= 8;
+    int nm = int(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {                                   // MPS after exchange
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {                                        // LPS
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {                                   // LPS after exchange
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // a restart: find RSTn (the data before it is dropped), then start over
+  void restart(int expected) {
+    at_marker = false;
+    while (pos < len && data[pos] != 0xFF) pos++;
+    while (pos < len && data[pos] == 0xFF) pos++;
+    if (pos >= len) fail("truncated data: a restart marker is missing");
+    if (data[pos] != 0xD0 + expected)
+      fail("corrupt data: restart marker out of order");
+    pos++;
+    start();
+  }
+};
+
 inline int extend(int v, int s) {
   return (s && v < (1 << (s - 1))) ? v - (1 << s) + 1 : v;
 }
@@ -364,35 +494,55 @@ struct Component {
   int nbw = 0, nbh = 0;            // blocks a non-interleaved scan covers
   int bw = 0, bh = 0;              // blocks stored (MCU-padded)
   int16_t* coefs = nullptr;
+  uint16_t* samples = nullptr;     // lossless: undifferenced, dw x dh
   bool quant_latched = false;
   uint16_t quant[64];
   int dc_tbl = 0, ac_tbl = 0;
   int pred = 0;
+  int dc_context = 0;              // arithmetic DC conditioning
+  int pt = 0;                      // lossless point transform
 };
+
+enum Space { kGrey, kYcc, kRgb, kCmyk, kYcck };
 
 struct Decoder {
   const uint8_t* data;
   size_t len;
   size_t pos = 0;
   bool frame = false, progressive = false, any_scan = false;
+  bool lossless = false, arith = false;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
+  int precision = 8;
   int width = 0, height = 0, ncomp = 0, maxh = 1, maxv = 1;
   int mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  Component comp[3];
+  Component comp[4];
   bool quant_defined[4] = {false, false, false, false};
   uint16_t quant[4][64];
   HuffDecoder dc[4], ac[4];
+  // arithmetic conditioning (DAC; SOI's defaults) and statistics bins
+  // (16 tables each, as libjpeg numbers them)
+  int dc_l[16], dc_u[16], ac_k[16];
+  uint8_t dc_stats[4][64], ac_stats[4][256];
+  uint8_t fixed_bin = 113;
 
   Decoder(const uint8_t* d, size_t n) : data(d), len(n) {
     build_decoder(dc[0], kDcLumBits, kDcVals, 12, true);
     build_decoder(dc[1], kDcChromBits, kDcVals, 12, true);
     build_decoder(ac[0], kAcLumBits, kAcLumVals, 162, false);
     build_decoder(ac[1], kAcChromBits, kAcChromVals, 162, false);
+    for (int i = 0; i < 16; i++) {
+      dc_l[i] = 0;
+      dc_u[i] = 1;
+      ac_k[i] = 5;
+    }
   }
   ~Decoder() {
-    for (auto& c : comp) std::free(c.coefs);
+    for (auto& c : comp) {
+      std::free(c.coefs);
+      std::free(c.samples);
+    }
   }
   Decoder(const Decoder&) = delete;
   Decoder& operator=(const Decoder&) = delete;
@@ -426,37 +576,41 @@ struct Decoder {
   }
 
   void refuse_marker(int m) {
-    if (m == 0xC3) fail(std::string("lossless JPEG (SOF3)") + kRefused);
     if (m >= 0xC5 && m <= 0xC7)
       fail("hierarchical JPEG (SOF" + std::to_string(m - 0xC0) + ")" +
-           kRefused);
-    if (m == 0xC9 || m == 0xCA || m == 0xCB || m == 0xCC)
-      fail(std::string("arithmetic-coded JPEG (") +
-           (m == 0xCC ? "DAC" : "SOF" + std::to_string(m - 0xC0)) + ")" +
-           kRefused);
+           kNotRead);
+    if (m == 0xCB)
+      fail(std::string("lossless arithmetic-coded JPEG (SOF11)") + kNotRead);
     if (m >= 0xCD && m <= 0xCF)
       fail("hierarchical arithmetic-coded JPEG (SOF" +
-           std::to_string(m - 0xC0) + ")" + kRefused);
+           std::to_string(m - 0xC0) + ")" + kNotRead);
     if (m == 0xDE || m == 0xDF)
       fail(std::string("hierarchical JPEG (") +
-           (m == 0xDE ? "DHP" : "EXP") + ")" + kRefused);
+           (m == 0xDE ? "DHP" : "EXP") + ")" + kNotRead);
+  }
+
+  static bool is_frame(int m) {
+    return m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+           m == 0xCA;
   }
 
   // a frame header's precision, size and components, checked (the
   // segment's body up to the components)
-  void frame_header(size_t* end) {
+  void frame_header(int m, size_t* end) {
     segment(end);
-    int precision = byte();
+    precision = byte();
     height = word();
     width = word();
     ncomp = byte();
-    if (precision == 12)
-      fail(std::string("12-bit JPEG") + kRefused);
-    if (precision != 8)
+    lossless = m == 0xC3;
+    if (!lossless && precision == 12)
+      fail(std::string("12-bit JPEG") + kNotRead);
+    if (lossless && precision > 8 && precision <= 16)
+      fail("lossless JPEG of " + std::to_string(precision) + "-bit samples" +
+           kNotRead);
+    if (lossless ? precision < 2 || precision > 16 : precision != 8)
       fail("corrupt file: " + std::to_string(precision) + "-bit samples");
-    if (ncomp == 4)
-      fail(std::string("CMYK / YCCK JPEG (4 components)") + kRefused);
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("JPEG of " + std::to_string(ncomp) + " components is not read");
     if (height == 0)
       fail("JPEG whose height comes in a DNL marker is not read");
@@ -469,7 +623,7 @@ struct Decoder {
   void read_frame(int m) {
     if (frame) fail("corrupt file: a second frame header");
     size_t end;
-    frame_header(&end);
+    frame_header(m, &end);
     if (pos + size_t(3 * ncomp) > end)
       fail("truncated frame header");
     for (int i = 0; i < ncomp; i++) {
@@ -501,11 +655,20 @@ struct Decoder {
       c.bw = mcux * c.h;
       c.bh = mcuy * c.v;
       // calloc: pages a truncated file never reaches are never touched
-      c.coefs = static_cast<int16_t*>(
-          std::calloc(size_t(c.bw) * size_t(c.bh) * 64, sizeof(int16_t)));
-      if (!c.coefs) fail("out of memory");
+      if (lossless) {
+        if (c.h != maxh || c.v != maxv)
+          fail("lossless JPEG with subsampled components (ROADMAP A.4d)");
+        c.samples = static_cast<uint16_t*>(
+            std::calloc(size_t(c.dw) * size_t(c.dh), sizeof(uint16_t)));
+        if (!c.samples) fail("out of memory");
+      } else {
+        c.coefs = static_cast<int16_t*>(
+            std::calloc(size_t(c.bw) * size_t(c.bh) * 64, sizeof(int16_t)));
+        if (!c.coefs) fail("out of memory");
+      }
     }
-    progressive = m == 0xC2;
+    progressive = m == 0xC2 || m == 0xCA;
+    arith = m == 0xC9 || m == 0xCA;
     frame = true;
   }
 
@@ -542,6 +705,23 @@ struct Decoder {
       if (n > 256 || pos + size_t(n) > end) fail("truncated Huffman table");
       build_decoder(cls ? ac[th] : dc[th], bits, data + pos, n, cls == 0);
       pos += size_t(n);
+    }
+    pos = end;
+  }
+
+  void read_dac() {
+    size_t end;
+    segment(&end);
+    while (pos + 2 <= end) {
+      int index = byte(), val = byte();
+      if (index >= 32) fail("corrupt DAC segment (table index)");
+      if (index >= 16) {
+        ac_k[index - 16] = val;
+      } else {
+        dc_l[index] = val & 15;
+        dc_u[index] = val >> 4;
+        if (dc_l[index] > dc_u[index]) fail("corrupt DAC segment (bounds)");
+      }
     }
     pos = end;
   }
@@ -586,6 +766,19 @@ struct Decoder {
     int ss = byte(), se = byte(), a = byte();
     int ah = a >> 4, al = a & 15;
     pos = end;
+    if (lossless) {
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision)
+        fail("corrupt lossless scan parameters");
+      for (int i = 0; i < ns; i++) {
+        const HuffDecoder& h = dc[sc[i]->dc_tbl];
+        if (!h.defined) fail("a Huffman table the scan needs is not defined");
+        if (h.max_val > 16) fail("bad Huffman table (DC symbol over 16)");
+        sc[i]->pt = al;
+      }
+      lossless_scan(sc, ns, ss, al);
+      any_scan = true;
+      return;
+    }
     if (progressive) {
       bool bad = false;
       if (ss == 0) {
@@ -604,9 +797,13 @@ struct Decoder {
     // tables the scan needs, and the quantization tables latched
     for (int i = 0; i < ns; i++) {
       Component* c = sc[i];
-      if (ss == 0 && ah == 0 && !dc[c->dc_tbl].defined)
-        fail("a Huffman table the scan needs is not defined");
-      if (se > 0 && !ac[c->ac_tbl].defined)
+      if (!arith && ss == 0 && ah == 0) {
+        if (!dc[c->dc_tbl].defined)
+          fail("a Huffman table the scan needs is not defined");
+        if (dc[c->dc_tbl].max_val > 15)
+          fail("bad Huffman table (DC symbol over 15)");
+      }
+      if (!arith && se > 0 && !ac[c->ac_tbl].defined)
         fail("a Huffman table the scan needs is not defined");
       if (!c->quant_latched) {
         if (!quant_defined[c->tq])
@@ -615,6 +812,11 @@ struct Decoder {
         c->quant_latched = true;
       }
       c->pred = 0;
+    }
+    if (arith) {
+      arith_scan(sc, ns, ss, se, ah, al);
+      any_scan = true;
+      return;
     }
     BitReader br{data, len, pos};
     int eobrun = 0;
@@ -645,6 +847,15 @@ struct Decoder {
         for (int i = 0; i < ns; i++) sc[i]->pred = 0;
       }
     };
+    scan_blocks(sc, ns, restart, block);
+    pos = br.pos;
+    any_scan = true;
+  }
+
+  // a scan's blocks in order: a component's blocks row by row, or the
+  // MCUs of several, restart(index) before each
+  template <class Restart, class Block>
+  void scan_blocks(Component** sc, int ns, Restart& restart, Block& block) {
     if (ns == 1) {
       Component* c = sc[0];
       int64_t index = 0;
@@ -668,8 +879,188 @@ struct Decoder {
           }
         }
     }
+  }
+
+  // ---- arithmetic decoding (jdarith.c) ----
+  void arith_scan(Component** sc, int ns, int ss, int se, int ah, int al) {
+    ArithReader ar{data, len, pos};
+    auto reset = [&]() {           // start_pass / process_restart
+      for (int i = 0; i < ns; i++) {
+        Component* c = sc[i];
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[c->dc_tbl], 0, sizeof(dc_stats[0]));
+          c->pred = 0;
+          c->dc_context = 0;
+        }
+        if (!progressive || ss)
+          std::memset(ac_stats[c->ac_tbl], 0, sizeof(ac_stats[0]));
+      }
+    };
+    reset();
+    ar.start();
+    int restarts = 0;
+    auto restart = [&](int64_t index) {
+      if (restart_interval && index > 0 && index % restart_interval == 0) {
+        ar.restart(restarts & 7);
+        restarts++;
+        reset();
+      }
+    };
+    auto block = [&](Component* c, int16_t* coef) {
+      if (!progressive) {
+        arith_dc(ar, *c, coef, 0);
+        arith_ac_first(ar, *c, coef, 1, 63, 0);
+      } else if (ss == 0) {
+        if (ah == 0) arith_dc(ar, *c, coef, al);
+        else if (ar.decode(&fixed_bin)) coef[0] = int16_t(coef[0] | (1 << al));
+      } else if (ah == 0) {
+        arith_ac_first(ar, *c, coef, ss, se, al);
+      } else {
+        arith_ac_refine(ar, *c, coef, ss, se, al);
+      }
+    };
+    scan_blocks(sc, ns, restart, block);
+    pos = ar.pos;
+  }
+
+  void arith_dc(ArithReader& ar, Component& c, int16_t* coef, int al) {
+    const int tbl = c.dc_tbl;
+    uint8_t* st = dc_stats[tbl] + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+    } else {
+      int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000)
+            fail("corrupt arithmetic-coded data (DC magnitude)");
+          st += 1;
+        }
+      }
+      if (m < ((1 << dc_l[tbl]) >> 1)) c.dc_context = 0;
+      else if (m > ((1 << dc_u[tbl]) >> 1)) c.dc_context = 12 + sign * 4;
+      else c.dc_context = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.pred = (c.pred + v) & 0xFFFF;
+    }
+    coef[0] = int16_t(uint32_t(c.pred) << al);
+  }
+
+  void arith_ac_first(ArithReader& ar, Component& c, int16_t* coef, int ss,
+                      int se, int al) {
+    const int tbl = c.ac_tbl;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (ar.decode(st)) break;                      // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) fail("corrupt arithmetic-coded data (spectral "
+                           "overflow)");
+      }
+      int sign = ar.decode(&fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= ac_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000)
+            fail("corrupt arithmetic-coded data (AC magnitude)");
+          st += 1;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      coef[kNatural[k]] = int16_t(uint32_t(v) << al);
+    }
+  }
+
+  void arith_ac_refine(ArithReader& ar, Component& c, int16_t* coef, int ss,
+                       int se, int al) {
+    const int tbl = c.ac_tbl;
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (coef[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;           // EOB
+      for (;;) {
+        int16_t& co = coef[kNatural[k]];
+        if (co) {                                    // previously nonzero
+          if (ar.decode(st + 2)) co = int16_t(co < 0 ? co + m1 : co + p1);
+          break;
+        }
+        if (ar.decode(st + 1)) {                     // newly nonzero
+          co = int16_t(ar.decode(&fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) fail("corrupt arithmetic-coded data (spectral "
+                           "overflow)");
+      }
+    }
+  }
+
+  // ---- lossless decoding (jdlhuff.c, jdlossls.c) ----
+  // The first row after the start or a restart predicts from the left (its
+  // first sample from 2^(P - Pt - 1)); a row's first sample from above; the
+  // rest by predictor psv. Sums wrap at 16 bits.
+  void lossless_scan(Component** sc, int ns, int psv, int pt) {
+    const int w = width, h = height;
+    if (restart_interval && restart_interval % w)
+      fail("lossless JPEG whose restart interval is not whole rows is not "
+           "read");
+    const int rows_per_restart = restart_interval ? restart_interval / w : 0;
+    BitReader br{data, len, pos};
+    int restarts = 0;
+    for (int y = 0; y < h; y++) {
+      bool first = y == 0 || (rows_per_restart && y % rows_per_restart == 0);
+      if (first && y > 0) {
+        br.restart(restarts & 7);
+        restarts++;
+      }
+      for (int x = 0; x < w; x++)
+        for (int i = 0; i < ns; i++) {
+          Component* c = sc[i];
+          int s = br.decode(dc[c->dc_tbl]);
+          int diff = s == 16 ? 32768 : extend(br.get(s), s);
+          br.check();
+          uint16_t* row = c->samples + size_t(y) * size_t(w);
+          const uint16_t* up = row - w;
+          int pred;
+          if (first) {
+            pred = x == 0 ? 1 << (precision - pt - 1) : row[x - 1];
+          } else if (x == 0) {
+            pred = up[0];
+          } else {
+            int ra = row[x - 1], rb = up[x], rc = up[x - 1];
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+          }
+          row[x] = uint16_t((diff + pred) & 0xFFFF);
+        }
+    }
     pos = br.pos;
-    any_scan = true;
   }
 
   void decode_baseline(BitReader& br, Component& c, int16_t* coef) {
@@ -774,11 +1165,14 @@ struct Decoder {
       refuse_marker(m);
       size_t end;
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           read_frame(m);
           break;
         case 0xC4:
           read_dht();
+          break;
+        case 0xCC:
+          read_dac();
           break;
         case 0xDB:
           read_dqt();
@@ -807,7 +1201,7 @@ struct Decoder {
     if (!frame || !any_scan) fail("corrupt file: no image data");
   }
 
-  // header only: the frame's size, and refusals met before it
+  // header only: the frame's size, and refusals met up to it
   void parse_size() {
     if (len < 3 || data[0] != 0xFF || data[1] != 0xD8)
       fail("not a JPEG file");
@@ -816,16 +1210,83 @@ struct Decoder {
       int m = next_marker();
       if (m == 0xD9) fail("corrupt file: no frame header");
       refuse_marker(m);
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (is_frame(m)) {
         size_t end;
-        frame_header(&end);
+        frame_header(m, &end);
+        if (pos + size_t(3 * ncomp) > end) fail("truncated frame header");
+        for (int i = 0; i < ncomp; i++) {
+          comp[i].id = byte();
+          pos += 2;
+        }
+        check_output(0);
         return;
       }
       if (m == 0xD8 || (m >= 0xD0 && m <= 0xD7) || m == 0x01) continue;
+      if (m >= 0xE0 && m <= 0xEF) {
+        read_app(m);
+        continue;
+      }
       size_t end;
       segment(&end);
       pos = end;
     }
+  }
+
+  // a tables-only stream (a TIFF file's JPEGTables): SOI, tables, EOI
+  void parse_tables() {
+    if (len < 3 || data[0] != 0xFF || data[1] != 0xD8)
+      fail("JPEGTables is not a JPEG stream");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if (m == 0xD9) return;
+      if (is_frame(m) || m == 0xDA) fail("JPEGTables holds image data");
+      size_t end;
+      switch (m) {
+        case 0xC4: read_dht(); break;
+        case 0xDB: read_dqt(); break;
+        case 0xCC: read_dac(); break;
+        case 0xDD:
+          segment(&end);
+          if (end - pos < 2) fail("truncated DRI segment");
+          restart_interval = word();
+          pos = end;
+          break;
+        case 0xD8: case 0x01: break;
+        default:
+          refuse_marker(m);
+          if (m >= 0xD0 && m <= 0xD7) break;
+          segment(&end);
+          pos = end;
+      }
+    }
+  }
+
+  // libjpeg-turbo's colour-space guess (jdapimin.c)
+  Space space() const {
+    if (ncomp == 1) return kGrey;
+    if (ncomp == 3) {
+      if (jfif) return kYcc;
+      if (adobe) return adobe_transform == 0 ? kRgb : kYcc;
+      if (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B')
+        return kRgb;
+      return lossless ? kRgb : kYcc;
+    }
+    if (adobe) return adobe_transform == 0 ? kCmyk : kYcck;
+    return kCmyk;
+  }
+
+  // kind 0: OpenCV's BGR; 1: YCbCr converted to RGB; 2: the components
+  // as decoded. libjpeg-turbo 3 converts no colour space of a lossless
+  // file (OpenCV's IMREAD_COLOR then gets no image).
+  void check_output(int kind) const {
+    if (kind == 1 && ncomp != 3) fail("YCbCr JPEG of other than 3 components");
+    if (!lossless) return;
+    Space sp = kind == 1 ? kYcc : space();
+    if (kind != 2 && (sp == kGrey || sp == kYcc || sp == kYcck))
+      fail(std::string("lossless ") +
+           (sp == kGrey ? "grey" : sp == kYcc ? "YCbCr" : "YCCK") +
+           " JPEG read in colour" + kNotRead);
   }
 
   // ---- reconstruction ----
@@ -1014,44 +1475,81 @@ struct Decoder {
     return buf;
   }
 
-  void reconstruct(uint8_t* out) {
+  // a lossless component's samples scaled by its point transform
+  // (jdsample's JSAMPLE cast: the low 8 bits)
+  void lossless_plane(const Component& c, Plane& p) {
+    p.stride = size_t(c.dw);
+    p.data.resize(p.stride * size_t(c.dh));
+    const size_t n = p.data.size();
+    for (size_t i = 0; i < n; i++)
+      p.data[i] = uint8_t(uint32_t(c.samples[i]) << c.pt);
+    p.dw = c.dw;
+    p.dh = c.dh;
+    p.rh = p.rv = 1;
+  }
+
+  // kind as check_output's; out holds (height, width, 3) for kinds 0 and
+  // 1, (height, width, ncomp) for kind 2
+  void reconstruct(uint8_t* out, int kind = 0) {
+    check_output(kind);
     const Tables& t = tables();
-    Plane planes[3];
+    Plane planes[4];
     size_t widest = size_t(width);
     for (int i = 0; i < ncomp; i++) {
-      idct_plane(comp[i], planes[i]);
+      if (lossless) lossless_plane(comp[i], planes[i]);
+      else idct_plane(comp[i], planes[i]);
       widest = std::max(widest, size_t(2 * planes[i].dw));
     }
-    std::vector<uint8_t> bufs(3 * widest);
-    bool rgb = false;
-    if (ncomp == 3) {
-      if (jfif) rgb = false;
-      else if (adobe) rgb = adobe_transform == 0;
-      else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-    }
+    std::vector<uint8_t> bufs(4 * widest);
+    const Space sp = kind == 1 ? kYcc : space();
+    const int channels = kind == 2 ? ncomp : 3;
+    const uint8_t* p[4];
     for (int y = 0; y < height; y++) {
-      uint8_t* o = out + size_t(y) * width * 3;
-      const uint8_t* p0 = row(planes[0], y, bufs.data());
-      if (ncomp == 1) {
+      uint8_t* o = out + size_t(y) * width * channels;
+      for (int i = 0; i < ncomp; i++)
+        p[i] = row(planes[i], y, bufs.data() + i * widest);
+      if (kind == 2) {
         for (int x = 0; x < width; x++)
-          o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = p0[x];
+          for (int i = 0; i < ncomp; i++) o[ncomp * x + i] = p[i][x];
         continue;
       }
-      const uint8_t* p1 = row(planes[1], y, bufs.data() + widest);
-      const uint8_t* p2 = row(planes[2], y, bufs.data() + 2 * widest);
-      if (rgb) {
+      if (ncomp == 1) {
+        for (int x = 0; x < width; x++)
+          o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = p[0][x];
+        continue;
+      }
+      // 0, 1, 2: where red, green and blue go
+      const int ri = kind == 1 ? 0 : 2, bi = kind == 1 ? 2 : 0;
+      if (ncomp == 3 && sp == kRgb) {
         for (int x = 0; x < width; x++) {
-          o[3 * x] = p2[x];
-          o[3 * x + 1] = p1[x];
-          o[3 * x + 2] = p0[x];
+          o[3 * x + ri] = p[0][x];
+          o[3 * x + 1] = p[1][x];
+          o[3 * x + bi] = p[2][x];
         }
         continue;
       }
+      if (ncomp == 3) {
+        for (int x = 0; x < width; x++) {
+          int yy = p[0][x], cb = p[1][x], cr = p[2][x];
+          o[3 * x + bi] = clamp255(yy + t.cb_b[cb]);
+          o[3 * x + 1] = clamp255(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          o[3 * x + ri] = clamp255(yy + t.cr_r[cr]);
+        }
+        continue;
+      }
+      // CMYK as stored (YCCK through jdcolor.c's ycck_cmyk_convert), then
+      // OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
       for (int x = 0; x < width; x++) {
-        int yy = p0[x], cb = p1[x], cr = p2[x];
-        o[3 * x] = clamp255(yy + t.cb_b[cb]);
-        o[3 * x + 1] = clamp255(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp255(yy + t.cr_r[cr]);
+        int c = p[0][x], m = p[1][x], ye = p[2][x], k = p[3][x];
+        if (sp == kYcck) {
+          int yy = c, cb = m, cr = ye;
+          c = clamp255(255 - (yy + t.cr_r[cr]));
+          m = clamp255(255 - (yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          ye = clamp255(255 - (yy + t.cb_b[cb]));
+        }
+        o[3 * x + 2] = uint8_t(k - (((255 - c) * k) >> 8));
+        o[3 * x + 1] = uint8_t(k - (((255 - m) * k) >> 8));
+        o[3 * x] = uint8_t(k - (((255 - ye) * k) >> 8));
       }
     }
   }
@@ -1503,6 +2001,53 @@ int oodt_jpeg_decode(const uint8_t* data, int64_t len, uint8_t* out,
     if (d.height != height || d.width != width)
       fail("the frame's size is not the one given");
     d.reconstruct(out);
+    return 0;
+  } catch (const JpegError& e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+  }
+  return -1;
+}
+
+// Decode a tables-only stream (tables, tlen bytes; none when tlen is 0),
+// then the abbreviated stream in data: a TIFF file's JPEGTables and one of
+// its strips or tiles. mode 1 converts YCbCr to RGB (libtiff's
+// JPEGCOLORMODE_RGB), mode 0 converts nothing (the components must not be
+// subsampled). out is (height, width, channels): the stream's width, and
+// its first height rows (a last strip's stream may be taller). Returns 0,
+// or -1 with a message in err.
+int oodt_jpeg_decode_segment(const uint8_t* tables, int64_t tlen,
+                             const uint8_t* data, int64_t len, int64_t mode,
+                             uint8_t* out, int64_t height, int64_t width,
+                             int64_t channels, char* err, int64_t errlen) {
+  try {
+    Decoder d(tables, tlen > 0 ? size_t(tlen) : 0);
+    if (tables && tlen > 0) d.parse_tables();
+    d.data = data;
+    d.len = size_t(len);
+    d.pos = 0;
+    d.parse();
+    const int kind = mode == 1 ? 1 : 2;
+    if (d.width != width || d.height < height)
+      fail("the stream is " + std::to_string(d.width) + " x " +
+           std::to_string(d.height) + ", not the strip's or tile's " +
+           std::to_string(width) + " x " + std::to_string(height));
+    if ((kind == 1 ? 3 : d.ncomp) != channels)
+      fail("the stream's components are not the image's samples");
+    if (kind == 2)
+      for (int i = 0; i < d.ncomp; i++)
+        if (d.comp[i].h != 1 || d.comp[i].v != 1)
+          fail("subsampled JPEG components outside YCbCr are not read");
+    if (d.height == height) {
+      d.reconstruct(out, kind);
+    } else {
+      std::vector<uint8_t> all(size_t(d.height) * size_t(width) *
+                               size_t(channels));
+      d.reconstruct(all.data(), kind);
+      std::memcpy(out, all.data(), size_t(height) * size_t(width) *
+                                       size_t(channels));
+    }
     return 0;
   } catch (const JpegError& e) {
     set_error(err, errlen, e.msg);

@@ -1,0 +1,1328 @@
+// TIFF reader and writer on the host (C++17, no dependencies), after what
+// OpenCV's imread / imdecode (libtiff's RGBA interface, tif_getimage.c) and
+// imwrite / imencode (libtiff's LZW encoder) do for the JAX package.
+//
+// Reader: classic TIFF and BigTIFF in both byte orders, the first IFD (the
+// first page, as cv2.imread reads it), strips or tiles (edge tiles cropped),
+// PlanarConfiguration 1 and 2, compression none, LZW, PackBits, deflate (8
+// and 32946, with the inflater below) and JPEG (7: the JPEGTables stream,
+// then each strip's or tile's abbreviated stream, through jpeg.cpp's
+// oodt_jpeg_decode_segment), Predictor 2 at 8 and 16 bits. The samples
+// become RGB as tif_getimage.c makes them:
+//   - MinIsBlack / MinIsWhite at 1 and 8 bits through its map
+//     (x * 255 / range, inverted for MinIsWhite); 16 bits by the high byte
+//     (OpenCV refuses 2 bits, and 4 outside a palette: so does this);
+//   - RGB at 8 bits, and 16 bits as (v + 128) / 257;
+//   - unassociated alpha (ExtraSamples 2) premultiplied as
+//     (v * a + 127) / 255; associated alpha as stored (it is then dropped);
+//   - palette images (1-8 bits) through the colormap, cut to 8 bits by
+//     >> 8 unless every entry is below 256 (libtiff's checkcmap);
+//   - separated CMYK (InkSet 1, 8 bits) as k * (255 - c) / 255, k = 255 - K;
+//   - YCbCr at 8 bits with subsampling 1, 2 or 4 (contiguous), or 1 x 1
+//     (planar), through TIFFYCbCrToRGBInit's tables (YCbCrCoefficients,
+//     ReferenceBlackWhite); JPEG-compressed YCbCr as libjpeg converts it
+//     (JPEGCOLORMODE_RGB).
+// The output is the stored raster as (height, width, 3) BGR; the caller
+// applies the Orientation tag (oodt_tiff_info gives it) as OpenCV does.
+// CCITT, old-style JPEG (6), LZMA, ZSTD, WebP, JXL and LERC compression,
+// old-style (LSB-first) LZW, FillOrder 2, and float, signed or complex
+// samples are refused by name (ROADMAP A.4d); so is anything that does not
+// decode. Every offset and count is checked against the file's length, and
+// an image past 2^30 pixels is refused before anything is allocated.
+//
+// Writer: what cv2.imwrite(".tif") writes for 8-bit BGR or grey: "II*\0",
+// the strips, then the IFD at an even offset (12 entries: ImageWidth,
+// ImageLength, BitsPerSample, Compression 5, Photometric, StripOffsets,
+// SamplesPerPixel, RowsPerStrip, StripByteCounts, PlanarConfiguration 1,
+// Predictor 2, SampleFormat 1), then the values that do not fit an entry in
+// libtiff's order. Rows per strip are OpenCV's 8192 / row bytes (at least
+// 1); each strip is Predictor 2 then tif_lzw.c's encoder, its hash, its
+// 12-bit table reset and its ratio check included.
+//
+// A plain C ABI, loaded with ctypes (native.py builds it with rnms.cpp and
+// jpeg.cpp into one library, linking nothing else). No global state is
+// written: calls from several threads run in parallel.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <memory>
+#include <new>
+#include <string>
+#include <vector>
+
+extern "C" int oodt_jpeg_decode_segment(const uint8_t* tables, int64_t tlen,
+                                        const uint8_t* data, int64_t len,
+                                        int64_t mode, uint8_t* out,
+                                        int64_t height, int64_t width,
+                                        int64_t channels, char* err,
+                                        int64_t errlen);
+
+namespace {
+
+struct TiffError {
+  std::string msg;
+};
+
+[[noreturn]] void fail(const std::string& msg) { throw TiffError{msg}; }
+
+const char* const kLater = " (ROADMAP A.4d)";
+const uint64_t kMaxPixels = uint64_t(1) << 30;   // OpenCV's image size limit
+
+// uninitialised bytes: pages a truncated file never reaches stay untouched
+struct Buffer {
+  std::unique_ptr<uint8_t, decltype(&std::free)> p{nullptr, &std::free};
+  size_t size = 0;
+  explicit Buffer(size_t n) : size(n) {
+    p.reset(static_cast<uint8_t*>(std::malloc(n ? n : 1)));
+    if (!p) fail("out of memory");
+  }
+  uint8_t* data() { return p.get(); }
+};
+
+// ---- deflate (RFC 1950 / 1951) ---------------------------------------------
+struct Inflater {
+  const uint8_t* in;
+  size_t n;
+  size_t pos = 0;
+  uint64_t buf = 0;
+  int cnt = 0;
+  uint64_t used = 0;               // bits consumed, checked against 8 * n
+
+  void need(int k) {
+    while (cnt < k) {
+      uint64_t b = pos < n ? in[pos] : 0;    // zeros past the end
+      pos++;
+      buf |= b << cnt;
+      cnt += 8;
+    }
+  }
+  void drop(int k) {
+    buf >>= k;
+    cnt -= k;
+    used += uint64_t(k);
+    if (used > 8 * uint64_t(n)) fail("truncated deflate data");
+  }
+  int bits(int k) {
+    if (k == 0) return 0;
+    need(k);
+    int v = int(buf & ((uint64_t(1) << k) - 1));
+    drop(k);
+    return v;
+  }
+
+  struct Huff {
+    int16_t count[16];
+    int16_t symbol[320];
+    int32_t fast[512];             // next 9 bits -> symbol * 16 + length
+  };
+
+  static void build(Huff& h, const uint8_t* lengths, int n, bool lenient) {
+    std::memset(h.count, 0, sizeof(h.count));
+    for (int i = 0; i < n; i++) h.count[lengths[i]]++;
+    int left = 1;
+    for (int len = 1; len < 16; len++) {
+      left <<= 1;
+      left -= h.count[len];
+      if (left < 0) fail("corrupt deflate data (over-subscribed code)");
+    }
+    if (left > 0 && !lenient && h.count[0] != n)
+      fail("corrupt deflate data (incomplete code)");
+    int16_t offs[16];
+    offs[1] = 0;
+    for (int len = 1; len < 15; len++) offs[len + 1] = offs[len] + h.count[len];
+    for (int i = 0; i < n; i++)
+      if (lengths[i]) h.symbol[offs[lengths[i]]++] = int16_t(i);
+    for (int i = 0; i < 512; i++) h.fast[i] = -1;
+    int code = 0, k = 0;
+    for (int len = 1; len <= 9; len++) {
+      for (int i = 0; i < h.count[len]; i++, code++, k++) {
+        int rev = 0;
+        for (int b = 0; b < len; b++) rev |= ((code >> b) & 1) << (len - 1 - b);
+        for (int j = rev; j < 512; j += 1 << len)
+          h.fast[j] = h.symbol[k] * 16 + len;
+      }
+      code <<= 1;
+    }
+  }
+
+  int decode(const Huff& h) {
+    need(9);
+    int32_t f = h.fast[buf & 511];
+    if (f >= 0) {
+      drop(f & 15);
+      return f >> 4;
+    }
+    int code = 0, first = 0, index = 0;
+    for (int len = 1; len < 16; len++) {
+      code |= bits(1);
+      int count = h.count[len];
+      if (code - count < first) return h.symbol[index + (code - first)];
+      index += count;
+      first += count;
+      first <<= 1;
+      code <<= 1;
+    }
+    fail("corrupt deflate data (bad code)");
+  }
+
+  // inflate into out until `want` bytes are made (the rest of the stream
+  // is not read, as libtiff stops there)
+  void run(uint8_t* out, size_t want) {
+    static const int16_t lbase[29] = {3,  4,  5,  6,  7,  8,  9,  10,
+                                      11, 13, 15, 17, 19, 23, 27, 31,
+                                      35, 43, 51, 59, 67, 83, 99, 115,
+                                      131, 163, 195, 227, 258};
+    static const int16_t lext[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1,
+                                     1, 1, 2, 2, 2, 2, 3, 3, 3, 3,
+                                     4, 4, 4, 4, 5, 5, 5, 5, 0};
+    static const int32_t dbase[30] = {
+        1,    2,    3,    4,    5,    7,     9,     13,    17,  25,
+        33,   49,   65,   97,   129,  193,   257,   385,   513, 769,
+        1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385, 24577};
+    static const int16_t dext[30] = {0, 0, 0, 0, 1, 1, 2,  2,  3,  3,
+                                     4, 4, 5, 5, 6, 6, 7,  7,  8,  8,
+                                     9, 9, 10, 10, 11, 11, 12, 12, 13, 13};
+    if (n < 2) fail("truncated deflate data");
+    int cmf = in[0], flg = in[1];
+    if ((cmf & 15) != 8 || (cmf * 256 + flg) % 31 != 0 || (flg & 32))
+      fail("corrupt deflate data (zlib header)");
+    pos = 2;
+    used = 16;
+    size_t at = 0;
+    Huff lit, dist;
+    for (;;) {
+      int last = bits(1);
+      int type = bits(2);
+      if (type == 0) {
+        drop(cnt & 7);
+        int len = bits(16), nlen = bits(16);
+        if ((len ^ 0xFFFF) != nlen) fail("corrupt deflate data (stored)");
+        for (int i = 0; i < len; i++) {
+          int b = bits(8);
+          if (at < want) out[at++] = uint8_t(b);
+          if (at == want) return;
+        }
+      } else if (type == 1 || type == 2) {
+        uint8_t lengths[320];
+        if (type == 1) {
+          int i = 0;
+          for (; i < 144; i++) lengths[i] = 8;
+          for (; i < 256; i++) lengths[i] = 9;
+          for (; i < 280; i++) lengths[i] = 7;
+          for (; i < 288; i++) lengths[i] = 8;
+          build(lit, lengths, 288, true);
+          for (i = 0; i < 30; i++) lengths[i] = 5;
+          build(dist, lengths, 30, true);
+        } else {
+          int nlen = bits(5) + 257, ndist = bits(5) + 1, ncode = bits(4) + 4;
+          if (nlen > 286 || ndist > 30)
+            fail("corrupt deflate data (counts)");
+          static const uint8_t order[19] = {16, 17, 18, 0, 8,  7, 9,  6, 10, 5,
+                                            11, 4,  12, 3, 13, 2, 14, 1, 15};
+          uint8_t cl[19] = {0};
+          for (int i = 0; i < ncode; i++) cl[order[i]] = uint8_t(bits(3));
+          Huff lencode;
+          build(lencode, cl, 19, false);
+          int i = 0;
+          while (i < nlen + ndist) {
+            int sym = decode(lencode);
+            if (sym < 16) {
+              lengths[i++] = uint8_t(sym);
+            } else {
+              int len = 0, rep;
+              if (sym == 16) {
+                if (i == 0) fail("corrupt deflate data (repeat)");
+                len = lengths[i - 1];
+                rep = 3 + bits(2);
+              } else if (sym == 17) {
+                rep = 3 + bits(3);
+              } else {
+                rep = 11 + bits(7);
+              }
+              if (i + rep > nlen + ndist) fail("corrupt deflate data (repeat)");
+              while (rep--) lengths[i++] = uint8_t(len);
+            }
+          }
+          if (lengths[256] == 0) fail("corrupt deflate data (no end code)");
+          build(lit, lengths, nlen, false);
+          build(dist, lengths + nlen, ndist, true);
+        }
+        for (;;) {
+          int sym = decode(lit);
+          if (sym < 256) {
+            out[at++] = uint8_t(sym);
+            if (at == want) return;
+          } else if (sym == 256) {
+            break;
+          } else {
+            sym -= 257;
+            if (sym >= 29) fail("corrupt deflate data (length)");
+            int len = lbase[sym] + bits(lext[sym]);
+            int ds = decode(dist);
+            if (ds >= 30) fail("corrupt deflate data (distance)");
+            size_t d = size_t(dbase[ds] + bits(dext[ds]));
+            if (d > at) fail("corrupt deflate data (distance too far)");
+            for (int k = 0; k < len; k++, at++) {
+              out[at] = out[at - d];
+              if (at + 1 == want) return;
+            }
+          }
+        }
+      } else {
+        fail("corrupt deflate data (block type 3)");
+      }
+      if (last) break;
+    }
+    fail("not enough deflate data for the strip or tile");
+  }
+};
+
+// ---- LZW (tif_lzw.c) -------------------------------------------------------
+const int kBitsMin = 9, kBitsMax = 12;
+const int kClear = 256, kEoi = 257, kFirst = 258;
+const int kCodeMax = (1 << kBitsMax) - 1;
+const int kHashSize = 9001;        // tif_lzw.c's HSIZE, 91% occupancy
+const int kHashShift = 13 - 8;
+const long kCheckGap = 10000;
+
+void lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
+  if (n >= 2 && in[0] == 0 && (in[1] & 1))
+    fail(std::string("old-style (LSB-first) LZW") + kLater);
+  // libtiff's table runs 1024 entries past the 12-bit codes
+  const int size = kCodeMax + 1 + 1024;
+  std::vector<int32_t> prefix(size);
+  std::vector<uint8_t> suffix(size), first(size);
+  std::vector<int32_t> length(size);
+  for (int i = 0; i < 256; i++) {
+    prefix[i] = -1;
+    suffix[i] = first[i] = uint8_t(i);
+    length[i] = 1;
+  }
+  size_t pos = 0, at = 0;
+  uint32_t acc = 0;
+  int cnt = 0, nbits = kBitsMin, free_ent = kFirst, old = -1;
+  auto next = [&]() -> int {
+    while (cnt < nbits) {
+      if (pos >= n) return -1;
+      acc = (acc << 8) | in[pos++];
+      cnt += 8;
+    }
+    cnt -= nbits;
+    return int((acc >> cnt) & ((1u << nbits) - 1));
+  };
+  auto emit = [&](int code) {
+    int len = length[code];
+    size_t end = at + size_t(len);
+    int c = code;
+    for (size_t k = end; k > at; k--, c = prefix[c])
+      if (k - 1 < want) out[k - 1] = suffix[c];
+    at = end;
+  };
+  while (at < want) {
+    int code = next();
+    if (code < 0) break;
+    if (code == kEoi) break;
+    if (code == kClear) {
+      free_ent = kFirst;
+      nbits = kBitsMin;
+      code = next();
+      if (code < 0 || code == kEoi) break;
+      if (code >= kClear) fail("corrupt LZW data (a code after a clear)");
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0) {
+      if (code >= 256) fail("corrupt LZW data (no clear code first)");
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (code > free_ent || free_ent >= size)
+      fail("corrupt LZW data (a code past the table)");
+    prefix[free_ent] = old;
+    length[free_ent] = length[old] + 1;
+    first[free_ent] = first[old];
+    suffix[free_ent] = code < free_ent ? first[code] : first[old];
+    free_ent++;
+    if (free_ent > (1 << nbits) - 2 && nbits < kBitsMax) nbits++;
+    emit(code);
+    old = code;
+  }
+  if (at < want) fail("not enough LZW data for the strip or tile");
+}
+
+// tif_lzw.c's LZWEncode and LZWPostEncode over one strip
+void lzw_encode(const uint8_t* bp, size_t cc, std::vector<uint8_t>& o) {
+  std::vector<int64_t> hash(kHashSize, -1);
+  std::vector<uint16_t> codes(kHashSize);
+  long incount = 0, outcount = 0, checkpoint = kCheckGap, ratio = 0;
+  uint64_t nextdata = 0;
+  int nextbits = 0, free_ent = kFirst, maxcode = (1 << kBitsMin) - 1;
+  int nbits = kBitsMin;
+  auto put = [&](int c) {
+    nextdata = (nextdata << nbits) | uint64_t(c);
+    nextbits += nbits;
+    o.push_back(uint8_t(nextdata >> (nextbits - 8)));
+    nextbits -= 8;
+    if (nextbits >= 8) {
+      o.push_back(uint8_t(nextdata >> (nextbits - 8)));
+      nextbits -= 8;
+    }
+    outcount += nbits;
+  };
+  auto reset = [&]() {
+    std::fill(hash.begin(), hash.end(), int64_t(-1));
+    ratio = 0;
+    incount = 0;
+    outcount = 0;
+    free_ent = kFirst;
+    put(kClear);
+    nbits = kBitsMin;
+    maxcode = (1 << kBitsMin) - 1;
+  };
+  int ent = -1;
+  if (cc > 0) {
+    put(kClear);
+    ent = *bp++;
+    cc--;
+    incount++;
+  }
+  while (cc > 0) {
+    int c = *bp++;
+    cc--;
+    incount++;
+    int64_t fcode = (int64_t(c) << kBitsMax) + ent;
+    int h = (c << kHashShift) ^ ent;
+    if (hash[h] == fcode) {
+      ent = codes[h];
+      continue;
+    }
+    if (hash[h] >= 0) {
+      int disp = h == 0 ? 1 : kHashSize - h;
+      bool hit = false;
+      do {
+        if ((h -= disp) < 0) h += kHashSize;
+        if (hash[h] == fcode) {
+          ent = codes[h];
+          hit = true;
+          break;
+        }
+      } while (hash[h] >= 0);
+      if (hit) continue;
+    }
+    put(ent);
+    ent = c;
+    codes[h] = uint16_t(free_ent++);
+    hash[h] = fcode;
+    if (free_ent == kCodeMax - 1) {
+      reset();
+    } else if (free_ent > maxcode) {
+      nbits++;
+      maxcode = (1 << nbits) - 1;
+    } else if (incount >= checkpoint) {
+      checkpoint = incount + kCheckGap;
+      long rat;
+      if (incount > 0x007fffff) {
+        rat = outcount >> 8;
+        rat = rat == 0 ? 0x7fffffff : incount / rat;
+      } else {
+        rat = (incount << 8) / outcount;
+      }
+      if (rat <= ratio) reset();
+      else ratio = rat;
+    }
+  }
+  if (ent != -1) {
+    put(ent);
+    free_ent++;
+    if (free_ent == kCodeMax - 1) {
+      outcount = 0;
+      put(kClear);
+      nbits = kBitsMin;
+    } else if (free_ent > maxcode) {
+      nbits++;
+    }
+  }
+  put(kEoi);
+  if (nextbits > 0) o.push_back(uint8_t((nextdata << (8 - nextbits)) & 0xFF));
+}
+
+// ---- PackBits (tif_packbits.c) ---------------------------------------------
+void packbits_decode(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
+  size_t pos = 0, at = 0;
+  while (pos < n && at < want) {
+    int c = in[pos++];
+    if (c >= 128) c -= 256;
+    if (c < 0) {
+      if (c == -128) continue;
+      size_t run = size_t(1 - c);
+      if (pos >= n) break;
+      if (run > want - at) run = want - at;
+      std::memset(out + at, in[pos++], run);
+      at += run;
+    } else {
+      size_t run = size_t(c) + 1;
+      if (run > want - at) run = want - at;
+      if (pos + run > n) break;
+      std::memcpy(out + at, in + pos, run);
+      at += run;
+      pos += run;
+    }
+  }
+  if (at < want) fail("not enough PackBits data for the strip or tile");
+}
+
+// ---- the directory ----------------------------------------------------------
+enum {
+  kNone = 1, kLzw = 5, kOldJpeg = 6, kJpeg = 7, kDeflate = 8,
+  kAdobeDeflate = 32946, kPackBits = 32773
+};
+enum { kWhite = 0, kBlack = 1, kRgb = 2, kPalette = 3, kSeparated = 5,
+       kYcbcr = 6 };
+
+struct Entry {
+  int type = 0;
+  uint64_t count = 0, at = 0;      // at: the offset of the values
+  bool present = false;
+};
+
+struct Tiff {
+  const uint8_t* d;
+  size_t n;
+  bool le = true, big = false;
+  uint64_t width = 0, height = 0, rows = 0xFFFFFFFFu, tw = 0, th = 0;
+  int bps = 1, spp = 1, compression = kNone, photometric = -1, planar = 1;
+  int predictor = 1, orientation = 1, inkset = 1, alpha = 0, extra = 0;
+  int sub_h = 2, sub_v = 2;
+  bool tiled = false;
+  float luma[3] = {0.299f, 0.587f, 0.114f};
+  float refbw[6] = {0, 255, 128, 255, 128, 255};
+  std::vector<uint64_t> offsets, counts;
+  std::vector<uint16_t> cmap;
+  const uint8_t* tables = nullptr;
+  size_t tables_len = 0;
+
+  Tiff(const uint8_t* data, size_t len) : d(data), n(len) {}
+
+  void check(uint64_t at, uint64_t size) const {
+    if (at > n || size > n - at) fail("truncated file (an offset or count "
+                                      "past its end)");
+  }
+  uint64_t u(uint64_t at, int size) const {
+    check(at, uint64_t(size));
+    uint64_t v = 0;
+    for (int i = 0; i < size; i++) {
+      int k = le ? size - 1 - i : i;
+      v = (v << 8) | d[at + uint64_t(k)];
+    }
+    return v;
+  }
+
+  static int type_size(int type) {
+    switch (type) {
+      case 1: case 2: case 6: case 7: return 1;
+      case 3: case 8: return 2;
+      case 4: case 9: case 11: case 13: return 4;
+      case 5: case 10: case 12: case 16: case 17: case 18: return 8;
+    }
+    return 0;
+  }
+
+  std::vector<uint64_t> ints(const Entry& e) const {
+    int s = type_size(e.type);
+    if (e.type != 1 && e.type != 3 && e.type != 4 && e.type != 16 &&
+        e.type != 13 && e.type != 18)
+      fail("a TIFF tag of type " + std::to_string(e.type) + " where an "
+           "integer was expected");
+    if (e.count > n) fail("a TIFF tag's count exceeds the file");
+    std::vector<uint64_t> v(size_t(e.count));
+    check(e.at, e.count * uint64_t(s));
+    for (size_t i = 0; i < v.size(); i++) v[i] = u(e.at + i * uint64_t(s), s);
+    return v;
+  }
+  uint64_t one(const Entry& e) const {
+    std::vector<uint64_t> v = ints(e);
+    if (v.empty()) fail("a TIFF tag without a value");
+    return v[0];
+  }
+  std::vector<float> rationals(const Entry& e) const {
+    if (e.type != 5) fail("a TIFF rational tag of another type");
+    std::vector<float> v(size_t(std::min<uint64_t>(e.count, 16)));
+    check(e.at, e.count * 8);
+    for (size_t i = 0; i < v.size(); i++) {
+      uint64_t num = u(e.at + 8 * i, 4), den = u(e.at + 8 * i + 4, 4);
+      v[i] = den ? float(double(num) / double(den)) : 0.0f;
+    }
+    return v;
+  }
+
+  void parse() {
+    if (n < 8) fail("not a TIFF file");
+    if (d[0] == 'I' && d[1] == 'I') le = true;
+    else if (d[0] == 'M' && d[1] == 'M') le = false;
+    else fail("not a TIFF file");
+    int magic = int(u(2, 2));
+    uint64_t ifd;
+    if (magic == 42) {
+      ifd = u(4, 4);
+    } else if (magic == 43) {
+      big = true;
+      if (u(4, 2) != 8 || u(6, 2) != 0) fail("corrupt BigTIFF header");
+      ifd = u(8, 8);
+    } else {
+      fail("not a TIFF file");
+    }
+    uint64_t count = u(ifd, big ? 8 : 2);
+    uint64_t esize = big ? 20 : 12;
+    uint64_t base = ifd + (big ? 8 : 2);
+    if (count == 0 || count > n / esize) fail("corrupt TIFF directory");
+    check(base, count * esize);
+    Entry e_offsets, e_counts, e_cmap, e_extra, e_sub, e_refbw, e_luma,
+        e_tables, e_bps, e_format;
+    bool has_photometric = false;
+    for (uint64_t i = 0; i < count; i++) {
+      uint64_t at = base + i * esize;
+      int tag = int(u(at, 2));
+      Entry e;
+      e.type = int(u(at + 2, 2));
+      e.count = u(at + 4, big ? 8 : 4);
+      e.present = true;
+      uint64_t inline_size = big ? 8 : 4;
+      uint64_t vat = at + (big ? 12 : 8);
+      int ts = type_size(e.type);
+      if (ts == 0) continue;       // an unknown type: libtiff skips the tag
+      if (e.count > n) fail("a TIFF tag's count exceeds the file");
+      e.at = e.count * uint64_t(ts) <= inline_size ? vat
+                                                   : u(vat, big ? 8 : 4);
+      switch (tag) {
+        case 256: width = one(e); break;
+        case 257: height = one(e); break;
+        case 258: e_bps = e; break;
+        case 259: compression = int(one(e)); break;
+        case 262: photometric = int(one(e)); has_photometric = true; break;
+        case 266:
+          if (one(e) == 2) fail(std::string("TIFF FillOrder 2") + kLater);
+          break;
+        case 273: e_offsets = e; break;
+        case 274: orientation = int(one(e)); break;
+        case 277: spp = int(one(e)); break;
+        case 278: rows = one(e); break;
+        case 279: e_counts = e; break;
+        case 284: planar = int(one(e)); break;
+        case 317: predictor = int(one(e)); break;
+        case 320: e_cmap = e; break;
+        case 322: tw = one(e); tiled = true; break;
+        case 323: th = one(e); tiled = true; break;
+        case 324: e_offsets = e; break;
+        case 325: e_counts = e; break;
+        case 332: inkset = int(one(e)); break;
+        case 338: e_extra = e; break;
+        case 339: e_format = e; break;
+        case 347: e_tables = e; break;
+        case 529: e_luma = e; break;
+        case 530: e_sub = e; break;
+        case 532: e_refbw = e; break;
+        default: break;
+      }
+    }
+    if (!has_photometric) photometric = -1;
+    if (width == 0 || height == 0) fail("TIFF without a size");
+    if (width > kMaxPixels || height > kMaxPixels ||
+        width * height > kMaxPixels)
+      fail("image of " + std::to_string(width) + " x " +
+           std::to_string(height) + " pixels exceeds 2^30");
+    if (spp < 1 || spp > 16) fail("TIFF of " + std::to_string(spp) +
+                                  " samples a pixel");
+    if (e_bps.present) {
+      std::vector<uint64_t> v = ints(e_bps);
+      if (v.empty()) fail("TIFF BitsPerSample without a value");
+      for (uint64_t b : v)
+        if (b != v[0]) fail("TIFF with other bit depths per sample");
+      bps = int(v[0]);
+    }
+    if (e_format.present) {
+      std::vector<uint64_t> v = ints(e_format);
+      for (uint64_t f : v) {
+        if (f == 3) fail(std::string("TIFF with floating-point samples") +
+                         kLater);
+        if (f == 2) fail(std::string("TIFF with signed samples") + kLater);
+        if (f == 5 || f == 6)
+          fail(std::string("TIFF with complex samples") + kLater);
+        if (f != 1 && f != 4)
+          fail("TIFF SampleFormat " + std::to_string(f) + " is not read");
+      }
+    }
+    switch (compression) {
+      case kNone: case kLzw: case kJpeg: case kDeflate: case kAdobeDeflate:
+      case kPackBits:
+        break;
+      case 2: case 3: case 4: case 32771:
+        fail(std::string("CCITT-compressed TIFF") + kLater);
+      case kOldJpeg:
+        fail(std::string("old-style JPEG-compressed TIFF (6)") + kLater);
+      case 34925: fail(std::string("LZMA-compressed TIFF") + kLater);
+      case 50000: fail(std::string("ZSTD-compressed TIFF") + kLater);
+      case 50001: fail(std::string("WebP-compressed TIFF") + kLater);
+      case 50002: fail(std::string("JPEG XL-compressed TIFF") + kLater);
+      case 34887: fail(std::string("LERC-compressed TIFF") + kLater);
+      default:
+        fail("TIFF compression " + std::to_string(compression) +
+             " is not read");
+    }
+    if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 16)
+      fail(std::to_string(bps) + "-bit TIFF samples are not read");
+    if (planar != 1 && planar != 2) fail("corrupt TIFF PlanarConfiguration");
+    if (planar == 2 && spp == 1) planar = 1;
+    if (e_extra.present) {
+      std::vector<uint64_t> v = ints(e_extra);
+      extra = int(v.size());
+      if (extra >= spp) fail("corrupt TIFF ExtraSamples");
+      if (!v.empty()) {
+        if (v[0] == 0) alpha = spp > 3 ? 1 : 0;
+        else if (v[0] == 1 || v[0] == 2) alpha = int(v[0]);
+      }
+    }
+    int colour = spp - extra;
+    if (photometric < 0) {
+      if (colour == 1) photometric = kBlack;
+      else if (colour == 3) photometric = kRgb;
+      else fail("TIFF without PhotometricInterpretation");
+    }
+    if (extra == 0 && spp == 4 && photometric == kRgb) alpha = 1;
+    // OpenCV's readHeader takes 1, 8 or 16 bits here, and 4 in a palette
+    if (bps == 2 || (bps == 4 && photometric != kPalette))
+      fail(std::to_string(bps) + "-bit TIFF samples" +
+           (bps == 4 ? " outside a palette" : "") +
+           ": OpenCV does not read them either");
+    // the colour forms of tif_getimage.c's put routines
+    switch (photometric) {
+      case kWhite: case kBlack:
+        if (planar == 1 && spp != 1 && bps < 8)
+          fail("TIFF of " + std::to_string(bps) + "-bit grey with extra "
+               "samples is not read");
+        if (planar == 2 && bps != 8 && bps != 16)
+          fail("planar TIFF of " + std::to_string(bps) + "-bit grey is not "
+               "read");
+        break;
+      case kRgb:
+        if (colour < 3) fail("RGB TIFF of fewer than 3 colour samples");
+        if (bps != 8 && bps != 16)
+          fail(std::to_string(bps) + "-bit RGB TIFF is not read");
+        break;
+      case kPalette:
+        if (bps > 8) fail(std::to_string(bps) + "-bit palette TIFF is not "
+                          "read");
+        if (planar == 2) fail("planar palette TIFF is not read");
+        if (planar == 1 && spp != 1 && bps < 8)
+          fail("palette TIFF with extra samples is not read");
+        if (!e_cmap.present) fail("palette TIFF without a colormap");
+        {
+          std::vector<uint64_t> v = ints(e_cmap);
+          if (v.size() != size_t(3) << bps)
+            fail("palette TIFF with a colormap of another size");
+          cmap.resize(v.size());
+          for (size_t i = 0; i < v.size(); i++) cmap[i] = uint16_t(v[i]);
+        }
+        break;
+      case kSeparated:
+        if (inkset != 1) fail("separated TIFF of InkSet " +
+                              std::to_string(inkset) + " is not read");
+        if (spp < 4) fail("separated TIFF of fewer than 4 samples");
+        if (bps != 8) fail(std::to_string(bps) + "-bit CMYK TIFF is not "
+                           "read");
+        break;
+      case kYcbcr:
+        if (bps != 8 || spp != 3)
+          fail("YCbCr TIFF other than 3 samples of 8 bits is not read");
+        if (e_sub.present) {
+          std::vector<uint64_t> v = ints(e_sub);
+          if (v.size() != 2) fail("corrupt TIFF YCbCrSubSampling");
+          sub_h = int(v[0]);
+          sub_v = int(v[1]);
+        }
+        if (compression != kJpeg) {
+          int key = (sub_h << 4) | sub_v;
+          if (key != 0x44 && key != 0x42 && key != 0x41 && key != 0x22 &&
+              key != 0x21 && key != 0x12 && key != 0x11)
+            fail("YCbCr TIFF subsampling " + std::to_string(sub_h) + " x " +
+                 std::to_string(sub_v) + " is not read");
+          if (planar == 2 && key != 0x11)
+            fail("planar YCbCr TIFF with subsampling is not read");
+        } else if (planar == 2) {
+          fail("planar JPEG-compressed YCbCr TIFF is not read");
+        }
+        if (e_luma.present) {
+          std::vector<float> v = rationals(e_luma);
+          if (v.size() == 3) std::copy(v.begin(), v.end(), luma);
+        }
+        if (e_refbw.present) {
+          std::vector<float> v = rationals(e_refbw);
+          if (v.size() == 6) std::copy(v.begin(), v.end(), refbw);
+        }
+        break;
+      case 8: case 9: case 10:
+        fail(std::string("CIE L*a*b* TIFF") + kLater);
+      case 32844: case 32845:
+        fail(std::string("LogL / LogLuv TIFF") + kLater);
+      default:
+        fail("TIFF PhotometricInterpretation " + std::to_string(photometric) +
+             " is not read");
+    }
+    if (compression == kJpeg) {
+      if (bps != 8)
+        fail(std::to_string(bps) + "-bit JPEG-compressed TIFF" + kLater);
+      if (e_tables.present) {
+        if (e_tables.type != 7 && e_tables.type != 1)
+          fail("corrupt TIFF JPEGTables");
+        check(e_tables.at, e_tables.count);
+        tables = d + e_tables.at;
+        tables_len = size_t(e_tables.count);
+      }
+    }
+    if (predictor != 1 && (compression == kLzw || compression == kDeflate ||
+                           compression == kAdobeDeflate)) {
+      if (predictor == 3)
+        fail(std::string("TIFF floating-point predictor") + kLater);
+      if (predictor != 2)
+        fail("TIFF Predictor " + std::to_string(predictor) + " is not read");
+      if (bps != 8 && bps != 16)
+        fail("TIFF Predictor 2 at " + std::to_string(bps) + " bits is not "
+             "read");
+      if (photometric == kYcbcr && (sub_h != 1 || sub_v != 1))
+        fail("subsampled YCbCr TIFF with a predictor is not read");
+    } else {
+      predictor = 1;               // libtiff ignores it there
+    }
+    if (orientation < 1 || orientation > 8) orientation = 1;
+    if (tiled) {
+      if (tw == 0 || th == 0) fail("corrupt TIFF tile size");
+      if (tw > kMaxPixels || th > kMaxPixels || tw * th > kMaxPixels)
+        fail("TIFF tiles past 2^30 pixels");
+    } else {
+      if (rows == 0) fail("corrupt TIFF RowsPerStrip");
+      if (rows > height) rows = height;
+    }
+    if (!e_offsets.present || !e_counts.present)
+      fail("TIFF without strip or tile offsets and byte counts");
+    offsets = ints(e_offsets);
+    counts = ints(e_counts);
+    if (offsets.size() < blocks() || counts.size() < blocks())
+      fail("TIFF with fewer strips or tiles than its size needs");
+  }
+
+  uint64_t across() const { return tiled ? (width + tw - 1) / tw : 1; }
+  uint64_t down() const {
+    return tiled ? (height + th - 1) / th : (height + rows - 1) / rows;
+  }
+  uint64_t planes() const { return planar == 2 ? uint64_t(spp) : 1; }
+  uint64_t blocks() const { return across() * down() * planes(); }
+};
+
+// ---- colour (tif_getimage.c) ------------------------------------------------
+struct Ycc {                       // TIFFYCbCrToRGBInit's tables
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y[256];
+  Ycc(const float* luma, const float* refbw) {
+    const int shift = 16;
+    auto fix = [](float x) { return int32_t(x * float(1L << 16) + 0.5f); };
+    auto clampf = [](float f, float lo, float hi) {
+      return !(f >= lo) ? lo : (f > hi ? hi : f);
+    };
+    float f1 = 2 - 2 * luma[0];
+    int32_t d1 = fix(clampf(f1, 0.0f, 2.0f));
+    float f2 = luma[0] * f1 / luma[1];
+    int32_t d2 = -fix(clampf(f2, 0.0f, 2.0f));
+    float f3 = 2 - 2 * luma[2];
+    int32_t d3 = fix(clampf(f3, 0.0f, 2.0f));
+    float f4 = luma[2] * f3 / luma[1];
+    int32_t d4 = -fix(clampf(f4, 0.0f, 2.0f));
+    auto code2v = [](int32_t c, float rb, float rw, float cr) {
+      float den = (rw - rb) != 0 ? (rw - rb) : 1.0f;
+      return (float(c - int32_t(rb)) * cr) / den;
+    };
+    auto clampw = [](float f, float lo, float hi) {
+      return f < lo ? lo : (f > hi ? hi : f);
+    };
+    const int32_t one_half = int32_t(1) << (shift - 1);
+    for (int i = 0, x = -128; i < 256; i++, x++) {
+      int32_t cr = int32_t(clampw(code2v(x, refbw[4] - 128.0f,
+                                         refbw[5] - 128.0f, 127),
+                                  -128.0f * 32, 128.0f * 32));
+      int32_t cb = int32_t(clampw(code2v(x, refbw[2] - 128.0f,
+                                         refbw[3] - 128.0f, 127),
+                                  -128.0f * 32, 128.0f * 32));
+      cr_r[i] = int32_t((int64_t(d1) * cr + one_half) >> shift);
+      cb_b[i] = int32_t((int64_t(d3) * cb + one_half) >> shift);
+      cr_g[i] = d2 * cr;
+      cb_g[i] = d4 * cb + one_half;
+      y[i] = int32_t(clampw(code2v(x + 128, refbw[0], refbw[1], 255),
+                            -128.0f * 32, 128.0f * 32));
+    }
+  }
+  void bgr(int yy, int cb, int cr, uint8_t* o) const {
+    auto clamp = [](int32_t v) {
+      return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v);
+    };
+    int32_t r = y[yy] + cr_r[cr];
+    int32_t g = y[yy] + int32_t((int64_t(cb_g[cb]) + cr_g[cr]) >> 16);
+    int32_t b = y[yy] + cb_b[cb];
+    o[0] = clamp(b);
+    o[1] = clamp(g);
+    o[2] = clamp(r);
+  }
+};
+
+inline uint8_t to8(uint32_t v) { return uint8_t((v + 128) / 257); }
+inline uint8_t premul(uint32_t v, uint32_t a) {
+  return uint8_t((v * a + 127) / 255);
+}
+
+struct Image {
+  const Tiff& t;
+  uint8_t* out;                    // (height, width, 3) BGR
+  uint8_t grey_map[256];           // the BW map for 1-8 bits
+  uint8_t pal[256][3];             // RGB
+  std::unique_ptr<Ycc> ycc;
+
+  Image(const Tiff& tiff, uint8_t* o) : t(tiff), out(o) {
+    if (t.photometric == kWhite || t.photometric == kBlack) {
+      int range = t.bps == 16 ? 255 : (1 << t.bps) - 1;
+      for (int x = 0; x <= range; x++)
+        grey_map[x] = uint8_t(t.photometric == kWhite
+                                  ? ((range - x) * 255) / range
+                                  : (x * 255) / range);
+    }
+    if (t.photometric == kPalette) {
+      size_t m = size_t(1) << t.bps;
+      const uint16_t* r = t.cmap.data();
+      const uint16_t* g = r + m;
+      const uint16_t* b = g + m;
+      bool wide = false;
+      for (size_t i = 0; i < m; i++)
+        if (r[i] >= 256 || g[i] >= 256 || b[i] >= 256) wide = true;
+      std::memset(pal, 0, sizeof(pal));
+      for (size_t i = 0; i < m; i++) {
+        pal[i][0] = uint8_t(wide ? r[i] >> 8 : r[i]);
+        pal[i][1] = uint8_t(wide ? g[i] >> 8 : g[i]);
+        pal[i][2] = uint8_t(wide ? b[i] >> 8 : b[i]);
+      }
+    }
+    if (t.photometric == kYcbcr && t.compression != kJpeg)
+      ycc.reset(new Ycc(t.luma, t.refbw));
+  }
+
+  // one row of a block's samples, s(x, c) = row[x * xs + c * cs], uint16,
+  // into the image at (y, x0 .. x0 + w)
+  void put_row(const uint16_t* row, size_t xs, size_t cs, uint64_t y,
+               uint64_t x0, uint64_t w, int photometric, bool separate) {
+    uint8_t* o = out + (y * t.width + x0) * 3;
+    const int bps = t.bps;
+    for (uint64_t x = 0; x < w; x++, o += 3) {
+      const uint16_t* p = row + x * xs;
+      switch (photometric) {
+        case kWhite: case kBlack: {
+          uint8_t v;
+          if (!separate) {
+            v = grey_map[bps == 16 ? p[0] >> 8 : p[0]];
+          } else {                 // planar grey: processed as RGB
+            uint32_t g = bps == 16 ? to8(p[0]) : p[0];
+            if (t.alpha == 2) {
+              uint32_t a = bps == 16 ? to8(p[cs]) : p[cs];
+              g = premul(g, a);
+            }
+            v = uint8_t(g);
+          }
+          o[0] = o[1] = o[2] = v;
+          break;
+        }
+        case kRgb: {
+          uint32_t r = p[0], g = p[cs], b = p[2 * cs];
+          if (bps == 16) {
+            r = to8(r);
+            g = to8(g);
+            b = to8(b);
+          }
+          if (t.alpha == 2) {
+            uint32_t a = p[3 * cs];
+            if (bps == 16) a = to8(a);
+            r = premul(r, a);
+            g = premul(g, a);
+            b = premul(b, a);
+          }
+          o[0] = uint8_t(b);
+          o[1] = uint8_t(g);
+          o[2] = uint8_t(r);
+          break;
+        }
+        case kPalette: {
+          const uint8_t* c = pal[p[0]];
+          o[0] = c[2];
+          o[1] = c[1];
+          o[2] = c[0];
+          break;
+        }
+        case kSeparated: {
+          uint32_t k = 255 - p[3 * cs];
+          o[2] = uint8_t((k * (255 - p[0])) / 255);
+          o[1] = uint8_t((k * (255 - p[cs])) / 255);
+          o[0] = uint8_t((k * (255 - p[2 * cs])) / 255);
+          break;
+        }
+        case kYcbcr:               // planar, 1 x 1
+          ycc->bgr(p[0], p[cs], p[2 * cs], o);
+          break;
+      }
+    }
+  }
+};
+
+// ---- decoding ---------------------------------------------------------------
+struct Decoder {
+  Tiff t;
+  explicit Decoder(const uint8_t* d, size_t n) : t(d, n) {}
+
+  // a strip's or tile's bytes decompressed: want bytes
+  void decompress(uint64_t index, uint8_t* out, size_t want) {
+    uint64_t off = t.offsets[size_t(index)], cnt = t.counts[size_t(index)];
+    t.check(off, cnt);
+    const uint8_t* in = t.d + off;
+    size_t n = size_t(cnt);
+    switch (t.compression) {
+      case kNone:
+        if (n < want) fail("truncated TIFF strip or tile");
+        std::memcpy(out, in, want);
+        break;
+      case kLzw:
+        lzw_decode(in, n, out, want);
+        break;
+      case kPackBits:
+        packbits_decode(in, n, out, want);
+        break;
+      case kDeflate: case kAdobeDeflate: {
+        Inflater f{in, n};
+        f.run(out, want);
+        break;
+      }
+    }
+  }
+
+  void run(uint8_t* out) {
+    Image img(t, out);
+    const uint64_t bw = t.tiled ? t.tw : t.width;
+    const uint64_t bh = t.tiled ? t.th : t.rows;
+    const bool separate = t.planar == 2;
+    const int spp = t.spp;
+    const int lanes = separate ? 1 : spp;          // samples in a plane row
+    const bool ycc_sub = t.photometric == kYcbcr && t.compression != kJpeg &&
+                         (t.sub_h != 1 || t.sub_v != 1);
+    for (uint64_t by = 0; by < t.down(); by++) {
+      for (uint64_t bx = 0; bx < t.across(); bx++) {
+        uint64_t x0 = bx * bw, y0 = by * bh;
+        uint64_t rows = t.tiled ? bh : std::min(bh, t.height - y0);
+        uint64_t w = std::min(bw, t.width - x0);   // pixels kept
+        uint64_t h = std::min(rows, t.height - y0);
+        uint64_t block = by * t.across() + bx;
+        if (t.compression == kJpeg) {
+          jpeg_block(img, block, bw, rows, x0, y0, w, h);
+          continue;
+        }
+        if (ycc_sub) {
+          ycc_block(img, block, bw, rows, x0, y0, w, h);
+          continue;
+        }
+        const size_t row_bytes = size_t((bw * uint64_t(lanes) *
+                                         uint64_t(t.bps) + 7) / 8);
+        const size_t plane_bytes = row_bytes * size_t(rows);
+        std::vector<Buffer> planes;
+        for (uint64_t p = 0; p < t.planes(); p++) {
+          planes.emplace_back(plane_bytes);
+          decompress(p * t.across() * t.down() + block, planes.back().data(),
+                     plane_bytes);
+          if (t.bps == 16 && !t.le) {
+            uint8_t* q = planes.back().data();
+            for (size_t i = 0; i + 1 < plane_bytes; i += 2)
+              std::swap(q[i], q[i + 1]);
+          }
+          if (t.predictor == 2) undo_predictor(planes.back().data(), row_bytes,
+                                               size_t(rows), size_t(bw), lanes);
+        }
+        // one row of samples, contiguous (x * spp + c) or planar (c * bw + x)
+        std::vector<uint16_t> row(size_t(bw) * size_t(spp));
+        for (uint64_t r = 0; r < h; r++) {
+          for (size_t p = 0; p < planes.size(); p++) {
+            const uint8_t* src = planes[p].data() + size_t(r) * row_bytes;
+            uint16_t* dst = row.data() + p * size_t(bw);
+            size_t count = size_t(bw) * size_t(lanes);
+            unpack(src, dst, count);
+          }
+          if (separate)
+            img.put_row(row.data(), 1, size_t(bw), y0 + r, x0, w,
+                        t.photometric, true);
+          else
+            img.put_row(row.data(), size_t(spp), 1, y0 + r, x0, w,
+                        t.photometric, false);
+        }
+      }
+    }
+  }
+
+  void unpack(const uint8_t* src, uint16_t* dst, size_t count) const {
+    switch (t.bps) {
+      case 8:
+        for (size_t i = 0; i < count; i++) dst[i] = src[i];
+        break;
+      case 16:
+        std::memcpy(dst, src, count * 2);
+        break;
+      default: {
+        int b = t.bps, per = 8 / b, mask = (1 << b) - 1;
+        for (size_t i = 0; i < count; i++) {
+          int shift = 8 - b * (int(i % size_t(per)) + 1);
+          dst[i] = uint16_t((src[i / size_t(per)] >> shift) & mask);
+        }
+      }
+    }
+  }
+
+  void undo_predictor(uint8_t* data, size_t row_bytes, size_t rows, size_t bw,
+                      int lanes) const {
+    size_t stride = size_t(lanes);
+    for (size_t r = 0; r < rows; r++) {
+      if (t.bps == 8) {
+        uint8_t* p = data + r * row_bytes;
+        for (size_t i = stride; i < bw * stride; i++)
+          p[i] = uint8_t(p[i] + p[i - stride]);
+      } else {
+        uint16_t* p = reinterpret_cast<uint16_t*>(data + r * row_bytes);
+        for (size_t i = stride; i < bw * stride; i++)
+          p[i] = uint16_t(p[i] + p[i - stride]);
+      }
+    }
+  }
+
+  // subsampled YCbCr: units of sub_h x sub_v luma samples, then Cb and Cr
+  void ycc_block(Image& img, uint64_t block, uint64_t bw, uint64_t rows,
+                 uint64_t x0, uint64_t y0, uint64_t w, uint64_t h) {
+    const uint64_t sh = uint64_t(t.sub_h), sv = uint64_t(t.sub_v);
+    const uint64_t ua = (bw + sh - 1) / sh, ud = (rows + sv - 1) / sv;
+    const uint64_t unit = sh * sv + 2;
+    Buffer data(size_t(ua * ud * unit));
+    decompress(block, data.data(), data.size);
+    for (uint64_t uy = 0; uy < ud; uy++)
+      for (uint64_t ux = 0; ux < ua; ux++) {
+        const uint8_t* u = data.data() + (uy * ua + ux) * unit;
+        int cb = u[sh * sv], cr = u[sh * sv + 1];
+        for (uint64_t j = 0; j < sv; j++)
+          for (uint64_t i = 0; i < sh; i++) {
+            uint64_t y = uy * sv + j, x = ux * sh + i;
+            if (y >= h || x >= w) continue;
+            img.ycc->bgr(u[j * sh + i], cb, cr,
+                         img.out + ((y0 + y) * t.width + x0 + x) * 3);
+          }
+      }
+  }
+
+  // JPEG (7): the tables, then the strip's or tile's stream
+  void jpeg_block(Image& img, uint64_t block, uint64_t bw, uint64_t rows,
+                  uint64_t x0, uint64_t y0, uint64_t w, uint64_t h) {
+    uint64_t off = t.offsets[size_t(block)], cnt = t.counts[size_t(block)];
+    t.check(off, cnt);
+    const int mode = t.photometric == kYcbcr ? 1 : 0;
+    const int channels = t.photometric == kYcbcr ? 3 : t.spp;
+    if (t.planar == 2) fail("planar JPEG-compressed TIFF is not read");
+    Buffer rgb(size_t(bw * rows) * size_t(channels));
+    char err[256];
+    if (oodt_jpeg_decode_segment(t.tables, int64_t(t.tables_len),
+                                 t.d + off, int64_t(cnt), mode, rgb.data(),
+                                 int64_t(rows), int64_t(bw), channels, err,
+                                 sizeof(err)))
+      fail(std::string("JPEG strip or tile: ") + err);
+    std::vector<uint16_t> row(size_t(bw) * size_t(channels));
+    int photometric = t.photometric == kYcbcr ? kRgb : t.photometric;
+    for (uint64_t r = 0; r < h; r++) {
+      const uint8_t* src = rgb.data() + size_t(r * bw) * size_t(channels);
+      for (size_t i = 0; i < row.size(); i++) row[i] = src[i];
+      img.put_row(row.data(), size_t(channels), 1, y0 + r, x0, w,
+                  photometric, false);
+    }
+  }
+};
+
+// ---- the writer -------------------------------------------------------------
+std::vector<uint8_t> encode(const uint8_t* img, uint64_t h, uint64_t w,
+                            int channels) {
+  if (h < 1 || w < 1 || h > 0xFFFFFFFFu || w > 0xFFFFFFFFu)
+    fail("TIFF sides are 1 to 2^32 - 1 pixels");
+  if (channels != 1 && channels != 3) fail("1 or 3 channels are written");
+  const uint64_t step = w * uint64_t(channels);
+  uint64_t rps = std::max<uint64_t>(1, std::min<uint64_t>(h, 8192 / step));
+  const uint64_t nstrips = (h + rps - 1) / rps;
+  std::vector<uint8_t> o = {'I', 'I', 42, 0, 0, 0, 0, 0};
+  std::vector<uint64_t> offsets, counts;
+  std::vector<uint8_t> rows(size_t(rps * step));
+  for (uint64_t s = 0; s < nstrips; s++) {
+    uint64_t r0 = s * rps, nr = std::min(rps, h - r0);
+    for (uint64_t r = 0; r < nr; r++) {
+      const uint8_t* src = img + (r0 + r) * step;
+      uint8_t* dst = rows.data() + r * step;
+      if (channels == 3) {
+        for (uint64_t x = 0; x < w; x++) {        // BGR -> RGB
+          dst[3 * x] = src[3 * x + 2];
+          dst[3 * x + 1] = src[3 * x + 1];
+          dst[3 * x + 2] = src[3 * x];
+        }
+      } else {
+        std::memcpy(dst, src, size_t(step));
+      }
+      for (uint64_t i = step - 1; i >= uint64_t(channels); i--)
+        dst[i] = uint8_t(dst[i] - dst[i - channels]);   // Predictor 2
+    }
+    offsets.push_back(o.size());
+    lzw_encode(rows.data(), size_t(nr * step), o);
+    counts.push_back(o.size() - offsets.back());
+  }
+  if (o.size() & 1) o.push_back(0);
+  if (o.size() > 0xFFFFFFFFu) fail("TIFF past 4 GiB is not written");
+  const uint32_t ifd = uint32_t(o.size());
+  // libtiff writes StripByteCounts as SHORT when there are several strips
+  // of fewer than 0xFFFF / 10 bytes (LZW's worst case), else LONG
+  const bool short_counts = nstrips > 1 && rps * step < 0xFFFF / 10;
+  struct Tag {
+    int tag, type;
+    uint64_t count;
+    std::vector<uint64_t> values;
+  };
+  auto shortlong = [](uint64_t v) { return v <= 0xFFFF ? 3 : 4; };
+  std::vector<Tag> tags = {
+      {256, shortlong(w), 1, {w}},
+      {257, shortlong(h), 1, {h}},
+      {258, 3, uint64_t(channels), std::vector<uint64_t>(size_t(channels), 8)},
+      {259, 3, 1, {uint64_t(kLzw)}},
+      {262, 3, 1, {uint64_t(channels == 3 ? kRgb : kBlack)}},
+      {273, 4, nstrips, offsets},
+      {277, 3, 1, {uint64_t(channels)}},
+      {278, shortlong(rps), 1, {rps}},
+      {279, short_counts ? 3 : 4, nstrips, counts},
+      {284, 3, 1, {1}},
+      {317, 3, 1, {2}},
+      {339, 3, uint64_t(channels), std::vector<uint64_t>(size_t(channels), 1)}};
+  // the values that do not fit an entry, in libtiff's order
+  const int order[] = {258, 279, 273, 339};
+  uint64_t data_at = uint64_t(ifd) + 2 + 12 * tags.size() + 4;
+  std::vector<uint64_t> at(tags.size(), 0);
+  for (int want : order)
+    for (size_t i = 0; i < tags.size(); i++) {
+      const Tag& g = tags[i];
+      uint64_t size = g.count * (g.type == 3 ? 2 : 4);
+      if (g.tag == want && size > 4) {
+        at[i] = data_at;
+        data_at += size;
+      }
+    }
+  if (data_at > 0xFFFFFFFFu) fail("TIFF past 4 GiB is not written");
+  auto put = [&](uint64_t v, int size) {
+    for (int i = 0; i < size; i++) o.push_back(uint8_t(v >> (8 * i)));
+  };
+  put(tags.size(), 2);
+  for (size_t i = 0; i < tags.size(); i++) {
+    const Tag& g = tags[i];
+    int s = g.type == 3 ? 2 : 4;
+    put(uint64_t(g.tag), 2);
+    put(uint64_t(g.type), 2);
+    put(g.count, 4);
+    if (g.count * uint64_t(s) > 4) {
+      put(at[i], 4);
+    } else {
+      for (uint64_t v : g.values) put(v, s);
+      for (uint64_t k = g.count * uint64_t(s); k < 4; k++) o.push_back(0);
+    }
+  }
+  put(0, 4);
+  for (int want : order)
+    for (size_t i = 0; i < tags.size(); i++) {
+      const Tag& g = tags[i];
+      int s = g.type == 3 ? 2 : 4;
+      if (g.tag == want && g.count * uint64_t(s) > 4)
+        for (uint64_t v : g.values) put(v, s);
+    }
+  o[4] = uint8_t(ifd);
+  o[5] = uint8_t(ifd >> 8);
+  o[6] = uint8_t(ifd >> 16);
+  o[7] = uint8_t(ifd >> 24);
+  return o;
+}
+
+void set_error(char* err, int64_t errlen, const std::string& msg) {
+  if (!err || errlen <= 0) return;
+  size_t n = msg.size() < size_t(errlen - 1) ? msg.size() : size_t(errlen - 1);
+  std::memcpy(err, msg.data(), n);
+  err[n] = 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The first page's stored size and orientation: dims = {height, width,
+// orientation}. Returns 0, or -1 with a message in err.
+int oodt_tiff_info(const uint8_t* data, int64_t len, int64_t* dims, char* err,
+                   int64_t errlen) {
+  try {
+    Tiff t(data, size_t(len));
+    t.parse();
+    dims[0] = int64_t(t.height);
+    dims[1] = int64_t(t.width);
+    dims[2] = t.orientation;
+    return 0;
+  } catch (const TiffError& e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+  }
+  return -1;
+}
+
+// Decode the first page into out, (height, width, 3) uint8 BGR of the size
+// oodt_tiff_info gave, in stored order (the orientation not applied).
+// Returns 0, or -1 with a message in err.
+int oodt_tiff_decode(const uint8_t* data, int64_t len, uint8_t* out,
+                     int64_t height, int64_t width, char* err,
+                     int64_t errlen) {
+  try {
+    Decoder d(data, size_t(len));
+    d.t.parse();
+    if (int64_t(d.t.height) != height || int64_t(d.t.width) != width)
+      fail("the image's size is not the one given");
+    d.run(out);
+    return 0;
+  } catch (const TiffError& e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+  }
+  return -1;
+}
+
+// Encode (h, w, channels) uint8 (BGR, or grey with channels 1) as
+// cv2.imwrite writes a .tif. Returns the file's size, writing it into out
+// when it fits in cap bytes (call again with a larger buffer otherwise),
+// or -1 with a message in err.
+int64_t oodt_tiff_encode(const uint8_t* img, int64_t h, int64_t w,
+                         int64_t channels, uint8_t* out, int64_t cap,
+                         char* err, int64_t errlen) {
+  try {
+    std::vector<uint8_t> o = encode(img, uint64_t(h), uint64_t(w),
+                                    int(channels));
+    if (int64_t(o.size()) <= cap) std::memcpy(out, o.data(), o.size());
+    return int64_t(o.size());
+  } catch (const TiffError& e) {
+    set_error(err, errlen, e.msg);
+  } catch (const std::bad_alloc&) {
+    set_error(err, errlen, "out of memory");
+  }
+  return -1;
+}
+
+}  // extern "C"

@@ -30,7 +30,7 @@ from ..utils.registry import PIPELINES
 
 @PIPELINES.register_module()
 class LoadImageFromFile:
-    """Reads the image (PNG, JPEG or BMP) with :func:`imread`, as
+    """Reads the image (PNG, JPEG, BMP or TIFF) with :func:`imread`, as
     ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it. ``cache='ram'`` keeps
     every decoded uint8 image of this transform in memory, keyed by path:
     the first epoch decodes, later epochs do not."""

@@ -1,15 +1,18 @@
 """Native (C++) host code, loaded with ``ctypes``: the rotated-box geometry
 (counterpart of ``orientedobjectdetection_tpu/native/__init__.py``) and the
-JPEG codec (what OpenCV's libjpeg-turbo does for the JAX package).
+JPEG and TIFF codecs (what OpenCV's libjpeg-turbo and libtiff do for the
+JAX package).
 
-``csrc/rnms.cpp`` (the port's own copy of the JAX package's source) and
-``csrc/jpeg.cpp`` are built with ``g++`` at first use into one library,
-``_build/native-<hash>.so`` inside the package, named by a hash of both
-sources and the flags as ``utils/cuda_build.py`` names the CUDA kernels,
-and loaded once a process. The geometry serves the host call sites,
-``ops/nms.py:nms_rotated_np(device='cpu')`` above all: ``rbox_iou``,
-``nms_rotated`` and ``nms_hbb``; the codec serves ``utils/image_io.py``:
-``jpeg_decode`` and ``jpeg_encode``. Where the JAX package falls back to
+``csrc/rnms.cpp`` (the port's own copy of the JAX package's source),
+``csrc/jpeg.cpp`` and ``csrc/tiff.cpp`` are built with ``g++`` at first use
+into one library, ``_build/native-<hash>.so`` inside the package, named by
+a hash of the sources and the flags as ``utils/cuda_build.py`` names the
+CUDA kernels, and loaded once a process. It links nothing but the C++
+runtime (the TIFF reader carries its own inflater). The geometry serves the
+host call sites, ``ops/nms.py:nms_rotated_np(device='cpu')`` above all:
+``rbox_iou``, ``nms_rotated`` and ``nms_hbb``; the codecs serve
+``utils/image_io.py``: ``jpeg_decode``, ``jpeg_encode``, ``tiff_decode``
+and ``tiff_encode``. Where the JAX package falls back to
 its jnp path without a compiler, the port raises RuntimeError: it never
 falls back quietly. ctypes releases the GIL during a call, so threads
 decode in parallel.
@@ -29,6 +32,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / 'csrc' / 'rnms.cpp'
 JPEG_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'jpeg.cpp'
+TIFF_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'tiff.cpp'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 _LOCK = threading.Lock()
@@ -36,7 +40,7 @@ _LIB = None
 
 
 def sources() -> tuple:
-    return SOURCE, JPEG_SOURCE
+    return SOURCE, JPEG_SOURCE, TIFF_SOURCE
 
 
 def library_path() -> Path:
@@ -97,6 +101,14 @@ def load() -> ctypes.CDLL:
             lib.oodt_jpeg_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
                                              buf, i64]
             lib.oodt_jpeg_encode.restype = i64
+            lib.oodt_tiff_info.argtypes = [buf, i64, i64p, buf, i64]
+            lib.oodt_tiff_info.restype = ctypes.c_int
+            lib.oodt_tiff_decode.argtypes = [buf, i64, u8p, i64, i64, buf,
+                                             i64]
+            lib.oodt_tiff_decode.restype = ctypes.c_int
+            lib.oodt_tiff_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
+                                             buf, i64]
+            lib.oodt_tiff_encode.restype = i64
             _LIB = lib
     return _LIB
 
@@ -142,8 +154,8 @@ def jpeg_decode(data: bytes) -> np.ndarray:
     """A JPEG file's bytes -> ``(H, W, 3)`` uint8 BGR, bit for bit what
     ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives before it applies an
     EXIF orientation. Raises ValueError for a corrupt or truncated file and
-    for the forms ``csrc/jpeg.cpp`` does not read (each named, ROADMAP
-    A.4c)."""
+    for the forms ``csrc/jpeg.cpp`` does not read (each named: those OpenCV
+    does not read either, and ROADMAP A.4d's)."""
     lib = load()
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERROR_BYTES)
@@ -161,17 +173,48 @@ def jpeg_encode(img: np.ndarray) -> bytes:
     """``(H, W, 3)`` uint8 BGR or ``(H, W)`` grey -> the bytes
     ``cv2.imencode('.jpg', img)`` gives with OpenCV's defaults (quality 95,
     4:2:0, baseline, JFIF)."""
+    img = np.asarray(img)
+    return _encode('oodt_jpeg_encode', img, img.size + 4096)
+
+
+def _encode(fn, img: np.ndarray, cap: int) -> bytes:
     lib = load()
     img = np.ascontiguousarray(img, np.uint8)
     channels = 1 if img.ndim == 2 else img.shape[2]
     err = ctypes.create_string_buffer(_ERROR_BYTES)
-    cap = img.size + 4096
     while True:
         out = np.empty(cap, np.uint8)
-        n = lib.oodt_jpeg_encode(img.reshape(-1), img.shape[0], img.shape[1],
-                                 channels, out, cap, err, _ERROR_BYTES)
+        n = getattr(lib, fn)(img.reshape(-1), img.shape[0], img.shape[1],
+                             channels, out, cap, err, _ERROR_BYTES)
         if n < 0:
             raise ValueError(err.value.decode())
         if n <= cap:
             return out[:n].tobytes()
         cap = n
+
+
+def tiff_decode(data: bytes):
+    """A TIFF file's bytes -> its first page as ``(H, W, 3)`` uint8 BGR in
+    stored order, and its Orientation tag (1-8): bit for bit what
+    ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives before it applies the
+    orientation. Raises ValueError for a corrupt or truncated file and for
+    the forms ``csrc/tiff.cpp`` does not read (each named, ROADMAP A.4d)."""
+    lib = load()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    dims = np.zeros(3, np.int64)
+    if lib.oodt_tiff_info(data, len(data), dims, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    out = np.empty((int(dims[0]), int(dims[1]), 3), np.uint8)
+    if lib.oodt_tiff_decode(data, len(data), out.reshape(-1), dims[0],
+                            dims[1], err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    return out, int(dims[2])
+
+
+def tiff_encode(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` uint8 BGR or ``(H, W)`` grey -> the bytes
+    ``cv2.imencode('.tif', img)`` gives with OpenCV's defaults (LZW,
+    Predictor 2, 8192 bytes a strip)."""
+    img = np.asarray(img)
+    return _encode('oodt_tiff_encode', img, img.size + img.size // 2 + 4096)

@@ -4,13 +4,13 @@ of ``tools/heatmap.py``; reference jy's ``tools/heatmap_jy.py:15-40``).
     python -m orientedobjectdetection_torch.tools.heatmap <config> <img> \\
         [ckpt] --out-dir heatmaps [--level 0] [--reduce mean]
 
-The image (PNG, JPEG or BMP), normalized with ImageNet's statistics and padded
-into the config's ``pad_size`` canvas, goes through the backbone; the
+The image (PNG, JPEG, BMP or TIFF), normalized with ImageNet's statistics and
+padded into the config's ``pad_size`` canvas, goes through the backbone; the
 channels of level ``--level`` are reduced (mean or max), scaled to [0, 255],
-resized to the canvas, colored with OpenCV's JET map and blended half and
-half with the resized image (``utils/image_io.py``: ``resize_bilinear``,
-``apply_colormap_jet``, ``add_weighted``). Writes
-``heatmap_l<level>.png``. Runs on the card (``--device cpu`` for the CPU).
+resized to the canvas, colored with OpenCV's JET map and blended half and half
+with the resized image (``utils/image_io.py``: ``resize_bilinear``,
+``apply_colormap_jet``, ``add_weighted``). Writes ``heatmap_l<level>.png``.
+Runs on the card (``--device cpu`` for the CPU).
 """
 
 from __future__ import annotations

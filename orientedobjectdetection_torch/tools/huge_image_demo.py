@@ -4,7 +4,7 @@
     python -m orientedobjectdetection_torch.tools.huge_image_demo <img> \\
         <config> [ckpt] --patch-sizes 1024 --patch-steps 824
 
-Detects on windows of one PNG, JPEG or BMP with
+Detects on windows of one PNG, JPEG, BMP or TIFF with
 ``inference_detector_by_patches`` (the windows batched, their detections
 merged by per-class rotated NMS on the card) and writes it with the
 detections drawn (an ``--out-file`` ending in ``.jpg`` is a JPEG). Runs on the card (``--device cpu`` for the CPU).

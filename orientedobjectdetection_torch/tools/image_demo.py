@@ -4,9 +4,10 @@
     python -m orientedobjectdetection_torch.tools.image_demo <img> \\
         <config> [ckpt] --out-file demo_out.png --score-thr 0.3
 
-Detects on one PNG, JPEG or BMP with ``inference_detector`` and writes it
-with the detections drawn (``core/visualization.py:imshow_det_rbboxes``;
-an ``--out-file`` ending in ``.jpg`` is a JPEG). Runs on the card
+Detects on one PNG, JPEG, BMP or TIFF with ``inference_detector`` and
+writes it with the detections drawn (``core/visualization.py:
+imshow_det_rbboxes``; in the format the ``--out-file``'s extension names,
+``.jpg`` a JPEG, ``.tif`` a TIFF). Runs on the card
 (``--device cpu`` for the CPU).
 """
 

@@ -4,18 +4,22 @@
 
 Slides the windows of :func:`..core.patch.slide_window` (``--sizes`` and
 ``--gaps``, each scaled by ``1 / rate`` for every ``--rates``) over each
-image, writes each window as ``<id>__<size>__<x>___<y>.png`` (padded with
+image, writes each window as ``<id>__<size>__<x>___<y>.png`` (or the
+format ``--img-ext`` / ``split_one(img_ext=...)`` names, ``.tif`` a TIFF as
+``cv2.imwrite`` writes it; padded with
 ``(104, 116, 124)`` where it runs over the image's edge) and its
 annotations: an object whose area lies in the window by ``--iof-thr``
 (0.7) or more keeps its difficulty, a smaller part of one is written with
 difficulty 2; an annotated window with no object is skipped.
 ``DOTADataset.merge_det`` parses the offsets back. Images are read
-(PNG, JPEG or BMP scenes) and written with :mod:`..utils.image_io`.
+(PNG, JPEG, BMP or TIFF scenes: ``.png``, ``.jpg``, ``.bmp`` and ``.tif``
+files, as the reference lists them) and written with
+:mod:`..utils.image_io`.
 
     python -m orientedobjectdetection_torch.tools.img_split \\
         --img-dirs data/DOTA/train/images \\
         --ann-dirs data/DOTA/train/labelTxt --save-dir data/split_1024 \\
-        --sizes 1024 --gaps 200 [--rates 0.5 1.0]
+        --sizes 1024 --gaps 200 [--rates 0.5 1.0] [--img-ext .tif]
 """
 
 from __future__ import annotations
@@ -177,6 +181,9 @@ def parse_args(argv=None):
     p.add_argument('--rates', type=float, nargs='+', default=[1.0])
     p.add_argument('--iof-thr', type=float, default=0.7)
     p.add_argument('--nproc', type=int, default=8)
+    p.add_argument('--img-ext', default='.png',
+                   help='the windows\' format, by extension (.png, .tif, '
+                        '.jpg or .bmp; as split_one\'s img_ext)')
     args = p.parse_args(argv)
     if args.base_json:
         with open(args.base_json) as f:
@@ -210,7 +217,8 @@ def main(argv=None) -> int:
                 if ann_dir else None
             tasks.append((osp.join(img_dir, fname), ann))
     worker = partial(split_one, save_img_dir=save_img, save_ann_dir=save_ann,
-                     sizes=sizes, gaps=gaps, iof_thr=args.iof_thr)
+                     sizes=sizes, gaps=gaps, iof_thr=args.iof_thr,
+                     img_ext=args.img_ext)
     with ThreadPoolExecutor(max_workers=args.nproc) as pool:
         counts = list(pool.map(worker, tasks))
     print(f'split {len(tasks)} images -> {sum(counts)} patches '

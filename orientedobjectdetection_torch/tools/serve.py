@@ -6,12 +6,12 @@
         --port 8080 --score-thr 0.3
     curl -X POST --data-binary @image.jpg localhost:8080/predict
 
-A POST body is an image, raw or base64: a JPEG, a PNG or a BMP
-(``utils/image_io.py:imdecode``, an EXIF orientation applied). The answer
+A POST body is an image, raw or base64: a JPEG, a PNG, a BMP or a TIFF
+(``utils/image_io.py:imdecode``, its orientation applied). The answer
 is a JSON list of the detections scoring at least ``--score-thr``, each
 ``{"class_id", "bbox": [cx, cy, w, h, theta], "score"}``, from
 ``inference_detector``. Anything that does not decode (a truncated or
-corrupt file, a form ROADMAP A.4c lists) gets a 400 with the decoder's
+corrupt file, a form ROADMAP A.4d lists) gets a 400 with the decoder's
 reason. Serves on the card (``--device cpu`` for the CPU), on
 ``--host`` (default ``0.0.0.0``).
 """

@@ -2,10 +2,11 @@
 library and the port's host C++ (a port-only module: the JAX package's data
 path uses OpenCV, and the port depends on neither OpenCV nor PIL).
 
-- :func:`imread` / :func:`imdecode`: PNG, JPEG and BMP as ``(H, W, 3)``
-  uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` and ``cv2.imdecode``
-  return them, an EXIF orientation applied (a JPEG's first APP1 segment, a
-  PNG's ``eXIf`` chunk; values 1-8, as OpenCV 5 applies them).
+- :func:`imread` / :func:`imdecode`: PNG, JPEG, BMP and TIFF as
+  ``(H, W, 3)`` uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` and
+  ``cv2.imdecode`` return them, an orientation applied (a JPEG's first APP1
+  segment, a PNG's ``eXIf`` chunk, a TIFF's Orientation tag; values 1-8, as
+  OpenCV 5 applies them).
 
   - PNG: grey (1, 2, 4, 8 and 16 bits; low depths scaled to 8 bits as
     libpng expands them), grey + alpha, RGB and RGBA (8 or 16 bits) and
@@ -16,9 +17,12 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
     whole-row numpy operations; a pass with any Average or Paeth row decodes
     along the image's anti-diagonals, an order of magnitude slower.
   - JPEG: ``native.jpeg_decode`` (``csrc/jpeg.cpp``, host C++ built with
-    g++ at first use): baseline, extended and progressive Huffman files
-    with 8-bit samples, 1 or 3 components, bit for bit what libjpeg-turbo's
-    default path gives (islow IDCT, fancy upsampling).
+    g++ at first use): baseline, extended and progressive files, Huffman-
+    or arithmetic-coded, with 8-bit samples, and lossless files (predictors
+    1-7, a point transform) of up to 8 bits; grey, YCbCr, RGB, CMYK and
+    YCCK; bit for bit what libjpeg-turbo's default path gives (islow IDCT,
+    fancy upsampling) and OpenCV makes of it (CMYK to BGR by its
+    ``icvCvt_CMYK2BGR_8u_C4C3R``).
   - BMP: 24- and 32-bit (bottom-up or top-down rows, the fourth byte
     dropped), 1-, 4- and 8-bit palette images, RLE8 and RLE4 (runs,
     absolute runs, end of line, delta and end of bitmap; pixels a file
@@ -26,15 +30,31 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
     as 555 ``BI_RGB`` or 555 / 565 ``BI_BITFIELDS`` (OpenCV's 5- and 6-bit
     expansions, no bit replication).
 
-  TIFF, CMYK / YCCK, arithmetic-coded, 12-bit, lossless and hierarchical
-  JPEGs raise ``ValueError`` naming the form and ROADMAP A.4c; so does
-  anything else that does not decode (truncated or corrupt data).
-- :func:`imwrite`: a ``.jpg``, ``.jpeg`` or ``.jpe`` path gets what
-  ``cv2.imwrite`` writes there with OpenCV's defaults (``native.jpeg_encode``:
-  quality 95, 4:2:0, baseline; ``(H, W)`` grey images as one component), a
-  ``.bmp`` what it writes for a BMP (24-bit ``BI_RGB``, bottom-up rows
-  padded to 4 bytes, the same 54-byte header), any other path an 8-bit RGB
-  PNG with every row Sub-filtered (as OpenCV filters them).
+  - TIFF: ``native.tiff_decode`` (``csrc/tiff.cpp``): the first page of a
+    classic or BigTIFF file in either byte order, strips or tiles, planar
+    or not, uncompressed, LZW, PackBits, deflate or JPEG, Predictor 2;
+    grey and MinIsWhite (1-16 bits), RGB (8 and 16), palette (1-8), CMYK
+    and YCbCr, alpha premultiplied where it is unassociated: what libtiff's
+    RGBA interface gives OpenCV.
+
+  The forms OpenCV reads and the port does not yet (WebP, JPEG 2000, GIF,
+  PNM / PAM / PFM, Sun raster, Radiance HDR, AVIF, known by their
+  signatures; CCITT, old-style JPEG, LZMA, ZSTD, WebP, JPEG XL and LERC
+  TIFFs, float and signed samples) raise ``ValueError`` naming the form
+  and ROADMAP A.4d; the JPEG forms OpenCV
+  does not read either (hierarchical, 12-bit, lossless arithmetic or over 8
+  bits) raise saying so; anything else that does not decode (truncated or
+  corrupt data) raises ``ValueError`` too.
+- :func:`imwrite`: what ``cv2.imwrite`` writes for the path's extension with
+  OpenCV's defaults: ``.jpg``, ``.jpeg`` or ``.jpe`` a JPEG
+  (``native.jpeg_encode``: quality 95, 4:2:0, baseline), ``.tif`` or
+  ``.tiff`` a TIFF (``native.tiff_encode``: LZW, Predictor 2, 8192 bytes a
+  strip) (both ``(H, W)`` grey images as one component), ``.bmp`` or
+  ``.dib`` a BMP (24-bit ``BI_RGB``, bottom-up rows padded to 4 bytes, the
+  same 54-byte header), ``.png`` an 8-bit RGB PNG with every row
+  Sub-filtered (as OpenCV filters them). An extension OpenCV writes in a
+  form the port does not have yet raises ``ValueError`` naming ROADMAP
+  A.4d; one OpenCV has no writer for raises as ``cv2.imwrite`` does.
 - :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
   arithmetic (11-bit weights, a horizontal pass into integers, a vertical
@@ -71,8 +91,39 @@ import numpy as np
 
 _SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _JPEG_SIGNATURE = b'\xff\xd8'
-_TIFF_SIGNATURES = (b'II*\x00', b'MM\x00*')
+_TIFF_SIGNATURES = (b'II*\x00', b'MM\x00*', b'II+\x00', b'MM\x00+')
 _JPEG_SUFFIXES = ('.jpg', '.jpeg', '.jpe')
+_TIFF_SUFFIXES = ('.tif', '.tiff')
+_BMP_SUFFIXES = ('.bmp', '.dib')
+# the other forms cv2.imwrite writes (OpenCV 5.0's build), by extension
+_LATER_WRITERS = {
+    '.webp': 'WebP', '.jp2': 'JPEG 2000', '.pbm': 'PBM', '.pgm': 'PGM',
+    '.ppm': 'PPM', '.pnm': 'PNM', '.pam': 'PAM', '.pfm': 'PFM',
+    '.sr': 'Sun raster', '.ras': 'Sun raster', '.hdr': 'Radiance HDR',
+    '.pic': 'Radiance HDR', '.gif': 'GIF', '.avif': 'AVIF'}
+# and their signatures, the forms OpenCV's readers take that the port does
+# not yet (a PNM / PAM / PFM header: 'P', its kind, whitespace)
+_LATER_SIGNATURES = (
+    (b'GIF87a', 'GIF'), (b'GIF89a', 'GIF'),
+    (b'\x00\x00\x00\x0cjP  \r\n\x87\n', 'JPEG 2000'),
+    (b'\xff\x4f\xff\x51', 'JPEG 2000'), (b'\x59\xa6\x6a\x95', 'Sun raster'),
+    (b'#?RADIANCE', 'Radiance HDR'), (b'#?RGBE', 'Radiance HDR'))
+
+
+def _later_form(data: bytes):
+    """The name of a form OpenCV reads and the port does not yet, or
+    None."""
+    for signature, name in _LATER_SIGNATURES:
+        if data.startswith(signature):
+            return name
+    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
+        return 'WebP'
+    if data[4:8] == b'ftyp' and data[8:12] in (b'avif', b'avis'):
+        return 'AVIF'
+    if len(data) > 2 and data[:1] == b'P' and data[2:3].isspace():
+        return {b'7': 'PAM', b'F': 'PFM', b'f': 'PFM'}.get(
+            data[1:2], 'PNM' if data[1:2] in b'123456' else None)
+    return None
 _MAX_PIXELS = 1 << 30           # OpenCV's limit (CV_IO_MAX_IMAGE_PIXELS)
 # PNG colour type -> channels (grey, RGB, palette, grey + alpha, RGBA), and
 # the bit depths each allows
@@ -141,17 +192,17 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG, JPEG or BMP as ``(H, W, 3)`` uint8 BGR, as
-    ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it."""
+    """Read a PNG, JPEG, BMP or TIFF (its first page) as ``(H, W, 3)``
+    uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it."""
     with open(path, 'rb') as f:
         return imdecode(f.read(), path)
 
 
 def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
-    """Decode the bytes of a PNG, JPEG or BMP as ``(H, W, 3)`` uint8 BGR,
-    with its EXIF orientation applied; ``path`` names the source in errors.
-    Raises ValueError for anything else (the forms ROADMAP A.4c lists by
-    name)."""
+    """Decode the bytes of a PNG, JPEG, BMP or TIFF (its first page) as
+    ``(H, W, 3)`` uint8 BGR, with its orientation applied; ``path`` names
+    the source in errors. Raises ValueError for anything else (the forms
+    ROADMAP A.4d lists, by name)."""
     data = bytes(data)
     if data.startswith(_BMP_SIGNATURE):
         return _read_bmp(path, data)
@@ -163,9 +214,18 @@ def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
             raise ValueError(f'{path}: JPEG: {e}') from None
         return _orient(img, _exif_orientation(_jpeg_exif(data)))
     if data.startswith(_TIFF_SIGNATURES):
-        raise ValueError(f'{path}: TIFF is not read (ROADMAP A.4c)')
+        from .. import native
+        try:
+            img, orientation = native.tiff_decode(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: TIFF: {e}') from None
+        return _orient(img, orientation)
     if not data.startswith(_SIGNATURE):
-        raise ValueError(f'{path}: not a PNG, JPEG or BMP file')
+        later = _later_form(data)
+        if later:
+            raise ValueError(f'{path}: reading {later} images is not ported '
+                             f'yet (ROADMAP A.4d)')
+        raise ValueError(f'{path}: not a PNG, JPEG, BMP or TIFF file')
     return _read_png(path, data)
 
 
@@ -483,22 +543,34 @@ def _bmp_bytes(img: np.ndarray) -> bytes:
 
 
 def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
-    """Write ``(H, W, 3)`` uint8 BGR: a ``.jpg`` / ``.jpeg`` / ``.jpe``
-    path as OpenCV writes a JPEG (there ``(H, W)`` grey too), a ``.bmp``
-    path as OpenCV writes a BMP, any other as an 8-bit RGB PNG, every row
-    with the Sub filter (as OpenCV writes them), compressed at zlib
-    ``level``."""
+    """Write ``(H, W, 3)`` uint8 BGR as ``cv2.imwrite`` writes the path's
+    extension: ``.jpg`` / ``.jpeg`` / ``.jpe`` a JPEG and ``.tif`` /
+    ``.tiff`` a TIFF (both ``(H, W)`` grey too), ``.bmp`` / ``.dib`` a BMP,
+    ``.png`` an 8-bit RGB PNG, every row with the Sub filter (as OpenCV
+    writes them), compressed at zlib ``level``. Raises ValueError for
+    another extension: naming ROADMAP A.4d where OpenCV writes it, as
+    ``cv2.imwrite`` raises where it has no writer."""
     img = np.asarray(img)
-    jpeg = path.lower().endswith(_JPEG_SUFFIXES)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in _LATER_WRITERS:
+        raise ValueError(f'{path}: writing {_LATER_WRITERS[ext]} images is '
+                         f'not ported yet (ROADMAP A.4d)')
+    if ext not in _JPEG_SUFFIXES + _TIFF_SUFFIXES + _BMP_SUFFIXES + (
+            '.png',):
+        raise ValueError(f'{path}: could not find a writer for the '
+                         f'extension {ext!r}')
+    grey_ok = ext in _JPEG_SUFFIXES + _TIFF_SUFFIXES
     if img.dtype != np.uint8 or not (
-            img.ndim == 3 and img.shape[2] == 3 or jpeg and img.ndim == 2):
+            img.ndim == 3 and img.shape[2] == 3 or grey_ok and img.ndim == 2):
         raise ValueError(f'imwrite takes (H, W, 3) uint8, got {img.dtype} '
                          f'{img.shape}')
-    if jpeg:
+    if ext in _JPEG_SUFFIXES + _TIFF_SUFFIXES:
         from .. import native
-        _write_atomic(path, native.jpeg_encode(img))
+        encode = native.jpeg_encode if ext in _JPEG_SUFFIXES else \
+            native.tiff_encode
+        _write_atomic(path, encode(img))
         return
-    if path.lower().endswith('.bmp'):
+    if ext in _BMP_SUFFIXES:
         _write_atomic(path, _bmp_bytes(img))
         return
     h, w = img.shape[:2]

@@ -361,6 +361,11 @@ def test_phase_main_path_kernels_rehearsal():
             else [captured['train_step']]
         captured[f'hard_{label}_eval_iou'] = captured['eval_iou'][1:]
     captured['hard_orcnn_roi_align'] = [captured['orcnn_roi'] + (2,)]
+    # phase 57: one TIFF window batch's candidates and RoIAlign inputs, the
+    # scene's merge calls
+    captured['tiff'] = captured['orcnn']
+    captured['tiff_roi'] = captured['orcnn_roi']
+    captured['tiff_merge'] = one
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -403,7 +408,8 @@ def test_phase_main_path_kernels_rehearsal():
         [f'{label}_{key}' for label in chip_smoke.HBB_POOLS
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
-         'redet_loop_eval', 'redet_converted', 'sar', 'hard_orcnn_eval'])
+         'redet_loop_eval', 'redet_converted', 'sar', 'hard_orcnn_eval',
+         'tiff'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -424,8 +430,8 @@ def test_phase_main_path_kernels_rehearsal():
     assert iou['main_path_inputs']['yolov8_loop_assign']['inputs_held'] == 2
     for label in chip_smoke.YOLO_SERVED:
         assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
-    for key in ('yolov6_slice', 'yolov6', 'sar') + tuple(
-            f'hard_{label}_eval' for label in chip_smoke.HARD_CONFIGS):
+    for key in ('yolov6_slice', 'yolov6', 'sar', 'tiff', 'tiff_merge') + \
+            tuple(f'hard_{label}_eval' for label in chip_smoke.HARD_CONFIGS):
         assert pair['main_path_inputs'][key]['ms'] > 0
     assert pair['main_path_inputs']['converted']['inputs_held'] == 4
     assert roi['main_path_inputs']['redet_converted']['inputs_held'] == 2

@@ -8,8 +8,15 @@
   ``imread`` against ``cv2.imread`` under EXIF orientations 1-8;
 - the encoder's bytes against ``cv2.imencode('.jpg')`` (and ``imwrite`` on
   ``.jpg`` / ``.jpeg`` / ``.jpe`` paths) on seeded BGR and grey images;
+- the forms neither OpenCV nor PIL writes, made by ``tests/jpeg_forms.py``:
+  arithmetic-coded (sequential, progressive, restarts, DAC conditioning),
+  lossless (predictors 1-7, point transforms, restarts, 6 bits), CMYK and
+  YCCK (subsampled, with and without an Adobe marker), against
+  ``cv2.imdecode`` on the same bytes; the forms OpenCV returns no image for
+  (12-bit, hierarchical, lossless grey / YCbCr / YCCK or over 8 bits,
+  lossless arithmetic) raise saying so;
 - truncated and corrupt files raise ``ValueError`` and never crash the
-  process; the forms ROADMAP A.4c lists raise by name;
+  process;
 - threads decode at once (ctypes releases the GIL) to the serial result.
 """
 
@@ -23,6 +30,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import jpeg_forms
 from orientedobjectdetection_torch import native
 from orientedobjectdetection_torch.utils import image_io
 
@@ -181,23 +189,35 @@ def patched(data, offset, value):
 
 
 def refused_forms():
+    """The forms the port refused until it read them, as real files, and
+    those OpenCV does not read either (a baseline file patched)."""
     data = cv2.imencode('.jpg', seeded_image(3, 16, 16))[1].tobytes()
     sof = data.index(b'\xff\xc0')
     buf = io.BytesIO()
     Image.fromarray(seeded_image(3, 16, 16)).convert('CMYK').save(buf, 'JPEG')
     tiff = io.BytesIO()
     Image.fromarray(seeded_image(3, 16, 16)).save(tiff, 'TIFF')
+    samples = jpeg_forms.seeded_samples(3, 16, 16, 3)
     return {
         'TIFF': tiff.getvalue(),
         'CMYK': buf.getvalue(),
-        'arithmetic-coded JPEG \\(SOF9\\)': patched(data, sof + 1, 0xC9),
-        'arithmetic-coded JPEG \\(SOF10\\)': patched(data, sof + 1, 0xCA),
+        'arithmetic-coded JPEG \\(SOF9\\)': jpeg_forms.dct_jpeg(
+            samples, arithmetic=True, markers=jpeg_forms.jfif()),
+        'arithmetic-coded JPEG \\(SOF10\\)': jpeg_forms.dct_jpeg(
+            samples, arithmetic=True, progressive=True,
+            markers=jpeg_forms.jfif()),
         '12-bit JPEG': patched(data, sof + 4, 12),
-        'lossless JPEG \\(SOF3\\)': patched(data, sof + 1, 0xC3),
+        'lossless JPEG \\(SOF3\\)': jpeg_forms.lossless_jpeg(samples,
+                                                             predictor=4),
         'hierarchical JPEG \\(SOF5\\)': patched(data, sof + 1, 0xC5),
         'hierarchical JPEG \\(DHP\\)': data[:2] + b'\xff\xde\x00\x02' +
         data[2:],
     }
+
+
+# the forms refused until the port read them
+NOW_READ = ('TIFF', 'CMYK', 'arithmetic-coded JPEG \\(SOF9\\)',
+            'arithmetic-coded JPEG \\(SOF10\\)', 'lossless JPEG \\(SOF3\\)')
 
 
 @pytest.mark.parametrize('form', [
@@ -206,8 +226,18 @@ def refused_forms():
     'lossless JPEG \\(SOF3\\)', 'hierarchical JPEG \\(SOF5\\)',
     'hierarchical JPEG \\(DHP\\)'])
 def test_refused_forms_are_named(form):
-    with pytest.raises(ValueError, match=form + '.*ROADMAP A.4c'):
-        image_io.imdecode(refused_forms()[form])
+    """A form the port now reads decodes as ``cv2.imdecode`` decodes it; a
+    form OpenCV does not read either raises, naming it and saying so."""
+    data = refused_forms()[form]
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    if form in NOW_READ:
+        assert want is not None
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
+        return
+    assert want is None
+    with pytest.raises(ValueError,
+                       match=form + '.*OpenCV does not read it either'):
+        image_io.imdecode(data)
 
 
 def test_threads_decode_at_once():
@@ -241,3 +271,123 @@ def test_exif_parse_ignores_what_does_not_parse():
     bad = be[:-4] + struct.pack('>HH', 9, 0)
     assert image_io._exif_orientation(bad) == 1
     assert image_io._exif_orientation(b'http://ns.adobe.com/xap') == 1
+
+
+# ---- the forms neither OpenCV nor PIL writes (tests/jpeg_forms.py) -------
+def made_forms():
+    """name -> bytes: arithmetic-coded, lossless, CMYK and YCCK files."""
+    f = jpeg_forms
+    s3 = f.seeded_samples(11, 21, 35, 3)
+    s4 = f.seeded_samples(12, 21, 35, 4)
+    sub = [(2, 2), (1, 1), (1, 1)]
+    forms = {
+        'arith-seq': f.dct_jpeg(s3, arithmetic=True, markers=f.jfif()),
+        'arith-seq-420-restart': f.dct_jpeg(
+            s3, sampling=sub, arithmetic=True, restart=2, markers=f.jfif()),
+        'arith-grey': f.dct_jpeg(s3[..., :1], arithmetic=True),
+        'arith-progressive': f.dct_jpeg(s3, arithmetic=True, progressive=True,
+                                        markers=f.jfif()),
+        'arith-progressive-422-restart': f.dct_jpeg(
+            s3, sampling=[(2, 1), (1, 1), (1, 1)], arithmetic=True,
+            progressive=True, restart=3, markers=f.jfif()),
+        'arith-dac': f.dct_jpeg(s3, arithmetic=True, dac=(1, 3, 9),
+                                markers=f.jfif()),
+        'arith-cmyk': f.dct_jpeg(s4, arithmetic=True, markers=f.adobe(0)),
+        'cmyk-adobe': f.dct_jpeg(s4, markers=f.adobe(0)),
+        'cmyk-no-marker': f.dct_jpeg(s4),
+        'cmyk-subsampled': f.dct_jpeg(
+            s4, sampling=[(2, 2), (1, 1), (1, 1), (2, 2)],
+            markers=f.adobe(0)),
+        'ycck': f.dct_jpeg(s4, markers=f.adobe(2)),
+        'ycck-subsampled': f.dct_jpeg(
+            s4, sampling=[(2, 2), (1, 1), (1, 1), (2, 2)],
+            markers=f.adobe(2)),
+        'lossless-cmyk': f.lossless_jpeg(s4, predictor=6),
+        'lossless-adobe-rgb': f.lossless_jpeg(s3, markers=f.adobe(0)),
+        'lossless-rgb-ids': f.lossless_jpeg(s3, predictor=2,
+                                            ids=[82, 71, 66]),
+        'lossless-6-bit': f.lossless_jpeg(f.seeded_samples(13, 21, 35, 3, 6),
+                                          precision=6, predictor=5),
+    }
+    for p in range(1, 8):
+        forms[f'lossless-p{p}'] = f.lossless_jpeg(s3, predictor=p)
+        forms[f'lossless-p{p}-pt2-restart'] = f.lossless_jpeg(
+            s3, predictor=p, pt=2, restart=35 * 4)
+    buf = io.BytesIO()
+    Image.fromarray(s4.astype(np.uint8), 'CMYK').save(buf, 'JPEG',
+                                                       progressive=True)
+    forms['pil-cmyk-progressive'] = buf.getvalue()
+    return forms
+
+
+def opencv_refuses():
+    """name -> (bytes, the port's message): what OpenCV 5 returns no image
+    for (libjpeg-turbo 3 converts no colour space of a lossless file, and
+    OpenCV reads 8-bit samples alone)."""
+    f = jpeg_forms
+    s3 = f.seeded_samples(14, 21, 35, 3)
+    lossless = f.lossless_jpeg(s3)
+    sof3 = lossless.index(b'\xff\xc3')
+    return {
+        'lossless-grey': (f.lossless_jpeg(s3[..., :1]), 'lossless grey'),
+        'lossless-jfif': (f.lossless_jpeg(s3, markers=f.jfif()),
+                          'lossless YCbCr'),
+        'lossless-ycck': (f.lossless_jpeg(f.seeded_samples(15, 21, 35, 4),
+                                          markers=f.adobe(2)),
+                          'lossless YCCK'),
+        'lossless-12-bit': (f.lossless_jpeg(
+            f.seeded_samples(16, 21, 35, 1, 12), precision=12),
+            'lossless JPEG of 12-bit samples'),
+        'lossless-16-bit': (f.lossless_jpeg(
+            f.seeded_samples(17, 21, 35, 3, 16), precision=16),
+            'lossless JPEG of 16-bit samples'),
+        '12-bit-sequential': (f.dct_jpeg(f.seeded_samples(18, 21, 35, 3, 12),
+                                         precision=12, markers=f.jfif()),
+                              '12-bit JPEG'),
+        'lossless-arithmetic': (patched(lossless, sof3 + 1, 0xCB),
+                                'lossless arithmetic-coded JPEG \\(SOF11\\)'),
+    }
+
+
+MADE = made_forms()
+REFUSED = opencv_refuses()
+
+
+@pytest.mark.parametrize('name', sorted(MADE))
+def test_made_forms_decode_as_opencv(name):
+    """Each arithmetic-coded, lossless, CMYK and YCCK file decodes to
+    ``cv2.imdecode``'s array, exactly."""
+    decode_equal(MADE[name])
+
+
+@pytest.mark.parametrize('name', sorted(REFUSED))
+def test_forms_opencv_does_not_read_raise(name):
+    data, message = REFUSED[name]
+    assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError,
+                       match=message + '.*OpenCV does not read it either'):
+        image_io.imdecode(data)
+
+
+def test_made_forms_truncated_or_corrupt_raise_and_never_crash():
+    """Arithmetic-coded, lossless and CMYK files cut short or with bytes
+    overwritten: each decode returns an image or raises ValueError (a few
+    hundred files)."""
+    rng = np.random.default_rng(5)
+    raised = 0
+    for name in ('arith-seq-420-restart', 'arith-progressive',
+                 'lossless-p4-pt2-restart', 'ycck-subsampled'):
+        data = MADE[name]
+        for trial in range(60):
+            bad = bytearray(data[:rng.integers(2, len(data))] if trial < 15
+                            else data)
+            if trial >= 15:
+                for at in rng.integers(0, len(bad), rng.integers(1, 6)):
+                    bad[at] = rng.integers(0, 256)
+            try:
+                img = image_io.imdecode(bytes(bad))
+                assert img.dtype == np.uint8 and img.shape[2] == 3
+            except ValueError:
+                raised += 1
+    assert raised > 50

@@ -100,13 +100,15 @@ def test_builds_by_hash_and_raises_without_a_compiler(tmp_path,
     path = native.library_path()
     assert path.parent == native.BUILD_DIR
     assert path.name.startswith('native-') and path.suffix == '.so'
-    assert native.sources() == (native.SOURCE, native.JPEG_SOURCE)
+    assert native.sources() == (native.SOURCE, native.JPEG_SOURCE,
+                                native.TIFF_SOURCE)
     native.load()
     assert path.exists()
-    monkeypatch.setattr(native, 'JPEG_SOURCE', tmp_path / 'jpeg.cpp')
-    (tmp_path / 'jpeg.cpp').write_text('// another codec\n')
-    assert native.library_path() != path            # either source counts
-    monkeypatch.undo()
+    for name in ('JPEG_SOURCE', 'TIFF_SOURCE'):     # every source counts
+        monkeypatch.setattr(native, name, tmp_path / 'codec.cpp')
+        (tmp_path / 'codec.cpp').write_text('// another codec\n')
+        assert native.library_path() != path
+        monkeypatch.undo()
     monkeypatch.setattr(native, 'BUILD_DIR', tmp_path / '_build')
     monkeypatch.setattr(native, '_LIB', None)
     monkeypatch.setenv('CXX', 'no-such-compiler-here')
