@@ -24,6 +24,7 @@ seeded prototype4 and ReDet checkpoints under the reference's names
 converted back, and SAR ship detection from JPEGs (the HRSID and SSDD
 Oriented R-CNN R50-FPN and the SSDD RetinaNet, one class) with the port's
 JPEG codec, and the synth-hard protocol's runner over four of its families,
+and TIFF windows and signed 16-bit SAR TIFFs read by the port's TIFF codec,
 through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
@@ -374,6 +375,24 @@ plain PyTorch version:
              Transformer, ReDet) on those scenes: one bf16 train step
              profiled (the gather RoI pooling's share) and one evaluation
              request of the 8 val scenes (B3's and B1's device time)
+57. tiff     on the card's host: the port's TIFF writer and reader over
+             the codec's seeded images (TIFF_DIGESTS, OpenCV's) and its
+             readers over every file of tests/image_corpus/ (CORPUS_DIGESTS:
+             OpenCV's decodes, among them CCITT RLE / RLEW / T.4 / T.6,
+             SGILog LogL / LogLuv, CIE L*a*b*, signed samples, FillOrder 2
+             and old-style LZW files; where OpenCV gives none the port
+             raises); a 4000^2 scene as a TIFF and a PNG cut by img_split
+             into 1024 windows, served by Oriented R-CNN (bf16, batches of
+             8) from both, the same detections; the patch path and
+             tools.serve on a TIFF window; decode times on one thread and
+             8 threads
+58. sar      8 seeded 800^2 grey SAR scenes as JPEGs (the port's encoder and
+    tiff     decoder) and as signed 16-bit grey TIFFs (high byte the pixel,
+             low byte seeded noise, negative samples among them) read by
+             ``utils/image_io.imread``: the same pixels; phase 54's HRSID
+             Oriented R-CNN (bf16) serves the batch from both, the same
+             detections, one B1 and one B3 launch each; one more request's
+             B1 and B3 inputs recorded
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -422,8 +441,11 @@ plain PyTorch version:
              proposals; and phase 56's: the crowded candidates of each
              hard family's evaluation, the assigners' inputs at G=256 and
              the 15-class evaluation IoUs, Oriented R-CNN's evaluation
-             RoIs at C=64; each held against its plain version, the largest
-             of each kind timed beside its bound
+             RoIs at C=64; and phase 57's: a window batch's candidates and
+             RoIAlign inputs and the scene's merge; and phase 58's: the
+             signed 16-bit SAR batch's candidates, levels and proposals;
+             each held against its plain version, the largest of each kind
+             timed beside its bound
 
 Every phase raises on failure. The launch counts are set to 0 just before
 each main path (5, 8, 11, 14 at batch 8, 14 at batch 4, 16's first
@@ -439,11 +461,12 @@ YOLOv8 model, 45's frozen and live steps, 46's run, 47's steps and 48's
 evaluations in each rank, 49's requests, kernel NMS calls and confusion
 matrix, 50's requests and steps, 52's requests of each model, 54's
 requests and served JPEG and PNG requests, 55's test run, 56's protocol
-run) and read just after;
+run, 57's window batches, patch runs and served bodies, 58's TIFF and JPEG
+requests) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
 26's, 30's, 34's, 38's, 42's and 46's runs, 52's requests and 56's
-protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-56 write
+protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-58 write
 their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -7312,6 +7335,18 @@ CORPUS_DIGESTS = {
         '5228c93f406d02891beb56f2579c67e3fa77fd0fde23e95c89d9ec76aa304592',
     'bigtiff-be-16bit-predictor.tif':
         '31246350658abcda054f7b1c4f4609a79503f749e0de1578ccbbcc046c708550',
+    'ccitt-rle.tif':
+        '57853113b1bd5b6fa5810c2f6f1b181d7e293f0fdc9d98877fdb64999f43c3fc',
+    'ccitt-rlew.tif':
+        'eb4cc4df07cf8ed1f8e69f63841dc05ac139d349b3573b9a5dd2544f4f3b3812',
+    'ccitt-t4-1d.tif':
+        '57853113b1bd5b6fa5810c2f6f1b181d7e293f0fdc9d98877fdb64999f43c3fc',
+    'ccitt-t4-2d-fill.tif':
+        '57853113b1bd5b6fa5810c2f6f1b181d7e293f0fdc9d98877fdb64999f43c3fc',
+    'ccitt-t6-tiles-fillorder2.tif':
+        'fd1742bc0c21ef856c8ef78d69f6ec856b5f1d7457e4f017c3e0add8ea4115ca',
+    'ccitt-t6.tif':
+        '57853113b1bd5b6fa5810c2f6f1b181d7e293f0fdc9d98877fdb64999f43c3fc',
     'cmyk.jpg':
         '25899622d19da21c07a3a309d1c4aef041c897fe389d638cf6307d2e83fe51da',
     'cmyk.tif':
@@ -7320,26 +7355,48 @@ CORPUS_DIGESTS = {
         '85a07c660db8626c0ed2343fa22df70a4b38c65e275d4fe94eb86e6d4b1035ad',
     'cv2-deflate.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'cv2-logluv.tif':
+        'b4219dd05eff7fa09de5f7d058b2d32de99655084c1953efa0ee857b62d97259',
+    'cv2-logluv24.tif':
+        '4a3dbb9678e6a309534107b67f2d545fa4e05cd0b2b9625f46efa4e3e82fae39',
     'cv2-none.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
     'cv2-packbits.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'fillorder2-deflate.tif':
+        '7a087603678cf75f9ae42a9f7af08c533270897318de7248667f026de26cbc95',
+    'float32.tif': None,
     'grey-16bit.tif':
         '2a42108cd2b325f3bf6af3ada98ef712e18939fd638c59f31e0cc6b129aa5ebf',
+    'grey16-tiles-right-edge.tif':
+        '74e33471eefa446361823423b35e7b141d7afd1bfbd05ab7a5ae918e2c69ca87',
+    'lab-16bit-be.tif':
+        '115fd99398c6e9efc32a90150f574fc3a88e5b8805a4250c07eaeefb41051dbf',
+    'lab-8bit.tif':
+        '2215f200596fe30d21f55e105730b02fc4940bf56c1e3bdfdb21e45e1ecaf24d',
+    'logl-tiles-be.tif':
+        '196f64a9005ad0d2b5e9f65dce765f42d21caf4fac33503d0013fe2926f8d933',
     'lossless.jpg':
         '59777ff185183b036557d4fe6cc73005b5398f09b830555a68310b13b8c67af1',
+    'lzma.tif': None,
     'minwhite-1bit.tif':
         '3dc61453ee30323224f06f8848e3f1f78e354a9b4eda45061b9d1194edd0b101',
     'multipage.tif':
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'old-lzw-predictor.tif':
+        'a9ea1e79a62218e8fa8480853bacee838383c3371c1e0fefdcb8fde25bc15d60',
     'orientation-3-grey.tif':
         '2c5ee9174acc8460d41680cfcb74246daf912c003857bfe40262d648e03883e2',
     'orientation-6.tif':
         '5cc9335d4086f64ea61a2c4bd63159d31eade9d40e7e1cb55ff9ac2ae2ae29af',
     'palette-4bit.tif':
         '9b94645530c6aba00a749c08b2df4fbcb4189c5111a060d0a4c5b261302aa7f2',
+    'pil-group4.tif':
+        'fd1742bc0c21ef856c8ef78d69f6ec856b5f1d7457e4f017c3e0add8ea4115ca',
     'pil-jpeg.tif':
         '83533531b813f08f4a6cc25a2dd64d5c6fa24319c0118fd3599cf4648dac67a5',
+    'pil-lab.tif':
+        'a0fab0a3cba7f417c51fd8b4061cb90d91b89be383cf0f7f68d77b32013ec388',
     'pil-palette.tif':
         'cb4e4448a10bdcdcfbd1fbf9edb5b1eebccfd014b712c03d2c70df769a5e54f9',
     'pil-rgba.tif':
@@ -7348,6 +7405,10 @@ CORPUS_DIGESTS = {
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
     'rgba-unassociated-16bit.tif':
         'ea008961c2f3b7e11fce93afaa1fec95b51295471952214309c6468515b0646a',
+    'signed-16bit-grey.tif':
+        '01c92457e9967f9fcfeba547f2a1c6fa8cf40f9b6e799ece047cde48e45c8bf2',
+    'signed-8bit-rgb-planar.tif':
+        '710408dd5dd6b3ec5a0765a222e6cab8a557d3d9b6405b19bf47216900070b32',
     'tiles-deflate-predictor.tif':
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
     'tiles-planar-bigtiff-be.tif':
@@ -7473,10 +7534,12 @@ def phase_tiff(root, device, card='', scene=4000, window=1024, gap=200,
         f'; BGR and grey) written and read: every file and decode equal to '
         f'OpenCV\'s by SHA-256; {len(corpus)} corpus files (TIFF: tiles, '
         f'planar, BigTIFF, big-endian, 16-bit predictor, multi-page, '
-        f'orientation, YCbCr, palette, CMYK, JPEG, PackBits, deflate; JPEG: '
-        f'CMYK, YCCK, arithmetic, lossless, 12-bit) decoded to OpenCV\'s '
-        f'arrays ({sum(v is None for v in corpus.values())} refused as '
-        f'OpenCV refuses them)')
+        f'orientation, YCbCr, palette, CMYK, JPEG, PackBits, deflate, '
+        f'CCITT RLE / RLEW / T.4 / T.6, SGILog LogL / LogLuv, L*a*b*, '
+        f'signed, FillOrder 2, old-style LZW; JPEG: CMYK, YCCK, '
+        f'arithmetic, lossless, 12-bit) decoded to OpenCV\'s arrays '
+        f'({sum(v is None for v in corpus.values())} refused as OpenCV '
+        f'refuses them)')
 
     # (ii) the scene, split from a TIFF and from a PNG
     for sub in ('scene_tif', 'scene_png', 'ann', 'split_tif', 'split_png'):
@@ -7705,6 +7768,174 @@ def held_tiff(device, captured, by_name, card, reps, roi_reps,
                     plain_reps)
 
 
+# ---- 58. signed 16-bit SAR products as TIFFs --------------------------------
+def sar_scene(size, seed) -> np.ndarray:
+    """A seeded ``size``^2 grey SAR scene made in integers: speckle
+    (:func:`codec_image`'s) with bright ships, rectangles of 160-255 every
+    ``size // 4`` pixels. ``(size, size)`` uint8."""
+    img = codec_image(size, size, grey=True, seed=seed, speckle=True)
+    step = max(size // 4, 8)
+    for k, (y, x) in enumerate((y, x) for y in range(step // 2, size, step)
+                               for x in range(step // 2, size, step)):
+        h, w = (step // 8, step // 3) if k % 2 else (step // 3, step // 8)
+        img[y:y + h, x:x + w] = 160 + (k * 37 + seed) % 96
+    return img
+
+
+def int16_grey_tiff(high, seed) -> bytes:
+    """A signed 16-bit grey TIFF (SampleFormat 2, one uncompressed strip,
+    little-endian): each sample's high byte is ``high``'s pixel ((H, W)
+    uint8) and its low byte seeded noise, so a pixel of 128 or more is a
+    negative sample. OpenCV reads such a file by its high bytes."""
+    import struct
+    h, w = high.shape
+    low = codec_image(h, w, grey=True, seed=seed)
+    data = (high.astype('<u2') << 8 | low).astype('<u2').tobytes()
+    entries = ((256, 4, w), (257, 4, h), (258, 3, 16), (259, 3, 1),
+               (262, 3, 1), (273, 4, 8), (277, 3, 1), (278, 4, h),
+               (279, 4, len(data)), (284, 3, 1), (339, 3, 2))
+    ifd = struct.pack('<H', len(entries)) + b''.join(
+        struct.pack('<HHI', tag, typ, 1) +
+        (struct.pack('<HH', value, 0) if typ == 3 else
+         struct.pack('<I', value)) for tag, typ, value in entries)
+    return (b'II*\0' + struct.pack('<I', 8 + len(data)) + data + ifd +
+            struct.pack('<I', 0))
+
+
+def fax_and_luv_scenes(side, rows=16) -> dict:
+    """A ``side``^2 T.6 (CCITT G4) TIFF and a ``side``^2 LogLuv32 (SGILog)
+    TIFF, each of ``side // rows`` strips of one ``rows``-row block encoded
+    by ``tests/tiff_forms.py``: the binary block thresholds
+    :func:`codec_image` (a scan's dense runs), the LogLuv block takes its
+    luminance and chroma from it."""
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import tiff_forms as tf
+    block = codec_image(rows, side, seed=side)
+    bits = (block[..., 0] > 128).astype(np.int64)
+    luv = ((block[..., 0].astype(np.int64) * 24 + 12000) << 16 |
+           block[..., 1].astype(np.int64) << 8 | block[..., 2])
+    strips = side // rows
+    return {
+        't6': tf.build([tf.ccitt(bits, 4)] * strips, side, side, 1, 1, 0,
+                       compression=4, rows_per_strip=rows),
+        'logluv32': tf.build([tf.logluv32(luv)] * strips, side, side, 16, 3,
+                             32845, compression=34676, rows_per_strip=rows,
+                             tags={339: (tf.SHORT, [2] * 3)})}
+
+
+def phase_sar_tiff(root, device, card='', bsz=8, size=800,
+                   dtype=torch.bfloat16, max_num=2000, max_candidates=2000,
+                   config=SAR_CONFIG, timed_side=4000, reps=2) -> tuple:
+    """Phase 58: a batch of SAR products as signed 16-bit TIFFs. ``bsz``
+    seeded ``size``^2 grey SAR scenes (:func:`sar_scene`; SAR is one
+    channel, and a grey JPEG decodes to three equal channels) written as
+    JPEGs by the port's encoder and read by its decoder, then each decoded
+    image written as a signed 16-bit grey TIFF (:func:`int16_grey_tiff`,
+    negative samples among them) and read back with ``utils/image_io.imread``:
+    the JPEG's pixels. Phase 54's HRSID Oriented R-CNN (``config``, R50-FPN,
+    seeded weights, ``dtype``) serves the batch from the TIFFs and from the
+    JPEGs: the same detections, one B1 and one B3 launch each. One more
+    request's B1 and B3 inputs are recorded under ``'sar_tiff'`` /
+    ``'sar_tiff_roi'`` for phase 12. On one host thread, the decode of a
+    ``timed_side``^2 T.6 and LogLuv32 scene (:func:`fax_and_luv_scenes`,
+    median of ``reps``). Returns the launch counts of the two requests and
+    the recorded inputs."""
+    import shutil
+    from orientedobjectdetection_torch.models.roi_heads import \
+        oriented_roi_head
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.utils.image_io import imread, imwrite
+    on_card = torch.device(device).type == 'cuda'
+    folder = os.path.join(root, 'sar_tiff')
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    jpegs, tiffs, negative = [], [], 0
+    for i in range(bsz):
+        jpegs.append(os.path.join(folder, f'{i:04d}.jpg'))
+        imwrite(jpegs[-1], sar_scene(size, seed=100 + i))
+    t0 = time.perf_counter()
+    decoded = [imread(path) for path in jpegs]
+    jpeg_ms = 1e3 * (time.perf_counter() - t0) / bsz
+    for i, img in enumerate(decoded):
+        if not (img == img[..., :1]).all():
+            raise AssertionError(f'grey JPEG {i} decoded to unequal channels')
+        tiffs.append(os.path.join(folder, f'{i:04d}.tif'))
+        with open(tiffs[-1], 'wb') as f:
+            f.write(int16_grey_tiff(img[..., 0], seed=200 + i))
+        negative += int((img[..., 0] >= 128).sum())
+    t0 = time.perf_counter()
+    read = [imread(path) for path in tiffs]
+    tiff_ms = 1e3 * (time.perf_counter() - t0) / bsz
+    for i, (got, want) in enumerate(zip(read, decoded)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f'signed 16-bit TIFF {i} does not read back '
+                                 f'to its JPEG\'s pixels')
+    if not negative:
+        raise AssertionError('the TIFFs hold no negative sample')
+    log(f'[sar-tiff] {bsz} seeded {size}^2 grey SAR scenes as JPEGs '
+        f'({jpeg_ms:.2f} ms a decode) and as signed 16-bit grey TIFFs '
+        f'({os.path.getsize(tiffs[0])} bytes, {negative} negative samples, '
+        f'{tiff_ms:.2f} ms a read): the same pixels')
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates,
+                                config=config)
+    by_tiff = torch.from_numpy(np.stack(read))
+    by_jpeg = torch.from_numpy(np.stack(decoded))
+    bundle(by_jpeg)                                         # warm
+    sync(device)
+    runs, results, ms = [], {}, {}
+    for kind, batch in (('tiff', by_tiff), ('jpeg', by_jpeg)):
+        reset_launches()
+        t0 = time.perf_counter()
+        results[kind] = bundle(batch)
+        sync(device)
+        ms[kind] = 1e3 * (time.perf_counter() - t0)
+        runs.append(read_launches())
+        for name in ('roi_align_rotated', 'nms_pair_mask'):
+            if runs[-1][name] != (1 if on_card else 0):
+                raise AssertionError(f'{name} launched {runs[-1][name]} '
+                                     f'times for one request')
+    err, moved, _ = same_detections(results['tiff'], results['jpeg'],
+                                    [-1.0] * bsz)
+    n_dets = int(results['tiff'][2].sum())
+    if not n_dets:
+        raise AssertionError('the SAR batch gave no detections')
+    with recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
+        bundle(by_tiff)
+    inputs = {'sar_tiff': (masks[0][0][0], masks[0][0][2]),
+              'sar_tiff_roi': tuple(pools[0][0][:2])}
+    log(f'[sar-tiff] {card} | HRSID Oriented R-CNN {str(dtype).split(".")[-1]}'
+        f' on the batch of {bsz}: from the TIFFs {ms["tiff"]:.1f} ms, from '
+        f'the JPEGs {ms["jpeg"]:.1f} ms a request; {n_dets} detections, the '
+        f'same from both (max |diff| {err:.3g}, {moved} rows moved); '
+        f'launches {runs[0]}')
+    del bundle
+    free_card(device)
+    from orientedobjectdetection_torch.utils.image_io import imdecode
+    scenes = fax_and_luv_scenes(timed_side)
+    times = {k: median_ms(lambda d=d: imdecode(d), reps)
+             for k, d in scenes.items()}
+    log(f'[sar-tiff] {card} | host, one thread, {timed_side}^2 decode '
+        f'(median of {reps}): T.6 ({len(scenes["t6"])} bytes) '
+        f'{times["t6"]:.2f} ms, LogLuv32 ({len(scenes["logluv32"])} bytes) '
+        f'{times["logluv32"]:.2f} ms')
+    return runs, inputs
+
+
+def held_sar_tiff(device, captured, by_name, card, reps, roi_reps,
+                  plain_reps) -> None:
+    """Phase 58's recorded inputs against their plain versions, each timed
+    into ``main_path_inputs``: B1 on the signed 16-bit SAR batch's
+    candidates, B3 on its levels and proposals."""
+    label = 'HRSID Oriented R-CNN request (800^2 signed 16-bit TIFFs)'
+    held_pair_masks([captured['sar_tiff']], label, 'sar_tiff',
+                    by_name['nms_pair_mask'], device, card, reps, plain_reps)
+    levels, rois = captured['sar_tiff_roi']
+    held_roi_inputs([(levels, rois, 2)], label, 'sar_tiff',
+                    by_name['roi_align_rotated'], device, card, roi_reps,
+                    plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
@@ -7776,6 +8007,8 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_sar(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_hard(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_tiff(device, captured, by_name, card, reps, roi_reps, plain_reps)
+    held_sar_tiff(device, captured, by_name, card, reps, roi_reps,
+                  plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -8150,6 +8383,11 @@ def main() -> int:
                                         'cuda', card=info['card'])
     captured.update(tiff_inputs)
     log(f'[phase 57] {time.perf_counter() - t57:.1f} s')
+    t58 = time.perf_counter()
+    sar_tiff_runs, sar_tiff_inputs = phase_sar_tiff(DATA_DIR, 'cuda',
+                                                    card=info['card'])
+    captured.update(sar_tiff_inputs)
+    log(f'[phase 58] {time.perf_counter() - t58:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -8170,8 +8408,9 @@ def main() -> int:
         # the confusion matrix, the YOLOv6-neck model's requests and steps,
         # the seeded and converted models' requests of phase 52, the HRSID
         # requests and served JPEGs of phase 54, phase 55's test run,
-        # phase 56's protocol run and phase 57's TIFF and PNG window
-        # batches, patch runs and served bodies
+        # phase 56's protocol run, phase 57's TIFF and PNG window
+        # batches, patch runs and served bodies, and phase 58's signed
+        # 16-bit TIFF and JPEG SAR batches
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -8181,7 +8420,7 @@ def main() -> int:
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
             *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
-            *split_runs, *hard_runs, *tiff_runs))
+            *split_runs, *hard_runs, *tiff_runs, *sar_tiff_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

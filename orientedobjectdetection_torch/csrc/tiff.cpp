@@ -4,11 +4,17 @@
 //
 // Reader: classic TIFF and BigTIFF in both byte orders, the first IFD (the
 // first page, as cv2.imread reads it), strips or tiles (edge tiles cropped),
-// PlanarConfiguration 1 and 2, compression none, LZW, PackBits, deflate (8
-// and 32946, with the inflater below) and JPEG (7: the JPEGTables stream,
-// then each strip's or tile's abbreviated stream, through jpeg.cpp's
-// oodt_jpeg_decode_segment), Predictor 2 at 8 and 16 bits. The samples
-// become RGB as tif_getimage.c makes them:
+// PlanarConfiguration 1 and 2, FillOrder 1 and 2 (each byte's bits reversed
+// before it is decompressed, but for JPEG, as libtiff's TIFFReverseBits),
+// compression none, LZW (and old-style, LSB-first LZW, as libtiff's
+// LZWDecodeCompat), PackBits, deflate (8 and 32946, with the inflater
+// below), JPEG (7: the JPEGTables stream, then each strip's or tile's
+// abbreviated stream, through jpeg.cpp's oodt_jpeg_decode_segment), CCITT
+// RLE (2), RLEW (32771), T.4 (3, 1-D and 2-D) and T.6 (4) (tif_fax3.c's
+// decoder, step for step) and SGILog (34676 run-length LogL / LogLuv, 34677
+// LogLuv24, tif_luv.c), Predictor 2 at 8 and 16 bits. Unsigned and signed
+// samples alike are read by their bits. The samples become RGB as
+// tif_getimage.c makes them:
 //   - MinIsBlack / MinIsWhite at 1 and 8 bits through its map
 //     (x * 255 / range, inverted for MinIsWhite); 16 bits by the high byte
 //     (OpenCV refuses 2 bits, and 4 outside a palette: so does this);
@@ -21,14 +27,22 @@
 //   - YCbCr at 8 bits with subsampling 1, 2 or 4 (contiguous), or 1 x 1
 //     (planar), through TIFFYCbCrToRGBInit's tables (YCbCrCoefficients,
 //     ReferenceBlackWhite); JPEG-compressed YCbCr as libjpeg converts it
-//     (JPEGCOLORMODE_RGB).
+//     (JPEGCOLORMODE_RGB);
+//   - CIE L*a*b* (8 and 16 bits, contiguous) through tif_color.c's
+//     TIFFCIELab16ToXYZ and TIFFXYZToRGB with its sRGB display table;
+//   - LogL as 8-bit grey and LogLuv as 8-bit RGB, as the SGILog codec gives
+//     them to the RGBA interface (L16toGry, Luv32toRGB, Luv24toRGB).
 // The output is the stored raster as (height, width, 3) BGR; the caller
 // applies the Orientation tag (oodt_tiff_info gives it) as OpenCV does.
-// CCITT, old-style JPEG (6), LZMA, ZSTD, WebP, JXL and LERC compression,
-// old-style (LSB-first) LZW, FillOrder 2, and float, signed or complex
-// samples are refused by name (ROADMAP A.4d); so is anything that does not
-// decode. Every offset and count is checked against the file's length, and
-// an image past 2^30 pixels is refused before anything is allocated.
+// The forms OpenCV does not read are refused, saying so: float, complex and
+// 32-bit signed samples, the floating-point predictor, ICC and ITU
+// L*a*b*, old-style JPEG (6), LZMA, ZSTD, WebP, LERC and JPEG XL
+// compression (OpenCV gives an all-black image for JPEG XL), 12-bit JPEG
+// strips, 2-bit samples, 4-bit grey, more than 4 samples a pixel and
+// uncompressed tiles of other than a multiple of 1024 bytes; so is
+// anything that does not decode. Every offset and count is checked against
+// the file's length, and an image past 2^30 pixels is refused before
+// anything is allocated.
 //
 // Writer: what cv2.imwrite(".tif") writes for 8-bit BGR or grey: "II*\0",
 // the strips, then the IFD at an even offset (12 entries: ImageWidth,
@@ -41,9 +55,11 @@
 //
 // A plain C ABI, loaded with ctypes (native.py builds it with rnms.cpp and
 // jpeg.cpp into one library, linking nothing else). No global state is
-// written: calls from several threads run in parallel.
+// written (the CCITT and bit-reversal tables are built once, at first use):
+// calls from several threads run in parallel.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
@@ -67,7 +83,7 @@ struct TiffError {
 
 [[noreturn]] void fail(const std::string& msg) { throw TiffError{msg}; }
 
-const char* const kLater = " (ROADMAP A.4d)";
+const char* const kOpenCvToo = ": OpenCV does not read it either";
 const uint64_t kMaxPixels = uint64_t(1) << 30;   // OpenCV's image size limit
 
 // uninitialised bytes: pages a truncated file never reaches stay untouched
@@ -287,9 +303,83 @@ const int kHashSize = 9001;        // tif_lzw.c's HSIZE, 91% occupancy
 const int kHashShift = 13 - 8;
 const long kCheckGap = 10000;
 
+// tif_lzw.c's LZWDecodeCompat: LSB-first codes, the width raised one code
+// later than LZWDecode raises it, and no code before the first clear
+void lzw_decode_compat(const uint8_t* in, size_t n, uint8_t* out,
+                       size_t want) {
+  const int size = kCodeMax + 1 + 1024;
+  std::vector<int32_t> prefix(size, -1), length(size, 0);
+  std::vector<uint8_t> suffix(size, 0), first(size, 0);
+  for (int i = 0; i < 256; i++) {
+    suffix[i] = first[i] = uint8_t(i);
+    length[i] = 1;
+  }
+  size_t pos = 0, at = 0;
+  uint64_t acc = 0;
+  int cnt = 0, nbits = kBitsMin, free_ent = kFirst, old = -1;
+  int maxcode = (1 << kBitsMin) - 1;
+  auto next = [&]() -> int {
+    while (cnt < nbits) {
+      if (pos >= n) return -1;
+      acc |= uint64_t(in[pos++]) << cnt;
+      cnt += 8;
+    }
+    int code = int(acc & ((1u << nbits) - 1));
+    acc >>= nbits;
+    cnt -= nbits;
+    return code;
+  };
+  while (at < want) {
+    int code = next();
+    if (code < 0 || code == kEoi) break;
+    if (code == kClear) {
+      do {
+        free_ent = kFirst;
+        std::fill(length.begin() + kFirst, length.end(), 0);
+        nbits = kBitsMin;
+        maxcode = (1 << kBitsMin) - 1;
+        code = next();
+      } while (code == kClear);
+      if (code < 0 || code == kEoi) break;
+      if (code > kClear) fail("corrupt LZW data (a code after a clear)");
+      out[at++] = uint8_t(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || free_ent >= size)
+      fail("corrupt LZW data (no clear code first)");
+    prefix[free_ent] = old;
+    first[free_ent] = first[old];
+    length[free_ent] = length[old] + 1;
+    suffix[free_ent] = code < free_ent ? first[code] : first[old];
+    if (++free_ent > maxcode) {
+      if (++nbits > kBitsMax) nbits = kBitsMax;
+      maxcode = (1 << nbits) - 1;
+    }
+    old = code;
+    if (code < 256) {
+      out[at++] = uint8_t(code);
+      continue;
+    }
+    int len = length[code];
+    if (len == 0) fail("corrupt LZW data (a code past the table)");
+    // a string longer than the room left: its first bytes, as libtiff's
+    // restart logic gives them
+    size_t keep = std::min(size_t(len), want - at);
+    int c = code;
+    for (int k = len; k > int(keep); k--) c = prefix[c];
+    for (size_t k = keep; k > 0; k--, c = prefix[c])
+      out[at + k - 1] = suffix[c];
+    at += keep;
+  }
+  if (at < want) fail("not enough LZW data for the strip or tile");
+}
+
 void lzw_decode(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
-  if (n >= 2 && in[0] == 0 && (in[1] & 1))
-    fail(std::string("old-style (LSB-first) LZW") + kLater);
+  if (n >= 2 && in[0] == 0 && (in[1] & 1)) {     // LZWPreDecode's test
+    lzw_decode_compat(in, n, out, want);
+    return;
+  }
   // libtiff's table runs 1024 entries past the 12-bit codes
   const int size = kCodeMax + 1 + 1024;
   std::vector<int32_t> prefix(size);
@@ -475,13 +565,651 @@ void packbits_decode(const uint8_t* in, size_t n, uint8_t* out, size_t want) {
   if (at < want) fail("not enough PackBits data for the strip or tile");
 }
 
+// ---- CCITT RLE, RLEW, T.4 and T.6 (tif_fax3.c) -----------------------------
+// libtiff's decoder, step for step: its bit accumulator (each byte's bits
+// taken LSB first after FillOrder's reversal table, so that RLEW's word
+// alignment lands where libtiff's does), mkg3states' lookup tables (12 bits
+// for the white codes, 13 for the black, 7 for the 2-D modes) and its way
+// on from an unexpected code (the row is closed and decoding goes on, as
+// libtiff warns and goes on). Data that ends early closes the row it ends
+// in, as libtiff's decoder does, and leaves the block's later rows at 0 bits,
+// which OpenCV, reading on past the error, returns for RLE, RLEW and T.6:
+// RLEW's own files need it, since libtiff's word alignment can run a row
+// past the data.
+enum {
+  kFaxNull, kFaxPass, kFaxHoriz, kFaxV0, kFaxVR, kFaxVL, kFaxExt, kFaxTermW,
+  kFaxTermB, kFaxMakeUpW, kFaxMakeUpB, kFaxMakeUp, kFaxEol
+};
+
+struct FaxEntry {
+  uint8_t state = kFaxNull, width = 0;
+  uint32_t param = 0;
+};
+
+struct FaxCode {
+  int run;
+  const char* bits;                // the code, first bit first
+};
+
+const FaxCode kWhiteCodes[] = {
+    {0, "00110101"}, {1, "000111"}, {2, "0111"}, {3, "1000"}, {4, "1011"},
+    {5, "1100"}, {6, "1110"}, {7, "1111"}, {8, "10011"}, {9, "10100"},
+    {10, "00111"}, {11, "01000"}, {12, "001000"}, {13, "000011"},
+    {14, "110100"}, {15, "110101"}, {16, "101010"}, {17, "101011"},
+    {18, "0100111"}, {19, "0001100"}, {20, "0001000"}, {21, "0010111"},
+    {22, "0000011"}, {23, "0000100"}, {24, "0101000"}, {25, "0101011"},
+    {26, "0010011"}, {27, "0100100"}, {28, "0011000"}, {29, "00000010"},
+    {30, "00000011"}, {31, "00011010"}, {32, "00011011"}, {33, "00010010"},
+    {34, "00010011"}, {35, "00010100"}, {36, "00010101"}, {37, "00010110"},
+    {38, "00010111"}, {39, "00101000"}, {40, "00101001"}, {41, "00101010"},
+    {42, "00101011"}, {43, "00101100"}, {44, "00101101"}, {45, "00000100"},
+    {46, "00000101"}, {47, "00001010"}, {48, "00001011"}, {49, "01010010"},
+    {50, "01010011"}, {51, "01010100"}, {52, "01010101"}, {53, "00100100"},
+    {54, "00100101"}, {55, "01011000"}, {56, "01011001"}, {57, "01011010"},
+    {58, "01011011"}, {59, "01001010"}, {60, "01001011"}, {61, "00110010"},
+    {62, "00110011"}, {63, "00110100"}, {64, "11011"}, {128, "10010"},
+    {192, "010111"}, {256, "0110111"}, {320, "00110110"}, {384, "00110111"},
+    {448, "01100100"}, {512, "01100101"}, {576, "01101000"},
+    {640, "01100111"}, {704, "011001100"}, {768, "011001101"},
+    {832, "011010010"}, {896, "011010011"}, {960, "011010100"},
+    {1024, "011010101"}, {1088, "011010110"}, {1152, "011010111"},
+    {1216, "011011000"}, {1280, "011011001"}, {1344, "011011010"},
+    {1408, "011011011"}, {1472, "010011000"}, {1536, "010011001"},
+    {1600, "010011010"}, {1664, "011000"}, {1728, "010011011"}};
+const FaxCode kBlackCodes[] = {
+    {0, "0000110111"}, {1, "010"}, {2, "11"}, {3, "10"}, {4, "011"},
+    {5, "0011"}, {6, "0010"}, {7, "00011"}, {8, "000101"}, {9, "000100"},
+    {10, "0000100"}, {11, "0000101"}, {12, "0000111"}, {13, "00000100"},
+    {14, "00000111"}, {15, "000011000"}, {16, "0000010111"},
+    {17, "0000011000"}, {18, "0000001000"}, {19, "00001100111"},
+    {20, "00001101000"}, {21, "00001101100"}, {22, "00000110111"},
+    {23, "00000101000"}, {24, "00000010111"}, {25, "00000011000"},
+    {26, "000011001010"}, {27, "000011001011"}, {28, "000011001100"},
+    {29, "000011001101"}, {30, "000001101000"}, {31, "000001101001"},
+    {32, "000001101010"}, {33, "000001101011"}, {34, "000011010010"},
+    {35, "000011010011"}, {36, "000011010100"}, {37, "000011010101"},
+    {38, "000011010110"}, {39, "000011010111"}, {40, "000001101100"},
+    {41, "000001101101"}, {42, "000011011010"}, {43, "000011011011"},
+    {44, "000001010100"}, {45, "000001010101"}, {46, "000001010110"},
+    {47, "000001010111"}, {48, "000001100100"}, {49, "000001100101"},
+    {50, "000001010010"}, {51, "000001010011"}, {52, "000000100100"},
+    {53, "000000110111"}, {54, "000000111000"}, {55, "000000100111"},
+    {56, "000000101000"}, {57, "000001011000"}, {58, "000001011001"},
+    {59, "000000101011"}, {60, "000000101100"}, {61, "000001011010"},
+    {62, "000001100110"}, {63, "000001100111"}, {64, "0000001111"},
+    {128, "000011001000"}, {192, "000011001001"}, {256, "000001011011"},
+    {320, "000000110011"}, {384, "000000110100"}, {448, "000000110101"},
+    {512, "0000001101100"}, {576, "0000001101101"}, {640, "0000001001010"},
+    {704, "0000001001011"}, {768, "0000001001100"}, {832, "0000001001101"},
+    {896, "0000001110010"}, {960, "0000001110011"}, {1024, "0000001110100"},
+    {1088, "0000001110101"}, {1152, "0000001110110"},
+    {1216, "0000001110111"}, {1280, "0000001010010"},
+    {1344, "0000001010011"}, {1408, "0000001010100"},
+    {1472, "0000001010101"}, {1536, "0000001011010"},
+    {1600, "0000001011011"}, {1664, "0000001100100"},
+    {1728, "0000001100101"}};
+const FaxCode kExtendedCodes[] = {     // the make-up codes of both colours
+    {1792, "00000001000"}, {1856, "00000001100"}, {1920, "00000001101"},
+    {1984, "000000010010"}, {2048, "000000010011"}, {2112, "000000010100"},
+    {2176, "000000010101"}, {2240, "000000010110"}, {2304, "000000010111"},
+    {2368, "000000011100"}, {2432, "000000011101"}, {2496, "000000011110"},
+    {2560, "000000011111"}};
+
+struct FaxTables {
+  FaxEntry main[1 << 7], white[1 << 12], black[1 << 13];
+
+  // mkg3states' FillTable: every index whose low bits are the code
+  static void fill(FaxEntry* table, int size, const char* bits, int state,
+                   uint32_t param) {
+    int width = int(std::strlen(bits)), code = 0;
+    for (int i = 0; i < width; i++) code |= (bits[i] - '0') << i;
+    for (int at = code; at < (1 << size); at += 1 << width)
+      table[at] = FaxEntry{uint8_t(state), uint8_t(width), param};
+  }
+
+  FaxTables() {
+    for (const FaxCode& c : kWhiteCodes)
+      fill(white, 12, c.bits, c.run < 64 ? kFaxTermW : kFaxMakeUpW,
+           uint32_t(c.run));
+    for (const FaxCode& c : kBlackCodes)
+      fill(black, 13, c.bits, c.run < 64 ? kFaxTermB : kFaxMakeUpB,
+           uint32_t(c.run));
+    for (const FaxCode& c : kExtendedCodes) {
+      fill(white, 12, c.bits, kFaxMakeUp, uint32_t(c.run));
+      fill(black, 13, c.bits, kFaxMakeUp, uint32_t(c.run));
+    }
+    fill(white, 12, "00000000000", kFaxEol, 0);     // an EOL's 11 zeros
+    fill(black, 13, "00000000000", kFaxEol, 0);
+    fill(main, 7, "0001", kFaxPass, 0);
+    fill(main, 7, "001", kFaxHoriz, 0);
+    fill(main, 7, "1", kFaxV0, 0);
+    fill(main, 7, "011", kFaxVR, 1);
+    fill(main, 7, "000011", kFaxVR, 2);
+    fill(main, 7, "0000011", kFaxVR, 3);
+    fill(main, 7, "010", kFaxVL, 1);
+    fill(main, 7, "000010", kFaxVL, 2);
+    fill(main, 7, "0000010", kFaxVL, 3);
+    fill(main, 7, "0000001", kFaxExt, 0);
+    fill(main, 7, "0000000", kFaxEol, 0);
+  }
+};
+
+const FaxTables& fax_tables() {
+  static const FaxTables tables;   // built once, read by every thread
+  return tables;
+}
+
+const uint8_t* bit_reversal(bool reverse) {
+  struct Table {
+    uint8_t v[2][256];
+    Table() {
+      for (int i = 0; i < 256; i++) {
+        int r = 0;
+        for (int b = 0; b < 8; b++) r |= ((i >> b) & 1) << (7 - b);
+        v[0][i] = uint8_t(i);
+        v[1][i] = uint8_t(r);
+      }
+    }
+  };
+  static const Table table;
+  return table.v[reverse ? 1 : 0];
+}
+
+struct Fax {
+  enum Mode { kRle, kRlew, kG3, kG3TwoD, kG4 };
+  const FaxTables& tab = fax_tables();
+  const uint8_t* file;             // RLEW aligns on the file's 16-bit words
+  const uint8_t* bitmap;           // each byte's bits, LSB first
+  Mode mode;
+  int lastx;                       // pixels a row
+  size_t nruns;
+  std::vector<uint32_t> runs;      // two halves of nruns: rows and reference
+  // the state of one call (Fax3PreDecode resets it for each strip or tile)
+  const uint8_t* cp = nullptr;
+  const uint8_t* ep = nullptr;
+  uint32_t acc = 0;
+  int avail = 0, eolcnt = 0;
+  size_t cur = 0, ref = 0, thisrun = 0, pa = 0, pb = 0;
+  int a0 = 0, run_length = 0, b1 = 0;
+
+  Fax(const uint8_t* f, int compression, uint32_t t4, bool lsb_first,
+      uint64_t width)
+      : file(f), bitmap(bit_reversal(!lsb_first)), lastx(int(width)) {
+    mode = compression == 2 ? kRle : compression == 32771 ? kRlew
+           : compression == 4 ? kG4 : (t4 & 1) ? kG3TwoD : kG3;
+    bool two_d = mode == kG3TwoD || mode == kG4;
+    nruns = (size_t(width) + 1 + 31) / 32 * 32 * (two_d ? 2 : 1);
+    runs.assign(2 * nruns + 2, 0);
+  }
+
+  struct End {};                   // the data ended early
+  [[noreturn]] static void truncated() { throw End{}; }
+  [[noreturn]] static void overflow() {
+    fail("corrupt CCITT data (a row of too many runs)");
+  }
+  void need8(int k) {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) truncated();
+        avail = k;                 // pad with zeros
+      } else {
+        acc |= uint32_t(bitmap[*cp++]) << avail;
+        avail += 8;
+      }
+    }
+  }
+  void need16(int k) {
+    if (avail < k) {
+      if (cp >= ep) {
+        if (avail == 0) truncated();
+        avail = k;
+      } else {
+        acc |= uint32_t(bitmap[*cp++]) << avail;
+        if ((avail += 8) < k) {
+          if (cp >= ep) {
+            avail = k;
+          } else {
+            acc |= uint32_t(bitmap[*cp++]) << avail;
+            avail += 8;
+          }
+        }
+      }
+    }
+  }
+  uint32_t get(int k) const { return acc & ((uint32_t(1) << k) - 1); }
+  void clr(int k) {
+    avail -= k;
+    acc >>= k;
+  }
+  const FaxEntry& lookup8(int k, const FaxEntry* table) {
+    need8(k);
+    const FaxEntry& e = table[get(k)];
+    clr(e.width);
+    return e;
+  }
+  const FaxEntry& lookup16(int k, const FaxEntry* table) {
+    need16(k);
+    const FaxEntry& e = table[get(k)];
+    clr(e.width);
+    return e;
+  }
+
+  void setvalue(int x) {
+    if (pa >= thisrun + nruns) overflow();
+    runs[pa++] = uint32_t(run_length + x);
+    a0 += x;
+    run_length = 0;
+  }
+  void cleanup_runs() {
+    if (run_length) setvalue(0);
+    if (a0 != lastx) {             // libtiff warns of a bad line length
+      while (a0 > lastx && pa > thisrun) a0 -= int(runs[--pa]);
+      if (a0 < lastx) {
+        if (a0 < 0) a0 = 0;
+        if ((pa - thisrun) & 1) setvalue(0);
+        setvalue(lastx - a0);
+      } else if (a0 > lastx) {
+        setvalue(lastx);
+        setvalue(0);
+      }
+    }
+  }
+  void check_b1() {
+    if (pa != thisrun)
+      while (b1 <= a0 && b1 < lastx) {
+        if (pb + 1 >= ref + nruns) overflow();
+        b1 += int(runs[pb] + runs[pb + 1]);
+        pb += 2;
+      }
+  }
+  // one colour's run: make-up codes, then a terminating code; false on an
+  // unexpected code
+  bool span(bool black) {
+    for (;;) {
+      const FaxEntry& e = black ? lookup16(13, tab.black)
+                                : lookup16(12, tab.white);
+      if (e.state == (black ? kFaxTermB : kFaxTermW)) {
+        setvalue(int(e.param));
+        return true;
+      }
+      if (e.state == (black ? kFaxMakeUpB : kFaxMakeUpW) ||
+          e.state == kFaxMakeUp) {
+        a0 += int(e.param);
+        run_length += int(e.param);
+        continue;
+      }
+      if (e.state == kFaxEol) eolcnt = 1;
+      return false;
+    }
+  }
+  void expand1d() {                // EXPAND1D
+    for (;;) {
+      if (!span(false) || a0 >= lastx) break;
+      if (!span(true) || a0 >= lastx) break;
+      if (runs[pa - 1] == 0 && runs[pa - 2] == 0) pa -= 2;
+    }
+    cleanup_runs();
+  }
+  void expand2d() {                // EXPAND2D
+    while (a0 < lastx) {
+      if (pa >= thisrun + nruns) overflow();
+      const FaxEntry& e = lookup8(7, tab.main);
+      switch (e.state) {
+        case kFaxPass:
+          check_b1();
+          if (pb + 1 >= ref + nruns) overflow();
+          b1 += int(runs[pb++]);
+          run_length += b1 - a0;
+          a0 = b1;
+          b1 += int(runs[pb++]);
+          break;
+        case kFaxHoriz: {
+          bool black = (pa - thisrun) & 1;
+          if (!span(black) || !span(!black)) {
+            eolcnt = 0;            // an EOL here is only an unexpected code
+            cleanup_runs();
+            return;
+          }
+          check_b1();
+          break;
+        }
+        case kFaxV0:
+        case kFaxVR:
+          check_b1();
+          setvalue(b1 - a0 + int(e.param));
+          if (pb >= ref + nruns) overflow();
+          b1 += int(runs[pb++]);
+          break;
+        case kFaxVL:
+          check_b1();
+          if (b1 < a0 + int(e.param)) {
+            cleanup_runs();
+            return;
+          }
+          setvalue(b1 - a0 - int(e.param));
+          if (pb <= ref) overflow();
+          b1 -= int(runs[--pb]);
+          break;
+        case kFaxExt:              // uncompressed mode: not read by libtiff
+          runs[pa++] = uint32_t(lastx - a0);
+          cleanup_runs();
+          return;
+        case kFaxEol:
+          runs[pa++] = uint32_t(lastx - a0);
+          need8(4);
+          clr(4);
+          eolcnt = 1;
+          cleanup_runs();
+          return;
+        default:
+          cleanup_runs();
+          return;
+      }
+    }
+    if (run_length) {
+      if (run_length + a0 < lastx) {   // a final V0 is expected
+        need8(1);
+        if (!get(1)) {
+          cleanup_runs();
+          return;
+        }
+        clr(1);
+      }
+      setvalue(0);
+    }
+    cleanup_runs();
+  }
+  void sync_eol() {                // SYNC_EOL
+    if (eolcnt == 0) {
+      for (;;) {
+        need16(11);
+        if (get(11) == 0) break;
+        clr(1);
+      }
+    }
+    for (;;) {
+      need8(8);
+      if (get(8)) break;
+      clr(8);
+    }
+    while (get(1) == 0) clr(1);
+    clr(1);
+    eolcnt = 0;
+  }
+  // _TIFFFax3fillruns: white runs clear, black runs set, each run cut to
+  // the row (the runs too, as the next row's reference)
+  void fill(uint8_t* row) {
+    size_t erun = pa;
+    if ((erun - thisrun) & 1) runs[erun++] = 0;
+    std::memset(row, 0, size_t(lastx + 7) / 8);
+    uint32_t x = 0, last = uint32_t(lastx);
+    for (size_t r = thisrun; r < erun; r += 2) {
+      for (int k = 0; k < 2; k++) {
+        uint32_t run = runs[r + size_t(k)];
+        if (x + run > last || run > last)
+          run = runs[r + size_t(k)] = last - x;
+        if (k == 1)
+          for (uint32_t i = x; i < x + run; i++)
+            row[i >> 3] |= uint8_t(0x80 >> (i & 7));
+        x += run;
+      }
+    }
+  }
+
+  // one strip's or tile's data into rows of row_bytes packed 1-bit pixels
+  void decode(const uint8_t* in, size_t n, uint8_t* out, size_t rows,
+              size_t row_bytes) {
+    cp = in;
+    ep = in + n;
+    acc = 0;
+    avail = 0;
+    eolcnt = 0;
+    cur = 0;
+    ref = nruns;
+    runs[ref] = uint32_t(lastx);   // the white reference line
+    runs[ref + 1] = 0;
+    std::memset(out, 0, rows * row_bytes);
+    for (size_t y = 0; y < rows; y++) {
+      uint8_t* row = out + y * row_bytes;
+      a0 = 0;
+      run_length = 0;
+      pa = thisrun = cur;
+      try {
+        if (!decode_row(row)) return;
+      } catch (const End&) {       // Fax3PrematureEOF: close, fill, stop
+        cleanup_runs();
+        fill(row);
+        return;
+      }
+    }
+  }
+
+  // one row; false when T.6's EOFB came first (the row is filled, and
+  // libtiff's decoder stops there)
+  bool decode_row(uint8_t* row) {
+    switch (mode) {
+      case kRle:
+      case kRlew:
+        expand1d();
+        fill(row);
+        if (mode == kRle) {
+          clr(avail & 7);
+        } else {
+          clr(avail & 15);
+          if (avail == 0 && ((cp - file) & 1)) cp++;
+        }
+        break;
+      case kG3:
+        sync_eol();
+        expand1d();
+        fill(row);
+        break;
+      case kG3TwoD: {
+        sync_eol();
+        need8(1);
+        bool one_d = get(1);
+        clr(1);
+        pb = ref;
+        b1 = int(runs[pb++]);
+        if (one_d) expand1d();
+        else expand2d();
+        fill(row);
+        if (pa < thisrun + nruns) setvalue(0);
+        std::swap(cur, ref);
+        break;
+      }
+      case kG4:
+        pb = ref;
+        b1 = int(runs[pb++]);
+        expand2d();
+        fill(row);
+        if (eolcnt) return false;
+        setvalue(0);
+        std::swap(cur, ref);
+        break;
+    }
+    return true;
+  }
+};
+
+// ---- SGILog (tif_luv.c) ----------------------------------------------------
+// What the codec gives libtiff's RGBA interface, which asks it for 8-bit
+// data (SGILOGDATAFMT_8BIT): LogL16 as grey (L16toGry), LogLuv32 and
+// LogLuv24 as RGB through XYZ (Luv32toRGB, Luv24toRGB, XYZtoRGB24), in
+// double arithmetic as there; LogLuv24's chroma through uvcode.h's table.
+const double kLn2 = 0.69314718055994530942;
+const double kUvScale = 410.;
+const float kUvSquare = 0.003500f, kUvVStart = 0.016940f;
+const double kUNeutral = 0.210526316, kVNeutral = 0.473684211;
+const int kUvCodes = 16289, kUvRows = 163;
+
+struct UvRow {
+  float ustart;
+  int16_t nus, ncum;
+};
+
+const UvRow kUvRow[kUvRows] = {
+    {0.247663f, 4, 0}, {0.243779f, 6, 4}, {0.241684f, 7, 10},
+    {0.237874f, 9, 17}, {0.235906f, 10, 26}, {0.232153f, 12, 36},
+    {0.228352f, 14, 48}, {0.226259f, 15, 62}, {0.222371f, 17, 77},
+    {0.220410f, 18, 94}, {0.214710f, 21, 112}, {0.212714f, 22, 133},
+    {0.210721f, 23, 155}, {0.204976f, 26, 178}, {0.202986f, 27, 204},
+    {0.199245f, 29, 231}, {0.195525f, 31, 260}, {0.193560f, 32, 291},
+    {0.189878f, 34, 323}, {0.186216f, 36, 357}, {0.186216f, 36, 393},
+    {0.182592f, 38, 429}, {0.179003f, 40, 467}, {0.175466f, 42, 507},
+    {0.172001f, 44, 549}, {0.172001f, 44, 593}, {0.168612f, 46, 637},
+    {0.168612f, 46, 683}, {0.163575f, 49, 729}, {0.158642f, 52, 778},
+    {0.158642f, 52, 830}, {0.158642f, 52, 882}, {0.153815f, 55, 934},
+    {0.153815f, 55, 989}, {0.149097f, 58, 1044}, {0.149097f, 58, 1102},
+    {0.142746f, 62, 1160}, {0.142746f, 62, 1222}, {0.142746f, 62, 1284},
+    {0.138270f, 65, 1346}, {0.138270f, 65, 1411}, {0.138270f, 65, 1476},
+    {0.132166f, 69, 1541}, {0.132166f, 69, 1610}, {0.126204f, 73, 1679},
+    {0.126204f, 73, 1752}, {0.126204f, 73, 1825}, {0.120381f, 77, 1898},
+    {0.120381f, 77, 1975}, {0.120381f, 77, 2052}, {0.120381f, 77, 2129},
+    {0.112962f, 82, 2206}, {0.112962f, 82, 2288}, {0.112962f, 82, 2370},
+    {0.107450f, 86, 2452}, {0.107450f, 86, 2538}, {0.107450f, 86, 2624},
+    {0.107450f, 86, 2710}, {0.100343f, 91, 2796}, {0.100343f, 91, 2887},
+    {0.100343f, 91, 2978}, {0.095126f, 95, 3069}, {0.095126f, 95, 3164},
+    {0.095126f, 95, 3259}, {0.095126f, 95, 3354}, {0.088276f, 100, 3449},
+    {0.088276f, 100, 3549}, {0.088276f, 100, 3649}, {0.088276f, 100, 3749},
+    {0.081523f, 105, 3849}, {0.081523f, 105, 3954}, {0.081523f, 105, 4059},
+    {0.081523f, 105, 4164}, {0.074861f, 110, 4269}, {0.074861f, 110, 4379},
+    {0.074861f, 110, 4489}, {0.074861f, 110, 4599}, {0.068290f, 115, 4709},
+    {0.068290f, 115, 4824}, {0.068290f, 115, 4939}, {0.068290f, 115, 5054},
+    {0.063573f, 119, 5169}, {0.063573f, 119, 5288}, {0.063573f, 119, 5407},
+    {0.063573f, 119, 5526}, {0.057219f, 124, 5645}, {0.057219f, 124, 5769},
+    {0.057219f, 124, 5893}, {0.057219f, 124, 6017}, {0.050985f, 129, 6141},
+    {0.050985f, 129, 6270}, {0.050985f, 129, 6399}, {0.050985f, 129, 6528},
+    {0.050985f, 129, 6657}, {0.044859f, 134, 6786}, {0.044859f, 134, 6920},
+    {0.044859f, 134, 7054}, {0.044859f, 134, 7188}, {0.040571f, 138, 7322},
+    {0.040571f, 138, 7460}, {0.040571f, 138, 7598}, {0.040571f, 138, 7736},
+    {0.036339f, 142, 7874}, {0.036339f, 142, 8016}, {0.036339f, 142, 8158},
+    {0.036339f, 142, 8300}, {0.032139f, 146, 8442}, {0.032139f, 146, 8588},
+    {0.032139f, 146, 8734}, {0.032139f, 146, 8880}, {0.027947f, 150, 9026},
+    {0.027947f, 150, 9176}, {0.027947f, 150, 9326}, {0.023739f, 154, 9476},
+    {0.023739f, 154, 9630}, {0.023739f, 154, 9784}, {0.023739f, 154, 9938},
+    {0.019504f, 158, 10092}, {0.019504f, 158, 10250}, {0.019504f, 158, 10408},
+    {0.016976f, 161, 10566}, {0.016976f, 161, 10727}, {0.016976f, 161, 10888},
+    {0.016976f, 161, 11049}, {0.012639f, 165, 11210}, {0.012639f, 165, 11375},
+    {0.012639f, 165, 11540}, {0.009991f, 168, 11705}, {0.009991f, 168, 11873},
+    {0.009991f, 168, 12041}, {0.009016f, 170, 12209}, {0.009016f, 170, 12379},
+    {0.009016f, 170, 12549}, {0.006217f, 173, 12719}, {0.006217f, 173, 12892},
+    {0.005097f, 175, 13065}, {0.005097f, 175, 13240}, {0.005097f, 175, 13415},
+    {0.003909f, 177, 13590}, {0.003909f, 177, 13767}, {0.002340f, 177, 13944},
+    {0.002389f, 170, 14121}, {0.001068f, 164, 14291}, {0.001653f, 157, 14455},
+    {0.000717f, 150, 14612}, {0.001614f, 143, 14762}, {0.000270f, 136, 14905},
+    {0.000484f, 129, 15041}, {0.001103f, 123, 15170}, {0.001242f, 115, 15293},
+    {0.001188f, 109, 15408}, {0.001011f, 103, 15517}, {0.000709f, 97, 15620},
+    {0.000301f, 89, 15717}, {0.002416f, 82, 15806}, {0.003251f, 76, 15888},
+    {0.003246f, 69, 15964}, {0.004141f, 62, 16033}, {0.005963f, 55, 16095},
+    {0.008839f, 47, 16150}, {0.010490f, 40, 16197}, {0.016994f, 31, 16237},
+    {0.023659f, 21, 16268},
+};
+
+double logl16_to_y(int p16) {
+  int le = p16 & 0x7fff;
+  if (!le) return 0.;
+  double y = std::exp(kLn2 / 256. * (le + .5) - kLn2 * 64.);
+  return !(p16 & 0x8000) ? y : -y;
+}
+
+double logl10_to_y(int p10) {
+  if (p10 == 0) return 0.;
+  return std::exp(kLn2 / 64. * (p10 + .5) - kLn2 * 12.);
+}
+
+uint8_t gamma_byte(double v) {     // 2.0 gamma, as tif_luv.c assumes
+  return uint8_t(v <= 0. ? 0 : v >= 1. ? 255 : int(256. * std::sqrt(v)));
+}
+
+void xyz_to_rgb24(const float* xyz, uint8_t* rgb) {
+  double r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2];
+  double g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2];
+  double b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2];
+  rgb[0] = gamma_byte(r);
+  rgb[1] = gamma_byte(g);
+  rgb[2] = gamma_byte(b);
+}
+
+void uv_to_xyz(double u, double v, double l, float* xyz) {
+  double s = 1. / (6. * u - 16. * v + 12.);
+  double x = 9. * u * s, y = 4. * v * s;
+  xyz[0] = float(x / y * l);
+  xyz[1] = float(l);
+  xyz[2] = float((1. - x - y) / y * l);
+}
+
+void luv32_to_rgb(uint32_t p, uint8_t* rgb) {
+  float xyz[3] = {0, 0, 0};
+  double l = logl16_to_y(int32_t(p) >> 16);
+  if (l > 0.)
+    uv_to_xyz(1. / kUvScale * ((p >> 8 & 0xff) + .5),
+              1. / kUvScale * ((p & 0xff) + .5), l, xyz);
+  xyz_to_rgb24(xyz, rgb);
+}
+
+void luv24_to_rgb(uint32_t p, uint8_t* rgb) {
+  float xyz[3] = {0, 0, 0};
+  double l = logl10_to_y(int(p >> 14 & 0x3ff));
+  if (l > 0.) {
+    int c = int(p & 0x3fff);
+    double u = kUNeutral, v = kVNeutral;
+    if (c < kUvCodes) {            // uv_decode's binary search
+      int lower = 0, upper = kUvRows;
+      while (upper - lower > 1) {
+        int vi = (lower + upper) >> 1, ui = c - kUvRow[vi].ncum;
+        if (ui > 0) {
+          lower = vi;
+        } else if (ui < 0) {
+          upper = vi;
+        } else {
+          lower = vi;
+          break;
+        }
+      }
+      int ui = c - kUvRow[lower].ncum;
+      u = kUvRow[lower].ustart + (ui + .5) * kUvSquare;
+      v = kUvVStart + (lower + .5) * kUvSquare;
+    }
+    uv_to_xyz(u, v, l, xyz);
+  }
+  xyz_to_rgb24(xyz, rgb);
+}
+
+// one row of LogL16Decode's or LogLuvDecode32's run-length byte planes (the
+// high plane first) from *bp, cc bytes left; false when the row runs out
+template <typename T>
+bool sgilog_planes(const uint8_t*& bp, size_t& cc, T* tp, size_t npixels,
+                   int planes) {
+  std::fill(tp, tp + npixels, T(0));
+  for (int shft = 8 * (planes - 1); shft >= 0; shft -= 8) {
+    size_t i = 0;
+    while (i < npixels && cc > 0) {
+      if (*bp >= 128) {            // a run
+        if (cc < 2) break;
+        int rc = *bp++ + (2 - 128);
+        T b = T(uint32_t(*bp++) << shft);
+        cc -= 2;
+        while (rc-- && i < npixels) tp[i++] |= b;
+      } else {                     // literals (a nul count does nothing)
+        int rc = *bp++;
+        while (--cc && rc-- && i < npixels)
+          tp[i++] |= T(uint32_t(*bp++) << shft);
+      }
+    }
+    if (i != npixels) return false;
+  }
+  return true;
+}
+
 // ---- the directory ----------------------------------------------------------
 enum {
-  kNone = 1, kLzw = 5, kOldJpeg = 6, kJpeg = 7, kDeflate = 8,
-  kAdobeDeflate = 32946, kPackBits = 32773
+  kNone = 1, kRle = 2, kG3 = 3, kG4 = 4, kLzw = 5, kOldJpeg = 6, kJpeg = 7,
+  kDeflate = 8, kAdobeDeflate = 32946, kPackBits = 32773, kRlew = 32771,
+  kSgiLog = 34676, kSgiLog24 = 34677
 };
 enum { kWhite = 0, kBlack = 1, kRgb = 2, kPalette = 3, kSeparated = 5,
-       kYcbcr = 6 };
+       kYcbcr = 6, kLab = 8, kLogL = 32844, kLogLuv = 32845 };
 
 struct Entry {
   int type = 0;
@@ -496,8 +1224,13 @@ struct Tiff {
   uint64_t width = 0, height = 0, rows = 0xFFFFFFFFu, tw = 0, th = 0;
   int bps = 1, spp = 1, compression = kNone, photometric = -1, planar = 1;
   int predictor = 1, orientation = 1, inkset = 1, alpha = 0, extra = 0;
-  int sub_h = 2, sub_v = 2;
+  int sub_h = 2, sub_v = 2, fill_order = 1;
+  int sgilog = 0;                  // kLogL or kLogLuv: read as 8 bits
+  uint32_t t4 = 0;                 // T4Options
   bool tiled = false;
+  // WhitePoint: CIE D50 unless given (TIFFGetFieldDefaulted)
+  float white[2] = {96.4250f / (96.4250f + 100.0f + 82.4680f),
+                    100.0f / (96.4250f + 100.0f + 82.4680f)};
   float luma[3] = {0.299f, 0.587f, 0.114f};
   float refbw[6] = {0, 255, 128, 255, 128, 255};
   std::vector<uint64_t> offsets, counts;
@@ -581,7 +1314,7 @@ struct Tiff {
     if (count == 0 || count > n / esize) fail("corrupt TIFF directory");
     check(base, count * esize);
     Entry e_offsets, e_counts, e_cmap, e_extra, e_sub, e_refbw, e_luma,
-        e_tables, e_bps, e_format;
+        e_tables, e_bps, e_format, e_white;
     bool has_photometric = false;
     for (uint64_t i = 0; i < count; i++) {
       uint64_t at = base + i * esize;
@@ -603,16 +1336,16 @@ struct Tiff {
         case 258: e_bps = e; break;
         case 259: compression = int(one(e)); break;
         case 262: photometric = int(one(e)); has_photometric = true; break;
-        case 266:
-          if (one(e) == 2) fail(std::string("TIFF FillOrder 2") + kLater);
-          break;
+        case 266: fill_order = int(one(e)); break;
         case 273: e_offsets = e; break;
         case 274: orientation = int(one(e)); break;
         case 277: spp = int(one(e)); break;
         case 278: rows = one(e); break;
         case 279: e_counts = e; break;
         case 284: planar = int(one(e)); break;
+        case 292: t4 = uint32_t(one(e)); break;
         case 317: predictor = int(one(e)); break;
+        case 318: e_white = e; break;
         case 320: e_cmap = e; break;
         case 322: tw = one(e); tiled = true; break;
         case 323: th = one(e); tiled = true; break;
@@ -636,6 +1369,9 @@ struct Tiff {
            std::to_string(height) + " pixels exceeds 2^30");
     if (spp < 1 || spp > 16) fail("TIFF of " + std::to_string(spp) +
                                   " samples a pixel");
+    if (spp > 4)                   // OpenCV's readHeader takes 4 at most
+      fail("TIFF of " + std::to_string(spp) + " samples a pixel" +
+           kOpenCvToo);
     if (e_bps.present) {
       std::vector<uint64_t> v = ints(e_bps);
       if (v.empty()) fail("TIFF BitsPerSample without a value");
@@ -644,34 +1380,42 @@ struct Tiff {
       bps = int(v[0]);
     }
     if (e_format.present) {
+      // signed samples are read by their bits, as libtiff's RGBA interface
+      // reads them
       std::vector<uint64_t> v = ints(e_format);
       for (uint64_t f : v) {
-        if (f == 3) fail(std::string("TIFF with floating-point samples") +
-                         kLater);
-        if (f == 2) fail(std::string("TIFF with signed samples") + kLater);
+        if (f == 3)
+          fail("TIFF with floating-point samples: OpenCV does not read them "
+               "either");
         if (f == 5 || f == 6)
-          fail(std::string("TIFF with complex samples") + kLater);
-        if (f != 1 && f != 4)
+          fail("TIFF with complex samples: OpenCV does not read them "
+               "either");
+        if (f == 2 && bps > 16)
+          fail(std::to_string(bps) + "-bit signed TIFF samples: OpenCV does "
+               "not read them either");
+        if (f != 1 && f != 2 && f != 4)
           fail("TIFF SampleFormat " + std::to_string(f) + " is not read");
       }
     }
     switch (compression) {
       case kNone: case kLzw: case kJpeg: case kDeflate: case kAdobeDeflate:
-      case kPackBits:
+      case kPackBits: case kRle: case kG3: case kG4: case kRlew:
+      case kSgiLog: case kSgiLog24:
         break;
-      case 2: case 3: case 4: case 32771:
-        fail(std::string("CCITT-compressed TIFF") + kLater);
       case kOldJpeg:
-        fail(std::string("old-style JPEG-compressed TIFF (6)") + kLater);
-      case 34925: fail(std::string("LZMA-compressed TIFF") + kLater);
-      case 50000: fail(std::string("ZSTD-compressed TIFF") + kLater);
-      case 50001: fail(std::string("WebP-compressed TIFF") + kLater);
-      case 50002: fail(std::string("JPEG XL-compressed TIFF") + kLater);
-      case 34887: fail(std::string("LERC-compressed TIFF") + kLater);
+        fail(std::string("old-style JPEG-compressed TIFF (6)") + kOpenCvToo);
+      case 34925: fail(std::string("LZMA-compressed TIFF") + kOpenCvToo);
+      case 50000: fail(std::string("ZSTD-compressed TIFF") + kOpenCvToo);
+      case 50001: fail(std::string("WebP-compressed TIFF") + kOpenCvToo);
+      case 50002:                  // OpenCV returns an all-black image
+        fail(std::string("JPEG XL-compressed TIFF") + kOpenCvToo);
+      case 34887: fail(std::string("LERC-compressed TIFF") + kOpenCvToo);
       default:
         fail("TIFF compression " + std::to_string(compression) +
              " is not read");
     }
+    if (compression == kJpeg && bps == 12)
+      fail(std::string("12-bit JPEG-compressed TIFF") + kOpenCvToo);
     if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 16)
       fail(std::to_string(bps) + "-bit TIFF samples are not read");
     if (planar != 1 && planar != 2) fail("corrupt TIFF PlanarConfiguration");
@@ -763,17 +1507,52 @@ struct Tiff {
           if (v.size() == 6) std::copy(v.begin(), v.end(), refbw);
         }
         break;
-      case 8: case 9: case 10:
-        fail(std::string("CIE L*a*b* TIFF") + kLater);
-      case 32844: case 32845:
-        fail(std::string("LogL / LogLuv TIFF") + kLater);
+      case kLab:                   // TIFFRGBAImageOK's and PickContigCase's
+        if (spp != 3 || planar != 1 || (bps != 8 && bps != 16))
+          fail("CIE L*a*b* TIFF other than 3 contiguous samples of 8 or 16 "
+               "bits" + std::string(kOpenCvToo));
+        if (e_white.present) {
+          std::vector<float> v = rationals(e_white);
+          if (v.size() == 2) std::copy(v.begin(), v.end(), white);
+        }
+        if (white[1] == 0.0f) fail("TIFF WhitePoint of y 0");
+        break;
+      case 9:
+        fail(std::string("ICC L*a*b* TIFF") + kOpenCvToo);
+      case 10:
+        fail(std::string("ITU L*a*b* TIFF") + kOpenCvToo);
+      case kLogL: case kLogLuv:    // the codec's 8-bit data, as grey or RGB
+        if (photometric == kLogL
+                ? compression != kSgiLog || spp != 1
+                : (compression != kSgiLog && compression != kSgiLog24) ||
+                      spp != 3 || planar != 1)
+          fail(std::string(photometric == kLogL ? "LogL" : "LogLuv") +
+               " TIFF other than SGILog-compressed " +
+               (photometric == kLogL ? "(34676) grey"
+                                     : "(34676 or 34677) contiguous RGB") +
+               kOpenCvToo);
+        sgilog = photometric;
+        photometric = photometric == kLogL ? kBlack : kRgb;
+        bps = 8;
+        break;
       default:
         fail("TIFF PhotometricInterpretation " + std::to_string(photometric) +
              " is not read");
     }
+    if ((compression == kSgiLog || compression == kSgiLog24) && !sgilog)
+      fail(std::string("SGILog-compressed TIFF other than LogL or LogLuv") +
+           kOpenCvToo);
+    if (compression == kRle || compression == kG3 || compression == kG4 ||
+        compression == kRlew) {
+      if (bps != 1 || spp != 1 ||
+          (photometric != kWhite && photometric != kBlack &&
+           photometric != kPalette))
+        fail(std::string("CCITT-compressed TIFF other than 1-bit grey or "
+                         "palette") + kOpenCvToo);
+    }
     if (compression == kJpeg) {
       if (bps != 8)
-        fail(std::to_string(bps) + "-bit JPEG-compressed TIFF" + kLater);
+        fail(std::to_string(bps) + "-bit JPEG-compressed TIFF is not read");
       if (e_tables.present) {
         if (e_tables.type != 7 && e_tables.type != 1)
           fail("corrupt TIFF JPEGTables");
@@ -785,7 +1564,7 @@ struct Tiff {
     if (predictor != 1 && (compression == kLzw || compression == kDeflate ||
                            compression == kAdobeDeflate)) {
       if (predictor == 3)
-        fail(std::string("TIFF floating-point predictor") + kLater);
+        fail(std::string("TIFF floating-point predictor (3)") + kOpenCvToo);
       if (predictor != 2)
         fail("TIFF Predictor " + std::to_string(predictor) + " is not read");
       if (bps != 8 && bps != 16)
@@ -801,6 +1580,14 @@ struct Tiff {
       if (tw == 0 || th == 0) fail("corrupt TIFF tile size");
       if (tw > kMaxPixels || th > kMaxPixels || tw * th > kMaxPixels)
         fail("TIFF tiles past 2^30 pixels");
+      // OpenCV 5.0 gives no image for an uncompressed tile of other than
+      // a multiple of 1024 bytes (libtiff: "Invalid tile byte count")
+      const uint64_t lanes = planar == 2 ? 1 : uint64_t(spp);
+      const uint64_t tile_bytes = (tw * lanes * uint64_t(bps) + 7) / 8 * th;
+      if (compression == kNone && tile_bytes % 1024)
+        fail("uncompressed TIFF tiles of " + std::to_string(tile_bytes) +
+             " bytes (not a multiple of 1024): OpenCV does not read them "
+             "either");
     } else {
       if (rows == 0) fail("corrupt TIFF RowsPerStrip");
       if (rows > height) rows = height;
@@ -874,6 +1661,52 @@ struct Ycc {                       // TIFFYCbCrToRGBInit's tables
   }
 };
 
+// CIE L*a*b* to RGB as tif_color.c does it for the RGBA interface:
+// TIFFCIELabToRGBInit with display_sRGB (whose three guns agree, so one
+// table serves them), TIFFCIELab16ToXYZ and TIFFXYZToRGB, in float
+struct Lab {
+  static const int kRange = 1500;  // CIELABTORGB_TABLE_RANGE
+  float step, x0, y0, z0;
+  float gun[kRange + 1];
+
+  explicit Lab(const float* white) {
+    const double gamma = 1.0 / double(2.4f);
+    for (int i = 0; i <= kRange; i++)
+      gun[i] = float(255u) * float(std::pow(double(i) / kRange, gamma));
+    step = (100.0f - 1.0f) / kRange;
+    y0 = 100.0f;
+    x0 = white[0] / white[1] * y0;
+    z0 = (1.0f - white[0] - white[1]) / white[1] * y0;
+  }
+  uint8_t value(float lum) const {
+    lum = lum > 1.0f ? lum : 1.0f;
+    lum = lum < 100.0f ? lum : 100.0f;
+    size_t i = size_t((lum - 1.0f) / step);
+    i = std::min(size_t(kRange), i);
+    float v = gun[i];
+    uint32_t c = uint32_t(v > 0 ? v + 0.5 : v - 0.5);
+    return uint8_t(std::min(c, 255u));
+  }
+  // L in [0, 65535], a* and b* as 256 times their value
+  void bgr(uint32_t l, int32_t a, int32_t b, uint8_t* o) const {
+    float lum = float(l) * 100.0f / 65535.0f, x, y, z, cby;
+    if (lum < 8.856f) {
+      y = (lum * y0) / 903.292f;
+      cby = 7.787f * (y / y0) + 16.0f / 116.0f;
+    } else {
+      cby = (lum + 16.0f) / 116.0f;
+      y = y0 * cby * cby * cby;
+    }
+    float tmp = float(a) / 256.0f / 500.0f + cby;
+    x = tmp < 0.2069f ? x0 * (tmp - 0.13793f) / 7.787f : x0 * tmp * tmp * tmp;
+    tmp = cby - float(b) / 256.0f / 200.0f;
+    z = tmp < 0.2069f ? z0 * (tmp - 0.13793f) / 7.787f : z0 * tmp * tmp * tmp;
+    o[2] = value(3.2410f * x + -1.5374f * y + -0.4986f * z);
+    o[1] = value(-0.9692f * x + 1.8760f * y + 0.0416f * z);
+    o[0] = value(0.0556f * x + -0.2040f * y + 1.0570f * z);
+  }
+};
+
 inline uint8_t to8(uint32_t v) { return uint8_t((v + 128) / 257); }
 inline uint8_t premul(uint32_t v, uint32_t a) {
   return uint8_t((v * a + 127) / 255);
@@ -885,6 +1718,7 @@ struct Image {
   uint8_t grey_map[256];           // the BW map for 1-8 bits
   uint8_t pal[256][3];             // RGB
   std::unique_ptr<Ycc> ycc;
+  std::unique_ptr<Lab> lab;
 
   Image(const Tiff& tiff, uint8_t* o) : t(tiff), out(o) {
     if (t.photometric == kWhite || t.photometric == kBlack) {
@@ -911,6 +1745,7 @@ struct Image {
     }
     if (t.photometric == kYcbcr && t.compression != kJpeg)
       ycc.reset(new Ycc(t.luma, t.refbw));
+    if (t.photometric == kLab) lab.reset(new Lab(t.white));
   }
 
   // one row of a block's samples, s(x, c) = row[x * xs + c * cs], uint16,
@@ -973,6 +1808,13 @@ struct Image {
         case kYcbcr:               // planar, 1 x 1
           ycc->bgr(p[0], p[cs], p[2 * cs], o);
           break;
+        case kLab:                 // a* and b* signed
+          if (bps == 8)
+            lab->bgr(uint32_t(p[0]) * 257, int8_t(p[cs]) * 256,
+                     int8_t(p[2 * cs]) * 256, o);
+          else
+            lab->bgr(p[0], int16_t(p[cs]), int16_t(p[2 * cs]), o);
+          break;
       }
     }
   }
@@ -981,14 +1823,31 @@ struct Image {
 // ---- decoding ---------------------------------------------------------------
 struct Decoder {
   Tiff t;
+  std::unique_ptr<Fax> fax;        // its runs carry over between blocks
   explicit Decoder(const uint8_t* d, size_t n) : t(d, n) {}
 
-  // a strip's or tile's bytes decompressed: want bytes
-  void decompress(uint64_t index, uint8_t* out, size_t want) {
+  // a strip's or tile's stored bytes, each byte's bits reversed for
+  // FillOrder 2 into `copy` (CCITT reverses them as it reads)
+  const uint8_t* raw(uint64_t index, size_t& n, std::vector<uint8_t>& copy) {
     uint64_t off = t.offsets[size_t(index)], cnt = t.counts[size_t(index)];
     t.check(off, cnt);
-    const uint8_t* in = t.d + off;
-    size_t n = size_t(cnt);
+    n = size_t(cnt);
+    if (t.fill_order != 2 || t.compression == kRle ||
+        t.compression == kG3 || t.compression == kG4 ||
+        t.compression == kRlew)
+      return t.d + off;
+    const uint8_t* rev = bit_reversal(true);
+    copy.resize(n);
+    for (size_t i = 0; i < n; i++) copy[i] = rev[t.d[off + i]];
+    return copy.data();
+  }
+
+  // a strip's or tile's bytes decompressed: want bytes (rows of row_bytes)
+  void decompress(uint64_t index, uint8_t* out, size_t want,
+                  size_t row_bytes) {
+    std::vector<uint8_t> copy;
+    size_t n;
+    const uint8_t* in = raw(index, n, copy);
     switch (t.compression) {
       case kNone:
         if (n < want) fail("truncated TIFF strip or tile");
@@ -1005,6 +1864,53 @@ struct Decoder {
         f.run(out, want);
         break;
       }
+      case kRle: case kG3: case kG4: case kRlew:
+        if (!fax)
+          fax.reset(new Fax(t.d, t.compression, t.t4, t.fill_order == 2,
+                            t.tiled ? t.tw : t.width));
+        fax->decode(in, n, out, want / row_bytes, row_bytes);
+        break;
+    }
+  }
+
+  // SGILog: each row's LogL16, LogLuv32 or LogLuv24 pixels as 8-bit grey
+  // or RGB (LogLuvDecodeStrip / Tile: row by row through the block's data)
+  void sgilog_block(Image& img, uint64_t block, uint64_t bw, uint64_t rows,
+                    uint64_t x0, uint64_t y0, uint64_t w, uint64_t h) {
+    std::vector<uint8_t> copy;
+    size_t cc;
+    const uint8_t* bp = raw(block, cc, copy);
+    const size_t npixels = size_t(bw);
+    const bool luv = t.sgilog == kLogLuv;
+    std::vector<int16_t> l16(luv ? 0 : npixels);
+    std::vector<uint32_t> luv32(luv ? npixels : 0);
+    std::vector<uint16_t> row(npixels * (luv ? 3 : 1));
+    uint8_t rgb[3];
+    for (uint64_t r = 0; r < rows; r++) {
+      bool ok;
+      if (!luv) {
+        ok = sgilog_planes(bp, cc, l16.data(), npixels, 2);
+      } else if (t.compression == kSgiLog) {
+        ok = sgilog_planes(bp, cc, luv32.data(), npixels, 4);
+      } else {                     // LogLuvDecode24: 3 bytes a pixel
+        size_t i = 0;
+        for (; i < npixels && cc >= 3; i++, bp += 3, cc -= 3)
+          luv32[i] = uint32_t(bp[0]) << 16 | uint32_t(bp[1]) << 8 | bp[2];
+        ok = i == npixels;
+      }
+      if (!ok) fail("not enough SGILog data for the strip or tile");
+      if (r >= h) continue;
+      for (size_t x = 0; x < npixels; x++) {
+        if (!luv) {
+          row[x] = gamma_byte(logl16_to_y(l16[x]));
+          continue;
+        }
+        if (t.compression == kSgiLog) luv32_to_rgb(luv32[x], rgb);
+        else luv24_to_rgb(luv32[x], rgb);
+        for (int c = 0; c < 3; c++) row[3 * x + size_t(c)] = rgb[c];
+      }
+      img.put_row(row.data(), luv ? 3 : 1, 1, y0 + r, x0, w, t.photometric,
+                  false);
     }
   }
 
@@ -1032,6 +1938,10 @@ struct Decoder {
           ycc_block(img, block, bw, rows, x0, y0, w, h);
           continue;
         }
+        if (t.sgilog) {
+          sgilog_block(img, block, bw, rows, x0, y0, w, h);
+          continue;
+        }
         const size_t row_bytes = size_t((bw * uint64_t(lanes) *
                                          uint64_t(t.bps) + 7) / 8);
         const size_t plane_bytes = row_bytes * size_t(rows);
@@ -1039,7 +1949,7 @@ struct Decoder {
         for (uint64_t p = 0; p < t.planes(); p++) {
           planes.emplace_back(plane_bytes);
           decompress(p * t.across() * t.down() + block, planes.back().data(),
-                     plane_bytes);
+                     plane_bytes, row_bytes);
           if (t.bps == 16 && !t.le) {
             uint8_t* q = planes.back().data();
             for (size_t i = 0; i + 1 < plane_bytes; i += 2)
@@ -1048,13 +1958,26 @@ struct Decoder {
           if (t.predictor == 2) undo_predictor(planes.back().data(), row_bytes,
                                                size_t(rows), size_t(bw), lanes);
         }
+        // tif_getimage.c's grey and palette put routines step a tile cut
+        // at the right edge (w < bw) on by bw - w bytes a row, not pixels:
+        // where a pixel is more than a byte (16-bit grey, 8-bit grey or
+        // palette with extra samples), its rows are read from there, as
+        // OpenCV reads them
+        const size_t pixel_bytes = size_t(spp) * size_t(t.bps) / 8;
+        const bool skewed =
+            t.tiled && !separate && w < bw && pixel_bytes > 1 &&
+            (t.photometric == kWhite || t.photometric == kBlack ||
+             t.photometric == kPalette);
+        const size_t stride = skewed ? size_t(w) * pixel_bytes +
+                                           size_t(bw - w)
+                                     : row_bytes;
         // one row of samples, contiguous (x * spp + c) or planar (c * bw + x)
         std::vector<uint16_t> row(size_t(bw) * size_t(spp));
         for (uint64_t r = 0; r < h; r++) {
           for (size_t p = 0; p < planes.size(); p++) {
-            const uint8_t* src = planes[p].data() + size_t(r) * row_bytes;
+            const uint8_t* src = planes[p].data() + size_t(r) * stride;
             uint16_t* dst = row.data() + p * size_t(bw);
-            size_t count = size_t(bw) * size_t(lanes);
+            size_t count = size_t(skewed ? w : bw) * size_t(lanes);
             unpack(src, dst, count);
           }
           if (separate)
@@ -1109,7 +2032,7 @@ struct Decoder {
     const uint64_t ua = (bw + sh - 1) / sh, ud = (rows + sv - 1) / sv;
     const uint64_t unit = sh * sv + 2;
     Buffer data(size_t(ua * ud * unit));
-    decompress(block, data.data(), data.size);
+    decompress(block, data.data(), data.size, data.size);
     for (uint64_t uy = 0; uy < ud; uy++)
       for (uint64_t ux = 0; ux < ua; ux++) {
         const uint8_t* u = data.data() + (uy * ua + ux) * unit;

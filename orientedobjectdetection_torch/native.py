@@ -34,7 +34,9 @@ SOURCE = Path(__file__).resolve().parent / 'csrc' / 'rnms.cpp'
 JPEG_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'jpeg.cpp'
 TIFF_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'tiff.cpp'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
-FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
+# no fused multiply-adds: the TIFF reader's L*a*b* and SGILog conversions
+# round as libtiff's do
+FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-ffp-contract=off')
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -198,7 +200,8 @@ def tiff_decode(data: bytes):
     stored order, and its Orientation tag (1-8): bit for bit what
     ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives before it applies the
     orientation. Raises ValueError for a corrupt or truncated file and for
-    the forms ``csrc/tiff.cpp`` does not read (each named, ROADMAP A.4d)."""
+    the forms ``csrc/tiff.cpp`` does not read (each named: those OpenCV does
+    not read either, saying so)."""
     lib = load()
     data = bytes(data)
     err = ctypes.create_string_buffer(_ERROR_BYTES)

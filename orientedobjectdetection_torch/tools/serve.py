@@ -11,8 +11,8 @@ A POST body is an image, raw or base64: a JPEG, a PNG, a BMP or a TIFF
 is a JSON list of the detections scoring at least ``--score-thr``, each
 ``{"class_id", "bbox": [cx, cy, w, h, theta], "score"}``, from
 ``inference_detector``. Anything that does not decode (a truncated or
-corrupt file, a form ROADMAP A.4d lists) gets a 400 with the decoder's
-reason. Serves on the card (``--device cpu`` for the CPU), on
+corrupt file, a form ROADMAP A.4d lists, a form OpenCV does not read
+either) gets a 400 with the decoder's reason. Serves on the card (``--device cpu`` for the CPU), on
 ``--host`` (default ``0.0.0.0``).
 """
 

@@ -32,18 +32,21 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
 
   - TIFF: ``native.tiff_decode`` (``csrc/tiff.cpp``): the first page of a
     classic or BigTIFF file in either byte order, strips or tiles, planar
-    or not, uncompressed, LZW, PackBits, deflate or JPEG, Predictor 2;
-    grey and MinIsWhite (1-16 bits), RGB (8 and 16), palette (1-8), CMYK
-    and YCbCr, alpha premultiplied where it is unassociated: what libtiff's
-    RGBA interface gives OpenCV.
+    or not, FillOrder 1 or 2, uncompressed, LZW (old-style LSB-first LZW
+    too), PackBits, deflate, JPEG, CCITT RLE, RLEW, T.4 (1-D and 2-D) or
+    T.6, or SGILog, Predictor 2; unsigned and signed samples by their bits;
+    grey and MinIsWhite (1-16 bits), RGB (8 and 16), palette (1-8), CMYK,
+    YCbCr, CIE L*a*b* (8 and 16), LogL and LogLuv, alpha premultiplied
+    where it is unassociated: what libtiff's RGBA interface gives OpenCV.
 
   The forms OpenCV reads and the port does not yet (WebP, JPEG 2000, GIF,
   PNM / PAM / PFM, Sun raster, Radiance HDR, AVIF, known by their
-  signatures; CCITT, old-style JPEG, LZMA, ZSTD, WebP, JPEG XL and LERC
-  TIFFs, float and signed samples) raise ``ValueError`` naming the form
-  and ROADMAP A.4d; the JPEG forms OpenCV
-  does not read either (hierarchical, 12-bit, lossless arithmetic or over 8
-  bits) raise saying so; anything else that does not decode (truncated or
+  signatures) raise ``ValueError`` naming the form and ROADMAP A.4d; the
+  JPEG and TIFF forms OpenCV does not read either (hierarchical, 12-bit,
+  lossless arithmetic or over 8 bits JPEGs; float, complex or 32-bit
+  signed TIFF samples, the floating-point predictor, ICC or ITU L*a*b*,
+  old-style JPEG, LZMA, ZSTD, WebP, LERC and JPEG XL TIFFs, 12-bit JPEG
+  strips) raise saying so; anything else that does not decode (truncated or
   corrupt data) raises ``ValueError`` too.
 - :func:`imwrite`: what ``cv2.imwrite`` writes for the path's extension with
   OpenCV's defaults: ``.jpg``, ``.jpeg`` or ``.jpe`` a JPEG
@@ -202,7 +205,8 @@ def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
     """Decode the bytes of a PNG, JPEG, BMP or TIFF (its first page) as
     ``(H, W, 3)`` uint8 BGR, with its orientation applied; ``path`` names
     the source in errors. Raises ValueError for anything else (the forms
-    ROADMAP A.4d lists, by name)."""
+    ROADMAP A.4d lists, by name, and those OpenCV does not read either,
+    saying so)."""
     data = bytes(data)
     if data.startswith(_BMP_SIGNATURE):
         return _read_bmp(path, data)

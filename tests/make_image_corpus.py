@@ -1,8 +1,9 @@
 """Writes ``tests/image_corpus/``: small TIFF and JPEG files of the forms
 ``chip_smoke.py`` phase 57 holds the card machine's build of the port's
 readers to, by the SHA-256 of OpenCV's decode (``CORPUS_DIGESTS``). Made
-with PIL, OpenCV's writers (its ``IMWRITE_TIFF_COMPRESSION`` values) and the
-test builders ``tiff_forms.py`` / ``jpeg_forms.py`` for what neither writes.
+with PIL, OpenCV's writers (its ``IMWRITE_TIFF_COMPRESSION`` values, SGILog
+among them) and the test builders ``tiff_forms.py`` / ``jpeg_forms.py`` for
+what neither writes.
 
     python tests/make_image_corpus.py      # from the repo's root
 
@@ -93,6 +94,65 @@ def files() -> dict:
             '.tif', bgr, [cv2.IMWRITE_TIFF_COMPRESSION, comp])[1].tobytes()
     out['cv2-16bit.tif'] = cv2.imencode(
         '.tif', samples(14, 3, 16).astype(np.uint16))[1].tobytes()
+    # the forms of slice 21: CCITT, SGILog, CIE L*a*b*, signed samples,
+    # FillOrder 2, old-style LZW, 16-bit grey tiles cut at the right edge,
+    # and two forms OpenCV does not read
+    bits = (samples(17, 1)[..., 0] > 150).astype(np.int64)
+    for name, comp, kwargs, tags in (
+            ('rle', 2, {}, {}), ('rlew', 32771, {}, {}),
+            ('t4-1d', 3, {}, {292: (tf.LONG, [0])}),
+            ('t4-2d-fill', 3, dict(two_d=True, fill_bits=True),
+             {292: (tf.LONG, [5])}),
+            ('t6', 4, {}, {})):
+        out[f'ccitt-{name}.tif'] = tf.build(
+            [tf.ccitt(bits[y:y + 16], comp, **kwargs)
+             for y in range(0, H, 16)],
+            H, W, 1, 1, 0, compression=comp, rows_per_strip=16, tags=tags)
+    pad = np.zeros((48, 64), np.int64)
+    pad[:H, :W] = bits
+    out['ccitt-t6-tiles-fillorder2.tif'] = tf.build(
+        [tf.reverse_bits(tf.ccitt(pad[y:y + 16, x:x + 16], 4))
+         for y in range(0, 48, 16) for x in range(0, 64, 16)], H, W, 1, 1, 1,
+        compression=4, tile=(16, 16), tags={266: (tf.SHORT, [2])})
+    out['pil-group4.tif'] = pil_bytes(Image.fromarray(bits.astype(bool)),
+                                      'TIFF', compression='group4')
+    rng = np.random.default_rng(18)
+    radiance = (rng.random((24, 33, 3)) * np.linspace(0.1, 3, 33)[:, None]
+                ).astype(np.float32)
+    for name, comp in (('logluv', 34676), ('logluv24', 34677)):
+        out[f'cv2-{name}.tif'] = cv2.imencode(
+            '.tif', radiance,
+            [cv2.IMWRITE_TIFF_COMPRESSION, comp])[1].tobytes()
+    logl = rng.integers(256 * 52, 256 * 68, (24, 33))
+    out['logl-tiles-be.tif'] = tf.build(
+        [tf.logl(np.pad(logl, ((0, 8), (0, 15)))[y:y + 16, x:x + 16])
+         for y in range(0, 24, 16) for x in range(0, 33, 16)], 24, 33, 16, 1,
+        32844, compression=34676, tile=(16, 16), order='>',
+        tags={339: (tf.SHORT, [2])})
+    out['lab-8bit.tif'] = tf.tiff(samples(19, 3), 8, 8, compression=5,
+                                  predictor=2)
+    out['lab-16bit-be.tif'] = tf.tiff(samples(20, 3, 16), 16, 8, order='>',
+                                      compression=8)
+    out['pil-lab.tif'] = pil_bytes(
+        Image.fromarray(samples(21, 3).astype(np.uint8)).convert('LAB'),
+        'TIFF', compression='tiff_lzw')
+    out['signed-16bit-grey.tif'] = tf.tiff(
+        samples(22, 1, 16), 16, 1, compression=8,
+        tags={339: (tf.SHORT, [2])})
+    out['signed-8bit-rgb-planar.tif'] = tf.tiff(
+        samples(23, 3), 8, 2, planar=2, compression=32773,
+        tags={339: (tf.SHORT, [2] * 3)})
+    out['fillorder2-deflate.tif'] = tf.tiff(samples(24, 3), 8, 2,
+                                            compression=8, fill_order=2)
+    out['old-lzw-predictor.tif'] = tf.tiff(samples(25, 3), 8, 2,
+                                           compression=5, old_lzw=True,
+                                           predictor=2, rows_per_strip=16)
+    out['grey16-tiles-right-edge.tif'] = tf.tiff(
+        samples(26, 1, 16), 16, 1, tile=(16, 16), compression=8)
+    out['float32.tif'] = tf.build([bytes(8 * 8 * 4)], 8, 8, 32, 1, 1,
+                                  tags={339: (tf.SHORT, [3])})
+    out['lzma.tif'] = tf.tiff(samples(27, 3, h=8, w=8), 8, 2,
+                              compression=34925)
     # the JPEG forms
     four = samples(15, 4)
     out['cmyk.jpg'] = pil_bytes(Image.fromarray(four.astype(np.uint8),

@@ -366,6 +366,9 @@ def test_phase_main_path_kernels_rehearsal():
     captured['tiff'] = captured['orcnn']
     captured['tiff_roi'] = captured['orcnn_roi']
     captured['tiff_merge'] = one
+    # phase 58: the signed 16-bit SAR batch's candidates and RoIAlign inputs
+    captured['sar_tiff'] = captured['orcnn']
+    captured['sar_tiff_roi'] = captured['orcnn_roi']
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -409,7 +412,7 @@ def test_phase_main_path_kernels_rehearsal():
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
          'redet_loop_eval', 'redet_converted', 'sar', 'hard_orcnn_eval',
-         'tiff'])
+         'tiff', 'sar_tiff'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -1151,7 +1154,7 @@ def test_phase_hbb_serving_rehearsal(tiny_hbb):
 
 
 def test_phase_hbb_training_rehearsal(tiny_hbb):
-    steps = {k: (2, 6) for k in chip_smoke.HBB_CONFIGS}
+    steps = {k: (1, 3) for k in chip_smoke.HBB_CONFIGS}
     runs, captured = chip_smoke.phase_hbb_training(
         'cpu', bsz=1, size=128, g=8, valid=3, dtype=torch.float32,
         padded_g=16, padded_valid=5, steps=steps, reps=1)
@@ -1274,7 +1277,7 @@ def test_phase_backbone_serving_rehearsal(tiny_backbones):
 
 
 def test_phase_backbone_training_rehearsal(tiny_backbones):
-    steps = {k: (2, 6) for k in chip_smoke.BACKBONE_CONFIGS}
+    steps = {k: (1, 3) for k in chip_smoke.BACKBONE_CONFIGS}
     runs, captured = chip_smoke.phase_backbone_training(
         'cpu', bsz=1, size=128, g=8, valid=3, dtype=torch.float32,
         padded_g=16, padded_valid=5, steps=steps)

@@ -52,7 +52,7 @@ def test_phase_reppoints_serving_rehearsal(tiny_reppoints):
 
 def test_phase_reppoints_training_rehearsal(tiny_reppoints):
     runs, captured = chip_smoke.phase_reppoints_training(
-        'cpu', bsz=1, size=128, g=8, valid=3, warm=2, timed=4,
+        'cpu', bsz=1, size=128, g=8, valid=3, warm=1, timed=3,
         dtype=torch.float32, padded_g=16, padded_valid=5, reps=1)
     assert runs == [NO_LAUNCHES] * 5
     for label in chip_smoke.REPPOINTS_CONFIGS:

@@ -4,7 +4,7 @@ port writes read back equal through OpenCV; PNGs with the Average and Paeth
 row filters (written by PIL, which chooses a filter per row) decode equal;
 so do palette, 1/2/4-bit, 16-bit, Adam7-interlaced and eXIf-oriented PNGs
 and a JPEG, as do a TIFF and a CMYK JPEG, while an LZMA-compressed TIFF
-names ROADMAP A.4d and a 12-bit JPEG says OpenCV does not read it either;
+and a 12-bit JPEG say OpenCV does not read them either;
 ``resize_bilinear`` within 1 of ``cv2.resize(INTER_LINEAR)`` per element;
 the drawing helpers as ``tests/test_torch_synth.py`` needs them."""
 
@@ -172,9 +172,10 @@ def test_reads_what_it_used_to_refuse(tmp_path, name):
 
 def test_refuses_what_it_does_not_read(tmp_path):
     """A TIFF and a CMYK JPEG (refused until the port read them) read as
-    OpenCV reads them; an LZMA-compressed TIFF names ROADMAP A.4d, a 12-bit
-    JPEG says OpenCV does not read it either; a truncated PNG, a PNG whose
-    data does not inflate and bytes of no image format raise too."""
+    OpenCV reads them; an LZMA-compressed TIFF and a 12-bit JPEG say OpenCV
+    does not read them either (it gives no image for either); a truncated
+    PNG, a PNG whose data does not inflate and bytes of no image format
+    raise too."""
     from jpeg_forms import dct_jpeg, seeded_samples
     from tiff_forms import tiff as build_tiff
     img = smooth_image(4, 16, 16)
@@ -186,8 +187,10 @@ def test_refuses_what_it_does_not_read(tmp_path):
                                       cv2.imread(str(path), cv2.IMREAD_COLOR))
     lzma = build_tiff(img, 8, 2, compression=34925)
     twelve = dct_jpeg(seeded_samples(4, 16, 16, 3, 12), precision=12)
-    for data, match in ((lzma, 'LZMA.*ROADMAP A.4d'),
+    for data, match in ((lzma, 'LZMA.*OpenCV does not read it either'),
                         (twelve, '12-bit JPEG: OpenCV does not read it')):
+        assert cv2.imdecode(np.frombuffer(data, np.uint8),
+                            cv2.IMREAD_COLOR) is None
         with pytest.raises(ValueError, match=match):
             image_io.imdecode(data)
     png = str(tmp_path / 'x.png')

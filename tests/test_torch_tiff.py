@@ -15,9 +15,11 @@
   ``imwrite`` refuses the forms OpenCV writes that the port does not yet
   (ROADMAP A.4d) and extensions OpenCV has no writer for;
 - the forms OpenCV refuses (2-bit samples, 4-bit grey) raise saying so;
-  the forms left out raise naming ROADMAP A.4d, as do files of the other
-  formats OpenCV reads (WebP, JPEG 2000, GIF, PNM, PAM, PFM, Sun raster,
-  Radiance HDR, AVIF);
+  the TIFF forms ROADMAP A.4d once listed are read as OpenCV reads them or
+  refused as OpenCV refuses them (``tests/test_torch_tiff_*.py`` hold each
+  new form in full); files of the other formats OpenCV reads (WebP, JPEG
+  2000, GIF, PNM, PAM, PFM, Sun raster, Radiance HDR, AVIF) raise naming
+  ROADMAP A.4d;
 - truncated and corrupt files raise ``ValueError`` and never crash the
   process; a header past 2^30 pixels is refused before allocating;
 - 8 threads decode at once (ctypes releases the GIL) to the serial result;
@@ -228,35 +230,59 @@ def test_forms_opencv_refuses_raise(bits, photometric):
         image_io.imdecode(data)
 
 
+# The TIFF forms ROADMAP A.4d once listed, by the name the reader's refusal
+# gave each: now read as OpenCV reads them, or refused as OpenCV refuses
+# them ('black': OpenCV gives an all-black image)
 LATER = {
-    'CCITT': dict(compression=4, bits=1),
-    'CCITT-compressed TIFF': dict(compression=3, bits=1),
-    'old-style JPEG': dict(compression=6),
-    'LZMA': dict(compression=34925),
-    'ZSTD': dict(compression=50000),
-    'WebP': dict(compression=50001),
-    'JPEG XL': dict(compression=50002),
-    'LERC': dict(compression=34887),
-    'floating-point samples': dict(tags={339: (tf.SHORT, [3] * 3)}),
-    'signed samples': dict(tags={339: (tf.SHORT, [2] * 3)}),
-    'FillOrder 2': dict(tags={266: (tf.SHORT, [2])}),
+    'CCITT': ('read', dict(ccitt=4)),
+    'CCITT-compressed TIFF': ('read', dict(ccitt=3)),
+    'old-style JPEG': ('refused', dict(compression=6)),
+    'LZMA': ('refused', dict(compression=34925)),
+    'ZSTD': ('refused', dict(compression=50000)),
+    'WebP': ('refused', dict(compression=50001)),
+    'JPEG XL': ('black', dict(compression=50002)),
+    'LERC': ('refused', dict(compression=34887)),
+    'floating-point samples': ('refused',
+                               dict(tags={339: (tf.SHORT, [3] * 3)})),
+    'signed samples': ('read', dict(tags={339: (tf.SHORT, [2] * 3)})),
+    'FillOrder 2': ('read', dict(fill_order=2, compression=5)),
 }
 
 
 @pytest.mark.parametrize('form', sorted(LATER))
 def test_forms_left_out_name_roadmap(form):
-    kwargs = dict(LATER[form])
-    bits = kwargs.pop('bits', 8)
-    samples = smooth(8, 8, 1 if bits == 1 else 3, bits)
-    data = tf.tiff(samples, bits, 0 if bits == 1 else 2, **kwargs)
-    with pytest.raises(ValueError, match=form + '.*ROADMAP A.4d'):
+    """Each form ROADMAP A.4d listed: one now read decodes to OpenCV's
+    array; one OpenCV does not read either raises saying so, and
+    ``cv2.imdecode`` gives no image for it (JPEG XL: an all-black one)."""
+    kind, kwargs = LATER[form]
+    kwargs = dict(kwargs)
+    ccitt = kwargs.pop('ccitt', None)
+    if ccitt:
+        data = tf.build([tf.ccitt(smooth(8, 8, 1, 1)[..., 0], ccitt)], 8, 8,
+                        1, 1, 0, compression=ccitt)
+    else:
+        data = tf.tiff(smooth(8, 8, 3, 8), 8, 2, **kwargs)
+    want = opencv(data)
+    if kind == 'read':
+        assert want is not None
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
+        return
+    assert (want is None) if kind == 'refused' else not want.any()
+    with pytest.raises(ValueError, match=form + '.*OpenCV does not read '
+                       '(it|them) either'):
         image_io.imdecode(data)
 
 
 def test_old_style_lzw_names_roadmap():
-    data = tf.build([b'\x00\x01' + bytes(40)], 4, 4, 8, 1, 1, compression=5)
-    with pytest.raises(ValueError, match='old-style.*LZW.*ROADMAP A.4d'):
-        image_io.imdecode(data)
+    """Old-style (LSB-first) LZW, which ROADMAP A.4d listed: libtiff reads
+    it (LZWDecodeCompat), and the port reads it to OpenCV's array, with
+    and without Predictor 2, across strips."""
+    for predictor in (1, 2):
+        data = tf.tiff(smooth(H, W, 3, 8, 29), 8, 2, compression=5,
+                       old_lzw=True, predictor=predictor, rows_per_strip=9)
+        want = opencv(data)
+        assert want is not None
+        np.testing.assert_array_equal(image_io.imdecode(data), want)
 
 
 @pytest.mark.parametrize('ext,name', [
