@@ -25,7 +25,7 @@ converted back, and SAR ship detection from JPEGs (the HRSID and SSDD
 Oriented R-CNN R50-FPN and the SSDD RetinaNet, one class) with the port's
 JPEG codec, and the synth-hard protocol's runner over four of its families,
 and TIFF windows and signed 16-bit SAR TIFFs read by the port's TIFF codec,
-through
+and 16-bit SAR PGMs and PPMs written and read by its PNM codec, through
 ``init_detector`` / ``DetectorBundle`` and ``create_train_state`` /
 ``make_train_step``, and holds every CUDA kernel of those paths against its
 plain PyTorch version:
@@ -393,6 +393,14 @@ plain PyTorch version:
              Oriented R-CNN (bf16) serves the batch from both, the same
              detections, one B1 and one B3 launch each; one more request's
              B1 and B3 inputs recorded
+59. sar      the same scenes as 16-bit PGMs (high byte the pixel, low
+    pxm      byte seeded noise) and as 8-bit PPMs, written by the port's
+             ``imwrite`` and read by ``imread``: the JPEGs' pixels;
+             HRSID Oriented R-CNN (bf16) serves the batch from the PGMs,
+             the PPMs and the JPEGs, the same detections, one B1 and one
+             B3 launch each; one more request's B1 and B3 inputs recorded;
+             4000^2 PPM, 16-bit PGM, PFM, RLE HDR and Sun raster decode
+             times on one thread
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
     main     RetinaNet request (phase 5) and of one Oriented R-CNN request
@@ -444,6 +452,7 @@ plain PyTorch version:
              RoIs at C=64; and phase 57's: a window batch's candidates and
              RoIAlign inputs and the scene's merge; and phase 58's: the
              signed 16-bit SAR batch's candidates, levels and proposals;
+             and phase 59's: the 16-bit PGM batch's;
              each held against its plain version, the largest of each kind
              timed beside its bound
 
@@ -462,11 +471,11 @@ evaluations in each rank, 49's requests, kernel NMS calls and confusion
 matrix, 50's requests and steps, 52's requests of each model, 54's
 requests and served JPEG and PNG requests, 55's test run, 56's protocol
 run, 57's window batches, patch runs and served bodies, 58's TIFF and JPEG
-requests) and read just after;
+requests, 59's PGM, PPM and JPEG requests) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
 26's, 30's, 34's, 38's, 42's and 46's runs, 52's requests and 56's
-protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-58 write
+protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-59 write
 their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -7331,8 +7340,18 @@ TIFF_DIGESTS = {
 # imread issue'), which cv2.imdecode and the port read
 CORPUS_DIGESTS = {
     '12-bit.jpg': None,
+    '1bit.ras':
+        '50f14aaffbc5b934c7f8b5a309d2c1d1ab0e79b4f595aef5387ad46ac9330f02',
     'arithmetic-progressive.jpg':
         '5228c93f406d02891beb56f2579c67e3fa77fd0fde23e95c89d9ec76aa304592',
+    'ascii-maxval100.pgm':
+        'a9e080790cc3b9e7a988324b4ec1cc1432a8f43cf897c78318943a0670f171f6',
+    'ascii.pbm':
+        'cc77b6a2e1fe54fddebd34f350ab4d285bed9a1382f1875d83452f78504deb75',
+    'ascii.ppm':
+        '0145848b5944975310dbd556cb1d929124700c028ca5ad4f001566c36591b617',
+    'big-endian.pfm':
+        'de2829c0c331b2fa9947fcf82e3e2b7409482fa6f34e97b10f3a6e02451bfd57',
     'bigtiff-be-16bit-predictor.tif':
         '31246350658abcda054f7b1c4f4609a79503f749e0de1578ccbbcc046c708550',
     'ccitt-rle.tif':
@@ -7351,10 +7370,18 @@ CORPUS_DIGESTS = {
         '25899622d19da21c07a3a309d1c4aef041c897fe389d638cf6307d2e83fe51da',
     'cmyk.tif':
         '011c9ebe927622336e022a75281ec59f9b3cf0ab493f038bc517ade54d42b9fe',
+    'colormap-8bit.ras':
+        '65e69d1c7b01d8939aca433479b15d605fe71b385f2261829f93650a29bd779d',
+    'cv2-16bit.pgm':
+        'f5c7d7d22b4d1fe886024fac2678db9060388c9d01a8f3becb19d937a97730c7',
     'cv2-16bit.tif':
         '85a07c660db8626c0ed2343fa22df70a4b38c65e275d4fe94eb86e6d4b1035ad',
+    'cv2-bgra.ras':
+        '0310b16cb6f2f63de3acdc3e417ff2a6e5c4b6384be4c35be75f3b2f7689dd9e',
     'cv2-deflate.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'cv2-grey.pfm':
+        'cefcf225552f9d993f0df2ca725321bee589ef626022f166e22cd31b506f4ccb',
     'cv2-logluv.tif':
         'b4219dd05eff7fa09de5f7d058b2d32de99655084c1953efa0ee857b62d97259',
     'cv2-logluv24.tif':
@@ -7363,8 +7390,16 @@ CORPUS_DIGESTS = {
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
     'cv2-packbits.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
+    'cv2-rle.hdr':
+        'e40eab77369c4963f87ee685d28cf372c48db8f8fd6f4b409051d331a0093c07',
+    'cv2.pbm':
+        '966f82fbf808f6c30964347713717f9a070d87c246cc7d291e0b721b8b62b501',
+    'cv2.ppm':
+        '70d9342ea648d3ff1ba5a9e5de72b45a17547d276b6009afcf16d131a69ec691',
     'fillorder2-deflate.tif':
         '7a087603678cf75f9ae42a9f7af08c533270897318de7248667f026de26cbc95',
+    'flat-rgbe.hdr':
+        '407d6dd6cd8056da9c525b4627e0d2703b674cbe4faa5929b67b0ac19a5f7113',
     'float32.tif': None,
     'grey-16bit.tif':
         '2a42108cd2b325f3bf6af3ada98ef712e18939fd638c59f31e0cc6b129aa5ebf',
@@ -7379,6 +7414,8 @@ CORPUS_DIGESTS = {
     'lossless.jpg':
         '59777ff185183b036557d4fe6cc73005b5398f09b830555a68310b13b8c67af1',
     'lzma.tif': None,
+    'maxval1000.ppm':
+        '2f7e4594e88103731b81404327e61f58691d6d5b6e47e6df3d508ec2737c1d59',
     'minwhite-1bit.tif':
         '3dc61453ee30323224f06f8848e3f1f78e354a9b4eda45061b9d1194edd0b101',
     'multipage.tif':
@@ -7403,8 +7440,11 @@ CORPUS_DIGESTS = {
         'fdba12fc58186bc3dab4b7e9371abc433c4d6b54e522b5d4c22650ba4889b404',
     'planar-lzw.tif':
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'rgb.pam':
+        '70d9342ea648d3ff1ba5a9e5de72b45a17547d276b6009afcf16d131a69ec691',
     'rgba-unassociated-16bit.tif':
         'ea008961c2f3b7e11fce93afaa1fec95b51295471952214309c6468515b0646a',
+    'rle.ras': None,
     'signed-16bit-grey.tif':
         '01c92457e9967f9fcfeba547f2a1c6fa8cf40f9b6e799ece047cde48e45c8bf2',
     'signed-8bit-rgb-planar.tif':
@@ -7936,10 +7976,154 @@ def held_sar_tiff(device, captured, by_name, card, reps, roi_reps,
                     plain_reps)
 
 
+# ---- 59. 16-bit SAR products as PGMs, and the PNM, PFM, HDR and Sun raster
+# codecs ----------------------------------------------------------------------
+def uint16_grey(high, seed) -> np.ndarray:
+    """``(H, W)`` uint16 whose high byte is ``high``'s pixel ((H, W) uint8)
+    and whose low byte is seeded noise: a 16-bit product that OpenCV, and
+    the port, read by its high bytes."""
+    low = codec_image(*high.shape, grey=True, seed=seed)
+    return (high.astype(np.uint16) << 8) | low
+
+
+def raster_scenes(side, tile=500) -> dict:
+    """A ``side``^2 scene (:func:`codec_image` of ``tile``^2 tiled) in the
+    forms phase 59 times, as the port's ``imencode`` writes them: an 8-bit
+    PPM, a 16-bit PGM (its green channel the high byte, its blue the low
+    byte), a PFM and an RLE Radiance HDR of its floats over 255, and a
+    24-bit RT_STANDARD Sun raster (OpenCV 5.0 reads no RLE Sun raster)."""
+    from orientedobjectdetection_torch.utils.image_io import imencode
+    reps = -(-side // tile)
+    img = np.tile(codec_image(tile, tile, seed=side), (reps, reps, 1))
+    img = np.ascontiguousarray(img[:side, :side])
+    floats = img.astype(np.float32) / 255
+    return {'ppm': imencode('.ppm', img),
+            'pgm16': imencode('.pgm', img[..., 1].astype(np.uint16) << 8 |
+                              img[..., 0]),
+            'pfm': imencode('.pfm', floats),
+            'hdr': imencode('.hdr', floats),
+            'ras': imencode('.ras', img)}
+
+
+def phase_sar_pxm(root, device, card='', bsz=8, size=800,
+                  dtype=torch.bfloat16, max_num=2000, max_candidates=2000,
+                  config=SAR_CONFIG, timed_side=4000, reps=2) -> tuple:
+    """Phase 59: a batch of SAR products as 16-bit PGMs and as PPMs.
+    Phase 58's ``bsz`` seeded ``size``^2 grey SAR scenes
+    (:func:`sar_scene`), written as JPEGs by the port's encoder and read by
+    its decoder; each decoded image written by the port's ``imwrite`` as a
+    16-bit PGM (:func:`uint16_grey`: the pixel its high byte, seeded noise
+    its low byte) and as an 8-bit PPM, and read back with
+    ``utils/image_io.imread``: the JPEG's pixels. Phase 54's HRSID Oriented
+    R-CNN (``config``, R50-FPN, seeded weights, ``dtype``) serves the batch
+    from the PGMs, the PPMs and the JPEGs: the same detections, one B1 and
+    one B3 launch each. One more request's B1 and B3 inputs are recorded
+    under ``'sar_pxm'`` / ``'sar_pxm_roi'`` for phase 12. On one host
+    thread, the decode of each ``timed_side``^2 scene of
+    :func:`raster_scenes` (median of ``reps``). Returns the launch counts
+    of the three requests and the recorded inputs."""
+    import shutil
+    from orientedobjectdetection_torch.models.roi_heads import \
+        oriented_roi_head
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.utils.image_io import (imdecode,
+                                                              imread,
+                                                              imwrite)
+    on_card = torch.device(device).type == 'cuda'
+    folder = os.path.join(root, 'sar_pxm')
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    jpegs = []
+    for i in range(bsz):
+        jpegs.append(os.path.join(folder, f'{i:04d}.jpg'))
+        imwrite(jpegs[-1], sar_scene(size, seed=100 + i))
+    decoded = [imread(path) for path in jpegs]
+    read, ms_read = {}, {}
+    for kind in ('pgm', 'ppm'):
+        paths = []
+        for i, img in enumerate(decoded):
+            if not (img == img[..., :1]).all():
+                raise AssertionError(f'grey JPEG {i} decoded to unequal '
+                                     f'channels')
+            paths.append(os.path.join(folder, f'{i:04d}.{kind}'))
+            imwrite(paths[-1], uint16_grey(img[..., 0], seed=300 + i)
+                    if kind == 'pgm' else img)
+        t0 = time.perf_counter()
+        read[kind] = [imread(path) for path in paths]
+        ms_read[kind] = 1e3 * (time.perf_counter() - t0) / bsz
+        for i, (got, want) in enumerate(zip(read[kind], decoded)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f'{kind.upper()} {i} does not read back '
+                                     f'to its JPEG\'s pixels')
+    with open(os.path.join(folder, '0000.pgm'), 'rb') as f:
+        if not f.read(32).startswith(b'P5\n%d %d\n65535\n' % (size, size)):
+            raise AssertionError('the PGM is not 16-bit')
+    log(f'[sar-pxm] {bsz} seeded {size}^2 grey SAR scenes as JPEGs, 16-bit '
+        f'PGMs ({ms_read["pgm"]:.2f} ms a read) and PPMs '
+        f'({ms_read["ppm"]:.2f} ms a read): the same pixels')
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates,
+                                config=config)
+    batches = {kind: torch.from_numpy(np.stack(imgs))
+               for kind, imgs in (('pgm', read['pgm']), ('ppm', read['ppm']),
+                                  ('jpeg', decoded))}
+    bundle(batches['jpeg'])                                 # warm
+    sync(device)
+    runs, results, ms = [], {}, {}
+    for kind, batch in batches.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        results[kind] = bundle(batch)
+        sync(device)
+        ms[kind] = 1e3 * (time.perf_counter() - t0)
+        runs.append(read_launches())
+        for name in ('roi_align_rotated', 'nms_pair_mask'):
+            if runs[-1][name] != (1 if on_card else 0):
+                raise AssertionError(f'{name} launched {runs[-1][name]} '
+                                     f'times for one request')
+    errs = {kind: same_detections(results[kind], results['jpeg'],
+                                  [-1.0] * bsz)[:2] for kind in ('pgm', 'ppm')}
+    n_dets = int(results['pgm'][2].sum())
+    if not n_dets:
+        raise AssertionError('the SAR batch gave no detections')
+    with recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
+        bundle(batches['pgm'])
+    inputs = {'sar_pxm': (masks[0][0][0], masks[0][0][2]),
+              'sar_pxm_roi': tuple(pools[0][0][:2])}
+    log(f'[sar-pxm] {card} | HRSID Oriented R-CNN {str(dtype).split(".")[-1]}'
+        f' on the batch of {bsz}: from the PGMs {ms["pgm"]:.1f} ms, the PPMs '
+        f'{ms["ppm"]:.1f} ms, the JPEGs {ms["jpeg"]:.1f} ms a request; '
+        f'{n_dets} detections, the same from all three (max |diff|, rows '
+        f'moved: PGM {errs["pgm"]}, PPM {errs["ppm"]}); launches {runs[0]}')
+    del bundle
+    free_card(device)
+    scenes = raster_scenes(timed_side)
+    times = {k: median_ms(lambda d=d: imdecode(d), reps)
+             for k, d in scenes.items()}
+    log(f'[sar-pxm] {card} | host, one thread, {timed_side}^2 decode (median '
+        f'of {reps}): ' + ', '.join(
+            f'{k} ({len(scenes[k])} bytes) {times[k]:.2f} ms' for k in scenes))
+    return runs, inputs
+
+
+def held_sar_pxm(device, captured, by_name, card, reps, roi_reps,
+                 plain_reps) -> None:
+    """Phase 59's recorded inputs against their plain versions, each timed
+    into ``main_path_inputs``: B1 on the 16-bit PGM SAR batch's
+    candidates, B3 on its levels and proposals."""
+    label = 'HRSID Oriented R-CNN request (800^2 16-bit PGMs)'
+    held_pair_masks([captured['sar_pxm']], label, 'sar_pxm',
+                    by_name['nms_pair_mask'], device, card, reps, plain_reps)
+    levels, rois = captured['sar_pxm_roi']
+    held_roi_inputs([(levels, rois, 2)], label, 'sar_pxm',
+                    by_name['roi_align_rotated'], device, card, roi_reps,
+                    plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
-    17-46: each kernel against its plain version with the same
+    17-59: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
@@ -8009,6 +8193,8 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_tiff(device, captured, by_name, card, reps, roi_reps, plain_reps)
     held_sar_tiff(device, captured, by_name, card, reps, roi_reps,
                   plain_reps)
+    held_sar_pxm(device, captured, by_name, card, reps, roi_reps,
+                 plain_reps)
 
 
 def matrix_pairs(boxes1, boxes2) -> int:
@@ -8388,6 +8574,11 @@ def main() -> int:
                                                     card=info['card'])
     captured.update(sar_tiff_inputs)
     log(f'[phase 58] {time.perf_counter() - t58:.1f} s')
+    t59 = time.perf_counter()
+    sar_pxm_runs, sar_pxm_inputs = phase_sar_pxm(DATA_DIR, 'cuda',
+                                                 card=info['card'])
+    captured.update(sar_pxm_inputs)
+    log(f'[phase 59] {time.perf_counter() - t59:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -8409,8 +8600,9 @@ def main() -> int:
         # the seeded and converted models' requests of phase 52, the HRSID
         # requests and served JPEGs of phase 54, phase 55's test run,
         # phase 56's protocol run, phase 57's TIFF and PNG window
-        # batches, patch runs and served bodies, and phase 58's signed
-        # 16-bit TIFF and JPEG SAR batches
+        # batches, patch runs and served bodies, phase 58's signed
+        # 16-bit TIFF and JPEG SAR batches, and phase 59's 16-bit PGM, PPM
+        # and JPEG SAR batches
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -8420,7 +8612,8 @@ def main() -> int:
             *reppoints_serving, *reppoints_training, *reppoints_loops,
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
             *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
-            *split_runs, *hard_runs, *tiff_runs, *sar_tiff_runs))
+            *split_runs, *hard_runs, *tiff_runs, *sar_tiff_runs,
+            *sar_pxm_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

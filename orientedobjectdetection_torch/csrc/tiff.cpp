@@ -44,14 +44,17 @@
 // the file's length, and an image past 2^30 pixels is refused before
 // anything is allocated.
 //
-// Writer: what cv2.imwrite(".tif") writes for 8-bit BGR or grey: "II*\0",
-// the strips, then the IFD at an even offset (12 entries: ImageWidth,
-// ImageLength, BitsPerSample, Compression 5, Photometric, StripOffsets,
-// SamplesPerPixel, RowsPerStrip, StripByteCounts, PlanarConfiguration 1,
-// Predictor 2, SampleFormat 1), then the values that do not fit an entry in
-// libtiff's order. Rows per strip are OpenCV's 8192 / row bytes (at least
-// 1); each strip is Predictor 2 then tif_lzw.c's encoder, its hash, its
-// 12-bit table reset and its ratio check included.
+// Writer: what cv2.imwrite(".tif") writes for grey, BGR or BGRA samples of
+// 8, 16, 32 or 64 bits, unsigned, signed or float: "II*\0", the strips,
+// then the IFD at an even offset (12 entries: ImageWidth, ImageLength,
+// BitsPerSample, Compression, Photometric, StripOffsets, SamplesPerPixel,
+// RowsPerStrip, StripByteCounts, PlanarConfiguration 1, Predictor 2,
+// SampleFormat), then the values that do not fit an entry in libtiff's
+// order. Rows per strip are OpenCV's 8192 / row bytes (at least 1).
+// Integer samples: each strip is Predictor 2 (modulo the sample's width)
+// then tif_lzw.c's encoder, its hash, its 12-bit table reset and its ratio
+// check included. Float samples: uncompressed (Compression 1), no
+// Predictor entry.
 //
 // A plain C ABI, loaded with ctypes (native.py builds it with rnms.cpp and
 // jpeg.cpp into one library, linking nothing else). No global state is
@@ -2075,11 +2078,17 @@ struct Decoder {
 
 // ---- the writer -------------------------------------------------------------
 std::vector<uint8_t> encode(const uint8_t* img, uint64_t h, uint64_t w,
-                            int channels) {
+                            int channels, int bps, int format) {
   if (h < 1 || w < 1 || h > 0xFFFFFFFFu || w > 0xFFFFFFFFu)
     fail("TIFF sides are 1 to 2^32 - 1 pixels");
-  if (channels != 1 && channels != 3) fail("1 or 3 channels are written");
-  const uint64_t step = w * uint64_t(channels);
+  if (channels != 1 && channels != 3 && channels != 4)
+    fail("1, 3 or 4 channels are written");
+  if (bps != 1 && bps != 2 && bps != 4 && bps != 8)
+    fail("samples of 1, 2, 4 or 8 bytes are written");
+  // floats are stored uncompressed; integers through Predictor 2 and LZW
+  const bool lzw = format != 3;
+  const uint64_t step = w * uint64_t(channels) * uint64_t(bps);
+  const uint64_t px = uint64_t(channels) * uint64_t(bps);
   uint64_t rps = std::max<uint64_t>(1, std::min<uint64_t>(h, 8192 / step));
   const uint64_t nstrips = (h + rps - 1) / rps;
   std::vector<uint8_t> o = {'I', 'I', 42, 0, 0, 0, 0, 0};
@@ -2090,28 +2099,42 @@ std::vector<uint8_t> encode(const uint8_t* img, uint64_t h, uint64_t w,
     for (uint64_t r = 0; r < nr; r++) {
       const uint8_t* src = img + (r0 + r) * step;
       uint8_t* dst = rows.data() + r * step;
-      if (channels == 3) {
-        for (uint64_t x = 0; x < w; x++) {        // BGR -> RGB
-          dst[3 * x] = src[3 * x + 2];
-          dst[3 * x + 1] = src[3 * x + 1];
-          dst[3 * x + 2] = src[3 * x];
+      std::memcpy(dst, src, size_t(step));
+      if (channels >= 3)                          // BGR(A) -> RGB(A)
+        for (uint64_t x = 0; x < w; x++)
+          for (int b = 0; b < bps; b++)
+            std::swap(dst[x * px + b], dst[x * px + 2 * bps + b]);
+      if (!lzw) continue;
+      // Predictor 2: each sample less the one a pixel before, modulo its
+      // width (little-endian words)
+      for (uint64_t i = w - 1; i >= 1; i--)
+        for (int c = 0; c < channels; c++) {
+          uint8_t* cur = dst + i * px + c * bps;
+          const uint8_t* prev = cur - px;
+          unsigned borrow = 0;
+          for (int b = 0; b < bps; b++) {
+            unsigned d = unsigned(cur[b]) - prev[b] - borrow;
+            cur[b] = uint8_t(d);
+            borrow = (d >> 8) & 1;
+          }
         }
-      } else {
-        std::memcpy(dst, src, size_t(step));
-      }
-      for (uint64_t i = step - 1; i >= uint64_t(channels); i--)
-        dst[i] = uint8_t(dst[i] - dst[i - channels]);   // Predictor 2
     }
     offsets.push_back(o.size());
-    lzw_encode(rows.data(), size_t(nr * step), o);
+    if (lzw) {
+      lzw_encode(rows.data(), size_t(nr * step), o);
+    } else {
+      o.insert(o.end(), rows.begin(), rows.begin() + ptrdiff_t(nr * step));
+    }
     counts.push_back(o.size() - offsets.back());
   }
   if (o.size() & 1) o.push_back(0);
   if (o.size() > 0xFFFFFFFFu) fail("TIFF past 4 GiB is not written");
   const uint32_t ifd = uint32_t(o.size());
   // libtiff writes StripByteCounts as SHORT when there are several strips
-  // of fewer than 0xFFFF / 10 bytes (LZW's worst case), else LONG
-  const bool short_counts = nstrips > 1 && rps * step < 0xFFFF / 10;
+  // of fewer than 0xFFFF / 10 bytes (LZW's worst case) or, uncompressed,
+  // of at most 0xFFFF bytes, else LONG
+  const bool short_counts = nstrips > 1 && (lzw ? rps * step < 0xFFFF / 10
+                                                : rps * step <= 0xFFFF);
   struct Tag {
     int tag, type;
     uint64_t count;
@@ -2121,16 +2144,20 @@ std::vector<uint8_t> encode(const uint8_t* img, uint64_t h, uint64_t w,
   std::vector<Tag> tags = {
       {256, shortlong(w), 1, {w}},
       {257, shortlong(h), 1, {h}},
-      {258, 3, uint64_t(channels), std::vector<uint64_t>(size_t(channels), 8)},
-      {259, 3, 1, {uint64_t(kLzw)}},
-      {262, 3, 1, {uint64_t(channels == 3 ? kRgb : kBlack)}},
+      {258, 3, uint64_t(channels),
+       std::vector<uint64_t>(size_t(channels), uint64_t(8 * bps))},
+      {259, 3, 1, {uint64_t(lzw ? kLzw : 1)}},
+      {262, 3, 1, {uint64_t(channels >= 3 ? kRgb : kBlack)}},
       {273, 4, nstrips, offsets},
       {277, 3, 1, {uint64_t(channels)}},
       {278, shortlong(rps), 1, {rps}},
       {279, short_counts ? 3 : 4, nstrips, counts},
       {284, 3, 1, {1}},
       {317, 3, 1, {2}},
-      {339, 3, uint64_t(channels), std::vector<uint64_t>(size_t(channels), 1)}};
+      {339, 3, uint64_t(channels),
+       std::vector<uint64_t>(size_t(channels), uint64_t(format))}};
+  if (!lzw)                                       // no Predictor
+    tags.erase(tags.begin() + 10);
   // the values that do not fit an entry, in libtiff's order
   const int order[] = {258, 279, 273, 339};
   uint64_t data_at = uint64_t(ifd) + 2 + 12 * tags.size() + 4;
@@ -2228,16 +2255,18 @@ int oodt_tiff_decode(const uint8_t* data, int64_t len, uint8_t* out,
   return -1;
 }
 
-// Encode (h, w, channels) uint8 (BGR, or grey with channels 1) as
+// Encode (h, w, channels) samples (grey, BGR or BGRA) of bps bytes each,
+// little-endian, of SampleFormat format (1 unsigned, 2 signed, 3 float) as
 // cv2.imwrite writes a .tif. Returns the file's size, writing it into out
 // when it fits in cap bytes (call again with a larger buffer otherwise),
 // or -1 with a message in err.
 int64_t oodt_tiff_encode(const uint8_t* img, int64_t h, int64_t w,
-                         int64_t channels, uint8_t* out, int64_t cap,
-                         char* err, int64_t errlen) {
+                         int64_t channels, int64_t bps, int64_t format,
+                         uint8_t* out, int64_t cap, char* err,
+                         int64_t errlen) {
   try {
     std::vector<uint8_t> o = encode(img, uint64_t(h), uint64_t(w),
-                                    int(channels));
+                                    int(channels), int(bps), int(format));
     if (int64_t(o.size()) <= cap) std::memcpy(out, o.data(), o.size());
     return int64_t(o.size());
   } catch (const TiffError& e) {

@@ -1,21 +1,22 @@
 """Native (C++) host code, loaded with ``ctypes``: the rotated-box geometry
 (counterpart of ``orientedobjectdetection_tpu/native/__init__.py``) and the
-JPEG and TIFF codecs (what OpenCV's libjpeg-turbo and libtiff do for the
-JAX package).
+image codecs (what OpenCV's libjpeg-turbo, libtiff and its own PNM, PAM,
+PFM, Sun raster and Radiance HDR codecs do for the JAX package).
 
 ``csrc/rnms.cpp`` (the port's own copy of the JAX package's source),
-``csrc/jpeg.cpp`` and ``csrc/tiff.cpp`` are built with ``g++`` at first use
+``csrc/jpeg.cpp``, ``csrc/tiff.cpp`` and ``csrc/raster.cpp`` are built with
+``g++`` at first use
 into one library, ``_build/native-<hash>.so`` inside the package, named by
 a hash of the sources and the flags as ``utils/cuda_build.py`` names the
 CUDA kernels, and loaded once a process. It links nothing but the C++
 runtime (the TIFF reader carries its own inflater). The geometry serves the
 host call sites, ``ops/nms.py:nms_rotated_np(device='cpu')`` above all:
 ``rbox_iou``, ``nms_rotated`` and ``nms_hbb``; the codecs serve
-``utils/image_io.py``: ``jpeg_decode``, ``jpeg_encode``, ``tiff_decode``
-and ``tiff_encode``. Where the JAX package falls back to
-its jnp path without a compiler, the port raises RuntimeError: it never
-falls back quietly. ctypes releases the GIL during a call, so threads
-decode in parallel.
+``utils/image_io.py``: ``jpeg_decode``, ``jpeg_encode``, ``tiff_decode``,
+``tiff_encode``, ``raster_decode`` and ``hdr_encode``. Where the JAX
+package falls back to its jnp path without a compiler, the port raises
+RuntimeError: it never falls back quietly. ctypes releases the GIL during
+a call, so threads decode in parallel.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parent / 'csrc' / 'rnms.cpp'
 JPEG_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'jpeg.cpp'
 TIFF_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'tiff.cpp'
+RASTER_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'raster.cpp'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 # no fused multiply-adds: the TIFF reader's L*a*b* and SGILog conversions
 # round as libtiff's do
@@ -42,7 +44,7 @@ _LIB = None
 
 
 def sources() -> tuple:
-    return SOURCE, JPEG_SOURCE, TIFF_SOURCE
+    return SOURCE, JPEG_SOURCE, TIFF_SOURCE, RASTER_SOURCE
 
 
 def library_path() -> Path:
@@ -108,9 +110,18 @@ def load() -> ctypes.CDLL:
             lib.oodt_tiff_decode.argtypes = [buf, i64, u8p, i64, i64, buf,
                                              i64]
             lib.oodt_tiff_decode.restype = ctypes.c_int
-            lib.oodt_tiff_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
-                                             buf, i64]
+            lib.oodt_tiff_encode.argtypes = [u8p, i64, i64, i64, i64, i64,
+                                             u8p, i64, buf, i64]
             lib.oodt_tiff_encode.restype = i64
+            lib.oodt_raster_info.argtypes = [buf, i64, i64p, buf, i64]
+            lib.oodt_raster_info.restype = ctypes.c_int
+            lib.oodt_raster_decode.argtypes = [buf, i64, u8p, i64, i64, i64,
+                                               buf, i64]
+            lib.oodt_raster_decode.restype = ctypes.c_int
+            f32p = np.ctypeslib.ndpointer(np.float32, flags='C_CONTIGUOUS')
+            lib.oodt_hdr_encode.argtypes = [f32p, i64, i64, u8p, i64, buf,
+                                            i64]
+            lib.oodt_hdr_encode.restype = i64
             _LIB = lib
     return _LIB
 
@@ -175,19 +186,21 @@ def jpeg_encode(img: np.ndarray) -> bytes:
     """``(H, W, 3)`` uint8 BGR or ``(H, W)`` grey -> the bytes
     ``cv2.imencode('.jpg', img)`` gives with OpenCV's defaults (quality 95,
     4:2:0, baseline, JFIF)."""
-    img = np.asarray(img)
-    return _encode('oodt_jpeg_encode', img, img.size + 4096)
-
-
-def _encode(fn, img: np.ndarray, cap: int) -> bytes:
-    lib = load()
     img = np.ascontiguousarray(img, np.uint8)
     channels = 1 if img.ndim == 2 else img.shape[2]
+    return _encode('oodt_jpeg_encode', (img.reshape(-1), img.shape[0],
+                                        img.shape[1], channels),
+                   img.size + 4096)
+
+
+def _encode(fn, args: tuple, cap: int) -> bytes:
+    """``fn(*args, out, cap, err, errlen)``, called again with a buffer of
+    the size it asks for until the file fits."""
+    lib = load()
     err = ctypes.create_string_buffer(_ERROR_BYTES)
     while True:
         out = np.empty(cap, np.uint8)
-        n = getattr(lib, fn)(img.reshape(-1), img.shape[0], img.shape[1],
-                             channels, out, cap, err, _ERROR_BYTES)
+        n = getattr(lib, fn)(*args, out, cap, err, _ERROR_BYTES)
         if n < 0:
             raise ValueError(err.value.decode())
         if n <= cap:
@@ -216,8 +229,52 @@ def tiff_decode(data: bytes):
 
 
 def tiff_encode(img: np.ndarray) -> bytes:
-    """``(H, W, 3)`` uint8 BGR or ``(H, W)`` grey -> the bytes
-    ``cv2.imencode('.tif', img)`` gives with OpenCV's defaults (LZW,
-    Predictor 2, 8192 bytes a strip)."""
+    """``(H, W)`` grey, ``(H, W, 3)`` BGR or ``(H, W, 4)`` BGRA samples of
+    uint8, int8, uint16, int16, uint32, int32, float32 or float64 -> the
+    bytes ``cv2.imencode('.tif', img)`` gives with OpenCV's defaults (LZW
+    and Predictor 2 for integers, uncompressed floats, 8192 bytes a
+    strip)."""
     img = np.asarray(img)
-    return _encode('oodt_tiff_encode', img, img.size + img.size // 2 + 4096)
+    if img.dtype.kind not in 'uif' or img.dtype.itemsize not in (1, 2, 4, 8):
+        raise ValueError(f'tiff_encode takes integer or float samples, got '
+                         f'{img.dtype}')
+    raw = np.ascontiguousarray(img, img.dtype.newbyteorder('<'))
+    raw = raw.view(np.uint8).reshape(-1)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    fmt = {'u': 1, 'i': 2, 'f': 3}[img.dtype.kind]
+    return _encode('oodt_tiff_encode', (raw, img.shape[0], img.shape[1],
+                                        channels, img.dtype.itemsize, fmt),
+                   raw.size + raw.size // 2 + 4096)
+
+
+def raster_decode(data: bytes) -> np.ndarray:
+    """A PNM, PAM, PFM, Sun raster or Radiance HDR file's bytes -> what
+    ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives: ``(H, W, 3)`` uint8 BGR,
+    or ``(H, W)`` uint8 for a grey PFM (``Pf``), which OpenCV returns so.
+    Raises ValueError for a corrupt or truncated file and for the forms
+    ``csrc/raster.cpp`` does not read (each named: those OpenCV does not
+    read either, saying so)."""
+    lib = load()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    dims = np.zeros(3, np.int64)
+    if lib.oodt_raster_info(data, len(data), dims, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    h, w, c = (int(v) for v in dims)
+    out = np.empty((h, w, c), np.uint8)
+    if lib.oodt_raster_decode(data, len(data), out.reshape(-1), h, w, c,
+                              err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    return out if c == 3 else out[..., 0]
+
+
+def hdr_encode(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` float32 BGR -> the bytes ``cv2.imencode('.hdr', img)``
+    gives (run-length encoded scanlines, flat below 8 or past 32767
+    pixels a row)."""
+    img = np.ascontiguousarray(img, np.float32)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f'hdr_encode takes (H, W, 3) float32, got '
+                         f'{img.shape}')
+    return _encode('oodt_hdr_encode', (img.reshape(-1), img.shape[0],
+                                       img.shape[1]), img.size * 2 + 4096)

@@ -6,7 +6,8 @@
         --port 8080 --score-thr 0.3
     curl -X POST --data-binary @image.jpg localhost:8080/predict
 
-A POST body is an image, raw or base64: a JPEG, a PNG, a BMP or a TIFF
+A POST body is an image, raw or base64: a JPEG, a PNG, a BMP, a TIFF, a
+PNM, PAM or PFM, a Sun raster or a Radiance HDR file
 (``utils/image_io.py:imdecode``, its orientation applied). The answer
 is a JSON list of the detections scoring at least ``--score-thr``, each
 ``{"class_id", "bbox": [cx, cy, w, h, theta], "score"}``, from

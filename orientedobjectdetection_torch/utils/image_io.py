@@ -2,11 +2,12 @@
 library and the port's host C++ (a port-only module: the JAX package's data
 path uses OpenCV, and the port depends on neither OpenCV nor PIL).
 
-- :func:`imread` / :func:`imdecode`: PNG, JPEG, BMP and TIFF as
-  ``(H, W, 3)`` uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` and
-  ``cv2.imdecode`` return them, an orientation applied (a JPEG's first APP1
-  segment, a PNG's ``eXIf`` chunk, a TIFF's Orientation tag; values 1-8, as
-  OpenCV 5 applies them).
+- :func:`imread` / :func:`imdecode`: PNG, JPEG, BMP, TIFF, PNM, PAM, PFM,
+  Sun raster and Radiance HDR as ``(H, W, 3)`` uint8 BGR, as
+  ``cv2.imread(path, cv2.IMREAD_COLOR)`` and ``cv2.imdecode`` return them
+  (a grey PFM as ``(H, W)``, as OpenCV 5.0 returns it), an orientation
+  applied (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk, a TIFF's
+  Orientation tag; values 1-8, as OpenCV 5 applies them).
 
   - PNG: grey (1, 2, 4, 8 and 16 bits; low depths scaled to 8 bits as
     libpng expands them), grey + alpha, RGB and RGBA (8 or 16 bits) and
@@ -39,25 +40,43 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
     YCbCr, CIE L*a*b* (8 and 16), LogL and LogLuv, alpha premultiplied
     where it is unassociated: what libtiff's RGBA interface gives OpenCV.
 
+  - PNM, PAM, PFM, Sun raster and Radiance HDR:
+    ``native.raster_decode`` (``csrc/raster.cpp``): ``P1``-``P6`` (ASCII
+    samples scaled by maxval to 8 bits, binary ones taken as stored, 16-bit
+    ones by their high byte), ``P7`` of DEPTH 1 or 3, ``PF`` / ``Pf``
+    (rounded and saturated, unscaled), Sun raster RT_OLD and RT_STANDARD
+    at 1, 8, 24 and 32 bits with or without an RMT_EQUAL_RGB map, and
+    Radiance HDR flat and RLE scanlines (times 255, saturated).
+
   The forms OpenCV reads and the port does not yet (WebP, JPEG 2000, GIF,
-  PNM / PAM / PFM, Sun raster, Radiance HDR, AVIF, known by their
-  signatures) raise ``ValueError`` naming the form and ROADMAP A.4d; the
-  JPEG and TIFF forms OpenCV does not read either (hierarchical, 12-bit,
-  lossless arithmetic or over 8 bits JPEGs; float, complex or 32-bit
-  signed TIFF samples, the floating-point predictor, ICC or ITU L*a*b*,
-  old-style JPEG, LZMA, ZSTD, WebP, LERC and JPEG XL TIFFs, 12-bit JPEG
-  strips) raise saying so; anything else that does not decode (truncated or
-  corrupt data) raises ``ValueError`` too.
-- :func:`imwrite`: what ``cv2.imwrite`` writes for the path's extension with
-  OpenCV's defaults: ``.jpg``, ``.jpeg`` or ``.jpe`` a JPEG
-  (``native.jpeg_encode``: quality 95, 4:2:0, baseline), ``.tif`` or
-  ``.tiff`` a TIFF (``native.tiff_encode``: LZW, Predictor 2, 8192 bytes a
-  strip) (both ``(H, W)`` grey images as one component), ``.bmp`` or
-  ``.dib`` a BMP (24-bit ``BI_RGB``, bottom-up rows padded to 4 bytes, the
-  same 54-byte header), ``.png`` an 8-bit RGB PNG with every row
-  Sub-filtered (as OpenCV filters them). An extension OpenCV writes in a
+  AVIF, known by their signatures) raise ``ValueError`` naming the form
+  and ROADMAP A.4d; the forms OpenCV does not read either raise saying so:
+  hierarchical, 12-bit, lossless arithmetic or over 8 bits JPEGs; float,
+  complex or 32-bit signed TIFF samples, the floating-point predictor, ICC
+  or ITU L*a*b*, old-style JPEG, LZMA, ZSTD, WebP, LERC and JPEG XL TIFFs,
+  12-bit JPEG strips; PAM of DEPTH 2 or 4 (OpenCV 5.0 leaves most of its
+  pixels unset), Sun raster RT_BYTE_ENCODED and RT_FORMAT_RGB (OpenCV
+  5.0's reader takes neither), an HDR not ``-Y <h> +X <w>``. Anything else
+  that does not decode (truncated or corrupt data) raises ``ValueError``
+  too.
+- :func:`imwrite` / :func:`imencode`: the bytes ``cv2.imwrite`` writes
+  for the path's extension with OpenCV's defaults, of the arrays it
+  takes: grey, BGR or BGRA of any integer, float or bool type, each writer
+  keeping the types OpenCV's keeps and saturating the rest to uint8 as
+  OpenCV does. ``.jpg``
+  / ``.jpeg`` / ``.jpe`` a JPEG (``native.jpeg_encode``: quality 95, 4:2:0,
+  baseline, alpha dropped), ``.tif`` / ``.tiff`` a TIFF
+  (``native.tiff_encode``: LZW and Predictor 2 for integers of 8-32 bits,
+  uncompressed floats, 8192 bytes a strip), ``.bmp`` / ``.dib`` a BMP
+  (8-bit grey with its palette, 24-bit, or 32-bit BGRA behind a
+  BITMAPV5HEADER), ``.png`` a PNG of 8 or 16 bits with every row
+  Sub-filtered (as OpenCV filters them), ``.pbm`` / ``.pgm`` / ``.ppm`` /
+  ``.pnm`` binary PNM (16 bits for uint16), ``.pam`` PAM, ``.pfm`` PFM
+  (float32), ``.sr`` / ``.ras`` Sun raster and ``.hdr`` / ``.pic`` RLE
+  Radiance HDR (``native.hdr_encode``). An extension OpenCV writes in a
   form the port does not have yet raises ``ValueError`` naming ROADMAP
-  A.4d; one OpenCV has no writer for raises as ``cv2.imwrite`` does.
+  A.4d; one OpenCV has no writer for, and an array OpenCV refuses, raise
+  as ``cv2.imwrite`` does.
 - :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
   arithmetic (11-bit weights, a horizontal pass into integers, a vertical
@@ -95,22 +114,21 @@ import numpy as np
 _SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _JPEG_SIGNATURE = b'\xff\xd8'
 _TIFF_SIGNATURES = (b'II*\x00', b'MM\x00*', b'II+\x00', b'MM\x00+')
-_JPEG_SUFFIXES = ('.jpg', '.jpeg', '.jpe')
-_TIFF_SUFFIXES = ('.tif', '.tiff')
-_BMP_SUFFIXES = ('.bmp', '.dib')
-# the other forms cv2.imwrite writes (OpenCV 5.0's build), by extension
-_LATER_WRITERS = {
-    '.webp': 'WebP', '.jp2': 'JPEG 2000', '.pbm': 'PBM', '.pgm': 'PGM',
-    '.ppm': 'PPM', '.pnm': 'PNM', '.pam': 'PAM', '.pfm': 'PFM',
-    '.sr': 'Sun raster', '.ras': 'Sun raster', '.hdr': 'Radiance HDR',
-    '.pic': 'Radiance HDR', '.gif': 'GIF', '.avif': 'AVIF'}
+# the forms cv2.imwrite writes (OpenCV 5.0's build) that the port does not
+# yet, by extension
+_LATER_WRITERS = {'.webp': 'WebP', '.jp2': 'JPEG 2000', '.gif': 'GIF',
+                  '.avif': 'AVIF'}
 # and their signatures, the forms OpenCV's readers take that the port does
-# not yet (a PNM / PAM / PFM header: 'P', its kind, whitespace)
+# not yet
 _LATER_SIGNATURES = (
     (b'GIF87a', 'GIF'), (b'GIF89a', 'GIF'),
     (b'\x00\x00\x00\x0cjP  \r\n\x87\n', 'JPEG 2000'),
-    (b'\xff\x4f\xff\x51', 'JPEG 2000'), (b'\x59\xa6\x6a\x95', 'Sun raster'),
-    (b'#?RADIANCE', 'Radiance HDR'), (b'#?RGBE', 'Radiance HDR'))
+    (b'\xff\x4f\xff\x51', 'JPEG 2000'))
+# csrc/raster.cpp's forms, known by OpenCV's signatures: 'P', the kind,
+# whitespace (PNM 1-6, PAM 7, PFM F / f); Sun raster's magic; "#?RGBE" or
+# "#?RADIANCE"
+_SUN_SIGNATURE = b'\x59\xa6\x6a\x95'
+_HDR_SIGNATURES = (b'#?RGBE', b'#?RADIANCE')
 
 
 def _later_form(data: bytes):
@@ -123,10 +141,21 @@ def _later_form(data: bytes):
         return 'WebP'
     if data[4:8] == b'ftyp' and data[8:12] in (b'avif', b'avis'):
         return 'AVIF'
+    return None
+
+
+def _raster_form(data: bytes):
+    """The name of a form ``csrc/raster.cpp`` reads, or None."""
+    if data.startswith(_SUN_SIGNATURE):
+        return 'Sun raster'
+    if data.startswith(_HDR_SIGNATURES):
+        return 'Radiance HDR'
     if len(data) > 2 and data[:1] == b'P' and data[2:3].isspace():
         return {b'7': 'PAM', b'F': 'PFM', b'f': 'PFM'}.get(
             data[1:2], 'PNM' if data[1:2] in b'123456' else None)
     return None
+
+
 _MAX_PIXELS = 1 << 30           # OpenCV's limit (CV_IO_MAX_IMAGE_PIXELS)
 # PNG colour type -> channels (grey, RGB, palette, grey + alpha, RGBA), and
 # the bit depths each allows
@@ -195,18 +224,21 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG, JPEG, BMP or TIFF (its first page) as ``(H, W, 3)``
-    uint8 BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it."""
+    """Read a PNG, JPEG, BMP, TIFF (its first page), PNM, PAM, PFM, Sun
+    raster or Radiance HDR file as ``cv2.imread(path, cv2.IMREAD_COLOR)``
+    reads it: ``(H, W, 3)`` uint8 BGR (``(H, W)`` for a grey PFM)."""
     with open(path, 'rb') as f:
         return imdecode(f.read(), path)
 
 
 def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
-    """Decode the bytes of a PNG, JPEG, BMP or TIFF (its first page) as
-    ``(H, W, 3)`` uint8 BGR, with its orientation applied; ``path`` names
-    the source in errors. Raises ValueError for anything else (the forms
-    ROADMAP A.4d lists, by name, and those OpenCV does not read either,
-    saying so)."""
+    """Decode the bytes of a PNG, JPEG, BMP, TIFF (its first page), PNM,
+    PAM, PFM, Sun raster or Radiance HDR file as ``cv2.imdecode(data,
+    cv2.IMREAD_COLOR)`` does: ``(H, W, 3)`` uint8 BGR, with its orientation
+    applied (``(H, W)`` uint8 for a grey PFM, which OpenCV returns so);
+    ``path`` names the source in errors. Raises ValueError for anything
+    else (the forms ROADMAP A.4d lists, by name, and those OpenCV does not
+    read either, saying so)."""
     data = bytes(data)
     if data.startswith(_BMP_SIGNATURE):
         return _read_bmp(path, data)
@@ -224,12 +256,20 @@ def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
         except ValueError as e:
             raise ValueError(f'{path}: TIFF: {e}') from None
         return _orient(img, orientation)
+    raster = _raster_form(data)
+    if raster:
+        from .. import native
+        try:
+            return native.raster_decode(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: {raster}: {e}') from None
     if not data.startswith(_SIGNATURE):
         later = _later_form(data)
         if later:
             raise ValueError(f'{path}: reading {later} images is not ported '
                              f'yet (ROADMAP A.4d)')
-        raise ValueError(f'{path}: not a PNG, JPEG, BMP or TIFF file')
+        raise ValueError(f'{path}: not a PNG, JPEG, BMP, TIFF, PNM, PAM, '
+                         f'PFM, Sun raster or Radiance HDR file')
     return _read_png(path, data)
 
 
@@ -533,66 +573,257 @@ def _read_bmp(path: str, data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img if top_down else img[::-1])
 
 
+# ---- writers ----------------------------------------------------------------
 def _bmp_bytes(img: np.ndarray) -> bytes:
-    """``(H, W, 3)`` uint8 BGR -> the bytes ``cv2.imwrite`` gives a
-    ``.bmp``: a 54-byte header, 24-bit bottom-up rows padded to 4 bytes."""
+    """uint8 grey, BGR or BGRA -> the bytes ``cv2.imwrite`` gives a
+    ``.bmp``: bottom-up rows padded to 4 bytes after a 40-byte header (grey
+    after a palette of the 256 greys too), or for BGRA after a 124-byte
+    BITMAPV5HEADER of ``BI_BITFIELDS`` masks and the sRGB colour space."""
     h, w = img.shape[:2]
-    stride = (w * 3 + 3) & ~3
+    c = 1 if img.ndim == 2 else img.shape[2]
+    stride = (w * c + 3) & ~3
     rows = np.zeros((h, stride), np.uint8)
-    rows[:, :w * 3] = img[::-1].reshape(h, w * 3)
-    return (struct.pack('<2sIHHI', _BMP_SIGNATURE, 54 + stride * h, 0, 0,
-                        54) +
-            struct.pack('<IiiHHIIiiII', 40, w, h, 1, 24, _BI_RGB, 0, 0, 0,
-                        0, 0) + rows.tobytes())
+    rows[:, :w * c] = img[::-1].reshape(h, w * c)
+    extra = b''
+    if c == 1:
+        extra = np.repeat(np.arange(256, dtype=np.uint8), 4).reshape(256, 4)
+        extra[:, 3] = 0
+        extra = extra.tobytes()
+    if c == 4:
+        header = struct.pack('<IiiHHIIiiII4I4s', 124, w, h, 1, 32,
+                             _BI_BITFIELDS, 0, 0, 0, 0, 0, *_BGRX_MASKS,
+                             0xFF000000, b'BGRs') + bytes(64)
+    else:
+        header = struct.pack('<IiiHHIIiiII', 40, w, h, 1, 8 * c, _BI_RGB, 0,
+                             0, 0, 0, 0)
+    offset = 14 + len(header) + len(extra)
+    return (struct.pack('<2sIHHI', _BMP_SIGNATURE, offset + rows.size, 0, 0,
+                        offset) + header + extra + rows.tobytes())
 
 
-def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
-    """Write ``(H, W, 3)`` uint8 BGR as ``cv2.imwrite`` writes the path's
-    extension: ``.jpg`` / ``.jpeg`` / ``.jpe`` a JPEG and ``.tif`` /
-    ``.tiff`` a TIFF (both ``(H, W)`` grey too), ``.bmp`` / ``.dib`` a BMP,
-    ``.png`` an 8-bit RGB PNG, every row with the Sub filter (as OpenCV
-    writes them), compressed at zlib ``level``. Raises ValueError for
-    another extension: naming ROADMAP A.4d where OpenCV writes it, as
-    ``cv2.imwrite`` raises where it has no writer."""
-    img = np.asarray(img)
-    ext = os.path.splitext(path)[1].lower()
-    if ext in _LATER_WRITERS:
-        raise ValueError(f'{path}: writing {_LATER_WRITERS[ext]} images is '
-                         f'not ported yet (ROADMAP A.4d)')
-    if ext not in _JPEG_SUFFIXES + _TIFF_SUFFIXES + _BMP_SUFFIXES + (
-            '.png',):
-        raise ValueError(f'{path}: could not find a writer for the '
-                         f'extension {ext!r}')
-    grey_ok = ext in _JPEG_SUFFIXES + _TIFF_SUFFIXES
-    if img.dtype != np.uint8 or not (
-            img.ndim == 3 and img.shape[2] == 3 or grey_ok and img.ndim == 2):
-        raise ValueError(f'imwrite takes (H, W, 3) uint8, got {img.dtype} '
-                         f'{img.shape}')
-    if ext in _JPEG_SUFFIXES + _TIFF_SUFFIXES:
-        from .. import native
-        encode = native.jpeg_encode if ext in _JPEG_SUFFIXES else \
-            native.tiff_encode
-        _write_atomic(path, encode(img))
-        return
-    if ext in _BMP_SUFFIXES:
-        _write_atomic(path, _bmp_bytes(img))
-        return
+def _png_bytes(img: np.ndarray, level: int) -> bytes:
+    """uint8 or uint16 grey, BGR or BGRA -> a PNG of colour type 0, 2 or 6
+    at 8 or 16 bits (big-endian samples), every row with the Sub filter as
+    OpenCV filters them (None where it is one pixel wide), compressed at
+    zlib ``level``."""
     h, w = img.shape[:2]
-    rgb = img[..., ::-1].astype(np.uint8)
-    sub = rgb.copy()
-    sub[:, 1:] -= rgb[:, :-1]                              # wraps mod 256
-    rows = np.concatenate([np.ones((h, 1), np.uint8), sub.reshape(h, -1)],
+    c = 1 if img.ndim == 2 else img.shape[2]
+    if c > 1:
+        img = img[..., (2, 1, 0, 3)[:c]]                  # BGR(A) -> RGB(A)
+    samples = img.astype('>u2') if img.dtype == np.uint16 else img
+    raw = np.ascontiguousarray(samples).view(np.uint8).reshape(h, -1)
+    bpp = c * samples.itemsize
+    sub = raw.copy()
+    sub[:, bpp:] -= raw[:, :-bpp]                          # wraps mod 256
+    # libpng gives a one-pixel row the None filter
+    rows = np.concatenate([np.full((h, 1), int(w > 1), np.uint8), sub],
                           axis=1)
 
     def chunk(kind, body):
         return (struct.pack('>I', len(body)) + kind + body +
                 struct.pack('>I', zlib.crc32(kind + body)))
 
-    data = (_SIGNATURE +
-            chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)) +
+    ihdr = struct.pack('>IIBBBBB', w, h, 8 * samples.itemsize,
+                       {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
+    return (_SIGNATURE + chunk(b'IHDR', ihdr) +
             chunk(b'IDAT', zlib.compress(rows.tobytes(), level)) +
             chunk(b'IEND', b''))
-    _write_atomic(path, data)
+
+
+def _jpeg_bytes(img: np.ndarray) -> bytes:
+    """``native.jpeg_encode``; OpenCV drops a BGRA image's alpha."""
+    from .. import native
+    return native.jpeg_encode(img[..., :3] if img.ndim == 3 else img)
+
+
+def _tiff_bytes(img: np.ndarray) -> bytes:
+    """``native.tiff_encode``; 64-bit integers are written as 32-bit signed
+    ones, wrapped (OpenCV 5.0's TIFF writer has no 64-bit integer
+    form)."""
+    from .. import native
+    if img.dtype.kind in 'iu' and img.dtype.itemsize == 8:
+        img = img.astype(np.int32)
+    return native.tiff_encode(img)
+
+
+def _pnm_bytes(img: np.ndarray) -> bytes:
+    """Binary PGM (``P5``) or PPM (``P6``, RGB order), maxval 255 or, for
+    uint16, 65535 with big-endian samples."""
+    h, w = img.shape[:2]
+    kind = b'P5' if img.ndim == 2 else b'P6'
+    if img.ndim == 3:
+        img = img[..., ::-1]
+    wide = img.dtype == np.uint16
+    samples = img.astype('>u2') if wide else img
+    return (b'%s\n%d %d\n%d\n' % (kind, w, h, 65535 if wide else 255) +
+            np.ascontiguousarray(samples).tobytes())
+
+
+def _pbm_bytes(img: np.ndarray) -> bytes:
+    """Binary PBM (``P4``): a pixel of 0 is a set (black) bit."""
+    h, w = img.shape
+    return b'P4\n%d %d\n' % (w, h) + np.packbits(img == 0, axis=1).tobytes()
+
+
+def _pam_bytes(img: np.ndarray) -> bytes:
+    """PAM (``P7``) of DEPTH 1, 3 or 4, no TUPLTYPE line, the samples in
+    stored (BGR) order, big-endian at 16 bits."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    wide = img.dtype == np.uint16
+    samples = img.astype('>u2') if wide else img
+    return (b'P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\nENDHDR\n'
+            % (w, h, c, 65535 if wide else 255) +
+            np.ascontiguousarray(samples).tobytes())
+
+
+def _pfm_bytes(img: np.ndarray) -> bytes:
+    """PFM: ``Pf`` (grey) or ``PF`` (RGB order), scale -1 (little-endian),
+    rows bottom-up; the samples converted to float32, unscaled."""
+    h, w = img.shape[:2]
+    kind = b'Pf' if img.ndim == 2 else b'PF'
+    if img.ndim == 3:
+        img = img[..., ::-1]
+    return (b'%s\n%d %d\n-1\n' % (kind, w, h) +
+            np.ascontiguousarray(img[::-1], '<f4').tobytes())
+
+
+def _sun_bytes(img: np.ndarray) -> bytes:
+    """Sun raster, RT_STANDARD and no colour map, at 8, 24 or 32 bits, the
+    samples in stored (BGR) order. OpenCV writes each row's padded length
+    (an even number of bytes) from the row's start, so an odd row's pad
+    byte is the next row's first; the last row's is 0 here (OpenCV's
+    reads past its buffer)."""
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    step = (w * c + 1) & ~1
+    rows = np.zeros((h, step), np.uint8)
+    rows[:, :w * c] = img.reshape(h, w * c)
+    if step > w * c:
+        rows[:-1, -1] = rows[1:, 0]
+    return struct.pack('>8I', int.from_bytes(_SUN_SIGNATURE, 'big'), w, h,
+                       8 * c, step * h, 1, 0, 0) + rows.tobytes()
+
+
+def _hdr_bytes(img: np.ndarray) -> bytes:
+    """``native.hdr_encode`` of float32 BGR: a grey image as three equal
+    channels, another sample type converted to float32 times 1 / 255 as
+    OpenCV's HDR writer converts it."""
+    from .. import native
+    if img.dtype != np.float32:
+        img = img.astype(np.float32) * np.float32(1 / 255)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    return native.hdr_encode(img)
+
+
+# cv2.imwrite's writers by extension (OpenCV 5.0's build): the form's name,
+# the channels it takes, the numpy type kinds and sizes it writes as they
+# are (every other array is saturated to uint8 first, as OpenCV's
+# convertTo(CV_8U) saturates it: floats rounded half to even, NaN and those
+# past int32 giving 0), and its encoder
+_U8 = ('u1',)
+_U16 = ('u1', 'u2')
+_ALL = ('u1', 'u2', 'u4', 'u8', 'i1', 'i2', 'i4', 'i8', 'f2', 'f4', 'f8')
+_NOT_F2 = tuple(k for k in _ALL if k != 'f2')
+_NOT_F8 = _ALL[:-1]
+_WRITERS = {
+    '.png': ('PNG', (1, 3, 4), _U16, None),
+    '.bmp': ('BMP', (1, 3, 4), _U8, _bmp_bytes),
+    '.dib': ('BMP', (1, 3, 4), _U8, _bmp_bytes),
+    '.jpg': ('JPEG', (1, 3, 4), _U8, _jpeg_bytes),
+    '.jpeg': ('JPEG', (1, 3, 4), _U8, _jpeg_bytes),
+    '.jpe': ('JPEG', (1, 3, 4), _U8, _jpeg_bytes),
+    '.tif': ('TIFF', (1, 3, 4), _NOT_F2, _tiff_bytes),
+    '.tiff': ('TIFF', (1, 3, 4), _NOT_F2, _tiff_bytes),
+    '.pbm': ('PBM', (1,), _U8, _pbm_bytes),
+    '.pgm': ('PGM', (1,), _U16, _pnm_bytes),
+    '.ppm': ('PPM', (3,), _U16, _pnm_bytes),
+    '.pnm': ('PNM', (1, 3), _U16, _pnm_bytes),
+    '.pam': ('PAM', (1, 3, 4), _U16, _pam_bytes),
+    '.pfm': ('PFM', (1, 3), _ALL, _pfm_bytes),
+    '.sr': ('Sun raster', (1, 3, 4), _U8, _sun_bytes),
+    '.ras': ('Sun raster', (1, 3, 4), _U8, _sun_bytes),
+    '.hdr': ('Radiance HDR', (1, 3), _NOT_F8, _hdr_bytes),
+    '.pic': ('Radiance HDR', (1, 3), _NOT_F8, _hdr_bytes),
+}
+
+
+def _saturate_u8(img: np.ndarray) -> np.ndarray:
+    """OpenCV's ``convertTo(CV_8U)``: integers clipped to 0-255; floats
+    rounded half to even, then clipped, NaN and values whose rounding
+    leaves int32 giving 0 (``cvRound``'s overflow); bool 0 / 1."""
+    if img.dtype.kind == 'f':
+        r = np.rint(img.astype(np.float64))
+        inside = (r >= -2.0 ** 31) & (r < 2.0 ** 31)
+        return np.clip(np.where(inside, r, 0), 0, 255).astype(np.uint8)
+    if img.dtype == np.uint64:
+        return np.minimum(img, 255).astype(np.uint8)
+    return np.clip(img.astype(np.int64), 0, 255).astype(np.uint8)
+
+
+def _imwrite_array(path: str, img) -> np.ndarray:
+    """The array as ``cv2.imwrite`` takes it: 0-d and 1-d arrays as one
+    row, ``(H, W, 1)`` as grey, native byte order. Raises ValueError, with
+    OpenCV's reason, where it refuses the array."""
+    img = np.asarray(img)
+    if img.dtype.kind not in 'biuf' or img.dtype.itemsize > 8:
+        raise ValueError(f'{path}: cv2.imwrite refuses {img.dtype} samples '
+                         f'too (img data type = {img.dtype} is not '
+                         f'supported)')
+    if img.size == 0:
+        raise ValueError(f'{path}: an empty array, {img.shape}: '
+                         f'cv2.imwrite refuses it too (!_img.empty())')
+    if img.ndim > 3:
+        raise ValueError(f'{path}: an array of {img.ndim} dimensions: '
+                         f'cv2.imwrite writes none (it returns False)')
+    img = img.reshape((1, -1) if img.ndim < 2 else img.shape)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim == 3 and img.shape[2] not in (3, 4):
+        raise ValueError(f'{path}: imwrite takes 1, 3 or 4 channels, got '
+                         f'{img.shape}: cv2.imwrite refuses it too '
+                         f'(channels == 1 || channels == 3 || channels == 4)')
+    return img.astype(img.dtype.newbyteorder('='), copy=False)
+
+
+def imencode(ext: str, img: np.ndarray, level: int = 1,
+             name: str = None) -> bytes:
+    """The bytes ``cv2.imencode(ext, img)`` gives with OpenCV's defaults
+    (the module docstring lists the writers; ``_WRITERS`` the channels each
+    takes and the types it keeps, every other saturated to uint8 as OpenCV
+    converts it). A PNG is compressed at zlib ``level``: OpenCV's zlib
+    compresses the same rows to other bytes. Raises ValueError, its message
+    led by ``name`` (the extension unless given), for another extension
+    (naming ROADMAP A.4d where OpenCV writes it, as ``cv2.imencode`` raises
+    where it has no writer) and for an array OpenCV refuses, with its
+    reason."""
+    ext = ext.lower()
+    name = name or ext
+    if ext in _LATER_WRITERS:
+        raise ValueError(f'{name}: writing {_LATER_WRITERS[ext]} images is '
+                         f'not ported yet (ROADMAP A.4d)')
+    if ext not in _WRITERS:
+        raise ValueError(f'{name}: could not find a writer for the '
+                         f'extension {ext!r}')
+    form, channels, keeps, encode = _WRITERS[ext]
+    img = _imwrite_array(name, img)
+    c = 1 if img.ndim == 2 else img.shape[2]
+    if c not in channels:
+        raise ValueError(f'{name}: OpenCV writes no {form} of {c} '
+                         f'channel{"s" * (c > 1)} (cv2.imwrite returns '
+                         f'False): it takes {" or ".join(map(str, channels))}')
+    if img.dtype.str[1:] not in keeps:
+        img = _saturate_u8(img)
+    return encode(img) if encode else _png_bytes(img, level)
+
+
+def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:
+    """Write ``img`` as ``cv2.imwrite`` writes the path's extension: the
+    bytes of :func:`imencode`, which raises (writing nothing) where OpenCV
+    refuses the extension or the array."""
+    _write_atomic(path, imencode(os.path.splitext(path)[1], img, level,
+                                 name=path))
 
 
 def _write_atomic(path: str, data: bytes) -> None:

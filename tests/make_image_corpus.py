@@ -1,11 +1,13 @@
-"""Writes ``tests/image_corpus/``: small TIFF and JPEG files of the forms
-``chip_smoke.py`` phase 57 holds the card machine's build of the port's
-readers to, by the SHA-256 of OpenCV's decode (``CORPUS_DIGESTS``). Made
-with PIL, OpenCV's writers (its ``IMWRITE_TIFF_COMPRESSION`` values, SGILog
-among them) and the test builders ``tiff_forms.py`` / ``jpeg_forms.py`` for
+"""Writes ``tests/image_corpus/``: small TIFF, JPEG, PNM, PAM, PFM, Sun
+raster and Radiance HDR files of the forms ``chip_smoke.py`` phase 57 holds
+the card machine's build of the port's readers to, by the SHA-256 of
+OpenCV's decode (``CORPUS_DIGESTS``). Made with PIL, OpenCV's writers (its
+``IMWRITE_TIFF_COMPRESSION`` values, SGILog among them) and the test
+builders ``tiff_forms.py`` / ``jpeg_forms.py`` / ``raster_forms.py`` for
 what neither writes.
 
     python tests/make_image_corpus.py      # from the repo's root
+    python tests/make_image_corpus.py --raster   # the raster forms alone
 
 The files are committed; rerunning rewrites them (PIL's and OpenCV's bytes
 may differ between their versions, so the digests are computed anew by
@@ -26,6 +28,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import jpeg_forms as jf  # noqa: E402
+import raster_forms as rf  # noqa: E402
 import tiff_forms as tf  # noqa: E402
 
 OUT = os.path.join(HERE, 'image_corpus')
@@ -165,12 +168,49 @@ def files() -> dict:
     out['lossless.jpg'] = jf.lossless_jpeg(rgb, predictor=7, pt=1,
                                            restart=W * 5)
     out['12-bit.jpg'] = jf.dct_jpeg(samples(16, 1, 12), precision=12)
+    out.update(raster_files())
+    return out
+
+
+def raster_files(h=16, w=21) -> dict:
+    """The PNM, PAM, PFM, Sun raster and Radiance HDR forms, ``h`` x ``w``
+    (OpenCV writes the binary PNM, PAM, PFM, Sun raster and RLE HDR
+    ones)."""
+    out = {}
+    rgb = samples(30, 3, h=h, w=w).astype(np.uint8)
+    grey = rgb[..., 1]
+    out['ascii-maxval100.pgm'] = rf.pnm(2, grey * 100 // 255, 100)
+    out['ascii.ppm'] = rf.pnm(3, rgb, header=b'\n# made by hand\n%d %d\n'
+                              b'255\n' % (w, h))
+    out['ascii.pbm'] = rf.pnm(1, grey > 128, sep=b'')
+    out['cv2.pbm'] = cv2.imencode('.pbm', grey)[1].tobytes()
+    out['cv2-16bit.pgm'] = cv2.imencode('.pgm', (
+        grey.astype(np.uint16) << 8 | rgb[..., 0]))[1].tobytes()
+    out['maxval1000.ppm'] = rf.pnm(6, rgb.astype(np.int64) * 1000 // 255,
+                                   1000)
+    out['cv2.ppm'] = cv2.imencode('.ppm', rgb)[1].tobytes()
+    out['rgb.pam'] = rf.pam(rgb, 3, 255, b'RGB')
+    floats = rgb.astype(np.float32) / 100
+    out['big-endian.pfm'] = rf.pfm(floats[..., ::-1], scale=2.0)
+    out['cv2-grey.pfm'] = cv2.imencode('.pfm', floats[..., 1])[1].tobytes()
+    out['colormap-8bit.ras'] = rf.sun(
+        rf.sun_rows(grey // 16, 8), w, h, 8, maptype=rf.RMT_EQUAL_RGB,
+        colormap=bytes(range(0, 256, 6))[:48])
+    out['1bit.ras'] = rf.sun(rf.sun_rows(grey > 128, 1), w, h, 1,
+                             kind=rf.RT_OLD)
+    out['cv2-bgra.ras'] = cv2.imencode('.ras', np.dstack([rgb, grey]))[
+        1].tobytes()
+    out['rle.ras'] = rf.sun(rf.sun_rle(rf.sun_rows(grey // 64, 8)), w, h, 8,
+                            kind=rf.RT_BYTE_ENCODED)
+    out['cv2-rle.hdr'] = cv2.imencode('.hdr', floats)[1].tobytes()
+    out['flat-rgbe.hdr'] = rf.hdr(rf.rgbe(floats[:, :7]), 'flat', header=(
+        b'#?RGBE\nEXPOSURE=1\nFORMAT=32-bit_rle_rgbe\n\n'))
     return out
 
 
 def main():
     os.makedirs(OUT, exist_ok=True)
-    made = files()
+    made = raster_files() if '--raster' in sys.argv else files()
     for name, data in sorted(made.items()):
         with open(os.path.join(OUT, name), 'wb') as f:
             f.write(data)

@@ -163,8 +163,10 @@ def test_atss_assigner_matches_jax(seed):
     got = ATSSObbAssigner(topk=9)(priors, num_level, torch.from_numpy(gts),
                                   torch.from_numpy(labels),
                                   torch.from_numpy(mask))
-    ref = jax.vmap(lambda gb, gl, gm: JATSS(topk=9)(
-        jnp.asarray(priors.numpy()), num_level, gb, gl, gm))(
+    # jitted, as the JAX package's train step runs it (op by op it
+    # compiles each primitive first: 10-30 s)
+    ref = jax.jit(jax.vmap(lambda gb, gl, gm: JATSS(topk=9)(
+        jnp.asarray(priors.numpy()), num_level, gb, gl, gm)))(
             jnp.asarray(gts), jnp.asarray(labels), jnp.asarray(mask))
     np.testing.assert_array_equal(got.assigned_gt_inds.numpy(),
                                   np.asarray(ref.assigned_gt_inds))

@@ -16,6 +16,7 @@ weights, other convolution algorithms); proposals 1e-4 and scores 1e-6;
 targets 1e-5; losses rtol 1e-5.
 """
 
+import functools
 import os.path as osp
 
 import numpy as np
@@ -169,6 +170,14 @@ class Family:
         self.images = np.random.default_rng(seed + 1).normal(
             0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)
         self.batch = well_posed_batch(seed + 2)
+
+    @functools.cached_property
+    def _jax_step(self):
+        """The JAX package's step-0 losses, outputs and gradients, and its
+        metrics and parameters after one ``make_train_step``: compiled at
+        the first check that reads them (a file that only carries weights
+        or serves compiles neither program)."""
+        det = self.jdet
         batch = {k: jnp.asarray(v) for k, v in self.batch.items()}
         params = self.variables['params']
         # a transformer backbone has no BatchNorm statistics
@@ -181,15 +190,22 @@ class Family:
             losses = det.loss_from_outputs(out, batch)
             return sum(losses.values()), (losses, out)
 
-        (_, (self.j_losses, self.j_outputs)), self.j_grads = jax.jit(
+        (_, (losses, outputs)), grads = jax.jit(
             jax.value_and_grad(loss_fn, has_aux=True))(params)
-        tx = j_ts.build_optimizer(opt_config, BASE_LR, grad_clip=CLIP,
+        tx = j_ts.build_optimizer(self.opt_config, BASE_LR, grad_clip=CLIP,
                                   params=params, frozen_stages=FROZEN)
         state = j_ts.create_train_state(det, None, None, tx,
                                         variables=self.variables)
         state, metrics = jax.jit(j_ts.make_train_step(det, tx))(state, batch)
-        self.j_metrics = {k: float(v) for k, v in metrics.items()}
-        self.j_params_after = state.params
+        return dict(j_losses=losses, j_outputs=outputs, j_grads=grads,
+                    j_metrics={k: float(v) for k, v in metrics.items()},
+                    j_params_after=state.params)
+
+    j_losses = property(lambda self: self._jax_step['j_losses'])
+    j_outputs = property(lambda self: self._jax_step['j_outputs'])
+    j_grads = property(lambda self: self._jax_step['j_grads'])
+    j_metrics = property(lambda self: self._jax_step['j_metrics'])
+    j_params_after = property(lambda self: self._jax_step['j_params_after'])
 
     def detector(self):
         det = build_detector(dict(self.cfg.model))

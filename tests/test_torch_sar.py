@@ -53,6 +53,13 @@ SSDD = osp.join(ROOT, 'configs', 'oriented_rcnn',
 SSDD_RETINA = osp.join(ROOT, 'configs', 'sar',
                        'rotated_retinanet_obb_r50_fpn_1x_ssdd_le90.py')
 SIZE = 128
+# the HRSID config at SIZE px: inference_detector's canvas and the proposals
+# cut to the size (2000 proposals and candidates take the JAX package a
+# minute to compile; 200 and 150 run every check)
+SMALL = f"""pad_size = ({SIZE}, {SIZE})
+model = dict(test_cfg=dict(rpn=dict(max_per_img=200),
+                           rcnn=dict(max_candidates=150)))
+"""
 
 
 def speckle(seed, h, w):
@@ -104,12 +111,13 @@ def test_jpg_test_split_loads_as_in_jax(tmp_path, config, scale):
 
 class Hrsid:
     """The HRSID Oriented R-CNN in both packages on the same seeded JAX
-    weights, served at ``SIZE`` px (``pad_size``)."""
+    weights, served at ``SIZE`` px (``pad_size``), its proposals cut to the
+    size (``SMALL``)."""
 
     def __init__(self, tmp):
         self.config = str(tmp / 'hrsid_small.py')
         with open(self.config, 'w') as f:
-            f.write(f'_base_ = [{HRSID!r}]\npad_size = ({SIZE}, {SIZE})\n')
+            f.write(f'_base_ = [{HRSID!r}]\n' + SMALL)
         self.jcfg = JConfig.fromfile(self.config)
         self.jdet = j_build(dict(self.jcfg.model))
         shapes = jax.eval_shape(

@@ -12,14 +12,15 @@
   ``imread`` against ``cv2.imread`` on disk;
 - the writer's bytes against ``cv2.imencode('.tif')`` (and ``imwrite`` on
   ``.tif`` / ``.tiff`` paths), BGR and grey, across strip boundaries;
-  ``imwrite`` refuses the forms OpenCV writes that the port does not yet
-  (ROADMAP A.4d) and extensions OpenCV has no writer for;
+  ``imwrite`` writes OpenCV's PNM, PAM, PFM, Sun raster and HDR bytes and
+  refuses the forms OpenCV writes that the port does not yet (ROADMAP
+  A.4d) and extensions OpenCV has no writer for;
 - the forms OpenCV refuses (2-bit samples, 4-bit grey) raise saying so;
   the TIFF forms ROADMAP A.4d once listed are read as OpenCV reads them or
   refused as OpenCV refuses them (``tests/test_torch_tiff_*.py`` hold each
-  new form in full); files of the other formats OpenCV reads (WebP, JPEG
-  2000, GIF, PNM, PAM, PFM, Sun raster, Radiance HDR, AVIF) raise naming
-  ROADMAP A.4d;
+  new form in full); files of the other formats OpenCV reads decode to
+  its array (PNM, PAM, PFM, Sun raster, Radiance HDR) or raise naming
+  ROADMAP A.4d (WebP, JPEG 2000, GIF, AVIF);
 - truncated and corrupt files raise ``ValueError`` and never crash the
   process; a header past 2^30 pixels is refused before allocating;
 - 8 threads decode at once (ctypes releases the GIL) to the serial result;
@@ -291,7 +292,10 @@ def test_old_style_lzw_names_roadmap():
     ('.pfm', 'PFM'), ('.sr', 'Sun raster'), ('.hdr', 'Radiance HDR'),
     ('.avif', 'AVIF')])
 def test_other_formats_opencv_reads_name_roadmap(ext, name):
-    """Files OpenCV writes and reads in a form the port does not read yet
+    """Files OpenCV writes and reads: the PNM, PAM, PFM, Sun raster and
+    Radiance HDR ones decode to OpenCV's array
+    (``tests/test_torch_pnm.py`` and ``tests/test_torch_sunras_hdr.py``
+    hold each form in full); those of a form the port does not read yet
     raise naming it and ROADMAP A.4d."""
     img = smooth(64, 64, 3, 8, 28).astype(np.uint8)
     if ext in ('.pgm', '.pbm'):
@@ -299,9 +303,13 @@ def test_other_formats_opencv_reads_name_roadmap(ext, name):
     elif ext in ('.pfm', '.hdr'):
         img = img.astype(np.float32) / 255
     data = cv2.imencode(ext, img)[1].tobytes()
-    assert opencv(data) is not None
-    with pytest.raises(ValueError, match=name + ' images.*ROADMAP A.4d'):
-        image_io.imdecode(data)
+    want = opencv(data)
+    assert want is not None
+    if ext in image_io._LATER_WRITERS:
+        with pytest.raises(ValueError, match=name + ' images.*ROADMAP A.4d'):
+            image_io.imdecode(data)
+        return
+    np.testing.assert_array_equal(image_io.imdecode(data), want)
 
 
 # ---- the writer ------------------------------------------------------------
@@ -362,18 +370,27 @@ def test_imwrite_dib_is_opencv_s_bmp(tmp_path):
         (tmp_path / 'r.dib').read_bytes()
 
 
-@pytest.mark.parametrize('ext', sorted(image_io._LATER_WRITERS))
+@pytest.mark.parametrize('ext', [
+    '.avif', '.gif', '.hdr', '.jp2', '.pam', '.pbm', '.pfm', '.pgm', '.pic',
+    '.pnm', '.ppm', '.ras', '.sr', '.webp'])
 def test_imwrite_refuses_forms_left_out(tmp_path, ext):
-    """OpenCV writes these (the ``.pbm`` / ``.pgm`` writers grey alone);
-    the port names ROADMAP A.4d and writes nothing."""
+    """OpenCV writes these (the ``.pbm`` / ``.pgm`` writers grey alone):
+    the port writes OpenCV's bytes for the PNM, PAM, PFM, Sun raster and
+    Radiance HDR extensions, and for the others names ROADMAP A.4d and
+    writes nothing."""
     img = np.zeros((64, 64, 3), np.uint8)        # OpenJPEG's least size
+    img = img[..., 0] if ext in ('.pbm', '.pgm') else img
     path = str(tmp_path / f'x{ext}')
+    assert cv2.imwrite(str(tmp_path / f'r{ext}'), img)
+    if ext not in image_io._LATER_WRITERS:
+        image_io.imwrite(path, img)
+        assert (tmp_path / f'x{ext}').read_bytes() == \
+            (tmp_path / f'r{ext}').read_bytes()
+        return
     with pytest.raises(ValueError, match=image_io._LATER_WRITERS[ext] +
                        '.*ROADMAP A.4d'):
         image_io.imwrite(path, img)
     assert not os.path.exists(path)
-    assert cv2.imwrite(str(tmp_path / f'r{ext}'),
-                       img[..., 0] if ext in ('.pbm', '.pgm') else img)
 
 
 @pytest.mark.parametrize('name', ['x.xyz', 'x.j2k', 'x.exr', 'noext'])

@@ -114,7 +114,7 @@ def test_serve_answers_png_requests(env):
             assert json.loads(reply.read()) == ref
             conn.close()
         for body, reason in ((jpeg[:len(jpeg) // 2], 'truncated'),
-                             (b'not an image', 'PNG, JPEG, BMP or TIFF')):
+                             (b'not an image', 'PNG, JPEG, BMP, TIFF, PNM')):
             conn = http.client.HTTPConnection(host, port, timeout=60)
             conn.request('POST', '/predict', body=body)
             reply = conn.getresponse()

@@ -2,8 +2,8 @@
 replaced by the YOLOv6 Rep-PAFPN (``YOLOv6RepPAFPN``, 12 CSP blocks, as
 ``chip_smoke.py`` phase 50 builds it), cut to the size of
 ``tests/test_torch_live_bn.py``: backbone and neck at deepen 0.33 / widen
-0.125 (4 RepVGG blocks a stage), 4 classes, at 128 px: the forward, the
-decode, the losses and their gradients at the outputs, on weights carried
+0.125 (4 RepVGG blocks a stage), 4 classes, 200 candidates, at 128 px:
+the forward, the decode, the losses and their gradients at the outputs, on weights carried
 from the JAX package and gts whose assignment is decided
 (``test_torch_yolov8.decided``), and one SGD step with frozen and with
 live BatchNorm against the JAX package's jitted ``make_train_step``.
@@ -61,6 +61,9 @@ def v6_model():
                      out_channels=[256, 512, 768], deepen_factor=0.33,
                      widen_factor=0.125, num_csp_blocks=12)
     m['bbox_head'] = dict(m['bbox_head'], regress_ranges=RANGES)
+    # 200 candidates, not 2000: the 336 points of a 128 px image keep a few
+    # hundred detections, and the JAX decode compiles in a sixth the time
+    m['test_cfg'] = dict(m['test_cfg'], nms_pre=200, max_per_img=200)
     return m
 
 
