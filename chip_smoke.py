@@ -376,11 +376,13 @@ plain PyTorch version:
              profiled (the gather RoI pooling's share) and one evaluation
              request of the 8 val scenes (B3's and B1's device time)
 57. tiff     on the card's host: the port's TIFF writer and reader over
-             the codec's seeded images (TIFF_DIGESTS, OpenCV's) and its
-             readers over every file of tests/image_corpus/ (CORPUS_DIGESTS:
-             OpenCV's decodes, among them CCITT RLE / RLEW / T.4 / T.6,
-             SGILog LogL / LogLuv, CIE L*a*b*, signed samples, FillOrder 2
-             and old-style LZW files; where OpenCV gives none the port
+             the codec's seeded images (TIFF_DIGESTS, OpenCV's), its GIF
+             writer and reader over them in BGR and BGRA (GIF_DIGESTS) and
+             its readers over every file of tests/image_corpus/
+             (CORPUS_DIGESTS: OpenCV's decodes, among them CCITT RLE / RLEW /
+             T.4 / T.6, SGILog LogL / LogLuv, CIE L*a*b*, signed samples,
+             FillOrder 2 and old-style LZW files, GIFs and lossless WebPs;
+             where OpenCV gives none the port
              raises); a 4000^2 scene as a TIFF and a PNG cut by img_split
              into 1024 windows, served by Oriented R-CNN (bf16, batches of
              8) from both, the same detections; the patch path and
@@ -400,6 +402,14 @@ plain PyTorch version:
              the PPMs and the JPEGs, the same detections, one B1 and one
              B3 launch each; one more request's B1 and B3 inputs recorded;
              4000^2 PPM, 16-bit PGM, PFM, RLE HDR and Sun raster decode
+             times on one thread
+60. sar gif  the same scenes written by the port's ``imwrite`` as lossless
+    webp     WebPs and as GIFs and read by ``imread``: the WebPs give the
+             JPEGs' pixels, the GIFs OpenCV's decodes of OpenCV's GIFs
+             (SAR_GIF_DIGESTS); HRSID Oriented R-CNN (bf16) serves the
+             WebP, GIF and JPEG batches, one B1 and one B3 launch each,
+             the WebPs' detections the JPEGs'; one GIF request's B1 and B3
+             inputs recorded; 4000^2 GIF and WebP decode and 800^2 write
              times on one thread
 12. kernels  runs last: phases 3, 6 and 9 again on the inputs the main
     on the   paths gave the kernels: nms_pair_mask on the candidates of one
@@ -452,7 +462,8 @@ plain PyTorch version:
              RoIs at C=64; and phase 57's: a window batch's candidates and
              RoIAlign inputs and the scene's merge; and phase 58's: the
              signed 16-bit SAR batch's candidates, levels and proposals;
-             and phase 59's: the 16-bit PGM batch's;
+             and phase 59's: the 16-bit PGM batch's; and phase 60's: the
+             GIF batch's;
              each held against its plain version, the largest of each kind
              timed beside its bound
 
@@ -471,11 +482,12 @@ evaluations in each rank, 49's requests, kernel NMS calls and confusion
 matrix, 50's requests and steps, 52's requests of each model, 54's
 requests and served JPEG and PNG requests, 55's test run, 56's protocol
 run, 57's window batches, patch runs and served bodies, 58's TIFF and JPEG
-requests, 59's PGM, PPM and JPEG requests) and read just after;
+requests, 59's PGM, PPM and JPEG requests, 60's WebP, GIF and JPEG
+requests) and read just after;
 the recorded requests and steps run after that, apart from phase 18's run,
 which is recorded as it is counted, as are 21's merges, 22's steps and
 26's, 30's, 34's, 38's, 42's and 46's runs, 52's requests and 56's
-protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-59 write
+protocol run. Phases 15-22, 26, 30, 34, 38, 42, 46, 50, 52 and 53-60 write
 their data, configs, checkpoints and work directories under
 ``_data/chip_smoke/`` (gitignored). The last two lines
 of standard output are one JSON object with the kernels' numbers and one
@@ -7342,6 +7354,8 @@ CORPUS_DIGESTS = {
     '12-bit.jpg': None,
     '1bit.ras':
         '50f14aaffbc5b934c7f8b5a309d2c1d1ab0e79b4f595aef5387ad46ac9330f02',
+    'anim-offset.webp':
+        '98e010aa5ebf6ff7a5aabf9be57158d029d73d9b2a12edb76680f2e2608fd446',
     'arithmetic-progressive.jpg':
         '5228c93f406d02891beb56f2579c67e3fa77fd0fde23e95c89d9ec76aa304592',
     'ascii-maxval100.pgm':
@@ -7376,8 +7390,12 @@ CORPUS_DIGESTS = {
         'f5c7d7d22b4d1fe886024fac2678db9060388c9d01a8f3becb19d937a97730c7',
     'cv2-16bit.tif':
         '85a07c660db8626c0ed2343fa22df70a4b38c65e275d4fe94eb86e6d4b1035ad',
+    'cv2-bgra-transparent.gif':
+        '7bc932589df9e90ddd6413f2ba4d85791dea9e73a5bd0cc6960fcc07e695a5ed',
     'cv2-bgra.ras':
         '0310b16cb6f2f63de3acdc3e417ff2a6e5c4b6384be4c35be75f3b2f7689dd9e',
+    'cv2-bgra.webp':
+        '6fafe3e633b425b9ab0fab8f028e05991450d842c1978cf5ff63672df32d8e4b',
     'cv2-deflate.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
     'cv2-grey.pfm':
@@ -7386,25 +7404,34 @@ CORPUS_DIGESTS = {
         'b4219dd05eff7fa09de5f7d058b2d32de99655084c1953efa0ee857b62d97259',
     'cv2-logluv24.tif':
         '4a3dbb9678e6a309534107b67f2d545fa4e05cd0b2b9625f46efa4e3e82fae39',
+    'cv2-lossless.webp':
+        'a6d5970ce9583712c2ff26b5e78c294d51d4c459de8990b511d740f1dc68a927',
     'cv2-none.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
     'cv2-packbits.tif':
         'aea5db67fa7ac0721f3ae17a242a1d265f57bd619c018a608d59a938830e21f6',
     'cv2-rle.hdr':
         'e40eab77369c4963f87ee685d28cf372c48db8f8fd6f4b409051d331a0093c07',
+    'cv2.gif':
+        'fc6f858027eb7428da9e91d1dcbe567657995f531b5b50d48a35737a4303a5b5',
     'cv2.pbm':
         '966f82fbf808f6c30964347713717f9a070d87c246cc7d291e0b721b8b62b501',
     'cv2.ppm':
         '70d9342ea648d3ff1ba5a9e5de72b45a17547d276b6009afcf16d131a69ec691',
+    'disposal-4.gif': None,
     'fillorder2-deflate.tif':
         '7a087603678cf75f9ae42a9f7af08c533270897318de7248667f026de26cbc95',
     'flat-rgbe.hdr':
         '407d6dd6cd8056da9c525b4627e0d2703b674cbe4faa5929b67b0ac19a5f7113',
     'float32.tif': None,
+    'gif87a-mcs2.gif':
+        'f7d32351398555f91c969ffb572f95a8cf1c080e8031b87e2c2252b5ec509e3c',
     'grey-16bit.tif':
         '2a42108cd2b325f3bf6af3ada98ef712e18939fd638c59f31e0cc6b129aa5ebf',
     'grey16-tiles-right-edge.tif':
         '74e33471eefa446361823423b35e7b141d7afd1bfbd05ab7a5ae918e2c69ca87',
+    'interlaced-transparent-bg5.gif':
+        '5f964a92a3059e408b462a8d3bbe18027c2822c24e3331c0f4ff7f078bc6bf0e',
     'lab-16bit-be.tif':
         '115fd99398c6e9efc32a90150f574fc3a88e5b8805a4250c07eaeefb41051dbf',
     'lab-8bit.tif':
@@ -7420,6 +7447,10 @@ CORPUS_DIGESTS = {
         '3dc61453ee30323224f06f8848e3f1f78e354a9b4eda45061b9d1194edd0b101',
     'multipage.tif':
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'no-table.gif':
+        '16af7abc28e9e5802af1023e61aa8f9f990966fe3ac9e3b9c21444438b348910',
+    'offset-local-table.gif':
+        '83690fca9722982a6256d10b5891509663094f20067d906d3244b97c5a2d5e52',
     'old-lzw-predictor.tif':
         'a9ea1e79a62218e8fa8480853bacee838383c3371c1e0fefdcb8fde25bc15d60',
     'orientation-3-grey.tif':
@@ -7428,18 +7459,30 @@ CORPUS_DIGESTS = {
         '5cc9335d4086f64ea61a2c4bd63159d31eade9d40e7e1cb55ff9ac2ae2ae29af',
     'palette-4bit.tif':
         '9b94645530c6aba00a749c08b2df4fbcb4189c5111a060d0a4c5b261302aa7f2',
+    'pil-animated.gif':
+        'cc6bfd641240aee2f3f896c7db917b49bfb625b14bc2e688e44a13b89bbab8e1',
+    'pil-animated.webp':
+        'a6d5970ce9583712c2ff26b5e78c294d51d4c459de8990b511d740f1dc68a927',
     'pil-group4.tif':
         'fd1742bc0c21ef856c8ef78d69f6ec856b5f1d7457e4f017c3e0add8ea4115ca',
     'pil-jpeg.tif':
         '83533531b813f08f4a6cc25a2dd64d5c6fa24319c0118fd3599cf4648dac67a5',
     'pil-lab.tif':
         'a0fab0a3cba7f417c51fd8b4061cb90d91b89be383cf0f7f68d77b32013ec388',
+    'pil-method0.webp':
+        '0b3081d2cb074b042cf0234cc1b7802678a4eebaf5a795c3f8d2dbd1c3913c41',
+    'pil-method6.webp':
+        'a6d5970ce9583712c2ff26b5e78c294d51d4c459de8990b511d740f1dc68a927',
     'pil-palette.tif':
         'cb4e4448a10bdcdcfbd1fbf9edb5b1eebccfd014b712c03d2c70df769a5e54f9',
+    'pil-palette.webp':
+        '85b2d968f85b25a93a471fbca1cb5efe7143c68ef5f82518c4a0607a971ccb19',
     'pil-rgba.tif':
         'fdba12fc58186bc3dab4b7e9371abc433c4d6b54e522b5d4c22650ba4889b404',
     'planar-lzw.tif':
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
+    'port.webp':
+        '0b3081d2cb074b042cf0234cc1b7802678a4eebaf5a795c3f8d2dbd1c3913c41',
     'rgb.pam':
         '70d9342ea648d3ff1ba5a9e5de72b45a17547d276b6009afcf16d131a69ec691',
     'rgba-unassociated-16bit.tif':
@@ -7453,6 +7496,8 @@ CORPUS_DIGESTS = {
         'e4770353b8b6e53af58cdf4aa8f11d236bf8f6f1efa9f1a09997f863ff4aad02',
     'tiles-planar-bigtiff-be.tif':
         'f5bf99d466c0c6a3a7cf8786aefe02008c16d26ec7ee1bb26d3a3d115e804463',
+    'vp8x-iccp-exif6.webp':
+        'd05cc6fe45f48da760de8eb2eeafa9db2b0583b3c587b6d9588603477b8cbdbd',
     'ycbcr-22-refbw.tif':
         '625ee3236620151a2bb035086950b8656f20785706df5e375d212e339370b562',
     'ycck.jpg':
@@ -7468,6 +7513,78 @@ def tiff_digests(cases=CODEC_CASES) -> dict:
     from orientedobjectdetection_torch import native
     return codec_digests(cases, encode=native.tiff_encode,
                          decode=lambda data: native.tiff_decode(data)[0])
+
+
+# the SHA-256 of each seeded image's GIF file and of its decode, in BGR and
+# in BGRA (gif_image), as OpenCV 5.0's own GIF codec writes
+# (cv2.imencode('.gif')) and reads them: tests/test_torch_chip_smoke_gif_webp.py
+# computes them with OpenCV, and phase 57 holds the port's GIF codec, built
+# by the card machine's g++, to them
+GIF_DIGESTS = {
+    '1x1-bgr': (
+        '39c18876fce0756d5cfa0a8399f0f635087f84ae6a38b7b2e19b65bae2787f0b',
+        '00398dccbefb39de444ce9bac42e6b148e053d7cd07214fbb46cde3121f867e3'),
+    '1x1-bgra': (
+        '39c18876fce0756d5cfa0a8399f0f635087f84ae6a38b7b2e19b65bae2787f0b',
+        '00398dccbefb39de444ce9bac42e6b148e053d7cd07214fbb46cde3121f867e3'),
+    '7x13-bgr': (
+        '16ba40081f1f09de2b4fa251b82359d5e6d6a94db7f18dbd72f028fc62a964ea',
+        '672b026fc4d01978cd6db3a1a09809d20b86374ee298b8bac0a9497879e7bb8e'),
+    '7x13-bgra': (
+        '20264586c386c19911e25825cbf574b60c107aae75f5259de3147343e559b4d2',
+        '1ae7688c4df325a70e6cada364413e1a857e2951c783e0a71db516e8601947e2'),
+    '97x131-bgr': (
+        'ffc6a1c7983566add05698f5d9b922900371cba63eb44628ac41b30072dfeda5',
+        '43b4762392fd542f9ef6826dd6fea37961e91d4fc79145139ca2846e5482003c'),
+    '97x131-bgra': (
+        '508910f2ea5928eb0d649981386482cf6c51d73499cc20f90f6d02404fde7d7a',
+        '6d00f71c944116253e944fd5825ff5794904d3895c3b123c7b8f4d282db551fe'),
+    '800-bgr': (
+        'dbebc8eaadef56787bc378869a0b2234ac637eb0ce1151f7fd49987122207798',
+        '4ee69243bbf84ab4ea00e0dc9adba55bd612dcdd8c7fbb2bb99a3957fc5e2a1a'),
+    '800-bgra': (
+        '5441825b4179ec6cc4569b157f7f31fe3e999b63a64357817b45caab330a1374',
+        '4b2254314979abd7b9f1722b96e09b1253fb0768f18df6b77c81729c9252352f'),
+    '1024-bgr': (
+        'd3aa67cfde67a79f7c849b5786aeb732c96cb81391b051db276429fddec38a69',
+        'f148e97a81904a6cf3a74d06428a3e3f4b73ae77519f52a6acbb44b97b17a2a5'),
+    '1024-bgra': (
+        '07ad10d3f3a0f42728bf8e0c0f06c115977da313d598e8ff8c5951b6063e6b32',
+        '3cde7bf01ca395eb86f5c5113ebb4b77d2e40840273a32a0cfb025759eeb6927'),
+}
+
+
+def gif_image(h, w, seed, alpha=False) -> np.ndarray:
+    """:func:`codec_image` in BGR, or BGRA whose alpha is 0 where a second
+    seeded grey image is a multiple of 8 (an eighth of the pixels,
+    transparent) and 255 elsewhere."""
+    img = codec_image(h, w, seed=seed)
+    if not alpha:
+        return img
+    grey = codec_image(h, w, grey=True, seed=seed + 1)
+    return np.dstack([img, np.where(grey % 8, 255, 0).astype(np.uint8)])
+
+
+def gif_digests(cases=CODEC_CASES, encode=None, decode=None) -> dict:
+    """``'<name>-bgr'`` and ``'<name>-bgra'`` -> the SHA-256 of the seeded
+    image's GIF file and of that file's decode ((H, W, 3) BGR), by
+    ``encode`` and ``decode``: the port's GIF codec unless given."""
+    import hashlib
+    from orientedobjectdetection_torch import native
+    encode = encode or native.gif_encode
+    decode = decode or native.gif_decode
+    digests = {}
+    for name, h, w in cases:
+        for alpha in (False, True):
+            data = encode(gif_image(h, w, 7 * h + w, alpha))
+            pixels = np.ascontiguousarray(decode(data))
+            if pixels.shape != (h, w, 3) or pixels.dtype != np.uint8:
+                raise AssertionError(f'{name}: decoded {pixels.dtype} '
+                                     f'{pixels.shape}')
+            digests[f'{name}-{"bgra" if alpha else "bgr"}'] = (
+                hashlib.sha256(data).hexdigest(),
+                hashlib.sha256(pixels.tobytes()).hexdigest())
+    return digests
 
 
 def corpus_digests(decode=None) -> dict:
@@ -7521,13 +7638,16 @@ def phase_tiff(root, device, card='', scene=4000, window=1024, gap=200,
                bsz=8, dtype=torch.bfloat16, max_num=2000, max_candidates=2000,
                reps=3, workers=8, rounds=2, thr=SERVE_THR, cases=CODEC_CASES,
                digests=TIFF_DIGESTS, corpus=CORPUS_DIGESTS, timed=TIFF_TIMED,
+               gif=GIF_DIGESTS,
                objects_step=300, config=ORCNN_CONFIG) -> tuple:
     """Phase 57. (i) On the card's host: the port's TIFF writer and reader
     over the seeded images of ``cases`` (BGR and grey, across strip
-    boundaries) give OpenCV's files and decodes (``digests``, SHA-256), and
-    its readers decode every file of IMAGE_CORPUS (TIFF forms, and CMYK,
-    YCCK, arithmetic-coded, lossless and 12-bit JPEGs) to OpenCV's arrays
-    (``corpus``; where OpenCV gives none, the port raises). (ii) A
+    boundaries) give OpenCV's files and decodes (``digests``, SHA-256), so
+    do its GIF writer and reader over them in BGR and BGRA (``gif``), and
+    its readers decode every file of IMAGE_CORPUS (TIFF forms, CMYK, YCCK,
+    arithmetic-coded, lossless and 12-bit JPEGs, the raster forms, GIFs and
+    lossless WebPs) to OpenCV's arrays (``corpus``; where OpenCV gives
+    none, the port raises). (ii) A
     ``scene``^2 scene written as a TIFF by the port's writer, with DOTA
     annotations, and the same pixels as a PNG:
     ``tools/img_split.py`` cuts each into ``window`` windows at ``gap``
@@ -7565,11 +7685,19 @@ def phase_tiff(root, device, card='', scene=4000, window=1024, gap=200,
     if wrong:
         raise AssertionError(f'the TIFF writer\'s files or decodes differ '
                              f'from OpenCV\'s for {wrong}')
+    gifs = gif_digests(cases)
+    wrong = sorted(k for k in gifs if gifs[k] != gif.get(k))
+    if wrong:
+        raise AssertionError(f'the GIF writer\'s files or decodes differ '
+                             f'from OpenCV\'s for {wrong}')
     read = corpus_digests()
     wrong = sorted(k for k in corpus if read.get(k, 'missing') != corpus[k])
     if wrong:
         raise AssertionError(f'the readers\' decodes of {wrong} differ from '
                              f'OpenCV\'s')
+    log(f'[tiff] {len(gifs)} seeded GIFs (BGR and BGRA with transparent '
+        f'pixels) written and read: every file and decode equal to '
+        f'OpenCV\'s by SHA-256')
     log(f'[tiff] {len(got)} seeded TIFFs ({", ".join(n for n, *_ in cases)}'
         f'; BGR and grey) written and read: every file and decode equal to '
         f'OpenCV\'s by SHA-256; {len(corpus)} corpus files (TIFF: tiles, '
@@ -8005,6 +8133,25 @@ def raster_scenes(side, tile=500) -> dict:
             'ras': imencode('.ras', img)}
 
 
+def sar_jpeg_scenes(folder, bsz, size) -> list:
+    """Phase 58's ``bsz`` seeded ``size``^2 grey SAR scenes
+    (:func:`sar_scene`, seeds 100 on) written into ``folder`` (emptied
+    first) as JPEGs by the port's encoder and read back by its decoder:
+    ``(size, size, 3)`` uint8, three equal channels."""
+    import shutil
+    from orientedobjectdetection_torch.utils.image_io import imread, imwrite
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    decoded = []
+    for i in range(bsz):
+        path = os.path.join(folder, f'{i:04d}.jpg')
+        imwrite(path, sar_scene(size, seed=100 + i))
+        decoded.append(imread(path))
+        if not (decoded[-1] == decoded[-1][..., :1]).all():
+            raise AssertionError(f'grey JPEG {i} decoded to unequal channels')
+    return decoded
+
+
 def phase_sar_pxm(root, device, card='', bsz=8, size=800,
                   dtype=torch.bfloat16, max_num=2000, max_candidates=2000,
                   config=SAR_CONFIG, timed_side=4000, reps=2) -> tuple:
@@ -8022,7 +8169,6 @@ def phase_sar_pxm(root, device, card='', bsz=8, size=800,
     thread, the decode of each ``timed_side``^2 scene of
     :func:`raster_scenes` (median of ``reps``). Returns the launch counts
     of the three requests and the recorded inputs."""
-    import shutil
     from orientedobjectdetection_torch.models.roi_heads import \
         oriented_roi_head
     from orientedobjectdetection_torch.ops import nms
@@ -8031,20 +8177,11 @@ def phase_sar_pxm(root, device, card='', bsz=8, size=800,
                                                               imwrite)
     on_card = torch.device(device).type == 'cuda'
     folder = os.path.join(root, 'sar_pxm')
-    shutil.rmtree(folder, ignore_errors=True)
-    os.makedirs(folder)
-    jpegs = []
-    for i in range(bsz):
-        jpegs.append(os.path.join(folder, f'{i:04d}.jpg'))
-        imwrite(jpegs[-1], sar_scene(size, seed=100 + i))
-    decoded = [imread(path) for path in jpegs]
+    decoded = sar_jpeg_scenes(folder, bsz, size)
     read, ms_read = {}, {}
     for kind in ('pgm', 'ppm'):
         paths = []
         for i, img in enumerate(decoded):
-            if not (img == img[..., :1]).all():
-                raise AssertionError(f'grey JPEG {i} decoded to unequal '
-                                     f'channels')
             paths.append(os.path.join(folder, f'{i:04d}.{kind}'))
             imwrite(paths[-1], uint16_grey(img[..., 0], seed=300 + i)
                     if kind == 'pgm' else img)
@@ -8120,10 +8257,156 @@ def held_sar_pxm(device, captured, by_name, card, reps, roi_reps,
                     plain_reps)
 
 
+# ---- 60. SAR products as lossless WebPs and GIFs -------------------------------
+# the SHA-256 of OpenCV's decode of OpenCV's GIF of each of phase 60's 8
+# scenes (800^2, seeds 100-107: sar_scene, through the JPEG codec):
+# tests/test_torch_chip_smoke_gif_webp.py computes them with OpenCV
+SAR_GIF_DIGESTS = (
+    '5aaf62ebfe3bcea31e13359b809a80d21294768e68c831de6a8f33ed281edf1e',
+    'e0767e7a7c4112733a50f8c6be144cefa86108873f765bd8835e19caa4ca8df5',
+    '9dc7ff0448c5bb5ce53fa5d138a5900d14cfee7c701260503343bd095461d5ae',
+    'ec1d2fe6f387dd945830d6045dcc2c9fac1360c6bc3580941af2ec2a22673799',
+    '1baa9151b58b95c434abe8b87ecb5c4cf7ecf2085f50ce90c43f0f4b573c40fa',
+    'e0dc383b891bbd6fba581a50939daed788b0521445abfff9eaceade66894055d',
+    'e08b4cf32668677d59d03a97bbb796497a11dcd1e372749edc03add1300ab621',
+    '4b5ae932149ef3e83350118b9694ff90344253bf0a52db1c5b9da97b0c5c6f3a',
+)
+
+
+def gif_webp_scenes(side, tile=500) -> dict:
+    """A ``side``^2 scene (:func:`codec_image` of ``tile``^2 tiled) as the
+    port's ``imencode`` writes it as a GIF and as a lossless WebP."""
+    from orientedobjectdetection_torch.utils.image_io import imencode
+    reps = -(-side // tile)
+    img = np.tile(codec_image(tile, tile, seed=side), (reps, reps, 1))
+    img = np.ascontiguousarray(img[:side, :side])
+    return {'gif': imencode('.gif', img), 'webp': imencode('.webp', img)}
+
+
+def phase_sar_gif_webp(root, device, card='', bsz=8, size=800,
+                       dtype=torch.bfloat16, max_num=2000,
+                       max_candidates=2000, config=SAR_CONFIG,
+                       gif_digests=SAR_GIF_DIGESTS, timed_side=4000,
+                       reps=2) -> tuple:
+    """Phase 60: a batch of SAR products as lossless WebPs and as GIFs.
+    Phase 58's ``bsz`` seeded ``size``^2 grey SAR scenes through the JPEG
+    codec (:func:`sar_jpeg_scenes`), each written by the port's ``imwrite``
+    as a ``.webp`` and as a ``.gif`` and read back with
+    ``utils/image_io.imread``: the WebPs give the JPEGs' pixels exactly,
+    the GIFs (dithered onto OpenCV's fixed table) give pixels whose SHA-256
+    is ``gif_digests``' (OpenCV's decode of OpenCV's GIF of the scene).
+    Phase 54's HRSID Oriented R-CNN (``config``, R50-FPN, seeded weights,
+    ``dtype``) serves the WebP, GIF and JPEG batches, one B1 and one B3
+    launch each; the WebPs' detections are the JPEGs', and the GIFs' are
+    counted. One more GIF request's B1 and B3 inputs are recorded under
+    ``'sar_gif'`` / ``'sar_gif_roi'`` for phase 12. On one host thread,
+    the decode of a ``timed_side``^2 GIF and lossless WebP
+    (:func:`gif_webp_scenes`) and the write of one ``size``^2 scene as
+    each (median of ``reps``). Returns the launch counts of the three
+    requests and the recorded inputs."""
+    import hashlib
+    from orientedobjectdetection_torch.models.roi_heads import \
+        oriented_roi_head
+    from orientedobjectdetection_torch.ops import nms
+    from orientedobjectdetection_torch.utils.image_io import (imdecode,
+                                                              imencode,
+                                                              imread,
+                                                              imwrite)
+    on_card = torch.device(device).type == 'cuda'
+    folder = os.path.join(root, 'sar_gif_webp')
+    decoded = sar_jpeg_scenes(folder, bsz, size)
+    read, ms_read, sizes = {}, {}, {}
+    for ext in ('webp', 'gif'):
+        paths = [os.path.join(folder, f'{i:04d}.{ext}') for i in range(bsz)]
+        for path, img in zip(paths, decoded):
+            imwrite(path, img)
+        sizes[ext] = os.path.getsize(paths[0])
+        t0 = time.perf_counter()
+        read[ext] = [imread(path) for path in paths]
+        ms_read[ext] = 1e3 * (time.perf_counter() - t0) / bsz
+    for i, (got, want) in enumerate(zip(read['webp'], decoded)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f'WebP {i} does not read back to its JPEG\'s '
+                                 f'pixels')
+    got = tuple(hashlib.sha256(img.tobytes()).hexdigest()
+                for img in read['gif'])
+    if got != tuple(gif_digests):
+        wrong = [i for i, d in enumerate(got)
+                 if i >= len(gif_digests) or d != gif_digests[i]]
+        raise AssertionError(f'GIFs {wrong} do not read back to OpenCV\'s '
+                             f'decodes of OpenCV\'s GIFs')
+    log(f'[sar-gif-webp] {bsz} seeded {size}^2 grey SAR scenes as JPEGs, '
+        f'lossless WebPs ({sizes["webp"]} bytes, {ms_read["webp"]:.2f} ms a '
+        f'read: the JPEGs\' pixels) and GIFs ({sizes["gif"]} bytes, '
+        f'{ms_read["gif"]:.2f} ms a read: OpenCV\'s decodes by SHA-256)')
+    bundle = build_orcnn_bundle(device, dtype, max_num, max_candidates,
+                                config=config)
+    batches = {kind: torch.from_numpy(np.stack(imgs))
+               for kind, imgs in (('webp', read['webp']),
+                                  ('gif', read['gif']), ('jpeg', decoded))}
+    bundle(batches['jpeg'])                                 # warm
+    sync(device)
+    runs, results, ms = [], {}, {}
+    for kind, batch in batches.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        results[kind] = bundle(batch)
+        sync(device)
+        ms[kind] = 1e3 * (time.perf_counter() - t0)
+        runs.append(read_launches())
+        for name in ('roi_align_rotated', 'nms_pair_mask'):
+            if runs[-1][name] != (1 if on_card else 0):
+                raise AssertionError(f'{name} launched {runs[-1][name]} '
+                                     f'times for one request')
+    err, moved, _ = same_detections(results['webp'], results['jpeg'],
+                                    [-1.0] * bsz)
+    n_dets = {k: int(results[k][2].sum()) for k in ('webp', 'gif')}
+    if not n_dets['gif']:
+        raise AssertionError('the GIF batch gave no detections')
+    with recording(nms, 'nms_pair_mask') as masks, \
+            recording(oriented_roi_head, 'roi_align_rotated_pyramid') as pools:
+        bundle(batches['gif'])
+    inputs = {'sar_gif': (masks[0][0][0], masks[0][0][2]),
+              'sar_gif_roi': tuple(pools[0][0][:2])}
+    log(f'[sar-gif-webp] {card} | HRSID Oriented R-CNN '
+        f'{str(dtype).split(".")[-1]} on the batch of {bsz}: from the WebPs '
+        f'{ms["webp"]:.1f} ms, the GIFs {ms["gif"]:.1f} ms, the JPEGs '
+        f'{ms["jpeg"]:.1f} ms a request; {n_dets["webp"]} detections from '
+        f'the WebPs, the JPEGs\' (max |diff| {err:.3g}, {moved} rows moved), '
+        f'{n_dets["gif"]} from the GIFs; launches {runs[0]}')
+    del bundle
+    free_card(device)
+    scenes = gif_webp_scenes(timed_side)
+    times = {k: median_ms(lambda d=d: imdecode(d), reps)
+             for k, d in scenes.items()}
+    writes = {ext: median_ms(lambda ext=ext: imencode(ext, decoded[0]), reps)
+              for ext in ('.gif', '.webp')}
+    log(f'[sar-gif-webp] {card} | host, one thread (median of {reps}): '
+        f'{timed_side}^2 decode, GIF ({len(scenes["gif"])} bytes) '
+        f'{times["gif"]:.2f} ms, lossless WebP ({len(scenes["webp"])} bytes) '
+        f'{times["webp"]:.2f} ms; {size}^2 write, GIF {writes[".gif"]:.2f} '
+        f'ms, lossless WebP {writes[".webp"]:.2f} ms')
+    return runs, inputs
+
+
+def held_sar_gif(device, captured, by_name, card, reps, roi_reps,
+                 plain_reps) -> None:
+    """Phase 60's recorded inputs against their plain versions, each timed
+    into ``main_path_inputs``: B1 on the GIF SAR batch's candidates, B3 on
+    its levels and proposals."""
+    label = 'HRSID Oriented R-CNN request (800^2 GIFs)'
+    held_pair_masks([captured['sar_gif']], label, 'sar_gif',
+                    by_name['nms_pair_mask'], device, card, reps, plain_reps)
+    levels, rois = captured['sar_gif_roi']
+    held_roi_inputs([(levels, rois, 2)], label, 'sar_gif',
+                    by_name['roi_align_rotated'], device, card, roi_reps,
+                    plain_reps)
+
+
 def phase_main_path_kernels(device, captured, records, card='', reps=50,
                             roi_reps=20, plain_reps=1) -> None:
     """Phases 3, 6 and 9 on the inputs recorded in phases 5, 8, 11, 14 and
-    17-59: each kernel against its plain version with the same
+    17-60: each kernel against its plain version with the same
     tolerances, then timed beside its bound. Adds ``main_path_inputs`` to
     the kernels' records."""
     by_name = {rec['name']: rec for rec in records}
@@ -8194,6 +8477,8 @@ def phase_main_path_kernels(device, captured, records, card='', reps=50,
     held_sar_tiff(device, captured, by_name, card, reps, roi_reps,
                   plain_reps)
     held_sar_pxm(device, captured, by_name, card, reps, roi_reps,
+                 plain_reps)
+    held_sar_gif(device, captured, by_name, card, reps, roi_reps,
                  plain_reps)
 
 
@@ -8579,6 +8864,11 @@ def main() -> int:
                                                  card=info['card'])
     captured.update(sar_pxm_inputs)
     log(f'[phase 59] {time.perf_counter() - t59:.1f} s')
+    t60 = time.perf_counter()
+    sar_gif_runs, sar_gif_inputs = phase_sar_gif_webp(DATA_DIR, 'cuda',
+                                                      card=info['card'])
+    captured.update(sar_gif_inputs)
+    log(f'[phase 60] {time.perf_counter() - t60:.1f} s')
     phase_main_path_kernels('cuda', captured, records, card=info['card'])
     for rec in records:
         # launches on the main paths: RetinaNet serving's requests and
@@ -8601,8 +8891,9 @@ def main() -> int:
         # requests and served JPEGs of phase 54, phase 55's test run,
         # phase 56's protocol run, phase 57's TIFF and PNG window
         # batches, patch runs and served bodies, phase 58's signed
-        # 16-bit TIFF and JPEG SAR batches, and phase 59's 16-bit PGM, PPM
-        # and JPEG SAR batches
+        # 16-bit TIFF and JPEG SAR batches, phase 59's 16-bit PGM, PPM
+        # and JPEG SAR batches, and phase 60's WebP, GIF and JPEG SAR
+        # batches
         rec['launches'] = sum(run[rec['name']] for run in (
             serving, training, orcnn, orcnn_train8, orcnn_train4, trainer,
             evaluator, orcnn_loop, patches, tta, submission, augment,
@@ -8613,7 +8904,7 @@ def main() -> int:
             *yolo_serving, *yolo_training, *yolo_loop, *dp_runs,
             *host_runs, *yolov6_runs, *reference_runs, *sar_runs,
             *split_runs, *hard_runs, *tiff_runs, *sar_tiff_runs,
-            *sar_pxm_runs))
+            *sar_pxm_runs, *sar_gif_runs))
         if rec['launches'] < 1:
             raise AssertionError(f'{rec["name"]} never ran on a main path')
     log(f'[done] {time.perf_counter() - t0:.1f} s on {info["card"]}')

@@ -1,11 +1,12 @@
 """Native (C++) host code, loaded with ``ctypes``: the rotated-box geometry
 (counterpart of ``orientedobjectdetection_tpu/native/__init__.py``) and the
-image codecs (what OpenCV's libjpeg-turbo, libtiff and its own PNM, PAM,
-PFM, Sun raster and Radiance HDR codecs do for the JAX package).
+image codecs (what OpenCV's libjpeg-turbo, libtiff, libwebp and its own GIF,
+PNM, PAM, PFM, Sun raster and Radiance HDR codecs do for the JAX package;
+lossy WebP is not read yet).
 
 ``csrc/rnms.cpp`` (the port's own copy of the JAX package's source),
-``csrc/jpeg.cpp``, ``csrc/tiff.cpp`` and ``csrc/raster.cpp`` are built with
-``g++`` at first use
+``csrc/jpeg.cpp``, ``csrc/tiff.cpp``, ``csrc/raster.cpp``, ``csrc/gif.cpp``
+and ``csrc/webp.cpp`` are built with ``g++`` at first use
 into one library, ``_build/native-<hash>.so`` inside the package, named by
 a hash of the sources and the flags as ``utils/cuda_build.py`` names the
 CUDA kernels, and loaded once a process. It links nothing but the C++
@@ -13,7 +14,8 @@ runtime (the TIFF reader carries its own inflater). The geometry serves the
 host call sites, ``ops/nms.py:nms_rotated_np(device='cpu')`` above all:
 ``rbox_iou``, ``nms_rotated`` and ``nms_hbb``; the codecs serve
 ``utils/image_io.py``: ``jpeg_decode``, ``jpeg_encode``, ``tiff_decode``,
-``tiff_encode``, ``raster_decode`` and ``hdr_encode``. Where the JAX
+``tiff_encode``, ``raster_decode``, ``hdr_encode``, ``gif_decode``,
+``gif_encode``, ``webp_decode`` and ``webp_encode``. Where the JAX
 package falls back to its jnp path without a compiler, the port raises
 RuntimeError: it never falls back quietly. ctypes releases the GIL during
 a call, so threads decode in parallel.
@@ -35,6 +37,8 @@ SOURCE = Path(__file__).resolve().parent / 'csrc' / 'rnms.cpp'
 JPEG_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'jpeg.cpp'
 TIFF_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'tiff.cpp'
 RASTER_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'raster.cpp'
+GIF_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'gif.cpp'
+WEBP_SOURCE = Path(__file__).resolve().parent / 'csrc' / 'webp.cpp'
 BUILD_DIR = Path(__file__).resolve().parent / '_build'
 # no fused multiply-adds: the TIFF reader's L*a*b* and SGILog conversions
 # round as libtiff's do
@@ -44,7 +48,8 @@ _LIB = None
 
 
 def sources() -> tuple:
-    return SOURCE, JPEG_SOURCE, TIFF_SOURCE, RASTER_SOURCE
+    return (SOURCE, JPEG_SOURCE, TIFF_SOURCE, RASTER_SOURCE, GIF_SOURCE,
+            WEBP_SOURCE)
 
 
 def library_path() -> Path:
@@ -122,6 +127,21 @@ def load() -> ctypes.CDLL:
             lib.oodt_hdr_encode.argtypes = [f32p, i64, i64, u8p, i64, buf,
                                             i64]
             lib.oodt_hdr_encode.restype = i64
+            lib.oodt_gif_info.argtypes = [buf, i64, i64p, buf, i64]
+            lib.oodt_gif_info.restype = ctypes.c_int
+            lib.oodt_gif_decode.argtypes = [buf, i64, u8p, i64, i64, buf, i64]
+            lib.oodt_gif_decode.restype = ctypes.c_int
+            lib.oodt_gif_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
+                                            buf, i64]
+            lib.oodt_gif_encode.restype = i64
+            lib.oodt_webp_info.argtypes = [buf, i64, i64p, buf, i64]
+            lib.oodt_webp_info.restype = ctypes.c_int
+            lib.oodt_webp_decode.argtypes = [buf, i64, u8p, i64, i64, i64p,
+                                             buf, i64]
+            lib.oodt_webp_decode.restype = ctypes.c_int
+            lib.oodt_webp_encode.argtypes = [u8p, i64, i64, i64, u8p, i64,
+                                             buf, i64]
+            lib.oodt_webp_encode.restype = i64
             _LIB = lib
     return _LIB
 
@@ -278,3 +298,78 @@ def hdr_encode(img: np.ndarray) -> bytes:
                          f'{img.shape}')
     return _encode('oodt_hdr_encode', (img.reshape(-1), img.shape[0],
                                        img.shape[1]), img.size * 2 + 4096)
+
+
+def gif_decode(data: bytes) -> np.ndarray:
+    """A GIF file's bytes -> its first image on the logical screen as
+    ``(H, W, 3)`` uint8 BGR, bit for bit what ``cv2.imdecode(data,
+    cv2.IMREAD_COLOR)`` gives (OpenCV 5.0's own GIF codec). Raises
+    ValueError for a corrupt or truncated file and for what OpenCV refuses
+    (each named, "OpenCV does not read it either")."""
+    lib = load()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    dims = np.zeros(2, np.int64)
+    if lib.oodt_gif_info(data, len(data), dims, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    out = np.empty((int(dims[0]), int(dims[1]), 3), np.uint8)
+    if lib.oodt_gif_decode(data, len(data), out.reshape(-1), dims[0], dims[1],
+                           err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def gif_encode(img: np.ndarray) -> bytes:
+    """``(H, W, 3)`` uint8 BGR or ``(H, W, 4)`` BGRA -> the bytes
+    ``cv2.imencode('.gif', img)`` gives with OpenCV's defaults (the fixed
+    8 x 8 x 4 table, Floyd-Steinberg dithering, alpha 0 transparent).
+    Raises ValueError, with OpenCV's reason, for what OpenCV refuses (a
+    grey image)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    return _encode('oodt_gif_encode', (img.reshape(-1), img.shape[0],
+                                       img.shape[1], channels),
+                   img.size + 4096)
+
+
+WEBP_STATS = ('transforms', 'cache_bits', 'meta_bits', 'predictor_modes',
+              'copies', 'cache_hits', 'plane_codes', 'palette_bits')
+
+
+def webp_decode(data: bytes, stats: dict = None) -> np.ndarray:
+    """A lossless WebP file's bytes -> ``(H, W, 3)`` uint8 BGR, bit for bit
+    what ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` gives before it applies an
+    EXIF orientation: a VP8L still, or an animation's first frame on its
+    canvas. Raises ValueError for a corrupt or truncated file, for a lossy
+    one (naming ROADMAP A.4d) and for what OpenCV refuses. ``stats``, where
+    given, gets what the bitstream used (``WEBP_STATS``: a bit a transform
+    type and a bit a predictor mode, the colour cache's and the meta codes'
+    bits, the counts of backward references, cache hits and plane codes,
+    the colour-indexing bits + 1)."""
+    lib = load()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(_ERROR_BYTES)
+    dims = np.zeros(2, np.int64)
+    if lib.oodt_webp_info(data, len(data), dims, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    out = np.empty((int(dims[0]), int(dims[1]), 3), np.uint8)
+    used = np.zeros(len(WEBP_STATS), np.int64)
+    if lib.oodt_webp_decode(data, len(data), out.reshape(-1), dims[0],
+                            dims[1], used, err, _ERROR_BYTES):
+        raise ValueError(err.value.decode())
+    if stats is not None:
+        stats.update(zip(WEBP_STATS, (int(v) for v in used)))
+    return out
+
+
+def webp_encode(img: np.ndarray) -> bytes:
+    """``(H, W)`` grey, ``(H, W, 3)`` BGR or ``(H, W, 4)`` BGRA uint8 -> a
+    lossless WebP (VP8L) that decodes to what ``cv2.imencode('.webp',
+    img)``'s file decodes to (pixels of alpha 0 as transparent black, as
+    libwebp writes them). The port's own coder: its bytes are not
+    libwebp's."""
+    img = np.ascontiguousarray(img, np.uint8)
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    return _encode('oodt_webp_encode', (img.reshape(-1), img.shape[0],
+                                        img.shape[1], channels),
+                   img.size * 2 + 4096)

@@ -7,13 +7,13 @@
     curl -X POST --data-binary @image.jpg localhost:8080/predict
 
 A POST body is an image, raw or base64: a JPEG, a PNG, a BMP, a TIFF, a
-PNM, PAM or PFM, a Sun raster or a Radiance HDR file
-(``utils/image_io.py:imdecode``, its orientation applied). The answer
+PNM, PAM or PFM, a Sun raster, a Radiance HDR, a GIF or a lossless WebP
+file (``utils/image_io.py:imdecode``, its orientation applied). The answer
 is a JSON list of the detections scoring at least ``--score-thr``, each
 ``{"class_id", "bbox": [cx, cy, w, h, theta], "score"}``, from
 ``inference_detector``. Anything that does not decode (a truncated or
-corrupt file, a form ROADMAP A.4d lists, a form OpenCV does not read
-either) gets a 400 with the decoder's reason. Serves on the card (``--device cpu`` for the CPU), on
+corrupt file, a form ROADMAP A.4d lists such as lossy WebP, a form OpenCV
+does not read either) gets a 400 with the decoder's reason. Serves on the card (``--device cpu`` for the CPU), on
 ``--host`` (default ``0.0.0.0``).
 """
 

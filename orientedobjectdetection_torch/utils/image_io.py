@@ -3,11 +3,12 @@ library and the port's host C++ (a port-only module: the JAX package's data
 path uses OpenCV, and the port depends on neither OpenCV nor PIL).
 
 - :func:`imread` / :func:`imdecode`: PNG, JPEG, BMP, TIFF, PNM, PAM, PFM,
-  Sun raster and Radiance HDR as ``(H, W, 3)`` uint8 BGR, as
-  ``cv2.imread(path, cv2.IMREAD_COLOR)`` and ``cv2.imdecode`` return them
-  (a grey PFM as ``(H, W)``, as OpenCV 5.0 returns it), an orientation
-  applied (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk, a TIFF's
-  Orientation tag; values 1-8, as OpenCV 5 applies them).
+  Sun raster, Radiance HDR, GIF and lossless WebP as ``(H, W, 3)`` uint8
+  BGR, as ``cv2.imread(path, cv2.IMREAD_COLOR)`` and ``cv2.imdecode``
+  return them (a grey PFM as ``(H, W)``, as OpenCV 5.0 returns it), an
+  orientation applied (a JPEG's first APP1 segment, a PNG's ``eXIf`` chunk,
+  a TIFF's Orientation tag, a WebP's EXIF chunk where its VP8X flag says
+  so; values 1-8, as OpenCV 5 applies them).
 
   - PNG: grey (1, 2, 4, 8 and 16 bits; low depths scaled to 8 bits as
     libpng expands them), grey + alpha, RGB and RGBA (8 or 16 bits) and
@@ -47,18 +48,30 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
     (rounded and saturated, unscaled), Sun raster RT_OLD and RT_STANDARD
     at 1, 8, 24 and 32 bits with or without an RMT_EQUAL_RGB map, and
     Radiance HDR flat and RLE scanlines (times 255, saturated).
+  - GIF: ``native.gif_decode`` (``csrc/gif.cpp``, after OpenCV 5.0's own
+    GIF codec): the first image of a GIF87a or GIF89a file on its logical
+    screen (the global table's background colour, black without one),
+    transparent pixels keeping the screen's colour, local and global
+    tables, offsets, interlaced rows, LZW of minimum code sizes 2-11.
+  - WebP: ``native.webp_decode`` (``csrc/webp.cpp``): lossless (VP8L)
+    stills, simple or in VP8X, and an animation's first frame on its
+    transparent black canvas; every VP8L transform, colour caches, LZ77,
+    meta prefix codes; alpha dropped, as ``IMREAD_COLOR`` drops it.
 
-  The forms OpenCV reads and the port does not yet (WebP, JPEG 2000, GIF,
-  AVIF, known by their signatures) raise ``ValueError`` naming the form
-  and ROADMAP A.4d; the forms OpenCV does not read either raise saying so:
+  The forms OpenCV reads and the port does not yet (lossy WebP, JPEG 2000,
+  AVIF, known by their signatures or chunks) raise ``ValueError`` naming
+  the form and ROADMAP A.4d; the forms OpenCV does not read either raise
+  saying so:
   hierarchical, 12-bit, lossless arithmetic or over 8 bits JPEGs; float,
   complex or 32-bit signed TIFF samples, the floating-point predictor, ICC
   or ITU L*a*b*, old-style JPEG, LZMA, ZSTD, WebP, LERC and JPEG XL TIFFs,
   12-bit JPEG strips; PAM of DEPTH 2 or 4 (OpenCV 5.0 leaves most of its
   pixels unset), Sun raster RT_BYTE_ENCODED and RT_FORMAT_RGB (OpenCV
-  5.0's reader takes neither), an HDR not ``-Y <h> +X <w>``. Anything else
-  that does not decode (truncated or corrupt data) raises ``ValueError``
-  too.
+  5.0's reader takes neither), an HDR not ``-Y <h> +X <w>``; GIFs of
+  disposal methods 4-7, a graphic control extension not 4 bytes long, a
+  colour index past the tables, an image past the screen or a block other
+  than an extension or an image before the trailer. Anything else that
+  does not decode (truncated or corrupt data) raises ``ValueError`` too.
 - :func:`imwrite` / :func:`imencode`: the bytes ``cv2.imwrite`` writes
   for the path's extension with OpenCV's defaults, of the arrays it
   takes: grey, BGR or BGRA of any integer, float or bool type, each writer
@@ -72,11 +85,15 @@ path uses OpenCV, and the port depends on neither OpenCV nor PIL).
   BITMAPV5HEADER), ``.png`` a PNG of 8 or 16 bits with every row
   Sub-filtered (as OpenCV filters them), ``.pbm`` / ``.pgm`` / ``.ppm`` /
   ``.pnm`` binary PNM (16 bits for uint16), ``.pam`` PAM, ``.pfm`` PFM
-  (float32), ``.sr`` / ``.ras`` Sun raster and ``.hdr`` / ``.pic`` RLE
-  Radiance HDR (``native.hdr_encode``). An extension OpenCV writes in a
-  form the port does not have yet raises ``ValueError`` naming ROADMAP
-  A.4d; one OpenCV has no writer for, and an array OpenCV refuses, raise
-  as ``cv2.imwrite`` does.
+  (float32), ``.sr`` / ``.ras`` Sun raster, ``.hdr`` / ``.pic`` RLE
+  Radiance HDR (``native.hdr_encode``), ``.gif`` OpenCV's GIF byte for byte
+  (``native.gif_encode``: its fixed 8 x 8 x 4 table, Floyd-Steinberg
+  dithering, alpha 0 transparent; a grey image refused as OpenCV refuses
+  it) and ``.webp`` a lossless WebP (``native.webp_encode``) that decodes
+  to what OpenCV's file decodes to, in the port's own bytes. An extension
+  OpenCV writes in a form the port does not have yet raises ``ValueError``
+  naming ROADMAP A.4d; one OpenCV has no writer for, and an array OpenCV
+  refuses, raise as ``cv2.imwrite`` does.
 - :func:`resize_bilinear`: ``cv2.resize(img, (w, h),
   interpolation=cv2.INTER_LINEAR)`` on uint8, in OpenCV's fixed-point
   arithmetic (11-bit weights, a horizontal pass into integers, a vertical
@@ -114,14 +131,13 @@ import numpy as np
 _SIGNATURE = b'\x89PNG\r\n\x1a\n'
 _JPEG_SIGNATURE = b'\xff\xd8'
 _TIFF_SIGNATURES = (b'II*\x00', b'MM\x00*', b'II+\x00', b'MM\x00+')
+_GIF_SIGNATURES = (b'GIF87a', b'GIF89a')
 # the forms cv2.imwrite writes (OpenCV 5.0's build) that the port does not
 # yet, by extension
-_LATER_WRITERS = {'.webp': 'WebP', '.jp2': 'JPEG 2000', '.gif': 'GIF',
-                  '.avif': 'AVIF'}
+_LATER_WRITERS = {'.jp2': 'JPEG 2000', '.avif': 'AVIF'}
 # and their signatures, the forms OpenCV's readers take that the port does
-# not yet
+# not yet (lossy WebP is known by its chunk: csrc/webp.cpp names it)
 _LATER_SIGNATURES = (
-    (b'GIF87a', 'GIF'), (b'GIF89a', 'GIF'),
     (b'\x00\x00\x00\x0cjP  \r\n\x87\n', 'JPEG 2000'),
     (b'\xff\x4f\xff\x51', 'JPEG 2000'))
 # csrc/raster.cpp's forms, known by OpenCV's signatures: 'P', the kind,
@@ -137,8 +153,6 @@ def _later_form(data: bytes):
     for signature, name in _LATER_SIGNATURES:
         if data.startswith(signature):
             return name
-    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
-        return 'WebP'
     if data[4:8] == b'ftyp' and data[8:12] in (b'avif', b'avis'):
         return 'AVIF'
     return None
@@ -225,16 +239,17 @@ def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
 
 def imread(path: str) -> np.ndarray:
     """Read a PNG, JPEG, BMP, TIFF (its first page), PNM, PAM, PFM, Sun
-    raster or Radiance HDR file as ``cv2.imread(path, cv2.IMREAD_COLOR)``
-    reads it: ``(H, W, 3)`` uint8 BGR (``(H, W)`` for a grey PFM)."""
+    raster, Radiance HDR, GIF (its first image) or lossless WebP file as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` reads it: ``(H, W, 3)`` uint8
+    BGR (``(H, W)`` for a grey PFM)."""
     with open(path, 'rb') as f:
         return imdecode(f.read(), path)
 
 
 def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
     """Decode the bytes of a PNG, JPEG, BMP, TIFF (its first page), PNM,
-    PAM, PFM, Sun raster or Radiance HDR file as ``cv2.imdecode(data,
-    cv2.IMREAD_COLOR)`` does: ``(H, W, 3)`` uint8 BGR, with its orientation
+    PAM, PFM, Sun raster, Radiance HDR, GIF (its first image) or lossless
+    WebP file as ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` does: ``(H, W, 3)`` uint8 BGR, with its orientation
     applied (``(H, W)`` uint8 for a grey PFM, which OpenCV returns so);
     ``path`` names the source in errors. Raises ValueError for anything
     else (the forms ROADMAP A.4d lists, by name, and those OpenCV does not
@@ -256,6 +271,19 @@ def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
         except ValueError as e:
             raise ValueError(f'{path}: TIFF: {e}') from None
         return _orient(img, orientation)
+    if data.startswith(_GIF_SIGNATURES):
+        from .. import native
+        try:
+            return native.gif_decode(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: GIF: {e}') from None
+    if data[:4] == b'RIFF' and data[8:12] == b'WEBP':
+        from .. import native
+        try:
+            img = native.webp_decode(data)
+        except ValueError as e:
+            raise ValueError(f'{path}: WebP: {e}') from None
+        return _orient(img, _exif_orientation(_webp_exif(data)))
     raster = _raster_form(data)
     if raster:
         from .. import native
@@ -269,7 +297,7 @@ def imdecode(data: bytes, path: str = '<bytes>') -> np.ndarray:
             raise ValueError(f'{path}: reading {later} images is not ported '
                              f'yet (ROADMAP A.4d)')
         raise ValueError(f'{path}: not a PNG, JPEG, BMP, TIFF, PNM, PAM, '
-                         f'PFM, Sun raster or Radiance HDR file')
+                         f'PFM, Sun raster, Radiance HDR, GIF or WebP file')
     return _read_png(path, data)
 
 
@@ -292,6 +320,20 @@ def _jpeg_exif(data: bytes) -> bytes:
         if marker == 0xE1:
             return data[pos + 4 + 6:pos + 2 + length]
         pos += 2 + length
+    return b''
+
+
+def _webp_exif(data: bytes) -> bytes:
+    """The payload of a WebP's first EXIF chunk where its VP8X chunk's
+    EXIF flag is set (the one OpenCV applies), or b''."""
+    if data[12:16] != b'VP8X' or len(data) < 21 or not data[20] & 0x08:
+        return b''
+    pos, end = 12, min(len(data), 8 + struct.unpack_from('<I', data, 4)[0])
+    while pos + 8 <= end:
+        size = struct.unpack_from('<I', data, pos + 4)[0]
+        if data[pos:pos + 4] == b'EXIF':
+            return data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
     return b''
 
 
@@ -705,6 +747,23 @@ def _sun_bytes(img: np.ndarray) -> bytes:
                        8 * c, step * h, 1, 0, 0) + rows.tobytes()
 
 
+def _gif_bytes(img: np.ndarray) -> bytes:
+    """``native.gif_encode``; OpenCV's GIF writer refuses a grey image."""
+    from .. import native
+    if img.ndim == 2:
+        raise ValueError("cv2.imwrite refuses a grey image too "
+                         "((-215:Assertion failed) false in function "
+                         "'ditheringKernel')")
+    return native.gif_encode(img)
+
+
+def _webp_bytes(img: np.ndarray) -> bytes:
+    """``native.webp_encode``: lossless, as OpenCV writes with its
+    defaults."""
+    from .. import native
+    return native.webp_encode(img)
+
+
 def _hdr_bytes(img: np.ndarray) -> bytes:
     """``native.hdr_encode`` of float32 BGR: a grey image as three equal
     channels, another sample type converted to float32 times 1 / 255 as
@@ -746,6 +805,8 @@ _WRITERS = {
     '.ras': ('Sun raster', (1, 3, 4), _U8, _sun_bytes),
     '.hdr': ('Radiance HDR', (1, 3), _NOT_F8, _hdr_bytes),
     '.pic': ('Radiance HDR', (1, 3), _NOT_F8, _hdr_bytes),
+    '.gif': ('GIF', (1, 3, 4), _U8, _gif_bytes),
+    '.webp': ('WebP', (1, 3, 4), _U8, _webp_bytes),
 }
 
 
@@ -815,7 +876,12 @@ def imencode(ext: str, img: np.ndarray, level: int = 1,
                          f'False): it takes {" or ".join(map(str, channels))}')
     if img.dtype.str[1:] not in keeps:
         img = _saturate_u8(img)
-    return encode(img) if encode else _png_bytes(img, level)
+    if not encode:
+        return _png_bytes(img, level)
+    try:
+        return encode(img)
+    except ValueError as e:
+        raise ValueError(f'{name}: {form}: {e}') from None
 
 
 def imwrite(path: str, img: np.ndarray, level: int = 1) -> None:

@@ -1,13 +1,15 @@
 """Writes ``tests/image_corpus/``: small TIFF, JPEG, PNM, PAM, PFM, Sun
-raster and Radiance HDR files of the forms ``chip_smoke.py`` phase 57 holds
-the card machine's build of the port's readers to, by the SHA-256 of
-OpenCV's decode (``CORPUS_DIGESTS``). Made with PIL, OpenCV's writers (its
-``IMWRITE_TIFF_COMPRESSION`` values, SGILog among them) and the test
-builders ``tiff_forms.py`` / ``jpeg_forms.py`` / ``raster_forms.py`` for
-what neither writes.
+raster, Radiance HDR, GIF and WebP files of the forms ``chip_smoke.py``
+phase 57 holds the card machine's build of the port's readers to, by the
+SHA-256 of OpenCV's decode (``CORPUS_DIGESTS``). Made with PIL, OpenCV's
+writers (its ``IMWRITE_TIFF_COMPRESSION`` values, SGILog among them), the
+port's lossless WebP writer and the test builders ``tiff_forms.py`` /
+``jpeg_forms.py`` / ``raster_forms.py`` / ``gif_forms.py`` /
+``webp_forms.py`` for what neither writes.
 
     python tests/make_image_corpus.py      # from the repo's root
     python tests/make_image_corpus.py --raster   # the raster forms alone
+    python tests/make_image_corpus.py --gif-webp   # the GIF and WebP forms
 
 The files are committed; rerunning rewrites them (PIL's and OpenCV's bytes
 may differ between their versions, so the digests are computed anew by
@@ -27,9 +29,11 @@ from PIL import Image
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+import gif_forms as gf  # noqa: E402
 import jpeg_forms as jf  # noqa: E402
 import raster_forms as rf  # noqa: E402
 import tiff_forms as tf  # noqa: E402
+import webp_forms as wf  # noqa: E402
 
 OUT = os.path.join(HERE, 'image_corpus')
 H, W = 40, 53
@@ -169,6 +173,7 @@ def files() -> dict:
                                            restart=W * 5)
     out['12-bit.jpg'] = jf.dct_jpeg(samples(16, 1, 12), precision=12)
     out.update(raster_files())
+    out.update(gif_webp_files())
     return out
 
 
@@ -208,9 +213,75 @@ def raster_files(h=16, w=21) -> dict:
     return out
 
 
+def gif_webp_files(h=16, w=21) -> dict:
+    """The GIF and lossless WebP forms, ``h`` x ``w``: OpenCV's GIFs (BGR,
+    and BGRA with transparent pixels), built GIFs (interlaced with a
+    transparent index and a background index other than 0, an offset
+    image with a local table, GIF87a at minimum code size 2, neither colour
+    table, disposal 4, which OpenCV refuses), PIL's animated GIF; OpenCV's
+    lossless WebPs (BGR, BGRA), PIL's at methods 0 and 6 and with a
+    palette, PIL's animation, the port's writer's, and built containers
+    (VP8X with ICCP and an EXIF orientation, an animation whose first
+    frame is offset)."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    from orientedobjectdetection_torch import native
+    out = {}
+    rgb = samples(40, 3, h=h, w=w).astype(np.uint8)
+    bgra = np.dstack([rgb, np.where(rgb[..., 1] < 64, 0, 255).astype(
+        np.uint8)])
+    out['cv2.gif'] = cv2.imencode('.gif', rgb)[1].tobytes()
+    out['cv2-bgra-transparent.gif'] = cv2.imencode('.gif', bgra)[1].tobytes()
+    pal = gf.palette(16, 41)
+    idx = rgb[..., 0].astype(np.int64) * 16 // 256
+    out['interlaced-transparent-bg5.gif'] = gf.gif(
+        w, h, gf.gce(2, 10, transparent=3) + gf.frame(idx, interlace=True,
+                                                    min_code_size=4),
+        pal, background=5)
+    out['offset-local-table.gif'] = gf.gif(
+        w + 6, h + 4, gf.comment(b'offset') + gf.frame(
+            idx[:h - 3, :w - 5] % 8, left=4, top=3, local=gf.palette(8, 42),
+            min_code_size=3), pal, background=9)
+    out['gif87a-mcs2.gif'] = gf.gif(w, h, gf.frame(idx % 4, min_code_size=2),
+                                    pal[:4], version=b'87a')
+    out['no-table.gif'] = gf.gif(w, h, gf.frame(idx * 16 + 1,
+                                                min_code_size=8), None)
+    out['disposal-4.gif'] = gf.gif(w, h, gf.gce(4) + gf.frame(
+        idx, min_code_size=4), pal)
+    frames = [Image.fromarray(np.roll(rgb[..., ::-1], 5 * k, 1)).quantize(
+        12) for k in range(3)]
+    out['pil-animated.gif'] = pil_bytes(frames[0], 'GIF', save_all=True,
+                                        append_images=frames[1:],
+                                        transparency=0, duration=50)
+    out['cv2-lossless.webp'] = cv2.imencode('.webp', rgb)[1].tobytes()
+    out['cv2-bgra.webp'] = cv2.imencode('.webp', bgra)[1].tobytes()
+    rgba = Image.fromarray(bgra[..., (2, 1, 0, 3)].copy(), 'RGBA')
+    out['pil-method0.webp'] = pil_bytes(rgba, 'WEBP', lossless=True,
+                                        method=0)
+    out['pil-method6.webp'] = pil_bytes(Image.fromarray(rgb[..., ::-1]),
+                                        'WEBP', lossless=True, method=6)
+    out['pil-palette.webp'] = pil_bytes(Image.fromarray(
+        pal[idx % 3].astype(np.uint8)), 'WEBP', lossless=True, method=4)
+    wframes = [Image.fromarray(np.roll(rgb[..., ::-1], 3 * k, 0))
+               for k in range(2)]
+    out['pil-animated.webp'] = pil_bytes(wframes[0], 'WEBP', save_all=True,
+                                         append_images=wframes[1:],
+                                         lossless=True, duration=50)
+    out['port.webp'] = native.webp_encode(np.where(bgra[..., 3:] > 0, rgb, 0))
+    still = wf.image_chunk(cv2.imencode('.webp', rgb)[1].tobytes())
+    out['vp8x-iccp-exif6.webp'] = wf.riff([
+        wf.vp8x(wf.ICCP | wf.EXIF, w, h), wf.chunk(b'ICCP', bytes(24)),
+        still, wf.exif(6)])
+    small = wf.image_chunk(cv2.imencode('.webp', rgb[:6, :8])[1].tobytes())
+    out['anim-offset.webp'] = wf.riff([
+        wf.vp8x(wf.ANIMATION, w, h), wf.anim(),
+        wf.anmf(4, 6, 8, 6, [small]), wf.anmf(0, 0, w, h, [still])])
+    return out
+
+
 def main():
     os.makedirs(OUT, exist_ok=True)
-    made = raster_files() if '--raster' in sys.argv else files()
+    made = (raster_files() if '--raster' in sys.argv else
+            gif_webp_files() if '--gif-webp' in sys.argv else files())
     for name, data in sorted(made.items()):
         with open(os.path.join(OUT, name), 'wb') as f:
             f.write(data)

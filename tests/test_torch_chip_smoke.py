@@ -372,6 +372,9 @@ def test_phase_main_path_kernels_rehearsal():
     # phase 59: the 16-bit PGM SAR batch's candidates and RoIAlign inputs
     captured['sar_pxm'] = captured['orcnn']
     captured['sar_pxm_roi'] = captured['orcnn_roi']
+    # phase 60: the GIF SAR batch's candidates and RoIAlign inputs
+    captured['sar_gif'] = captured['orcnn']
+    captured['sar_gif_roi'] = captured['orcnn_roi']
     records = [dict(name='nms_pair_mask', max_abs_err=0),
                dict(name='roi_align_rotated', max_abs_err=0.0),
                dict(name='box_iou_rotated', max_abs_err=0.0)]
@@ -415,7 +418,7 @@ def test_phase_main_path_kernels_rehearsal():
          for key in ('s0', 'slice', 'loop_eval')] + ['roitrans_s1'] +
         ['swin_s0', 'swin_slice', 'redet_s0', 'redet_slice',
          'redet_loop_eval', 'redet_converted', 'sar', 'hard_orcnn_eval',
-         'tiff', 'sar_tiff', 'sar_pxm'])
+         'tiff', 'sar_tiff', 'sar_pxm', 'sar_gif'])
     assert iou['main_path_inputs']['convnext_train_padded'][
         'inputs_held'] == 2
     assert roi['main_path_inputs']['redet_loop_eval']['inputs_held'] == 2
@@ -437,7 +440,7 @@ def test_phase_main_path_kernels_rehearsal():
     for label in chip_smoke.YOLO_SERVED:
         assert pair['main_path_inputs'][f'yolov8_{label}']['ms'] > 0
     for key in ('yolov6_slice', 'yolov6', 'sar', 'tiff', 'tiff_merge',
-                'sar_pxm') + \
+                'sar_pxm', 'sar_gif') + \
             tuple(f'hard_{label}_eval' for label in chip_smoke.HARD_CONFIGS):
         assert pair['main_path_inputs'][key]['ms'] > 0
     assert pair['main_path_inputs']['converted']['inputs_held'] == 4

@@ -4,7 +4,8 @@ OpenCV 5.0's ``cv2.imencode``:
 - for each extension the port writes, grey ``(H, W)``, BGR and BGRA arrays
   of every integer, float and bool type: the same bytes (a PNG's IHDR and
   filtered rows, whose zlib stream OpenCV's zlib writes otherwise; a Sun
-  raster's last pad byte aside), the same types kept (16-bit PNG, PNM and
+  raster's last pad byte aside; a lossless WebP's decode, the port's coder
+  being its own), the same types kept (16-bit PNG, PNM and
   PAM; TIFF's integers and floats; PFM's and HDR's float conversions) and
   the rest saturated to uint8 as OpenCV saturates them; the same arrays
   refused;
@@ -28,7 +29,7 @@ TYPES = [np.uint8, np.int8, np.uint16, np.int16, np.int32, np.uint32,
          np.int64, np.uint64, np.float16, np.float32, np.float64, bool]
 EXTS = ['.png', '.bmp', '.dib', '.jpg', '.jpeg', '.jpe', '.tif', '.tiff',
         '.pbm', '.pgm', '.ppm', '.pnm', '.pam', '.pfm', '.sr', '.ras',
-        '.hdr', '.pic']
+        '.hdr', '.pic', '.gif', '.webp']
 
 
 def seeded(shape, dtype, rng):
@@ -73,6 +74,11 @@ def png_rows(data):
 
 
 def same_file(ext, got, want, row_bytes):
+    if ext == '.webp':
+        unchanged = [cv2.imdecode(np.frombuffer(d, np.uint8),
+                                  cv2.IMREAD_UNCHANGED) for d in (got, want)]
+        return (unchanged[0].shape == unchanged[1].shape and
+                np.array_equal(*unchanged))
     if ext == '.png':
         return png_rows(got) == png_rows(want)
     if ext in ('.sr', '.ras') and row_bytes % 2:

@@ -101,11 +101,12 @@ def test_builds_by_hash_and_raises_without_a_compiler(tmp_path,
     assert path.parent == native.BUILD_DIR
     assert path.name.startswith('native-') and path.suffix == '.so'
     assert native.sources() == (native.SOURCE, native.JPEG_SOURCE,
-                                native.TIFF_SOURCE, native.RASTER_SOURCE)
+                                native.TIFF_SOURCE, native.RASTER_SOURCE,
+                                native.GIF_SOURCE, native.WEBP_SOURCE)
     native.load()
     assert path.exists()
     for name in ('JPEG_SOURCE', 'TIFF_SOURCE',      # every source counts
-                 'RASTER_SOURCE'):
+                 'RASTER_SOURCE', 'GIF_SOURCE', 'WEBP_SOURCE'):
         monkeypatch.setattr(native, name, tmp_path / 'codec.cpp')
         (tmp_path / 'codec.cpp').write_text('// another codec\n')
         assert native.library_path() != path

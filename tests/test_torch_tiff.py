@@ -12,15 +12,16 @@
   ``imread`` against ``cv2.imread`` on disk;
 - the writer's bytes against ``cv2.imencode('.tif')`` (and ``imwrite`` on
   ``.tif`` / ``.tiff`` paths), BGR and grey, across strip boundaries;
-  ``imwrite`` writes OpenCV's PNM, PAM, PFM, Sun raster and HDR bytes and
-  refuses the forms OpenCV writes that the port does not yet (ROADMAP
-  A.4d) and extensions OpenCV has no writer for;
+  ``imwrite`` writes OpenCV's PNM, PAM, PFM, Sun raster, HDR and GIF
+  bytes and a lossless WebP of OpenCV's pixels, and refuses the forms
+  OpenCV writes that the port does not yet (ROADMAP A.4d) and extensions
+  OpenCV has no writer for;
 - the forms OpenCV refuses (2-bit samples, 4-bit grey) raise saying so;
   the TIFF forms ROADMAP A.4d once listed are read as OpenCV reads them or
   refused as OpenCV refuses them (``tests/test_torch_tiff_*.py`` hold each
   new form in full); files of the other formats OpenCV reads decode to
-  its array (PNM, PAM, PFM, Sun raster, Radiance HDR) or raise naming
-  ROADMAP A.4d (WebP, JPEG 2000, GIF, AVIF);
+  its array (PNM, PAM, PFM, Sun raster, Radiance HDR, GIF, lossless WebP)
+  or raise naming ROADMAP A.4d (lossy WebP, JPEG 2000, AVIF);
 - truncated and corrupt files raise ``ValueError`` and never crash the
   process; a header past 2^30 pixels is refused before allocating;
 - 8 threads decode at once (ctypes releases the GIL) to the serial result;
@@ -287,25 +288,28 @@ def test_old_style_lzw_names_roadmap():
 
 
 @pytest.mark.parametrize('ext,name', [
-    ('.webp', 'WebP'), ('.jp2', 'JPEG 2000'), ('.gif', 'GIF'),
-    ('.ppm', 'PNM'), ('.pgm', 'PNM'), ('.pbm', 'PNM'), ('.pam', 'PAM'),
-    ('.pfm', 'PFM'), ('.sr', 'Sun raster'), ('.hdr', 'Radiance HDR'),
-    ('.avif', 'AVIF')])
+    ('.webp', 'WebP'), ('lossy .webp', 'lossy WebP'), ('.jp2', 'JPEG 2000'),
+    ('.gif', 'GIF'), ('.ppm', 'PNM'), ('.pgm', 'PNM'), ('.pbm', 'PNM'),
+    ('.pam', 'PAM'), ('.pfm', 'PFM'), ('.sr', 'Sun raster'),
+    ('.hdr', 'Radiance HDR'), ('.avif', 'AVIF')])
 def test_other_formats_opencv_reads_name_roadmap(ext, name):
-    """Files OpenCV writes and reads: the PNM, PAM, PFM, Sun raster and
-    Radiance HDR ones decode to OpenCV's array
-    (``tests/test_torch_pnm.py`` and ``tests/test_torch_sunras_hdr.py``
-    hold each form in full); those of a form the port does not read yet
-    raise naming it and ROADMAP A.4d."""
+    """Files OpenCV writes and reads: the PNM, PAM, PFM, Sun raster,
+    Radiance HDR, GIF and lossless WebP ones decode to OpenCV's array
+    (``tests/test_torch_pnm.py``, ``tests/test_torch_sunras_hdr.py``,
+    ``tests/test_torch_gif.py`` and ``tests/test_torch_webp.py`` hold each
+    form in full); those of a form the port does not read yet (lossy WebP
+    among them) raise naming it and ROADMAP A.4d."""
     img = smooth(64, 64, 3, 8, 28).astype(np.uint8)
     if ext in ('.pgm', '.pbm'):
         img = img[..., 0].copy()
     elif ext in ('.pfm', '.hdr'):
         img = img.astype(np.float32) / 255
-    data = cv2.imencode(ext, img)[1].tobytes()
+    lossy = ext.startswith('lossy')
+    data = cv2.imencode(ext.split()[-1], img, [cv2.IMWRITE_WEBP_QUALITY, 80]
+                        if lossy else [])[1].tobytes()
     want = opencv(data)
     assert want is not None
-    if ext in image_io._LATER_WRITERS:
+    if ext in image_io._LATER_WRITERS or lossy:
         with pytest.raises(ValueError, match=name + ' images.*ROADMAP A.4d'):
             image_io.imdecode(data)
         return
@@ -375,15 +379,22 @@ def test_imwrite_dib_is_opencv_s_bmp(tmp_path):
     '.pnm', '.ppm', '.ras', '.sr', '.webp'])
 def test_imwrite_refuses_forms_left_out(tmp_path, ext):
     """OpenCV writes these (the ``.pbm`` / ``.pgm`` writers grey alone):
-    the port writes OpenCV's bytes for the PNM, PAM, PFM, Sun raster and
-    Radiance HDR extensions, and for the others names ROADMAP A.4d and
+    the port writes OpenCV's bytes for the PNM, PAM, PFM, Sun raster,
+    Radiance HDR and GIF extensions, a lossless WebP of OpenCV's pixels
+    (the port's own coder), and for the others names ROADMAP A.4d and
     writes nothing."""
     img = np.zeros((64, 64, 3), np.uint8)        # OpenJPEG's least size
     img = img[..., 0] if ext in ('.pbm', '.pgm') else img
     path = str(tmp_path / f'x{ext}')
-    assert cv2.imwrite(str(tmp_path / f'r{ext}'), img)
+    ref = str(tmp_path / f'r{ext}')
+    assert cv2.imwrite(ref, img)
     if ext not in image_io._LATER_WRITERS:
         image_io.imwrite(path, img)
+        if ext == '.webp':
+            np.testing.assert_array_equal(
+                cv2.imread(path, cv2.IMREAD_UNCHANGED),
+                cv2.imread(ref, cv2.IMREAD_UNCHANGED))
+            return
         assert (tmp_path / f'x{ext}').read_bytes() == \
             (tmp_path / f'r{ext}').read_bytes()
         return

@@ -6,7 +6,9 @@ whose class bias is zeroed (so that scores pass the thresholds):
 - ``tools.serve``: the handler answers PNG and JPEG requests, raw and
   base64, with ``inference_detector``'s detections above ``--score-thr``,
   over a real localhost socket; a truncated JPEG and bytes of no image get
-  a 400 with the decoder's reason;
+  a 400 with the decoder's reason; GIF and lossless WebP bodies are served
+  as OpenCV decodes them, and a lossy WebP body gets a 400 naming the
+  form;
 - ``tools.confusion_matrix`` equals the JAX tool's
   ``calculate_confusion_matrix`` on the same detections;
 - ``tools.get_flops``: the parameter count equals the JAX package's
@@ -121,6 +123,45 @@ def test_serve_answers_png_requests(env):
             assert reply.status == 400
             assert reason in json.loads(reply.read())['error']
             conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def test_serve_answers_gif_and_webp_requests(env):
+    """A GIF and a lossless WebP body are served as OpenCV decodes them; a
+    lossy WebP body gets a 400 that names the form and ROADMAP A.4d."""
+    from orientedobjectdetection_torch.tools import serve
+    args = serve.parse_args([env['config'], env['ckpt'], '--device', 'cpu',
+                             '--host', '127.0.0.1', '--port', '0',
+                             '--score-thr', '0.3'])
+    server = serve.build_server(args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        bundle = server.RequestHandlerClass.served
+        host, port = server.server_address[:2]
+        lossy = cv2.imencode('.webp', env['img'],
+                             [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes()
+        for ext in ('.gif', '.webp', 'lossy'):
+            body = lossy if ext == 'lossy' else \
+                cv2.imencode(ext, env['img'])[1].tobytes()
+            conn = http.client.HTTPConnection(host, port, timeout=60)
+            conn.request('POST', '/predict', body=body)
+            reply = conn.getresponse()
+            answer = json.loads(reply.read())
+            conn.close()
+            if ext == 'lossy':
+                assert reply.status == 400
+                assert 'lossy WebP' in answer['error']
+                assert 'ROADMAP A.4d' in answer['error']
+                continue
+            decoded = cv2.imdecode(np.frombuffer(body, np.uint8),
+                                   cv2.IMREAD_COLOR)
+            assert reply.status == 200
+            assert answer == serve.detections_json(
+                inference_detector(bundle, decoded), 0.3)
     finally:
         server.shutdown()
         server.server_close()
